@@ -1,0 +1,48 @@
+"""CLI: python -m endosurf_tpu_torch --cfg <yaml> --mode test_2d|demo_2d
+
+Serving modes of the JAX package's CLI (``python -m endosurf_tpu``):
+  test_2d  — test split, view synthesis + metrics
+  demo_2d  — all frames, view synthesis + metrics
+The other modes (train, test, test_3d, demo, demo_3d) are not ported yet.
+
+``--params`` reads an npz written by ``endosurf_tpu_torch.bridge`` (see
+``tools/export_params_npz.py`` for JAX checkpoints); without it the seeded
+init is rendered. ``--device`` defaults to cuda and never falls back.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+MODES = ("train", "test", "test_2d", "test_3d", "demo", "demo_2d", "demo_3d")
+PORTED = ("test_2d", "demo_2d")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--cfg", required=True, help="config yaml path")
+    parser.add_argument("--mode", default="test_2d", choices=MODES)
+    parser.add_argument("--params", default=None, help="params npz (bridge format)")
+    parser.add_argument("--device", default="cuda", help="torch device, e.g. cuda or cpu")
+    args = parser.parse_args(argv)
+    if args.mode not in PORTED:
+        raise NotImplementedError(f"not yet ported: --mode {args.mode}")
+
+    from endosurf_tpu_torch.bridge import load_params_npz
+    from endosurf_tpu_torch.serve import EndoSurfRenderer, resolve_device
+
+    device = resolve_device(args.device)
+    params, step = None, 0
+    if args.params:
+        params, npz_step = load_params_npz(args.params, device)
+        step = npz_step or 0
+    renderer = EndoSurfRenderer(args.cfg, params=params, step=step, device=device)
+    if renderer.params_from_init:
+        print("PARAMS|seeded init (no --params given): metrics are of an "
+              "untrained model", flush=True)
+    return renderer.demo(test_mode=args.mode.startswith("test"))
+
+
+if __name__ == "__main__":
+    main()

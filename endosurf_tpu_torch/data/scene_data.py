@@ -1,0 +1,214 @@
+"""Scene data for serving (port of the serving half of
+``endosurf_tpu/data/scene_data.py``).
+
+Loads the preprocessed info-pkl schema (per-frame world matrices, scale
+matrix, colour/depth/mask image paths, depth normalisation, splits) into
+tensors on one device, and builds full-frame rays. The training samplers
+(pixel CDFs, alias tables) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os.path as osp
+import pickle
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from endosurf_tpu_torch.ops.geometry import rays_from_pixels
+
+
+def decompose_projection(P: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Split P = K [R|t] into (intrinsics 4x4, camera-to-world pose 4x4)."""
+    import scipy.linalg
+    M = P[:3, :3]
+    K, R = scipy.linalg.rq(M)
+    signs = np.sign(np.diag(K))
+    signs[signs == 0] = 1.0
+    S = np.diag(signs)
+    K = K @ S
+    R = S @ R
+    if np.linalg.det(R) < 0:
+        K, R = -K, -R
+    t_w2c = np.linalg.solve(K, P[:3, 3])
+    K = K / K[2, 2]
+    intrinsics = np.eye(4, dtype=np.float64)
+    intrinsics[:3, :3] = K
+    pose = np.eye(4, dtype=np.float64)
+    pose[:3, :3] = R.T
+    pose[:3, 3] = -R.T @ t_w2c
+    return intrinsics.astype(np.float32), pose.astype(np.float32)
+
+
+def _load_images(paths: Sequence[str], kind: str,
+                 disp_const: Optional[Sequence[float]] = None) -> np.ndarray:
+    import imageio.v2 as iio
+
+    out = []
+    for i, p in enumerate(paths):
+        img = np.asarray(iio.imread(p))
+        if kind == "color":
+            arr = img[..., :3].astype(np.float32) / 255.0
+        elif kind == "depth":
+            arr = img.astype(np.float32)[..., None]
+        elif kind == "disp":
+            disp = img.astype(np.float32)
+            arr = np.zeros_like(disp)
+            nz = disp != 0
+            arr[nz] = disp_const[i] / disp[nz]
+            arr = arr[..., None]
+        elif kind == "mask":
+            arr = (img.astype(np.float32) / 255.0)[..., None]
+        elif kind == "mask_invert":
+            arr = (1.0 - img.astype(np.float32) / 255.0)[..., None]
+        else:
+            raise ValueError(f"unknown image kind {kind!r}")
+        out.append(arr)
+    return np.stack(out, axis=0)
+
+
+@dataclasses.dataclass
+class SceneData:
+    """Host-side scene description with its tensors in ``device_arrays``."""
+
+    dset_name: str
+    scene_name: str
+    n_frames: int
+    h: int
+    w: int
+    depth_scale: float
+    near: float
+    far: float
+    list_train: np.ndarray
+    list_test: np.ndarray
+    bbox_minmax: np.ndarray          # [n, 3, 2]
+    intrinsics: np.ndarray           # [n, 4, 4]
+    poses: np.ndarray                # [n, 4, 4]
+    device_arrays: Dict[str, torch.Tensor]
+
+    @staticmethod
+    def load(info_path: str, normalize_time: bool = True,
+             device: Any = "cpu") -> "SceneData":
+        """Load a preprocessed scene from an info pkl."""
+        if not osp.exists(info_path):
+            raise FileNotFoundError(
+                f"Info file {info_path} does not exist — preprocess the dataset first")
+        with open(info_path, "rb") as f:
+            info = pickle.load(f)
+
+        n_frames = info["n_frames"]
+        scale_mat = np.asarray(info["scale_mat"], np.float64)
+        world_mat = np.asarray(info["world_mat"], np.float64)
+        intrinsics, poses = [], []
+        for i in range(n_frames):
+            K, pose = decompose_projection((world_mat[i] @ scale_mat)[:3, :4])
+            intrinsics.append(K)
+            poses.append(pose)
+
+        colors = _load_images(info["color"], "color")
+        depth_type = info["depth_type"]
+        if depth_type == "depth":
+            depths = _load_images(info["depth"], "depth")
+        elif depth_type == "disp":
+            depths = _load_images(info["depth"], "disp",
+                                  disp_const=info["disp_const"])
+        else:
+            raise ValueError(f"unknown depth type {depth_type!r}")
+        depth_scale = float(info["depth_norm_scale"])
+        depths = depths / depth_scale
+
+        mask_type = info.get("mask_type")
+        if mask_type is not None:
+            color_masks = _load_images(info["mask"], mask_type)
+        else:
+            color_masks = np.ones_like(depths)
+
+        return SceneData.from_arrays(
+            dset_name=info["dset_name"], scene_name=info["scene_name"],
+            colors=colors, depths=depths, color_masks=color_masks,
+            intrinsics=np.stack(intrinsics), poses=np.stack(poses),
+            bounds=np.asarray(info["bounds"], np.float32) / depth_scale,
+            bbox_minmax=np.asarray(info["bbox_minmax"], np.float32),
+            list_train=np.asarray(info["list_train"], np.int32),
+            list_test=np.asarray(info["list_test"], np.int32),
+            depth_scale=depth_scale, normalize_time=normalize_time, device=device)
+
+    @staticmethod
+    def from_arrays(dset_name: str, scene_name: str, colors: np.ndarray,
+                    depths: np.ndarray, color_masks: np.ndarray,
+                    intrinsics: np.ndarray, poses: np.ndarray, bounds: np.ndarray,
+                    bbox_minmax: np.ndarray, list_train: np.ndarray,
+                    list_test: np.ndarray, depth_scale: float,
+                    normalize_time: bool = True, device: Any = "cpu") -> "SceneData":
+        n_frames, h, w = colors.shape[:3]
+        # depth-validity band from global percentiles
+        near = float(np.percentile(depths, 3.0))
+        far = float(np.percentile(depths, 99.5))
+        depth_masks = ((depths > near) & (depths < far)).astype(np.float32)
+        masks = depth_masks * color_masks
+        if normalize_time:
+            ts = np.linspace(0.0, 1.0, n_frames, dtype=np.float32)
+        else:
+            ts = np.arange(n_frames, dtype=np.float32)
+        intrinsics_inv = np.linalg.inv(intrinsics[:, :3, :3]).astype(np.float32)
+
+        def dev(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+        device_arrays = {
+            "colors": dev(colors),
+            "depths": dev(depths),
+            "masks": dev(masks),
+            "color_masks": dev(color_masks),
+            "depth_masks": dev(depth_masks),
+            "intrinsics_inv": dev(intrinsics_inv),
+            "poses": dev(poses),
+            "bounds": dev(bounds),
+            "ts": dev(ts),
+        }
+        return SceneData(
+            dset_name=dset_name, scene_name=scene_name, n_frames=n_frames,
+            h=h, w=w, depth_scale=depth_scale, near=near, far=far,
+            list_train=np.asarray(list_train), list_test=np.asarray(list_test),
+            bbox_minmax=np.asarray(bbox_minmax), intrinsics=intrinsics,
+            poses=poses, device_arrays=device_arrays)
+
+
+def frame_rays(arrays: Dict[str, torch.Tensor], h: int, w: int, fid: int) -> torch.Tensor:
+    """Full-frame [H, W, 9] ray tensor on the arrays' device."""
+    device = arrays["poses"].device
+    py, px = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=device),
+                            torch.arange(w, dtype=torch.float32, device=device),
+                            indexing="ij")
+    rays_o, rays_d = rays_from_pixels(px, py, arrays["intrinsics_inv"][fid],
+                                      arrays["poses"][fid])
+    bounds = arrays["bounds"][fid].expand(h, w, 2)
+    t = arrays["ts"][fid].expand(h, w, 1)
+    return torch.cat([rays_o, rays_d, bounds, t], dim=-1)
+
+
+def make_synthetic_arrays(n_frames: int = 4, h: int = 16, w: int = 16,
+                          seed: int = 0, device: Any = "cpu") -> SceneData:
+    """In-memory random-content scene (no file IO), seeded with numpy: the
+    same arrays as the JAX package's ``make_synthetic_arrays``."""
+    rng = np.random.default_rng(seed)
+    colors = rng.uniform(0, 1, (n_frames, h, w, 3)).astype(np.float32)
+    depths = rng.uniform(1.4, 2.4, (n_frames, h, w, 1)).astype(np.float32)
+    color_masks = np.ones((n_frames, h, w, 1), np.float32)
+    K = np.eye(4, dtype=np.float32)
+    K[0, 0] = K[1, 1] = 0.8 * w
+    K[0, 2], K[1, 2] = w / 2, h / 2
+    pose = np.eye(4, dtype=np.float32)
+    pose[2, 3] = -2.0
+    ids = np.arange(n_frames)
+    return SceneData.from_arrays(
+        dset_name="synthetic", scene_name="arrays",
+        colors=colors, depths=depths, color_masks=color_masks,
+        intrinsics=np.tile(K, (n_frames, 1, 1)),
+        poses=np.tile(pose, (n_frames, 1, 1)),
+        bounds=np.tile(np.array([1.0, 3.0], np.float32), (n_frames, 1)),
+        bbox_minmax=np.tile(np.array([[-1, 1], [-1, 1], [-1, 1]], np.float32),
+                            (n_frames, 1, 1)),
+        list_train=ids[:-1], list_test=ids[-1:], depth_scale=100.0, device=device)

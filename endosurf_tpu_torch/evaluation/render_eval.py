@@ -1,0 +1,108 @@
+"""Full-frame rendering for eval/test/demo (port of
+``endosurf_tpu/evaluation/render_eval.py``).
+
+Frames are flattened to rays, rendered in fixed-size chunks on the scene's
+device, and reassembled into RGB / depth / weighted-normal maps, then scored
+with the masked metrics and optionally saved as side-by-side composites.
+"""
+
+from __future__ import annotations
+
+import os
+import os.path as osp
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+
+from endosurf_tpu_torch.data.scene_data import frame_rays
+from endosurf_tpu_torch.evaluation.metrics import cal_lpips, cal_psnr, cal_rmse, cal_ssim
+from endosurf_tpu_torch.evaluation.vis import composite_rows
+
+
+def render_full_frames(render_fn, params, arrays, h: int, w: int,
+                       fids: Sequence[int], step: int, ray_chunk: int = 2048,
+                       ray_transform=None) -> Dict[str, np.ndarray]:
+    """Render frames chunk by chunk; returns numpy rgb/depth(/normal) stacks.
+
+    ``render_fn(params, rays[chunk, 9], step) -> dict`` returns color_map /
+    depth_map and either normal_map or weights + gradients_o. The last chunk
+    is padded by repeating the last ray, so every call has ``ray_chunk`` rays.
+    """
+    rgbs, depths, normals = [], [], []
+    for fid in fids:
+        rays = frame_rays(arrays, h, w, int(fid)).reshape(-1, 9)
+        if ray_transform is not None:
+            rays = ray_transform(rays, int(fid))
+        n_rays = rays.shape[0]
+        n_pad = (-n_rays) % ray_chunk
+        if n_pad:
+            rays = torch.cat([rays, rays[-1:].expand(n_pad, 9)], dim=0)
+        rgb_parts, depth_parts, normal_parts = [], [], []
+        with torch.no_grad():
+            for i in range(0, rays.shape[0], ray_chunk):
+                out = render_fn(params, rays[i:i + ray_chunk].contiguous(), step)
+                rgb_parts.append(out["color_map"])
+                depth_parts.append(out["depth_map"])
+                if "normal_map" in out:
+                    normal_parts.append(out["normal_map"])
+                elif "gradients_o" in out:
+                    normal_parts.append(
+                        (out["gradients_o"] * out["weights"][..., None]).sum(1))
+        rgbs.append(torch.cat(rgb_parts)[:n_rays].reshape(h, w, 3).cpu().numpy())
+        depths.append(torch.cat(depth_parts)[:n_rays].reshape(h, w, 1).cpu().numpy())
+        if normal_parts:
+            normals.append(torch.cat(normal_parts)[:n_rays].reshape(h, w, 3).cpu().numpy())
+    out = {"rgb": np.stack(rgbs), "depth": np.stack(depths)}
+    if normals:
+        out["normal"] = np.stack(normals)
+    return out
+
+
+def frame_stats(scene, fids: Sequence[int], pred: Dict[str, np.ndarray]) -> Dict[str, float]:
+    """PSNR / SSIM on colour and depth RMSE (scene units x depth_scale)."""
+    arrays = scene.device_arrays
+    rgb_gt = arrays["colors"][fids].cpu().numpy()
+    depth_gt = arrays["depths"][fids].cpu().numpy()
+    mask_gt = arrays["masks"][fids].cpu().numpy()
+    color_mask_gt = arrays["color_masks"][fids].cpu().numpy()
+    ds = scene.depth_scale
+    stats = {
+        "psnr_rgb_vr": cal_psnr(rgb_gt, pred["rgb"], color_mask_gt),
+        "ssim_rgb_vr": cal_ssim(rgb_gt, pred["rgb"], color_mask_gt),
+        "rmse_d_vr": cal_rmse(depth_gt * ds, pred["depth"] * ds, mask_gt),
+    }
+    lp = cal_lpips(rgb_gt, pred["rgb"], color_mask_gt)
+    if lp is not None:
+        stats["lpips_rgb_vr"] = lp
+    return stats
+
+
+def eval_frames(renderer, fids: Sequence[int], step: int, ray_chunk: int = 2048,
+                save_dir_name: str = "eval", save_images: bool = True,
+                return_pred: bool = False):
+    """Render test frames, compute masked metrics, save composites + stats.
+
+    Returns the stats dict, or (stats, predicted maps) with ``return_pred``.
+    """
+    scene = renderer.scene
+    fids = [int(f) for f in fids]
+    pred = render_full_frames(renderer.render_fn(), renderer.params,
+                              scene.device_arrays, scene.h, scene.w, fids, step,
+                              ray_chunk)
+    stats = frame_stats(scene, fids, pred)
+
+    save_dir = osp.join(renderer.exp_dir, save_dir_name, f"iter_{step:08d}")
+    os.makedirs(save_dir, exist_ok=True)
+    with open(osp.join(save_dir, "stats_out.txt"), "w") as f:
+        for k, v in stats.items():
+            f.write(f"{k}: {v:f}\n")
+
+    if save_images:
+        import imageio.v2 as iio
+        for i, row in enumerate(composite_rows(scene, fids, pred)):
+            iio.imwrite(osp.join(save_dir, f"eval_{i:03d}.png"), row)
+
+    print(f"EVAL|iter:{step}|" + "|".join(
+        f"{k}:{v:.4f}" for k, v in stats.items()), flush=True)
+    return (stats, pred) if return_pred else stats

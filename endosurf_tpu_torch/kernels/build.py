@@ -1,0 +1,91 @@
+"""Build the CUDA sources in ``csrc/`` at first use and bind them with ctypes.
+
+``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds, not minutes) under
+``kernels/_build/``, named by a hash of the sources and flags: a checkout
+builds its own library on first call, and an edited source builds anew. A
+failed compile raises with nvcc's output. ``torch.utils.cpp_extension`` is not
+used: it needs ``ninja``, which the GPU machines may lack.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def find_nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _sources():
+    return sorted(list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_library() -> Path:
+    """Compile the sources if this hash has no library yet; return its path.
+
+    nvcc's output (ptxas registers, shared memory and spills per kernel)
+    is kept beside the library as ``<name>.log``."""
+    out = BUILD_DIR / f"libendosurf_kernels_{source_hash()}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    out.with_suffix(".log").write_text(log)
+    os.replace(tmp, out)          # atomic: concurrent builds agree
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """The bound kernel library (built on first call)."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    lib = ctypes.CDLL(str(build_library()))
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.fused_render_launch.argtypes = [
+        vp, i32, vp, vp, ctypes.POINTER(i64), i32, i32, i32, i32, i32,
+        ctypes.c_float, vp, vp, vp, vp]
+    lib.fused_render_launch.restype = i32
+    lib.fused_render_scratch_floats.argtypes = [i32]
+    lib.fused_render_scratch_floats.restype = i64
+    lib.fused_render_meta_len.argtypes = []
+    lib.fused_render_meta_len.restype = i32
+    lib.fused_render_error_string.argtypes = [i32]
+    lib.fused_render_error_string.restype = ctypes.c_char_p
+    _LIB = lib
+    return lib

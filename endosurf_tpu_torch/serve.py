@@ -1,0 +1,87 @@
+"""The serving half of ``endosurf_tpu/train/trainer_endosurf.py``.
+
+``EndoSurfRenderer`` holds a scene, parameters and the static specs, and hands
+out the chunk renderer that eval and demo rendering call. Parameters come
+from an npz written by ``bridge.save_params_npz`` (for example by
+``tools/export_params_npz.py`` from a JAX checkpoint) or, without one, from
+the seeded init.
+"""
+
+from __future__ import annotations
+
+import os
+import os.path as osp
+from typing import Any, Dict, Optional, Union
+
+import torch
+
+from endosurf_tpu_torch.config import load_config
+from endosurf_tpu_torch.data.scene_data import SceneData
+from endosurf_tpu_torch.models.endosurf import RenderSpec, render_rays_inference
+from endosurf_tpu_torch.models.fields import EndoSurfSpec, init_endosurf_params
+from endosurf_tpu_torch.ops.mlp import PRECISIONS
+
+
+def resolve_device(device: Union[str, torch.device]) -> torch.device:
+    """The requested device; a CUDA device without a GPU raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is not available")
+    return dev
+
+
+class EndoSurfRenderer:
+    def __init__(self, cfg: Union[str, Dict[str, Any]], scene: Optional[SceneData] = None,
+                 params: Optional[Dict[str, Any]] = None, step: int = 0,
+                 device: Union[str, torch.device] = "cuda"):
+        self.cfg = load_config(cfg)
+        self.device = resolve_device(device)
+        render_type = self.cfg["render"].get("type", "endosurf")
+        if render_type != "endosurf":
+            raise NotImplementedError(f"not yet ported: render type {render_type!r}")
+        self.spec = EndoSurfSpec.from_config(self.cfg["net"])
+        self.rspec = RenderSpec.from_config(self.cfg["render"])
+        train_cfg = self.cfg.get("train", {})
+        self.precision = train_cfg.get("matmul_precision", "default")
+        self.sampling_precision = train_cfg.get("sampling_precision", "default")
+        for p in (self.precision, self.sampling_precision):
+            if p not in PRECISIONS:
+                raise ValueError(f"unknown matmul precision {p!r}")
+
+        if scene is None:
+            data_cfg = self.cfg["data"]
+            scene = SceneData.load(data_cfg["info_dir"],
+                                   normalize_time=data_cfg.get("normalize_time", True),
+                                   device=self.device)
+        self.scene = scene
+        self.params_from_init = params is None
+        if params is None:
+            seed = self.cfg.get("exp", {}).get("seed", 0)
+            params = init_endosurf_params(
+                self.spec, torch.Generator().manual_seed(seed), self.device)
+        self.params = params
+        self.step = step
+
+        exp_cfg = self.cfg["exp"]
+        self.exp_dir = osp.join(
+            exp_cfg.get("exp_dir", "logs/"), exp_cfg["project_name"],
+            f"{exp_cfg['exp_name']}-{scene.dset_name}-{scene.scene_name}")
+        os.makedirs(self.exp_dir, exist_ok=True)
+
+    def render_fn(self, use_importance: bool = True):
+        """Chunk renderer ``fn(params, rays[R, 9], step) -> maps``."""
+        spec, rspec = self.spec, self.rspec
+        precision, sampling = self.precision, self.sampling_precision
+
+        def fn(params, rays, step):
+            return render_rays_inference(spec, rspec, params, rays, float(step),
+                                         use_importance=use_importance,
+                                         precision=precision,
+                                         sampling_precision=sampling)
+        return fn
+
+    def demo(self, step: Optional[int] = None, test_mode: bool = False):
+        """2D view synthesis of the test split or all frames: metrics and
+        composites (the 3D branch is not ported yet)."""
+        from endosurf_tpu_torch.evaluation.demo import run_demo
+        return run_demo(self, self.step if step is None else step, test_mode)

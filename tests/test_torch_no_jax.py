@@ -1,0 +1,136 @@
+"""The port stands alone: importing it loads neither JAX nor the JAX package;
+its CUDA entry refuses CPU tensors; the CLI serves a scene on the CPU and
+raises, rather than falling back, when CUDA is asked for and absent.
+"""
+
+import os
+import os.path as osp
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
+PKG = osp.join(REPO, "endosurf_tpu_torch")
+
+
+def _run(code_or_args, timeout=300, **kw):
+    args = ([sys.executable, "-c", code_or_args] if isinstance(code_or_args, str)
+            else [sys.executable, *code_or_args])
+    env = {**os.environ, "PYTHONPATH": REPO}
+    return subprocess.run(args, capture_output=True, text=True, cwd=kw.get("cwd", REPO),
+                          timeout=timeout, env=env)
+
+
+def test_import_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import endosurf_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'endosurf_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'endosurf_tpu' or m.startswith('endosurf_tpu.')]\n"
+        "assert len(names) >= 20, names\n"
+        "assert not bad, bad\n"
+        "print('ok', len(names))\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("ok")
+
+
+def test_sources_import_no_jax():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|endosurf_tpu)\b", re.M)
+    offenders = []
+    for root, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                path = osp.join(root, f)
+                with open(path) as fh:
+                    if pattern.search(fh.read()):
+                        offenders.append(path)
+    assert not offenders, offenders
+
+
+def test_cuda_entry_refuses_cpu_tensors():
+    from endosurf_tpu_torch.kernels import fused_render as fr
+    from endosurf_tpu_torch.models.fields import EndoSurfSpec, init_endosurf_params
+    spec = EndoSurfSpec()
+    params = init_endosurf_params(spec)
+    rays = torch.zeros(8, 9)
+    with pytest.raises(ValueError, match="CUDA"):
+        fr.fused_render_rays_cuda(spec, params, rays, 0.0, 32, 32, 4, 50000.0)
+    with pytest.raises(ValueError):
+        fr.fused_render_rays(spec, params, rays.to("meta"), 0.0, 32, 32, 4, 50000.0)
+    assert fr.cuda_spec_supported(spec)
+    assert not fr.cuda_spec_supported(
+        EndoSurfSpec(sdf=spec.sdf.__class__(8, 256, (4,), 257)))
+
+
+def test_cuda_device_without_gpu_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from endosurf_tpu_torch.serve import resolve_device
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    proc = _run(["-m", "endosurf_tpu_torch", "--cfg", "none.yml", "--mode", "test_2d",
+                 "--device", "cuda"])
+    assert proc.returncode != 0 and "CUDA is not available" in proc.stderr
+
+
+def test_cli_unported_mode_raises():
+    proc = _run(["-m", "endosurf_tpu_torch", "--cfg", "none.yml", "--mode", "train"])
+    assert proc.returncode != 0 and "not yet ported" in proc.stderr
+
+
+def test_config_inherit_and_dict(tmp_path):
+    from endosurf_tpu_torch.config import load_config
+    parent = tmp_path / "parent.yml"
+    parent.write_text("a: {b: 1, c: 2}\nd: 3\n")
+    child = tmp_path / "child.yml"
+    child.write_text("inherit_from: parent.yml\na: {c: 5}\n")
+    cfg = load_config(str(child))
+    assert cfg == {"a": {"b": 1, "c": 5}, "d": 3}
+    copied = load_config(cfg)
+    assert copied == cfg and copied is not cfg
+
+
+def test_cli_test_2d_on_cpu(tmp_path):
+    """python -m endosurf_tpu_torch --mode test_2d on a tiny scene loaded from
+    an info pkl, with params from an npz, on the CPU: metrics and composites."""
+    from endosurf_tpu_torch.bridge import save_params_npz
+    from endosurf_tpu_torch.models.fields import EndoSurfSpec, MLPSpec, init_endosurf_params
+    code = ("import sys; sys.path.insert(0, %r)\n"
+            "from endosurf_tpu.data.scene_data import make_synthetic_scene\n"
+            "print(make_synthetic_scene(%r, n_frames=4, h=12, w=16))\n") % (REPO, str(tmp_path / "scene"))
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    info = proc.stdout.strip().splitlines()[-1]
+
+    cfg = tmp_path / "cfg.yml"
+    cfg.write_text(
+        "exp: {project_name: p, exp_name: e, exp_dir: %s, seed: 0}\n"
+        "data: {info_dir: %s}\n"
+        "render: {type: endosurf, n_samples: 32, n_importance: 32, up_sample_steps: 4}\n"
+        "train: {matmul_precision: highest, sampling_precision: highest}\n"
+        "net:\n"
+        "  deform_network: {n_layers: 9, hidden_dim: 64, skips: [4], out_dim: 3}\n"
+        "  sdf_network: {n_layers: 9, hidden_dim: 64, skips: [4], out_dim: 65}\n"
+        "  color_network: {n_layers: 9, hidden_dim: 64, skips: [4], feat_dim: 64, out_dim: 3}\n"
+        "demo: {ray_batch: 96}\n" % (tmp_path / "logs", info))
+    spec = EndoSurfSpec(deform=MLPSpec(9, 64, (4,), 3), sdf=MLPSpec(9, 64, (4,), 65),
+                        color=MLPSpec(9, 64, (4,), 3), color_feat_dim=64)
+    npz = str(tmp_path / "p.npz")
+    save_params_npz(npz, init_endosurf_params(spec, torch.Generator().manual_seed(1)), step=40)
+    proc = _run(["-m", "endosurf_tpu_torch", "--cfg", str(cfg), "--mode", "test_2d",
+                 "--params", npz, "--device", "cpu"])
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("DEMO|")][-1]
+    stats = dict(kv.split(":") for kv in line[len("DEMO|"):].split("|"))
+    assert set(stats) == {"psnr_rgb_vr", "ssim_rgb_vr", "rmse_d_vr"}
+    assert all(np.isfinite(float(v)) for v in stats.values())
+    out = tmp_path / "logs" / "p" / "e-synthetic-pulsating_sphere" / "demo" / "iter_00000040"
+    assert (out / "test_2d" / "stats_out.txt").exists()
+    assert (out / "test_2d" / "000_all.png").exists() and (out / "test_2d" / "demo.gif").exists()

@@ -5,18 +5,30 @@
 
 Phases (any failure raises and exits non-zero):
   1. a CUDA card must be present; prints its name and power limit;
-  2. builds the CUDA kernel from the sources in this checkout;
-  3. parity: the CUDA fused_render_rays against its plain PyTorch twin on
-     8192 rays of a synthetic 512x640 frame, full-width seeded model (three
-     9x256 MLPs, 32+32 samples, 4 rounds), float32 and bf16 dot modes, at
-     fused_render.PARITY_TOL;
-  4. end to end: eval_frames with an EndoSurfRenderer on a synthetic
+  2. builds the CUDA kernels from the sources in this checkout (one nvcc per
+     source, in parallel);
+  3. render parity: the CUDA fused_render_rays against its plain PyTorch twin
+     on 8192 rays of a synthetic 512x640 frame, full-width seeded model
+     (three 9x256 MLPs, 32+32 samples, 4 rounds), float32 and bf16 dot modes,
+     at fused_render.PARITY_TOL, with the wrong-precision controls failing;
+  4. serving end to end: eval_frames with an EndoSurfRenderer on a synthetic
      512x640 scene with the base.yml settings (bf16 dots, 2048-ray chunks);
-     checks that the kernel served every chunk and that maps and metrics
-     are finite;
-  5. timing: kernel vs plain twin, rays/s, on one chunk in each mode.
-The second-to-last line is the kernel record (JSON), the last the device
-record (JSON).
+     checks that the render kernel served every chunk and that maps and
+     metrics are finite;
+  5. render timing: kernel vs plain twin on one chunk in each mode;
+  6. upsample parity: the CUDA fused_upsample_z against its plain twin on
+     8192 rays from sample_train_batch on the synthetic scene with perturbed
+     z0, return_sdf, both dot modes, at fused_sampler.PARITY_TOL, with the
+     wrong-precision controls failing;
+  7. training end to end: EndoSurfTrainer on the in-memory base.yml config
+     and scene (1024 rays, all six losses, march reuse, bf16 dots), 12 steps
+     through Trainer.start (2 warm-up steps, then 10), checkpoints in a
+     temporary directory read back; checks one upsample launch per step,
+     finite losses (logged at steps 1 and 12), the checkpoint round trip;
+     reports train rays/s and peak memory;
+  8. upsample timing: kernel vs plain twin on one train batch.
+The third-to-last line is the card, the second-to-last the kernel record
+(JSON), the last the device record (JSON).
 """
 
 from __future__ import annotations
@@ -26,6 +38,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -33,10 +46,14 @@ import torch
 N_PARITY = 8192
 H, W = 512, 640
 CHUNK = 2048
+RAY_BATCH = 1024
+N_STEPS, N_WARM = 12, 2
+HBM_BYTES_PER_S = 3.35e12                      # H100 SXM
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
 def base_cfg() -> dict:
-    """configs/endosurf/base.yml's keys for serving, in memory."""
+    """configs/endosurf/base.yml's keys for serving and training, in memory."""
     net = {
         "bound": 1.0, "use_deform": True,
         "deform_network": {"enc_pos_cfg": {"multires": 6}, "enc_time_cfg": {"multires": 6},
@@ -55,9 +72,16 @@ def base_cfg() -> dict:
         "render": {"type": "endosurf", "anneal_end": 50000, "n_samples": 32,
                    "n_importance": 32, "important_begin_iter": 0, "up_sample_steps": 4,
                    "perturb": True},
-        "train": {"matmul_precision": "default", "sampling_precision": "default",
+        "train": {"n_iter": N_STEPS, "matmul_precision": "default",
+                  "sampling_precision": "default", "ray_batch": RAY_BATCH,
+                  "mask_guided_ray_sampling": True,
+                  "color_loss_weight": 1.0, "depth_loss_weight": 1.0, "sdf_loss_weight": 1.0,
+                  "angle_loss_weight": 0.1, "eikonal_loss_weight": 0.1,
+                  "surf_neig_loss_weight": 0.1, "surf_neig_rad": 0.1, "resume": False,
+                  "optim": {"lr": 0.0005, "lr_alpha": 0.05, "warm_up_end": 5000},
                   "eval": {"ray_chunk": CHUNK}},
         "net": net,
+        "log": {"i_eval": 0, "i_save": N_STEPS},
         "demo": {"ray_batch": 1024},
     }
 
@@ -80,6 +104,29 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _macs(params, name, head_cols=None):
+    """Multiply-adds per point of a net's layers (the last layer with only
+    ``head_cols`` outputs when given)."""
+    layers = params[name]["layers"]
+    out = 0
+    for l, layer in enumerate(layers):
+        d_in, d_out = layer["v"].shape
+        out += d_in * (head_cols if head_cols is not None and l == len(layers) - 1 else d_out)
+    return out
+
+
+def _param_bytes(params, names, dtype) -> int:
+    width = 2 if dtype == torch.bfloat16 else 4
+    return sum(t.numel() * width for n in names
+               for layer in params[n]["layers"] for t in layer.values())
+
+
+def bound_ms(flops: float, bytes_moved: float, dtype):
+    """(least time in ms, what bounds it) for the work on one H100 SXM."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], bytes_moved / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -87,13 +134,21 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
-    from endosurf_tpu_torch.data.scene_data import frame_rays, make_synthetic_arrays
+    from endosurf_tpu_torch.data.scene_data import (
+        frame_rays,
+        make_synthetic_arrays,
+        sample_train_batch,
+    )
     from endosurf_tpu_torch.evaluation.render_eval import eval_frames
     from endosurf_tpu_torch.kernels import build
     from endosurf_tpu_torch.kernels import fused_render as fr
-    from endosurf_tpu_torch.models.endosurf import RenderSpec
+    from endosurf_tpu_torch.kernels import fused_sampler as fs
+    from endosurf_tpu_torch.models.endosurf import RenderSpec, _split_rays, _stratified_z
     from endosurf_tpu_torch.models.fields import EndoSurfSpec, init_endosurf_params
+    from endosurf_tpu_torch.ops.geometry import ray_sphere_intersection
     from endosurf_tpu_torch.serve import EndoSurfRenderer
+    from endosurf_tpu_torch.train.checkpoint import load_checkpoint
+    from endosurf_tpu_torch.train.trainer_endosurf import EndoSurfTrainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -115,7 +170,7 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
-    # 3. parity on the card
+    # 3. render parity on the card
     cfg = base_cfg()
     renderer_scene = make_synthetic_arrays(n_frames=4, h=H, w=W, seed=0, device=dev)
     spec = EndoSurfSpec.from_config(cfg["net"])
@@ -148,9 +203,10 @@ def main() -> int:
         check(not all(v[2] for v in ctl.values()),
               f"kernel {k_name} passes the {t_name} parity limits")
 
-    # 4. end to end through the serving entry point
+    # 4. serving end to end through the serving entry point
     renderer = EndoSurfRenderer(cfg, scene=renderer_scene, step=int(step), device=dev)
     fr.LAUNCHES["fused_render_rays"] = 0
+    fs.LAUNCHES["fused_upsample_z"] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     stats, pred = eval_frames(renderer, renderer_scene.list_test[:1], int(step),
@@ -164,12 +220,13 @@ def main() -> int:
           f"{launches} kernel launches for {n_chunks} chunks; "
           + ", ".join(f"{k} {v:.4f}" for k, v in stats.items()), flush=True)
     check(launches == n_chunks, f"{launches} kernel launches for {n_chunks} chunks")
+    check(fs.LAUNCHES["fused_upsample_z"] == 0, "serving launched the upsample kernel")
     for k, ch in (("rgb", 3), ("depth", 1), ("normal", 3)):
         check(pred[k].shape == (1, H, W, ch), f"{k} map shape {pred[k].shape}")
         check(bool(np.isfinite(pred[k]).all()), f"{k} map finite")
     check(all(math.isfinite(v) for v in stats.values()), f"finite metrics {stats}")
 
-    # 5. timing on one main-path chunk, kernel vs plain, in each mode
+    # 5. render timing on one main-path chunk, kernel vs plain, in each mode
     chunk = all_rays[:CHUNK].contiguous()
     times = {}
     for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
@@ -180,14 +237,144 @@ def main() -> int:
               f"({CHUNK / k_ms * 1e3:.0f} rays/s), plain {p_ms:.3f} ms "
               f"({CHUNK / p_ms * 1e3:.0f} rays/s)", flush=True)
 
-    k_ms, p_ms = times["bfloat16"]
-    print(json.dumps({"kernels": [{
-        "name": "fused_render_rays", "route": "cuda",
-        "source": "endosurf_tpu_torch/kernels/csrc/fused_render.cu",
-        "replaces": "endosurf_tpu/kernels/fused_render.py:274",
-        "launches": launches,
-        "max_abs_err": max(v[1] for v in errs["bfloat16"].values()),
-        "ms": k_ms, "plain_ms": p_ms}]}))
+    # 6. upsample parity on train-batch rays with perturbed z0
+    gen = torch.Generator(device=dev).manual_seed(0)
+    arrays = renderer_scene.device_arrays
+
+    def upsample_inputs(n):
+        rays_b = sample_train_batch(arrays, H, W, n, generator=gen)["rays"]
+        rays_o, rays_d, rays_d_z, t = _split_rays(rays_b)
+        near, far, _ = ray_sphere_intersection(rays_o, rays_d)
+        z0 = _stratified_z(near, far, rspec.n_samples,
+                           torch.rand(n, 1, generator=gen, device=dev))
+        return rays_o, rays_d_z, t, z0
+
+    up_in = upsample_inputs(N_PARITY)
+    up_args = (rspec.n_importance, rspec.up_sample_steps)
+    ugot, uref, uerrs = {}, {}, {}
+    for name, dt in dtypes.items():
+        z, sdf = fs.fused_upsample_z_cuda(spec, params, *up_in, *up_args, dt, True)
+        ugot[name] = {"z": z, "sdf": sdf}
+        z, sdf = fs.fused_upsample_z_reference(spec, params, *up_in, *up_args, dt, True)
+        uref[name] = {"z": z, "sdf": sdf}
+        torch.cuda.synchronize()
+        check(bool((ugot[name]["z"].diff(dim=-1) >= 0).all()), f"kernel z ascending ({name})")
+        uerrs[name] = fs.parity_errors(ugot[name], uref[name], dt)
+        med_tol, p99_tol, max_tol = fs.PARITY_TOL[dt]
+        for k, (med, p99, mx, ok) in uerrs[name].items():
+            print(f"upsample parity {name} {k} ({N_PARITY} rays): median {med:.3e} "
+                  f"(tol {med_tol:g}), p99 {p99:.3e} (tol {p99_tol:g}), max {mx:.3e} "
+                  f"(tol {max_tol[k]:g})", flush=True)
+    bad = [(n, k) for n, e in uerrs.items() for k, v in e.items() if not v[-1]]
+    check(not bad, f"upsample kernel vs plain twin out of tolerance: {bad}")
+    for k_name, t_name in (("float32", "bfloat16"), ("bfloat16", "float32")):
+        ctl = fs.parity_errors(ugot[k_name], uref[t_name], dtypes[t_name])
+        worst = max(ctl, key=lambda k: ctl[k][0])
+        print(f"upsample control: kernel {k_name} vs twin {t_name}: worst median {worst} "
+              f"{ctl[worst][0]:.3e} (tol {fs.PARITY_TOL[dtypes[t_name]][0]:g})", flush=True)
+        check(not all(v[-1] for v in ctl.values()),
+              f"upsample kernel {k_name} passes the {t_name} parity limits")
+
+    # 7. training end to end through the trainer's entry points
+    with tempfile.TemporaryDirectory() as exp_root:
+        tcfg = base_cfg()
+        tcfg["exp"]["exp_dir"] = exp_root
+        trainer = EndoSurfTrainer(tcfg, mode="train", scene=renderer_scene, device=dev)
+        fr.LAUNCHES["fused_render_rays"] = 0
+        fs.LAUNCHES["fused_upsample_z"] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer.start(log_every=N_STEPS, stop_after=N_WARM)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer.start(log_every=N_STEPS)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        train_launches = fs.LAUNCHES["fused_upsample_z"]
+        check(train_launches == N_STEPS,
+              f"{train_launches} upsample launches for {N_STEPS} steps")
+        check(fr.LAUNCHES["fused_render_rays"] == 0, "training launched the render kernel")
+        metrics = {}
+        with open(os.path.join(trainer.exp_dir, "logs", "metrics.jsonl")) as f:
+            for line in f:
+                rec = json.loads(line)
+                if rec["tag"].startswith("train/loss"):
+                    metrics.setdefault(rec["step"], {})[rec["tag"]] = rec["value"]
+        check(sorted(metrics) == [1, N_STEPS], f"logged steps {sorted(metrics)}")
+        check(all(len(m) == 7 and all(math.isfinite(v) for v in m.values())
+                  for m in metrics.values()), f"every loss finite at steps 1, {N_STEPS}")
+        restored = load_checkpoint(trainer.exp_dir, dev)
+        check(restored is not None and restored["n_iter"] == N_STEPS, "checkpoint written")
+        for name, layers in trainer.params.items():
+            if name == "deviation_network":
+                check(torch.equal(restored["params"][name]["variance"],
+                                  layers["variance"].detach()), "checkpoint variance")
+                continue
+            for a, b in zip(restored["params"][name]["layers"], layers["layers"]):
+                check(all(torch.equal(a[k], b[k].detach()) for k in b), f"checkpoint {name}")
+        train_s = t2 - t1
+        train_rps = (N_STEPS - N_WARM) * RAY_BATCH / train_s
+        last = metrics[N_STEPS]
+        print(f"train: {N_STEPS} steps x {RAY_BATCH} rays, warm-up {t1 - t0:.2f} s for "
+              f"{N_WARM}, then {train_s:.3f} s for {N_STEPS - N_WARM} = "
+              f"{train_s / (N_STEPS - N_WARM) * 1e3:.1f} ms/step, {train_rps:.0f} rays/s "
+              f"({smi}); peak memory {peak_gib:.2f} GiB; {train_launches} upsample launches; "
+              f"step {N_STEPS}: " + ", ".join(f"{k[6:]} {v:.4f}" for k, v in last.items()),
+              flush=True)
+
+    # 8. upsample timing on one train batch (the main path's shape), both modes
+    tb_in = upsample_inputs(RAY_BATCH)
+    utimes = {}
+    for name, dt in dtypes.items():
+        k_ms = cuda_ms(lambda: fs.fused_upsample_z_cuda(spec, params, *tb_in, *up_args, dt, True), 10)
+        p_ms = cuda_ms(lambda: fs.fused_upsample_z_reference(spec, params, *tb_in, *up_args, dt, True), 10)
+        utimes[name] = (k_ms, p_ms)
+        print(f"upsample timing {name} ({RAY_BATCH} rays, {smi}): kernel {k_ms:.3f} ms, "
+              f"plain {p_ms:.3f} ms", flush=True)
+    step_ms = train_s / (N_STEPS - N_WARM) * 1e3
+    print(f"train step breakdown (bf16): {step_ms:.1f} ms/step, upsample kernel "
+          f"{utimes['bfloat16'][0]:.3f} ms ({100 * utimes['bfloat16'][0] / step_ms:.1f} %), "
+          f"rest {step_ms - utimes['bfloat16'][0]:.1f} ms", flush=True)
+
+    # the kernel record: work, bounds and times at the main paths' shapes (bf16)
+    bf = torch.bfloat16
+    deform, sdf_hidden = _macs(params, "deform_network"), _macs(params, "sdf_network", 0)
+    sdf_full, color = _macs(params, "sdf_network"), _macs(params, "color_network")
+    chain = deform + _macs(params, "sdf_network", 1)      # deform -> sdf head
+    k_new = rspec.n_importance // rspec.up_sample_steps
+    n_sweep = rspec.n_samples + k_new * (rspec.up_sample_steps - 1)
+    n_field = rspec.n_samples + rspec.n_importance
+    render_flops = 2 * CHUNK * (n_sweep * chain
+                                + n_field * (4 * deform + sdf_full + sdf_hidden + color))
+    render_bytes = (CHUNK * 9 * 4 * 2 + _param_bytes(
+        params, ("deform_network", "sdf_network", "color_network"), bf))
+    upsample_flops = 2 * RAY_BATCH * n_field * chain        # return_sdf: every sample
+    upsample_bytes = (RAY_BATCH * (7 + rspec.n_samples + 2 * n_field) * 4
+                      + _param_bytes(params, ("deform_network", "sdf_network"), bf))
+    r_bound, r_by = bound_ms(render_flops, render_bytes, bf)
+    u_bound, u_by = bound_ms(upsample_flops, upsample_bytes, bf)
+    print(f"bounds (H100 SXM peaks, bf16 989 TFLOP/s, 3.35 TB/s): render {CHUNK} rays "
+          f"{render_flops / 1e12:.3f} TFLOP -> {r_bound:.3f} ms ({r_by}); upsample "
+          f"{RAY_BATCH} rays {upsample_flops / 1e12:.4f} TFLOP -> {u_bound:.4f} ms ({u_by})",
+          flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"kernels": [
+        {"name": "fused_render_rays", "route": "cuda",
+         "source": "endosurf_tpu_torch/kernels/csrc/fused_render.cu",
+         "replaces": "endosurf_tpu/kernels/fused_render.py:274",
+         "launches": launches,
+         "max_abs_err": max(v[1] for v in errs["bfloat16"].values()),
+         "ms": times["bfloat16"][0], "plain_ms": times["bfloat16"][1],
+         "bound_ms": r_bound, "bound_by": r_by, "library_ms": None},
+        {"name": "fused_upsample_z", "route": "cuda",
+         "source": "endosurf_tpu_torch/kernels/csrc/fused_sampler.cu",
+         "replaces": "endosurf_tpu/kernels/fused_sampler.py:515",
+         "launches": train_launches,
+         "max_abs_err": max(v[2] for v in uerrs["bfloat16"].values()),
+         "ms": utimes["bfloat16"][0], "plain_ms": utimes["bfloat16"][1],
+         "bound_ms": u_bound, "bound_by": u_by, "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,13 +1,16 @@
-"""CLI: python -m endosurf_tpu_torch --cfg <yaml> --mode test_2d|demo_2d
+"""CLI: python -m endosurf_tpu_torch --cfg <yaml> --mode train|test_2d|demo_2d
 
-Serving modes of the JAX package's CLI (``python -m endosurf_tpu``):
+Modes of the JAX package's CLI (``python -m endosurf_tpu``) ported so far:
+  train    — run / resume training (EndoSurf), checkpoints into the exp dir
   test_2d  — test split, view synthesis + metrics
   demo_2d  — all frames, view synthesis + metrics
-The other modes (train, test, test_3d, demo, demo_3d) are not ported yet.
+The other modes (test, test_3d, demo, demo_3d) are not ported yet.
 
-``--params`` reads an npz written by ``endosurf_tpu_torch.bridge`` (see
-``tools/export_params_npz.py`` for JAX checkpoints); without it the seeded
-init is rendered. ``--device`` defaults to cuda and never falls back.
+The serving modes render the checkpoint that training wrote into the
+experiment directory; ``--params`` (an npz written by
+``endosurf_tpu_torch.bridge``, see ``tools/export_params_npz.py`` for JAX
+checkpoints) overrides it, and with neither the seeded init is rendered.
+``--device`` defaults to cuda and never falls back.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from __future__ import annotations
 import argparse
 
 MODES = ("train", "test", "test_2d", "test_3d", "demo", "demo_2d", "demo_3d")
-PORTED = ("test_2d", "demo_2d")
+PORTED = ("train", "test_2d", "demo_2d")
 
 
 def main(argv=None):
@@ -29,17 +32,37 @@ def main(argv=None):
     if args.mode not in PORTED:
         raise NotImplementedError(f"not yet ported: --mode {args.mode}")
 
-    from endosurf_tpu_torch.bridge import load_params_npz
-    from endosurf_tpu_torch.serve import EndoSurfRenderer, resolve_device
-
+    from endosurf_tpu_torch.serve import resolve_device
     device = resolve_device(args.device)
+
+    if args.mode == "train":
+        from endosurf_tpu_torch.config import load_config
+        cfg = load_config(args.cfg)
+        render_type = cfg["render"].get("type", "endosurf")
+        if render_type != "endosurf":
+            raise NotImplementedError(f"not yet ported: render type {render_type!r}")
+        from endosurf_tpu_torch.train.trainer_endosurf import EndoSurfTrainer
+        EndoSurfTrainer(cfg, mode="train", device=device).start()
+        return None
+
+    from endosurf_tpu_torch.bridge import load_params_npz
+    from endosurf_tpu_torch.serve import EndoSurfRenderer
+    from endosurf_tpu_torch.train.checkpoint import load_checkpoint
+
     params, step = None, 0
     if args.params:
         params, npz_step = load_params_npz(args.params, device)
         step = npz_step or 0
     renderer = EndoSurfRenderer(args.cfg, params=params, step=step, device=device)
+    if params is None:
+        restored = load_checkpoint(renderer.exp_dir, device)
+        if restored is not None:
+            renderer.params, renderer.step = restored["params"], int(restored["n_iter"])
+            renderer.params_from_init = False
+            print(f"PARAMS|checkpoint of iter {renderer.step} in {renderer.exp_dir}",
+                  flush=True)
     if renderer.params_from_init:
-        print("PARAMS|seeded init (no --params given): metrics are of an "
+        print("PARAMS|seeded init (no checkpoint, no --params): metrics are of an "
               "untrained model", flush=True)
     return renderer.demo(test_mode=args.mode.startswith("test"))
 

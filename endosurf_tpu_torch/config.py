@@ -1,6 +1,6 @@
 """YAML configuration with recursive ``inherit_from`` (copy of
 ``load_config`` from ``endosurf_tpu/config.py``; the JAX package cannot be
-imported where the port runs).
+imported where the port runs), and ``save_config``.
 
 A config file may name a parent via ``inherit_from``; parents load first and
 children deep-merge on top. Parents resolve relative to the working directory
@@ -12,6 +12,7 @@ is read.
 from __future__ import annotations
 
 import copy
+import json
 import os.path as osp
 from typing import Any, Dict, Optional, Union
 
@@ -63,3 +64,11 @@ def load_config(path: Union[str, Dict[str, Any]],
         cfg = {}
     deep_merge(cfg, cfg_child)
     return cfg
+
+
+def save_config(cfg: Dict[str, Any], path: str) -> None:
+    """Write ``cfg`` as JSON text, which YAML loaders read as YAML: the file
+    loads back with :func:`load_config`, and writing it needs no PyYAML."""
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=2, default=str)
+        f.write("\n")

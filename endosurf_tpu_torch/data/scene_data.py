@@ -1,10 +1,10 @@
-"""Scene data for serving (port of the serving half of
-``endosurf_tpu/data/scene_data.py``).
+"""Scene data (port of ``endosurf_tpu/data/scene_data.py``).
 
 Loads the preprocessed info-pkl schema (per-frame world matrices, scale
 matrix, colour/depth/mask image paths, depth normalisation, splits) into
-tensors on one device, and builds full-frame rays. The training samplers
-(pixel CDFs, alias tables) are not ported yet.
+tensors on one device, builds full-frame rays, and draws training batches
+with the mask-guided pixel CDFs (the ``cdf`` pixel sampler). The alias
+tables of the ``alias`` sampler are not built: that sampler is not ported.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from endosurf_tpu_torch.ops.geometry import rays_from_pixels
+from endosurf_tpu_torch.ops.pdf import sample_from_cdf
 
 
 def decompose_projection(P: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -148,6 +149,20 @@ class SceneData:
         far = float(np.percentile(depths, 99.5))
         depth_masks = ((depths > near) & (depths < far)).astype(np.float32)
         masks = depth_masks * color_masks
+
+        # Mask-guided ray importance: pixels often occluded across frames
+        # are upweighted where visible; the colour-mask pre-filter and the
+        # 1e-5 floor are folded into the per-pixel sampling weight.
+        freq = (1.0 - masks).sum(0)
+        p = freq / np.sqrt((freq ** 2).sum() + 1e-12)
+        importance = masks * (1.0 + p)
+        sample_w = (color_masks * (importance + 1e-5)).reshape(n_frames, -1)
+        uniform_w = color_masks.reshape(n_frames, -1)
+
+        def norm_cdf(w):
+            cdf = np.cumsum(w + 1e-12, axis=-1)
+            return (cdf / cdf[:, -1:]).astype(np.float32)
+
         if normalize_time:
             ts = np.linspace(0.0, 1.0, n_frames, dtype=np.float32)
         else:
@@ -167,6 +182,11 @@ class SceneData:
             "poses": dev(poses),
             "bounds": dev(bounds),
             "ts": dev(ts),
+            "sample_w": dev(sample_w),
+            "uniform_w": dev(uniform_w),
+            "sample_cdf": dev(norm_cdf(sample_w)),
+            "uniform_cdf": dev(norm_cdf(uniform_w)),
+            "list_train": torch.as_tensor(np.asarray(list_train, np.int64), device=device),
         }
         return SceneData(
             dset_name=dset_name, scene_name=scene_name, n_frames=n_frames,
@@ -187,6 +207,50 @@ def frame_rays(arrays: Dict[str, torch.Tensor], h: int, w: int, fid: int) -> tor
     bounds = arrays["bounds"][fid].expand(h, w, 2)
     t = arrays["ts"][fid].expand(h, w, 1)
     return torch.cat([rays_o, rays_d, bounds, t], dim=-1)
+
+
+def sample_train_batch(arrays: Dict[str, torch.Tensor], h: int, w: int, ray_batch: int,
+                       mask_guided: bool = True, pixel_sampler: str = "cdf",
+                       generator: Optional[torch.Generator] = None,
+                       frame_draw: Optional[torch.Tensor] = None,
+                       u_pix: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """One training batch: a random train frame and importance-drawn pixels.
+
+    ``frame_draw`` (an index into ``list_train``) and ``u_pix`` [ray_batch]
+    (the pixel uniforms) are drawn from ``generator`` unless given. Returns
+    rays [B, 9] and the per-ray supervision, all on the arrays' device."""
+    if pixel_sampler == "alias":
+        raise NotImplementedError("not yet ported: pixel_sampler 'alias'")
+    if pixel_sampler != "cdf":
+        raise ValueError(f"unknown pixel_sampler: {pixel_sampler!r}")
+    list_train = arrays["list_train"]
+    device = list_train.device
+    if frame_draw is None:
+        frame_draw = torch.randint(0, list_train.shape[0], (), generator=generator,
+                                   device=device)
+    fid = list_train[torch.as_tensor(frame_draw, device=device)]
+    cdf = arrays["sample_cdf" if mask_guided else "uniform_cdf"][fid]
+    pix = sample_from_cdf(cdf, ray_batch, generator, u_pix)
+
+    py = torch.div(pix, w, rounding_mode="floor").to(torch.float32)
+    px = (pix % w).to(torch.float32)
+    rays_o, rays_d = rays_from_pixels(px, py, arrays["intrinsics_inv"][fid],
+                                      arrays["poses"][fid])
+
+    def gather(name):
+        return arrays[name][fid].reshape(h * w, -1)[pix]
+
+    bounds = arrays["bounds"][fid].expand(ray_batch, 2)
+    t = arrays["ts"][fid].expand(ray_batch, 1)
+    return {
+        "rays": torch.cat([rays_o, rays_d, bounds, t], dim=-1),
+        "color": gather("colors"),
+        "depth": gather("depths"),
+        "mask": gather("masks"),
+        "color_mask": gather("color_masks"),
+        "depth_mask": gather("depth_masks"),
+        "frame_id": fid,
+    }
 
 
 def make_synthetic_arrays(n_frames: int = 4, h: int = 16, w: int = 16,

@@ -3,7 +3,8 @@
 ``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds, not minutes) under
 ``kernels/_build/``, named by a hash of the sources and flags: a checkout
-builds its own library on first call, and an edited source builds anew. A
+builds its own library on first call, and an edited source builds anew. The
+sources compile in parallel, one nvcc process each, and are then linked. A
 failed compile raises with nvcc's output. ``torch.utils.cpp_extension`` is not
 used: it needs ``ninja``, which the GPU machines may lack.
 """
@@ -22,7 +23,7 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -56,17 +57,31 @@ def build_library() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-    out.with_suffix(".log").write_text(log)
-    os.replace(tmp, out)          # atomic: concurrent builds agree
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        jobs = []
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            obj = os.path.join(work, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], None
+        for cmd, _, proc in jobs:
+            log = proc.communicate()[0]
+            logs.append(log)
+            if proc.returncode != 0 and failed is None:
+                failed = (proc.returncode, cmd, log)
+        if failed is not None:
+            code, cmd, log = failed
+            raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n{log}")
+        tmp = os.path.join(work, out.name)
+        cmd = [nvcc, "-shared", "-o", tmp, *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                               f"{proc.stdout}{proc.stderr}")
+        out.with_suffix(".log").write_text("".join(logs))
+        os.replace(tmp, out)      # atomic: concurrent builds agree
     return out
 
 
@@ -87,5 +102,10 @@ def load_library() -> ctypes.CDLL:
     lib.fused_render_meta_len.restype = i32
     lib.fused_render_error_string.argtypes = [i32]
     lib.fused_render_error_string.restype = ctypes.c_char_p
+    lib.fused_upsample_launch.argtypes = [
+        vp, vp, i32, i32, vp, ctypes.POINTER(i64), i32, i32, i32, i32, vp, vp, vp, vp]
+    lib.fused_upsample_launch.restype = i32
+    lib.fused_upsample_scratch_floats.argtypes = [i32]
+    lib.fused_upsample_scratch_floats.restype = i64
     _LIB = lib
     return lib

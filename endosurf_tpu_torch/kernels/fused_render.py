@@ -16,7 +16,7 @@ gradients.
   the JAX wrapper runs in PyTorch around it: weight-norm denormalisation,
   bf16 rounding of the weights, inv_s and the anneal ratio.
 * ``fused_render_rays_reference``: the same function in plain PyTorch,
-  ``render_rays(key=None)`` plus the extra maps. Tests and the CPU path use
+  the deterministic ``render_rays`` (plain upsampling) plus the extra maps. Tests and the CPU path use
   it; on a GPU it only serves as the comparison.
 * ``fused_render_rays``: the dispatching wrapper. A CUDA tensor always goes
   to the kernel (errors propagate); a CPU tensor takes the plain twin.
@@ -164,14 +164,16 @@ def fused_render_rays_reference(spec, params: Dict[str, Any], rays: torch.Tensor
                                 sampling_dtype: torch.dtype = torch.float32,
                                 main_dtype: torch.dtype = torch.float32
                                 ) -> Dict[str, torch.Tensor]:
-    """Plain PyTorch twin of the kernel: render_rays(key=None) + maps."""
+    """Plain PyTorch twin of the kernel: the deterministic render_rays with
+    the plain upsampling, plus the maps."""
     from endosurf_tpu_torch.models.endosurf import RenderSpec, render_rays
     rspec = RenderSpec(n_samples=n_samples, n_importance=n_importance,
                        up_sample_steps=n_rounds, anneal_end=anneal_end)
     with torch.no_grad():
         out = render_rays(spec, rspec, params, rays, iter_step,
                           precision=_dtype_precision(main_dtype),
-                          sampling_precision=_dtype_precision(sampling_dtype))
+                          sampling_precision=_dtype_precision(sampling_dtype),
+                          upsample_kernel=False)
     w = out["weights"]
     return {
         "color_map": out["color_map"],

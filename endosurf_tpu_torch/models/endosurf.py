@@ -1,20 +1,30 @@
-"""EndoSurf renderer, serving subset (port of ``endosurf_tpu/models/endosurf.py``).
+"""EndoSurf renderer (port of ``endosurf_tpu/models/endosurf.py``).
 
-Deterministic (``key=None``) rendering only: stratified z, SDF-guided
-upsampling rounds at sharpness 64 * 2^i, one fused field evaluation at the
-section midpoints, and NeuS compositing. ``render_rays_inference`` is the
-serving entry: it hands the whole pipeline to ``kernels.fused_render``, whose
-CUDA kernel runs it for tensors on the GPU.
+Stratified z (optionally jittered per ray), SDF-guided upsampling rounds at
+sharpness 64 * 2^i, one fused field evaluation at the section midpoints, and
+NeuS compositing with the Eikonal term; then the auxiliary queries of the
+train step: SDF and angle error at the ground-truth depth points, and the
+normal-consistency error around the surface found on the render's own
+upsample samples (march reuse).
 
-Precision is explicit: ``precision`` for the final field evaluation and
-``sampling_precision`` (None = same) for the upsampling sweeps, with the
-meanings of ``ops.mlp``.
+``render_rays`` is the differentiable training render. Its upsampling runs
+without gradient; with ``upsample_kernel`` it goes through
+``kernels.fused_sampler.fused_upsample_z`` (the CUDA kernel for tensors on
+the GPU, the plain ``upsample_z`` for CPU tensors). ``render_rays_inference``
+is the serving entry and hands the whole pipeline to ``kernels.fused_render``.
+
+Random draws (the z jitter, the neighbour offsets) come from an explicit
+``torch.Generator`` or are passed in as tensors of uniforms.
+
+Precision is explicit: ``precision`` for the field evaluations and the
+auxiliary queries and ``sampling_precision`` (None = same) for the
+upsampling, with the meanings of ``ops.mlp``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -22,6 +32,7 @@ from endosurf_tpu_torch.models.fields import (
     EndoSurfSpec,
     fused_point_eval,
     inv_s,
+    sdf_grad_observed,
     sdf_observed,
 )
 from endosurf_tpu_torch.ops.geometry import ray_sphere_intersection
@@ -83,15 +94,24 @@ def cos_anneal_ratio(iter_step, anneal_end: float, device=None) -> torch.Tensor:
     return torch.clamp(step / anneal_end, max=1.0)
 
 
-def _stratified_z(near: torch.Tensor, far: torch.Tensor, n_samples: int) -> torch.Tensor:
+def _stratified_z(near: torch.Tensor, far: torch.Tensor, n_samples: int,
+                  z_uniform: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Uniform z on [near, far], shifted per ray by (u - 0.5) * 2 / n_samples
+    when ``z_uniform`` [R, 1] is given."""
     t_vals = torch.linspace(0.0, 1.0, n_samples, dtype=near.dtype, device=near.device)
-    return near + (far - near) * t_vals[None, :]
+    z_vals = near + (far - near) * t_vals[None, :]
+    if z_uniform is not None:
+        z_vals = z_vals + (z_uniform - 0.5) * (2.0 / n_samples)
+    return z_vals
 
 
 def upsample_z(spec: EndoSurfSpec, rspec: RenderSpec, params: Params,
                rays_o: torch.Tensor, rays_d_z: torch.Tensor, t: torch.Tensor,
-               z_vals: torch.Tensor, precision: str = "highest") -> torch.Tensor:
-    """SDF-guided importance upsampling; returns the sorted z [R, S]."""
+               z_vals: torch.Tensor, precision: str = "highest",
+               return_sdf: bool = False):
+    """SDF-guided importance upsampling; returns the sorted z [R, S], or
+    (z, sdf) with ``return_sdf`` (the last round's new samples then get
+    their SDF too)."""
     n_rays = z_vals.shape[0]
     n_per_step = rspec.n_importance // rspec.up_sample_steps
 
@@ -107,19 +127,20 @@ def upsample_z(spec: EndoSurfSpec, rspec: RenderSpec, params: Params,
         radius = torch.linalg.norm(pts, dim=-1)
         weights = upsample_weights_from_sdf(z_vals, sdf, radius, 64.0 * 2 ** i)
         new_z = sample_pdf(z_vals, weights, n_per_step)
-        if i + 1 == rspec.up_sample_steps:
+        if i + 1 == rspec.up_sample_steps and not return_sdf:
             z_vals, _ = torch.sort(torch.cat([z_vals, new_z], dim=-1), dim=-1)
         else:
             _, new_sdf = sdf_at(new_z)
             z_vals, sdf = merge_sorted_z(z_vals, new_z, sdf, new_sdf)
             pts = rays_o[:, None, :] + rays_d_z[:, None, :] * z_vals[..., None]
-    return z_vals
+    return (z_vals, sdf) if return_sdf else z_vals
 
 
 def render_core(spec: EndoSurfSpec, params: Params, rays: torch.Tensor,
                 z_vals: torch.Tensor, sample_dist: float, anneal: torch.Tensor,
                 precision: str = "highest") -> Dict[str, torch.Tensor]:
-    """Evaluate the fields at section midpoints and composite."""
+    """Evaluate the fields at section midpoints, composite, and take the
+    Eikonal error inside the relaxed sphere |x| < 1.2."""
     rays_o, rays_d, rays_d_z, t = _split_rays(rays)
     n_rays, n_samples = z_vals.shape
 
@@ -141,10 +162,15 @@ def render_core(spec: EndoSurfSpec, params: Params, rays: torch.Tensor,
     iter_cos = annealed_iter_cos(true_cos, anneal)
     alpha, prev_cdf = neus_alpha(sdf, iter_cos, dists, s_inv)
     weights = exclusive_cumprod_weights(alpha)
+
+    relax_inside = (torch.linalg.norm(pts, dim=-1) < 1.2).to(sdf.dtype).detach()
+    grad_err = (torch.linalg.norm(grad_o, dim=-1) - 1.0) ** 2
+    eikonal = (relax_inside * grad_err).sum() / (relax_inside.sum() + 1e-6)
     return {
         "color_map": (weights[..., None] * color).sum(1),
         "depth_map": (weights * mid_z).sum(-1, keepdim=True),
         "gradients_o": grad_o,
+        "gradient_o_error": eikonal,
         "weights": weights,
         "weight_max": weights.max(-1, keepdim=True).values,
         "cdf": prev_cdf,
@@ -153,23 +179,59 @@ def render_core(spec: EndoSurfSpec, params: Params, rays: torch.Tensor,
 
 
 def render_rays(spec: EndoSurfSpec, rspec: RenderSpec, params: Params,
-                rays: torch.Tensor, iter_step, key: None = None,
+                rays: torch.Tensor, iter_step,
+                generator: Optional[torch.Generator] = None,
+                z_uniform: Optional[torch.Tensor] = None,
                 use_importance: bool = True, precision: str = "highest",
-                sampling_precision: Optional[str] = None) -> Dict[str, torch.Tensor]:
-    """Render rays [R, 9] deterministically (``key`` must be None: the
-    perturbed training draws are not ported yet)."""
-    if key is not None:
-        raise NotImplementedError("perturbed sampling is not yet ported")
+                sampling_precision: Optional[str] = None,
+                return_upsample: bool = False,
+                upsample_kernel: bool = True) -> Dict[str, torch.Tensor]:
+    """Render rays [R, 9].
+
+    With ``rspec.perturb``, the per-ray z jitter is ``z_uniform`` [R, 1]
+    when given, else drawn from ``generator``; with neither the render is
+    deterministic. ``return_upsample`` adds the upsample stage's (z, sdf) as
+    ``up_z`` / ``up_sdf`` [R, S]. ``upsample_kernel`` sends the upsampling
+    to ``fused_upsample_z`` when the shapes allow it; without it the plain
+    ``upsample_z`` runs whatever the device.
+    """
     rays_o, rays_d, rays_d_z, t = _split_rays(rays)
     near, far, _ = ray_sphere_intersection(rays_o, rays_d)
     sample_dist = 2.0 / rspec.n_samples
     anneal = cos_anneal_ratio(iter_step, rspec.anneal_end, rays.device)
-    z_vals = _stratified_z(near, far, rspec.n_samples)
-    if use_importance and rspec.n_importance > 0:
+    if rspec.perturb and z_uniform is None and generator is not None:
+        z_uniform = torch.rand(rays.shape[0], 1, generator=generator, device=rays.device,
+                               dtype=rays.dtype)
+    z_vals = _stratified_z(near, far, rspec.n_samples,
+                           z_uniform if rspec.perturb else None)
+
+    importance = use_importance and rspec.n_importance > 0
+    if return_upsample and not importance:
+        raise ValueError("return_upsample requires the importance stage")
+    up_sdf = None
+    if importance:
+        from endosurf_tpu_torch.kernels.fused_render import precision_dtype
+        from endosurf_tpu_torch.kernels.fused_sampler import (
+            fused_upsample_z,
+            upsample_shape_supported,
+        )
+        samp = sampling_precision or precision
         with torch.no_grad():
-            z_vals = upsample_z(spec, rspec, params, rays_o, rays_d_z, t, z_vals,
-                                sampling_precision or precision)
-    return render_core(spec, params, rays, z_vals, sample_dist, anneal, precision)
+            if upsample_kernel and upsample_shape_supported(
+                    rspec.n_samples, rspec.n_importance, rspec.up_sample_steps):
+                res = fused_upsample_z(spec, params, rays_o, rays_d_z, t, z_vals,
+                                       rspec.n_importance, rspec.up_sample_steps,
+                                       precision_dtype(samp), return_upsample)
+            else:
+                res = upsample_z(spec, rspec, params, rays_o, rays_d_z, t, z_vals,
+                                 samp, return_upsample)
+        z_vals, up_sdf = res if return_upsample else (res, None)
+
+    out = render_core(spec, params, rays, z_vals, sample_dist, anneal, precision)
+    if return_upsample:
+        out["up_z"] = z_vals
+        out["up_sdf"] = up_sdf
+    return out
 
 
 def render_rays_inference(spec: EndoSurfSpec, rspec: RenderSpec, params: Params,
@@ -200,3 +262,162 @@ def render_rays_inference(spec: EndoSurfSpec, rspec: RenderSpec, params: Params,
     return render_rays(spec, rspec, params, rays, iter_step,
                        use_importance=use_importance, precision=precision,
                        sampling_precision=sampling_precision)
+
+
+# ---------------------------------------------------------------------------
+# depth-supervision and surface-regularization queries
+# ---------------------------------------------------------------------------
+
+def depth_points(rays: torch.Tensor, depth_gt: torch.Tensor) -> torch.Tensor:
+    """Ground-truth depth points along rays: o + d_z * depth."""
+    rays_o, _, rays_d_z, _ = _split_rays(rays)
+    return rays_o + rays_d_z * depth_gt
+
+
+def error_on_depth_from(sdf: torch.Tensor, grad: torch.Tensor, pts: torch.Tensor,
+                        rays: torch.Tensor, mask: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """SDF and angle error given the field at the depth points.
+
+    The angle error divides the UNMASKED relu-cos sum by the masked count,
+    as the JAX package (and the reference it follows) does."""
+    rays_d = rays[..., 3:6]
+    relu_cos = torch.relu((rays_d * grad).sum(-1, keepdim=True))
+    pts_norm = torch.linalg.norm(pts.detach(), dim=-1, keepdim=True)
+    inside_masksphere = (pts_norm < 1.0).to(sdf.dtype) * mask
+    denom = inside_masksphere.sum() + 1e-6
+    sdf_error = (inside_masksphere * sdf).abs().sum() / denom
+    angle_error = relu_cos.abs().sum() / denom
+    return sdf_error, angle_error, inside_masksphere
+
+
+def error_on_depth(spec: EndoSurfSpec, params: Params, rays: torch.Tensor,
+                   depth_gt: torch.Tensor, mask: torch.Tensor,
+                   precision: str = "highest"
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(sdf_error, angle_error, valid_region [R, 1]) at the depth points."""
+    t = rays[..., 8:9]
+    pts = depth_points(rays, depth_gt)
+    sdf = sdf_observed(spec, params, pts, t, precision)
+    grad = sdf_grad_observed(spec, params, pts, t, precision)
+    return error_on_depth_from(sdf, grad, pts, rays, mask)
+
+
+def _locate_crossing(spec: EndoSurfSpec, params: Params, rays_o: torch.Tensor,
+                     rays_d_z: torch.Tensor, t: torch.Tensor, d_prop: torch.Tensor,
+                     val: torch.Tensor, near: torch.Tensor, far: torch.Tensor,
+                     tau: float, n_secant: int, precision: str = "highest"
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """First + -> - crossing of ``val = -(sdf - tau)`` over the ascending
+    depth proposals ``d_prop`` [R, S], refined by ``n_secant`` secant steps
+    (0: the crossing pair's interpolation). Returns (depth [R, 1], valid
+    [R, 1]); invalid rays get the chord midpoint."""
+    n_rays, n_steps = d_prop.shape
+    first_free = val[:, 0] < 0
+    sign = torch.sign(val[:, :-1] * val[:, 1:])
+    sign = torch.cat([sign, torch.ones_like(sign[:, :1])], dim=-1)
+    cost = sign * torch.arange(n_steps, 0, -1, dtype=val.dtype, device=val.device)[None, :]
+    idx = torch.argmin(cost, dim=-1, keepdim=True)
+    cost_min = torch.gather(cost, -1, idx)[:, 0]
+    val_at = torch.gather(val, -1, idx)[:, 0]
+    valid = (cost_min < 0) & (val_at < 0) & first_free
+
+    idx_hi = torch.clamp(idx + 1, max=n_steps - 1)
+    d_low = torch.gather(d_prop, -1, idx)[:, 0]
+    f_low = val_at
+    d_high = torch.gather(d_prop, -1, idx_hi)[:, 0]
+    f_high = torch.gather(val, -1, idx_hi)[:, 0]
+
+    d_pred = -f_low * (d_high - d_low) / (f_high - f_low + 1e-12) + d_low
+    for _ in range(n_secant):
+        p_mid = rays_o + d_pred[:, None] * rays_d_z
+        f_mid = -(sdf_observed(spec, params, p_mid, t, precision)[:, 0] - tau)
+        low = f_mid < 0
+        d_low = torch.where(low, d_pred, d_low)
+        f_low = torch.where(low, f_mid, f_low)
+        d_high = torch.where(low, d_high, d_pred)
+        f_high = torch.where(low, f_high, f_mid)
+        d_pred = -f_low * (d_high - d_low) / (f_high - f_low + 1e-12) + d_low
+
+    d_safe = torch.where(valid, d_pred, 0.5 * (near[:, 0] + far[:, 0]))
+    return d_safe[:, None], valid[:, None]
+
+
+def ray_march(spec: EndoSurfSpec, params: Params, rays: torch.Tensor, *args, **kwargs):
+    """The 128-step sphere trace (``fused_ray_march`` on the TPU)."""
+    raise NotImplementedError("not yet ported: ray_march / fused_ray_march "
+                              "(set train.surf_march_reuse: true)")
+
+
+def surface_from_samples(spec: EndoSurfSpec, params: Params, rays: torch.Tensor,
+                         z_vals: torch.Tensor, sdf: torch.Tensor, tau: float = 0.0,
+                         n_secant: int = 0, precision: str = "highest"
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Surface depth on the render's own upsample samples (march reuse):
+    the same crossing rule and validity contract as the sphere trace."""
+    rays_o, rays_d, rays_d_z, t = _split_rays(rays)
+    near, far, _ = ray_sphere_intersection(rays_o, rays_d)
+    return _locate_crossing(spec, params, rays_o, rays_d_z, t, z_vals, -(sdf - tau),
+                            near, far, tau, n_secant, precision)
+
+
+def surface_neighbour_points(spec: EndoSurfSpec, params: Params, rays: torch.Tensor,
+                             mask: torch.Tensor, neighbour_rad: float = 0.05,
+                             samples: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                             n_secant_reuse: int = 0,
+                             generator: Optional[torch.Generator] = None,
+                             offset_uniform: Optional[torch.Tensor] = None,
+                             precision: str = "highest"
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Surface points and their neighbours: (pts2 [2R, 3] -- surface points,
+    then neighbours -- and valid [R, 1]).
+
+    The surface comes from ``samples`` (the render's (up_z, up_sdf)); the
+    neighbour offsets are (u - 0.5) * neighbour_rad with u =
+    ``offset_uniform`` [R, 3] or drawn from ``generator``."""
+    rays_o, _, rays_d_z, _ = _split_rays(rays)
+    with torch.no_grad():
+        if samples is None:
+            ray_march(spec, params, rays)
+        up_z, up_sdf = samples
+        d_surf, valid = surface_from_samples(spec, params, rays, up_z, up_sdf,
+                                             n_secant=n_secant_reuse,
+                                             precision=precision)
+    valid = valid & (mask == 1)
+    p_surf = rays_o + d_surf * rays_d_z
+    if offset_uniform is None:
+        if generator is None:
+            raise ValueError("surface_neighbour_points needs a generator or offset_uniform")
+        offset_uniform = torch.rand(p_surf.shape, generator=generator, device=p_surf.device,
+                                    dtype=p_surf.dtype)
+    p_neig = p_surf + (offset_uniform - 0.5) * neighbour_rad
+    return torch.cat([p_surf, p_neig], dim=0), valid
+
+
+def surface_neighbour_error_from(g2: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Mean |n(surface) - n(neighbour)| over valid rays and the 3 axes."""
+    n_rays = g2.shape[0] // 2
+    normal = g2 / (torch.linalg.norm(g2, dim=-1, keepdim=True) + 1e-10)
+    diff = (normal[:n_rays] - normal[n_rays:]).abs()
+    valid_f = valid.to(diff.dtype)
+    denom = valid_f.sum() * 3.0
+    return (diff * valid_f).sum() / torch.clamp(denom, min=1.0)
+
+
+def surface_neighbour_error(spec: EndoSurfSpec, params: Params, rays: torch.Tensor,
+                            mask: torch.Tensor, neighbour_rad: float = 0.05,
+                            samples: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                            n_secant_reuse: int = 0,
+                            generator: Optional[torch.Generator] = None,
+                            offset_uniform: Optional[torch.Tensor] = None,
+                            precision: str = "highest",
+                            sampling_precision: Optional[str] = None) -> torch.Tensor:
+    """Normal-consistency regularizer near the surface, a masked mean. The
+    surface search runs at ``sampling_precision``, the gradients at
+    ``precision``."""
+    t = rays[..., 8:9]
+    pts2, valid = surface_neighbour_points(
+        spec, params, rays, mask, neighbour_rad, samples, n_secant_reuse, generator,
+        offset_uniform, sampling_precision or precision)
+    g = sdf_grad_observed(spec, params, pts2, torch.cat([t, t], dim=0), precision)
+    return surface_neighbour_error_from(g, valid)

@@ -1,9 +1,13 @@
 """EndoSurf neural fields: deformation, SDF, colour, deviation (port of
-``endosurf_tpu/models/fields.py``, forward only).
+``endosurf_tpu/models/fields.py``).
 
 ``fused_point_eval`` gives sdf, colour and both SDF gradients in one pass; it
-runs the explicit tangent/adjoint math of ``kernels/fused_train.py`` rather
-than autograd, which is what the render kernel computes per point.
+runs the explicit tangent/adjoint math of ``kernels/fused_train.py``, which
+is what the render kernel computes per point. That math is plain tensor
+code, so autograd differentiates it with respect to the parameters: one
+backward carries the Eikonal term's mixed second-order gradient.
+``sdf_grad_observed`` is the SDF's spatial gradient by autograd, kept
+differentiable (``create_graph``) for the losses built on it.
 """
 
 from __future__ import annotations
@@ -170,3 +174,15 @@ def fused_point_eval(spec: EndoSurfSpec, params: Params, x: torch.Tensor,
     out = forward_math(spec, prepare_effective(spec, params), x, t, d, precision)
     return {"sdf": out["sdf"][:, 0], "color": out["color"],
             "grad_o": out["grad_o"], "grad_c": out["grad_c"]}
+
+
+def sdf_grad_observed(spec: EndoSurfSpec, params: Params, x: torch.Tensor,
+                      t: torch.Tensor, precision: str = "highest") -> torch.Tensor:
+    """d sdf / d x [N, 3] at observed points. Under grad mode the result is
+    differentiable with respect to the parameters (second order)."""
+    create_graph = torch.is_grad_enabled()
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        sdf = sdf_observed(spec, params, xg, t, precision)
+        (grad,) = torch.autograd.grad(sdf.sum(), xg, create_graph=create_graph)
+    return grad

@@ -1,22 +1,37 @@
-"""Inverse-CDF sampling (port of ``endosurf_tpu/ops/pdf.py``, deterministic
-midpoint path only; the random draws and the pixel samplers serve training)."""
+"""Inverse-CDF sampling (port of ``endosurf_tpu/ops/pdf.py``).
+
+Random draws come from an explicit ``torch.Generator`` or are passed in as a
+tensor of uniforms (``u``), so a test can feed both packages the same
+numbers. ``sample_from_alias`` (the ``alias`` pixel sampler) is not ported.
+"""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 
-def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int) -> torch.Tensor:
-    """Samples [..., n_samples] at u = (j + 0.5) / n_samples of the piecewise
-    linear inverse CDF of ``weights`` [..., B-1] over ``bins`` [..., B]."""
+def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int,
+               generator: Optional[torch.Generator] = None,
+               u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Samples [..., n_samples] of the piecewise linear inverse CDF of
+    ``weights`` [..., B-1] over ``bins`` [..., B].
+
+    The quantiles are ``u`` when given, else uniforms from ``generator``,
+    else the deterministic midpoints (j + 0.5) / n_samples."""
     weights = weights + 1e-5
     pdf = weights / weights.sum(-1, keepdim=True)
     cdf = torch.cumsum(pdf, dim=-1)
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
 
-    u = torch.linspace(0.5 / n_samples, 1.0 - 0.5 / n_samples, n_samples,
-                       dtype=cdf.dtype, device=cdf.device)
-    u = u.expand(cdf.shape[:-1] + (n_samples,)).contiguous()
+    shape = cdf.shape[:-1] + (n_samples,)
+    if u is None and generator is not None:
+        u = torch.rand(shape, generator=generator, device=cdf.device, dtype=cdf.dtype)
+    if u is None:
+        u = torch.linspace(0.5 / n_samples, 1.0 - 0.5 / n_samples, n_samples,
+                           dtype=cdf.dtype, device=cdf.device)
+        u = u.expand(shape).contiguous()
 
     # searchsorted(right=True) as a compare-count, like the JAX version
     inds = (cdf[..., None, :] <= u[..., :, None]).sum(-1)
@@ -32,3 +47,24 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int) -> tor
     denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
     t = (u - cdf_below) / denom
     return bins_below + t * (bins_above - bins_below)
+
+
+def sample_from_cdf(cdf: torch.Tensor, n_samples: int,
+                    generator: Optional[torch.Generator] = None,
+                    u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Indices [n_samples] (int64) drawn from a normalized CDF [N] by binary
+    search (``searchsorted`` side="left", as ``jnp.searchsorted``), at the
+    uniforms ``u`` or fresh ones from ``generator``."""
+    if u is None:
+        u = torch.rand(n_samples, generator=generator, device=cdf.device, dtype=cdf.dtype)
+    inds = torch.searchsorted(cdf, u.to(cdf.dtype), side="left")
+    return torch.clamp(inds, 0, cdf.shape[0] - 1)
+
+
+def inverse_cdf_sample(weights: torch.Tensor, n_samples: int,
+                       generator: Optional[torch.Generator] = None,
+                       u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Indices [n_samples] drawn proportionally to unnormalized ``weights``
+    [N] (a 1e-12 floor on every weight)."""
+    cdf = torch.cumsum(weights + 1e-12, dim=0)
+    return sample_from_cdf(cdf / cdf[-1], n_samples, generator, u)

@@ -30,6 +30,17 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
     return dev
 
 
+def make_render_fn(spec: EndoSurfSpec, rspec: RenderSpec, precision: str,
+                   sampling_precision: str, use_importance: bool = True):
+    """Chunk renderer ``fn(params, rays[R, 9], step) -> maps`` for
+    ``evaluation.render_eval`` (the serving kernel on the GPU)."""
+    def fn(params, rays, step):
+        return render_rays_inference(spec, rspec, params, rays, float(step),
+                                     use_importance=use_importance, precision=precision,
+                                     sampling_precision=sampling_precision)
+    return fn
+
+
 class EndoSurfRenderer:
     def __init__(self, cfg: Union[str, Dict[str, Any]], scene: Optional[SceneData] = None,
                  params: Optional[Dict[str, Any]] = None, step: int = 0,
@@ -70,15 +81,8 @@ class EndoSurfRenderer:
 
     def render_fn(self, use_importance: bool = True):
         """Chunk renderer ``fn(params, rays[R, 9], step) -> maps``."""
-        spec, rspec = self.spec, self.rspec
-        precision, sampling = self.precision, self.sampling_precision
-
-        def fn(params, rays, step):
-            return render_rays_inference(spec, rspec, params, rays, float(step),
-                                         use_importance=use_importance,
-                                         precision=precision,
-                                         sampling_precision=sampling)
-        return fn
+        return make_render_fn(self.spec, self.rspec, self.precision,
+                              self.sampling_precision, use_importance)
 
     def demo(self, step: Optional[int] = None, test_mode: bool = False):
         """2D view synthesis of the test split or all frames: metrics and

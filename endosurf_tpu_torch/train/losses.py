@@ -1,0 +1,60 @@
+"""EndoSurf's six-term training objective (port of the EndoSurf half of
+``endosurf_tpu/train/losses.py``): masked-L1 colour, masked-L1 depth gated by
+the valid depth region, SDF and angle error at the ground-truth depth points,
+the Eikonal error, and the surface-neighbour normal consistency.
+
+All reductions are masked sums over fixed-shape tensors.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+
+def masked_l1(err: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """sum |err * mask| / (sum mask + 1e-10)."""
+    return (err * mask).abs().sum() / (mask.sum() + 1e-10)
+
+
+def masked_psnr(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """PSNR over the masked pixels of [R, 3] colours."""
+    mse = ((a - b) ** 2 * mask).sum() / ((mask.sum() + 1e-10) * 3.0)
+    return 20.0 * torch.log10(1.0 / torch.sqrt(mse))
+
+
+def endosurf_loss_terms(render_out: Dict[str, torch.Tensor], sdf_err: torch.Tensor,
+                        angle_err: torch.Tensor, valid_depth_region: torch.Tensor,
+                        surf_neig_err: torch.Tensor, batch: Dict[str, torch.Tensor],
+                        weights: Dict[str, float]
+                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(total loss, metrics) from the render, the auxiliary errors and the
+    batch's supervision."""
+    color_mask = batch["color_mask"]
+    mask = batch["mask"]
+    color_loss = masked_l1(render_out["color_map"] - batch["color"], color_mask)
+    depth_loss = masked_l1(render_out["depth_map"] - batch["depth"],
+                           valid_depth_region * mask)
+    eikonal_loss = render_out["gradient_o_error"]
+    total = (color_loss * weights["color_loss_weight"]
+             + depth_loss * weights["depth_loss_weight"]
+             + sdf_err * weights["sdf_loss_weight"]
+             + angle_err * weights["angle_loss_weight"]
+             + eikonal_loss * weights["eikonal_loss_weight"]
+             + surf_neig_err * weights["surf_neig_loss_weight"])
+    mask_sum = mask.sum() + 1e-10
+    metrics = {
+        "loss_color": color_loss,
+        "loss_depth": depth_loss,
+        "loss_sdf": sdf_err,
+        "loss_angle": angle_err,
+        "loss_eikonal": eikonal_loss,
+        "loss_surf_neig": surf_neig_err,
+        "loss_total": total,
+        "psnr_color": masked_psnr(render_out["color_map"], batch["color"], color_mask),
+        "s_val": render_out["s_val"].mean(),
+        "cdf": (render_out["cdf"][:, :1] * mask).sum() / mask_sum,
+        "weight_max": (render_out["weight_max"] * mask).sum() / mask_sum,
+    }
+    return total, metrics

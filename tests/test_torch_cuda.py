@@ -1,4 +1,7 @@
-"""The CUDA render kernel on the card, held against its plain PyTorch twin.
+"""The CUDA kernels on the card, held against their plain PyTorch twins: the
+render kernel (``fused_render_rays``) and the upsample kernel
+(``fused_upsample_z``), plus one train step with the upsample kernel against
+one with the plain upsampling.
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one. The
 file imports no JAX, so it also runs where JAX is absent:
@@ -6,7 +9,8 @@ file imports no JAX, so it also runs where JAX is absent:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 (--noconftest: tests/conftest.py sets up JAX for the other files.) The
-tolerances and their reasons are ``fused_render.PARITY_TOL``.
+tolerances and their reasons are ``fused_render.PARITY_TOL`` and
+``fused_sampler.PARITY_TOL``.
 """
 
 import os.path as osp
@@ -16,9 +20,14 @@ import pytest
 import torch
 
 from endosurf_tpu_torch.kernels import build
+from endosurf_tpu_torch.bridge import flatten
+from endosurf_tpu_torch.data.scene_data import make_synthetic_arrays
 from endosurf_tpu_torch.kernels import fused_render as fr
+from endosurf_tpu_torch.kernels import fused_sampler as fs
 from endosurf_tpu_torch.models import endosurf as es
 from endosurf_tpu_torch.models.fields import EndoSurfSpec, MLPSpec, init_endosurf_params
+from endosurf_tpu_torch.ops.geometry import ray_sphere_intersection
+from endosurf_tpu_torch.train.trainer_endosurf import make_loss_fn
 
 pytestmark = pytest.mark.cuda
 
@@ -116,3 +125,125 @@ def test_cuda_entry_checks_inputs(dev):
     with pytest.raises(ValueError, match="params on"):
         fr.fused_render_rays_cuda(NARROW, cpu_params, _rays(8, dev), 0.0, 32, 32, 4, 0.0)
     assert len(build.source_hash()) == 16
+
+
+SPECS = [NARROW, EndoSurfSpec(), EndoSurfSpec(use_deform=False)]
+SPEC_IDS = ["narrow", "full", "full-static"]
+
+
+def _upsample_inputs(n: int, dev, seed: int = 1):
+    """o, d_z, t and perturbed z0 [n, 32] for the rays of _rays."""
+    rays = _rays(n, "cpu", seed)
+    o, d, d_z, t = es._split_rays(rays)
+    near, far, _ = ray_sphere_intersection(o, d)
+    z0 = es._stratified_z(near, far, 32, torch.rand(n, 1, generator=torch.Generator().manual_seed(2)))
+    return tuple(x.contiguous().to(dev) for x in (o, d_z, t, z0))
+
+
+def _upsample(fn, spec, params, inputs, dtype, return_sdf):
+    out = fn(spec, params, *inputs, 32, 4, dtype, return_sdf)
+    return {"z": out[0], "sdf": out[1]} if return_sdf else {"z": out}
+
+
+@pytest.mark.parametrize("return_sdf", [False, True], ids=["z", "z+sdf"])
+@pytest.mark.parametrize("spec", SPECS, ids=SPEC_IDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_upsample_kernel_matches_plain_twin(dev, spec, dtype, return_sdf):
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(0), dev)
+    inputs = _upsample_inputs(1024, dev)
+    got = _upsample(fs.fused_upsample_z_cuda, spec, params, inputs, dtype, return_sdf)
+    ref = _upsample(fs.fused_upsample_z_reference, spec, params, inputs, dtype, return_sdf)
+    torch.cuda.synchronize()
+    for k in got:
+        assert got[k].shape == (1024, 64) and got[k].dtype == torch.float32
+    assert bool((got["z"].diff(dim=-1) >= 0).all())
+    errs = fs.parity_errors(got, ref, dtype)
+    assert all(v[-1] for v in errs.values()), errs
+
+
+@pytest.mark.parametrize("spec", SPECS, ids=SPEC_IDS)
+def test_upsample_parity_limits_reject_the_other_precision(dev, spec):
+    """fused_sampler.PARITY_TOL tells the dot precisions apart: the kernel at
+    one precision fails against the twin at the other."""
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(0), dev)
+    inputs = _upsample_inputs(1024, dev)
+    f32, bf16 = torch.float32, torch.bfloat16
+    for twin_dt, kernel_dt in ((bf16, f32), (f32, bf16)):
+        ref = _upsample(fs.fused_upsample_z_reference, spec, params, inputs, twin_dt, True)
+        got = _upsample(fs.fused_upsample_z_cuda, spec, params, inputs, kernel_dt, True)
+        errs = fs.parity_errors(got, ref, twin_dt)
+        assert not all(v[-1] for v in errs.values()), (twin_dt, kernel_dt, errs)
+
+
+def test_render_rays_runs_the_upsample_kernel(dev):
+    """render_rays on CUDA tensors launches the upsample kernel once per call
+    (none with upsample_kernel=False) and returns its (z, sdf)."""
+    params = init_endosurf_params(NARROW, torch.Generator().manual_seed(0), dev)
+    rays = _rays(256, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    before = fs.LAUNCHES["fused_upsample_z"]
+    out = es.render_rays(NARROW, es.RenderSpec(), params, rays, 100.0, generator=gen,
+                         return_upsample=True)
+    assert fs.LAUNCHES["fused_upsample_z"] == before + 1
+    assert out["up_z"].shape == out["up_sdf"].shape == (256, 64)
+    es.render_rays(NARROW, es.RenderSpec(), params, rays, 100.0, upsample_kernel=False)
+    assert fs.LAUNCHES["fused_upsample_z"] == before + 1
+
+
+# One train step with the upsample kernel against one with the plain
+# upsampling (same params, batch and draws): relative difference of every
+# metric, and per network the relative L2 norm of the gradient difference.
+# A draw on a bin edge moves a sample on a few rays, which moves their
+# render and, through the surface search, their neighbour points. Read on
+# an H100 (tools/read_upsample_parity.py, 1024 rays, narrow and full):
+# float32 metrics 5.2e-6, gradients 3.6e-4 at most; bf16 metrics 1.2e-3
+# (1.4e-3 on this test's loss_surf_neig), gradients 3.1e-3.
+STEP_TOL = {"highest": (1e-4, 2e-3), "default": (5e-3, 2e-2)}
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_train_step_kernel_matches_plain(dev, precision):
+    scene = make_synthetic_arrays(4, 64, 80, 0, dev)
+    params = init_endosurf_params(NARROW, torch.Generator().manual_seed(0), dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    draws = {"frame": torch.tensor(1, device=dev),
+             "u_pix": torch.rand(512, generator=gen, device=dev),
+             "z": torch.rand(512, 1, generator=gen, device=dev),
+             "neig": torch.rand(512, 3, generator=gen, device=dev)}
+    weights = {"color_loss_weight": 1.0, "depth_loss_weight": 1.0, "sdf_loss_weight": 1.0,
+               "angle_loss_weight": 0.1, "eikonal_loss_weight": 0.1,
+               "surf_neig_loss_weight": 0.1}
+    res = {}
+    for kernel in (True, False):
+        for v in flatten(params).values():
+            v.requires_grad_(True)
+            v.grad = None
+        fn = make_loss_fn(NARROW, es.RenderSpec(), 64, 80, 512, weights, 0.1,
+                          precision=precision, upsample_kernel=kernel)
+        before = fs.LAUNCHES["fused_upsample_z"]
+        total, metrics = fn(params, scene.device_arrays, 100.0, None, draws)
+        assert fs.LAUNCHES["fused_upsample_z"] == before + int(kernel)
+        total.backward()
+        res[kernel] = ({k: float(v.detach()) for k, v in metrics.items()},
+                       {k: v.grad.clone() for k, v in flatten(params).items()})
+    (mk, gk), (mp, gp) = res[True], res[False]
+    m_tol, g_tol = STEP_TOL[precision]
+    for k in mk:
+        assert abs(mk[k] - mp[k]) <= m_tol * (abs(mp[k]) + 1e-6), (k, mk[k], mp[k])
+    for net in ("deform_network", "sdf_network", "color_network", "deviation_network"):
+        keys = [k for k in gk if k.startswith(net)]
+        diff = sum(float(((gk[k] - gp[k]) ** 2).sum()) for k in keys) ** 0.5
+        norm = sum(float((gp[k] ** 2).sum()) for k in keys) ** 0.5
+        assert diff <= g_tol * norm, (net, diff, norm)
+
+
+def test_upsample_entry_checks_inputs(dev):
+    params = init_endosurf_params(NARROW, torch.Generator().manual_seed(0), dev)
+    o, d_z, t, z0 = _upsample_inputs(8, dev)
+    with pytest.raises(ValueError, match="unsupported sample counts"):
+        fs.fused_upsample_z_cuda(NARROW, params, o, d_z, t, z0, 64, 4)
+    with pytest.raises(ValueError, match="expected"):
+        fs.fused_upsample_z_cuda(NARROW, params, o, d_z, t[:4], z0, 32, 4)
+    cpu_params = init_endosurf_params(NARROW, torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="params on"):
+        fs.fused_upsample_z_cuda(NARROW, cpu_params, o, d_z, t, z0, 32, 4)

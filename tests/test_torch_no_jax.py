@@ -81,7 +81,7 @@ def test_cuda_device_without_gpu_raises():
 
 
 def test_cli_unported_mode_raises():
-    proc = _run(["-m", "endosurf_tpu_torch", "--cfg", "none.yml", "--mode", "train"])
+    proc = _run(["-m", "endosurf_tpu_torch", "--cfg", "none.yml", "--mode", "test_3d"])
     assert proc.returncode != 0 and "not yet ported" in proc.stderr
 
 

@@ -18,14 +18,18 @@ Phases (any failure raises and exits non-zero):
   5. render timing: kernel vs plain twin on one chunk in each mode;
   6. upsample parity: the CUDA fused_upsample_z against its plain twin on
      8192 rays from sample_train_batch on the synthetic scene with perturbed
-     z0, return_sdf, both dot modes, at fused_sampler.PARITY_TOL, with the
-     wrong-precision controls failing;
+     z0, return_sdf, both dot modes, two weight seeds, at
+     fused_sampler.PARITY_TOL and, on the kernel's own samples, at
+     fused_sampler.CONSISTENCY_TOL, with the wrong-precision controls
+     failing; prints every reading the limits were set from;
   7. training end to end: EndoSurfTrainer on the in-memory base.yml config
      and scene (1024 rays, all six losses, march reuse, bf16 dots), 12 steps
      through Trainer.start (2 warm-up steps, then 10), checkpoints in a
      temporary directory read back; checks one upsample launch per step,
      finite losses (logged at steps 1 and 12), the checkpoint round trip;
-     reports train rays/s and peak memory;
+     reports train rays/s and peak memory; then splits a step into forward /
+     backward / Adam (CUDA events) and traces the device's busy and idle
+     time (torch.profiler);
   8. upsample timing: kernel vs plain twin on one train batch.
 The third-to-last line is the card, the second-to-last the kernel record
 (JSON), the last the device record (JSON).
@@ -48,8 +52,11 @@ H, W = 512, 640
 CHUNK = 2048
 RAY_BATCH = 1024
 N_STEPS, N_WARM = 12, 2
+N_SPLIT = 3                                    # steps of the time split and trace
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+UPSAMPLE_KERNELS = ("sweep_kernel", "draw_kernel", "merge_kernel", "upsample_prep_kernel")
+GEMM_KERNELS = ("gemm", "xmma", "cutlass", "cublas", "sm90_", "sm80_")
 
 
 def base_cfg() -> dict:
@@ -125,6 +132,68 @@ def bound_ms(flops: float, bytes_moved: float, dtype):
     """(least time in ms, what bounds it) for the work on one H100 SXM."""
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], bytes_moved / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def train_step_split(trainer, step_ms: float, smi: str) -> None:
+    """Where a train step's time goes, after the counted run: forward /
+    backward / Adam by CUDA events, then device time by kernel family in a
+    torch.profiler trace, and the device's idle share of ``step_ms`` (the
+    untraced step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from endosurf_tpu_torch.train.trainer_endosurf import make_loss_fn
+    tc = trainer.train_cfg
+    loss_fn = make_loss_fn(trainer.spec, trainer.rspec, H, W, RAY_BATCH, trainer.loss_weights,
+                           tc["surf_neig_rad"], precision=trainer.precision,
+                           sampling_precision=trainer.sampling_precision)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    split = [0.0, 0.0, 0.0]
+    for s in range(N_SPLIT):
+        trainer.optimizer.zero_grad(set_to_none=True)
+        ev[0].record()
+        total, _ = loss_fn(trainer.params, trainer.scene.device_arrays, N_STEPS + 1 + s,
+                           trainer.generator)
+        ev[1].record()
+        total.backward()
+        ev[2].record()
+        trainer.optimizer.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        for i in range(3):
+            split[i] += ev[i].elapsed_time(ev[i + 1]) / N_SPLIT
+    whole = sum(split)
+    print(f"train step split ({smi}, CUDA events, {N_SPLIT} steps, a sync per step): "
+          f"{whole:.2f} ms = forward {split[0]:.2f} ({100 * split[0] / whole:.1f} %), "
+          f"backward {split[1]:.2f} ({100 * split[1] / whole:.1f} %), "
+          f"Adam {split[2]:.2f} ({100 * split[2] / whole:.1f} %)", flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for s in range(N_SPLIT):
+            trainer.train_step(N_STEPS + N_SPLIT + 1 + s)
+        torch.cuda.synchronize()
+    fam = {"upsample kernel": 0.0, "matrix products": 0.0, "other kernels": 0.0}
+    launches = 0
+    for evt in prof.key_averages():
+        dev_us = (getattr(evt, "self_device_time_total", None)
+                  or getattr(evt, "self_cuda_time_total", 0))
+        if dev_us <= 0 or evt.key.startswith(("aten::", "cuda", "Activity")):
+            continue
+        launches += evt.count
+        key = evt.key.lower()
+        if any(k in evt.key for k in UPSAMPLE_KERNELS):
+            fam["upsample kernel"] += dev_us / N_SPLIT / 1e3
+        elif any(k in key for k in GEMM_KERNELS):
+            fam["matrix products"] += dev_us / N_SPLIT / 1e3
+        else:
+            fam["other kernels"] += dev_us / N_SPLIT / 1e3
+    busy = sum(fam.values())
+    if busy == 0:
+        print("train step trace: the profiler recorded no device time", flush=True)
+        return
+    print(f"train step trace ({N_SPLIT} steps): device busy {busy:.2f} ms of the "
+          f"{step_ms:.1f} ms step (idle {100 * (1 - busy / step_ms):.1f} %), "
+          f"{launches // N_SPLIT} kernel launches a step; "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in fam.items()), flush=True)
 
 
 def main() -> int:
@@ -237,11 +306,11 @@ def main() -> int:
               f"({CHUNK / k_ms * 1e3:.0f} rays/s), plain {p_ms:.3f} ms "
               f"({CHUNK / p_ms * 1e3:.0f} rays/s)", flush=True)
 
-    # 6. upsample parity on train-batch rays with perturbed z0
-    gen = torch.Generator(device=dev).manual_seed(0)
+    # 6. upsample parity on train-batch rays with perturbed z0, two seeds
     arrays = renderer_scene.device_arrays
+    up_args = (rspec.n_importance, rspec.up_sample_steps)
 
-    def upsample_inputs(n):
+    def upsample_inputs(n, gen):
         rays_b = sample_train_batch(arrays, H, W, n, generator=gen)["rays"]
         rays_o, rays_d, rays_d_z, t = _split_rays(rays_b)
         near, far, _ = ray_sphere_intersection(rays_o, rays_d)
@@ -249,31 +318,48 @@ def main() -> int:
                            torch.rand(n, 1, generator=gen, device=dev))
         return rays_o, rays_d_z, t, z0
 
-    up_in = upsample_inputs(N_PARITY)
-    up_args = (rspec.n_importance, rspec.up_sample_steps)
-    ugot, uref, uerrs = {}, {}, {}
-    for name, dt in dtypes.items():
-        z, sdf = fs.fused_upsample_z_cuda(spec, params, *up_in, *up_args, dt, True)
-        ugot[name] = {"z": z, "sdf": sdf}
-        z, sdf = fs.fused_upsample_z_reference(spec, params, *up_in, *up_args, dt, True)
-        uref[name] = {"z": z, "sdf": sdf}
+    u_max_err = 0.0
+    for seed in (0, 1):
+        s_params = init_endosurf_params(spec, torch.Generator().manual_seed(seed), dev)
+        up_in = upsample_inputs(N_PARITY, torch.Generator(device=dev).manual_seed(seed))
+        ugot, uref = {}, {}
+        for name, dt in dtypes.items():
+            z, sdf = fs.fused_upsample_z_cuda(spec, s_params, *up_in, *up_args, dt, True)
+            ugot[name] = {"z": z, "sdf": sdf}
+            z, sdf = fs.fused_upsample_z_reference(spec, s_params, *up_in, *up_args, dt, True)
+            uref[name] = {"z": z, "sdf": sdf}
         torch.cuda.synchronize()
-        check(bool((ugot[name]["z"].diff(dim=-1) >= 0).all()), f"kernel z ascending ({name})")
-        uerrs[name] = fs.parity_errors(ugot[name], uref[name], dt)
-        med_tol, p99_tol, max_tol = fs.PARITY_TOL[dt]
-        for k, (med, p99, mx, ok) in uerrs[name].items():
-            print(f"upsample parity {name} {k} ({N_PARITY} rays): median {med:.3e} "
-                  f"(tol {med_tol:g}), p99 {p99:.3e} (tol {p99_tol:g}), max {mx:.3e} "
-                  f"(tol {max_tol[k]:g})", flush=True)
-    bad = [(n, k) for n, e in uerrs.items() for k, v in e.items() if not v[-1]]
-    check(not bad, f"upsample kernel vs plain twin out of tolerance: {bad}")
-    for k_name, t_name in (("float32", "bfloat16"), ("bfloat16", "float32")):
-        ctl = fs.parity_errors(ugot[k_name], uref[t_name], dtypes[t_name])
-        worst = max(ctl, key=lambda k: ctl[k][0])
-        print(f"upsample control: kernel {k_name} vs twin {t_name}: worst median {worst} "
-              f"{ctl[worst][0]:.3e} (tol {fs.PARITY_TOL[dtypes[t_name]][0]:g})", flush=True)
-        check(not all(v[-1] for v in ctl.values()),
-              f"upsample kernel {k_name} passes the {t_name} parity limits")
+        for k_name, k_dt in dtypes.items():
+            for t_name, t_dt in dtypes.items():
+                u_errs = fs.parity_errors(ugot[k_name], uref[t_name], t_dt)
+                cons = fs.consistency_report(fs.consistency_errors(
+                    spec, s_params, *up_in, ugot[k_name]["z"], ugot[k_name]["sdf"], *up_args,
+                    t_dt), t_dt)
+                tol = fs.PARITY_TOL[t_dt]
+                what = "sound" if k_name == t_name else "control"
+                for k, (med, p99, mx, share, _) in u_errs.items():
+                    print(f"upsample {what} seed {seed} kernel {k_name} twin {t_name} {k} "
+                          f"({N_PARITY} rays): median {med:.3e} (tol {tol['median']:g}), p99 "
+                          f"{p99:.3e} (tol {tol['p99']:g}), max {mx:.3e} (tol "
+                          f"{tol['max'][k]:g}), over {tol['share'][0]:g} {100 * share:.2f} % "
+                          f"(tol {100 * tol['share'][1]:g} %)", flush=True)
+                (kept,), _ = cons["kept"]
+                (sp_med, sp_share, sp_max), _ = cons["sdf_point"]
+                (judged, worst), _ = cons["draw"]
+                print(f"upsample {what} seed {seed} kernel {k_name} consistency at {t_name}: "
+                      f"z0 kept on {100 * kept:.2f} % of rays; sdf at its own z: median "
+                      f"{sp_med:.3e}, {100 * sp_share:.2f} % over "
+                      f"{fs.CONSISTENCY_TOL[t_dt]['sdf_point'][1][0]:g}, max {sp_max:.3e}; "
+                      f"draws replayed: {100 * judged:.2f} % of rays judged, worst "
+                      f"{worst:.3e} of the error model", flush=True)
+                ok = all(v[-1] for v in u_errs.values()) and all(v[1] for v in cons.values())
+                if k_name == t_name:
+                    check(ok, f"upsample kernel vs plain twin out of tolerance ({k_name}, "
+                              f"seed {seed}): {u_errs} {cons}")
+                else:   # the limits must tell the precisions apart
+                    check(not ok, f"upsample kernel {k_name} passes the {t_name} limits")
+        u_max_err = max(u_max_err, max(v[2] for v in fs.parity_errors(
+            ugot["bfloat16"], uref["bfloat16"], torch.bfloat16).values()))
 
     # 7. training end to end through the trainer's entry points
     with tempfile.TemporaryDirectory() as exp_root:
@@ -316,16 +402,18 @@ def main() -> int:
                 check(all(torch.equal(a[k], b[k].detach()) for k in b), f"checkpoint {name}")
         train_s = t2 - t1
         train_rps = (N_STEPS - N_WARM) * RAY_BATCH / train_s
+        step_ms = train_s / (N_STEPS - N_WARM) * 1e3
         last = metrics[N_STEPS]
         print(f"train: {N_STEPS} steps x {RAY_BATCH} rays, warm-up {t1 - t0:.2f} s for "
               f"{N_WARM}, then {train_s:.3f} s for {N_STEPS - N_WARM} = "
-              f"{train_s / (N_STEPS - N_WARM) * 1e3:.1f} ms/step, {train_rps:.0f} rays/s "
+              f"{step_ms:.1f} ms/step, {train_rps:.0f} rays/s "
               f"({smi}); peak memory {peak_gib:.2f} GiB; {train_launches} upsample launches; "
               f"step {N_STEPS}: " + ", ".join(f"{k[6:]} {v:.4f}" for k, v in last.items()),
               flush=True)
+        train_step_split(trainer, step_ms, smi)
 
     # 8. upsample timing on one train batch (the main path's shape), both modes
-    tb_in = upsample_inputs(RAY_BATCH)
+    tb_in = upsample_inputs(RAY_BATCH, torch.Generator(device=dev).manual_seed(2))
     utimes = {}
     for name, dt in dtypes.items():
         k_ms = cuda_ms(lambda: fs.fused_upsample_z_cuda(spec, params, *tb_in, *up_args, dt, True), 10)
@@ -333,7 +421,6 @@ def main() -> int:
         utimes[name] = (k_ms, p_ms)
         print(f"upsample timing {name} ({RAY_BATCH} rays, {smi}): kernel {k_ms:.3f} ms, "
               f"plain {p_ms:.3f} ms", flush=True)
-    step_ms = train_s / (N_STEPS - N_WARM) * 1e3
     print(f"train step breakdown (bf16): {step_ms:.1f} ms/step, upsample kernel "
           f"{utimes['bfloat16'][0]:.3f} ms ({100 * utimes['bfloat16'][0] / step_ms:.1f} %), "
           f"rest {step_ms - utimes['bfloat16'][0]:.1f} ms", flush=True)
@@ -372,7 +459,7 @@ def main() -> int:
          "source": "endosurf_tpu_torch/kernels/csrc/fused_sampler.cu",
          "replaces": "endosurf_tpu/kernels/fused_sampler.py:515",
          "launches": train_launches,
-         "max_abs_err": max(v[2] for v in uerrs["bfloat16"].values()),
+         "max_abs_err": u_max_err,
          "ms": utimes["bfloat16"][0], "plain_ms": utimes["bfloat16"][1],
          "bound_ms": u_bound, "bound_by": u_by, "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {

@@ -164,16 +164,29 @@ def fused_render_rays_reference(spec, params: Dict[str, Any], rays: torch.Tensor
                                 sampling_dtype: torch.dtype = torch.float32,
                                 main_dtype: torch.dtype = torch.float32
                                 ) -> Dict[str, torch.Tensor]:
-    """Plain PyTorch twin of the kernel: the deterministic render_rays with
-    the plain upsampling, plus the maps."""
-    from endosurf_tpu_torch.models.endosurf import RenderSpec, render_rays
+    """Plain PyTorch twin of the kernel: the deterministic render_rays
+    pipeline (stratified z, the plain ``upsample_z``, ``render_core``), plus
+    the maps."""
+    from endosurf_tpu_torch.models.endosurf import (
+        RenderSpec,
+        _split_rays,
+        _stratified_z,
+        cos_anneal_ratio,
+        render_core,
+        upsample_z,
+    )
+    from endosurf_tpu_torch.ops.geometry import ray_sphere_intersection
     rspec = RenderSpec(n_samples=n_samples, n_importance=n_importance,
                        up_sample_steps=n_rounds, anneal_end=anneal_end)
     with torch.no_grad():
-        out = render_rays(spec, rspec, params, rays, iter_step,
-                          precision=_dtype_precision(main_dtype),
-                          sampling_precision=_dtype_precision(sampling_dtype),
-                          upsample_kernel=False)
+        rays_o, rays_d, rays_d_z, t = _split_rays(rays)
+        near, far, _ = ray_sphere_intersection(rays_o, rays_d)
+        z_vals = upsample_z(spec, rspec, params, rays_o, rays_d_z, t,
+                            _stratified_z(near, far, n_samples),
+                            _dtype_precision(sampling_dtype))
+        out = render_core(spec, params, rays, z_vals, 2.0 / n_samples,
+                          cos_anneal_ratio(iter_step, anneal_end, rays.device),
+                          _dtype_precision(main_dtype))
     w = out["weights"]
     return {
         "color_map": out["color_map"],

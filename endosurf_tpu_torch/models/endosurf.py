@@ -8,9 +8,9 @@ normal-consistency error around the surface found on the render's own
 upsample samples (march reuse).
 
 ``render_rays`` is the differentiable training render. Its upsampling runs
-without gradient; with ``upsample_kernel`` it goes through
-``kernels.fused_sampler.fused_upsample_z`` (the CUDA kernel for tensors on
-the GPU, the plain ``upsample_z`` for CPU tensors). ``render_rays_inference``
+without gradient through ``kernels.fused_sampler.fused_upsample_z`` (the
+CUDA kernel for tensors on the GPU, the plain ``upsample_z`` for CPU
+tensors). ``render_rays_inference``
 is the serving entry and hands the whole pipeline to ``kernels.fused_render``.
 
 Random draws (the z jitter, the neighbour offsets) come from an explicit
@@ -184,16 +184,15 @@ def render_rays(spec: EndoSurfSpec, rspec: RenderSpec, params: Params,
                 z_uniform: Optional[torch.Tensor] = None,
                 use_importance: bool = True, precision: str = "highest",
                 sampling_precision: Optional[str] = None,
-                return_upsample: bool = False,
-                upsample_kernel: bool = True) -> Dict[str, torch.Tensor]:
+                return_upsample: bool = False) -> Dict[str, torch.Tensor]:
     """Render rays [R, 9].
 
     With ``rspec.perturb``, the per-ray z jitter is ``z_uniform`` [R, 1]
     when given, else drawn from ``generator``; with neither the render is
     deterministic. ``return_upsample`` adds the upsample stage's (z, sdf) as
-    ``up_z`` / ``up_sdf`` [R, S]. ``upsample_kernel`` sends the upsampling
-    to ``fused_upsample_z`` when the shapes allow it; without it the plain
-    ``upsample_z`` runs whatever the device.
+    ``up_z`` / ``up_sdf`` [R, S]. The upsampling is ``fused_upsample_z``:
+    on GPU tensors the CUDA kernel, which raises for sample counts it cannot
+    take.
     """
     rays_o, rays_d, rays_d_z, t = _split_rays(rays)
     near, far, _ = ray_sphere_intersection(rays_o, rays_d)
@@ -211,20 +210,11 @@ def render_rays(spec: EndoSurfSpec, rspec: RenderSpec, params: Params,
     up_sdf = None
     if importance:
         from endosurf_tpu_torch.kernels.fused_render import precision_dtype
-        from endosurf_tpu_torch.kernels.fused_sampler import (
-            fused_upsample_z,
-            upsample_shape_supported,
-        )
-        samp = sampling_precision or precision
-        with torch.no_grad():
-            if upsample_kernel and upsample_shape_supported(
-                    rspec.n_samples, rspec.n_importance, rspec.up_sample_steps):
-                res = fused_upsample_z(spec, params, rays_o, rays_d_z, t, z_vals,
-                                       rspec.n_importance, rspec.up_sample_steps,
-                                       precision_dtype(samp), return_upsample)
-            else:
-                res = upsample_z(spec, rspec, params, rays_o, rays_d_z, t, z_vals,
-                                 samp, return_upsample)
+        from endosurf_tpu_torch.kernels.fused_sampler import fused_upsample_z
+        res = fused_upsample_z(spec, params, rays_o, rays_d_z, t, z_vals,
+                               rspec.n_importance, rspec.up_sample_steps,
+                               precision_dtype(sampling_precision or precision),
+                               return_upsample)
         z_vals, up_sdf = res if return_upsample else (res, None)
 
     out = render_core(spec, params, rays, z_vals, sample_dist, anneal, precision)

@@ -17,8 +17,8 @@ Port notes:
   ``linearize`` Jacobian; ``activation_dtype``, ``jac_mode`` and ``remat``
   are JAX-only knobs and are not read here.
 - ``fold_aux_queries: true``, ``surf_march_reuse: false`` (the sphere
-  trace), ``pixel_sampler: alias`` and ``parallel.data_parallel`` are not
-  ported and raise.
+  trace), ``pixel_sampler: alias``, ``sampler_kernel: off`` and
+  ``parallel.data_parallel`` are not ported and raise.
 - Every random draw comes from one ``torch.Generator`` on the device
   (seeded from ``exp.seed``) or is passed in (``draws``): ``frame`` (index
   into list_train), ``u_pix`` [B], ``z`` [B, 1] (z jitter), ``neig`` [B, 3]
@@ -59,8 +59,7 @@ def make_loss_fn(spec: EndoSurfSpec, rspec: RenderSpec, h: int, w: int, ray_batc
                  mask_guided: bool = True, use_importance: bool = True,
                  fold_aux: bool = False, march_reuse: bool = True,
                  march_reuse_secant: int = 0, pixel_sampler: str = "cdf",
-                 precision: str = "highest", sampling_precision: Optional[str] = None,
-                 upsample_kernel: bool = True):
+                 precision: str = "highest", sampling_precision: Optional[str] = None):
     """``loss_fn(params, arrays, step, generator=None, draws=None) ->
     (total, metrics)``: batch, render, auxiliary queries and the six losses.
     Terms with zero weight are not computed."""
@@ -81,7 +80,7 @@ def make_loss_fn(spec: EndoSurfSpec, rspec: RenderSpec, h: int, w: int, ray_batc
         out = render_rays(spec, rspec, params, rays, step, generator=generator,
                           z_uniform=draws.get("z"), use_importance=use_importance,
                           precision=precision, sampling_precision=sampling_precision,
-                          return_upsample=march_reuse, upsample_kernel=upsample_kernel)
+                          return_upsample=march_reuse)
         zero = torch.zeros((), device=rays.device)
         if need_depth_terms:
             sdf_err, angle_err, valid_region = error_on_depth(
@@ -170,7 +169,9 @@ class EndoSurfTrainer(Trainer):
             raise NotImplementedError("not yet ported: train.pixel_sampler: alias")
         if cfg.get("parallel", {}).get("data_parallel", False):
             raise NotImplementedError("not yet ported: parallel.data_parallel")
-        self.upsample_kernel = tc.get("sampler_kernel", "auto") != "off"
+        if tc.get("sampler_kernel", "auto") == "off":
+            raise NotImplementedError("not yet ported: train.sampler_kernel: off "
+                                      "(the upsampling always runs fused_upsample_z)")
 
         seed = cfg.get("exp", {}).get("seed", 0)
         self.params = init_endosurf_params(self.spec, torch.Generator().manual_seed(seed),
@@ -198,8 +199,7 @@ class EndoSurfTrainer(Trainer):
                 march_reuse=tc.get("surf_march_reuse", True),
                 march_reuse_secant=tc.get("surf_march_reuse_secant", 0),
                 pixel_sampler=tc.get("pixel_sampler", "cdf"),
-                precision=self.precision, sampling_precision=self.sampling_precision,
-                upsample_kernel=self.upsample_kernel)
+                precision=self.precision, sampling_precision=self.sampling_precision)
         return self._step_fns[use_importance]
 
     def restore(self, restored: Dict[str, Any]) -> None:

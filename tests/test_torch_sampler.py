@@ -138,6 +138,39 @@ def test_return_sdf_keeps_z(case):
     assert sdf.shape == z.shape and bool(torch.isfinite(sdf).all())
 
 
+def test_consistency_checks_accept_jax_and_catch_faults(case):
+    """fused_sampler.consistency_errors at CONSISTENCY_TOL accepts the
+    interpreted JAX kernel's float32 (z, sdf), an implementation of its own,
+    and each of its checks rejects that output with a fault on 1 ray in 8: a
+    new sample moved by 1e-3, an sdf 0.1 % off, a given sample replaced.
+    (bf16 is not held here: JAX's sampling chain rounds other operands.)"""
+    set_matmul_precision("highest")
+    spec_j, pj, inputs = case
+    spec, params = _narrow(t_fields), params_from_jax(pj)
+    o, d_z, t, z0 = (torch.from_numpy(a) for a in inputs)
+    z, sdf = (torch.from_numpy(np.array(a))
+              for a in _jax_kernel(spec_j, pj, inputs, jnp.float32, True))
+
+    def report(z_, sdf_):
+        c = t_fs.consistency_errors(spec, params, o, d_z, t, z0, z_, sdf_, 32, 4)
+        return t_fs.consistency_report(c, torch.float32)
+    good = report(z, sdf)
+    assert all(ok for _, ok in good.values()), good
+
+    rows = torch.arange(0, z.shape[0], 8)
+    new_col = (~(z[:, None, :] == z0[:, :, None]).any(1)).float().argmax(-1)
+    moved = z.clone()
+    moved[rows, new_col[rows]] += 1e-3
+    order = torch.argsort(moved, dim=-1, stable=True)
+    assert not report(torch.gather(moved, 1, order), torch.gather(sdf, 1, order))["draw"][1]
+    off = sdf.clone()
+    off[rows] *= 1.001
+    assert not report(z, off)["sdf_point"][1]
+    dropped = z.clone()
+    dropped[rows, 0] -= 1e-3
+    assert not report(dropped, sdf)["kept"][1]
+
+
 def test_shape_gate_matches_jax():
     for n0 in (8, 16, 24, 32, 48, 64):
         for n_imp in (0, 8, 16, 30, 32, 48):

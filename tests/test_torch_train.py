@@ -507,7 +507,8 @@ def test_trainer_loop_cadence_and_resume(tmp_path, scenes):
 
 
 @pytest.mark.parametrize("key, value", [("megakernel", "on"), ("fold_aux_queries", True),
-                                        ("surf_march_reuse", False), ("pixel_sampler", "alias")])
+                                        ("surf_march_reuse", False), ("pixel_sampler", "alias"),
+                                        ("sampler_kernel", "off")])
 def test_unported_train_options_raise(tmp_path, scenes, key, value):
     _, st = scenes
     cfg = _tiny_cfg(tmp_path)

@@ -26,7 +26,7 @@ sys.path.insert(0, osp.dirname(osp.dirname(osp.abspath(__file__))))
 def field_flops_per_ray(n0=32, k=8, rounds=4, hidden=256):
     """FLOPs per ray of the sweeps and the field evaluation (2 per MAC)."""
     h = hidden
-    deform = 52 * h + 2 * h * h + h * (h - 52) + h * h + 3 * h * h + h * 3
+    deform = 52 * h + 3 * h * h + h * (h - 52) + h * h + 3 * h * h + h * 3
     sdf = 39 * h + 3 * h * h + (h + 39) * h + 3 * h * h + h
     sweep_points = n0 + k * (rounds - 1)
     field_points = n0 + k * rounds

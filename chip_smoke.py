@@ -2,6 +2,7 @@
 """GPU smoke test of the PyTorch/CUDA port (endosurf_tpu_torch) on one card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --train-only   # phases 1, 2 and 7's timed run, split and trace
 
 Phases (any failure raises and exits non-zero):
   1. a CUDA card must be present; prints its name and power limit;
@@ -30,9 +31,30 @@ Phases (any failure raises and exits non-zero):
      reports train rays/s and peak memory; then splits a step into forward /
      backward / Adam (CUDA events) and traces the device's busy and idle
      time (torch.profiler);
-  8. upsample timing: kernel vs plain twin on one train batch.
-The third-to-last line is the card, the second-to-last the kernel record
-(JSON), the last the device record (JSON).
+  8. upsample timing: kernel vs plain twin on one train batch;
+  9. field segment parity: the six CUDA segment kernels (deform / sdf /
+     color, forward and backward, csrc/fused_train.cu) against their plain
+     versions on the 65,536 midpoints of a real train batch
+     (sample_train_batch, then fused_upsample_z), both dot modes, two weight
+     seeds (the second on the first 16,384 points): per-point median, p99
+     and max of every output and input cotangent, relative L2 of every
+     parameter gradient, with seeded random cotangents, at
+     fused_train_cuda.PARITY_TOL, the wrong-precision controls failing;
+ 10. the whole train step with the segment kernels against one with the
+     plain field path (fields.plain_point_eval put in place of
+     fused_train.megakernel_point_eval), same params and draws, both modes:
+     metrics and per-network gradients, with the kernels at the other dot
+     precision as the control that must fail;
+ 11. segment timing: each kernel vs its plain version at 65,536 points in
+     bf16, beside its bound from the parameter shapes.
+Phase 7 also checks one launch of each segment kernel per step, and its
+trace counts the segment kernels (the weight-gradient product included) as
+their own family. The third-to-last line is the card, the second-to-last
+the kernel record (JSON), the last the device record (JSON).
+
+``--train-only`` uses only what every slice with a train step has, so a
+copy of this file placed beside an older checkout's package measures that
+checkout's step with the same trace filter.
 """
 
 from __future__ import annotations
@@ -56,6 +78,17 @@ N_SPLIT = 3                                    # steps of the time split and tra
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 UPSAMPLE_KERNELS = ("sweep_kernel", "draw_kernel", "merge_kernel", "upsample_prep_kernel")
+SEGMENT_KERNELS = ("deform_fwd_kernel", "sdf_fwd_kernel", "color_fwd_kernel", "deform_bwd_kernel",
+                   "sdf_bwd_kernel", "color_bwd_kernel", "wgrad_partial_kernel",
+                   "wgrad_reduce_kernel")
+N_PARITY_SEED1 = 16384                         # points of the second weight seed's parity
+# train step with the segment kernels vs the plain field path (phase 10):
+# (metric relative difference, per-network gradient relative L2) per dot
+# mode. Both sides run the same upsample kernel on the same draws, so only
+# the field evaluation differs. Set from H100 readings (PERF.md, PR 3): sound
+# 2.3e-7 / 1.5e-5 (f32) and 3.3e-5 / 3.7e-4 (bf16); the control, the kernels
+# at the other precision, must fail.
+WHOLE_STEP_TOL = {"highest": (1e-6, 1e-4), "default": (3e-4, 3e-3)}
 GEMM_KERNELS = ("gemm", "xmma", "cutlass", "cublas", "sm90_", "sm80_")
 
 
@@ -111,7 +144,7 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _macs(params, name, head_cols=None):
+def net_macs(params, name, head_cols=None):
     """Multiply-adds per point of a net's layers (the last layer with only
     ``head_cols`` outputs when given)."""
     layers = params[name]["layers"]
@@ -139,6 +172,7 @@ def train_step_split(trainer, step_ms: float, smi: str) -> None:
     backward / Adam by CUDA events, then device time by kernel family in a
     torch.profiler trace, and the device's idle share of ``step_ms`` (the
     untraced step)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from endosurf_tpu_torch.train.trainer_endosurf import make_loss_fn
@@ -171,16 +205,23 @@ def train_step_split(trainer, step_ms: float, smi: str) -> None:
         for s in range(N_SPLIT):
             trainer.train_step(N_STEPS + N_SPLIT + 1 + s)
         torch.cuda.synchronize()
-    fam = {"upsample kernel": 0.0, "matrix products": 0.0, "other kernels": 0.0}
-    launches = 0
+    fam = {"field segment kernels": 0.0, "upsample kernel": 0.0, "matrix products": 0.0,
+           "other kernels": 0.0}
+    launches, seg = 0, {k: 0.0 for k in SEGMENT_KERNELS}
     for evt in prof.key_averages():
         dev_us = (getattr(evt, "self_device_time_total", None)
                   or getattr(evt, "self_cuda_time_total", 0))
-        if dev_us <= 0 or evt.key.startswith(("aten::", "cuda", "Activity")):
+        # device events only: a host op's "self" device time repeats the
+        # kernels it launched outside an aten op (the ctypes launches)
+        if dev_us <= 0 or evt.device_type != DeviceType.CUDA:
             continue
         launches += evt.count
         key = evt.key.lower()
-        if any(k in evt.key for k in UPSAMPLE_KERNELS):
+        seg_name = next((k for k in SEGMENT_KERNELS if k in evt.key), None)
+        if seg_name:
+            fam["field segment kernels"] += dev_us / N_SPLIT / 1e3
+            seg[seg_name] += dev_us / N_SPLIT / 1e3
+        elif any(k in evt.key for k in UPSAMPLE_KERNELS):
             fam["upsample kernel"] += dev_us / N_SPLIT / 1e3
         elif any(k in key for k in GEMM_KERNELS):
             fam["matrix products"] += dev_us / N_SPLIT / 1e3
@@ -193,7 +234,235 @@ def train_step_split(trainer, step_ms: float, smi: str) -> None:
     print(f"train step trace ({N_SPLIT} steps): device busy {busy:.2f} ms of the "
           f"{step_ms:.1f} ms step (idle {100 * (1 - busy / step_ms):.1f} %), "
           f"{launches // N_SPLIT} kernel launches a step; "
-          + ", ".join(f"{k} {v:.2f} ms" for k, v in fam.items()), flush=True)
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in fam.items())
+          + "; segment kernels: " + ", ".join(f"{k} {v:.2f}" for k, v in seg.items()),
+          flush=True)
+
+
+def train_midpoints(spec, rspec, params, arrays, gen, dev):
+    """The section midpoints of one train batch ([R * 64] x, d, t), as the
+    train step's field evaluation gets them: sample_train_batch, jittered
+    stratified z, fused_upsample_z."""
+    from endosurf_tpu_torch.data.scene_data import sample_train_batch
+    from endosurf_tpu_torch.kernels import fused_sampler as fs
+    from endosurf_tpu_torch.models.endosurf import _split_rays, _stratified_z
+    from endosurf_tpu_torch.ops.geometry import ray_sphere_intersection
+    rays_b = sample_train_batch(arrays, H, W, RAY_BATCH, generator=gen)["rays"]
+    o, dvec, d_z, t = _split_rays(rays_b)
+    near, far, _ = ray_sphere_intersection(o, dvec)
+    z0 = _stratified_z(near, far, rspec.n_samples,
+                       torch.rand(RAY_BATCH, 1, generator=gen, device=dev))
+    z = fs.fused_upsample_z_cuda(spec, params, o, d_z, t, z0, rspec.n_importance,
+                                 rspec.up_sample_steps, torch.bfloat16, False)
+    dists = torch.cat([z[:, 1:] - z[:, :-1], torch.full_like(z[:, :1], 2.0 / rspec.n_samples)], -1)
+    mid = z + dists * 0.5
+    k = z.shape[1]
+    x = (o[:, None] + d_z[:, None] * mid[..., None]).reshape(-1, 3)
+    return (x.contiguous(), dvec[:, None].expand(-1, k, 3).reshape(-1, 3).contiguous(),
+            t[:, None].expand(-1, k, 1).reshape(-1, 1).contiguous())
+
+
+def print_segment_readings(res, what: str, dtype) -> None:
+    """One line per segment and kind: the worst reading of each statistic
+    over the entries, and the limits."""
+    from endosurf_tpu_torch.kernels import fused_train_cuda as ftc
+    for seg, kinds in res.items():
+        for kind, vals in kinds.items():
+            tol = ftc.PARITY_TOL[dtype][kind]
+            n_bad = sum(not v[-1] for v in vals.values())
+            stats = list(zip(*[v[:-1] for v in vals.values()]))
+            worst = [max(zip(col, vals), key=lambda cv: cv[0]) for col in stats]
+            label = {"out": ("median", "p99", "max"), "cot": ("p99", "max"),
+                     "leaf": ("rel L2",)}[kind]
+            tols = tol if isinstance(tol, tuple) else (tol,)
+            print(f"segment {what} {seg} {kind}: " + ", ".join(
+                f"{lab} {v:.3e} ({name}; tol {t:g})"
+                for lab, (v, name), t in zip(label, worst, tols))
+                + f"; {n_bad}/{len(vals)} over", flush=True)
+
+
+def segment_parity_phase(spec, x, d, t, dev):
+    """Phase 9; returns the max absolute error of each kernel and the
+    segments' (layers, weights, packed, inputs, cotangents) of the bf16 seed-0
+    sound run (phase 11 times them)."""
+    from endosurf_tpu_torch.kernels import fused_train_cuda as ftc
+    from endosurf_tpu_torch.models.fields import init_endosurf_params
+    abs_err, cases = {}, {}
+    for seed in (0, 1):
+        params = init_endosurf_params(spec, torch.Generator().manual_seed(seed), dev)
+        n = x.shape[0] if seed == 0 else N_PARITY_SEED1
+        for prec, other in (("highest", "default"), ("default", "highest")):
+            dtype = torch.bfloat16 if prec == "default" else torch.float32
+            for kp in (prec, other):
+                res, ae, seg_cases = ftc.segment_parity(spec, params, x[:n], d[:n], t[:n], prec,
+                                                        seed, kp)
+                torch.cuda.synchronize()
+                what = (f"{'sound' if kp == prec else 'control'} seed {seed} kernel {kp} "
+                        f"plain {prec} ({n} points)")
+                print_segment_readings(res, what, dtype)
+                if kp == prec:
+                    check(ftc.parity_ok(res), f"segment kernels vs plain out of tolerance ({what})")
+                    if seed == 0 and prec == "default":
+                        abs_err, cases = ae, seg_cases
+                else:       # each segment's limits must tell the precisions apart
+                    for seg, kinds in res.items():
+                        check(not ftc.parity_ok({seg: kinds}),
+                              f"segment {seg} kernel {kp} passes the {prec} limits")
+    return abs_err, cases
+
+
+def whole_step_vs_plain(spec, rspec, scene, dev) -> None:
+    """Phase 10: one train step (render, auxiliary queries, six losses,
+    backward) with the segment kernels against one with the plain field path
+    (``fields.plain_point_eval`` put in place of
+    ``fused_train.megakernel_point_eval``, which the card's field evaluation
+    calls), same params and draws, in each dot mode; the control runs the
+    kernels at the other precision and must fail the limits."""
+    from endosurf_tpu_torch.bridge import flatten
+    from endosurf_tpu_torch.kernels import fused_train as ft
+    from endosurf_tpu_torch.models.fields import init_endosurf_params, plain_point_eval
+    from endosurf_tpu_torch.train.trainer_endosurf import LOSS_WEIGHT_KEYS, make_loss_fn
+    tc = base_cfg()["train"]
+    weights = {k: float(tc[k]) for k in LOSS_WEIGHT_KEYS}
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(0), dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    draws = {"frame": torch.tensor(1, device=dev),
+             "u_pix": torch.rand(RAY_BATCH, generator=gen, device=dev),
+             "z": torch.rand(RAY_BATCH, 1, generator=gen, device=dev),
+             "neig": torch.rand(RAY_BATCH, 3, generator=gen, device=dev)}
+    kernel_eval = ft.megakernel_point_eval
+
+    def step(prec, field_eval):
+        ft.megakernel_point_eval = field_eval
+        try:
+            fn = make_loss_fn(spec, rspec, H, W, RAY_BATCH, weights, tc["surf_neig_rad"],
+                              precision=prec, sampling_precision=prec)
+            for v in flatten(params).values():
+                v.requires_grad_(True)
+                v.grad = None
+            total, metrics = fn(params, scene.device_arrays, 100.0, None, draws)
+            total.backward()
+        finally:
+            ft.megakernel_point_eval = kernel_eval
+        return ({k: float(v.detach()) for k, v in metrics.items()},
+                {k: v.grad.clone() for k, v in flatten(params).items()})
+
+    for prec, other in (("highest", "default"), ("default", "highest")):
+        mp, gp = step(prec, plain_point_eval)
+        runs = {"sound": step(prec, kernel_eval),
+                f"control (kernels {other})": step(prec, lambda s_, p_, x, d, t, _prec:
+                                                   kernel_eval(s_, p_, x, d, t, other))}
+        m_tol, g_tol = WHOLE_STEP_TOL[prec]
+        for what, (mk, gk) in runs.items():
+            m_rel = {k: abs(mk[k] - mp[k]) / (abs(mp[k]) + 1e-6) for k in mp}
+            g_rel = {}
+            for net in ("deform_network", "sdf_network", "color_network", "deviation_network"):
+                keys = [k for k in gk if k.startswith(net)]
+                diff = sum(float(((gk[k] - gp[k]) ** 2).sum()) for k in keys) ** 0.5
+                norm = sum(float((gp[k] ** 2).sum()) for k in keys) ** 0.5
+                g_rel[net] = diff / max(norm, 1e-30)
+            print(f"train step kernels vs plain field path ({prec}, {what}): metrics "
+                  + ", ".join(f"{k[5:]} {v:.3e}" for k, v in m_rel.items())
+                  + f" (tol {m_tol:g}); gradients " + ", ".join(
+                      f"{k.split('_')[0]} {v:.3e}" for k, v in g_rel.items())
+                  + f" (tol {g_tol:g})", flush=True)
+            ok = (all(v <= m_tol for v in m_rel.values())
+                  and all(v <= g_tol for v in g_rel.values()))
+            if what == "sound":
+                check(ok, f"step {prec} kernels vs plain: {m_rel} {g_rel}")
+            else:       # the limits must tell the precisions apart
+                check(not ok, f"step {prec}: the kernels at {other} pass the limits")
+
+
+def segment_work(params, n: int) -> dict:
+    """(flops, bytes) of each segment kernel at n points, from the parameter
+    shapes: the forwards' products (deform: primal + 3 tangents; sdf: hidden,
+    head + feature, the adjoint), the backwards' recompute, input-cotangent
+    and weight-gradient products (sdf: of the primal and of the adjoint);
+    bytes: per-point inputs and outputs once, bf16 weights, float32
+    gradients."""
+    def dims(name):
+        return [tuple(layer["v"].shape) for layer in params[name]["layers"]]
+    dd, sd, cd = dims("deform_network"), dims("sdf_network"), dims("color_network")
+    deform = sum(i * o for i, o in dd)
+    # the input cotangents of layers 1.. reach their h part only (x gets none)
+    deform_in = sum(dd[l - 1][1] * dd[l][1] for l in range(1, len(dd)))
+    s_h = sum(i * o for i, o in sd[:-1])
+    s_out = sd[-1][0] * sd[-1][1]
+    color = sum(i * o for i, o in cd)
+    feat = sd[-1][1] - 1
+    w_bytes = {k: sum(t.numel() for layer in params[k]["layers"] for t in layer.values())
+               for k in ("deform_network", "sdf_network", "color_network")}
+    macs = {"deform_fwd": 4 * deform, "deform_bwd": 4 * deform + 4 * deform_in + 4 * deform,
+            "sdf_fwd": 2 * s_h + s_out, "sdf_bwd": 6 * s_h + 3 * s_out,
+            "color_fwd": color, "color_bwd": 3 * color}
+    io = {"deform_fwd": 4 + 12, "deform_bwd": 4 + 12, "sdf_fwd": 3 + 4 + feat,
+          "sdf_bwd": 3 + 4 + feat + 3, "color_fwd": 9 + feat + 3,
+          "color_bwd": 9 + feat + 3 + 9 + feat}
+    net = {"deform": "deform_network", "sdf": "sdf_network", "color": "color_network"}
+    out = {}
+    for k, m in macs.items():
+        wb = w_bytes[net[k.split("_")[0]]] * (2 if k.endswith("fwd") else 2 + 4)
+        out[k] = (2.0 * m * n, n * io[k] * 4 + wb)
+    return out
+
+
+def segment_timing(spec, cases, reps: int) -> dict:
+    """Phase 11: device ms of each segment kernel and of its plain version
+    (forward; backward = recompute + autograd) on phase 9's bf16 inputs and
+    cotangents (the plain chain's values at a train batch's points)."""
+    from endosurf_tpu_torch.kernels import fused_train as ft
+    from endosurf_tpu_torch.kernels import fused_train_cuda as ftc
+    times = {}
+    for seg, (like, flat, packed, inputs, cots) in cases.items():
+        def plain_fwd():
+            with torch.no_grad():
+                return ft.seg_math(spec, seg, like, flat, inputs, "default")
+        times[f"{seg}_fwd"] = (cuda_ms(lambda: ftc.FWD[seg](packed, *inputs), reps),
+                               cuda_ms(plain_fwd, reps))
+        times[f"{seg}_bwd"] = (cuda_ms(lambda: ftc.BWD[seg](packed, *inputs, *cots), reps),
+                               cuda_ms(lambda: ft.plain_bwd(spec, seg, like, flat, inputs, cots,
+                                                            "default"), reps))
+    return times
+
+
+def timed_train(scene, dev, exp_root: str):
+    """Phase 7's run: EndoSurfTrainer on the in-memory base.yml config
+    through Trainer.start, N_WARM steps, then the rest. Returns (trainer,
+    warm-up s, timed s, peak GiB)."""
+    from endosurf_tpu_torch.train.trainer_endosurf import EndoSurfTrainer
+    tcfg = base_cfg()
+    tcfg["exp"]["exp_dir"] = exp_root
+    trainer = EndoSurfTrainer(tcfg, mode="train", scene=scene, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.start(log_every=N_STEPS, stop_after=N_WARM)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    trainer.start(log_every=N_STEPS)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return trainer, t1 - t0, t2 - t1, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def train_only(smi: str) -> int:
+    """``--train-only``: the build, then phase 7's timed run, split and
+    trace."""
+    from endosurf_tpu_torch.data.scene_data import make_synthetic_arrays
+    from endosurf_tpu_torch.kernels import build
+    build.load_library()
+    dev = torch.device("cuda")
+    scene = make_synthetic_arrays(n_frames=4, h=H, w=W, seed=0, device=dev)
+    with tempfile.TemporaryDirectory() as exp_root:
+        trainer, warm_s, train_s, peak_gib = timed_train(scene, dev, exp_root)
+        step_ms = train_s / (N_STEPS - N_WARM) * 1e3
+        print(f"train ({os.path.dirname(os.path.abspath(__file__))}): warm-up {warm_s:.2f} s "
+              f"for {N_WARM}, then {step_ms:.1f} ms/step, "
+              f"{RAY_BATCH / step_ms * 1e3:.0f} rays/s ({smi}); peak memory {peak_gib:.2f} GiB",
+              flush=True)
+        train_step_split(trainer, step_ms, smi)
+    return 0
 
 
 def main() -> int:
@@ -201,23 +470,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import numpy as np
-
-    from endosurf_tpu_torch.data.scene_data import (
-        frame_rays,
-        make_synthetic_arrays,
-        sample_train_batch,
-    )
-    from endosurf_tpu_torch.evaluation.render_eval import eval_frames
     from endosurf_tpu_torch.kernels import build
-    from endosurf_tpu_torch.kernels import fused_render as fr
-    from endosurf_tpu_torch.kernels import fused_sampler as fs
-    from endosurf_tpu_torch.models.endosurf import RenderSpec, _split_rays, _stratified_z
-    from endosurf_tpu_torch.models.fields import EndoSurfSpec, init_endosurf_params
-    from endosurf_tpu_torch.ops.geometry import ray_sphere_intersection
-    from endosurf_tpu_torch.serve import EndoSurfRenderer
-    from endosurf_tpu_torch.train.checkpoint import load_checkpoint
-    from endosurf_tpu_torch.train.trainer_endosurf import EndoSurfTrainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -229,6 +482,27 @@ def main() -> int:
                          check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    if sys.argv[1:] == ["--train-only"]:
+        return train_only(smi)
+    if sys.argv[1:]:
+        raise SystemExit(f"usage: {sys.argv[0]} [--train-only]")
+
+    import numpy as np
+
+    from endosurf_tpu_torch.data.scene_data import (
+        frame_rays,
+        make_synthetic_arrays,
+        sample_train_batch,
+    )
+    from endosurf_tpu_torch.evaluation.render_eval import eval_frames
+    from endosurf_tpu_torch.kernels import fused_render as fr
+    from endosurf_tpu_torch.kernels import fused_sampler as fs
+    from endosurf_tpu_torch.kernels import fused_train_cuda as ftc
+    from endosurf_tpu_torch.models.endosurf import RenderSpec, _split_rays, _stratified_z
+    from endosurf_tpu_torch.models.fields import EndoSurfSpec, init_endosurf_params
+    from endosurf_tpu_torch.ops.geometry import ray_sphere_intersection
+    from endosurf_tpu_torch.serve import EndoSurfRenderer
+    from endosurf_tpu_torch.train.checkpoint import load_checkpoint
 
     # 2. build
     t0 = time.perf_counter()
@@ -363,24 +637,17 @@ def main() -> int:
 
     # 7. training end to end through the trainer's entry points
     with tempfile.TemporaryDirectory() as exp_root:
-        tcfg = base_cfg()
-        tcfg["exp"]["exp_dir"] = exp_root
-        trainer = EndoSurfTrainer(tcfg, mode="train", scene=renderer_scene, device=dev)
         fr.LAUNCHES["fused_render_rays"] = 0
         fs.LAUNCHES["fused_upsample_z"] = 0
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        trainer.start(log_every=N_STEPS, stop_after=N_WARM)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        trainer.start(log_every=N_STEPS)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        for k in ftc.LAUNCHES:
+            ftc.LAUNCHES[k] = 0
+        trainer, warm_s, train_s, peak_gib = timed_train(renderer_scene, dev, exp_root)
         train_launches = fs.LAUNCHES["fused_upsample_z"]
+        seg_launches = dict(ftc.LAUNCHES)
         check(train_launches == N_STEPS,
               f"{train_launches} upsample launches for {N_STEPS} steps")
+        check(all(v == N_STEPS for v in seg_launches.values()),
+              f"segment kernel launches {seg_launches} for {N_STEPS} steps")
         check(fr.LAUNCHES["fused_render_rays"] == 0, "training launched the render kernel")
         metrics = {}
         with open(os.path.join(trainer.exp_dir, "logs", "metrics.jsonl")) as f:
@@ -400,14 +667,14 @@ def main() -> int:
                 continue
             for a, b in zip(restored["params"][name]["layers"], layers["layers"]):
                 check(all(torch.equal(a[k], b[k].detach()) for k in b), f"checkpoint {name}")
-        train_s = t2 - t1
         train_rps = (N_STEPS - N_WARM) * RAY_BATCH / train_s
         step_ms = train_s / (N_STEPS - N_WARM) * 1e3
         last = metrics[N_STEPS]
-        print(f"train: {N_STEPS} steps x {RAY_BATCH} rays, warm-up {t1 - t0:.2f} s for "
+        print(f"train: {N_STEPS} steps x {RAY_BATCH} rays, warm-up {warm_s:.2f} s for "
               f"{N_WARM}, then {train_s:.3f} s for {N_STEPS - N_WARM} = "
               f"{step_ms:.1f} ms/step, {train_rps:.0f} rays/s "
               f"({smi}); peak memory {peak_gib:.2f} GiB; {train_launches} upsample launches; "
+              f"segment kernel launches {seg_launches}; "
               f"step {N_STEPS}: " + ", ".join(f"{k[6:]} {v:.4f}" for k, v in last.items()),
               flush=True)
         train_step_split(trainer, step_ms, smi)
@@ -425,11 +692,28 @@ def main() -> int:
           f"{utimes['bfloat16'][0]:.3f} ms ({100 * utimes['bfloat16'][0] / step_ms:.1f} %), "
           f"rest {step_ms - utimes['bfloat16'][0]:.1f} ms", flush=True)
 
+    # 9. field segment parity on a real train batch's midpoints
+    x_mid, d_mid, t_mid = train_midpoints(spec, rspec, params, arrays,
+                                          torch.Generator(device=dev).manual_seed(3), dev)
+    seg_abs, seg_cases = segment_parity_phase(spec, x_mid, d_mid, t_mid, dev)
+
+    # 10. the whole train step, segment kernels vs the plain field path
+    whole_step_vs_plain(spec, rspec, renderer_scene, dev)
+
+    # 11. segment timing at the train step's 65,536 points, bf16
+    seg_times = segment_timing(spec, seg_cases, 3)
+    seg_work = segment_work(params, x_mid.shape[0])
+    seg_bounds = {k: bound_ms(*seg_work[k], torch.bfloat16) for k in seg_work}
+    for k, (k_ms, p_ms) in seg_times.items():
+        print(f"segment timing {k} ({x_mid.shape[0]} points, bf16, {smi}): kernel {k_ms:.3f} ms, "
+              f"plain {p_ms:.3f} ms; {seg_work[k][0] / 1e12:.4f} TFLOP -> bound "
+              f"{seg_bounds[k][0]:.4f} ms ({seg_bounds[k][1]})", flush=True)
+
     # the kernel record: work, bounds and times at the main paths' shapes (bf16)
     bf = torch.bfloat16
-    deform, sdf_hidden = _macs(params, "deform_network"), _macs(params, "sdf_network", 0)
-    sdf_full, color = _macs(params, "sdf_network"), _macs(params, "color_network")
-    chain = deform + _macs(params, "sdf_network", 1)      # deform -> sdf head
+    deform, sdf_hidden = net_macs(params, "deform_network"), net_macs(params, "sdf_network", 0)
+    sdf_full, color = net_macs(params, "sdf_network"), net_macs(params, "color_network")
+    chain = deform + net_macs(params, "sdf_network", 1)      # deform -> sdf head
     k_new = rspec.n_importance // rspec.up_sample_steps
     n_sweep = rspec.n_samples + k_new * (rspec.up_sample_steps - 1)
     n_field = rspec.n_samples + rspec.n_importance
@@ -461,7 +745,14 @@ def main() -> int:
          "launches": train_launches,
          "max_abs_err": u_max_err,
          "ms": utimes["bfloat16"][0], "plain_ms": utimes["bfloat16"][1],
-         "bound_ms": u_bound, "bound_by": u_by, "library_ms": None}]}))
+         "bound_ms": u_bound, "bound_by": u_by, "library_ms": None}] + [
+        {"name": k, "route": "cuda", "source": "endosurf_tpu_torch/kernels/csrc/fused_train.cu",
+         "replaces": f"endosurf_tpu/kernels/fused_train_pallas.py:{line}",
+         "launches": seg_launches[k], "max_abs_err": seg_abs[k],
+         "ms": seg_times[k][0], "plain_ms": seg_times[k][1],
+         "bound_ms": seg_bounds[k][0], "bound_by": seg_bounds[k][1], "library_ms": None}
+        for k, line in (("deform_fwd", 204), ("deform_bwd", 217), ("sdf_fwd", 238),
+                        ("sdf_bwd", 258), ("color_fwd", 284), ("color_bwd", 298))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

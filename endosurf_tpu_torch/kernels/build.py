@@ -107,5 +107,15 @@ def load_library() -> ctypes.CDLL:
     lib.fused_upsample_launch.restype = i32
     lib.fused_upsample_scratch_floats.argtypes = [i32]
     lib.fused_upsample_scratch_floats.restype = i64
+    # the train segments (fused_train.cu): w, meta, rb, n, then tensors, stream
+    head = [vp, ctypes.POINTER(i64), i32, i32]
+    for name, n_ptrs in (("train_deform_fwd", 3), ("train_sdf_fwd", 4),
+                         ("train_color_fwd", 5), ("train_deform_bwd", 6),
+                         ("train_sdf_bwd", 8), ("train_color_bwd", 12)):
+        fn = getattr(lib, name)
+        fn.argtypes = head + [vp] * (n_ptrs + 1)
+        fn.restype = i32
+    lib.train_bwd_sizes.argtypes = [ctypes.POINTER(i64), i32, i32, ctypes.POINTER(i64)]
+    lib.train_bwd_sizes.restype = None
     _LIB = lib
     return lib

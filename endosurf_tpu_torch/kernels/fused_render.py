@@ -165,16 +165,18 @@ def fused_render_rays_reference(spec, params: Dict[str, Any], rays: torch.Tensor
                                 main_dtype: torch.dtype = torch.float32
                                 ) -> Dict[str, torch.Tensor]:
     """Plain PyTorch twin of the kernel: the deterministic render_rays
-    pipeline (stratified z, the plain ``upsample_z``, ``render_core``), plus
-    the maps."""
+    pipeline (stratified z, the plain ``upsample_z``, the plain field math
+    ``plain_point_eval`` at the midpoints, compositing), plus the maps."""
     from endosurf_tpu_torch.models.endosurf import (
         RenderSpec,
         _split_rays,
         _stratified_z,
+        composite,
         cos_anneal_ratio,
-        render_core,
+        section_midpoints,
         upsample_z,
     )
+    from endosurf_tpu_torch.models.fields import plain_point_eval
     from endosurf_tpu_torch.ops.geometry import ray_sphere_intersection
     rspec = RenderSpec(n_samples=n_samples, n_importance=n_importance,
                        up_sample_steps=n_rounds, anneal_end=anneal_end)
@@ -184,9 +186,11 @@ def fused_render_rays_reference(spec, params: Dict[str, Any], rays: torch.Tensor
         z_vals = upsample_z(spec, rspec, params, rays_o, rays_d_z, t,
                             _stratified_z(near, far, n_samples),
                             _dtype_precision(sampling_dtype))
-        out = render_core(spec, params, rays, z_vals, 2.0 / n_samples,
-                          cos_anneal_ratio(iter_step, anneal_end, rays.device),
-                          _dtype_precision(main_dtype))
+        pts, dirs, tt, mid_z, dists = section_midpoints(rays, z_vals, 2.0 / n_samples)
+        fields = plain_point_eval(spec, params, pts.reshape(-1, 3), dirs.reshape(-1, 3),
+                                  tt.reshape(-1, 1), _dtype_precision(main_dtype))
+        out = composite(params, fields, pts, dirs, mid_z, dists,
+                        cos_anneal_ratio(iter_step, anneal_end, rays.device))
     w = out["weights"]
     return {
         "color_map": out["color_map"],

@@ -138,21 +138,37 @@ def upsample_z(spec: EndoSurfSpec, rspec: RenderSpec, params: Params,
 
 def render_core(spec: EndoSurfSpec, params: Params, rays: torch.Tensor,
                 z_vals: torch.Tensor, sample_dist: float, anneal: torch.Tensor,
-                precision: str = "highest") -> Dict[str, torch.Tensor]:
-    """Evaluate the fields at section midpoints, composite, and take the
-    Eikonal error inside the relaxed sphere |x| < 1.2."""
+                precision: str = "highest", megakernel: str = "auto"
+                ) -> Dict[str, torch.Tensor]:
+    """Evaluate the fields at section midpoints (``fused_point_eval`` with
+    ``megakernel``), composite, and take the Eikonal error inside the relaxed
+    sphere |x| < 1.2."""
+    pts, dirs, tt, mid_z, dists = section_midpoints(rays, z_vals, sample_dist)
+    out = fused_point_eval(spec, params, pts.reshape(-1, 3), dirs.reshape(-1, 3),
+                           tt.reshape(-1, 1), precision, megakernel)
+    return composite(params, out, pts, dirs, mid_z, dists, anneal)
+
+
+def section_midpoints(rays: torch.Tensor, z_vals: torch.Tensor, sample_dist: float):
+    """(pts, dirs [R, S, 3], t [R, S, 1], mid_z, dists [R, S]) at the
+    midpoints of the sections that ``z_vals`` [R, S] bound; the last section
+    is ``sample_dist`` long."""
     rays_o, rays_d, rays_d_z, t = _split_rays(rays)
     n_rays, n_samples = z_vals.shape
-
     dists = z_vals[..., 1:] - z_vals[..., :-1]
     dists = torch.cat([dists, torch.full_like(dists[..., :1], sample_dist)], dim=-1)
     mid_z = z_vals + dists * 0.5
-
     pts = rays_o[:, None, :] + rays_d_z[:, None, :] * mid_z[..., None]
     dirs = rays_d[:, None, :].expand(pts.shape)
-    tt = t[:, None, :].expand(n_rays, n_samples, 1)
-    out = fused_point_eval(spec, params, pts.reshape(-1, 3), dirs.reshape(-1, 3),
-                           tt.reshape(-1, 1), precision)
+    return pts, dirs, t[:, None, :].expand(n_rays, n_samples, 1), mid_z, dists
+
+
+def composite(params: Params, out: Dict[str, torch.Tensor], pts: torch.Tensor,
+              dirs: torch.Tensor, mid_z: torch.Tensor, dists: torch.Tensor,
+              anneal: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """NeuS compositing of the field values ``out`` (``fused_point_eval``'s,
+    flat over the [R, S] midpoints) and the Eikonal error."""
+    n_rays, n_samples = mid_z.shape
     sdf = out["sdf"].reshape(n_rays, n_samples)
     color = out["color"].reshape(n_rays, n_samples, 3)
     grad_o = out["grad_o"].reshape(n_rays, n_samples, 3)
@@ -184,7 +200,8 @@ def render_rays(spec: EndoSurfSpec, rspec: RenderSpec, params: Params,
                 z_uniform: Optional[torch.Tensor] = None,
                 use_importance: bool = True, precision: str = "highest",
                 sampling_precision: Optional[str] = None,
-                return_upsample: bool = False) -> Dict[str, torch.Tensor]:
+                return_upsample: bool = False, megakernel: str = "auto"
+                ) -> Dict[str, torch.Tensor]:
     """Render rays [R, 9].
 
     With ``rspec.perturb``, the per-ray z jitter is ``z_uniform`` [R, 1]
@@ -192,7 +209,8 @@ def render_rays(spec: EndoSurfSpec, rspec: RenderSpec, params: Params,
     deterministic. ``return_upsample`` adds the upsample stage's (z, sdf) as
     ``up_z`` / ``up_sdf`` [R, S]. The upsampling is ``fused_upsample_z``:
     on GPU tensors the CUDA kernel, which raises for sample counts it cannot
-    take.
+    take. ``megakernel`` picks the field evaluation's path
+    (``fields.fused_point_eval``).
     """
     rays_o, rays_d, rays_d_z, t = _split_rays(rays)
     near, far, _ = ray_sphere_intersection(rays_o, rays_d)
@@ -217,7 +235,7 @@ def render_rays(spec: EndoSurfSpec, rspec: RenderSpec, params: Params,
                                return_upsample)
         z_vals, up_sdf = res if return_upsample else (res, None)
 
-    out = render_core(spec, params, rays, z_vals, sample_dist, anneal, precision)
+    out = render_core(spec, params, rays, z_vals, sample_dist, anneal, precision, megakernel)
     if return_upsample:
         out["up_z"] = z_vals
         out["up_sdf"] = up_sdf

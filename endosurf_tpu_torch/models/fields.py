@@ -3,9 +3,11 @@
 
 ``fused_point_eval`` gives sdf, colour and both SDF gradients in one pass; it
 runs the explicit tangent/adjoint math of ``kernels/fused_train.py``, which
-is what the render kernel computes per point. That math is plain tensor
-code, so autograd differentiates it with respect to the parameters: one
-backward carries the Eikonal term's mixed second-order gradient.
+is what the render kernel computes per point. On the card (and with
+``megakernel: on``) it runs as three segments whose backwards are written
+out, the CUDA segment kernels; otherwise the math is plain tensor code and
+autograd differentiates it. Either way one backward carries the Eikonal
+term's mixed second-order gradient.
 ``sdf_grad_observed`` is the SDF's spatial gradient by autograd, kept
 differentiable (``create_graph``) for the losses built on it.
 """
@@ -162,14 +164,41 @@ def inv_s(params: Params) -> torch.Tensor:
                        1e-6, 1e6)
 
 
+MEGAKERNEL_MODES = ("auto", "on", "off")
+
+
 def fused_point_eval(spec: EndoSurfSpec, params: Params, x: torch.Tensor,
-                     d: torch.Tensor, t: torch.Tensor,
-                     precision: str = "highest") -> Dict[str, torch.Tensor]:
+                     d: torch.Tensor, t: torch.Tensor, precision: str = "highest",
+                     megakernel: str = "auto") -> Dict[str, torch.Tensor]:
     """x, d [N,3], t [N,1] -> {sdf [N], color [N,3], grad_o [N,3], grad_c [N,3]}.
 
     grad_o is the observed-space SDF gradient, grad_c the canonical one fed
-    to the colour net.
+    to the colour net. ``megakernel`` (``train.megakernel``) picks the path:
+    "on", and "auto" for CUDA tensors, run the three segments of
+    ``kernels.fused_train.megakernel_point_eval`` (the CUDA segment kernels
+    on the card at every point count, their plain versions on the CPU);
+    "off", and "auto" for CPU tensors, run ``plain_point_eval``. "off" on
+    CUDA tensors raises: the card always runs the kernels.
     """
+    from endosurf_tpu_torch.kernels import fused_train
+    if megakernel not in MEGAKERNEL_MODES:
+        raise ValueError(f"unknown megakernel mode {megakernel!r}")
+    if x.device.type == "cuda":
+        if megakernel == "off":
+            raise NotImplementedError("not yet ported: megakernel: off on CUDA tensors "
+                                      "(the card always runs the field segment kernels)")
+        return fused_train.megakernel_point_eval(spec, params, x, d, t, precision)
+    if megakernel == "on":
+        return fused_train.megakernel_point_eval(spec, params, x, d, t, precision)
+    return plain_point_eval(spec, params, x, d, t, precision)
+
+
+def plain_point_eval(spec: EndoSurfSpec, params: Params, x: torch.Tensor,
+                     d: torch.Tensor, t: torch.Tensor, precision: str = "highest"
+                     ) -> Dict[str, torch.Tensor]:
+    """The plain version of ``fused_point_eval``: ``kernels.fused_train.
+    forward_math`` under autograd, on any device (the CPU path, and the
+    render kernel's plain twin)."""
     from endosurf_tpu_torch.kernels.fused_train import forward_math, prepare_effective
     out = forward_math(spec, prepare_effective(spec, params), x, t, d, precision)
     return {"sdf": out["sdf"][:, 0], "color": out["color"],

@@ -8,9 +8,13 @@ through the field evaluation with autograd (the Eikonal and the two
 gradient losses are second order), and take an Adam step.
 
 Port notes:
-- The field evaluation runs as differentiable tensor code: the JAX
-  package's ``train.megakernel: off`` path. ``megakernel: on`` (the fused
-  fwd+bwd field kernels) is not ported yet; ``auto`` takes this path.
+- ``train.megakernel`` picks the field evaluation's path as in JAX. On the
+  card (``auto`` or ``on``) it runs the three field segments, forward and
+  backward, as CUDA kernels (``kernels/fused_train_cuda.py``) at every point
+  count: JAX's TPU path. On the CPU ``auto`` and ``off`` run the field math
+  under autograd (JAX's path off its accelerator), and ``on`` runs the
+  segments' plain versions. ``off`` on a CUDA device raises: the card always
+  runs the kernels.
 - ``"default"`` precision rounds every dot operand to bf16 and accumulates
   and stores in float32 (the JAX megakernel's semantics). The JAX non-kernel
   path at ``"default"`` also stores MLP activations in bf16 and uses its
@@ -39,7 +43,11 @@ from endosurf_tpu_torch.models.endosurf import (
     render_rays,
     surface_neighbour_error,
 )
-from endosurf_tpu_torch.models.fields import EndoSurfSpec, init_endosurf_params
+from endosurf_tpu_torch.models.fields import (
+    MEGAKERNEL_MODES,
+    EndoSurfSpec,
+    init_endosurf_params,
+)
 from endosurf_tpu_torch.ops.mlp import PRECISIONS
 from endosurf_tpu_torch.serve import make_render_fn
 from endosurf_tpu_torch.train.losses import endosurf_loss_terms
@@ -59,10 +67,12 @@ def make_loss_fn(spec: EndoSurfSpec, rspec: RenderSpec, h: int, w: int, ray_batc
                  mask_guided: bool = True, use_importance: bool = True,
                  fold_aux: bool = False, march_reuse: bool = True,
                  march_reuse_secant: int = 0, pixel_sampler: str = "cdf",
-                 precision: str = "highest", sampling_precision: Optional[str] = None):
+                 precision: str = "highest", sampling_precision: Optional[str] = None,
+                 megakernel: str = "auto"):
     """``loss_fn(params, arrays, step, generator=None, draws=None) ->
     (total, metrics)``: batch, render, auxiliary queries and the six losses.
-    Terms with zero weight are not computed."""
+    Terms with zero weight are not computed. ``megakernel`` picks the render's
+    field evaluation (``fields.fused_point_eval``)."""
     if fold_aux:
         raise NotImplementedError("not yet ported: train.fold_aux_queries")
     need_depth_terms = (loss_weights["sdf_loss_weight"] != 0.0
@@ -80,7 +90,7 @@ def make_loss_fn(spec: EndoSurfSpec, rspec: RenderSpec, h: int, w: int, ray_batc
         out = render_rays(spec, rspec, params, rays, step, generator=generator,
                           z_uniform=draws.get("z"), use_importance=use_importance,
                           precision=precision, sampling_precision=sampling_precision,
-                          return_upsample=march_reuse)
+                          return_upsample=march_reuse, megakernel=megakernel)
         zero = torch.zeros((), device=rays.device)
         if need_depth_terms:
             sdf_err, angle_err, valid_region = error_on_depth(
@@ -158,8 +168,12 @@ class EndoSurfTrainer(Trainer):
             if p not in PRECISIONS:
                 raise ValueError(f"unknown matmul precision {p!r}")
         self.loss_weights = {k: float(tc.get(k, 0.0)) for k in LOSS_WEIGHT_KEYS}
-        if tc.get("megakernel", "auto") == "on":
-            raise NotImplementedError("not yet ported: train.megakernel: on")
+        self.megakernel = tc.get("megakernel", "auto")
+        if self.megakernel not in MEGAKERNEL_MODES:
+            raise ValueError(f"unknown train.megakernel {self.megakernel!r}")
+        if self.megakernel == "off" and torch.device(self.device).type == "cuda":
+            raise NotImplementedError("not yet ported: train.megakernel: off on a CUDA device "
+                                      "(the card always runs the field segment kernels)")
         if tc.get("fold_aux_queries", False):
             raise NotImplementedError("not yet ported: train.fold_aux_queries")
         if not tc.get("surf_march_reuse", True) and self.loss_weights["surf_neig_loss_weight"]:
@@ -199,7 +213,8 @@ class EndoSurfTrainer(Trainer):
                 march_reuse=tc.get("surf_march_reuse", True),
                 march_reuse_secant=tc.get("surf_march_reuse_secant", 0),
                 pixel_sampler=tc.get("pixel_sampler", "cdf"),
-                precision=self.precision, sampling_precision=self.sampling_precision)
+                precision=self.precision, sampling_precision=self.sampling_precision,
+                megakernel=self.megakernel)
         return self._step_fns[use_importance]
 
     def restore(self, restored: Dict[str, Any]) -> None:

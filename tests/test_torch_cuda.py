@@ -1,7 +1,8 @@
 """The CUDA kernels on the card, held against their plain PyTorch twins: the
-render kernel (``fused_render_rays``) and the upsample kernel
-(``fused_upsample_z``), plus one train step with the upsample kernel against
-one with the plain upsampling.
+render kernel (``fused_render_rays``), the upsample kernel
+(``fused_upsample_z``) and the six field segment kernels of the train step
+(``fused_train_cuda``: deform / sdf / color, forward and backward), plus one
+train step with the upsample kernel against one with the plain upsampling.
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one. The
 file imports no JAX, so it also runs where JAX is absent:
@@ -11,8 +12,9 @@ file imports no JAX, so it also runs where JAX is absent:
 (--noconftest: tests/conftest.py sets up JAX for the other files; -rP shows
 the readings the tests print.) The tolerances and their reasons are
 ``fused_render.PARITY_TOL``, ``fused_sampler.PARITY_TOL`` and
-``fused_sampler.CONSISTENCY_TOL``; the planted-fault test rebuilds the
-kernels from a patched copy of the sources.
+``fused_sampler.CONSISTENCY_TOL``, ``fused_train_cuda.PARITY_TOL`` and
+``ORDER_TOL`` below; the planted-fault tests rebuild the kernels from a
+patched copy of the sources.
 """
 
 import os.path as osp
@@ -26,10 +28,16 @@ from endosurf_tpu_torch.bridge import flatten
 from endosurf_tpu_torch.data.scene_data import make_synthetic_arrays
 from endosurf_tpu_torch.kernels import fused_render as fr
 from endosurf_tpu_torch.kernels import fused_sampler as fs
+from endosurf_tpu_torch.kernels import fused_train_cuda as ftc
 from endosurf_tpu_torch.models import endosurf as es
-from endosurf_tpu_torch.models.fields import EndoSurfSpec, MLPSpec, init_endosurf_params
+from endosurf_tpu_torch.models.fields import (
+    EndoSurfSpec,
+    MLPSpec,
+    fused_point_eval,
+    init_endosurf_params,
+)
 from endosurf_tpu_torch.ops.geometry import ray_sphere_intersection
-from endosurf_tpu_torch.train.trainer_endosurf import make_loss_fn
+from endosurf_tpu_torch.train.trainer_endosurf import EndoSurfTrainer, make_loss_fn
 
 pytestmark = pytest.mark.cuda
 
@@ -261,7 +269,8 @@ def test_render_rays_runs_the_upsample_kernel(dev):
 
 
 # One train step with the upsample kernel against one with the plain
-# upsampling (same params, batch and draws): relative difference of every
+# upsampling (same params, batch and draws; both run the field segment
+# kernels): relative difference of every
 # metric, and per network the relative L2 norm of the gradient difference.
 # A draw on a bin edge moves a sample on a few rays, which moves their
 # render and, through the surface search, their neighbour points. This
@@ -324,3 +333,216 @@ def test_upsample_entry_checks_inputs(dev):
     cpu_params = init_endosurf_params(NARROW, torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="params on"):
         fs.fused_upsample_z_cuda(NARROW, cpu_params, o, d_z, t, z0, 32, 4)
+
+
+# ---------------------------------------------------------------------------
+# the field segment kernels of the train step (csrc/fused_train.cu)
+# ---------------------------------------------------------------------------
+
+SEG_N = 8192
+RAGGED_N = 65531          # not a multiple of the tiles or of the product's chunks
+# The same points in another order give the same kernel gradients up to the
+# order of the float32 sums over points: relative L2 per parameter leaf. In
+# bf16 each weight gradient is rounded after its sum, so another order may
+# move an element by one bf16 ulp (2^-8 relative) where the sum sits near a
+# rounding boundary.
+ORDER_TOL = {"highest": 1e-5, "default": 2.0 ** -8}
+
+
+def _seg_points(n: int, dev, seed: int = 0):
+    g = torch.Generator().manual_seed(10 + seed)
+    x = torch.rand(n, 3, generator=g) * 1.6 - 0.8
+    d = torch.randn(n, 3, generator=g)
+    d = d / d.norm(dim=-1, keepdim=True)
+    return x.to(dev), d.to(dev), torch.rand(n, 1, generator=g).to(dev)
+
+
+def _report(res):
+    return {seg: {kind: {k: v for k, v in vals.items() if not v[-1]}
+                  for kind, vals in kinds.items()} for seg, kinds in res.items()}
+
+
+def _worst(res):
+    return {f"{seg} {kind}": max(v[0] for v in vals.values())
+            for seg, kinds in res.items() for kind, vals in kinds.items()}
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("spec", SPECS, ids=SPEC_IDS)
+@pytest.mark.parametrize("precision", ["highest", "default"], ids=["f32", "bf16"])
+def test_segment_kernels_match_plain(dev, spec, precision, seed):
+    """Every segment kernel against its plain version (forward outputs,
+    parameter gradients, input cotangents) at fused_train_cuda.PARITY_TOL."""
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(seed), dev)
+    res, _, _ = ftc.segment_parity(spec, params, *_seg_points(SEG_N, dev, seed), precision, seed)
+    torch.cuda.synchronize()
+    print(f"segments sound {precision} seed {seed}: worst {_worst(res)}")
+    assert ftc.parity_ok(res), _report(res)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("spec", SPECS, ids=SPEC_IDS)
+def test_segment_limits_reject_the_other_precision(dev, spec, seed):
+    """Each segment's limits tell the dot precisions apart: its kernels at one
+    precision fail against its plain version at the other."""
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(seed), dev)
+    pts = _seg_points(SEG_N, dev, seed)
+    for prec, other in (("highest", "default"), ("default", "highest")):
+        res, _, _ = ftc.segment_parity(spec, params, *pts, prec, seed, other)
+        print(f"segments control: kernel {other} vs plain {prec} seed {seed}: worst {_worst(res)}")
+        for seg, kinds in res.items():
+            assert not ftc.parity_ok({seg: kinds}), (seg, prec)
+
+
+def _kernel_grads(spec, params, x, d, t, w, precision):
+    """Parameter gradients of a weighted sum of the fields through the
+    segment kernels (all six)."""
+    from endosurf_tpu_torch.kernels.fused_train import megakernel_point_eval
+    out = megakernel_point_eval(spec, params, x, d, t, precision)
+    total = ((out["sdf"] * w[:, 0]).sum() + (out["color"] * w).sum()
+             + (out["grad_o"] * w).sum())
+    names = list(flatten(params))
+    return dict(zip(names, torch.autograd.grad(total, list(flatten(params).values()),
+                                                allow_unused=True)))
+
+
+def _order_errors(spec, params, pts, precision, shift=5):
+    """(two calls bit-identical, per-leaf relative L2 between the points in
+    their order and rolled by ``shift``)."""
+    for v in flatten(params).values():
+        v.requires_grad_(True)
+    w = torch.randn(pts[0].shape[0], 3, generator=torch.Generator().manual_seed(4)).to(pts[0].device)
+    a = _kernel_grads(spec, params, *pts, w, precision)
+    b = _kernel_grads(spec, params, *pts, w, precision)
+    rolled = [torch.roll(p, shift, 0) for p in (*pts, w)]
+    c = _kernel_grads(spec, params, *rolled[:3], rolled[3], precision)
+    same = all((a[k] is None and b[k] is None) or torch.equal(a[k], b[k]) for k in a)
+    rel = {k: float((c[k] - a[k]).norm() / max(float(a[k].norm()), 1e-30))
+           for k in a if a[k] is not None}
+    return same, rel
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"], ids=["f32", "bf16"])
+def test_segment_kernels_ragged_and_deterministic(dev, precision):
+    """At a point count that fills no tile or chunk: parity with the plain
+    versions; two calls give identical bits (the fixed-order reduction); the
+    same points in another order give the same gradients (ORDER_TOL)."""
+    spec = EndoSurfSpec()
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(0), dev)
+    pts = _seg_points(RAGGED_N, dev)
+    res, _, _ = ftc.segment_parity(spec, params, *pts, precision, 0)
+    same, rel = _order_errors(spec, params, pts, precision)
+    print(f"segments ragged {precision}: worst {_worst(res)}; order worst "
+          f"{max(rel.values()):.3e}")
+    assert ftc.parity_ok(res), _report(res)
+    assert same
+    assert max(rel.values()) <= ORDER_TOL[precision], rel
+
+
+def test_segment_f32_tails_are_float32_noise(dev):
+    """In f32 the colour segment kernel's parameter gradients sit about as far
+    from a float64 plain version as the float32 plain version does: a relu
+    gate whose pre-activation lies within float32 noise of 0 flips in either
+    (the reason for PARITY_TOL's loose max). Per leaf relative L2 against
+    float64: the kernel's worst within 2x the float32 plain version's."""
+    from endosurf_tpu_torch.kernels import fused_train as ft
+    spec = EndoSurfSpec()
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(0), dev)
+    x, d, t = _seg_points(65536, dev)
+    with torch.no_grad():
+        eff = ft.prepare_effective(spec, params)
+        x_c, jrows = ft.seg_deform_math(spec, eff["deform"], torch.cat([x, t], -1), "highest")
+        _, feat, grad_c = ft.seg_sdf_math(spec, eff["sdf"], eff["sdf_head"], eff["sdf_feat"],
+                                          x_c, "highest")
+        _, d_c = ft.coupling_math(jrows, grad_c, d)
+    ins = (x_c, grad_c, d_c, feat)
+    g = torch.randn(x.shape[0], 3, generator=torch.Generator().manual_seed(1)).to(dev)
+    like, flat = ft.segment_weights(eff, "color")
+
+    def plain(dtype):
+        return ft.plain_bwd(spec, "color", like, [v.to(dtype) for v in flat],
+                            [v.to(dtype) for v in ins], (g.to(dtype),), "highest")[0]
+
+    ref = plain(torch.float64)
+    kernel, _ = ftc.color_bwd(ftc.pack_segment(spec, "color", flat, like, "highest"), *ins, g)
+
+    def worst(got):
+        return max(float((a.double() - r).norm() / r.norm()) for a, r in zip(got, ref))
+    k_err, p_err = worst(kernel), worst(plain(torch.float32))
+    print(f"colour leaves vs float64: kernel {k_err:.3e}, float32 plain {p_err:.3e}")
+    assert k_err <= 2 * p_err
+
+
+# Faults planted in csrc/fused_train.cu: the text replaced and its replacement.
+SEG_FAULTS = {
+    "sdf_bwd_no_softplus2": (
+        "        sv.dz[l][row] = dag * sv.a[l][row] * 100.f * sig * (1.f - sig);",
+        "        sv.dz[l][row] = 0.f;"),
+    "wgrad_skips_last_partial_tile": (
+        "  for (int k = k0; k < k1; k += 16) {",
+        "  for (int k = k0; k + 16 <= k1; k += 16) {"),
+    "deform_bwd_drops_tangent_2": (
+        "          base + p < n ? g_j[(size_t)(base + p) * 9 + k * 3 + c] : 0.f;",
+        "          base + p < n && k != 2 ? g_j[(size_t)(base + p) * 9 + k * 3 + c] : 0.f;"),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(SEG_FAULTS))
+def test_segment_limits_catch_planted_faults(dev, fault, tmp_path, monkeypatch):
+    """A segment kernel built with a planted fault fails the limits (parity
+    with the plain versions, or the order check) at the ragged point count,
+    in each dot mode."""
+    if shutil.which("nvcc") is None and not osp.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("needs nvcc")
+    old, new = SEG_FAULTS[fault]
+    src = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, src)
+    text = (src / "fused_train.cu").read_text()
+    assert text.count(old) == 1
+    (src / "fused_train.cu").write_text(text.replace(old, new))
+    monkeypatch.setattr(build, "CSRC", src)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(build, "_LIB", None)
+    spec = EndoSurfSpec()
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(0), dev)
+    pts = _seg_points(RAGGED_N, dev)
+    for precision in ("highest", "default"):
+        res, _, _ = ftc.segment_parity(spec, params, *pts, precision, 0)
+        _, rel = _order_errors(spec, params, pts, precision)
+        print(f"{fault} {precision}: parity worst {_worst(res)}; order worst "
+              f"{max(rel.values()):.3e}")
+        assert not (ftc.parity_ok(res) and max(rel.values()) <= ORDER_TOL[precision]), precision
+
+
+def test_train_step_runs_the_segment_kernels(dev, tmp_path):
+    """On CUDA tensors the train step's field evaluation launches each
+    segment kernel once (forward in the loss, backward in backward);
+    megakernel "off" (in the trainer and in fused_point_eval) and a spec the
+    kernels cannot take raise."""
+    scene = make_synthetic_arrays(4, 64, 80, 0, dev)
+    params = init_endosurf_params(NARROW, torch.Generator().manual_seed(0), dev)
+    for v in flatten(params).values():
+        v.requires_grad_(True)
+    weights = {"color_loss_weight": 1.0, "depth_loss_weight": 1.0, "sdf_loss_weight": 1.0,
+               "angle_loss_weight": 0.1, "eikonal_loss_weight": 0.1,
+               "surf_neig_loss_weight": 0.1}
+    before = dict(ftc.LAUNCHES)
+    total, _ = make_loss_fn(NARROW, es.RenderSpec(), 64, 80, 256, weights, 0.1,
+                            precision="default")(params, scene.device_arrays, 100.0,
+                                                 torch.Generator(device=dev).manual_seed(0))
+    assert {k: ftc.LAUNCHES[k] - before[k] for k in before} == {
+        k: int(k.endswith("fwd")) for k in before}
+    total.backward()
+    assert all(ftc.LAUNCHES[k] - before[k] == 1 for k in before)
+    cfg = {"exp": {"project_name": "p", "exp_name": "e", "exp_dir": str(tmp_path)},
+           "train": {"megakernel": "off", "n_iter": 1, "optim": {"lr": 1e-4}}, "net": {},
+           "render": {}}
+    with pytest.raises(NotImplementedError, match="megakernel: off"):
+        EndoSurfTrainer(cfg, scene=scene, device=dev)
+    x, d, t = _seg_points(64, dev)
+    with pytest.raises(NotImplementedError, match="megakernel: off"):
+        fused_point_eval(NARROW, params, x, d, t, megakernel="off")
+    bad = EndoSurfSpec(sdf=MLPSpec(8, 256, (4,), 257))
+    bad_params = init_endosurf_params(bad, torch.Generator().manual_seed(0), dev)
+    with pytest.raises(ValueError, match="do not take"):
+        fused_point_eval(bad, bad_params, x, d, t)

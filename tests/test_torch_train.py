@@ -506,7 +506,7 @@ def test_trainer_loop_cadence_and_resume(tmp_path, scenes):
     assert steps == [1, 2, 3, 4]
 
 
-@pytest.mark.parametrize("key, value", [("megakernel", "on"), ("fold_aux_queries", True),
+@pytest.mark.parametrize("key, value", [("fold_aux_queries", True),
                                         ("surf_march_reuse", False), ("pixel_sampler", "alias"),
                                         ("sampler_kernel", "off")])
 def test_unported_train_options_raise(tmp_path, scenes, key, value):

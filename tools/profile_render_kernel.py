@@ -22,18 +22,21 @@ import time
 
 sys.path.insert(0, osp.dirname(osp.dirname(osp.abspath(__file__))))
 
+from chip_smoke import net_macs  # noqa: E402  (the work count chip_smoke's bounds use)
 
-def field_flops_per_ray(n0=32, k=8, rounds=4, hidden=256):
-    """FLOPs per ray of the sweeps and the field evaluation (2 per MAC)."""
-    h = hidden
-    deform = 52 * h + 3 * h * h + h * (h - 52) + h * h + 3 * h * h + h * 3
-    sdf = 39 * h + 3 * h * h + (h + 39) * h + 3 * h * h + h
+
+def field_flops_per_ray(params, n0=32, k=8, rounds=4):
+    """FLOPs per ray of the sweeps and the field evaluation (2 per MAC), from
+    the parameter shapes: a sweep point runs deform -> SDF head; a field point
+    runs the deform net on 4 streams (primal + 3 tangents), the SDF net with
+    its feature columns, the adjoint over its hidden layers, and the colour
+    net."""
+    deform, color = net_macs(params, "deform_network"), net_macs(params, "color_network")
+    sdf_full, sdf_hidden = net_macs(params, "sdf_network"), net_macs(params, "sdf_network", 0)
     sweep_points = n0 + k * (rounds - 1)
     field_points = n0 + k * rounds
-    adjoint = sdf - h                                   # the same chain, reversed
-    color = 349 * h + 3 * h * h + (h + 349) * h + 3 * h * h + h * 3
-    field = 4 * deform + (sdf + h * h) + adjoint + color
-    return 2 * (sweep_points * (deform + sdf)), 2 * field_points * field
+    return (2 * sweep_points * (deform + net_macs(params, "sdf_network", 1)),
+            2 * field_points * (4 * deform + sdf_full + sdf_hidden + color))
 
 
 def main():
@@ -92,7 +95,7 @@ def main():
         ours = re.search(r"(\w+_kernel)(<\w+>)?\(", key)
         name = ours.group(1) + (ours.group(2) or "") if ours else "operand prep: " + key[:50]
         print(f"  {us / 1e3:9.3f} ms  {100 * us / max(total, 1):5.1f} %  x{n:<3d} {name}")
-    sweep_f, field_f = field_flops_per_ray()
+    sweep_f, field_f = field_flops_per_ray(params)
     flops = (sweep_f + field_f) * args.rays
     busy_ms = total / 1e3 if total > 0 else wall_ms
     if total == 0:

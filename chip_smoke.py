@@ -7,7 +7,7 @@
 Phases (any failure raises and exits non-zero):
   1. a CUDA card must be present; prints its name and power limit;
   2. builds the CUDA kernels from the sources in this checkout (one nvcc per
-     source, in parallel);
+     source, in parallel) and the host geometry library (g++);
   3. render parity: the CUDA fused_render_rays against its plain PyTorch twin
      on 8192 rays of a synthetic 512x640 frame, full-width seeded model
      (three 9x256 MLPs, 32+32 samples, 4 rounds), float32 and bf16 dot modes,
@@ -46,7 +46,29 @@ Phases (any failure raises and exits non-zero):
      metrics and per-network gradients, with the kernels at the other dot
      precision as the control that must fail;
  11. segment timing: each kernel vs its plain version at 65,536 points in
-     bf16, beside its bound from the parameter shapes.
+     bf16, beside its bound from the parameter shapes;
+ 12. grid-query parity: the CUDA fused_sdf_observed against its plain
+     version (fields.sdf_observed) on one 64x128x128 slab (1,048,576 points)
+     of the synthetic scene's frame-0 grid (its bbox x 1.2) and on 8192
+     random points with use_deform false, both dot modes, two weight seeds,
+     median / p99 / max at fused_sdf.PARITY_TOL, the wrong-precision controls
+     failing;
+ 13. the 3D demo end to end: EndoSurfRenderer.demo(demo_2d=False,
+     demo_3d=True, visualize=False) on the in-memory base.yml config and
+     scene, one test frame at 128^3: checks that the grid ran on the kernel
+     (two launches), the vertex colours on the segment forward kernels, a
+     non-empty mesh, the four PLYs and a finite geo_err_mean; prints the
+     frame's grid / mesh / colour / metrics split;
+ 14. march parity: the CUDA fused_ray_march against its plain twin
+     (models.endosurf.march_math) on a 1024-ray train batch, both dot modes,
+     two weight seeds, at fused_sampler.MARCH_TOL (flipped crossings, depth
+     median / p99, and on its own output the bracket signs and the residual
+     |sdf(depth) - tau|), the wrong-precision controls failing;
+ 15. the march train path: EndoSurfTrainer with surf_march_reuse: false,
+     4 steps through Trainer.start at full width: one march launch per
+     step, finite losses, rays/s;
+ 16. timing of the two kernels against their plain versions at the main
+     paths' shapes (1,048,576 points; 1024 rays), bf16, with their bounds.
 Phase 7 also checks one launch of each segment kernel per step, and its
 trace counts the segment kernels (the weight-gradient product included) as
 their own family. The third-to-last line is the card, the second-to-last
@@ -89,6 +111,9 @@ N_PARITY_SEED1 = 16384                         # points of the second weight see
 # 2.3e-7 / 1.5e-5 (f32) and 3.3e-5 / 3.7e-4 (bf16); the control, the kernels
 # at the other precision, must fail.
 WHOLE_STEP_TOL = {"highest": (1e-6, 1e-4), "default": (3e-4, 3e-3)}
+GRID_RES, GRID_SLAB = 128, 64                  # the demo grid and one slab of it
+N_STATIC = 8192                                # random points of the use_deform-false check
+MARCH_STEPS, MARCH_WARM = 4, 1                 # phase 15's train steps
 GEMM_KERNELS = ("gemm", "xmma", "cutlass", "cublas", "sm90_", "sm80_")
 
 
@@ -122,7 +147,8 @@ def base_cfg() -> dict:
                   "eval": {"ray_chunk": CHUNK}},
         "net": net,
         "log": {"i_eval": 0, "i_save": N_STEPS},
-        "demo": {"ray_batch": 1024},
+        "demo": {"ray_batch": 1024, "marching_cubes_resolution": GRID_RES,
+                 "marching_cubes_thresh": 0},
     }
 
 
@@ -374,6 +400,231 @@ def whole_step_vs_plain(spec, rspec, scene, dev) -> None:
                 check(not ok, f"step {prec}: the kernels at {other} pass the limits")
 
 
+def grid_slab_inputs(scene, dev):
+    """Phase 12's grid points: the first 64 x-planes of frame 0's 128^3 grid
+    over its bbox x 1.2 (as the demo builds them), at frame 0's time."""
+    from endosurf_tpu_torch.evaluation.geometry3d import grid_axes, grid_slab
+    lin = grid_axes(scene.bbox_minmax[0, :, 0] * 1.2, scene.bbox_minmax[0, :, 1] * 1.2, GRID_RES)
+    x = grid_slab(lin, 0, GRID_SLAB, dev)
+    t = scene.device_arrays["ts"][0].reshape(1, 1).expand(x.shape[0], 1).contiguous()
+    return x, t
+
+
+def sdf_query_parity(spec, scene, dev) -> float:
+    """Phase 12; returns the largest bf16 sound max error on the grid."""
+    import dataclasses
+
+    from endosurf_tpu_torch.kernels import fused_sdf as fsd
+    from endosurf_tpu_torch.models.fields import init_endosurf_params
+    grid = grid_slab_inputs(scene, dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    static_pts = (torch.rand(N_STATIC, 3, generator=gen, device=dev) * 2.4 - 1.2,
+                  torch.rand(N_STATIC, 1, generator=gen, device=dev))
+    static = dataclasses.replace(spec, use_deform=False)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    worst = 0.0
+    for seed in (0, 1):
+        for what, s_spec, (x, t) in (("grid slab", spec, grid),
+                                     ("static random", static, static_pts)):
+            params = init_endosurf_params(s_spec, torch.Generator().manual_seed(seed), dev)
+            got = {k: fsd.fused_sdf_observed_cuda(s_spec, params, x, t, dt)
+                   for k, dt in dtypes.items()}
+            ref = {k: fsd.fused_sdf_observed_reference(s_spec, params, x, t, dt)
+                   for k, dt in dtypes.items()}
+            torch.cuda.synchronize()
+            for k_name in dtypes:
+                for r_name, r_dt in dtypes.items():
+                    med, p99, mx, ok = fsd.parity_errors(got[k_name], ref[r_name], r_dt)
+                    sound = k_name == r_name
+                    print(f"sdf query {'sound' if sound else 'control'} seed {seed} {what} "
+                          f"({x.shape[0]} points) kernel {k_name} plain {r_name}: median "
+                          f"{med:.3e}, p99 {p99:.3e}, max {mx:.3e} (tol "
+                          f"{fsd.PARITY_TOL[r_dt]})", flush=True)
+                    if sound:
+                        check(ok, f"sdf query kernel vs plain ({what}, {k_name}, seed {seed})")
+                        if k_name == "bfloat16" and what == "grid slab":
+                            worst = max(worst, mx)
+                    else:   # the limits must tell the precisions apart
+                        check(not ok, f"sdf query kernel {k_name} passes the {r_name} limits")
+    return worst
+
+
+def demo_3d_phase(cfg, scene, dev) -> int:
+    """Phase 13; returns the grid kernel's launches."""
+    from endosurf_tpu_torch.kernels import fused_sdf as fsd
+    from endosurf_tpu_torch.kernels import fused_train_cuda as ftc
+    from endosurf_tpu_torch.serve import EndoSurfRenderer
+    with tempfile.TemporaryDirectory() as exp_root:
+        dcfg = json.loads(json.dumps(cfg))
+        dcfg["exp"]["exp_dir"] = exp_root
+        renderer = EndoSurfRenderer(dcfg, scene=scene, step=0, device=dev)
+        fsd.LAUNCHES["fused_sdf_observed"] = 0
+        for k in ftc.LAUNCHES:
+            ftc.LAUNCHES[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = renderer.demo(0, test_mode=True, visualize=False, demo_2d=False, demo_3d=True)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = fsd.LAUNCHES["fused_sdf_observed"]
+        seg = dict(ftc.LAUNCHES)
+        tim = stats["timing_3d"][0]
+        n_chunks = math.ceil(tim["n_verts"] / 65536)
+        d3 = os.path.join(renderer.exp_dir, "demo", "iter_00000000",
+                          f"test_3d_thresh_0_res_{GRID_RES}")
+        plys = sorted(f for f in os.listdir(d3) if f.endswith(".ply"))
+        print(f"demo 3d: 1 frame at {GRID_RES}^3 in {total_s:.2f} s: grid "
+              f"{1e3 * tim['grid']:.1f} ms ({launches} kernel launches), mesh "
+              f"{1e3 * tim['mesh']:.1f} ms, colour {1e3 * tim['color']:.1f} ms (segment "
+              f"launches {seg}), metrics {1e3 * tim['metrics']:.1f} ms; {tim['n_verts']} "
+              f"vertices, {tim['n_tris']} triangles; geo_err_mean "
+              f"{stats['geo_err_mean']:.4f} mm; {plys}", flush=True)
+        check(launches == GRID_RES // GRID_SLAB,
+              f"{launches} grid kernel launches for {GRID_RES // GRID_SLAB} slabs")
+        check(all(seg[k] == (n_chunks if k.endswith("fwd") else 0) for k in seg),
+              f"segment launches {seg} for {n_chunks} colour chunks")
+        check(tim["n_verts"] > 0 and tim["n_tris"] > 0, "empty mesh")
+        check(plys == ["000_color.ply", "000_geometry.ply", "000_gt.ply", "000_normal.ply"],
+              f"PLYs written: {plys}")
+        check(math.isfinite(stats["geo_err_mean"]), f"geo_err_mean {stats['geo_err_mean']}")
+    return launches
+
+
+def march_inputs(scene, n, gen, dev):
+    """o, d_z, t, near, far of n train rays (sample_train_batch)."""
+    from endosurf_tpu_torch.data.scene_data import sample_train_batch
+    from endosurf_tpu_torch.models.endosurf import _split_rays
+    from endosurf_tpu_torch.ops.geometry import ray_sphere_intersection
+    rays_b = sample_train_batch(scene.device_arrays, H, W, n, generator=gen)["rays"]
+    rays_o, rays_d, rays_d_z, t = _split_rays(rays_b)
+    near, far, _ = ray_sphere_intersection(rays_o, rays_d)
+    return rays_o, rays_d_z, t, near, far
+
+
+def march_parity(spec, scene, dev) -> float:
+    """Phase 14; returns the largest bf16 sound depth error."""
+    from endosurf_tpu_torch.kernels import fused_sampler as fs
+    from endosurf_tpu_torch.models.fields import init_endosurf_params
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    worst = 0.0
+    for seed in (0, 1):
+        params = init_endosurf_params(spec, torch.Generator().manual_seed(seed), dev)
+        ins = march_inputs(scene, RAY_BATCH, torch.Generator(device=dev).manual_seed(10 + seed),
+                           dev)
+        got = {k: fs.fused_ray_march_cuda(spec, params, *ins, sampling_dtype=dt)
+               for k, dt in dtypes.items()}
+        ref = {k: fs.fused_ray_march_reference(spec, params, *ins, sampling_dtype=dt)
+               for k, dt in dtypes.items()}
+        torch.cuda.synchronize()
+        for k_name in dtypes:
+            for r_name, r_dt in dtypes.items():
+                par = fs.march_parity(got[k_name], ref[r_name], r_dt)
+                own = fs.march_consistency(spec, params, *ins[:3], got[k_name], r_dt)
+                sound = k_name == r_name
+                (flip,), _ = par["flip"]
+                (med, p99), _ = par["depth"]
+                (brk,), _ = own["bracket"]
+                (r_med, r_p99, r_max), _ = own["residual"]
+                valid = float(got[k_name]["valid"].float().mean())
+                print(f"march {'sound' if sound else 'control'} seed {seed} kernel {k_name} "
+                      f"twin {r_name} ({RAY_BATCH} rays, {100 * valid:.1f} % valid): flipped "
+                      f"{100 * flip:.2f} %, depth median {med:.3e} p99 {p99:.3e}; own output: "
+                      f"bracket {brk:.3e}, residual median {r_med:.3e} p99 {r_p99:.3e} max "
+                      f"{r_max:.3e} (tol {fs.MARCH_TOL[r_dt]})", flush=True)
+                ok = all(v[1] for v in par.values()) and all(v[1] for v in own.values())
+                if sound:
+                    check(ok, f"march kernel vs plain ({k_name}, seed {seed}): {par} {own}")
+                    if k_name == "bfloat16":
+                        d = (got[k_name]["depth"] - ref[r_name]["depth"]).abs()
+                        both = got[k_name]["valid"] & ref[r_name]["valid"]
+                        worst = max(worst, float(d[both].max()) if bool(both.any()) else 0.0)
+                else:   # the limits must tell the precisions apart
+                    check(not ok, f"march kernel {k_name} passes the {r_name} limits")
+    return worst
+
+
+def march_train_phase(cfg, scene, dev, smi: str) -> int:
+    """Phase 15; returns the march kernel's launches."""
+    from endosurf_tpu_torch.kernels import fused_sampler as fs
+    from endosurf_tpu_torch.train.trainer_endosurf import EndoSurfTrainer
+    with tempfile.TemporaryDirectory() as exp_root:
+        mcfg = json.loads(json.dumps(cfg))
+        mcfg["exp"]["exp_dir"] = exp_root
+        mcfg["exp"]["exp_name"] = "chip_smoke_march"
+        mcfg["train"]["surf_march_reuse"] = False
+        mcfg["train"]["n_iter"] = MARCH_STEPS
+        mcfg["log"] = {"i_eval": 0, "i_save": MARCH_STEPS}
+        trainer = EndoSurfTrainer(mcfg, mode="train", scene=scene, device=dev)
+        fs.LAUNCHES["fused_ray_march"] = 0
+        fs.LAUNCHES["fused_upsample_z"] = 0
+        torch.cuda.synchronize()
+        trainer.start(log_every=MARCH_STEPS, stop_after=MARCH_WARM)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.start(log_every=MARCH_STEPS)
+        torch.cuda.synchronize()
+        timed_s = time.perf_counter() - t0
+        launches = fs.LAUNCHES["fused_ray_march"]
+        losses = {}
+        with open(os.path.join(trainer.exp_dir, "logs", "metrics.jsonl")) as f:
+            for line in f:
+                rec = json.loads(line)
+                if rec["tag"].startswith("train/loss"):
+                    losses.setdefault(rec["step"], {})[rec["tag"]] = rec["value"]
+        step_ms = timed_s / (MARCH_STEPS - MARCH_WARM) * 1e3
+        print(f"march train: {MARCH_STEPS} steps x {RAY_BATCH} rays (surf_march_reuse false), "
+              f"{step_ms:.1f} ms/step after {MARCH_WARM} warm-up, "
+              f"{RAY_BATCH / step_ms * 1e3:.0f} rays/s ({smi}); {launches} march launches, "
+              f"{fs.LAUNCHES['fused_upsample_z']} upsample launches; step {MARCH_STEPS}: "
+              + ", ".join(f"{k[6:]} {v:.4f}" for k, v in losses.get(MARCH_STEPS, {}).items()),
+              flush=True)
+        check(launches == MARCH_STEPS, f"{launches} march launches for {MARCH_STEPS} steps")
+        check(sorted(losses) == [1, MARCH_STEPS]
+              and all(len(m) == 7 and all(math.isfinite(v) for v in m.values())
+                      for m in losses.values()), f"losses {losses}")
+    return launches
+
+
+def chain_macs(params) -> int:
+    """Multiply-adds a point of the sampling chain (deform -> sdf head)."""
+    return net_macs(params, "deform_network") + net_macs(params, "sdf_network", 1)
+
+
+def new_kernel_timing(spec, scene, dev, smi: str) -> dict:
+    """Phase 16: device ms of fused_sdf_observed (one grid slab) and
+    fused_ray_march (1024 train rays) against their plain versions, bf16,
+    with the bound of each from the shapes."""
+    from endosurf_tpu_torch.kernels import fused_sampler as fs
+    from endosurf_tpu_torch.kernels import fused_sdf as fsd
+    from endosurf_tpu_torch.models.fields import init_endosurf_params
+    bf = torch.bfloat16
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(0), dev)
+    x, t = grid_slab_inputs(scene, dev)
+    ins = march_inputs(scene, RAY_BATCH, torch.Generator(device=dev).manual_seed(12), dev)
+    chain = chain_macs(params)
+    w_bytes = _param_bytes(params, ("deform_network", "sdf_network"), bf)
+    n = x.shape[0]
+    n_march = RAY_BATCH * (128 + 8)
+    work = {"fused_sdf_observed": (2.0 * n * chain, n * (3 + 1 + 1) * 4 + w_bytes),
+            "fused_ray_march": (2.0 * n_march * chain,
+                                RAY_BATCH * (3 + 3 + 1 + 1 + 1 + 4) * 4 + RAY_BATCH * 4
+                                + w_bytes)}
+    calls = {"fused_sdf_observed": (fsd.fused_sdf_observed_cuda,
+                                    fsd.fused_sdf_observed_reference, (x, t, bf), 3),
+             "fused_ray_march": (fs.fused_ray_march_cuda, fs.fused_ray_march_reference,
+                                 (*ins, 0.0, 128, 8, bf), 10)}
+    times = {k: tuple(cuda_ms(lambda f=f: f(spec, params, *args), reps) for f in (kern, plain))
+             for k, (kern, plain, args, reps) in calls.items()}
+    out = {}
+    for k, (k_ms, p_ms) in times.items():
+        b_ms, b_by = bound_ms(*work[k], bf)
+        out[k] = (k_ms, p_ms, b_ms, b_by)
+        print(f"{k} timing (bf16, {smi}): kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms; "
+              f"{work[k][0] / 1e12:.4f} TFLOP -> bound {b_ms:.4f} ms ({b_by}); "
+              f"{work[k][0] / k_ms / 1e9:.2f} TFLOP/s", flush=True)
+    return out
+
+
 def segment_work(params, n: int) -> dict:
     """(flops, bytes) of each segment kernel at n points, from the parameter
     shapes: the forwards' products (deform: primal + 3 tangents; sdf: hidden,
@@ -500,6 +751,7 @@ def main() -> int:
     from endosurf_tpu_torch.kernels import fused_train_cuda as ftc
     from endosurf_tpu_torch.models.endosurf import RenderSpec, _split_rays, _stratified_z
     from endosurf_tpu_torch.models.fields import EndoSurfSpec, init_endosurf_params
+    from endosurf_tpu_torch.native import build as native_build
     from endosurf_tpu_torch.ops.geometry import ray_sphere_intersection
     from endosurf_tpu_torch.serve import EndoSurfRenderer
     from endosurf_tpu_torch.train.checkpoint import load_checkpoint
@@ -512,6 +764,9 @@ def main() -> int:
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
+    t0 = time.perf_counter()
+    print(f"build: {native_build.build_library().name} (host geometry) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # 3. render parity on the card
     cfg = base_cfg()
@@ -709,11 +964,18 @@ def main() -> int:
               f"plain {p_ms:.3f} ms; {seg_work[k][0] / 1e12:.4f} TFLOP -> bound "
               f"{seg_bounds[k][0]:.4f} ms ({seg_bounds[k][1]})", flush=True)
 
+    # 12-16. the 3D demo's grid query and the sphere-traced march
+    sdf_abs = sdf_query_parity(spec, renderer_scene, dev)
+    sdf_launches = demo_3d_phase(cfg, renderer_scene, dev)
+    march_abs = march_parity(spec, renderer_scene, dev)
+    march_launches = march_train_phase(cfg, renderer_scene, dev, smi)
+    new_times = new_kernel_timing(spec, renderer_scene, dev, smi)
+
     # the kernel record: work, bounds and times at the main paths' shapes (bf16)
     bf = torch.bfloat16
     deform, sdf_hidden = net_macs(params, "deform_network"), net_macs(params, "sdf_network", 0)
     sdf_full, color = net_macs(params, "sdf_network"), net_macs(params, "color_network")
-    chain = deform + net_macs(params, "sdf_network", 1)      # deform -> sdf head
+    chain = chain_macs(params)
     k_new = rspec.n_importance // rspec.up_sample_steps
     n_sweep = rspec.n_samples + k_new * (rspec.up_sample_steps - 1)
     n_field = rspec.n_samples + rspec.n_importance
@@ -752,7 +1014,15 @@ def main() -> int:
          "ms": seg_times[k][0], "plain_ms": seg_times[k][1],
          "bound_ms": seg_bounds[k][0], "bound_by": seg_bounds[k][1], "library_ms": None}
         for k, line in (("deform_fwd", 204), ("deform_bwd", 217), ("sdf_fwd", 238),
-                        ("sdf_bwd", 258), ("color_fwd", 284), ("color_bwd", 298))]}))
+                        ("sdf_bwd", 258), ("color_fwd", 284), ("color_bwd", 298))] + [
+        {"name": k, "route": "cuda", "source": f"endosurf_tpu_torch/kernels/csrc/{src}",
+         "replaces": f"endosurf_tpu/kernels/{rep}", "launches": n_launch, "max_abs_err": err,
+         "ms": new_times[k][0], "plain_ms": new_times[k][1], "bound_ms": new_times[k][2],
+         "bound_by": new_times[k][3], "library_ms": None}
+        for k, src, rep, n_launch, err in (
+            ("fused_sdf_observed", "fused_sdf.cu", "fused_sdf.py:424", sdf_launches, sdf_abs),
+            ("fused_ray_march", "fused_sampler.cu", "fused_sampler.py:685", march_launches,
+             march_abs))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

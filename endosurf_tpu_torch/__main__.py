@@ -1,10 +1,13 @@
-"""CLI: python -m endosurf_tpu_torch --cfg <yaml> --mode train|test_2d|demo_2d
+"""CLI: python -m endosurf_tpu_torch --cfg <yaml> --mode <mode>
 
-Modes of the JAX package's CLI (``python -m endosurf_tpu``) ported so far:
+The modes of the JAX package's CLI (``python -m endosurf_tpu``):
   train    — run / resume training (EndoSurf), checkpoints into the exp dir
+  test     — test split: view synthesis + metrics, meshes + geometric error
   test_2d  — test split, view synthesis + metrics
-  demo_2d  — all frames, view synthesis + metrics
-The other modes (test, test_3d, demo, demo_3d) are not ported yet.
+  test_3d  — test split, meshes (PLYs) + geometric error (geo_err_mean, mm)
+  demo     — all frames, 2D and 3D
+  demo_2d  — all frames, 2D
+  demo_3d  — all frames, 3D
 
 The serving modes render the checkpoint that training wrote into the
 experiment directory; ``--params`` (an npz written by
@@ -18,7 +21,6 @@ from __future__ import annotations
 import argparse
 
 MODES = ("train", "test", "test_2d", "test_3d", "demo", "demo_2d", "demo_3d")
-PORTED = ("train", "test_2d", "demo_2d")
 
 
 def main(argv=None):
@@ -29,8 +31,6 @@ def main(argv=None):
     parser.add_argument("--params", default=None, help="params npz (bridge format)")
     parser.add_argument("--device", default="cuda", help="torch device, e.g. cuda or cpu")
     args = parser.parse_args(argv)
-    if args.mode not in PORTED:
-        raise NotImplementedError(f"not yet ported: --mode {args.mode}")
 
     from endosurf_tpu_torch.serve import resolve_device
     device = resolve_device(args.device)
@@ -64,7 +64,9 @@ def main(argv=None):
     if renderer.params_from_init:
         print("PARAMS|seeded init (no checkpoint, no --params): metrics are of an "
               "untrained model", flush=True)
-    return renderer.demo(test_mode=args.mode.startswith("test"))
+    return renderer.demo(test_mode=args.mode.startswith("test"),
+                         demo_2d=not args.mode.endswith("_3d"),
+                         demo_3d=not args.mode.endswith("_2d"))
 
 
 if __name__ == "__main__":

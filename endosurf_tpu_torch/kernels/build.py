@@ -107,6 +107,13 @@ def load_library() -> ctypes.CDLL:
     lib.fused_upsample_launch.restype = i32
     lib.fused_upsample_scratch_floats.argtypes = [i32]
     lib.fused_upsample_scratch_floats.restype = i64
+    lib.fused_sdf_observed_launch.argtypes = [vp, vp, i64, vp, ctypes.POINTER(i64), i32, vp, vp]
+    lib.fused_sdf_observed_launch.restype = i32
+    lib.fused_ray_march_launch.argtypes = [
+        vp, vp, vp, i32, i32, i32, ctypes.c_float, vp, ctypes.POINTER(i64), i32, vp, vp, vp, vp]
+    lib.fused_ray_march_launch.restype = i32
+    lib.fused_march_scratch_floats.argtypes = [i32, i32]
+    lib.fused_march_scratch_floats.restype = i64
     # the train segments (fused_train.cu): w, meta, rb, n, then tensors, stream
     head = [vp, ctypes.POINTER(i64), i32, i32]
     for name, n_ptrs in (("train_deform_fwd", 3), ("train_sdf_fwd", 4),

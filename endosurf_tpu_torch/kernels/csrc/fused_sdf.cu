@@ -1,0 +1,42 @@
+// EndoSurf observed-space SDF query for NVIDIA Hopper (sm_90a), CUDA C++.
+//
+// Replaces the Pallas TPU kernel endosurf_tpu/kernels/fused_sdf.py
+// (fused_sdf_observed, body _kernel via _head_query): for every point
+// (x [N, 3], t [N, 1]) the forward chain freq-encode(x, t) -> deform MLP ->
+// x_c = x + dx -> freq-encode(x_c) -> SDF MLP -> sdf [N] (column 0 of the SDF
+// output layer), without gradient. It serves the dense mesh grid of the 3D
+// demo (two 64x128x128 slabs a frame at 128^3) and every other forward-only
+// SDF query of the sampling paths.
+//
+// The kernel is sdf_chain.cuh's sweep over a PointList source, the same
+// per-point code the upsampling and the ray march run over ray samples: a
+// block of 256 threads owns 32 points, thread j computes neuron j for all of
+// them from activations in shared memory, the weights stream from L2. Any N:
+// the last block masks its tail (the TPU kernel padded to 1024). The TPU
+// kernel's selector-matmul encoding is not carried over: each encoded column
+// is one sin / cos / copy written to shared memory.
+//
+// What bounds it: the deform and SDF 9x256 MLPs, about 1.88 MFLOP a point
+// (3.94 TFLOP for a 128^3 grid); the inputs are 16 bytes a point. Plain SIMT
+// float32 FMA; tensor cores are later work.
+//
+// Precision: with rb every dot operand is rounded to bf16 and the weights
+// arrive rounded (pack_operands); products accumulate in float32. Without it
+// every dot is float32. Coordinates are not rounded (the CPU-interpreted JAX
+// kernel's semantics, ROADMAP section C).
+
+#include "sdf_chain.cuh"
+
+extern "C" {
+
+// x [n, 3], t [n, 1] float32 contiguous; out [n]; w / meta packed by
+// kernels/fused_render.pack_operands. Returns a cudaError_t (0 on success).
+int fused_sdf_observed_launch(const float* x, const float* t, long long n, const float* w,
+                              const long long* meta, int rb, float* out, void* stream) {
+  if (n <= 0) return 0;
+  const Model m = decode_model(meta);
+  PointList src{x, t, out, n};
+  return (int)launch_sweep(w, m, rb != 0, src, (cudaStream_t)stream);
+}
+
+}  // extern "C"

@@ -1,9 +1,11 @@
-// The SDF-guided upsampling shared by the render and upsample entry points
-// (fused_render.cu, fused_sampler.cu): the sampling chain observed point ->
-// deform MLP -> x_c -> SDF MLP -> sdf (kernels/fused_sdf.py's chain: skips
-// scale their input before the dot), NeuS importance weights with k
-// deterministic inverse-CDF draws (fused_sampler._upsample_round), the stable
-// sorted merge, and the host loop that runs the rounds on one stream.
+// The sampling chain observed point -> deform MLP -> x_c -> SDF MLP -> sdf
+// (kernels/fused_sdf.py's chain: skips scale their input before the dot) as
+// one sweep kernel over a point source, shared by the render, upsample, ray
+// march (fused_render.cu, fused_sampler.cu) and observed-SDF query
+// (fused_sdf.cu) entry points; and the SDF-guided upsampling: NeuS
+// importance weights with k deterministic inverse-CDF draws
+// (fused_sampler._upsample_round), the stable sorted merge, and the host loop
+// that runs the rounds on one stream.
 //
 // Everything sits in an anonymous namespace: each translation unit that
 // includes this header gets its own copy, so the shared library that
@@ -188,7 +190,45 @@ __global__ void merge_kernel(int R, float* __restrict__ zl, float* __restrict__ 
 // ---------------------------------------------------------------------------
 // SDF sweep: observed point -> sdf (deform -> x_c -> SDF head), the sampling
 // chain of kernels/fused_sdf.py. Skips scale their input before the dot.
+// The points come from a source type (Src::n, load, store): samples along
+// rays (RaySamples: the upsampling rounds and the ray march) or an explicit
+// point list (PointList: the observed-SDF query).
 // ---------------------------------------------------------------------------
+
+// Point i = (ray i / K, sample i % K) at depth z[r * ldz + j] along the ray
+// buffer's o + z d_z, time rb t; the sdf goes to dst[r * ldd + j].
+struct RaySamples {
+  const float* rb;
+  const float* z;
+  int ldz, K;
+  float* dst;
+  int ldd;
+  long long n;
+  __device__ void load(long long i, float& x0, float& x1, float& x2, float& t) const {
+    int r = (int)(i / K), j = (int)(i % K);
+    const float* b = rb + (size_t)r * RB_STRIDE;
+    float zz = z[(size_t)r * ldz + j];
+    x0 = b[0] + zz * b[3]; x1 = b[1] + zz * b[4]; x2 = b[2] + zz * b[5];
+    t = b[9];
+  }
+  __device__ void store(long long i, float v) const {
+    int r = (int)(i / K), j = (int)(i % K);
+    dst[(size_t)r * ldd + j] = v;
+  }
+};
+
+// Point i = x [n, 3], t [n, 1] (contiguous); the sdf goes to dst [n].
+struct PointList {
+  const float* x;
+  const float* t;
+  float* dst;
+  long long n;
+  __device__ void load(long long i, float& x0, float& x1, float& x2, float& tt) const {
+    x0 = x[i * 3]; x1 = x[i * 3 + 1]; x2 = x[i * 3 + 2];
+    tt = t[i];
+  }
+  __device__ void store(long long i, float v) const { dst[i] = v; }
+};
 
 __host__ __device__ inline size_t sweep_smem_floats(const Model& m) {
   int emax = m.ed > m.es ? m.ed : m.es;
@@ -232,11 +272,9 @@ __device__ void sweep_mlp(const Net& N, const float* __restrict__ wts, bool relu
   }
 }
 
-template <bool RB>
+template <bool RB, class Src>
 __global__ void __launch_bounds__(NT, 2)
-sweep_kernel(const float* __restrict__ wts, Model m, int R, int K,
-             const float* __restrict__ rb, const float* __restrict__ zsrc, int ldz,
-             float* __restrict__ dst, int ldd) {
+sweep_kernel(const float* __restrict__ wts, Model m, Src src) {
   extern __shared__ float smem[];
   const int tid = threadIdx.x;
   const int emax = m.ed > m.es ? m.ed : m.es;
@@ -247,17 +285,10 @@ sweep_kernel(const float* __restrict__ wts, Model m, int R, int K,
   float* s_es = s_e0 + P_SWEEP * emax;        // [P][emax] encoding * skip scale
 
   const long long base = (long long)blockIdx.x * P_SWEEP;
-  const long long n_pts = (long long)R * K;
   if (tid < P_SWEEP) {
     long long i = base + tid;
     float x0 = 0.f, x1 = 0.f, x2 = 0.f, t = 0.f;
-    if (i < n_pts) {
-      int r = (int)(i / K), j = (int)(i % K);
-      const float* b = rb + (size_t)r * RB_STRIDE;
-      float z = zsrc[(size_t)r * ldz + j];
-      x0 = b[0] + z * b[3]; x1 = b[1] + z * b[4]; x2 = b[2] + z * b[5];
-      t = b[9];
-    }
+    if (i < src.n) src.load(i, x0, x1, x2, t);
     s_x[tid * 4 + 0] = x0; s_x[tid * 4 + 1] = x1; s_x[tid * 4 + 2] = x2;
     s_x[tid * 4 + 3] = t;
   }
@@ -316,10 +347,7 @@ sweep_kernel(const float* __restrict__ wts, Model m, int R, int K,
     for (int k = 0; k < N.in_dim[l]; ++k)
       a = fmaf(s_h[tid * HMAX + k], __ldg(W + (size_t)k * n_out), a);
     long long i = base + tid;
-    if (i < n_pts) {
-      int r = (int)(i / K), j = (int)(i % K);
-      dst[(size_t)r * ldd + j] = a + wts[N.b_off[l]];
-    }
+    if (i < src.n) src.store(i, a + wts[N.b_off[l]]);
   }
 }
 
@@ -356,17 +384,31 @@ Model decode_model(const long long* meta) {
   return m;
 }
 
-template <bool RB>
-cudaError_t launch_sweep(const float* w, const Model& m, int R, int K, const float* rb,
-                         const float* zsrc, int ldz, float* dst, int ldd, cudaStream_t st) {
+template <bool RB, class Src>
+cudaError_t launch_sweep_t(const float* w, const Model& m, const Src& src, cudaStream_t st) {
+  if (src.n <= 0) return cudaSuccess;
   size_t smem = sweep_smem_floats(m) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(sweep_kernel<RB>,
+  cudaError_t e = cudaFuncSetAttribute(sweep_kernel<RB, Src>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  long long n = (long long)R * K;
-  int blocks = (int)((n + P_SWEEP - 1) / P_SWEEP);
-  sweep_kernel<RB><<<blocks, NT, smem, st>>>(w, m, R, K, rb, zsrc, ldz, dst, ldd);
+  long long blocks = (src.n + P_SWEEP - 1) / P_SWEEP;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  sweep_kernel<RB, Src><<<(unsigned)blocks, NT, smem, st>>>(w, m, src);
   return cudaGetLastError();
+}
+
+// The sweep at the bf16 (rb) or float32 dot precision.
+template <class Src>
+cudaError_t launch_sweep(const float* w, const Model& m, bool rb, const Src& src,
+                         cudaStream_t st) {
+  return rb ? launch_sweep_t<true>(w, m, src, st) : launch_sweep_t<false>(w, m, src, st);
+}
+
+// K samples per ray: z[r * ldz + j] -> dst[r * ldd + j], j < K.
+cudaError_t sweep_rays(const float* w, const Model& m, bool rb, int R, int K, const float* b,
+                       const float* z, int ldz, float* dst, int ldd, cudaStream_t st) {
+  RaySamples src{b, z, ldz, K, dst, ldd, (long long)R * K};
+  return launch_sweep(w, m, rb, src, st);
 }
 
 // The SDF at the n0 samples in zl, then n_rounds rounds at sharpness 64 * 2^i:
@@ -380,8 +422,7 @@ cudaError_t run_upsample_rounds(const float* w, const Model& m, bool rbf, int R,
   cudaError_t e;
   const int tpb = 128;
   const int rblocks = (R + tpb - 1) / tpb;
-  e = rbf ? launch_sweep<true>(w, m, R, n0, rb, zl, KMAX, sl, KMAX, st)
-          : launch_sweep<false>(w, m, R, n0, rb, zl, KMAX, sl, KMAX, st);
+  e = sweep_rays(w, m, rbf, R, n0, rb, zl, KMAX, sl, KMAX, st);
   if (e != cudaSuccess) return e;
   float sharpness = 64.f;  // 64 * 2^i in round i
   for (int i = 0; i < n_rounds; ++i, sharpness *= 2.f) {
@@ -390,8 +431,7 @@ cudaError_t run_upsample_rounds(const float* w, const Model& m, bool rbf, int R,
     draw_kernel<<<rblocks, tpb, 0, st>>>(R, rb, zl, sl, s, k_new, sharpness, zn);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
     if (need_sdf) {
-      e = rbf ? launch_sweep<true>(w, m, R, k_new, rb, zn, KNEW_MAX, sn, KNEW_MAX, st)
-              : launch_sweep<false>(w, m, R, k_new, rb, zn, KNEW_MAX, sn, KNEW_MAX, st);
+      e = sweep_rays(w, m, rbf, R, k_new, rb, zn, KNEW_MAX, sn, KNEW_MAX, st);
       if (e != cudaSuccess) return e;
     }
     merge_kernel<<<rblocks, tpb, 0, st>>>(R, zl, sl, s, zn, need_sdf ? sn : nullptr, k_new);

@@ -1,4 +1,5 @@
-"""SDF-guided importance upsampling: the CUDA kernel and its plain PyTorch twin.
+"""SDF-guided importance upsampling and the sphere-traced ray march: the CUDA
+kernels and their plain PyTorch twins.
 
 Port of ``endosurf_tpu/kernels/fused_sampler.py::fused_upsample_z`` (a Pallas
 TPU kernel). For rays (o, d_z [R, 3], t [R, 1]) and the caller's ascending
@@ -17,6 +18,16 @@ sample (float32). The train step runs it without gradient.
   comparison.
 * ``fused_upsample_z``: the dispatching wrapper. A CUDA tensor always goes to
   the kernel (errors propagate); a CPU tensor takes the plain twin.
+
+The ray march is the port of ``fused_sampler.py::fused_ray_march`` (a Pallas
+TPU kernel), the train step's surface search with ``surf_march_reuse:
+false``: per ray the SDF at 128 depths linspace(near, far), the first + -> -
+crossing of -(sdf - tau) and 8 secant steps; invalid rays get the chord
+midpoint. ``fused_ray_march_cuda`` launches ``csrc/fused_sampler.cu``'s
+march, ``fused_ray_march_reference`` is ``models.endosurf.march_math`` and
+``fused_ray_march`` dispatches as above. All three return depth, valid
+[R, 1] and the final bracket (d_low, d_high [R]) with the crossing's sample
+index idx [R], which the parity and consistency checks read.
 """
 
 from __future__ import annotations
@@ -35,8 +46,9 @@ from endosurf_tpu_torch.kernels.fused_render import (
 KMAX = 64       # samples per ray the kernel holds
 KNEW_MAX = 8    # new samples per round
 
-# Launches of the CUDA kernel made by fused_upsample_z_cuda (one per call).
-LAUNCHES = {"fused_upsample_z": 0}
+# Launches of the CUDA kernels made by fused_upsample_z_cuda and
+# fused_ray_march_cuda (one per call).
+LAUNCHES = {"fused_upsample_z": 0, "fused_ray_march": 0}
 
 # The limits below were set from H100 readings of the sound pairs (kernel
 # and twin at one dot precision), the wrong-precision controls and kernels
@@ -277,3 +289,164 @@ def fused_upsample_z(spec, params: Dict[str, Any], rays_o: torch.Tensor,
         raise ValueError(f"no fused_upsample_z for device {z_vals.device}")
     return fn(spec, params, rays_o, rays_d_z, t, z_vals, n_importance, n_rounds,
               sampling_dtype, return_sdf)
+
+
+# ---------------------------------------------------------------------------
+# the sphere-traced ray march
+# ---------------------------------------------------------------------------
+
+# The march judged per ray. A sign change within float noise of tau at one
+# scan sample can move the chosen crossing by a bin (or make a ray valid on
+# one side only), and then the depth jumps by about chord / 127; so
+#  * "flip": the share of rays whose valid flag or, both valid, crossing
+#    index differs from the twin's;
+#  * "depth": the (median, p99) of |depth - twin| over rays valid on both
+#    sides with the same index;
+# and, on the kernel's own output against the plain SDF at the matching
+# precision (march_consistency), free of the twin's flips:
+#  * "bracket": the largest amount by which a valid ray's final bracket
+#    ends sit on the wrong side of tau (sdf(d_low) > tau > sdf(d_high));
+#  * "residual": the (median, p99, max) of |sdf(depth) - tau| over valid
+#    rays, which a missing secant step raises.
+# Set from H100 readings (PERF.md, PR 4): chip_smoke's 1024 train rays
+# (31-50 % valid) and the card tests' cells (64 / 1024 / 4099 rays, three
+# nets, 0-100 % valid), two weight seeds. Sound float32: flips <= 0.024 %
+# (1 ray of 4099), depth median 2.4e-7 and p99 1.8e-6, bracket 7.2e-7,
+# residual max 7.2e-7. Sound bf16: flips <= 0.098 % (1 ray of 1024), depth
+# median 2.4e-7 but p99 up to 1.2e-3 (64 rays), bracket 2.7e-3, residual
+# median 7.2e-4, p99 4.0e-3, max 6.3e-3: the bf16 SDF is noisy at ~1e-3
+# along a ray, so the secant settles anywhere in a ~1e-3 band around the
+# root and the plain SDF at the kernel's points moves by an operand
+# rounding. The kernel at the other precision: flips >= 5.1 %, depth median
+# >= 6.8e-4. Planted faults (tests/test_torch_cuda.py): a crossing one bin
+# late on 1 ray in 64 turns those rays invalid (flips 0.59 %) in both modes;
+# the secant steps skipped on 1 ray in 64 raise the float32 residual max to
+# 2.0e-5, under bf16's noise.
+MARCH_TOL = {
+    torch.float32: {"flip": 0.003, "depth": (2e-6, 2e-5), "bracket": 1e-5,
+                    "residual": (1e-6, 5e-6, 1e-5)},
+    torch.bfloat16: {"flip": 0.003, "depth": (1e-5, 3e-3), "bracket": 5e-3,
+                     "residual": (2e-3, 1e-2, 1e-2)},
+}
+
+
+def march_parity(got: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor],
+                 dtype: torch.dtype) -> Dict[str, Tuple[Tuple[float, ...], bool]]:
+    """Kernel vs twin: ``flip`` (share of rays) and ``depth`` (median, p99)
+    against ``MARCH_TOL[dtype]``."""
+    tol = MARCH_TOL[dtype]
+    vg, vr = got["valid"][:, 0], ref["valid"][:, 0]
+    both = vg & vr
+    same = both & (got["idx"] == ref["idx"])
+    flip = float(((vg != vr) | (both & (got["idx"] != ref["idx"]))).float().mean())
+    d = (got["depth"][:, 0] - ref["depth"][:, 0]).abs()[same].float()
+    med = float(d.median()) if d.numel() else 0.0
+    p99 = float(torch.quantile(d, 0.99)) if d.numel() else 0.0
+    return {"flip": ((flip,), flip <= tol["flip"]),
+            "depth": ((med, p99), med <= tol["depth"][0] and p99 <= tol["depth"][1])}
+
+
+def march_consistency(spec, params: Dict[str, Any], rays_o: torch.Tensor,
+                      rays_d_z: torch.Tensor, t: torch.Tensor, out: Dict[str, torch.Tensor],
+                      dtype: torch.dtype, tau: float = 0.0
+                      ) -> Dict[str, Tuple[Tuple[float, ...], bool]]:
+    """A march result on its own, against the plain SDF at ``dtype``'s
+    precision on its valid rays: ``bracket`` (max over rays of how far
+    sdf(d_low) - tau and tau - sdf(d_high) fall below 0) and ``residual``
+    (median, p99, max of |sdf(depth) - tau|), against ``MARCH_TOL[dtype]``."""
+    from endosurf_tpu_torch.models.fields import sdf_observed
+    tol = MARCH_TOL[dtype]
+    valid = out["valid"][:, 0]
+    if not bool(valid.any()):
+        return {"bracket": ((0.0,), True), "residual": ((0.0, 0.0, 0.0), True)}
+    o, dz, tt = rays_o[valid], rays_d_z[valid], t[valid]
+    prec = _dtype_precision(dtype)
+    with torch.no_grad():
+        def sdf_at(depth):
+            return sdf_observed(spec, params, o + depth[:, None] * dz, tt, prec)[:, 0] - tau
+        lo, hi = sdf_at(out["d_low"][valid]), sdf_at(out["d_high"][valid])
+        res = sdf_at(out["depth"][valid, 0]).abs().float()
+    wrong = float(torch.maximum(torch.relu(-lo), torch.relu(hi)).max())
+    med, p99, mx = float(res.median()), float(torch.quantile(res, 0.99)), float(res.max())
+    r_tol = tol["residual"]
+    return {"bracket": ((wrong,), wrong <= tol["bracket"]),
+            "residual": ((med, p99, mx), med <= r_tol[0] and p99 <= r_tol[1] and mx <= r_tol[2])}
+
+
+def fused_ray_march_reference(spec, params: Dict[str, Any], rays_o: torch.Tensor,
+                              rays_d_z: torch.Tensor, t: torch.Tensor, near: torch.Tensor,
+                              far: torch.Tensor, tau: float = 0.0, n_steps: int = 128,
+                              n_secant: int = 8, sampling_dtype: torch.dtype = torch.float32
+                              ) -> Dict[str, torch.Tensor]:
+    """Plain PyTorch twin: ``models.endosurf.march_math`` under no_grad."""
+    from endosurf_tpu_torch.models.endosurf import march_math
+    with torch.no_grad():
+        return march_math(spec, params, rays_o, rays_d_z, t, near, far, tau, n_steps,
+                          n_secant, _dtype_precision(sampling_dtype))
+
+
+def fused_ray_march_cuda(spec, params: Dict[str, Any], rays_o: torch.Tensor,
+                         rays_d_z: torch.Tensor, t: torch.Tensor, near: torch.Tensor,
+                         far: torch.Tensor, tau: float = 0.0, n_steps: int = 128,
+                         n_secant: int = 8, sampling_dtype: torch.dtype = torch.float32
+                         ) -> Dict[str, torch.Tensor]:
+    """Launch the CUDA march (``csrc/fused_sampler.cu``) on the current stream."""
+    from endosurf_tpu_torch.kernels.build import load_library
+
+    if rays_o.device.type != "cuda":
+        raise ValueError(f"fused_ray_march_cuda needs CUDA tensors, got {rays_o.device}")
+    n_rays = rays_o.shape[0] if rays_o.ndim == 2 else None
+    if n_rays is None or any(a.shape != (n_rays, k) for a, k in (
+            (rays_o, 3), (rays_d_z, 3), (t, 1), (near, 1), (far, 1))):
+        raise ValueError(f"expected o, d_z [R, 3], t, near, far [R, 1]; got "
+                         f"{[tuple(a.shape) for a in (rays_o, rays_d_z, t, near, far)]}")
+    if n_steps < 2 or n_secant < 0:
+        raise ValueError(f"unsupported march: {n_steps} steps, {n_secant} secant steps")
+    if not cuda_spec_supported(spec):
+        raise ValueError(f"the CUDA march kernel does not take {spec}")
+    if sampling_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"unsupported dtype {sampling_dtype}")
+    device = rays_o.device
+    lib = load_library()
+    with torch.no_grad():
+        w, meta = pack_operands(spec, params, sampling_dtype)
+        f32 = torch.float32
+        rays7 = torch.cat([rays_o, rays_d_z, t], dim=-1).to(f32).contiguous()
+        nf = torch.cat([near, far], dim=-1).to(f32).contiguous()
+    if w.device != device or rays7.device != device or nf.device != device:
+        raise ValueError(f"params on {w.device}, rays on {rays7.device}, near/far on "
+                         f"{nf.device}, o on {device}")
+    tv = torch.linspace(0.0, 1.0, n_steps, dtype=torch.float32, device=device)
+    scratch = torch.empty(lib.fused_march_scratch_floats(n_rays, n_steps),
+                          dtype=torch.float32, device=device)
+    out = torch.empty(n_rays, 4, dtype=torch.float32, device=device)
+    idx = torch.empty(n_rays, dtype=torch.int32, device=device)
+    meta_arr = (ctypes.c_longlong * len(meta))(*meta)
+    assert len(meta) == lib.fused_render_meta_len()
+    with torch.cuda.device(device):   # the launch runs on the current device
+        err = lib.fused_ray_march_launch(
+            rays7.data_ptr(), nf.data_ptr(), tv.data_ptr(), n_rays, n_steps, n_secant,
+            ctypes.c_float(tau), w.data_ptr(), meta_arr, int(sampling_dtype == torch.bfloat16),
+            scratch.data_ptr(), out.data_ptr(), idx.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("fused_ray_march CUDA launch failed: "
+                           + lib.fused_render_error_string(err).decode())
+    LAUNCHES["fused_ray_march"] += 1
+    return {"depth": out[:, 0:1], "valid": out[:, 1:2] > 0.5, "d_low": out[:, 2],
+            "d_high": out[:, 3], "idx": idx.long()}
+
+
+def fused_ray_march(spec, params: Dict[str, Any], rays_o: torch.Tensor,
+                    rays_d_z: torch.Tensor, t: torch.Tensor, near: torch.Tensor,
+                    far: torch.Tensor, tau: float = 0.0, n_steps: int = 128, n_secant: int = 8,
+                    sampling_dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+    """CUDA tensors run the kernel; CPU tensors run the plain twin."""
+    if rays_o.device.type == "cuda":
+        fn = fused_ray_march_cuda
+    elif rays_o.device.type == "cpu":
+        fn = fused_ray_march_reference
+    else:
+        raise ValueError(f"no fused_ray_march for device {rays_o.device}")
+    return fn(spec, params, rays_o, rays_d_z, t, near, far, tau, n_steps, n_secant,
+              sampling_dtype)

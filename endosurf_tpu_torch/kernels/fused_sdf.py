@@ -1,0 +1,122 @@
+"""Observed-space SDF query: the CUDA kernel and its plain PyTorch version.
+
+Port of ``endosurf_tpu/kernels/fused_sdf.py::fused_sdf_observed`` (a Pallas
+TPU kernel). For points x [N, 3] at times t [N, 1] it runs the forward chain
+freq-encode(x, t) -> deform MLP -> x_c = x + dx -> freq-encode(x_c) -> SDF
+MLP and returns sdf [N, 1] (float32), without gradient. It serves the
+sampling-only SDF queries (``models.endosurf._sdf_sampling``): the 3D demo's
+dense mesh grid and the ray march's scan.
+
+* ``fused_sdf_observed_cuda``: the hand-written kernel in
+  ``csrc/fused_sdf.cu`` (``csrc/sdf_chain.cuh``'s sweep over a point list).
+  Any N: the kernel masks the last block's tail. The weights are packed from
+  the parameters as given, bf16-rounded for ``compute_dtype`` bf16.
+* ``fused_sdf_observed_reference``: ``fields.sdf_observed`` at the matching
+  precision under no_grad. The CPU path and the tests use it; on a GPU it
+  only serves as the comparison.
+* ``fused_sdf_observed``: the dispatching wrapper. A CUDA tensor always goes
+  to the kernel (errors propagate); a CPU tensor takes the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Any, Dict, Tuple
+
+import torch
+
+from endosurf_tpu_torch.kernels.fused_render import (
+    _dtype_precision,
+    cuda_spec_supported,
+    pack_operands,
+)
+
+# Launches of the CUDA kernel made by fused_sdf_observed_cuda (one per call).
+LAUNCHES = {"fused_sdf_observed": 0}
+
+# Kernel vs plain version on one card, on the per-point absolute sdf error:
+# (median, p99, max) per dot precision. Both sides run the same chain with
+# float32 accumulation in different orders; in bf16 an operand that sits on
+# a rounding edge rounds the other way on one side and moves that point's
+# sdf by a bf16 step of one activation, so the bf16 max is wide and the
+# median and p99 tell the precisions apart. Set from H100 readings (PERF.md,
+# PR 4) on a 1,048,576-point grid slab and 8192 random points (use_deform
+# false) and the card tests' cells (1000 to 1,048,576 points, three nets),
+# two weight seeds: sound float32 median 1.5e-7, p99 9.5e-7, max 1.9e-6;
+# sound bf16 median 0, p99 0, max 1.1e-2 (narrow net); the kernel at the
+# other precision median >= 8.2e-4, p99 >= 3.8e-3. A 0.1 % scale planted on
+# 1 point in 64 reads p99 2.2e-4 (float32) and 3.1e-4 (bf16) and fails.
+PARITY_TOL = {
+    torch.float32: (1e-6, 5e-6, 2e-5),
+    torch.bfloat16: (1e-5, 1e-4, 2e-2),
+}
+
+
+def parity_errors(got: torch.Tensor, ref: torch.Tensor, dtype: torch.dtype
+                  ) -> Tuple[float, float, float, bool]:
+    """(median, p99, max) of the per-point |sdf error| and whether all three
+    are within ``PARITY_TOL[dtype]``."""
+    err = (got - ref).abs().reshape(-1).float()
+    # torch.quantile takes at most 2^24 values: a strided subset above that
+    sub = err[:: max(1, err.numel() // (1 << 24) + 1)]
+    med, p99, mx = float(err.median()), float(torch.quantile(sub, 0.99)), float(err.max())
+    t_med, t_p99, t_max = PARITY_TOL[dtype]
+    return med, p99, mx, med <= t_med and p99 <= t_p99 and mx <= t_max
+
+
+def fused_sdf_observed_reference(spec, params: Dict[str, Any], x: torch.Tensor,
+                                 t: torch.Tensor,
+                                 compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain PyTorch version: ``sdf_observed`` under no_grad."""
+    from endosurf_tpu_torch.models.fields import sdf_observed
+    with torch.no_grad():
+        return sdf_observed(spec, params, x, t, _dtype_precision(compute_dtype))
+
+
+def fused_sdf_observed_cuda(spec, params: Dict[str, Any], x: torch.Tensor, t: torch.Tensor,
+                            compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Launch the CUDA kernel (``csrc/fused_sdf.cu``) on the current stream."""
+    from endosurf_tpu_torch.kernels.build import load_library
+
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_sdf_observed_cuda needs CUDA tensors, got {x.device}")
+    n = x.shape[0] if x.ndim == 2 else None
+    if n is None or x.shape != (n, 3) or t.shape != (n, 1):
+        raise ValueError(f"expected x [N, 3], t [N, 1]; got {tuple(x.shape)}, {tuple(t.shape)}")
+    if not cuda_spec_supported(spec):
+        raise ValueError(f"the CUDA sdf kernel does not take {spec}")
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"unsupported dtype {compute_dtype}")
+    device = x.device
+    lib = load_library()
+    with torch.no_grad():
+        w, meta = pack_operands(spec, params, compute_dtype)
+    if w.device != device or t.device != device:
+        raise ValueError(f"params on {w.device}, t on {t.device}, x on {device}")
+    xc = x.detach().to(torch.float32).contiguous()
+    tc = t.detach().to(torch.float32).contiguous()
+    out = torch.empty(n, 1, dtype=torch.float32, device=device)
+    meta_arr = (ctypes.c_longlong * len(meta))(*meta)
+    assert len(meta) == lib.fused_render_meta_len()
+    with torch.cuda.device(device):   # the launch runs on the current device
+        err = lib.fused_sdf_observed_launch(
+            xc.data_ptr(), tc.data_ptr(), n, w.data_ptr(), meta_arr,
+            int(compute_dtype == torch.bfloat16), out.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("fused_sdf_observed CUDA launch failed: "
+                           + lib.fused_render_error_string(err).decode())
+    LAUNCHES["fused_sdf_observed"] += 1
+    return out
+
+
+def fused_sdf_observed(spec, params: Dict[str, Any], x: torch.Tensor, t: torch.Tensor,
+                       compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """CUDA tensors run the kernel; CPU tensors run the plain version."""
+    if x.device.type == "cuda":
+        fn = fused_sdf_observed_cuda
+    elif x.device.type == "cpu":
+        fn = fused_sdf_observed_reference
+    else:
+        raise ValueError(f"no fused_sdf_observed for device {x.device}")
+    return fn(spec, params, x, t, compute_dtype)

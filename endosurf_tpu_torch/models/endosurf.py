@@ -12,6 +12,10 @@ without gradient through ``kernels.fused_sampler.fused_upsample_z`` (the
 CUDA kernel for tensors on the GPU, the plain ``upsample_z`` for CPU
 tensors). ``render_rays_inference``
 is the serving entry and hands the whole pipeline to ``kernels.fused_render``.
+The sampling-only SDF queries (``_sdf_sampling``: the 3D demo's mesh grid)
+and the sphere trace (``ray_march``, the surface-neighbour loss with
+``surf_march_reuse: false``) run ``kernels.fused_sdf.fused_sdf_observed``
+and ``kernels.fused_sampler.fused_ray_march`` the same way.
 
 Random draws (the z jitter, the neighbour offsets) come from an explicit
 ``torch.Generator`` or are passed in as tensors of uniforms.
@@ -103,6 +107,17 @@ def _stratified_z(near: torch.Tensor, far: torch.Tensor, n_samples: int,
     if z_uniform is not None:
         z_vals = z_vals + (z_uniform - 0.5) * (2.0 / n_samples)
     return z_vals
+
+
+def _sdf_sampling(spec: EndoSurfSpec, params: Params, x: torch.Tensor, t: torch.Tensor,
+                  precision: str = "highest") -> torch.Tensor:
+    """SDF [N, 1] for sampling-only consumers (no gradient):
+    ``fused_sdf_observed``, the CUDA kernel for CUDA tensors at every N and
+    the plain ``sdf_observed`` for CPU tensors. The dots follow
+    ``precision`` (bf16 operands for "default")."""
+    from endosurf_tpu_torch.kernels.fused_render import precision_dtype
+    from endosurf_tpu_torch.kernels.fused_sdf import fused_sdf_observed
+    return fused_sdf_observed(spec, params, x, t, precision_dtype(precision))
 
 
 def upsample_z(spec: EndoSurfSpec, rspec: RenderSpec, params: Params,
@@ -315,11 +330,12 @@ def _locate_crossing(spec: EndoSurfSpec, params: Params, rays_o: torch.Tensor,
                      rays_d_z: torch.Tensor, t: torch.Tensor, d_prop: torch.Tensor,
                      val: torch.Tensor, near: torch.Tensor, far: torch.Tensor,
                      tau: float, n_secant: int, precision: str = "highest"
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+                     ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """First + -> - crossing of ``val = -(sdf - tau)`` over the ascending
     depth proposals ``d_prop`` [R, S], refined by ``n_secant`` secant steps
     (0: the crossing pair's interpolation). Returns (depth [R, 1], valid
-    [R, 1]); invalid rays get the chord midpoint."""
+    [R, 1], bracket); invalid rays get the chord midpoint; the bracket holds
+    the final d_low, d_high [R] and the crossing's index idx [R]."""
     n_rays, n_steps = d_prop.shape
     first_free = val[:, 0] < 0
     sign = torch.sign(val[:, :-1] * val[:, 1:])
@@ -348,13 +364,45 @@ def _locate_crossing(spec: EndoSurfSpec, params: Params, rays_o: torch.Tensor,
         d_pred = -f_low * (d_high - d_low) / (f_high - f_low + 1e-12) + d_low
 
     d_safe = torch.where(valid, d_pred, 0.5 * (near[:, 0] + far[:, 0]))
-    return d_safe[:, None], valid[:, None]
+    return d_safe[:, None], valid[:, None], {"d_low": d_low, "d_high": d_high,
+                                             "idx": idx[:, 0]}
 
 
-def ray_march(spec: EndoSurfSpec, params: Params, rays: torch.Tensor, *args, **kwargs):
-    """The 128-step sphere trace (``fused_ray_march`` on the TPU)."""
-    raise NotImplementedError("not yet ported: ray_march / fused_ray_march "
-                              "(set train.surf_march_reuse: true)")
+def march_math(spec: EndoSurfSpec, params: Params, rays_o: torch.Tensor,
+               rays_d_z: torch.Tensor, t: torch.Tensor, near: torch.Tensor,
+               far: torch.Tensor, tau: float = 0.0, n_steps: int = 128, n_secant: int = 8,
+               precision: str = "highest") -> Dict[str, torch.Tensor]:
+    """The sphere trace in plain PyTorch (``fused_ray_march``'s plain
+    version): the SDF at ``n_steps`` depths linspace(near, far), the first
+    + -> - crossing and ``n_secant`` secant steps, every SDF at
+    ``precision``. Returns depth, valid [R, 1] and the final bracket
+    d_low, d_high [R] with the crossing's index idx [R]."""
+    n_rays = rays_o.shape[0]
+    t_vals = torch.linspace(0.0, 1.0, n_steps, dtype=rays_o.dtype, device=rays_o.device)
+    d_prop = near * (1.0 - t_vals)[None, :] + far * t_vals[None, :]
+    pts = rays_o[:, None, :] + d_prop[..., None] * rays_d_z[:, None, :]
+    tt = t[:, None, :].expand(n_rays, n_steps, 1)
+    sdf = sdf_observed(spec, params, pts.reshape(-1, 3), tt.reshape(-1, 1),
+                       precision).reshape(n_rays, n_steps)
+    depth, valid, br = _locate_crossing(spec, params, rays_o, rays_d_z, t, d_prop,
+                                        -(sdf - tau), near, far, tau, n_secant, precision)
+    return {"depth": depth, "valid": valid, **br}
+
+
+def ray_march(spec: EndoSurfSpec, params: Params, rays: torch.Tensor, tau: float = 0.0,
+              n_steps: int = 128, n_secant: int = 8, precision: str = "highest"
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sphere-traced surface depths along rays [R, 9]: (depth [R, 1], valid
+    [R, 1]), without gradient. ``fused_ray_march``: the CUDA kernel for CUDA
+    tensors, ``march_math`` for CPU tensors; every SDF at ``precision``."""
+    from endosurf_tpu_torch.kernels.fused_render import precision_dtype
+    from endosurf_tpu_torch.kernels.fused_sampler import fused_ray_march
+    rays_o, rays_d, rays_d_z, t = _split_rays(rays)
+    near, far, _ = ray_sphere_intersection(rays_o, rays_d)
+    with torch.no_grad():
+        out = fused_ray_march(spec, params, rays_o, rays_d_z, t, near, far, tau, n_steps,
+                              n_secant, precision_dtype(precision))
+    return out["depth"], out["valid"]
 
 
 def surface_from_samples(spec: EndoSurfSpec, params: Params, rays: torch.Tensor,
@@ -365,8 +413,9 @@ def surface_from_samples(spec: EndoSurfSpec, params: Params, rays: torch.Tensor,
     the same crossing rule and validity contract as the sphere trace."""
     rays_o, rays_d, rays_d_z, t = _split_rays(rays)
     near, far, _ = ray_sphere_intersection(rays_o, rays_d)
-    return _locate_crossing(spec, params, rays_o, rays_d_z, t, z_vals, -(sdf - tau),
-                            near, far, tau, n_secant, precision)
+    depth, valid, _ = _locate_crossing(spec, params, rays_o, rays_d_z, t, z_vals,
+                                       -(sdf - tau), near, far, tau, n_secant, precision)
+    return depth, valid
 
 
 def surface_neighbour_points(spec: EndoSurfSpec, params: Params, rays: torch.Tensor,
@@ -380,17 +429,20 @@ def surface_neighbour_points(spec: EndoSurfSpec, params: Params, rays: torch.Ten
     """Surface points and their neighbours: (pts2 [2R, 3] -- surface points,
     then neighbours -- and valid [R, 1]).
 
-    The surface comes from ``samples`` (the render's (up_z, up_sdf)); the
-    neighbour offsets are (u - 0.5) * neighbour_rad with u =
-    ``offset_uniform`` [R, 3] or drawn from ``generator``."""
+    The surface comes from ``samples`` (the render's (up_z, up_sdf): march
+    reuse) or, without them, from the sphere trace ``ray_march``; both run
+    without gradient at ``precision``. The neighbour offsets are (u - 0.5) *
+    neighbour_rad with u = ``offset_uniform`` [R, 3] or drawn from
+    ``generator``."""
     rays_o, _, rays_d_z, _ = _split_rays(rays)
     with torch.no_grad():
         if samples is None:
-            ray_march(spec, params, rays)
-        up_z, up_sdf = samples
-        d_surf, valid = surface_from_samples(spec, params, rays, up_z, up_sdf,
-                                             n_secant=n_secant_reuse,
-                                             precision=precision)
+            d_surf, valid = ray_march(spec, params, rays, precision=precision)
+        else:
+            up_z, up_sdf = samples
+            d_surf, valid = surface_from_samples(spec, params, rays, up_z, up_sdf,
+                                                 n_secant=n_secant_reuse,
+                                                 precision=precision)
     valid = valid & (mask == 1)
     p_surf = rays_o + d_surf * rays_d_z
     if offset_uniform is None:

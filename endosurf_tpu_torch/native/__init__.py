@@ -1,0 +1,18 @@
+"""ctypes bindings for the first-party C++ geometry code: marching
+tetrahedra, mesh cleaning, smoothing, vertex normals, KD-tree distances and a
+z-buffer rasterizer for the 3D demo (host code, as in the JAX package, which
+keeps its own copy of ``geometry.cpp``).
+
+The shared library builds on first use (``build.py``: g++ -O3 into the
+git-ignored ``native/_build/``).
+"""
+
+from endosurf_tpu_torch.native.build import load_library  # noqa: F401
+from endosurf_tpu_torch.native.meshops import (  # noqa: F401
+    clean_mesh,
+    laplacian_smooth,
+    marching_tetrahedra,
+    point_cloud_distance,
+    rasterize_mesh,
+    vertex_normals,
+)

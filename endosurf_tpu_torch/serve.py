@@ -1,7 +1,10 @@
 """The serving half of ``endosurf_tpu/train/trainer_endosurf.py``.
 
 ``EndoSurfRenderer`` holds a scene, parameters and the static specs, and hands
-out the chunk renderer that eval and demo rendering call. Parameters come
+out the chunk renderer that eval and demo rendering call, and the 3D demo's
+hooks: the SDF for the mesh grid (``demo_field_fn``, the CUDA
+``fused_sdf_observed`` on the card) and the vertex colours
+(``render_points_fn``, the field segment kernels on the card). Parameters come
 from an npz written by ``bridge.save_params_npz`` (for example by
 ``tools/export_params_npz.py`` from a JAX checkpoint) or, without one, from
 the seeded init.
@@ -17,8 +20,16 @@ import torch
 
 from endosurf_tpu_torch.config import load_config
 from endosurf_tpu_torch.data.scene_data import SceneData
-from endosurf_tpu_torch.models.endosurf import RenderSpec, render_rays_inference
-from endosurf_tpu_torch.models.fields import EndoSurfSpec, init_endosurf_params
+from endosurf_tpu_torch.models.endosurf import (
+    RenderSpec,
+    _sdf_sampling,
+    render_rays_inference,
+)
+from endosurf_tpu_torch.models.fields import (
+    EndoSurfSpec,
+    fused_point_eval,
+    init_endosurf_params,
+)
 from endosurf_tpu_torch.ops.mlp import PRECISIONS
 
 
@@ -84,8 +95,35 @@ class EndoSurfRenderer:
         return make_render_fn(self.spec, self.rspec, self.precision,
                               self.sampling_precision, use_importance)
 
-    def demo(self, step: Optional[int] = None, test_mode: bool = False):
-        """2D view synthesis of the test split or all frames: metrics and
-        composites (the 3D branch is not ported yet)."""
+    def demo_field_fn(self):
+        """Scalar field for the isosurface: ``fn(pts [N, 3], t [N, 1]) -> sdf
+        [N, 1]``, the observed-space SDF at the main matmul precision."""
+        spec, params, precision = self.spec, self.params, self.precision
+
+        def fn(pts, t):
+            return _sdf_sampling(spec, params, pts, t, precision)
+        return fn
+
+    def demo_field_threshold(self, thresh: float) -> float:
+        return float(thresh)    # SDF: inside where sdf < thresh
+
+    def render_points_fn(self):
+        """Vertex colours: ``fn(pts, dirs [N, 3], t [N, 1]) -> colours
+        [N, 3]``, numpy in and out, the fields at the main precision."""
+        spec, params, precision, device = self.spec, self.params, self.precision, self.device
+
+        def fn(pts, dirs, t):
+            x, d, tt = (torch.as_tensor(a, dtype=torch.float32, device=device)
+                        for a in (pts, dirs, t))
+            with torch.no_grad():
+                color = fused_point_eval(spec, params, x, d, tt, precision)["color"]
+            return color.cpu().numpy()
+        return fn
+
+    def demo(self, step: Optional[int] = None, test_mode: bool = False,
+             visualize: bool = True, demo_2d: bool = True, demo_3d: bool = True):
+        """View synthesis (``demo_2d``) and mesh extraction with the
+        geometric error (``demo_3d``) of the test split or all frames."""
         from endosurf_tpu_torch.evaluation.demo import run_demo
-        return run_demo(self, self.step if step is None else step, test_mode)
+        return run_demo(self, self.step if step is None else step, test_mode, visualize,
+                        demo_2d, demo_3d)

@@ -3,7 +3,9 @@
 One train step: draw a batch (a train frame and mask-guided pixels), render
 it with importance upsampling (``fused_upsample_z``: the CUDA kernel on the
 GPU), query the fields at the ground-truth depth points and around the
-surface found on the render's own samples, sum the six losses, backpropagate
+surface found on the render's own samples (or, with ``surf_march_reuse:
+false``, by the sphere trace ``fused_ray_march``: the CUDA kernel on the
+GPU), sum the six losses, backpropagate
 through the field evaluation with autograd (the Eikonal and the two
 gradient losses are second order), and take an Adam step.
 
@@ -20,9 +22,8 @@ Port notes:
   path at ``"default"`` also stores MLP activations in bf16 and uses its
   ``linearize`` Jacobian; ``activation_dtype``, ``jac_mode`` and ``remat``
   are JAX-only knobs and are not read here.
-- ``fold_aux_queries: true``, ``surf_march_reuse: false`` (the sphere
-  trace), ``pixel_sampler: alias``, ``sampler_kernel: off`` and
-  ``parallel.data_parallel`` are not ported and raise.
+- ``fold_aux_queries: true``, ``pixel_sampler: alias``, ``sampler_kernel:
+  off`` and ``parallel.data_parallel`` are not ported and raise.
 - Every random draw comes from one ``torch.Generator`` on the device
   (seeded from ``exp.seed``) or is passed in (``draws``): ``frame`` (index
   into list_train), ``u_pix`` [B], ``z`` [B, 1] (z jitter), ``neig`` [B, 3]
@@ -176,9 +177,6 @@ class EndoSurfTrainer(Trainer):
                                       "(the card always runs the field segment kernels)")
         if tc.get("fold_aux_queries", False):
             raise NotImplementedError("not yet ported: train.fold_aux_queries")
-        if not tc.get("surf_march_reuse", True) and self.loss_weights["surf_neig_loss_weight"]:
-            raise NotImplementedError("not yet ported: train.surf_march_reuse: false "
-                                      "(the sphere-traced ray march)")
         if tc.get("pixel_sampler", "cdf") == "alias":
             raise NotImplementedError("not yet ported: train.pixel_sampler: alias")
         if cfg.get("parallel", {}).get("data_parallel", False):

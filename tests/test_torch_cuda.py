@@ -1,8 +1,10 @@
 """The CUDA kernels on the card, held against their plain PyTorch twins: the
 render kernel (``fused_render_rays``), the upsample kernel
-(``fused_upsample_z``) and the six field segment kernels of the train step
-(``fused_train_cuda``: deform / sdf / color, forward and backward), plus one
-train step with the upsample kernel against one with the plain upsampling.
+(``fused_upsample_z``), the six field segment kernels of the train step
+(``fused_train_cuda``: deform / sdf / color, forward and backward), the
+observed-SDF query (``fused_sdf_observed``) and the sphere-traced ray march
+(``fused_ray_march``), plus one train step with the upsample kernel against
+one with the plain upsampling.
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one. The
 file imports no JAX, so it also runs where JAX is absent:
@@ -13,10 +15,12 @@ file imports no JAX, so it also runs where JAX is absent:
 the readings the tests print.) The tolerances and their reasons are
 ``fused_render.PARITY_TOL``, ``fused_sampler.PARITY_TOL`` and
 ``fused_sampler.CONSISTENCY_TOL``, ``fused_train_cuda.PARITY_TOL`` and
-``ORDER_TOL`` below; the planted-fault tests rebuild the kernels from a
-patched copy of the sources.
+``ORDER_TOL`` below, ``fused_sdf.PARITY_TOL`` and
+``fused_sampler.MARCH_TOL``; the planted-fault tests rebuild the kernels
+from a patched copy of the sources.
 """
 
+import dataclasses
 import os.path as osp
 import shutil
 
@@ -28,6 +32,7 @@ from endosurf_tpu_torch.bridge import flatten
 from endosurf_tpu_torch.data.scene_data import make_synthetic_arrays
 from endosurf_tpu_torch.kernels import fused_render as fr
 from endosurf_tpu_torch.kernels import fused_sampler as fs
+from endosurf_tpu_torch.kernels import fused_sdf as fsd
 from endosurf_tpu_torch.kernels import fused_train_cuda as ftc
 from endosurf_tpu_torch.models import endosurf as es
 from endosurf_tpu_torch.models.fields import (
@@ -546,3 +551,213 @@ def test_train_step_runs_the_segment_kernels(dev, tmp_path):
     bad_params = init_endosurf_params(bad, torch.Generator().manual_seed(0), dev)
     with pytest.raises(ValueError, match="do not take"):
         fused_point_eval(bad, bad_params, x, d, t)
+
+
+# ---------------------------------------------------------------------------
+# the observed-SDF query (csrc/fused_sdf.cu) and the ray march
+# (csrc/fused_sampler.cu's march)
+# ---------------------------------------------------------------------------
+
+SPEC_BY_ID = dict(zip(SPEC_IDS, SPECS))
+F32_BF16 = (torch.float32, torch.bfloat16)
+
+
+def _sdf_points(n: int, dev, seed: int = 0):
+    g = torch.Generator().manual_seed(seed)
+    return ((torch.rand(n, 3, generator=g) * 2.4 - 1.2).to(dev),
+            torch.rand(n, 1, generator=g).to(dev))
+
+
+def _rebuild_with(monkeypatch, tmp_path, name: str, old: str, new: str) -> None:
+    """Point build.py at a copy of csrc/ with ``old`` replaced in ``name``."""
+    if shutil.which("nvcc") is None and not osp.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("needs nvcc")
+    src = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, src)
+    text = (src / name).read_text()
+    assert text.count(old) == 1
+    (src / name).write_text(text.replace(old, new))
+    monkeypatch.setattr(build, "CSRC", src)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(build, "_LIB", None)
+
+
+# (spec id, points): three sizes of the full net (ragged), the narrow and
+# the static nets at one
+SDF_CELLS = [("full", 1000), ("full", 65537), ("full", 1048576), ("narrow", 65537),
+             ("full-static", 65537)]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("cell", SDF_CELLS, ids=[f"{s}-{n}" for s, n in SDF_CELLS])
+@pytest.mark.parametrize("dtype", F32_BF16, ids=["f32", "bf16"])
+def test_sdf_query_kernel_matches_plain(dev, dtype, cell, seed):
+    spec = SPEC_BY_ID[cell[0]]
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(seed), dev)
+    x, t = _sdf_points(cell[1], dev, seed)
+    got = fsd.fused_sdf_observed_cuda(spec, params, x, t, dtype)
+    ref = fsd.fused_sdf_observed_reference(spec, params, x, t, dtype)
+    torch.cuda.synchronize()
+    assert got.shape == (cell[1], 1) and got.dtype == torch.float32
+    errs = fsd.parity_errors(got, ref, dtype)
+    print(f"sdf query sound {dtype} {cell} seed {seed}: median / p99 / max {errs[:3]}")
+    assert errs[-1], errs
+
+
+@pytest.mark.parametrize("spec", SPECS, ids=SPEC_IDS)
+def test_sdf_query_limits_reject_the_other_precision(dev, spec):
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(0), dev)
+    x, t = _sdf_points(65537, dev)
+    for plain_dt, kernel_dt in (F32_BF16, F32_BF16[::-1]):
+        got = fsd.fused_sdf_observed_cuda(spec, params, x, t, kernel_dt)
+        errs = fsd.parity_errors(got, fsd.fused_sdf_observed_reference(spec, params, x, t,
+                                                                       plain_dt), plain_dt)
+        print(f"sdf query control: kernel {kernel_dt} vs plain {plain_dt}: {errs[:3]}")
+        assert not errs[-1], errs
+
+
+def test_sdf_query_entry_and_dispatch(dev):
+    """No points, one point, the checks, and the paths that run the kernel:
+    _sdf_sampling (once a call, at every N) and the renderer's grid hook."""
+    params = init_endosurf_params(NARROW, torch.Generator().manual_seed(0), dev)
+    x, t = _sdf_points(1, dev)
+    assert fsd.fused_sdf_observed_cuda(NARROW, params, x[:0], t[:0]).shape == (0, 1)
+    one = fsd.fused_sdf_observed_cuda(NARROW, params, x, t)
+    torch.testing.assert_close(one, fsd.fused_sdf_observed_reference(NARROW, params, x, t),
+                               rtol=0, atol=2e-5)
+    with pytest.raises(ValueError, match="expected"):
+        fsd.fused_sdf_observed_cuda(NARROW, params, x, t[:, :0])
+    with pytest.raises(ValueError, match="params on"):
+        fsd.fused_sdf_observed_cuda(
+            NARROW, init_endosurf_params(NARROW, torch.Generator().manual_seed(0)), x, t)
+    bad = EndoSurfSpec(sdf=MLPSpec(8, 256, (4,), 257))
+    with pytest.raises(ValueError, match="does not take"):
+        fsd.fused_sdf_observed_cuda(
+            bad, init_endosurf_params(bad, torch.Generator().manual_seed(0), dev), x, t)
+    before = fsd.LAUNCHES["fused_sdf_observed"]
+    for n in (3, 9000):
+        xs, ts = _sdf_points(n, dev)
+        es._sdf_sampling(NARROW, params, xs, ts, "default")
+    assert fsd.LAUNCHES["fused_sdf_observed"] == before + 2
+
+
+SDF_FAULTS = {   # csrc/sdf_chain.cuh, the point-list store: 0.1 % off on 1 point in 64
+    "scale_sdf_i64": ("  __device__ void store(long long i, float v) const { dst[i] = v; }",
+                      "  __device__ void store(long long i, float v) const {\n"
+                      "    dst[i] = (i % 64 == 0) ? v * 1.001f : v;\n  }"),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(SDF_FAULTS))
+def test_sdf_query_limits_catch_planted_faults(dev, fault, tmp_path, monkeypatch):
+    _rebuild_with(monkeypatch, tmp_path, "sdf_chain.cuh", *SDF_FAULTS[fault])
+    spec = EndoSurfSpec()
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(0), dev)
+    x, t = _sdf_points(65537, dev)
+    for dtype in F32_BF16:
+        errs = fsd.parity_errors(fsd.fused_sdf_observed_cuda(spec, params, x, t, dtype),
+                                 fsd.fused_sdf_observed_reference(spec, params, x, t, dtype),
+                                 dtype)
+        print(f"{fault} {dtype}: {errs[:3]}")
+        assert not errs[-1], errs
+
+
+def _march_inputs(n: int, dev, seed: int = 0):
+    rays = _rays(n, "cpu", 1 + seed)
+    o, d, d_z, t = es._split_rays(rays)
+    near, far, _ = ray_sphere_intersection(o, d)
+    return tuple(v.contiguous().to(dev) for v in (o, d_z, t, near, far))
+
+
+def _march_check(spec, params, ins, got, ref, dtype):
+    """(within every MARCH_TOL limit, readings)."""
+    par = fs.march_parity(got, ref, dtype)
+    own = fs.march_consistency(spec, params, *ins[:3], got, dtype)
+    return all(v[1] for v in par.values()) and all(v[1] for v in own.values()), (par, own)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("n", [64, 1024, 4099])
+@pytest.mark.parametrize("spec", SPECS, ids=SPEC_IDS)
+@pytest.mark.parametrize("dtype", F32_BF16, ids=["f32", "bf16"])
+def test_march_kernel_matches_plain(dev, dtype, spec, n, seed):
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(seed), dev)
+    ins = _march_inputs(n, dev, seed)
+    got = fs.fused_ray_march_cuda(spec, params, *ins, sampling_dtype=dtype)
+    ref = fs.fused_ray_march_reference(spec, params, *ins, sampling_dtype=dtype)
+    torch.cuda.synchronize()
+    assert got["depth"].shape == (n, 1) and got["valid"].dtype == torch.bool
+    assert bool(torch.isfinite(got["depth"]).all())
+    ok, report = _march_check(spec, params, ins, got, ref, dtype)
+    print(f"march sound {dtype} n {n} seed {seed}: "
+          f"{100 * float(got['valid'].float().mean()):.1f} % valid; {report}")
+    assert ok, report
+
+
+@pytest.mark.parametrize("spec", SPECS, ids=SPEC_IDS)
+def test_march_limits_reject_the_other_precision(dev, spec):
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(0), dev)
+    ins = _march_inputs(1024, dev)
+    for ref_dt, kernel_dt in (F32_BF16, F32_BF16[::-1]):
+        got = fs.fused_ray_march_cuda(spec, params, *ins, sampling_dtype=kernel_dt)
+        ref = fs.fused_ray_march_reference(spec, params, *ins, sampling_dtype=ref_dt)
+        ok, report = _march_check(spec, params, ins, got, ref, ref_dt)
+        print(f"march control: kernel {kernel_dt} vs plain {ref_dt}: {report}")
+        assert not ok, report
+
+
+# Faults planted in csrc/fused_sampler.cu's march on the rays r % 64 == 0,
+# and the dot modes in which the limits must catch them (the secant steps
+# move a depth by ~1e-4 in SDF, under bf16's noise).
+MARCH_FAULTS = {
+    "crossing_one_bin_late_r64": (
+        "    if (vj * vn < 0.f) { idx = j; break; }",
+        "    if (vj * vn < 0.f) { idx = (r % 64 == 0 && j + 2 < S) ? j + 1 : j; break; }",
+        F32_BF16),
+    "no_secant_r64": (
+        "  const float f_mid = -(st[5] - tau);",
+        "  if (r % 64 == 0) return;\n  const float f_mid = -(st[5] - tau);",
+        (torch.float32,)),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(MARCH_FAULTS))
+def test_march_limits_catch_planted_faults(dev, fault, tmp_path, monkeypatch):
+    old, new, dtypes = MARCH_FAULTS[fault]
+    _rebuild_with(monkeypatch, tmp_path, "fused_sampler.cu", old, new)
+    spec = EndoSurfSpec()
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(0), dev)
+    ins = _march_inputs(1024, dev)
+    for dtype in dtypes:
+        got = fs.fused_ray_march_cuda(spec, params, *ins, sampling_dtype=dtype)
+        ref = fs.fused_ray_march_reference(spec, params, *ins, sampling_dtype=dtype)
+        ok, report = _march_check(spec, params, ins, got, ref, dtype)
+        print(f"{fault} {dtype}: {report}")
+        assert not ok, report
+
+
+def test_sphere_trace_runs_the_march_kernel(dev):
+    """ray_march and the train step's surface search without reused samples
+    launch the march kernel once a call; its input checks raise."""
+    params = init_endosurf_params(NARROW, torch.Generator().manual_seed(0), dev)
+    rays = _rays(256, dev)
+    before = fs.LAUNCHES["fused_ray_march"]
+    depth, valid = es.ray_march(NARROW, params, rays)
+    assert fs.LAUNCHES["fused_ray_march"] == before + 1
+    assert depth.shape == valid.shape == (256, 1) and bool(torch.isfinite(depth).all())
+    mask = torch.ones(256, 1, device=dev)
+    pts2, valid2 = es.surface_neighbour_points(NARROW, params, rays, mask,
+                                               offset_uniform=torch.rand(256, 3, device=dev))
+    assert fs.LAUNCHES["fused_ray_march"] == before + 2 and pts2.shape == (512, 3)
+    assert torch.equal(valid2, valid)
+    ins = _march_inputs(8, dev)
+    with pytest.raises(ValueError, match="expected"):
+        fs.fused_ray_march_cuda(NARROW, params, *ins[:3], ins[3][:4], ins[4])
+    with pytest.raises(ValueError, match="unsupported march"):
+        fs.fused_ray_march_cuda(NARROW, params, *ins, n_steps=1)
+    with pytest.raises(ValueError, match="params on"):
+        fs.fused_ray_march_cuda(
+            NARROW, init_endosurf_params(NARROW, torch.Generator().manual_seed(0)), *ins)
+    spec = dataclasses.replace(NARROW, use_deform=False)
+    out = fs.fused_ray_march_cuda(spec, init_endosurf_params(spec, torch.Generator(), dev), *ins)
+    assert out["depth"].shape == (8, 1)

@@ -1,6 +1,7 @@
-"""The port stands alone: importing it loads neither JAX nor the JAX package;
-its CUDA entry refuses CPU tensors; the CLI serves a scene on the CPU and
-raises, rather than falling back, when CUDA is asked for and absent.
+"""The port stands alone: importing it loads neither JAX nor the JAX package,
+and no source of it names a file of the JAX package; its CUDA entry refuses
+CPU tensors; the CLI serves a scene on the CPU and raises, rather than
+falling back, when CUDA is asked for and absent.
 """
 
 import os
@@ -34,6 +35,9 @@ def test_import_loads_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'endosurf_tpu' or m.startswith('endosurf_tpu.')]\n"
         "assert len(names) >= 20, names\n"
+        "assert {'endosurf_tpu_torch.native.meshops', 'endosurf_tpu_torch.utils.ply',\n"
+        "        'endosurf_tpu_torch.evaluation.geometry3d',\n"
+        "        'endosurf_tpu_torch.kernels.fused_sdf'} <= set(names), names\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n")
     proc = _run(code)
@@ -52,6 +56,48 @@ def test_sources_import_no_jax():
                     if pattern.search(fh.read()):
                         offenders.append(path)
     assert not offenders, offenders
+
+
+def _code_strings(source: str):
+    """The string constants of Python source that are not docstrings."""
+    import ast
+    tree = ast.parse(source)
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if (body and isinstance(body[0], ast.Expr)
+                    and isinstance(body[0].value, ast.Constant)):
+                docs.add(id(body[0].value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str) and id(n) not in docs]
+
+
+def test_sources_name_no_jax_package_file():
+    """No source of the port (.py, .cu, .cuh, .cpp) points its code at a file
+    of the JAX package: no string in Python code and no C++ line outside a
+    comment (an #include among them) holds a path under endosurf_tpu/.
+    Docstrings and comments may cite the JAX code a module ports."""
+    path_re = re.compile(r"(^|[^\w])endosurf_tpu[/\\]")
+    offenders = []
+    for root, _, files in os.walk(PKG):
+        for f in files:
+            path = osp.join(root, f)
+            if f.endswith(".py"):
+                strings = _code_strings(open(path).read())
+                if any(path_re.search(s) or s == "endosurf_tpu" for s in strings):
+                    offenders.append(path)
+            elif f.endswith((".cu", ".cuh", ".cpp")):
+                code = re.sub(r"/\*.*?\*/", "", open(path).read(), flags=re.S)
+                if any(path_re.search(line.split("//")[0]) for line in code.splitlines()):
+                    offenders.append(path)
+    assert not offenders, offenders
+    # the check sees a path in code, a C++ include and a path join
+    for text in ('x = "endosurf_tpu/native/geometry.cpp"\n',
+                 'p = osp.join(REPO, "endosurf_tpu", "native")\n'):
+        strings = _code_strings(text)
+        assert any(path_re.search(s) or s == "endosurf_tpu" for s in strings), text
+    assert path_re.search('#include "../../endosurf_tpu/native/geometry.cpp"'.split("//")[0])
 
 
 def test_cuda_entry_refuses_cpu_tensors():
@@ -75,14 +121,22 @@ def test_cuda_device_without_gpu_raises():
     from endosurf_tpu_torch.serve import resolve_device
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
-    proc = _run(["-m", "endosurf_tpu_torch", "--cfg", "none.yml", "--mode", "test_2d",
-                 "--device", "cuda"])
-    assert proc.returncode != 0 and "CUDA is not available" in proc.stderr
+    for mode in ("test_2d", "test_3d"):
+        proc = _run(["-m", "endosurf_tpu_torch", "--cfg", "none.yml", "--mode", mode,
+                     "--device", "cuda"])
+        assert proc.returncode != 0 and "CUDA is not available" in proc.stderr, mode
 
 
-def test_cli_unported_mode_raises():
-    proc = _run(["-m", "endosurf_tpu_torch", "--cfg", "none.yml", "--mode", "test_3d"])
-    assert proc.returncode != 0 and "not yet ported" in proc.stderr
+def test_cli_unported_mode_raises(tmp_path):
+    """Every CLI mode is ported for EndoSurf; the EndoNeRF render type is not
+    and raises in a serving mode."""
+    cfg = tmp_path / "cfg.yml"
+    cfg.write_text("exp: {project_name: p, exp_name: e, exp_dir: %s}\n"
+                   "render: {type: endonerf}\nnet: {}\ndata: {info_dir: none.pkl}\n"
+                   % (tmp_path / "logs"))
+    proc = _run(["-m", "endosurf_tpu_torch", "--cfg", str(cfg), "--mode", "test_3d",
+                 "--device", "cpu"])
+    assert proc.returncode != 0 and "not yet ported: render type" in proc.stderr
 
 
 def test_config_inherit_and_dict(tmp_path):

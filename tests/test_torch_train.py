@@ -274,8 +274,8 @@ def test_sdf_grad_observed_is_second_order(rng, params_j):
 def test_aux_losses_match_jax(scenes, params_j):
     """error_on_depth (with its unmasked relu-cos quirk), surface_from_samples
     on the render's own samples, and surface_neighbour_error with the same
-    offsets, float32: values within 1e-5, depths within 1e-5, same valid
-    rays."""
+    offsets, on those samples and by the sphere trace, float32: values
+    within 1e-5, depths within 1e-5, same valid rays."""
     key = jax.random.PRNGKey(13)
     batch, d = _train_rays(scenes, key)
     rays, depth, mask = batch["rays"], batch["depth"], batch["mask"]
@@ -306,8 +306,10 @@ def test_aux_losses_match_jax(scenes, params_j):
         spec_j, p, rj, jnp.asarray(mask.numpy()), k_neig, 0.1,
         samples=(jnp.asarray(z.numpy()), jnp.asarray(sdf.numpy()))))(params_j)
     np.testing.assert_allclose(float(err_t.detach()), float(err_j), atol=1e-5)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        t_es.surface_neighbour_error(spec_t, pt, rays, mask, 0.1, offset_uniform=d["neig"])
+    err_t = t_es.surface_neighbour_error(spec_t, pt, rays, mask, 0.1, offset_uniform=d["neig"])
+    err_j = jax.jit(lambda p: j_es.surface_neighbour_error(
+        spec_j, p, rj, jnp.asarray(mask.numpy()), k_neig, 0.1))(params_j)
+    np.testing.assert_allclose(float(err_t.detach()), float(err_j), atol=1e-5)
 
 
 def test_loss_terms_and_schedule_match_jax(rng):
@@ -507,7 +509,7 @@ def test_trainer_loop_cadence_and_resume(tmp_path, scenes):
 
 
 @pytest.mark.parametrize("key, value", [("fold_aux_queries", True),
-                                        ("surf_march_reuse", False), ("pixel_sampler", "alias"),
+                                        ("pixel_sampler", "alias"),
                                         ("sampler_kernel", "off")])
 def test_unported_train_options_raise(tmp_path, scenes, key, value):
     _, st = scenes

@@ -69,6 +69,38 @@ Phases (any failure raises and exits non-zero):
      step, finite losses, rays/s;
  16. timing of the two kernels against their plain versions at the main
      paths' shapes (1,048,576 points; 1024 rays), bf16, with their bounds.
+ 17-22. the EndoNeRF vertical, on configs/endonerf/base.yml's keys in memory
+     (three 9x256 / 9x256 / 2x128 nets, 64 + 64 samples, bf16 dots, seeded
+     weights) and the synthetic 512x640 scene, with visualize / save_images
+     off and demo.depth_filter unset (the card machine has no OpenCV):
+ 17. raw-density parity: the CUDA fused_density_raw against its plain
+     version on phase 12's grid slab and 8192 random points with use_deform
+     false, both dot modes, two weight seeds, median / p99 / max at
+     fused_sdf.DENSITY_PARITY_TOL, the wrong-precision controls failing;
+ 18. render parity: the CUDA fused_render_rays_dnerf against its plain twin
+     on 8192 depth-guided rays of a frame (slots 6/7 from the renderer's
+     eval_ray_transform) and 2048 uniform-z rays, the same draws, both modes,
+     two seeds of the seeded nets and one of the opaque nets
+     (fused_render_dnerf.with_density_bias), per-map median, p99 and max
+     (depth as depth x acc) at fused_render_dnerf.PARITY_TOL beside the
+     maps' median size, the controls failing;
+ 19. segment parity: the three forward D-NeRF segment kernels against
+     their plain versions on the 65,536 fine samples of 512 rays (the
+     render's resampled depths), both modes, two seeds, per output median /
+     p99 / max at fused_train_dnerf.PARITY_TOL, the controls failing;
+ 20. EndoNeRF serving end to end: eval_frames with an EndoNeRFRenderer on one
+     512x640 frame in 2048-ray chunks: 160 render launches, finite maps and
+     metrics, normals from depth; rays/s and the frame time;
+ 21. one EndoNeRF 3D frame: EndoNeRFRenderer.demo(demo_2d=False,
+     demo_3d=True, visualize=False) at 128^3, the iso-threshold the median
+     raw density of a 32^3 probe of the frame's grid box (the seeded nets
+     have no surface at base.yml's 5): 2 raw-density launches, the vertex
+     colours on the three forward segment kernels, a non-empty mesh, the
+     four PLYs and a finite geo_err_mean; the grid / mesh / colour / metrics
+     split;
+ 22. timing of the five EndoNeRF kernels against their plain versions at
+     the paths' shapes (2048 rays; 1,048,576 points; 65,536 points), bf16,
+     beside their bounds, and a render chunk's device time by kernel.
 Phase 7 also checks one launch of each segment kernel per step, and its
 trace counts the segment kernels (the weight-gradient product included) as
 their own family. The third-to-last line is the card, the second-to-last
@@ -115,6 +147,9 @@ GRID_RES, GRID_SLAB = 128, 64                  # the demo grid and one slab of i
 N_STATIC = 8192                                # random points of the use_deform-false check
 MARCH_STEPS, MARCH_WARM = 4, 1                 # phase 15's train steps
 GEMM_KERNELS = ("gemm", "xmma", "cutlass", "cublas", "sm90_", "sm80_")
+N_DN_UNIFORM = 2048                            # uniform-z rays of phase 18
+N_DN_SEG_RAYS = 512                            # rays whose 128 fine samples phase 19 takes
+DN_PROBE = 32                                  # probe grid of phase 21's threshold
 
 
 def base_cfg() -> dict:
@@ -152,6 +187,31 @@ def base_cfg() -> dict:
     }
 
 
+def endonerf_cfg() -> dict:
+    """configs/endonerf/base.yml's keys for serving, in memory (no
+    depth_filter: it needs OpenCV)."""
+    enc = {"enc_type": "frequency"}
+    return {
+        "exp": {"project_name": "endonerf", "exp_name": "chip_smoke", "exp_dir": "logs",
+                "seed": 0},
+        "render": {"type": "endonerf", "n_samples": 64, "n_importance": 64, "perturb": True,
+                   "use_depth_sampling": True, "depth_sampling_sigma": 1.0},
+        "train": {"matmul_precision": "default", "sampling_precision": "default",
+                  "eval": {"ray_batch": CHUNK}},
+        "net": {"net_type": "dnerf", "use_deform": True, "raw_noise_std": 1.0,
+                "enc_pos_density_cfg": {**enc, "input_dim": 3, "multires": 10},
+                "enc_dir_color_cfg": {**enc, "input_dim": 3, "multires": 4},
+                "enc_time_deform_cfg": {**enc, "input_dim": 1, "multires": 10},
+                "enc_pos_deform_cfg": {**enc, "input_dim": 3, "multires": 10},
+                "net_deform_cfg": {"n_layers": 9, "hidden_dim": 256, "skips": [5]},
+                "net_density_cfg": {"n_layers": 9, "hidden_dim": 256, "skips": [5]},
+                "net_color_cfg": {"n_layers": 2, "hidden_dim": 128, "skips": []},
+                "geo_feat_dim": 256},
+        "demo": {"ray_batch": CHUNK, "marching_cubes_resolution": GRID_RES,
+                 "marching_cubes_thresh": 5, "marching_cubes_filter": 100},
+    }
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
@@ -176,7 +236,7 @@ def net_macs(params, name, head_cols=None):
     layers = params[name]["layers"]
     out = 0
     for l, layer in enumerate(layers):
-        d_in, d_out = layer["v"].shape
+        d_in, d_out = layer["v" if "v" in layer else "w"].shape
         out += d_in * (head_cols if head_cols is not None and l == len(layers) - 1 else d_out)
     return out
 
@@ -697,6 +757,331 @@ def timed_train(scene, dev, exp_root: str):
     return trainer, t1 - t0, t2 - t1, torch.cuda.max_memory_allocated() / 2 ** 30
 
 
+def density_raw_parity(spec, scene, dev) -> float:
+    """Phase 17; returns the largest bf16 sound max error on the grid."""
+    import dataclasses
+
+    from endosurf_tpu_torch.kernels import fused_sdf as fsd
+    from endosurf_tpu_torch.models.endonerf import init_dnerf_params
+    grid = grid_slab_inputs(scene, dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    static_pts = (torch.rand(N_STATIC, 3, generator=gen, device=dev) * 2.4 - 1.2,
+                  torch.rand(N_STATIC, 1, generator=gen, device=dev))
+    static = dataclasses.replace(spec, use_deform=False)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    tol = fsd.DENSITY_PARITY_TOL
+    worst = 0.0
+    for seed in (0, 1):
+        for what, s_spec, (x, t) in (("grid slab", spec, grid),
+                                     ("static random", static, static_pts)):
+            params = init_dnerf_params(s_spec, torch.Generator().manual_seed(seed), dev)
+            got = {k: fsd.fused_density_raw_cuda(s_spec, params, x, t, dt)
+                   for k, dt in dtypes.items()}
+            ref = {k: fsd.fused_density_raw_reference(s_spec, params, x, t, dt)
+                   for k, dt in dtypes.items()}
+            torch.cuda.synchronize()
+            for k_name in dtypes:
+                for r_name, r_dt in dtypes.items():
+                    med, p99, mx, ok = fsd.parity_errors(got[k_name], ref[r_name], r_dt, tol)
+                    sound = k_name == r_name
+                    print(f"density raw {'sound' if sound else 'control'} seed {seed} {what} "
+                          f"({x.shape[0]} points) kernel {k_name} plain {r_name}: median "
+                          f"{med:.3e}, p99 {p99:.3e}, max {mx:.3e} (tol {tol[r_dt]})",
+                          flush=True)
+                    if sound:
+                        check(ok, f"density raw kernel vs plain ({what}, {k_name}, seed {seed})")
+                        if k_name == "bfloat16" and what == "grid slab":
+                            worst = max(worst, mx)
+                    else:   # the limits must tell the precisions apart
+                        check(not ok, f"density raw kernel {k_name} passes the {r_name} limits")
+    return worst
+
+
+def dnerf_rays(renderer, n_guided: int, n_uniform: int):
+    """Phase 18's rays: n_guided of a test frame with (gt depth, sigma) in
+    slots 6/7 (the renderer's eval_ray_transform), evenly spaced, and the
+    first n_uniform of the same frame with its (near, far) bounds."""
+    from endosurf_tpu_torch.data.scene_data import frame_rays
+    fid = int(renderer.scene.list_test[0])
+    rays = frame_rays(renderer.scene.device_arrays, H, W, fid).reshape(-1, 9)
+    guided = renderer.eval_ray_transform(rays, fid)
+    step = rays.shape[0] // n_guided
+    return guided[::step][:n_guided].contiguous(), rays[:n_uniform].contiguous()
+
+
+def dnerf_render_parity(spec, rspec, renderer, dev) -> float:
+    """Phase 18, on the seeded nets (seeds 0 and 1) and the opaque ones
+    (seed 0 with fused_render_dnerf.DENSE_BIAS); returns the largest bf16
+    sound max error."""
+    import dataclasses
+
+    from endosurf_tpu_torch.kernels import fused_render_dnerf as frd
+    from endosurf_tpu_torch.models.endonerf import init_dnerf_params
+    guided, uniform = dnerf_rays(renderer, N_PARITY, N_DN_UNIFORM)
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    worst = 0.0
+    for nets, seed, bias in (("seeded", 0, 0.0), ("seeded", 1, 0.0),
+                             ("dense", 0, frd.DENSE_BIAS)):
+        params = init_dnerf_params(spec, torch.Generator().manual_seed(seed), dev)
+        if bias:
+            params = frd.with_density_bias(params, bias)
+        for what, rs, rays in (("depth-guided", rspec, guided),
+                               ("uniform", dataclasses.replace(rspec, use_depth_sampling=False),
+                                uniform)):
+            got = {k: frd.fused_render_rays_dnerf_cuda(spec, rs, params, rays, None, dt, dt)
+                   for k, dt in dtypes.items()}
+            ref = {k: frd.fused_render_rays_dnerf_reference(spec, rs, params, rays, None, dt, dt)
+                   for k, dt in dtypes.items()}
+            torch.cuda.synchronize()
+            for k_name in dtypes:
+                for r_name, r_dt in dtypes.items():
+                    errs = frd.parity_errors(got[k_name], ref[r_name], r_dt)
+                    sound = k_name == r_name
+                    tol = frd.PARITY_TOL[r_dt]
+                    size = {k: float(v.abs().median()) for k, v in ref[r_name].items()}
+                    print(f"dnerf render {'sound' if sound else 'control'} {nets} seed {seed} "
+                          f"{what} ({rays.shape[0]} rays) kernel {k_name} twin {r_name}: "
+                          + ", ".join(
+                              f"{k} median {med:.3e} p99 {p99:.3e} max {mx:.3e} (tol "
+                              f"{tol[k][0]:g} / {tol[k][1]:g} / {tol[k][2]:g}; median |map| "
+                              f"{size[k]:.3e})" for k, (med, p99, mx, _) in errs.items()),
+                          flush=True)
+                    ok = all(v[-1] for v in errs.values())
+                    if sound:
+                        check(ok, f"dnerf render kernel vs twin ({nets}, {what}, {k_name}, "
+                                  f"seed {seed})")
+                        if k_name == "bfloat16":
+                            worst = max(worst, max(v[2] for v in errs.values()))
+                    else:   # the limits must tell the precisions apart
+                        check(not ok, f"dnerf render kernel {k_name} passes the {r_name} limits")
+    return worst
+
+
+def dnerf_fine_samples(spec, rspec, renderer, params, dev):
+    """Phase 19's points: the 128 resampled depths of N_DN_SEG_RAYS
+    depth-guided rays (coarse raw density on the kernel, the resample's plain
+    version), as x, d [N, 3], t [N, 1]."""
+    from endosurf_tpu_torch.kernels.fused_render_dnerf import init_z
+    from endosurf_tpu_torch.kernels.fused_sampler import fine_resample_math
+    from endosurf_tpu_torch.kernels.fused_sdf import fused_density_raw_cuda
+    from endosurf_tpu_torch.models.endonerf import split_rays
+    rays, _ = dnerf_rays(renderer, N_DN_SEG_RAYS, 1)
+    o, d, d_z, _, _, t = split_rays(rays)
+    z0 = init_z(rspec, rays)
+    n, k0 = z0.shape
+
+    def pts(z):
+        return (o[:, None] + d_z[:, None] * z[..., None]).reshape(-1, 3)
+    raw = fused_density_raw_cuda(spec, params, pts(z0), t.repeat_interleave(k0, 0),
+                                 torch.bfloat16).reshape(n, k0)
+    z = fine_resample_math(z0, torch.relu(raw), torch.linalg.norm(d, dim=-1, keepdim=True))
+    k = z.shape[1]
+    return (pts(z).contiguous(), d.repeat_interleave(k, 0).contiguous(),
+            t.repeat_interleave(k, 0).contiguous())
+
+
+def dnerf_segment_parity(spec, rspec, renderer, dev):
+    """Phase 19; returns the max absolute error of each kernel and the bf16
+    seed-0 cases (phase 22 times them)."""
+    from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
+    from endosurf_tpu_torch.models.endonerf import init_dnerf_params
+    abs_err, cases = {}, {}
+    for seed in (0, 1):
+        params = init_dnerf_params(spec, torch.Generator().manual_seed(seed), dev)
+        x, d, t = dnerf_fine_samples(spec, rspec, renderer, params, dev)
+        for prec, other in (("highest", "default"), ("default", "highest")):
+            dtype = torch.bfloat16 if prec == "default" else torch.float32
+            for kp in (prec, other):
+                res, ae, seg_cases = ftd.segment_parity(spec, params, x, d, t, prec, kp)
+                torch.cuda.synchronize()
+                sound = kp == prec
+                for name, outs in res.items():
+                    print(f"dnerf segment {'sound' if sound else 'control'} seed {seed} kernel "
+                          f"{kp} plain {prec} {name} ({x.shape[0]} points): " + ", ".join(
+                              f"{k} median {v[0]:.3e} p99 {v[1]:.3e} max {v[2]:.3e}"
+                              for k, v in outs.items())
+                          + f" (tol {ftd.PARITY_TOL[dtype]})", flush=True)
+                    ok = all(v[-1] for v in outs.values())
+                    if sound:
+                        check(ok, f"dnerf segment {name} kernel vs plain ({prec}, seed {seed})")
+                    else:   # each segment's limits must tell the precisions apart
+                        check(not ok, f"dnerf segment {name} kernel {kp} passes the {prec} limits")
+                if sound and seed == 0 and prec == "default":
+                    abs_err, cases = ae, seg_cases
+    return abs_err, cases, x.shape[0]
+
+
+def dnerf_serving_phase(renderer, smi: str) -> int:
+    """Phase 20; returns the render kernel's launches."""
+    import numpy as np
+
+    from endosurf_tpu_torch.evaluation.render_eval import eval_frames
+    from endosurf_tpu_torch.kernels import fused_render_dnerf as frd
+    frd.LAUNCHES["fused_render_rays_dnerf"] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats, pred = eval_frames(renderer, renderer.scene.list_test[:1], 0, ray_chunk=CHUNK,
+                              save_images=False, return_pred=True)
+    torch.cuda.synchronize()
+    e2e_s = time.perf_counter() - t0
+    launches = frd.LAUNCHES["fused_render_rays_dnerf"]
+    n_chunks = math.ceil(H * W / CHUNK)
+    print(f"dnerf e2e ({smi}, save_images off): {H}x{W} frame in {e2e_s:.2f} s "
+          f"({H * W / e2e_s:.0f} rays/s), {launches} render kernel launches for {n_chunks} "
+          "chunks; " + ", ".join(f"{k} {v:.4f}" for k, v in stats.items()), flush=True)
+    check(launches == n_chunks, f"{launches} dnerf render launches for {n_chunks} chunks")
+    for k, ch in (("rgb", 3), ("depth", 1), ("normal", 3)):
+        check(pred[k].shape == (1, H, W, ch), f"dnerf {k} map shape {pred[k].shape}")
+        check(bool(np.isfinite(pred[k]).all()), f"dnerf {k} map finite")
+    check(float(np.abs(pred["normal"]).sum()) > 0, "dnerf normals from depth")
+    check(all(math.isfinite(v) for v in stats.values()), f"finite dnerf metrics {stats}")
+    return launches
+
+
+def dnerf_3d_phase(cfg, scene, dev) -> tuple:
+    """Phase 21; returns (raw-density launches, segment launches)."""
+    import numpy as np
+
+    from endosurf_tpu_torch.evaluation.geometry3d import grid_axes, grid_slab
+    from endosurf_tpu_torch.kernels import fused_sdf as fsd
+    from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
+    from endosurf_tpu_torch.serve import EndoNeRFRenderer
+    with tempfile.TemporaryDirectory() as exp_root:
+        dcfg = json.loads(json.dumps(cfg))
+        dcfg["exp"]["exp_dir"] = exp_root
+        renderer = EndoNeRFRenderer(dcfg, scene=scene, step=0, device=dev)
+        fid = int(scene.list_test[0])
+        lin = grid_axes(scene.bbox_minmax[fid, :, 0] * 1.2, scene.bbox_minmax[fid, :, 1] * 1.2,
+                        DN_PROBE)
+        probe = grid_slab(lin, 0, DN_PROBE, dev)
+        t_probe = scene.device_arrays["ts"][fid].reshape(1, 1).expand(probe.shape[0], 1)
+        thresh = round(float(-renderer.demo_field_fn()(probe, t_probe.contiguous()).median()), 5)
+        renderer.cfg["demo"]["marching_cubes_thresh"] = thresh
+        print(f"dnerf demo 3d: iso-threshold {thresh} (the median raw density of a "
+              f"{DN_PROBE}^3 probe; base.yml's 5 finds no surface in the seeded nets); "
+              "visualize off", flush=True)
+        fsd.LAUNCHES["fused_density_raw"] = 0
+        for k in ftd.LAUNCHES:
+            ftd.LAUNCHES[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = renderer.demo(0, test_mode=True, visualize=False, demo_2d=False, demo_3d=True)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = fsd.LAUNCHES["fused_density_raw"]
+        seg = dict(ftd.LAUNCHES)
+        tim = stats["timing_3d"][0]
+        n_chunks = math.ceil(tim["n_verts"] / 65536)
+        d3 = os.path.join(renderer.exp_dir, "demo", "iter_00000000",
+                          f"test_3d_thresh_{thresh}_res_{GRID_RES}")
+        plys = sorted(f for f in os.listdir(d3) if f.endswith(".ply"))
+        print(f"dnerf demo 3d: 1 frame at {GRID_RES}^3 in {total_s:.2f} s: grid "
+              f"{1e3 * tim['grid']:.1f} ms ({launches} kernel launches), mesh "
+              f"{1e3 * tim['mesh']:.1f} ms (marching_cubes_filter 100), colour "
+              f"{1e3 * tim['color']:.1f} ms (segment launches {seg}), metrics "
+              f"{1e3 * tim['metrics']:.1f} ms; {tim['n_verts']} vertices, {tim['n_tris']} "
+              f"triangles; geo_err_mean {stats['geo_err_mean']:.4f} mm; {plys}", flush=True)
+        check(launches == GRID_RES // GRID_SLAB,
+              f"{launches} raw-density launches for {GRID_RES // GRID_SLAB} slabs")
+        check(all(v == n_chunks for v in seg.values()),
+              f"segment launches {seg} for {n_chunks} colour chunks")
+        check(tim["n_verts"] > 0 and tim["n_tris"] > 0, "empty mesh")
+        check(plys == ["000_color.ply", "000_geometry.ply", "000_gt.ply", "000_normal.ply"],
+              f"PLYs written: {plys}")
+        check(math.isfinite(stats["geo_err_mean"]) and bool(np.isfinite(
+            stats["geo_err_per_frame"]).all()), f"geo_err_mean {stats['geo_err_mean']}")
+    return launches, seg
+
+
+def render_split(fn, smi: str, reps: int = 3) -> None:
+    """Device time of one EndoNeRF render chunk by kernel (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    parts = {"sweep": 0.0, "dn_resample": 0.0, "dn_field": 0.0, "dn_composite": 0.0,
+             "dn_prep": 0.0, "other": 0.0}
+    for evt in prof.key_averages():
+        dev_us = (getattr(evt, "self_device_time_total", None)
+                  or getattr(evt, "self_cuda_time_total", 0))
+        if dev_us <= 0 or evt.device_type != DeviceType.CUDA:
+            continue
+        name = next((k for k in parts if k in evt.key), "other")
+        parts[name] += dev_us / reps / 1e3
+    busy = sum(parts.values())
+    if busy == 0:
+        print("dnerf render split: the profiler recorded no device time", flush=True)
+        return
+    print(f"dnerf render split ({CHUNK} rays, bf16, {smi}): {busy:.2f} ms of device time = "
+          + ", ".join(f"{k} {v:.2f} ms ({100 * v / busy:.1f} %)" for k, v in parts.items()),
+          flush=True)
+
+
+def dnerf_timing(spec, rspec, renderer, seg_cases, n_seg, smi: str) -> dict:
+    """Phase 22: device ms of the five EndoNeRF kernels and their plain
+    versions at the paths' shapes, bf16, with (bound ms, bounded by) from the
+    parameter shapes."""
+    from endosurf_tpu_torch.kernels import fused_render_dnerf as frd
+    from endosurf_tpu_torch.kernels import fused_sdf as fsd
+    from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
+    from endosurf_tpu_torch.models.endonerf import init_dnerf_params
+    bf = torch.bfloat16
+    params = init_dnerf_params(spec, torch.Generator().manual_seed(0), renderer.device)
+    x, t = grid_slab_inputs(renderer.scene, renderer.device)
+    chunk, _ = dnerf_rays(renderer, CHUNK, 1)
+    deform, dens, color = (net_macs(params, k) for k in ("deform", "density", "color"))
+    chain = deform + net_macs(params, "density", 1)      # deform, density hidden, sigma head
+    full = deform + dens + color
+    wb = {k: _param_bytes(params, (k,), bf) for k in params}
+    n_pts = x.shape[0]
+    f = spec.geo_feat_dim
+    work = {
+        "fused_render_rays_dnerf": (2.0 * CHUNK * (rspec.n_samples * chain
+                                                   + (rspec.n_samples + rspec.n_importance)
+                                                   * full),
+                                    CHUNK * (9 + 5) * 4 + sum(wb.values())),
+        "fused_density_raw": (2.0 * n_pts * chain,
+                              n_pts * (3 + 1 + 1) * 4 + wb["deform"] + wb["density"]),
+        "dnerf_deform_fwd": (2.0 * n_seg * deform, n_seg * (4 + 3) * 4 + wb["deform"]),
+        "dnerf_density_fwd": (2.0 * n_seg * dens, n_seg * (3 + 1 + f) * 4 + wb["density"]),
+        "dnerf_color_fwd": (2.0 * n_seg * color, n_seg * (3 + f + 3) * 4 + wb["color"]),
+    }
+    calls = {
+        "fused_render_rays_dnerf": (
+            lambda: frd.fused_render_rays_dnerf_cuda(spec, rspec, params, chunk, None, bf, bf),
+            lambda: frd.fused_render_rays_dnerf_reference(spec, rspec, params, chunk, None, bf,
+                                                          bf), 5),
+        "fused_density_raw": (lambda: fsd.fused_density_raw_cuda(spec, params, x, t, bf),
+                              lambda: fsd.fused_density_raw_reference(spec, params, x, t, bf), 3),
+    }
+    eff = ftd.prepare_effective_dnerf(spec, params)
+    plain = {
+        "dnerf_deform_fwd": lambda xt: ftd.seg_deform_math(spec, eff["deform"], xt, "default"),
+        "dnerf_density_fwd": lambda xc: ftd.seg_density_math(
+            spec, eff["density"], eff["sigma_head"], eff["geo_feat"], xc, "default"),
+        "dnerf_color_fwd": lambda d, feat: ftd.seg_color_math(spec, eff["color"], d, feat,
+                                                              "default"),
+    }
+    for name, (packed, inputs) in seg_cases.items():
+        calls[name] = (lambda n=name, p=packed, i=inputs: ftd.FWD[n](p, *i),
+                       lambda n=name, i=inputs: plain[n](*i), 5)
+    render_split(calls["fused_render_rays_dnerf"][0], smi)
+    out = {}
+    for k, (kern, pl, reps) in calls.items():
+        with torch.no_grad():
+            k_ms, p_ms = cuda_ms(kern, reps), cuda_ms(pl, reps)
+        b_ms, b_by = bound_ms(*work[k], bf)
+        out[k] = (k_ms, p_ms, b_ms, b_by)
+        print(f"{k} timing (bf16, {smi}): kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms; "
+              f"{work[k][0] / 1e12:.4f} TFLOP -> bound {b_ms:.4f} ms ({b_by}); "
+              f"{work[k][0] / k_ms / 1e9:.2f} TFLOP/s", flush=True)
+    return out
+
+
 def train_only(smi: str) -> int:
     """``--train-only``: the build, then phase 7's timed run, split and
     trace."""
@@ -971,6 +1356,22 @@ def main() -> int:
     march_launches = march_train_phase(cfg, renderer_scene, dev, smi)
     new_times = new_kernel_timing(spec, renderer_scene, dev, smi)
 
+    # 17-22. the EndoNeRF vertical
+    from endosurf_tpu_torch.models.endonerf import DNeRFRenderSpec, DNeRFSpec
+    from endosurf_tpu_torch.serve import EndoNeRFRenderer
+    ncfg = endonerf_cfg()
+    dn_spec, dn_rspec = DNeRFSpec.from_config(ncfg["net"]), DNeRFRenderSpec.from_config(
+        ncfg["render"])
+    with tempfile.TemporaryDirectory() as exp_root:
+        ncfg["exp"]["exp_dir"] = exp_root
+        nerf = EndoNeRFRenderer(ncfg, scene=renderer_scene, step=0, device=dev)
+        dens_abs = density_raw_parity(dn_spec, renderer_scene, dev)
+        dn_render_abs = dnerf_render_parity(dn_spec, dn_rspec, nerf, dev)
+        dn_seg_abs, dn_seg_cases, n_dn_seg = dnerf_segment_parity(dn_spec, dn_rspec, nerf, dev)
+        dn_render_launches = dnerf_serving_phase(nerf, smi)
+    dens_launches, dn_seg_launches = dnerf_3d_phase(endonerf_cfg(), renderer_scene, dev)
+    dn_times = dnerf_timing(dn_spec, dn_rspec, nerf, dn_seg_cases, n_dn_seg, smi)
+
     # the kernel record: work, bounds and times at the main paths' shapes (bf16)
     bf = torch.bfloat16
     deform, sdf_hidden = net_macs(params, "deform_network"), net_macs(params, "sdf_network", 0)
@@ -1022,7 +1423,21 @@ def main() -> int:
         for k, src, rep, n_launch, err in (
             ("fused_sdf_observed", "fused_sdf.cu", "fused_sdf.py:424", sdf_launches, sdf_abs),
             ("fused_ray_march", "fused_sampler.cu", "fused_sampler.py:685", march_launches,
-             march_abs))]}))
+             march_abs))] + [
+        {"name": k, "route": "cuda", "source": f"endosurf_tpu_torch/kernels/csrc/{src}",
+         "replaces": f"endosurf_tpu/kernels/{rep}", "launches": n_launch, "max_abs_err": err,
+         "ms": dn_times[k][0], "plain_ms": dn_times[k][1], "bound_ms": dn_times[k][2],
+         "bound_by": dn_times[k][3], "library_ms": None}
+        for k, src, rep, n_launch, err in (
+            ("fused_density_raw", "fused_sdf.cu", "fused_sdf.py:442", dens_launches, dens_abs),
+            ("fused_render_rays_dnerf", "fused_render_dnerf.cu", "fused_render_dnerf.py:246",
+             dn_render_launches, dn_render_abs),
+            ("dnerf_deform_fwd", "fused_train_dnerf.cu", "fused_train_dnerf.py:242",
+             dn_seg_launches["dnerf_deform_fwd"], dn_seg_abs["dnerf_deform_fwd"]),
+            ("dnerf_density_fwd", "fused_train_dnerf.cu", "fused_train_dnerf.py:271",
+             dn_seg_launches["dnerf_density_fwd"], dn_seg_abs["dnerf_density_fwd"]),
+            ("dnerf_color_fwd", "fused_train_dnerf.cu", "fused_train_dnerf.py:313",
+             dn_seg_launches["dnerf_color_fwd"], dn_seg_abs["dnerf_color_fwd"]))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,8 @@
 """CLI: python -m endosurf_tpu_torch --cfg <yaml> --mode <mode>
 
-The modes of the JAX package's CLI (``python -m endosurf_tpu``):
-  train    — run / resume training (EndoSurf), checkpoints into the exp dir
+The modes of the JAX package's CLI (``python -m endosurf_tpu``); the model
+family is the config's render.type (endosurf | endonerf):
+  train    — run / resume training (EndoSurf only), checkpoints into the exp dir
   test     — test split: view synthesis + metrics, meshes + geometric error
   test_2d  — test split, view synthesis + metrics
   test_3d  — test split, meshes (PLYs) + geometric error (geo_err_mean, mm)
@@ -40,20 +41,21 @@ def main(argv=None):
         cfg = load_config(args.cfg)
         render_type = cfg["render"].get("type", "endosurf")
         if render_type != "endosurf":
-            raise NotImplementedError(f"not yet ported: render type {render_type!r}")
+            raise NotImplementedError(f"not yet ported: --mode train for render type "
+                                      f"{render_type!r}")
         from endosurf_tpu_torch.train.trainer_endosurf import EndoSurfTrainer
         EndoSurfTrainer(cfg, mode="train", device=device).start()
         return None
 
     from endosurf_tpu_torch.bridge import load_params_npz
-    from endosurf_tpu_torch.serve import EndoSurfRenderer
+    from endosurf_tpu_torch.serve import make_renderer
     from endosurf_tpu_torch.train.checkpoint import load_checkpoint
 
     params, step = None, 0
     if args.params:
         params, npz_step = load_params_npz(args.params, device)
         step = npz_step or 0
-    renderer = EndoSurfRenderer(args.cfg, params=params, step=step, device=device)
+    renderer = make_renderer(args.cfg, params=params, step=step, device=device)
     if params is None:
         restored = load_checkpoint(renderer.exp_dir, device)
         if restored is not None:

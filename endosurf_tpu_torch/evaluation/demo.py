@@ -2,8 +2,10 @@
 (port of ``endosurf_tpu/evaluation/demo.py``).
 
 Renders every frame (or the test split) and scores PSNR / SSIM / depth RMSE;
-extracts a marching-tetrahedra mesh per frame from the SDF on a dense grid
-(the grid query runs ``fused_sdf_observed``: the CUDA kernel on the card),
+extracts a marching-tetrahedra mesh per frame from the renderer's scalar
+field on a dense grid (EndoSurf's SDF through ``fused_sdf_observed``,
+EndoNeRF's negated raw density through ``fused_density_raw``: CUDA kernels on
+the card),
 colours it from the radiance field, writes PLYs and reports the geometric
 error in mm (ground-truth point cloud -> mesh vertices). With ``visualize``
 it also writes composites, mesh screenshots, an mp4 and a gif; imageio and
@@ -26,7 +28,11 @@ from endosurf_tpu_torch.evaluation.geometry3d import (
     geometric_error,
     rgbd_to_pointcloud,
 )
-from endosurf_tpu_torch.evaluation.render_eval import frame_stats, render_full_frames
+from endosurf_tpu_torch.evaluation.render_eval import (
+    add_depth_normals,
+    frame_stats,
+    render_full_frames,
+)
 from endosurf_tpu_torch.native import rasterize_mesh
 from endosurf_tpu_torch.utils.ply import write_ply
 
@@ -81,7 +87,10 @@ def run_demo(renderer, step: int, test_mode: bool = False, visualize: bool = Tru
              demo_2d: bool = True, demo_3d: bool = True) -> Dict:
     """``renderer`` provides scene, cfg, params, exp_dir, device,
     ``render_fn()``, ``demo_field_fn()``, ``demo_field_threshold(t)`` and
-    ``render_points_fn()`` (``serve.EndoSurfRenderer``). Returns the stats;
+    ``render_points_fn()`` (``serve.EndoSurfRenderer`` /
+    ``EndoNeRFRenderer``), and optionally ``eval_ray_transform`` and
+    ``normals_from_depth`` (as ``render_eval.eval_frames``); the 2D depth is
+    smoothed by ``demo.depth_filter`` when the config sets it. Returns the stats;
     with ``demo_3d`` they hold ``geo_err_mean``, ``geo_err_per_frame`` and
     ``timing_3d`` (seconds a frame of grid, mesh, colour and metrics)."""
     scene = renderer.scene
@@ -111,7 +120,13 @@ def run_demo(renderer, step: int, test_mode: bool = False, visualize: bool = Tru
         d2 = osp.join(base_dir, f"{tag}_2d")
         os.makedirs(d2, exist_ok=True)
         pred = render_full_frames(renderer.render_fn(), renderer.params, arrays,
-                                  scene.h, scene.w, fids, step, ray_chunk)
+                                  scene.h, scene.w, fids, step, ray_chunk,
+                                  getattr(renderer, "eval_ray_transform", None))
+        depth_filter = cfg.get("depth_filter")
+        if depth_filter not in ("None", None):
+            from endosurf_tpu_torch.evaluation.vis import filter_depth
+            pred["depth"] = filter_depth(pred["depth"], depth_filter)
+        add_depth_normals(renderer, scene, fids, pred)
         stats.update(frame_stats(scene, fids, pred))
         with open(osp.join(d2, "stats_out.txt"), "w") as f:
             for k, v in stats.items():

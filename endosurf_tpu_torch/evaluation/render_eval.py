@@ -59,6 +59,18 @@ def render_full_frames(render_fn, params, arrays, h: int, w: int,
     return out
 
 
+def add_depth_normals(renderer, scene, fids: Sequence[int], pred: Dict[str, np.ndarray]) -> None:
+    """With the renderer's ``normals_from_depth`` and no rendered normals:
+    ``pred["normal"]`` from the depth map (``vis.normal_from_depth`` on the
+    frames' own rays)."""
+    if "normal" in pred or not getattr(renderer, "normals_from_depth", False):
+        return
+    from endosurf_tpu_torch.evaluation.vis import normal_from_depth
+    arrays = scene.device_arrays
+    rays = np.stack([frame_rays(arrays, scene.h, scene.w, f).cpu().numpy() for f in fids])
+    pred["normal"] = normal_from_depth(rays, pred["depth"])
+
+
 def frame_stats(scene, fids: Sequence[int], pred: Dict[str, np.ndarray]) -> Dict[str, float]:
     """PSNR / SSIM on colour and depth RMSE (scene units x depth_scale)."""
     arrays = scene.device_arrays
@@ -83,13 +95,17 @@ def eval_frames(renderer, fids: Sequence[int], step: int, ray_chunk: int = 2048,
                 return_pred: bool = False):
     """Render test frames, compute masked metrics, save composites + stats.
 
-    Returns the stats dict, or (stats, predicted maps) with ``return_pred``.
+    The renderer's optional hooks: ``eval_ray_transform(rays, fid)`` rewrites
+    a frame's rays before rendering, ``normals_from_depth`` derives the
+    normal map from the depth map. Returns the stats dict, or (stats,
+    predicted maps) with ``return_pred``.
     """
     scene = renderer.scene
     fids = [int(f) for f in fids]
     pred = render_full_frames(renderer.render_fn(), renderer.params,
                               scene.device_arrays, scene.h, scene.w, fids, step,
-                              ray_chunk)
+                              ray_chunk, getattr(renderer, "eval_ray_transform", None))
+    add_depth_normals(renderer, scene, fids, pred)
     stats = frame_stats(scene, fids, pred)
 
     save_dir = osp.join(renderer.exp_dir, save_dir_name, f"iter_{step:08d}")

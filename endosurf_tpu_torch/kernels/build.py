@@ -124,5 +124,18 @@ def load_library() -> ctypes.CDLL:
         fn.restype = i32
     lib.train_bwd_sizes.argtypes = [ctypes.POINTER(i64), i32, i32, ctypes.POINTER(i64)]
     lib.train_bwd_sizes.restype = None
+    # the EndoNeRF kernels (fused_sdf.cu, fused_render_dnerf.cu, fused_train_dnerf.cu)
+    lib.fused_density_raw_launch.argtypes = [vp, vp, i64, vp, ctypes.POINTER(i64), i32, vp, vp]
+    lib.fused_density_raw_launch.restype = i32
+    lib.fused_render_dnerf_scratch_floats.argtypes = [i32]
+    lib.fused_render_dnerf_scratch_floats.restype = i64
+    lib.fused_render_dnerf_launch.argtypes = [
+        vp, vp, i32, i32, i32, vp, vp, ctypes.POINTER(i64), i32, i32, vp, vp, vp]
+    lib.fused_render_dnerf_launch.restype = i32
+    for name, n_ptrs in (("dnerf_deform_fwd", 2), ("dnerf_density_fwd", 3),
+                         ("dnerf_color_fwd", 3)):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp, ctypes.POINTER(i64), i32, i64] + [vp] * (n_ptrs + 1)
+        fn.restype = i32
     _LIB = lib
     return lib

@@ -1,0 +1,259 @@
+// EndoNeRF (D-NeRF) forward render for NVIDIA Hopper (sm_90a), CUDA C++.
+//
+// Replaces the Pallas TPU kernel endosurf_tpu/kernels/fused_render_dnerf.py
+// (fused_render_rays_dnerf, body _render_dnerf_kernel): for every ray, the
+// coarse raw density at its n0 initial depths (the deform -> density chain at
+// the sampling precision), the importance resampling of
+// fused_sampler._fine_resample_math (coarse 1 - exp(-sigma dist) weights,
+// n_new deterministic inverse-CDF draws, the sorted merge), the full field
+// at all n0 + n_new depths (fused_train_dnerf.forward_math at the main
+// precision) and raw2outputs (density compositing, disparity-form depth).
+// The initial depths come from the caller (the Gaussian depth-guided draws,
+// sorted, or a linspace), as the TPU kernel takes them from XLA.
+//
+// One host entry (fused_render_dnerf_launch) launches a fixed sequence on
+// the caller's stream:
+//   prep -> coarse sweep (R x n0 points, sdf_chain.cuh's sweep with the
+//   D-NeRF chain over DnRaySamples) -> resample (one thread a ray) -> field (R x (n0 + n_new)
+//   points, dnerf_chain.cuh) -> composite (one thread a ray).
+//
+// What bounds it: the MLPs, about 0.41 GFLOP a ray at 64 + 64 samples with
+// the 9x256 / 9x256 / 2x128 nets (2 MFLOP a coarse point, 2.2 a fine one);
+// a ray's inputs and outputs are 73 floats. Plain SIMT float32 FMA, as the
+// other kernels of the port; tensor cores are later work. The per-ray
+// resample and composite are loops of a few hundred operations a ray.
+//
+// Precision: rb_samp / rb_main round every dot operand of the coarse sweep /
+// of the field evaluation to bf16 (the weights arrive rounded); products
+// accumulate in float32. The sweep does not round coordinates, the field
+// evaluation does (as the TPU kernels' two chains do).
+
+#include "dnerf_chain.cuh"
+
+#define DN_K 128        // samples per ray after resampling, at most
+#define DN_N0 64        // initial samples per ray, at most
+#define DN_OUT 5        // floats per ray of the output: rgb, depth, acc
+
+namespace {
+
+// Sample j of ray r at o + z d_z, formed with separately rounded products and
+// sums (no FMA contraction), as the plain twin forms it: the density's high
+// octaves turn a float32 ulp of a coordinate into ~1e-4 of the density.
+__device__ __forceinline__ float dn_coord(const float* b, int k, float z) {
+  return __fadd_rn(b[k], __fmul_rn(z, b[3 + k]));
+}
+
+// RaySamples (sdf_chain.cuh) with dn_coord's points: the coarse sweep's source.
+struct DnRaySamples {
+  const float* rb;
+  const float* z;
+  int K;
+  float* dst;
+  long long n;
+  __device__ void load(long long i, float& x0, float& x1, float& x2, float& t) const {
+    int r = (int)(i / K);
+    const float* b = rb + (size_t)r * RB_STRIDE;
+    float zz = z[i];
+    x0 = dn_coord(b, 0, zz); x1 = dn_coord(b, 1, zz); x2 = dn_coord(b, 2, zz);
+    t = b[9];
+  }
+  __device__ void store(long long i, float v) const { dst[i] = v; }
+};
+
+// rays [R, 9] -> ray buffer (o, d_z, d, t, |d|), d_z = d / (d_z + 1e-5).
+__global__ void dn_prep_kernel(const float* __restrict__ rays, int R, float* __restrict__ rb) {
+  int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  const float* ry = rays + (size_t)r * 9;
+  float* b = rb + (size_t)r * RB_STRIDE;
+  const float inv = ry[5] + 1e-5f;
+  for (int k = 0; k < 3; ++k) {
+    b[k] = ry[k];
+    b[3 + k] = ry[3 + k] / inv;
+    b[6 + k] = ry[3 + k];
+  }
+  b[9] = ry[8];
+  b[10] = sqrtf(ry[3] * ry[3] + ry[4] * ry[4] + ry[5] * ry[5]);
+  for (int k = 11; k < RB_STRIDE; ++k) b[k] = 0.f;
+}
+
+// Importance resampling of one ray: the coarse weights of raw2outputs on
+// relu(raw sigma) at the n0 sorted depths, the sample_pdf of weights 1 .. n0-2
+// (+ 1e-5) over the n0 - 1 midpoint bins with n_new draws at u = (j + 0.5) /
+// n_new, then the sorted merge of the n0 depths and the draws into zl [R][DN_K].
+__global__ void dn_resample_kernel(int R, int n0, int n_new, const float* __restrict__ rb,
+                                   const float* __restrict__ z0, const float* __restrict__ sig,
+                                   float* __restrict__ zl) {
+  int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  const float dn = rb[(size_t)r * RB_STRIDE + 10];
+  const float* z = z0 + (size_t)r * n0;
+  const float* s = sig + (size_t)r * n0;
+  float cdf[DN_N0];     // n0 - 1 entries: 0, then the running sum of the pdf
+  float znew[DN_N0];
+  float T = 1.f, wsum = 0.f;
+  for (int j = 0; j < n0 - 1; ++j) {
+    const float dist = (z[j + 1] - z[j]) * dn;
+    const float alpha = 1.f - expf(-fmaxf(s[j], 0.f) * dist);
+    const float w = alpha * T;
+    T *= 1.f - alpha + 1e-10f;
+    if (j >= 1) {
+      const float wf = w + 1e-5f;        // the pdf's weight floor
+      cdf[j] = wf;
+      wsum += wf;
+    }
+  }
+  cdf[0] = 0.f;
+  float run = 0.f;
+  for (int k = 1; k < n0 - 1; ++k) { run += cdf[k] / wsum; cdf[k] = run; }
+  const int nb = n0 - 1;               // bins
+  for (int jn = 0; jn < n_new; ++jn) {
+    const float u = ((float)jn + 0.5f) / (float)n_new;
+    int inds = 0;
+    for (int k = 0; k < nb; ++k) inds += (cdf[k] <= u) ? 1 : 0;
+    const int below = max(inds - 1, 0);
+    const int above = min(inds, nb - 1);
+    const float zb = 0.5f * (z[below] + z[below + 1]);
+    const float za = 0.5f * (z[above] + z[above + 1]);
+    float denom = cdf[above] - cdf[below];
+    if (denom < 1e-5f) denom = 1.f;
+    const float v = zb + (u - cdf[below]) / denom * (za - zb);
+    int pos = jn;                       // insertion keeps the draws sorted
+    while (pos > 0 && znew[pos - 1] > v) { znew[pos] = znew[pos - 1]; --pos; }
+    znew[pos] = v;
+  }
+  float* out = zl + (size_t)r * DN_K;
+  int a = 0, b = 0;
+  for (int k = 0; k < n0 + n_new; ++k) {
+    if (b >= n_new || (a < n0 && z[a] <= znew[b])) out[k] = z[a++];
+    else out[k] = znew[b++];
+  }
+}
+
+// The full field at the K sorted depths of each ray -> pt [R * K][4]: raw
+// sigma, rgb.
+template <bool RB>
+__global__ void __launch_bounds__(NT, 2)
+dn_field_kernel(const float* __restrict__ wts, Model m, int R, int K,
+                const float* __restrict__ rb, const float* __restrict__ zl,
+                float* __restrict__ pt) {
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x;
+  const DnTile s = dn_tile(smem, m);
+  const long long base = (long long)blockIdx.x * P_DN;
+  const long long n_pts = (long long)R * K;
+  if (tid < P_DN) {
+    const long long i = base + tid;
+    float x[3] = {0.f, 0.f, 0.f}, d[3] = {0.f, 0.f, 0.f}, t = 0.f;
+    if (i < n_pts) {
+      const int r = (int)(i / K), j = (int)(i % K);
+      const float* b = rb + (size_t)r * RB_STRIDE;
+      const float z = zl[(size_t)r * DN_K + j];
+      for (int k = 0; k < 3; ++k) { x[k] = dn_coord(b, k, z); d[k] = b[6 + k]; }
+      t = b[9];
+    }
+    for (int k = 0; k < 3; ++k) {
+      s.x[tid * 4 + k] = x[k];
+      s.xc[tid * 4 + k] = x[k];
+      s.d[tid * 4 + k] = d[k];
+    }
+    s.x[tid * 4 + 3] = t;
+  }
+  __syncthreads();
+  if (m.use_deform) dn_deform<RB>(wts, m, s, tid);
+  dn_density<RB>(wts, m, s, tid, base, n_pts, nullptr);
+  dn_color<RB>(wts, m, s, tid);
+  if (tid < P_DN) {
+    const long long i = base + tid;
+    if (i < n_pts) {
+      float* q = pt + (size_t)i * 4;
+      for (int k = 0; k < 4; ++k) q[k] = s.out[tid * 4 + k];
+    }
+  }
+}
+
+// raw2outputs of one ray over its K depths -> out [R][DN_OUT].
+__global__ void dn_composite_kernel(int R, int K, const float* __restrict__ rb,
+                                    const float* __restrict__ zl, const float* __restrict__ pt,
+                                    float* __restrict__ out) {
+  int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  const float dn = rb[(size_t)r * RB_STRIDE + 10];
+  const float* z = zl + (size_t)r * DN_K;
+  float T = 1.f, c0 = 0.f, c1 = 0.f, c2 = 0.f, acc = 0.f, dsum = 0.f;
+  for (int j = 0; j < K; ++j) {
+    const float* q = pt + ((size_t)r * K + j) * 4;
+    const float dist = (j < K - 1 ? z[j + 1] - z[j] : 1e10f) * dn;
+    const float alpha = 1.f - expf(-fmaxf(q[0], 0.f) * dist);
+    const float w = alpha * T;
+    T *= 1.f - alpha + 1e-10f;
+    c0 += w * q[1]; c1 += w * q[2]; c2 += w * q[3];
+    acc += w;
+    dsum += w * z[j] * dn;
+  }
+  const float disp = 1.f / fmaxf(1e-10f, dsum / (acc + 1e-6f));
+  float* o = out + (size_t)r * DN_OUT;
+  o[0] = c0; o[1] = c1; o[2] = c2;
+  o[3] = 1.f / (disp + 1e-6f);
+  o[4] = acc;
+}
+
+template <bool RB>
+cudaError_t launch_dn_field(const float* w, const Model& m, int R, int K, const float* rb,
+                            const float* zl, float* pt, cudaStream_t st) {
+  size_t smem;
+  cudaError_t e = dn_prepare(dn_field_kernel<RB>, m, smem);
+  if (e != cudaSuccess) return e;
+  const long long n = (long long)R * K;
+  dn_field_kernel<RB><<<(unsigned)((n + P_DN - 1) / P_DN), NT, smem, st>>>(w, m, R, K, rb, zl,
+                                                                            pt);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Floats of scratch the caller must allocate for R rays.
+long long fused_render_dnerf_scratch_floats(int R) {
+  return (long long)R * (RB_STRIDE + DN_N0 + DN_K + DN_K * 4);
+}
+
+// rays [R, 9]; z0 [R, n0] the sorted initial depths; w_samp / w_main packed
+// weights for the sampling / main precision (same layout, described by meta;
+// kernels/fused_train_dnerf.pack_dnerf); out [R, 5] (rgb, depth, acc). Runs on
+// the calling thread's current device, which the caller sets to the tensors'
+// device. Returns a cudaError_t (0 on success).
+int fused_render_dnerf_launch(const float* rays, const float* z0, int R, int n0, int n_new,
+                              const float* w_samp, const float* w_main, const long long* meta,
+                              int rb_samp, int rb_main, float* scratch, float* out,
+                              void* stream) {
+  if (R <= 0) return 0;
+  if (n0 < 3 || n0 > DN_N0 || n_new < 1 || n_new > DN_N0 || n0 + n_new > DN_K)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  cudaStream_t st = (cudaStream_t)stream;
+  const Model m = decode_model(meta);
+  float* rb = scratch;
+  float* sig = rb + (size_t)R * RB_STRIDE;
+  float* zl = sig + (size_t)R * DN_N0;
+  float* pt = zl + (size_t)R * DN_K;
+  const int K = n0 + n_new;
+  const int tpb = 128;
+  const int rblocks = (R + tpb - 1) / tpb;
+
+  dn_prep_kernel<<<rblocks, tpb, 0, st>>>(rays, R, rb);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  e = launch_sweep<DNeRFChain>(w_samp, m, rb_samp != 0,
+                               DnRaySamples{rb, z0, n0, sig, (long long)R * n0}, st);
+  if (e != cudaSuccess) return (int)e;
+  dn_resample_kernel<<<rblocks, tpb, 0, st>>>(R, n0, n_new, rb, z0, sig, zl);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  e = rb_main ? launch_dn_field<true>(w_main, m, R, K, rb, zl, pt, st)
+              : launch_dn_field<false>(w_main, m, R, K, rb, zl, pt, st);
+  if (e != cudaSuccess) return (int)e;
+  dn_composite_kernel<<<rblocks, tpb, 0, st>>>(R, K, rb, zl, pt, out);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

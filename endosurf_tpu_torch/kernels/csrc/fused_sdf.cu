@@ -1,4 +1,5 @@
-// EndoSurf observed-space SDF query for NVIDIA Hopper (sm_90a), CUDA C++.
+// EndoSurf observed-space SDF query and EndoNeRF raw density query for
+// NVIDIA Hopper (sm_90a), CUDA C++.
 //
 // Replaces the Pallas TPU kernel endosurf_tpu/kernels/fused_sdf.py
 // (fused_sdf_observed, body _kernel via _head_query): for every point
@@ -20,6 +21,15 @@
 // (3.94 TFLOP for a 128^3 grid); the inputs are 16 bytes a point. Plain SIMT
 // float32 FMA; tensor cores are later work.
 //
+// fused_density_raw_launch replaces the Pallas TPU kernel
+// endosurf_tpu/kernels/fused_sdf.py (fused_density_raw, the same body with the
+// D-NeRF chain of chain_from_spec): freq-encode(x, t) -> deform MLP (relu,
+// skips unscaled) -> x_c -> freq-encode(x_c) -> density MLP (relu, skips
+// unscaled) -> raw density [N] (column 0 of the 1 + feat_dim output layer,
+// before the relu), without gradient. It serves the 3D demo's grid of the
+// EndoNeRF vertical (two 1,048,576-point slabs a 128^3 frame). Same sweep
+// (DNeRFChain), same bound: about 1.99 MFLOP a point with the 9x256 nets.
+//
 // Precision: with rb every dot operand is rounded to bf16 and the weights
 // arrive rounded (pack_operands); products accumulate in float32. Without it
 // every dot is float32. Coordinates are not rounded (the CPU-interpreted JAX
@@ -37,6 +47,16 @@ int fused_sdf_observed_launch(const float* x, const float* t, long long n, const
   const Model m = decode_model(meta);
   PointList src{x, t, out, n};
   return (int)launch_sweep(w, m, rb != 0, src, (cudaStream_t)stream);
+}
+
+// The D-NeRF chain over the same point list; w / meta packed by
+// kernels/fused_train_dnerf.pack_dnerf.
+int fused_density_raw_launch(const float* x, const float* t, long long n, const float* w,
+                             const long long* meta, int rb, float* out, void* stream) {
+  if (n <= 0) return 0;
+  const Model m = decode_model(meta);
+  PointList src{x, t, out, n};
+  return (int)launch_sweep<DNeRFChain>(w, m, rb != 0, src, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -2,7 +2,11 @@
 // (kernels/fused_sdf.py's chain: skips scale their input before the dot) as
 // one sweep kernel over a point source, shared by the render, upsample, ray
 // march (fused_render.cu, fused_sampler.cu) and observed-SDF query
-// (fused_sdf.cu) entry points; and the SDF-guided upsampling: NeuS
+// (fused_sdf.cu) entry points. A chain type picks the two nets' skip scale
+// and the second net's activation: EndoSurfChain (1/sqrt(2), softplus100)
+// or DNeRFChain (1, relu: deform -> density, whose head is the raw density;
+// fused_density_raw and the D-NeRF render's coarse sweep). And the
+// SDF-guided upsampling: NeuS
 // importance weights with k deterministic inverse-CDF draws
 // (fused_sampler._upsample_round), the stable sorted merge, and the host loop
 // that runs the rounds on one stream.
@@ -30,6 +34,17 @@
 namespace {
 
 const float kInvSqrt2 = 0.70710678118654752440f;
+
+// The sampling chain of each field family: the skip scale of both nets and
+// whether the second net's hidden activation is relu (else softplus100).
+struct EndoSurfChain {
+  static constexpr float kSkip = 0.70710678118654752440f;
+  static constexpr bool kRelu2 = false;
+};
+struct DNeRFChain {
+  static constexpr float kSkip = 1.f;
+  static constexpr bool kRelu2 = true;
+};
 
 struct Net {
   int n_layers;
@@ -235,7 +250,7 @@ __host__ __device__ inline size_t sweep_smem_floats(const Model& m) {
   return (size_t)P_SWEEP * (4 + 4 + HMAX + 2 * emax);
 }
 
-template <bool RB>
+template <bool RB, class C>
 __device__ void sweep_mlp(const Net& N, const float* __restrict__ wts, bool relu_act,
                           float* s_h, const float* s_e0, const float* s_es, int ew,
                           int tid) {
@@ -260,7 +275,7 @@ __device__ void sweep_mlp(const Net& N, const float* __restrict__ wts, bool relu
     __syncthreads();
     if (tid < n_out) {
       float b = wts[N.b_off[l] + tid];
-      float post = next_skip ? kInvSqrt2 : 1.f;
+      float post = next_skip ? C::kSkip : 1.f;
 #pragma unroll
       for (int p = 0; p < P_SWEEP; ++p) {
         float z = acc[p] + b;
@@ -272,7 +287,7 @@ __device__ void sweep_mlp(const Net& N, const float* __restrict__ wts, bool relu
   }
 }
 
-template <bool RB, class Src>
+template <bool RB, class C, class Src>
 __global__ void __launch_bounds__(NT, 2)
 sweep_kernel(const float* __restrict__ wts, Model m, Src src) {
   extern __shared__ float smem[];
@@ -304,10 +319,10 @@ sweep_kernel(const float* __restrict__ wts, Model m, Src src) {
       float v = s_x[p * 4 + dim] * sc;
       float e = kind == 0 ? v : (kind == 1 ? sinf(v) : cosf(v));
       s_e0[p * m.ed + c] = opnd<RB>(e);
-      s_es[p * m.ed + c] = opnd<RB>(e * kInvSqrt2);
+      s_es[p * m.ed + c] = opnd<RB>(e * C::kSkip);
     }
     __syncthreads();
-    sweep_mlp<RB>(m.deform, wts, true, s_h, s_e0, s_es, m.ed, tid);
+    sweep_mlp<RB, C>(m.deform, wts, true, s_h, s_e0, s_es, m.ed, tid);
     // output layer: dx (3 columns)
     const Net& N = m.deform;
     int l = N.n_layers - 1;
@@ -333,11 +348,11 @@ sweep_kernel(const float* __restrict__ wts, Model m, Src src) {
     float v = s_xc[p * 4 + dim] * sc;
     float e = kind == 0 ? v : (kind == 1 ? sinf(v) : cosf(v));
     s_e0[p * m.es + c] = opnd<RB>(e);
-    s_es[p * m.es + c] = opnd<RB>(e * kInvSqrt2);
+    s_es[p * m.es + c] = opnd<RB>(e * C::kSkip);
   }
   __syncthreads();
-  sweep_mlp<RB>(m.sdf, wts, false, s_h, s_e0, s_es, m.es, tid);
-  // head: column 0 of the SDF output layer
+  sweep_mlp<RB, C>(m.sdf, wts, C::kRelu2, s_h, s_e0, s_es, m.es, tid);
+  // head: column 0 of the SDF (D-NeRF: density) output layer
   if (tid < P_SWEEP) {
     const Net& N = m.sdf;
     int l = N.n_layers - 1;
@@ -384,31 +399,32 @@ Model decode_model(const long long* meta) {
   return m;
 }
 
-template <bool RB, class Src>
+template <bool RB, class C, class Src>
 cudaError_t launch_sweep_t(const float* w, const Model& m, const Src& src, cudaStream_t st) {
   if (src.n <= 0) return cudaSuccess;
   size_t smem = sweep_smem_floats(m) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(sweep_kernel<RB, Src>,
+  cudaError_t e = cudaFuncSetAttribute(sweep_kernel<RB, C, Src>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   long long blocks = (src.n + P_SWEEP - 1) / P_SWEEP;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  sweep_kernel<RB, Src><<<(unsigned)blocks, NT, smem, st>>>(w, m, src);
+  sweep_kernel<RB, C, Src><<<(unsigned)blocks, NT, smem, st>>>(w, m, src);
   return cudaGetLastError();
 }
 
-// The sweep at the bf16 (rb) or float32 dot precision.
-template <class Src>
+// The sweep of chain C at the bf16 (rb) or float32 dot precision.
+template <class C = EndoSurfChain, class Src>
 cudaError_t launch_sweep(const float* w, const Model& m, bool rb, const Src& src,
                          cudaStream_t st) {
-  return rb ? launch_sweep_t<true>(w, m, src, st) : launch_sweep_t<false>(w, m, src, st);
+  return rb ? launch_sweep_t<true, C>(w, m, src, st) : launch_sweep_t<false, C>(w, m, src, st);
 }
 
 // K samples per ray: z[r * ldz + j] -> dst[r * ldd + j], j < K.
+template <class C = EndoSurfChain>
 cudaError_t sweep_rays(const float* w, const Model& m, bool rb, int R, int K, const float* b,
                        const float* z, int ldz, float* dst, int ldd, cudaStream_t st) {
   RaySamples src{b, z, ldz, K, dst, ldd, (long long)R * K};
-  return launch_sweep(w, m, rb, src, st);
+  return launch_sweep<C>(w, m, rb, src, st);
 }
 
 // The SDF at the n0 samples in zl, then n_rounds rounds at sharpness 64 * 2^i:

@@ -112,12 +112,16 @@ def cuda_spec_supported(spec) -> bool:
     return True
 
 
-def pack_operands(spec, params: Dict[str, Any], dtype: torch.dtype
-                  ) -> Tuple[torch.Tensor, List[int]]:
-    """Effective weights packed into one float32 buffer, plus the int64 meta
-    the kernel decodes: per net the layer dims, skip mask and offsets of W
-    [in, out], b and (SDF hidden layers) W^T. Under bf16 the weights are
-    rounded to bf16 values; biases and the adjoint's head column are not."""
+def pack_nets(nets, dtype: torch.dtype) -> Tuple[List[torch.Tensor], List[int], Any]:
+    """Pack three nets for the kernels' ``Model`` meta.
+
+    ``nets``: per net ``(layers or None, skips, transpose_hidden)`` with
+    layers of effective weights ``{"w" | "v, g", "b"}``. Returns (chunks of
+    one float32 buffer, the three nets' meta, ``put``: appends a tensor to
+    the chunks and returns its offset). Per layer the meta holds the dims,
+    the skip mask and the offsets of W [in, out], b and (hidden layers with
+    ``transpose_hidden``) W^T, else -1. Under bf16 the weights are rounded to
+    bf16 values; biases are not."""
     chunks: List[torch.Tensor] = []
     size = [0]
 
@@ -130,10 +134,9 @@ def pack_operands(spec, params: Dict[str, Any], dtype: torch.dtype
     def rnd(w):
         return w.to(torch.bfloat16).to(torch.float32) if dtype == torch.bfloat16 else w
 
-    def net_meta(name, skips, transpose_hidden):
-        if name not in params:
+    def net_meta(layers, skips, transpose_hidden):
+        if layers is None:
             return [0] * META_NET
-        layers = params[name]["layers"]
         ins, outs, w_off, b_off, wt_off = [], [], [], [], []
         for l, layer in enumerate(layers):
             w = rnd(effective_weight(layer))
@@ -148,14 +151,27 @@ def pack_operands(spec, params: Dict[str, Any], dtype: torch.dtype
         return ([len(layers), mask] + ins + [0] * pad + outs + [0] * pad
                 + w_off + [0] * pad + b_off + [0] * pad + wt_off + [-1] * pad)
 
-    meta_d = net_meta("deform_network", spec.deform.skips, False)
-    meta_s = net_meta("sdf_network", spec.sdf.skips, True)
-    meta_c = net_meta("color_network", spec.color.skips, False)
+    metas = [m for layers, skips, tr in nets for m in net_meta(layers, skips, tr)]
+    return chunks, metas, put
+
+
+def pack_operands(spec, params: Dict[str, Any], dtype: torch.dtype
+                  ) -> Tuple[torch.Tensor, List[int]]:
+    """Effective weights packed into one float32 buffer, plus the int64 meta
+    the kernel decodes (``pack_nets``; the SDF hidden layers with W^T). Under
+    bf16 the weights are rounded to bf16 values; biases and the adjoint's
+    head column are not."""
+    def layers(name):
+        return params[name]["layers"] if name in params else None
+    chunks, metas, put = pack_nets(
+        [(layers("deform_network"), spec.deform.skips, False),
+         (layers("sdf_network"), spec.sdf.skips, True),
+         (layers("color_network"), spec.color.skips, False)], dtype)
     head_off = put(effective_weight(params["sdf_network"]["layers"][-1])[:, 0])
     header = [int(spec.use_deform), spec.deform_pos_freqs, spec.deform_time_freqs,
               spec.sdf_pos_freqs, spec.color_pos_freqs, spec.color_dir_freqs,
               spec.color_feat_dim, head_off]
-    return torch.cat(chunks).contiguous(), header + meta_d + meta_s + meta_c
+    return torch.cat(chunks).contiguous(), header + metas
 
 
 def fused_render_rays_reference(spec, params: Dict[str, Any], rays: torch.Tensor,

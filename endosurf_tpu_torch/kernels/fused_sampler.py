@@ -28,6 +28,11 @@ march, ``fused_ray_march_reference`` is ``models.endosurf.march_math`` and
 ``fused_ray_march`` dispatches as above. All three return depth, valid
 [R, 1] and the final bracket (d_low, d_high [R]) with the crossing's sample
 index idx [R], which the parity and consistency checks read.
+
+``fine_resample_math`` is the plain version of
+``fused_sampler.py::_fine_resample_math``, the EndoNeRF importance
+resampling: the render kernel of ``fused_render_dnerf`` runs it on the card
+(its resample kernel) and its plain twin here.
 """
 
 from __future__ import annotations
@@ -201,6 +206,28 @@ def consistency_errors(spec, params: Dict[str, Any], rays_o: torch.Tensor,
             draw = torch.maximum(draw, ((got - d).abs() / bound).amax(-1))
         draw = torch.where(judged, draw, torch.full_like(draw, float("nan")))
     return {"kept": kept, "sdf_point": sdf_point, "draw": draw}
+
+
+def fine_resample_math(z_vals: torch.Tensor, sigma: torch.Tensor, d_norm: torch.Tensor,
+                       n_new: int = 64) -> torch.Tensor:
+    """D-NeRF importance resampling: z_vals [R, n0] sorted, sigma [R, n0]
+    the coarse density (after the relu), d_norm [R, 1] = |rays_d| -> z
+    [R, n0 + n_new] sorted.
+
+    The coarse weights of raw2outputs (``1 - exp(-sigma * dist * |d|)``,
+    dists with a 1e10 tail, the exclusive cumprod with +1e-10), then
+    ``sample_pdf`` of weights 1 .. n0-2 (+1e-5 each) over the n0 - 1
+    midpoint bins with the deterministic draws u_j = (j + 0.5) / n_new
+    (searchsorted right, ``denom < 1e-5 -> 1``), then the sorted merge."""
+    from endosurf_tpu_torch.ops.neus import exclusive_cumprod_weights
+    from endosurf_tpu_torch.ops.pdf import sample_pdf
+    dists = z_vals[..., 1:] - z_vals[..., :-1]
+    dists = torch.cat([dists, torch.full_like(dists[..., :1], 1e10)], dim=-1)
+    alpha = 1.0 - torch.exp(-sigma * (dists * d_norm))
+    weights = exclusive_cumprod_weights(alpha, eps=1e-10)
+    z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+    z_new = sample_pdf(z_mid, weights[..., 1:-1], n_new)
+    return torch.sort(torch.cat([z_vals, z_new], dim=-1), dim=-1).values
 
 
 def upsample_shape_supported(n0: int, n_importance: int, n_rounds: int) -> bool:

@@ -16,6 +16,15 @@ dense mesh grid and the ray march's scan.
   only serves as the comparison.
 * ``fused_sdf_observed``: the dispatching wrapper. A CUDA tensor always goes
   to the kernel (errors propagate); a CPU tensor takes the plain version.
+
+The EndoNeRF counterpart is the port of ``fused_sdf.py::fused_density_raw``:
+the same sweep with the D-NeRF chain (relu nets, skips unscaled) returning
+the raw density [N, 1] (column 0 of the density net's output, before the
+relu). ``fused_density_raw_cuda`` launches it (``csrc/fused_sdf.cu``, weights
+from ``fused_train_dnerf.pack_dnerf``), ``fused_density_raw_reference`` is
+the plain chain (``models.endonerf._warp`` -> ``_density_feat``[:, :1])
+and ``fused_density_raw`` dispatches as above. It serves the EndoNeRF mesh
+grid (``density_observed``) and, inside the render kernel, the coarse sweep.
 """
 
 from __future__ import annotations
@@ -31,8 +40,9 @@ from endosurf_tpu_torch.kernels.fused_render import (
     pack_operands,
 )
 
-# Launches of the CUDA kernel made by fused_sdf_observed_cuda (one per call).
-LAUNCHES = {"fused_sdf_observed": 0}
+# Launches of the CUDA kernels made by fused_sdf_observed_cuda and
+# fused_density_raw_cuda (one per call).
+LAUNCHES = {"fused_sdf_observed": 0, "fused_density_raw": 0}
 
 # Kernel vs plain version on one card, on the per-point absolute sdf error:
 # (median, p99, max) per dot precision. Both sides run the same chain with
@@ -52,15 +62,29 @@ PARITY_TOL = {
 }
 
 
-def parity_errors(got: torch.Tensor, ref: torch.Tensor, dtype: torch.dtype
+# The raw density query, the same statistics on the per-point |raw density
+# error|. The seeded nets' raw density lies within about [-0.05, 0.06]. Set
+# from H100 readings (PERF.md) on a 1,048,576-point grid slab and 8192
+# random points (use_deform false), two weight seeds, and the card tests'
+# cells (1000 to 1,048,576 points, three nets): sound float32 median <=
+# 6.7e-8, p99 <= 2.8e-6, max <= 6.5e-6 (the 64-wide net); sound bf16 median
+# 0, p99 <= 1.2e-4, max <= 1.2e-3 (sin / cos ulps tip bf16 roundings of the
+# 10-octave encoding); the kernel at the other precision median >= 4.0e-5.
+DENSITY_PARITY_TOL = {
+    torch.float32: (1e-6, 1e-5, 5e-5),
+    torch.bfloat16: (1e-5, 3e-4, 5e-3),
+}
+
+
+def parity_errors(got: torch.Tensor, ref: torch.Tensor, dtype: torch.dtype, tol=None
                   ) -> Tuple[float, float, float, bool]:
-    """(median, p99, max) of the per-point |sdf error| and whether all three
-    are within ``PARITY_TOL[dtype]``."""
+    """(median, p99, max) of the per-point |error| and whether all three
+    are within ``tol[dtype]`` (default ``PARITY_TOL``)."""
     err = (got - ref).abs().reshape(-1).float()
     # torch.quantile takes at most 2^24 values: a strided subset above that
     sub = err[:: max(1, err.numel() // (1 << 24) + 1)]
     med, p99, mx = float(err.median()), float(torch.quantile(sub, 0.99)), float(err.max())
-    t_med, t_p99, t_max = PARITY_TOL[dtype]
+    t_med, t_p99, t_max = (PARITY_TOL if tol is None else tol)[dtype]
     return med, p99, mx, med <= t_med and p99 <= t_p99 and mx <= t_max
 
 
@@ -119,4 +143,56 @@ def fused_sdf_observed(spec, params: Dict[str, Any], x: torch.Tensor, t: torch.T
         fn = fused_sdf_observed_reference
     else:
         raise ValueError(f"no fused_sdf_observed for device {x.device}")
+    return fn(spec, params, x, t, compute_dtype)
+
+
+def fused_density_raw_reference(spec, params: Dict[str, Any], x: torch.Tensor,
+                                t: torch.Tensor,
+                                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain PyTorch version: the D-NeRF chain's raw density under no_grad."""
+    from endosurf_tpu_torch.models.endonerf import _density_feat, _warp
+    prec = _dtype_precision(compute_dtype)
+    with torch.no_grad():
+        return _density_feat(spec, params, _warp(spec, params, x, t, prec), prec)[..., :1]
+
+
+def fused_density_raw_cuda(spec, params: Dict[str, Any], x: torch.Tensor, t: torch.Tensor,
+                           compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Launch the CUDA kernel (``csrc/fused_sdf.cu``) on the current stream."""
+    from endosurf_tpu_torch.kernels.build import load_library
+    from endosurf_tpu_torch.kernels.fused_train_dnerf import pack_dnerf
+
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_density_raw_cuda needs CUDA tensors, got {x.device}")
+    n = x.shape[0] if x.ndim == 2 else None
+    if n is None or x.shape != (n, 3) or t.shape != (n, 1):
+        raise ValueError(f"expected x [N, 3], t [N, 1]; got {tuple(x.shape)}, {tuple(t.shape)}")
+    device = x.device
+    lib = load_library()
+    packed = pack_dnerf(spec, params, compute_dtype)
+    if packed.w.device != device or t.device != device:
+        raise ValueError(f"params on {packed.w.device}, t on {t.device}, x on {device}")
+    xc = x.detach().to(torch.float32).contiguous()
+    tc = t.detach().to(torch.float32).contiguous()
+    out = torch.empty(n, 1, dtype=torch.float32, device=device)
+    with torch.cuda.device(device):   # the launch runs on the current device
+        err = lib.fused_density_raw_launch(
+            xc.data_ptr(), tc.data_ptr(), n, packed.w.data_ptr(), packed.meta, int(packed.rb),
+            out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("fused_density_raw CUDA launch failed: "
+                           + lib.fused_render_error_string(err).decode())
+    LAUNCHES["fused_density_raw"] += 1
+    return out
+
+
+def fused_density_raw(spec, params: Dict[str, Any], x: torch.Tensor, t: torch.Tensor,
+                      compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """CUDA tensors run the kernel; CPU tensors run the plain version."""
+    if x.device.type == "cuda":
+        fn = fused_density_raw_cuda
+    elif x.device.type == "cpu":
+        fn = fused_density_raw_reference
+    else:
+        raise ValueError(f"no fused_density_raw for device {x.device}")
     return fn(spec, params, x, t, compute_dtype)

@@ -96,15 +96,16 @@ def prepare_effective(spec, params: Dict[str, Any]) -> Dict[str, Any]:
     return eff
 
 
-def _mlp_fwd(layers, secs, act, precision):
-    """Split-skip MLP. Returns (out, zs) with zs[l] the pre-activations."""
+def _mlp_fwd(layers, secs, act, precision, skip_scale: float = _INV_SQRT2):
+    """Split-skip MLP (skips scale after the dot). Returns (out, zs) with
+    zs[l] the pre-activations."""
     h, zs = None, []
     for l, lay in enumerate(layers):
         if "wh" in lay:
             z = dot(h, lay["wh"], precision)
             for s_, w_ in zip(secs, lay["wsec"]):
                 z = z + dot(s_, w_, precision)
-            z = z * _INV_SQRT2 + lay["b"]
+            z = z * skip_scale + lay["b"]
         elif "wsec" in lay:
             z = dot(secs[0], lay["wsec"][0], precision)
             for s_, w_ in zip(secs[1:], lay["wsec"][1:]):

@@ -4,7 +4,9 @@ render kernel (``fused_render_rays``), the upsample kernel
 (``fused_train_cuda``: deform / sdf / color, forward and backward), the
 observed-SDF query (``fused_sdf_observed``) and the sphere-traced ray march
 (``fused_ray_march``), plus one train step with the upsample kernel against
-one with the plain upsampling.
+one with the plain upsampling; and the EndoNeRF kernels: the raw density
+query (``fused_density_raw``), the render (``fused_render_rays_dnerf``) and
+the three forward D-NeRF segments (``fused_train_dnerf``).
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one. The
 file imports no JAX, so it also runs where JAX is absent:
@@ -16,8 +18,9 @@ the readings the tests print.) The tolerances and their reasons are
 ``fused_render.PARITY_TOL``, ``fused_sampler.PARITY_TOL`` and
 ``fused_sampler.CONSISTENCY_TOL``, ``fused_train_cuda.PARITY_TOL`` and
 ``ORDER_TOL`` below, ``fused_sdf.PARITY_TOL`` and
-``fused_sampler.MARCH_TOL``; the planted-fault tests rebuild the kernels
-from a patched copy of the sources.
+``fused_sampler.MARCH_TOL``, ``fused_sdf.DENSITY_PARITY_TOL``,
+``fused_render_dnerf.PARITY_TOL`` and ``fused_train_dnerf.PARITY_TOL``; the
+planted-fault tests rebuild the kernels from a patched copy of the sources.
 """
 
 import dataclasses
@@ -31,9 +34,12 @@ from endosurf_tpu_torch.kernels import build
 from endosurf_tpu_torch.bridge import flatten
 from endosurf_tpu_torch.data.scene_data import make_synthetic_arrays
 from endosurf_tpu_torch.kernels import fused_render as fr
+from endosurf_tpu_torch.kernels import fused_render_dnerf as frd
 from endosurf_tpu_torch.kernels import fused_sampler as fs
 from endosurf_tpu_torch.kernels import fused_sdf as fsd
 from endosurf_tpu_torch.kernels import fused_train_cuda as ftc
+from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
+from endosurf_tpu_torch.models import endonerf as en
 from endosurf_tpu_torch.models import endosurf as es
 from endosurf_tpu_torch.models.fields import (
     EndoSurfSpec,
@@ -761,3 +767,335 @@ def test_sphere_trace_runs_the_march_kernel(dev):
     spec = dataclasses.replace(NARROW, use_deform=False)
     out = fs.fused_ray_march_cuda(spec, init_endosurf_params(spec, torch.Generator(), dev), *ins)
     assert out["depth"].shape == (8, 1)
+
+
+# ---------------------------------------------------------------------------
+# the EndoNeRF kernels: fused_density_raw (csrc/fused_sdf.cu), the render
+# (csrc/fused_render_dnerf.cu) and the forward segments
+# (csrc/fused_train_dnerf.cu)
+# ---------------------------------------------------------------------------
+
+DN_NARROW = en.DNeRFSpec(deform_layers=(3, 64, (1,)), density_layers=(3, 64, (1,)),
+                         color_layers=(2, 64, ()), geo_feat_dim=32)
+DN_SPECS = [DN_NARROW, en.DNeRFSpec(), en.DNeRFSpec(use_deform=False)]
+DN_BY_ID = dict(zip(SPEC_IDS, DN_SPECS))
+DN_CELLS = [("full", 1000), ("full", 65537), ("full", 1048576), ("narrow", 65537),
+            ("full-static", 65537)]
+
+
+def _dn_params(spec, seed, dev):
+    return en.init_dnerf_params(spec, torch.Generator().manual_seed(seed), dev)
+
+
+def _density_errs(spec, params, x, t, kernel_dt, plain_dt):
+    got = fsd.fused_density_raw_cuda(spec, params, x, t, kernel_dt)
+    ref = fsd.fused_density_raw_reference(spec, params, x, t, plain_dt)
+    torch.cuda.synchronize()
+    return fsd.parity_errors(got, ref, plain_dt, fsd.DENSITY_PARITY_TOL)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("cell", DN_CELLS, ids=[f"{s}-{n}" for s, n in DN_CELLS])
+@pytest.mark.parametrize("dtype", F32_BF16, ids=["f32", "bf16"])
+def test_density_raw_kernel_matches_plain(dev, dtype, cell, seed):
+    spec = DN_BY_ID[cell[0]]
+    params = _dn_params(spec, seed, dev)
+    x, t = _sdf_points(cell[1], dev, seed)
+    assert fsd.fused_density_raw_cuda(spec, params, x, t, dtype).shape == (cell[1], 1)
+    errs = _density_errs(spec, params, x, t, dtype, dtype)
+    print(f"density raw sound {dtype} {cell} seed {seed}: median / p99 / max {errs[:3]}")
+    assert errs[-1], errs
+
+
+@pytest.mark.parametrize("spec", DN_SPECS, ids=SPEC_IDS)
+def test_density_raw_limits_reject_the_other_precision(dev, spec):
+    params = _dn_params(spec, 0, dev)
+    x, t = _sdf_points(65537, dev)
+    for plain_dt, kernel_dt in (F32_BF16, F32_BF16[::-1]):
+        errs = _density_errs(spec, params, x, t, kernel_dt, plain_dt)
+        print(f"density raw control: kernel {kernel_dt} vs plain {plain_dt}: {errs[:3]}")
+        assert not errs[-1], errs
+
+
+def test_density_raw_entry_and_dispatch(dev, tmp_path):
+    """No points, one point, the checks, and the paths that run the kernel:
+    density_observed (once a call, at every N) and the EndoNeRF renderer's
+    grid hook."""
+    from endosurf_tpu_torch.serve import EndoNeRFRenderer
+    params = _dn_params(DN_NARROW, 0, dev)
+    x, t = _sdf_points(1, dev)
+    assert fsd.fused_density_raw_cuda(DN_NARROW, params, x[:0], t[:0]).shape == (0, 1)
+    one = fsd.fused_density_raw_cuda(DN_NARROW, params, x, t)
+    torch.testing.assert_close(one, fsd.fused_density_raw_reference(DN_NARROW, params, x, t),
+                               rtol=0, atol=2e-6)
+    with pytest.raises(ValueError, match="expected"):
+        fsd.fused_density_raw_cuda(DN_NARROW, params, x, t[:, :0])
+    with pytest.raises(ValueError, match="params on"):
+        fsd.fused_density_raw_cuda(DN_NARROW, _dn_params(DN_NARROW, 0, "cpu"), x, t)
+    bad = dataclasses.replace(DN_NARROW, color_layers=(2, 64, (1,)))
+    with pytest.raises(ValueError, match="do not take"):
+        fsd.fused_density_raw_cuda(bad, _dn_params(bad, 0, dev), x, t)
+    before = fsd.LAUNCHES["fused_density_raw"]
+    for n in (3, 9000):
+        xs, ts = _sdf_points(n, dev)
+        en.density_observed(DN_NARROW, params, xs, ts, "default")
+    assert fsd.LAUNCHES["fused_density_raw"] == before + 2
+    cfg = {"exp": {"project_name": "p", "exp_name": "e", "exp_dir": str(tmp_path)},
+           "render": {"type": "endonerf"}, "net": {"net_deform_cfg": {"n_layers": 3,
+                                                                      "hidden_dim": 64,
+                                                                      "skips": [1]}}}
+    renderer = EndoNeRFRenderer(cfg, scene=make_synthetic_arrays(4, 8, 8, 0, dev), device=dev)
+    xs, ts = _sdf_points(5000, dev)
+    field = renderer.demo_field_fn()(xs, ts)
+    assert fsd.LAUNCHES["fused_density_raw"] == before + 3
+    torch.testing.assert_close(field, -fsd.fused_density_raw_reference(
+        renderer.spec, renderer.params, xs, ts, torch.bfloat16), rtol=0, atol=2e-2)
+
+
+DENSITY_FAULTS = {   # csrc/sdf_chain.cuh: the D-NeRF sweep with EndoSurf's skip scale
+    "skip_scale_inv_sqrt2": ("  static constexpr float kSkip = 1.f;",
+                             "  static constexpr float kSkip = 0.70710678f;"),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(DENSITY_FAULTS))
+def test_density_raw_limits_catch_planted_faults(dev, fault, tmp_path, monkeypatch):
+    _rebuild_with(monkeypatch, tmp_path, "sdf_chain.cuh", *DENSITY_FAULTS[fault])
+    spec = en.DNeRFSpec()
+    params = _dn_params(spec, 0, dev)
+    x, t = _sdf_points(65537, dev)
+    for dtype in F32_BF16:
+        errs = _density_errs(spec, params, x, t, dtype, dtype)
+        print(f"{fault} {dtype}: {errs[:3]}")
+        assert not errs[-1], errs
+
+
+def _dn_rays(n: int, dev, depth_guided: bool, seed: int = 1) -> torch.Tensor:
+    """Directions scaled to d_z = 1, as a camera's (|d| from 1 to ~1.05)."""
+    rays = _rays(n, "cpu", seed)
+    rays[:, 3:6] /= rays[:, 5:6]
+    g = torch.Generator().manual_seed(100 + seed)
+    if depth_guided:   # slots 6/7: (gt depth mean, sigma)
+        rays[:, 6] = torch.rand(n, generator=g) * 0.3 + 1.3
+        rays[:, 7] = 0.08
+    else:              # (near, far)
+        rays[:, 6], rays[:, 7] = 0.8, 2.2
+    return rays.to(dev)
+
+
+def _dn_render(fn, spec, params, rays, depth_guided, dtype_s, dtype_m):
+    rspec = en.DNeRFRenderSpec(use_depth_sampling=depth_guided)
+    return fn(spec, rspec, params, rays, None, dtype_s, dtype_m)
+
+
+# (nets, spec, density bias): the seeded nets render almost nothing; the
+# dense ones are opaque within their samples (fused_render_dnerf.DENSE_BIAS)
+RENDER_NETS = {"narrow": (DN_NARROW, 0.0), "full": (en.DNeRFSpec(), 0.0),
+               "full-dense": (en.DNeRFSpec(), frd.DENSE_BIAS)}
+
+
+def _render_params(nets, seed, dev):
+    spec, bias = RENDER_NETS[nets]
+    params = _dn_params(spec, seed, dev)
+    return spec, (frd.with_density_bias(params, bias) if bias else params)
+
+
+def _render_errs(spec, params, rays, depth_guided, kernel_dts, twin_dt):
+    got = _dn_render(frd.fused_render_rays_dnerf_cuda, spec, params, rays, depth_guided,
+                     *kernel_dts)
+    ref = _dn_render(frd.fused_render_rays_dnerf_reference, spec, params, rays, depth_guided,
+                     twin_dt, twin_dt)
+    torch.cuda.synchronize()
+    for k in ("color_map", "depth_map", "acc_map"):
+        assert got[k].shape == ref[k].shape and got[k].dtype == torch.float32
+    size = {k: float(v.abs().median()) for k, v in ref.items()}
+    return frd.parity_errors(got, ref, twin_dt), size, got
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("depth_guided", [True, False], ids=["depth-guided", "uniform"])
+@pytest.mark.parametrize("nets", sorted(RENDER_NETS))
+@pytest.mark.parametrize("dtype", F32_BF16, ids=["f32", "bf16"])
+def test_dnerf_render_kernel_matches_twin(dev, dtype, nets, depth_guided, seed):
+    spec, params = _render_params(nets, seed, dev)
+    rays = _dn_rays(1024, dev, depth_guided, seed)
+    errs, size, got = _render_errs(spec, params, rays, depth_guided, (dtype, dtype), dtype)
+    print(f"dnerf render sound {dtype} {nets} depth_guided {depth_guided} seed {seed}: "
+          f"{errs}; median |map| {size}")
+    assert all(bool(torch.isfinite(v).all()) for v in got.values())
+    assert all(v[-1] for v in errs.values()), errs
+
+
+@pytest.mark.parametrize("depth_guided", [True, False], ids=["depth-guided", "uniform"])
+@pytest.mark.parametrize("nets", sorted(RENDER_NETS))
+def test_dnerf_render_limits_reject_the_other_precision(dev, nets, depth_guided):
+    """The kernel with its main pass (fields, composite) at the other dot
+    precision fails the twin's limits, with the sampling pass at either."""
+    spec, params = _render_params(nets, 0, dev)
+    rays = _dn_rays(1024, dev, depth_guided)
+    f32, bf16 = F32_BF16
+    for twin_dt, kernel_dts in ((bf16, [(f32, f32), (bf16, f32)]),
+                                (f32, [(bf16, bf16), (f32, bf16)])):
+        for kd in kernel_dts:
+            errs = _render_errs(spec, params, rays, depth_guided, kd, twin_dt)[0]
+            print(f"dnerf render control {nets}: twin {twin_dt} kernel {kd}: {errs}")
+            assert not all(v[-1] for v in errs.values()), (twin_dt, kd, errs)
+
+
+# Planted faults in csrc/fused_render_dnerf.cu: (old, new, the nets on which
+# the limits must reject it in both modes). The resample without its 1e-5
+# weight floor divides 0 by 0 in the seeded nets' empty bins (NaN); the
+# opaque nets have no empty bin, and there it moves the draws by the floor's
+# small share of the pdf (colour medians 1.5e-6 to 8e-6 on an H100: float32
+# depth-guided passes the limits, the other three cells fail). The
+# resample with its draws half a step early (u = j / n_new) or with its
+# coarse weights on distances without |d|, and the composite's depth sum
+# without |d|, move every opaque ray a little.
+RENDER_FAULTS = {
+    "no_weight_floor": ("      const float wf = w + 1e-5f;        // the pdf's weight floor",
+                        "      const float wf = w;", ("full",)),
+    "draws_half_step": ("    const float u = ((float)jn + 0.5f) / (float)n_new;",
+                        "    const float u = (float)jn / (float)n_new;", ("full-dense",)),
+    "resample_dist_without_dn": ("    const float dist = (z[j + 1] - z[j]) * dn;",
+                                 "    const float dist = z[j + 1] - z[j];", ("full-dense",)),
+    "depth_without_dn": ("    dsum += w * z[j] * dn;", "    dsum += w * z[j];", ("full-dense",)),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(RENDER_FAULTS))
+def test_dnerf_render_limits_catch_planted_faults(dev, fault, tmp_path, monkeypatch):
+    """Each fault fails the limits in both modes, with either sampling, on
+    the nets it names (the readings on both nets are printed)."""
+    old, new, must_fail = RENDER_FAULTS[fault]
+    _rebuild_with(monkeypatch, tmp_path, "fused_render_dnerf.cu", old, new)
+    for nets in ("full", "full-dense"):
+        spec, params = _render_params(nets, 0, dev)
+        for depth_guided in (True, False):
+            rays = _dn_rays(1024, dev, depth_guided)
+            for dtype in F32_BF16:
+                errs = _render_errs(spec, params, rays, depth_guided, (dtype, dtype),
+                                    dtype)[0]
+                print(f"{fault} {nets} depth_guided {depth_guided} {dtype}: {errs}")
+                if nets in must_fail:
+                    assert not all(v[-1] for v in errs.values()), errs
+
+
+def test_dnerf_inference_runs_the_kernels(dev, monkeypatch):
+    """render_rays_inference on CUDA tensors launches the render kernel once
+    a call for every configuration it takes (mixed precisions, a ragged ray
+    count, no deform net, 32 + 32 samples) and never runs the plain
+    resample; without importance samples it runs the eval render_rays on the
+    segment kernels; the entry checks raise."""
+    def plain_resample(*args, **kw):
+        raise AssertionError("the plain resample ran on CUDA tensors")
+    params = _dn_params(DN_NARROW, 0, dev)
+    rays = _dn_rays(333, dev, True)
+    rspec = en.DNeRFRenderSpec()
+    before = frd.LAUNCHES["fused_render_rays_dnerf"]
+    ref = frd.fused_render_rays_dnerf_reference(DN_NARROW, rspec, params, rays, None,
+                                                torch.bfloat16, torch.float32)
+    seg_before, dens_before = dict(ftd.LAUNCHES), fsd.LAUNCHES["fused_density_raw"]
+    monkeypatch.setattr(fs, "fine_resample_math", plain_resample)
+    out = en.render_rays_inference(DN_NARROW, rspec, params, rays, precision="highest",
+                                   sampling_precision="default")
+    assert frd.LAUNCHES["fused_render_rays_dnerf"] == before + 1
+    errs = frd.parity_errors(out, ref, torch.float32)
+    assert all(v[-1] for v in errs.values()), errs
+    static = dataclasses.replace(DN_NARROW, use_deform=False)
+    for spec, rs in ((static, rspec),
+                     (DN_NARROW, en.DNeRFRenderSpec(n_samples=32, n_importance=32))):
+        out = en.render_rays_inference(spec, rs, _dn_params(spec, 0, dev), rays)
+        assert all(bool(torch.isfinite(v).all()) for v in out.values())
+    assert frd.LAUNCHES["fused_render_rays_dnerf"] == before + 3
+    assert fsd.LAUNCHES["fused_density_raw"] == dens_before
+    assert ftd.LAUNCHES == seg_before
+    out = en.render_rays_inference(DN_NARROW, rspec, params, rays, use_importance=False)
+    assert frd.LAUNCHES["fused_render_rays_dnerf"] == before + 3
+    assert all(ftd.LAUNCHES[k] == seg_before[k] + 1 for k in seg_before)
+    assert fsd.LAUNCHES["fused_density_raw"] == dens_before
+    assert all(bool(torch.isfinite(v).all()) for v in out.values())
+    with pytest.raises(ValueError, match="rays must be"):
+        frd.fused_render_rays_dnerf_cuda(DN_NARROW, rspec, params, rays[:, :8])
+    with pytest.raises(ValueError, match="does not take"):
+        frd.fused_render_rays_dnerf_cuda(DN_NARROW, en.DNeRFRenderSpec(n_samples=65), params,
+                                         rays)
+    with pytest.raises(ValueError, match="params on"):
+        frd.fused_render_rays_dnerf_cuda(DN_NARROW, rspec, _dn_params(DN_NARROW, 0, "cpu"),
+                                         rays)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("spec", DN_SPECS, ids=SPEC_IDS)
+@pytest.mark.parametrize("precision", ["highest", "default"], ids=["f32", "bf16"])
+def test_dnerf_segments_match_plain(dev, precision, spec, seed):
+    params = _dn_params(spec, seed, dev)
+    x, d, t = _seg_points(RAGGED_N, dev, seed)
+    res, _, _ = ftd.segment_parity(spec, params, x, d, t, precision)
+    torch.cuda.synchronize()
+    print(f"dnerf segments sound {precision} seed {seed}: {res}")
+    assert all(v[-1] for seg in res.values() for v in seg.values()), res
+
+
+@pytest.mark.parametrize("spec", DN_SPECS, ids=SPEC_IDS)
+def test_dnerf_segment_limits_reject_the_other_precision(dev, spec):
+    params = _dn_params(spec, 0, dev)
+    x, d, t = _seg_points(SEG_N, dev)
+    for prec, other in (("highest", "default"), ("default", "highest")):
+        res, _, _ = ftd.segment_parity(spec, params, x, d, t, prec, other)
+        print(f"dnerf segments control: plain {prec} kernels {other}: {res}")
+        for name, outs in res.items():
+            assert not all(v[-1] for v in outs.values()), (name, outs)
+
+
+DN_SEG_FAULTS = {   # csrc/dnerf_chain.cuh: the sigma head read from feature column 1
+    "head_from_column_1": (
+        "    const float* Wh = W;                 // the sigma head: column 0 of the output layer",
+        "    const float* Wh = W + 1;"),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(DN_SEG_FAULTS))
+def test_dnerf_segment_limits_catch_planted_faults(dev, fault, tmp_path, monkeypatch):
+    _rebuild_with(monkeypatch, tmp_path, "dnerf_chain.cuh", *DN_SEG_FAULTS[fault])
+    spec = en.DNeRFSpec()
+    params = _dn_params(spec, 0, dev)
+    x, d, t = _seg_points(RAGGED_N, dev)
+    for precision in ("highest", "default"):
+        res, _, _ = ftd.segment_parity(spec, params, x, d, t, precision)
+        print(f"{fault} {precision}: {res['dnerf_density_fwd']}")
+        assert not all(v[-1] for v in res["dnerf_density_fwd"].values()), precision
+
+
+def test_dnerf_field_runs_the_segment_kernels(dev, tmp_path):
+    """field_eval on CUDA tensors launches each forward segment once a call
+    (the renderer's vertex colours too); a gradient through it, a renderer
+    with train.megakernel "off" and a spec the kernels cannot take raise."""
+    from endosurf_tpu_torch.serve import EndoNeRFRenderer
+    params = _dn_params(DN_NARROW, 0, dev)
+    x, d, t = _seg_points(5000, dev)
+    before = dict(ftd.LAUNCHES)
+    rgb, sigma = en.field_eval(DN_NARROW, params, x, d, t, precision="default")
+    assert all(ftd.LAUNCHES[k] == before[k] + 1 for k in before)
+    ref = ftd.forward_math(DN_NARROW, ftd.prepare_effective_dnerf(DN_NARROW, params), x, t, d,
+                           "default")
+    assert rgb.shape == (5000, 3) and sigma.shape == (5000,)
+    assert float((rgb - ref["rgb"]).abs().max()) < 1e-3
+    for v in flatten(params).values():
+        v.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="EndoNeRF training is not ported"):
+        en.field_eval(DN_NARROW, params, x, d, t)
+    with torch.no_grad():
+        en.field_eval(DN_NARROW, params, x, d, t)
+    cfg = {"exp": {"project_name": "p", "exp_name": "e", "exp_dir": str(tmp_path)},
+           "render": {"type": "endonerf"}, "train": {"megakernel": "off"}, "net": {}}
+    scene = make_synthetic_arrays(4, 8, 8, 0, dev)
+    with pytest.raises(NotImplementedError, match="megakernel: off"):
+        EndoNeRFRenderer(cfg, scene=scene, device=dev)
+    cfg["train"] = {}
+    renderer = EndoNeRFRenderer(cfg, scene=scene, device=dev)
+    before = dict(ftd.LAUNCHES)
+    cols = renderer.render_points_fn()(x.cpu().numpy(), d.cpu().numpy(), t.cpu().numpy())
+    assert cols.shape == (5000, 3) and all(ftd.LAUNCHES[k] == before[k] + 1 for k in before)
+    bad = dataclasses.replace(DN_NARROW, geo_feat_dim=300)
+    with pytest.raises(ValueError, match="do not take"):
+        en.field_eval(bad, _dn_params(bad, 0, dev), x, d, t)

@@ -37,7 +37,10 @@ def test_import_loads_no_jax():
         "assert len(names) >= 20, names\n"
         "assert {'endosurf_tpu_torch.native.meshops', 'endosurf_tpu_torch.utils.ply',\n"
         "        'endosurf_tpu_torch.evaluation.geometry3d',\n"
-        "        'endosurf_tpu_torch.kernels.fused_sdf'} <= set(names), names\n"
+        "        'endosurf_tpu_torch.kernels.fused_sdf',\n"
+        "        'endosurf_tpu_torch.models.endonerf',\n"
+        "        'endosurf_tpu_torch.kernels.fused_render_dnerf',\n"
+        "        'endosurf_tpu_torch.kernels.fused_train_dnerf'} <= set(names), names\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n")
     proc = _run(code)
@@ -100,6 +103,25 @@ def test_sources_name_no_jax_package_file():
     assert path_re.search('#include "../../endosurf_tpu/native/geometry.cpp"'.split("//")[0])
 
 
+def test_dnerf_cuda_entries_refuse_cpu_tensors():
+    from endosurf_tpu_torch.kernels import fused_render_dnerf as frd
+    from endosurf_tpu_torch.kernels import fused_sdf as fsd
+    from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
+    from endosurf_tpu_torch.models.endonerf import DNeRFRenderSpec, DNeRFSpec, init_dnerf_params
+    spec = DNeRFSpec(deform_layers=(3, 32, (1,)), density_layers=(3, 32, (1,)),
+                     color_layers=(2, 32, ()), geo_feat_dim=16)
+    params = init_dnerf_params(spec)
+    with pytest.raises(ValueError, match="CUDA"):
+        frd.fused_render_rays_dnerf_cuda(spec, DNeRFRenderSpec(), params, torch.zeros(8, 9))
+    with pytest.raises(ValueError, match="CUDA"):
+        fsd.fused_density_raw_cuda(spec, params, torch.zeros(8, 3), torch.zeros(8, 1))
+    packed = ftd.pack_dnerf(spec, params, torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        ftd.dnerf_deform_fwd(packed, torch.zeros(8, 4))
+    with pytest.raises(ValueError):
+        frd.fused_render_rays_dnerf(spec, DNeRFRenderSpec(), params, torch.zeros(8, 9, device="meta"))
+
+
 def test_cuda_entry_refuses_cpu_tensors():
     from endosurf_tpu_torch.kernels import fused_render as fr
     from endosurf_tpu_torch.models.fields import EndoSurfSpec, init_endosurf_params
@@ -128,15 +150,16 @@ def test_cuda_device_without_gpu_raises():
 
 
 def test_cli_unported_mode_raises(tmp_path):
-    """Every CLI mode is ported for EndoSurf; the EndoNeRF render type is not
-    and raises in a serving mode."""
+    """Every CLI mode is ported for EndoSurf and every serving mode for
+    EndoNeRF; EndoNeRF training is not and raises."""
     cfg = tmp_path / "cfg.yml"
     cfg.write_text("exp: {project_name: p, exp_name: e, exp_dir: %s}\n"
                    "render: {type: endonerf}\nnet: {}\ndata: {info_dir: none.pkl}\n"
                    % (tmp_path / "logs"))
-    proc = _run(["-m", "endosurf_tpu_torch", "--cfg", str(cfg), "--mode", "test_3d",
+    proc = _run(["-m", "endosurf_tpu_torch", "--cfg", str(cfg), "--mode", "train",
                  "--device", "cpu"])
-    assert proc.returncode != 0 and "not yet ported: render type" in proc.stderr
+    assert proc.returncode != 0
+    assert "not yet ported: --mode train for render type 'endonerf'" in proc.stderr
 
 
 def test_config_inherit_and_dict(tmp_path):

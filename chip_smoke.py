@@ -101,6 +101,38 @@ Phases (any failure raises and exits non-zero):
  22. timing of the five EndoNeRF kernels against their plain versions at
      the paths' shapes (2048 rays; 1,048,576 points; 65,536 points), bf16,
      beside their bounds, and a render chunk's device time by kernel.
+ 23-28. EndoNeRF training, on the same config with base.yml's train keys
+     (2048 rays, depth-guided sampling with sigma 1.0, perturb, raw noise
+     1.0, bf16 dots, Adam at the exponential rate):
+ 23. backward segment parity: the three D-NeRF backward kernels against
+     their plain versions (autograd through the segment maths) on the
+     262,144 fine points of a real train batch (sample_train_batch, slots
+     6/7, init_z with drawn eps, fused_density_raw, noise, relu,
+     fused_fine_resample), seeded random cotangents, both dot modes, two
+     weight seeds (the second on the first 65,536 points): median / p99 /
+     max of d x_c and d feat, relative L2 of every weight gradient, at
+     fused_train_dnerf.BWD_PARITY_TOL, the wrong-precision controls failing;
+ 24. resample parity: fused_fine_resample against fine_resample_math on
+     2048 train rays, the seeded nets (two seeds) and the opaque ones
+     (fused_render_dnerf.with_density_bias): per-ray depth median / p99 /
+     max at fused_sampler.RESAMPLE_PARITY_TOL; the control, the plain
+     resample with its draws half a step early, fails;
+ 25. the whole train step with the kernels against one with the plain
+     segments and resample patched in (fused_train_dnerf.plain_field_raw,
+     fused_fine_resample_reference), same params and draws, both modes:
+     metrics and per-network gradients; the kernels at the other precision
+     fail;
+ 26. training end to end: EndoNeRFTrainer.start for 12 steps (2 warm-up,
+     then 10): one launch a step of fused_density_raw, fused_fine_resample
+     and each D-NeRF forward and backward segment kernel, finite losses at
+     steps 1 and 12, the checkpoint read back; train rays/s, peak memory, a
+     forward / backward / Adam split and a busy / idle trace; then
+     trainer.eval on the test frame (the render kernel);
+ 27. timing of the four new kernels against their plain versions at the
+     train shape (262,144 points; 2048 rays), bf16, beside their bounds;
+ 28. bf16 render quality: the port trains its own checkpoint for 300 steps
+     on a smooth 64x80 synthetic scene, then renders the test frame in bf16
+     and in float32: PSNR and depth RMSE of each against the scene.
 Phase 7 also checks one launch of each segment kernel per step, and its
 trace counts the segment kernels (the weight-gradient product included) as
 their own family. The third-to-last line is the card, the second-to-last
@@ -150,6 +182,17 @@ GEMM_KERNELS = ("gemm", "xmma", "cutlass", "cublas", "sm90_", "sm80_")
 N_DN_UNIFORM = 2048                            # uniform-z rays of phase 18
 N_DN_SEG_RAYS = 512                            # rays whose 128 fine samples phase 19 takes
 DN_PROBE = 32                                  # probe grid of phase 21's threshold
+DN_RAY_BATCH = 2048                            # EndoNeRF train rays a step (base.yml)
+N_DN_BWD_SEED1 = 65536                         # points of phase 23's second weight seed
+DN_QUALITY = (64, 80, 300)                     # phase 28: scene height, width, train steps
+# EndoNeRF train step with the kernels vs the plain segments and resample
+# (phase 25): (metric relative difference, per-network gradient relative
+# L2) per dot mode. Set from H100 readings (PERF.md, PR 6): sound metrics
+# <= 1.8e-6 (f32) / 1.3e-5 (bf16), gradients <= 1.9e-2 (the deform net's,
+# which carries the density's spatial derivative; density <= 8.0e-4, colour
+# <= 3.3e-4); the kernels at the other precision read metrics up to >=
+# 4.9e-4 and deform gradients >= 0.81.
+DN_WHOLE_STEP_TOL = {"highest": (1e-5, 5e-2), "default": (5e-5, 5e-2)}
 
 
 def base_cfg() -> dict:
@@ -253,26 +296,23 @@ def bound_ms(flops: float, bytes_moved: float, dtype):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def train_step_split(trainer, step_ms: float, smi: str) -> None:
-    """Where a train step's time goes, after the counted run: forward /
-    backward / Adam by CUDA events, then device time by kernel family in a
-    torch.profiler trace, and the device's idle share of ``step_ms`` (the
-    untraced step)."""
+def train_step_split(trainer, loss_step, families, step_ms: float, smi: str,
+                     label: str = "train step", detail=()) -> None:
+    """Where a train step's time goes, after the counted run: forward
+    (``loss_step(s)`` -> the loss) / backward / Adam by CUDA events, then
+    device time by kernel family in a torch.profiler trace of
+    ``trainer.train_step`` (``families``: (name, key substrings); then
+    matrix products and the rest; ``detail``: kernels also listed one by
+    one), and the device's idle share of ``step_ms`` (the untraced step)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from endosurf_tpu_torch.train.trainer_endosurf import make_loss_fn
-    tc = trainer.train_cfg
-    loss_fn = make_loss_fn(trainer.spec, trainer.rspec, H, W, RAY_BATCH, trainer.loss_weights,
-                           tc["surf_neig_rad"], precision=trainer.precision,
-                           sampling_precision=trainer.sampling_precision)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     split = [0.0, 0.0, 0.0]
     for s in range(N_SPLIT):
         trainer.optimizer.zero_grad(set_to_none=True)
         ev[0].record()
-        total, _ = loss_fn(trainer.params, trainer.scene.device_arrays, N_STEPS + 1 + s,
-                           trainer.generator)
+        total = loss_step(s)
         ev[1].record()
         total.backward()
         ev[2].record()
@@ -282,7 +322,7 @@ def train_step_split(trainer, step_ms: float, smi: str) -> None:
         for i in range(3):
             split[i] += ev[i].elapsed_time(ev[i + 1]) / N_SPLIT
     whole = sum(split)
-    print(f"train step split ({smi}, CUDA events, {N_SPLIT} steps, a sync per step): "
+    print(f"{label} split ({smi}, CUDA events, {N_SPLIT} steps, a sync per step): "
           f"{whole:.2f} ms = forward {split[0]:.2f} ({100 * split[0] / whole:.1f} %), "
           f"backward {split[1]:.2f} ({100 * split[1] / whole:.1f} %), "
           f"Adam {split[2]:.2f} ({100 * split[2] / whole:.1f} %)", flush=True)
@@ -291,9 +331,9 @@ def train_step_split(trainer, step_ms: float, smi: str) -> None:
         for s in range(N_SPLIT):
             trainer.train_step(N_STEPS + N_SPLIT + 1 + s)
         torch.cuda.synchronize()
-    fam = {"field segment kernels": 0.0, "upsample kernel": 0.0, "matrix products": 0.0,
-           "other kernels": 0.0}
-    launches, seg = 0, {k: 0.0 for k in SEGMENT_KERNELS}
+    fam = {name: 0.0 for name, _ in families}
+    fam.update({"matrix products": 0.0, "other kernels": 0.0})
+    launches, per_kernel = 0, {k: 0.0 for k in detail}
     for evt in prof.key_averages():
         dev_us = (getattr(evt, "self_device_time_total", None)
                   or getattr(evt, "self_cuda_time_total", 0))
@@ -302,27 +342,41 @@ def train_step_split(trainer, step_ms: float, smi: str) -> None:
         if dev_us <= 0 or evt.device_type != DeviceType.CUDA:
             continue
         launches += evt.count
-        key = evt.key.lower()
-        seg_name = next((k for k in SEGMENT_KERNELS if k in evt.key), None)
-        if seg_name:
-            fam["field segment kernels"] += dev_us / N_SPLIT / 1e3
-            seg[seg_name] += dev_us / N_SPLIT / 1e3
-        elif any(k in evt.key for k in UPSAMPLE_KERNELS):
-            fam["upsample kernel"] += dev_us / N_SPLIT / 1e3
-        elif any(k in key for k in GEMM_KERNELS):
-            fam["matrix products"] += dev_us / N_SPLIT / 1e3
-        else:
-            fam["other kernels"] += dev_us / N_SPLIT / 1e3
+        ms = dev_us / N_SPLIT / 1e3
+        name = next((f for f, keys in families if any(k in evt.key for k in keys)), None)
+        if name is None:
+            name = ("matrix products" if any(k in evt.key.lower() for k in GEMM_KERNELS)
+                    else "other kernels")
+        fam[name] += ms
+        for k in detail:
+            if k in evt.key:
+                per_kernel[k] += ms
     busy = sum(fam.values())
     if busy == 0:
-        print("train step trace: the profiler recorded no device time", flush=True)
+        print(f"{label} trace: the profiler recorded no device time", flush=True)
         return
-    print(f"train step trace ({N_SPLIT} steps): device busy {busy:.2f} ms of the "
+    print(f"{label} trace ({N_SPLIT} steps): device busy {busy:.2f} ms of the "
           f"{step_ms:.1f} ms step (idle {100 * (1 - busy / step_ms):.1f} %), "
           f"{launches // N_SPLIT} kernel launches a step; "
           + ", ".join(f"{k} {v:.2f} ms" for k, v in fam.items())
-          + "; segment kernels: " + ", ".join(f"{k} {v:.2f}" for k, v in seg.items()),
-          flush=True)
+          + ("; segment kernels: " + ", ".join(f"{k} {v:.2f}" for k, v in per_kernel.items())
+             if detail else ""), flush=True)
+
+
+def endosurf_step_split(trainer, step_ms: float, smi: str) -> None:
+    """Phase 7's split and trace of the EndoSurf step."""
+    from endosurf_tpu_torch.train.trainer_endosurf import make_loss_fn
+    tc = trainer.train_cfg
+    loss_fn = make_loss_fn(trainer.spec, trainer.rspec, H, W, RAY_BATCH, trainer.loss_weights,
+                           tc["surf_neig_rad"], precision=trainer.precision,
+                           sampling_precision=trainer.sampling_precision)
+
+    def loss_step(s):
+        return loss_fn(trainer.params, trainer.scene.device_arrays, N_STEPS + 1 + s,
+                       trainer.generator)[0]
+    train_step_split(trainer, loss_step, (("field segment kernels", SEGMENT_KERNELS),
+                                          ("upsample kernel", UPSAMPLE_KERNELS)),
+                     step_ms, smi, detail=SEGMENT_KERNELS)
 
 
 def train_midpoints(spec, rspec, params, arrays, gen, dev):
@@ -983,7 +1037,7 @@ def dnerf_3d_phase(cfg, scene, dev) -> tuple:
               f"triangles; geo_err_mean {stats['geo_err_mean']:.4f} mm; {plys}", flush=True)
         check(launches == GRID_RES // GRID_SLAB,
               f"{launches} raw-density launches for {GRID_RES // GRID_SLAB} slabs")
-        check(all(v == n_chunks for v in seg.values()),
+        check(all(v == (n_chunks if k.endswith("_fwd") else 0) for k, v in seg.items()),
               f"segment launches {seg} for {n_chunks} colour chunks")
         check(tim["n_verts"] > 0 and tim["n_tris"] > 0, "empty mesh")
         check(plys == ["000_color.ply", "000_geometry.ply", "000_gt.ply", "000_normal.ply"],
@@ -1067,7 +1121,7 @@ def dnerf_timing(spec, rspec, renderer, seg_cases, n_seg, smi: str) -> dict:
                                                               "default"),
     }
     for name, (packed, inputs) in seg_cases.items():
-        calls[name] = (lambda n=name, p=packed, i=inputs: ftd.FWD[n](p, *i),
+        calls[name] = (lambda n=name, p=packed, i=inputs: ftd.FWD[n.split("_")[1]](p, *i),
                        lambda n=name, i=inputs: plain[n](*i), 5)
     render_split(calls["fused_render_rays_dnerf"][0], smi)
     out = {}
@@ -1080,6 +1134,392 @@ def dnerf_timing(spec, rspec, renderer, seg_cases, n_seg, smi: str) -> dict:
               f"{work[k][0] / 1e12:.4f} TFLOP -> bound {b_ms:.4f} ms ({b_by}); "
               f"{work[k][0] / k_ms / 1e9:.2f} TFLOP/s", flush=True)
     return out
+
+
+def endonerf_train_cfg(exp_dir: str, n_iter: int = N_STEPS) -> dict:
+    """endonerf_cfg() with configs/endonerf/base.yml's train keys; no eval
+    during the run, images not written (the card machine has no imageio)."""
+    cfg = endonerf_cfg()
+    cfg["exp"]["exp_dir"] = exp_dir
+    cfg["train"].update({
+        "n_iter": n_iter, "ray_batch": DN_RAY_BATCH, "mask_guided_ray_sampling": True,
+        "color_loss_weight": 1.0, "depth_loss_weight": 1.0, "resume": False,
+        "optim": {"lr": 0.0005, "lr_decay": 250},
+        "eval": {"ray_batch": CHUNK, "save_images": False}})
+    cfg["log"] = {"i_eval": 0, "i_save": n_iter}
+    return cfg
+
+
+def dnerf_train_batch(spec, rspec, params, scene, gen, dev, n_rays=DN_RAY_BATCH):
+    """The fine samples of one EndoNeRF train batch as the train step forms
+    them: sample_train_batch, slots 6/7 = (depth, sigma), init_z with drawn
+    eps, fused_density_raw (bf16) + unit noise + relu, fused_fine_resample.
+    Returns (x, d [N, 3], t [N, 1], (z0, sigma, |d|), rays_d)."""
+    from endosurf_tpu_torch.data.scene_data import sample_train_batch
+    from endosurf_tpu_torch.kernels import fused_sampler as fs
+    from endosurf_tpu_torch.kernels.fused_render_dnerf import init_z
+    from endosurf_tpu_torch.kernels.fused_sdf import fused_density_raw_cuda
+    from endosurf_tpu_torch.models.endonerf import split_rays
+    b = sample_train_batch(scene.device_arrays, scene.h, scene.w, n_rays, generator=gen)
+    rays = torch.cat([b["rays"][:, :6], b["depth"],
+                      torch.full_like(b["depth"], rspec.depth_sampling_sigma),
+                      b["rays"][:, 8:9]], -1)
+    o, d, d_z, _, _, t = split_rays(rays)
+    n0 = rspec.n_samples
+    z0 = init_z(rspec, rays, torch.randn(n_rays, n0, generator=gen, device=dev))
+
+    def pts(z):
+        return (o[:, None] + d_z[:, None] * z[..., None]).reshape(-1, 3)
+    raw = fused_density_raw_cuda(spec, params, pts(z0), t.repeat_interleave(n0, 0),
+                                 torch.bfloat16).reshape(n_rays, n0)
+    sigma = torch.relu(raw + torch.randn(raw.shape, generator=gen, device=dev))
+    dn = torch.linalg.norm(d, dim=-1, keepdim=True)
+    z = fs.fused_fine_resample_cuda(z0, sigma, dn, rspec.n_importance)
+    k = z.shape[1]
+    return (pts(z).contiguous(), d.repeat_interleave(k, 0).contiguous(),
+            t.repeat_interleave(k, 0).contiguous(), (z0, sigma, dn), d)
+
+
+def dnerf_bwd_parity_phase(spec, x, d, t, dev):
+    """Phase 23; returns each kernel's max absolute error and the bf16 seed-0
+    sound cases (phase 27 times them)."""
+    from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
+    from endosurf_tpu_torch.models.endonerf import init_dnerf_params
+    abs_err, cases = {}, {}
+    for seed in (0, 1):
+        params = init_dnerf_params(spec, torch.Generator().manual_seed(seed), dev)
+        n = x.shape[0] if seed == 0 else N_DN_BWD_SEED1
+        for prec, other in (("highest", "default"), ("default", "highest")):
+            dtype = torch.bfloat16 if prec == "default" else torch.float32
+            tol = ftd.BWD_PARITY_TOL[dtype]
+            for kp in (prec, other):
+                res, ae, seg_cases = ftd.bwd_segment_parity(spec, params, x[:n], d[:n], t[:n],
+                                                            prec, seed, kp)
+                torch.cuda.synchronize()
+                sound = kp == prec
+                for name, kinds in res.items():
+                    worst = max(kinds["leaf"].items(), key=lambda kv: kv[1][0])
+                    n_bad = sum(not v[-1] for v in kinds["leaf"].values())
+                    print(f"dnerf bwd {'sound' if sound else 'control'} seed {seed} kernel {kp} "
+                          f"plain {prec} {name} ({n} points): " + "".join(
+                              f"d {k} median {v[0]:.3e} p99 {v[1]:.3e} max {v[2]:.3e}; "
+                              for k, v in kinds["cot"].items())
+                          + f"leaves: worst rel L2 {worst[1][0]:.3e} ({worst[0]}), {n_bad}/"
+                          f"{len(kinds['leaf'])} over; tol {tol}", flush=True)
+                    ok = ftd.bwd_parity_ok({name: kinds})
+                    if sound:
+                        check(ok, f"dnerf bwd {name} kernel vs plain ({prec}, seed {seed})")
+                    else:   # each kernel's limits must tell the precisions apart
+                        check(not ok, f"dnerf bwd {name} kernel {kp} passes the {prec} limits")
+                if sound and seed == 0 and prec == "default":
+                    abs_err, cases = ae, seg_cases
+                del res, seg_cases
+    return abs_err, cases
+
+
+def shifted_resample(z_vals, sigma, d_norm, n_new):
+    """Phase 24's control: fine_resample_math with its draws half a step
+    early (u_j = j / n_new)."""
+    from endosurf_tpu_torch.ops.neus import exclusive_cumprod_weights
+    from endosurf_tpu_torch.ops.pdf import sample_pdf
+    dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
+                       torch.full_like(z_vals[:, :1], 1e10)], -1)
+    w = exclusive_cumprod_weights(1.0 - torch.exp(-sigma * (dists * d_norm)), eps=1e-10)
+    u = (torch.arange(n_new, device=z_vals.device, dtype=z_vals.dtype) / n_new).expand(
+        z_vals.shape[0], n_new).contiguous()
+    z_new = sample_pdf(0.5 * (z_vals[:, 1:] + z_vals[:, :-1]), w[:, 1:-1], n_new, u=u)
+    return torch.sort(torch.cat([z_vals, z_new], -1), dim=-1).values
+
+
+def dnerf_resample_phase(spec, rspec, scene, dev) -> float:
+    """Phase 24; returns the largest sound max error."""
+    from endosurf_tpu_torch.kernels import fused_render_dnerf as frd
+    from endosurf_tpu_torch.kernels import fused_sampler as fs
+    from endosurf_tpu_torch.models.endonerf import init_dnerf_params
+    worst = 0.0
+    for nets, seed, bias in (("seeded", 0, 0.0), ("seeded", 1, 0.0),
+                             ("dense", 0, frd.DENSE_BIAS)):
+        params = init_dnerf_params(spec, torch.Generator().manual_seed(seed), dev)
+        if bias:
+            params = frd.with_density_bias(params, bias)
+        *_, (z0, sigma, dn), _ = dnerf_train_batch(
+            spec, rspec, params, scene, torch.Generator(device=dev).manual_seed(20 + seed), dev)
+        got = fs.fused_fine_resample_cuda(z0, sigma, dn, rspec.n_importance)
+        ref = fs.fused_fine_resample_reference(z0, sigma, dn, rspec.n_importance)
+        ctl = shifted_resample(z0, sigma, dn, rspec.n_importance)
+        torch.cuda.synchronize()
+        sound, control = fs.resample_parity(got, ref), fs.resample_parity(got, ctl)
+        opaque = float((sigma > 0).float().mean())
+        print(f"resample {nets} seed {seed} ({z0.shape[0]} rays, {100 * opaque:.1f} % of "
+              f"coarse samples with density): sound median {sound[0]:.3e} p99 {sound[1]:.3e} "
+              f"max {sound[2]:.3e}; control (draws half a step early) median {control[0]:.3e} "
+              f"p99 {control[1]:.3e} max {control[2]:.3e}; tol {fs.RESAMPLE_PARITY_TOL}; "
+              f"sorted {bool((got[:, 1:] >= got[:, :-1]).all())}", flush=True)
+        check(sound[-1], f"resample kernel vs plain ({nets}, seed {seed})")
+        check(not control[-1], f"resample control passes ({nets}, seed {seed})")
+        check(bool((got[:, 1:] >= got[:, :-1]).all()), "resampled depths sorted")
+        worst = max(worst, sound[2])
+    return worst
+
+
+def dnerf_whole_step_vs_plain(spec, rspec, scene, dev) -> None:
+    """Phase 25: one EndoNeRF train step (batch, render, losses, backward)
+    with the kernels against one with the plain segments and resample, same
+    params and draws, in each dot mode; the control runs the kernels at the
+    other precision and must fail."""
+    from endosurf_tpu_torch.bridge import flatten
+    from endosurf_tpu_torch.kernels import fused_sampler as fs
+    from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
+    from endosurf_tpu_torch.models.endonerf import init_dnerf_params
+    from endosurf_tpu_torch.train.trainer_endonerf import LOSS_WEIGHT_KEYS, make_loss_fn
+    weights = {k: 1.0 for k in LOSS_WEIGHT_KEYS}
+    params = init_dnerf_params(spec, torch.Generator().manual_seed(0), dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    n0, k = rspec.n_samples, rspec.n_samples + rspec.n_importance
+    draws = {"frame": torch.tensor(1, device=dev),
+             "u_pix": torch.rand(DN_RAY_BATCH, generator=gen, device=dev),
+             "z": torch.randn(DN_RAY_BATCH, n0, generator=gen, device=dev),
+             "noise_c": torch.randn(DN_RAY_BATCH * n0, generator=gen, device=dev),
+             "noise_f": torch.randn(DN_RAY_BATCH * k, generator=gen, device=dev)}
+    field, resample = ftd.megakernel_field_raw, fs.fused_fine_resample
+
+    def step(prec, field_fn, resample_fn):
+        ftd.megakernel_field_raw, fs.fused_fine_resample = field_fn, resample_fn
+        try:
+            fn = make_loss_fn(spec, rspec, H, W, DN_RAY_BATCH, weights, precision=prec,
+                              sampling_precision=prec)
+            for v in flatten(params).values():
+                v.requires_grad_(True)
+                v.grad = None
+            total, metrics = fn(params, scene.device_arrays, None, draws)
+            total.backward()
+        finally:
+            ftd.megakernel_field_raw, fs.fused_fine_resample = field, resample
+        return ({kk: float(v.detach()) for kk, v in metrics.items()},
+                {kk: v.grad.clone() for kk, v in flatten(params).items()})
+
+    for prec, other in (("highest", "default"), ("default", "highest")):
+        mp, gp = step(prec, ftd.plain_field_raw, fs.fused_fine_resample_reference)
+        runs = {"sound": step(prec, field, resample),
+                f"control (kernels {other})": step(
+                    prec, lambda s_, p_, x, d, t, _prec: field(s_, p_, x, d, t, other), resample)}
+        m_tol, g_tol = DN_WHOLE_STEP_TOL[prec]
+        for what, (mk, gk) in runs.items():
+            m_rel = {kk: abs(mk[kk] - mp[kk]) / (abs(mp[kk]) + 1e-6) for kk in mp}
+            g_rel = {}
+            for net in ("deform", "density", "color"):
+                keys = [kk for kk in gk if kk.startswith(net + "/")]
+                diff = sum(float(((gk[kk] - gp[kk]) ** 2).sum()) for kk in keys) ** 0.5
+                norm = sum(float((gp[kk] ** 2).sum()) for kk in keys) ** 0.5
+                g_rel[net] = diff / max(norm, 1e-30)
+            print(f"dnerf train step kernels vs plain ({prec}, {what}): metrics "
+                  + ", ".join(f"{kk[5:]} {v:.3e}" for kk, v in m_rel.items())
+                  + f" (tol {m_tol:g}); gradients " + ", ".join(
+                      f"{kk} {v:.3e}" for kk, v in g_rel.items()) + f" (tol {g_tol:g})",
+                  flush=True)
+            ok = (all(v <= m_tol for v in m_rel.values())
+                  and all(v <= g_tol for v in g_rel.values()))
+            if what == "sound":
+                check(ok, f"dnerf step {prec} kernels vs plain: {m_rel} {g_rel}")
+            else:
+                check(not ok, f"dnerf step {prec}: the kernels at {other} pass the limits")
+
+
+DN_FAMILIES = (("D-NeRF segment kernels", ("dnerf_", "wgrad_")),
+               ("coarse density sweep", ("sweep_kernel",)),
+               ("resample", ("dn_fine_resample_kernel",)))
+
+
+def dnerf_train_phase(scene, dev, smi: str):
+    """Phase 26: EndoNeRFTrainer.start on the in-memory config, N_WARM steps
+    then the rest; launches, losses, checkpoint, rays/s and peak memory, the
+    step split and trace, then trainer.eval. Returns ({kernel: launches in
+    the run}, render launches of the eval)."""
+    import numpy as np
+
+    from endosurf_tpu_torch.kernels import fused_render_dnerf as frd
+    from endosurf_tpu_torch.kernels import fused_sampler as fs
+    from endosurf_tpu_torch.kernels import fused_sdf as fsd
+    from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
+    from endosurf_tpu_torch.train.checkpoint import load_checkpoint
+    from endosurf_tpu_torch.train.trainer_endonerf import EndoNeRFTrainer, make_loss_fn
+    with tempfile.TemporaryDirectory() as exp_root:
+        trainer = EndoNeRFTrainer(endonerf_train_cfg(exp_root), mode="train", scene=scene,
+                                  device=dev)
+        for kk in ftd.LAUNCHES:
+            ftd.LAUNCHES[kk] = 0
+        fs.LAUNCHES["fused_fine_resample"] = 0
+        fsd.LAUNCHES["fused_density_raw"] = 0
+        frd.LAUNCHES["fused_render_rays_dnerf"] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer.start(log_every=N_STEPS, stop_after=N_WARM)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer.start(log_every=N_STEPS)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = {**ftd.LAUNCHES, "fused_fine_resample": fs.LAUNCHES["fused_fine_resample"],
+                    "fused_density_raw": fsd.LAUNCHES["fused_density_raw"]}
+        check(all(v == N_STEPS for v in launches.values()),
+              f"EndoNeRF train launches {launches} for {N_STEPS} steps")
+        check(frd.LAUNCHES["fused_render_rays_dnerf"] == 0, "training launched the render kernel")
+        metrics = {}
+        with open(os.path.join(trainer.exp_dir, "logs", "metrics.jsonl")) as f:
+            for line in f:
+                rec = json.loads(line)
+                if rec["tag"].startswith("train/loss"):
+                    metrics.setdefault(rec["step"], {})[rec["tag"]] = rec["value"]
+        check(sorted(metrics) == [1, N_STEPS]
+              and all(len(m) == 3 and all(math.isfinite(v) for v in m.values())
+                      for m in metrics.values()), f"EndoNeRF losses {metrics}")
+        restored = load_checkpoint(trainer.exp_dir, dev)
+        check(restored is not None and restored["n_iter"] == N_STEPS, "checkpoint written")
+        for name, net in trainer.params.items():
+            for a, b in zip(restored["params"][name]["layers"], net["layers"]):
+                check(all(torch.equal(a[kk], b[kk].detach()) for kk in b), f"checkpoint {name}")
+        step_ms = (t2 - t1) / (N_STEPS - N_WARM) * 1e3
+        print(f"dnerf train: {N_STEPS} steps x {DN_RAY_BATCH} rays, warm-up {t1 - t0:.2f} s for "
+              f"{N_WARM}, then {step_ms:.1f} ms/step, {DN_RAY_BATCH / step_ms * 1e3:.0f} rays/s "
+              f"({smi}); peak memory {peak_gib:.2f} GiB; launches {launches}; step {N_STEPS}: "
+              + ", ".join(f"{kk[6:]} {v:.4f}" for kk, v in metrics[N_STEPS].items())
+              + f"; step 1: " + ", ".join(f"{kk[6:]} {v:.4f}" for kk, v in metrics[1].items()),
+              flush=True)
+
+        loss_fn = make_loss_fn(trainer.spec, trainer.rspec, scene.h, scene.w, DN_RAY_BATCH,
+                               trainer.loss_weights, precision=trainer.precision,
+                               sampling_precision=trainer.sampling_precision)
+        train_step_split(trainer, lambda s: loss_fn(trainer.params, scene.device_arrays,
+                                                    trainer.generator)[0],
+                         DN_FAMILIES, step_ms, smi, label="dnerf train step")
+
+        # eval: every test frame through the render kernel
+        frd.LAUNCHES["fused_render_rays_dnerf"] = 0
+        t0 = time.perf_counter()
+        stats = trainer.eval(N_STEPS)
+        torch.cuda.synchronize()
+        eval_launches = frd.LAUNCHES["fused_render_rays_dnerf"]
+        n_chunks = math.ceil(H * W / CHUNK) * len(scene.list_test)
+        print(f"dnerf train eval: {len(scene.list_test)} test frame(s) in "
+              f"{time.perf_counter() - t0:.2f} s, {eval_launches} render kernel launches; "
+              + ", ".join(f"{kk} {v:.4f}" for kk, v in stats.items()), flush=True)
+        check(eval_launches == n_chunks, f"{eval_launches} eval render launches, {n_chunks} chunks")
+        check(all(math.isfinite(v) for v in stats.values()), f"finite eval metrics {stats}")
+        check(np.isfinite(peak_gib), "peak memory")
+    return launches, eval_launches
+
+
+def dnerf_train_timing(spec, rspec, bwd_cases, resample_in, smi: str) -> dict:
+    """Phase 27: device ms of the three backward kernels and the resample
+    against their plain versions at the train shape, bf16, with (bound ms,
+    bounded by) from the shapes: a backward's recompute, input-cotangent and
+    weight-gradient products; per-point inputs and outputs once, bf16
+    weights, float32 gradients."""
+    from endosurf_tpu_torch.kernels import fused_sampler as fs
+    from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
+    bf = torch.bfloat16
+    out = {}
+    f = spec.geo_feat_dim
+    for name, (packed, like, flat, inputs, cots) in bwd_cases.items():
+        seg = name.split("_")[1]
+        n = inputs[0].shape[0]
+        layout = packed.layout(seg)
+        fwd_macs = sum(i * o for _, _, i, o in layout)
+        skip = {"deform": spec.deform_layers, "density": spec.density_layers,
+                "color": spec.color_layers}[seg][2]
+        enc = layout[0][2]
+
+        def cot_rows(l, n_in):
+            """Input rows a layer's cotangent reaches: every row for the
+            density net (d x_c goes through the encoding), the h rows for
+            the others, the feature rows of the colour net's first layer."""
+            if seg == "density":
+                return n_in
+            if l == 0:
+                return f if seg == "color" else 0
+            return n_in - enc if l in skip else n_in
+        cot_macs = sum(cot_rows(l, i) * o for l, (_, _, i, o) in enumerate(layout))
+        flops = 2.0 * n * (2 * fwd_macs + cot_macs)
+        io = {"deform": 4 + 3, "density": 3 + 1 + f + 3, "color": 3 + f + 3 + f}[seg]
+        w_bytes = sum(i * o + o for _, _, i, o in layout) * (2 + 4)
+        times = (cuda_ms(lambda: ftd.BWD[seg](packed, like, *inputs, *cots), 2),
+                 cuda_ms(lambda: ftd.plain_bwd(spec, seg, like, flat, inputs, cots, "default"), 2))
+        out[name] = (*times, *bound_ms(flops, n * io * 4 + w_bytes, bf))
+        print(f"{name}: {n} points, {flops / 1e12:.4f} TFLOP (recompute, input cotangents, "
+              f"weight gradients)", flush=True)
+    z0, sigma, dn = resample_in
+    n_rays, n0 = z0.shape
+    k = n0 + rspec.n_importance
+    times = (cuda_ms(lambda: fs.fused_fine_resample_cuda(z0, sigma, dn, rspec.n_importance), 10),
+             cuda_ms(lambda: fs.fused_fine_resample_reference(z0, sigma, dn,
+                                                              rspec.n_importance), 10))
+    out["fused_fine_resample"] = (*times, *bound_ms(2.0 * n_rays * n0 * rspec.n_importance,
+                                                    n_rays * (2 * n0 + 1 + k) * 4,
+                                                    torch.float32))
+    for name, (k_ms, p_ms, b_ms, b_by) in out.items():
+        print(f"{name} timing (bf16, {smi}): kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms; bound "
+              f"{b_ms:.4f} ms ({b_by})", flush=True)
+    return out
+
+
+def smooth_scene(h: int, w: int, dev):
+    """A static 4-frame scene with smooth colour and depth (a tilted,
+    rippled plane), for phase 28."""
+    import numpy as np
+
+    from endosurf_tpu_torch.data.scene_data import SceneData
+    yy, xx = np.meshgrid(np.linspace(-1, 1, h), np.linspace(-1, 1, w), indexing="ij")
+    depth = 1.8 + 0.15 * xx + 0.1 * np.sin(3 * yy)
+    color = np.stack([0.5 + 0.4 * np.sin(2 * xx + yy), 0.5 + 0.4 * np.cos(3 * yy),
+                      0.5 + 0.3 * xx * yy], -1)
+    n = 4
+    K = np.eye(4, dtype=np.float32)
+    K[0, 0] = K[1, 1] = 0.8 * w
+    K[0, 2], K[1, 2] = w / 2, h / 2
+    pose = np.eye(4, dtype=np.float32)
+    pose[2, 3] = -2.0
+    ids = np.arange(n)
+    return SceneData.from_arrays(
+        dset_name="synthetic", scene_name="smooth",
+        colors=np.tile(color[None], (n, 1, 1, 1)).astype(np.float32),
+        depths=np.tile(depth[None, ..., None], (n, 1, 1, 1)).astype(np.float32),
+        color_masks=np.ones((n, h, w, 1), np.float32),
+        intrinsics=np.tile(K, (n, 1, 1)), poses=np.tile(pose, (n, 1, 1)),
+        bounds=np.tile(np.array([1.0, 3.0], np.float32), (n, 1)),
+        bbox_minmax=np.tile(np.array([[-1, 1], [-1, 1], [-1, 1]], np.float32), (n, 1, 1)),
+        list_train=ids[:-1], list_test=ids[-1:], depth_scale=100.0, device=dev)
+
+
+def dnerf_render_quality(dev, smi: str) -> None:
+    """Phase 28: a checkpoint the port trains itself (DN_QUALITY steps, bf16,
+    base.yml's settings) on smooth_scene, its test frame rendered through
+    the render kernel in bf16 and in float32."""
+    from endosurf_tpu_torch.evaluation.render_eval import eval_frames
+    from endosurf_tpu_torch.train.trainer_endonerf import EndoNeRFTrainer
+    h, w, n_steps = DN_QUALITY
+    scene = smooth_scene(h, w, dev)
+    with tempfile.TemporaryDirectory() as exp_root:
+        trainer = EndoNeRFTrainer(endonerf_train_cfg(exp_root, n_steps), mode="train",
+                                  scene=scene, device=dev)
+        t0 = time.perf_counter()
+        trainer.start(log_every=n_steps)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        res = {}
+        for prec in ("default", "highest"):
+            trainer.precision = trainer.sampling_precision = prec
+            res[prec] = eval_frames(trainer, scene.list_test, n_steps, ray_chunk=CHUNK,
+                                    save_dir_name=f"quality_{prec}", save_images=False)
+        check(all(math.isfinite(v) for r in res.values() for v in r.values()),
+              f"finite quality metrics {res}")
+        print(f"dnerf bf16 render quality ({smi}): {n_steps} train steps on a smooth {h}x{w} "
+              f"scene in {train_s:.1f} s; test frame bf16 " + ", ".join(
+                  f"{kk} {v:.4f}" for kk, v in res["default"].items()) + "; float32 " + ", ".join(
+                  f"{kk} {v:.4f}" for kk, v in res["highest"].items()) + "; bf16 - float32: "
+              + ", ".join(f"{kk} {res['default'][kk] - res['highest'][kk]:+.4f}"
+                          for kk in res["default"]), flush=True)
 
 
 def train_only(smi: str) -> int:
@@ -1097,7 +1537,7 @@ def train_only(smi: str) -> int:
               f"for {N_WARM}, then {step_ms:.1f} ms/step, "
               f"{RAY_BATCH / step_ms * 1e3:.0f} rays/s ({smi}); peak memory {peak_gib:.2f} GiB",
               flush=True)
-        train_step_split(trainer, step_ms, smi)
+        endosurf_step_split(trainer, step_ms, smi)
     return 0
 
 
@@ -1317,7 +1757,7 @@ def main() -> int:
               f"segment kernel launches {seg_launches}; "
               f"step {N_STEPS}: " + ", ".join(f"{k[6:]} {v:.4f}" for k, v in last.items()),
               flush=True)
-        train_step_split(trainer, step_ms, smi)
+        endosurf_step_split(trainer, step_ms, smi)
 
     # 8. upsample timing on one train batch (the main path's shape), both modes
     tb_in = upsample_inputs(RAY_BATCH, torch.Generator(device=dev).manual_seed(2))
@@ -1357,7 +1797,7 @@ def main() -> int:
     new_times = new_kernel_timing(spec, renderer_scene, dev, smi)
 
     # 17-22. the EndoNeRF vertical
-    from endosurf_tpu_torch.models.endonerf import DNeRFRenderSpec, DNeRFSpec
+    from endosurf_tpu_torch.models.endonerf import DNeRFRenderSpec, DNeRFSpec, init_dnerf_params
     from endosurf_tpu_torch.serve import EndoNeRFRenderer
     ncfg = endonerf_cfg()
     dn_spec, dn_rspec = DNeRFSpec.from_config(ncfg["net"]), DNeRFRenderSpec.from_config(
@@ -1371,6 +1811,20 @@ def main() -> int:
         dn_render_launches = dnerf_serving_phase(nerf, smi)
     dens_launches, dn_seg_launches = dnerf_3d_phase(endonerf_cfg(), renderer_scene, dev)
     dn_times = dnerf_timing(dn_spec, dn_rspec, nerf, dn_seg_cases, n_dn_seg, smi)
+
+    # 23-28. EndoNeRF training
+    dn_params = init_dnerf_params(dn_spec, torch.Generator().manual_seed(0), dev)
+    x_f, d_f, t_f, resample_in, _ = dnerf_train_batch(
+        dn_spec, dn_rspec, dn_params, renderer_scene, torch.Generator(device=dev).manual_seed(7),
+        dev)
+    dn_bwd_abs, dn_bwd_cases = dnerf_bwd_parity_phase(dn_spec, x_f, d_f, t_f, dev)
+    del x_f, d_f, t_f
+    resample_abs = dnerf_resample_phase(dn_spec, dn_rspec, renderer_scene, dev)
+    dnerf_whole_step_vs_plain(dn_spec, dn_rspec, renderer_scene, dev)
+    dn_train_launches, _ = dnerf_train_phase(renderer_scene, dev, smi)
+    dn_train_times = dnerf_train_timing(dn_spec, dn_rspec, dn_bwd_cases, resample_in, smi)
+    del dn_bwd_cases
+    dnerf_render_quality(dev, smi)
 
     # the kernel record: work, bounds and times at the main paths' shapes (bf16)
     bf = torch.bfloat16
@@ -1437,7 +1891,20 @@ def main() -> int:
             ("dnerf_density_fwd", "fused_train_dnerf.cu", "fused_train_dnerf.py:271",
              dn_seg_launches["dnerf_density_fwd"], dn_seg_abs["dnerf_density_fwd"]),
             ("dnerf_color_fwd", "fused_train_dnerf.cu", "fused_train_dnerf.py:313",
-             dn_seg_launches["dnerf_color_fwd"], dn_seg_abs["dnerf_color_fwd"]))]}))
+             dn_seg_launches["dnerf_color_fwd"], dn_seg_abs["dnerf_color_fwd"]))] + [
+        {"name": k, "route": "cuda", "source": f"endosurf_tpu_torch/kernels/csrc/{src}",
+         "replaces": f"endosurf_tpu/kernels/{rep}", "launches": dn_train_launches[k],
+         "max_abs_err": err, "ms": dn_train_times[k][0], "plain_ms": dn_train_times[k][1],
+         "bound_ms": dn_train_times[k][2], "bound_by": dn_train_times[k][3], "library_ms": None}
+        for k, src, rep, err in (
+            ("dnerf_deform_bwd", "fused_train_dnerf.cu", "fused_train_dnerf.py:254",
+             dn_bwd_abs["dnerf_deform_bwd"]),
+            ("dnerf_density_bwd", "fused_train_dnerf.cu", "fused_train_dnerf.py:291",
+             dn_bwd_abs["dnerf_density_bwd"]),
+            ("dnerf_color_bwd", "fused_train_dnerf.cu", "fused_train_dnerf.py:326",
+             dn_bwd_abs["dnerf_color_bwd"]),
+            ("fused_fine_resample", "fused_render_dnerf.cu", "fused_sampler.py:834",
+             resample_abs))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

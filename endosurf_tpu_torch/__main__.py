@@ -2,7 +2,7 @@
 
 The modes of the JAX package's CLI (``python -m endosurf_tpu``); the model
 family is the config's render.type (endosurf | endonerf):
-  train    — run / resume training (EndoSurf only), checkpoints into the exp dir
+  train    — run / resume training, checkpoints into the exp dir
   test     — test split: view synthesis + metrics, meshes + geometric error
   test_2d  — test split, view synthesis + metrics
   test_3d  — test split, meshes (PLYs) + geometric error (geo_err_mean, mm)
@@ -40,11 +40,13 @@ def main(argv=None):
         from endosurf_tpu_torch.config import load_config
         cfg = load_config(args.cfg)
         render_type = cfg["render"].get("type", "endosurf")
-        if render_type != "endosurf":
-            raise NotImplementedError(f"not yet ported: --mode train for render type "
-                                      f"{render_type!r}")
-        from endosurf_tpu_torch.train.trainer_endosurf import EndoSurfTrainer
-        EndoSurfTrainer(cfg, mode="train", device=device).start()
+        if render_type == "endosurf":
+            from endosurf_tpu_torch.train.trainer_endosurf import EndoSurfTrainer as trainer
+        elif render_type == "endonerf":
+            from endosurf_tpu_torch.train.trainer_endonerf import EndoNeRFTrainer as trainer
+        else:
+            raise ValueError(f"unknown render type {render_type!r}")
+        trainer(cfg, mode="train", device=device).start()
         return None
 
     from endosurf_tpu_torch.bridge import load_params_npz

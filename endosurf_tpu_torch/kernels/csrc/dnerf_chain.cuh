@@ -1,7 +1,9 @@
 // The per-point D-NeRF field evaluation (kernels/fused_train_dnerf.py's
 // forward_math), shared by the EndoNeRF render kernel's fine evaluation
-// (fused_render_dnerf.cu) and the three forward segment kernels
-// (fused_train_dnerf.cu):
+// (fused_render_dnerf.cu) and the six segment kernels (fused_train_dnerf.cu:
+// the forwards, and the backwards' recompute), and the per-ray importance
+// resampling (dn_resample_ray: the render kernel's and fused_sampler.cu's
+// standalone fused_fine_resample):
 //
 //   x_c         = x + deform(enc(x, t))                     dn_deform
 //   (sigma, f)  = density(enc(x_c)): column 0 of the output
@@ -24,6 +26,10 @@
 // products accumulate in float32. The raw density and the feature a
 // segment kernel writes out are float32.
 //
+// SAVE (the backward kernels) copies every layer's dot operands, as the
+// forward forms them, to the global scratch DnScratch::xin as it goes; with
+// SAVE off the code is the render kernel's, operation for operation.
+//
 // Anonymous namespace: one copy per .cu, as sdf_chain.cuh.
 
 #pragma once
@@ -31,8 +37,16 @@
 #include "sdf_chain.cuh"
 
 #define P_DN 32         // points per block, D-NeRF field evaluation
+#define DN_N0 64        // coarse depths per ray, and draws, at most (resampling)
+#define DN_K 128        // samples per ray after resampling, at most
 
 namespace {
+
+// Global scratch of a backward kernel, rows indexed by point.
+struct DnScratch {
+  float* xin[NL];   // layer l's dot operands [n][in_l]: [enc | feat], [h | enc] or [h]
+  float* dz[NL];    // cotangent on layer l's pre-activation [n][out_l]
+};
 
 // Shared-memory tile of P_DN points.
 struct DnTile {
@@ -80,15 +94,33 @@ __device__ __forceinline__ void dn_encode(const float* src, int f3, float* e, in
   }
 }
 
+// Rows [a (na) | b (nb)] of the tile's points to dst [n][na + nb] (rows past
+// n skipped).
+__device__ __forceinline__ void dn_save(float* __restrict__ dst, long long base, long long n,
+                                        const float* a, int lda, int na, const float* b,
+                                        int ldb, int nb, int tid) {
+  const int w = na + nb;
+  for (int idx = tid; idx < P_DN * w; idx += NT) {
+    const int p = idx / w, c = idx - p * w;
+    if (base + p < n) dst[(size_t)(base + p) * w + c] = c < na ? a[p * lda + c] : b[p * ldb + c - na];
+  }
+}
+
 // Hidden layers 0 .. n-2 of a nerf-style net, relu'd into s.h in place.
 // Layer 0 reads [enc (ew) | s.h (n_feat)]; a skip layer reads [h | enc].
-template <bool RB>
+template <bool RB, bool SAVE = false>
 __device__ void dn_hidden(const Net& N, const float* __restrict__ wts, const DnTile& s, int ew,
-                          int n_feat, int tid) {
+                          int n_feat, int tid, const DnScratch& sv = DnScratch{},
+                          long long base = 0, long long n = 0) {
   for (int l = 0; l < N.n_layers - 1; ++l) {
     const int n_out = N.out_dim[l];
     const bool skip = (N.skip_mask >> l) & 1;
     const float* W = wts + N.w_off[l];
+    if (SAVE) {
+      if (l == 0) dn_save(sv.xin[0], base, n, s.e, ew, ew, s.h, HMAX, n_feat, tid);
+      else if (skip) dn_save(sv.xin[l], base, n, s.h, HMAX, N.in_dim[l] - ew, s.e, ew, ew, tid);
+      else dn_save(sv.xin[l], base, n, s.h, HMAX, N.in_dim[l], nullptr, 0, 0, tid);
+    }
     float acc[P_DN];
 #pragma unroll
     for (int p = 0; p < P_DN; ++p) acc[p] = 0.f;
@@ -123,13 +155,25 @@ __device__ __forceinline__ float dn_out_col(const Net& N, const float* __restric
   return a + wts[N.b_off[l] + col];
 }
 
+// The operand of a net's last layer (s.h) to the scratch.
+template <bool SAVE>
+__device__ __forceinline__ void dn_save_last(const Net& N, const DnTile& s, const DnScratch& sv,
+                                             long long base, long long n, int tid) {
+  if (SAVE) {
+    const int l = N.n_layers - 1;
+    dn_save(sv.xin[l], base, n, s.h, HMAX, N.in_dim[l], nullptr, 0, 0, tid);
+  }
+}
+
 // s.x -> s.xc = x + deform(enc(x, t)).
-template <bool RB>
+template <bool RB, bool SAVE = false>
 __device__ void dn_deform(const float* __restrict__ wts, const Model& m, const DnTile& s,
-                          int tid) {
+                          int tid, const DnScratch& sv = DnScratch{}, long long base = 0,
+                          long long n = 0) {
   dn_encode<RB>(s.x, m.f_dpos, s.e, m.ed, tid);
   __syncthreads();
-  dn_hidden<RB>(m.deform, wts, s, m.ed, 0, tid);
+  dn_hidden<RB, SAVE>(m.deform, wts, s, m.ed, 0, tid, sv, base, n);
+  dn_save_last<SAVE>(m.deform, s, sv, base, n, tid);
   if (tid < 3 * P_DN) {
     const int p = tid / 3, col = tid - p * 3;
     s.xc[p * 4 + col] = s.x[p * 4 + col] + dn_out_col(m.deform, wts, s.h + p * HMAX, col);
@@ -140,13 +184,15 @@ __device__ void dn_deform(const float* __restrict__ wts, const Model& m, const D
 // s.xc -> raw sigma in s.out[p * 4] and the feature in s.h (operands); with
 // feat_out, also the float32 feature of points base .. base + P - 1 (< n) to
 // feat_out [n][F].
-template <bool RB>
+template <bool RB, bool SAVE = false>
 __device__ void dn_density(const float* __restrict__ wts, const Model& m, const DnTile& s,
-                           int tid, long long base, long long n, float* __restrict__ feat_out) {
+                           int tid, long long base, long long n, float* __restrict__ feat_out,
+                           const DnScratch& sv = DnScratch{}) {
   dn_encode<RB>(s.xc, m.f_spos, s.e, m.es, tid);
   __syncthreads();
   const Net& N = m.sdf;
-  dn_hidden<RB>(N, wts, s, m.es, 0, tid);
+  dn_hidden<RB, SAVE>(N, wts, s, m.es, 0, tid, sv, base, n);
+  dn_save_last<SAVE>(N, s, sv, base, n, tid);
   const int l = N.n_layers - 1;
   const int n_out = N.out_dim[l];
   const int F = n_out - 1;
@@ -177,17 +223,66 @@ __device__ void dn_density(const float* __restrict__ wts, const Model& m, const 
 }
 
 // s.d and the feature in s.h -> rgb = sigmoid(color([enc(d), f])) in s.out[p * 4 + 1..3].
-template <bool RB>
+template <bool RB, bool SAVE = false>
 __device__ void dn_color(const float* __restrict__ wts, const Model& m, const DnTile& s,
-                         int tid) {
+                         int tid, const DnScratch& sv = DnScratch{}, long long base = 0,
+                         long long n = 0) {
   dn_encode<RB>(s.d, m.f_cdir, s.e, m.cr, tid);
   __syncthreads();
-  dn_hidden<RB>(m.color, wts, s, m.cr, m.feat_dim, tid);
+  dn_hidden<RB, SAVE>(m.color, wts, s, m.cr, m.feat_dim, tid, sv, base, n);
+  dn_save_last<SAVE>(m.color, s, sv, base, n, tid);
   if (tid < 3 * P_DN) {
     const int p = tid / 3, col = tid - p * 3;
     s.out[p * 4 + 1 + col] = sigmoidf_(dn_out_col(m.color, wts, s.h + p * HMAX, col));
   }
   __syncthreads();
+}
+
+// Importance resampling of one ray (fused_sampler.fine_resample_math): the
+// coarse weights of raw2outputs on relu(sigma) at the n0 sorted depths z,
+// scaled by dn = |d|, the sample_pdf of weights 1 .. n0-2 (+ 1e-5) over the
+// n0 - 1 midpoint bins with n_new draws at u = (j + 0.5) / n_new, then the
+// sorted merge of the n0 depths and the draws into out [n0 + n_new].
+__device__ __forceinline__ void dn_resample_ray(int n0, int n_new, float dn, const float* z,
+                                                const float* s, float* out) {
+  float cdf[DN_N0];     // n0 - 1 entries: 0, then the running sum of the pdf
+  float znew[DN_N0];
+  float T = 1.f, wsum = 0.f;
+  for (int j = 0; j < n0 - 1; ++j) {
+    const float dist = (z[j + 1] - z[j]) * dn;
+    const float alpha = 1.f - expf(-fmaxf(s[j], 0.f) * dist);
+    const float w = alpha * T;
+    T *= 1.f - alpha + 1e-10f;
+    if (j >= 1) {
+      const float wf = w + 1e-5f;        // the pdf's weight floor
+      cdf[j] = wf;
+      wsum += wf;
+    }
+  }
+  cdf[0] = 0.f;
+  float run = 0.f;
+  for (int k = 1; k < n0 - 1; ++k) { run += cdf[k] / wsum; cdf[k] = run; }
+  const int nb = n0 - 1;               // bins
+  for (int jn = 0; jn < n_new; ++jn) {
+    const float u = ((float)jn + 0.5f) / (float)n_new;
+    int inds = 0;
+    for (int k = 0; k < nb; ++k) inds += (cdf[k] <= u) ? 1 : 0;
+    const int below = max(inds - 1, 0);
+    const int above = min(inds, nb - 1);
+    const float zb = 0.5f * (z[below] + z[below + 1]);
+    const float za = 0.5f * (z[above] + z[above + 1]);
+    float denom = cdf[above] - cdf[below];
+    if (denom < 1e-5f) denom = 1.f;
+    const float v = zb + (u - cdf[below]) / denom * (za - zb);
+    int pos = jn;                       // insertion keeps the draws sorted
+    while (pos > 0 && znew[pos - 1] > v) { znew[pos] = znew[pos - 1]; --pos; }
+    znew[pos] = v;
+  }
+  int a = 0, b = 0;
+  for (int k = 0; k < n0 + n_new; ++k) {
+    if (b >= n_new || (a < n0 && z[a] <= znew[b])) out[k] = z[a++];
+    else out[k] = znew[b++];
+  }
 }
 
 template <class K>

@@ -11,6 +11,14 @@
 // The initial depths come from the caller (the Gaussian depth-guided draws,
 // sorted, or a linspace), as the TPU kernel takes them from XLA.
 //
+// The standalone resampling of the EndoNeRF train step
+// (fused_fine_resample_launch) replaces the Pallas TPU kernel
+// endosurf_tpu/kernels/fused_sampler.py (fused_fine_resample, body
+// _fine_resample_kernel): the same per-ray code (dnerf_chain.cuh's
+// dn_resample_ray), one thread a ray, on the caller's z, sigma (after the
+// train noise and the relu) and |d|. What bounds it: bytes, 129 floats in and
+// 128 out a ray at 64 + 64, and the n0 x n_new compare-count of the draws.
+//
 // One host entry (fused_render_dnerf_launch) launches a fixed sequence on
 // the caller's stream:
 //   prep -> coarse sweep (R x n0 points, sdf_chain.cuh's sweep with the
@@ -30,8 +38,6 @@
 
 #include "dnerf_chain.cuh"
 
-#define DN_K 128        // samples per ray after resampling, at most
-#define DN_N0 64        // initial samples per ray, at most
 #define DN_OUT 5        // floats per ray of the output: rgb, depth, acc
 
 namespace {
@@ -77,57 +83,25 @@ __global__ void dn_prep_kernel(const float* __restrict__ rays, int R, float* __r
   for (int k = 11; k < RB_STRIDE; ++k) b[k] = 0.f;
 }
 
-// Importance resampling of one ray: the coarse weights of raw2outputs on
-// relu(raw sigma) at the n0 sorted depths, the sample_pdf of weights 1 .. n0-2
-// (+ 1e-5) over the n0 - 1 midpoint bins with n_new draws at u = (j + 0.5) /
-// n_new, then the sorted merge of the n0 depths and the draws into zl [R][DN_K].
+// Importance resampling of each ray (dnerf_chain.cuh's dn_resample_ray) into
+// zl [R][DN_K].
 __global__ void dn_resample_kernel(int R, int n0, int n_new, const float* __restrict__ rb,
                                    const float* __restrict__ z0, const float* __restrict__ sig,
                                    float* __restrict__ zl) {
   int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
-  const float dn = rb[(size_t)r * RB_STRIDE + 10];
-  const float* z = z0 + (size_t)r * n0;
-  const float* s = sig + (size_t)r * n0;
-  float cdf[DN_N0];     // n0 - 1 entries: 0, then the running sum of the pdf
-  float znew[DN_N0];
-  float T = 1.f, wsum = 0.f;
-  for (int j = 0; j < n0 - 1; ++j) {
-    const float dist = (z[j + 1] - z[j]) * dn;
-    const float alpha = 1.f - expf(-fmaxf(s[j], 0.f) * dist);
-    const float w = alpha * T;
-    T *= 1.f - alpha + 1e-10f;
-    if (j >= 1) {
-      const float wf = w + 1e-5f;        // the pdf's weight floor
-      cdf[j] = wf;
-      wsum += wf;
-    }
-  }
-  cdf[0] = 0.f;
-  float run = 0.f;
-  for (int k = 1; k < n0 - 1; ++k) { run += cdf[k] / wsum; cdf[k] = run; }
-  const int nb = n0 - 1;               // bins
-  for (int jn = 0; jn < n_new; ++jn) {
-    const float u = ((float)jn + 0.5f) / (float)n_new;
-    int inds = 0;
-    for (int k = 0; k < nb; ++k) inds += (cdf[k] <= u) ? 1 : 0;
-    const int below = max(inds - 1, 0);
-    const int above = min(inds, nb - 1);
-    const float zb = 0.5f * (z[below] + z[below + 1]);
-    const float za = 0.5f * (z[above] + z[above + 1]);
-    float denom = cdf[above] - cdf[below];
-    if (denom < 1e-5f) denom = 1.f;
-    const float v = zb + (u - cdf[below]) / denom * (za - zb);
-    int pos = jn;                       // insertion keeps the draws sorted
-    while (pos > 0 && znew[pos - 1] > v) { znew[pos] = znew[pos - 1]; --pos; }
-    znew[pos] = v;
-  }
-  float* out = zl + (size_t)r * DN_K;
-  int a = 0, b = 0;
-  for (int k = 0; k < n0 + n_new; ++k) {
-    if (b >= n_new || (a < n0 && z[a] <= znew[b])) out[k] = z[a++];
-    else out[k] = znew[b++];
-  }
+  dn_resample_ray(n0, n_new, rb[(size_t)r * RB_STRIDE + 10], z0 + (size_t)r * n0,
+                  sig + (size_t)r * n0, zl + (size_t)r * DN_K);
+}
+
+// The standalone resampling: z, sig [R][n0], dn [R] -> out [R][n0 + n_new].
+__global__ void dn_fine_resample_kernel(int R, int n0, int n_new, const float* __restrict__ z,
+                                        const float* __restrict__ sig,
+                                        const float* __restrict__ dn, float* __restrict__ out) {
+  int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  dn_resample_ray(n0, n_new, dn[r], z + (size_t)r * n0, sig + (size_t)r * n0,
+                  out + (size_t)r * (n0 + n_new));
 }
 
 // The full field at the K sorted depths of each ray -> pt [R * K][4]: raw
@@ -253,6 +227,19 @@ int fused_render_dnerf_launch(const float* rays, const float* z0, int R, int n0,
               : launch_dn_field<false>(w_main, m, R, K, rb, zl, pt, st);
   if (e != cudaSuccess) return (int)e;
   dn_composite_kernel<<<rblocks, tpb, 0, st>>>(R, K, rb, zl, pt, out);
+  return (int)cudaGetLastError();
+}
+
+// z [R, n0] sorted, sigma [R, n0] (after the noise and the relu), dn [R, 1]
+// |rays_d| -> out [R, n0 + n_new] sorted. Returns a cudaError_t (0 on
+// success).
+int fused_fine_resample_launch(const float* z, const float* sigma, const float* dn, int R, int n0,
+                               int n_new, float* out, void* stream) {
+  if (R <= 0) return 0;
+  if (n0 < 3 || n0 > DN_N0 || n_new < 1 || n_new > DN_N0) return (int)cudaErrorInvalidValue;
+  const int tpb = 128;
+  dn_fine_resample_kernel<<<(R + tpb - 1) / tpb, tpb, 0, (cudaStream_t)stream>>>(
+      R, n0, n_new, z, sigma, dn, out);
   return (int)cudaGetLastError();
 }
 

@@ -115,13 +115,13 @@ def cuda_spec_supported(spec) -> bool:
 def pack_nets(nets, dtype: torch.dtype) -> Tuple[List[torch.Tensor], List[int], Any]:
     """Pack three nets for the kernels' ``Model`` meta.
 
-    ``nets``: per net ``(layers or None, skips, transpose_hidden)`` with
-    layers of effective weights ``{"w" | "v, g", "b"}``. Returns (chunks of
-    one float32 buffer, the three nets' meta, ``put``: appends a tensor to
-    the chunks and returns its offset). Per layer the meta holds the dims,
-    the skip mask and the offsets of W [in, out], b and (hidden layers with
-    ``transpose_hidden``) W^T, else -1. Under bf16 the weights are rounded to
-    bf16 values; biases are not."""
+    ``nets``: per net ``(layers or None, skips, transpose)`` with layers of
+    effective weights ``{"w" | "v, g", "b"}``. Returns (chunks of one float32
+    buffer, the three nets' meta, ``put``: appends a tensor to the chunks and
+    returns its offset). Per layer the meta holds the dims, the skip mask and
+    the offsets of W [in, out], b and W^T (``transpose`` True: the hidden
+    layers; "all": every layer), else -1. Under bf16 the weights are rounded
+    to bf16 values; biases are not."""
     chunks: List[torch.Tensor] = []
     size = [0]
 
@@ -134,7 +134,7 @@ def pack_nets(nets, dtype: torch.dtype) -> Tuple[List[torch.Tensor], List[int], 
     def rnd(w):
         return w.to(torch.bfloat16).to(torch.float32) if dtype == torch.bfloat16 else w
 
-    def net_meta(layers, skips, transpose_hidden):
+    def net_meta(layers, skips, transpose):
         if layers is None:
             return [0] * META_NET
         ins, outs, w_off, b_off, wt_off = [], [], [], [], []
@@ -144,8 +144,8 @@ def pack_nets(nets, dtype: torch.dtype) -> Tuple[List[torch.Tensor], List[int], 
             outs.append(w.shape[1])
             w_off.append(put(w))
             b_off.append(put(layer["b"]))
-            hidden = transpose_hidden and l < len(layers) - 1
-            wt_off.append(put(w.T.contiguous()) if hidden else -1)
+            hidden = transpose is True and l < len(layers) - 1
+            wt_off.append(put(w.T.contiguous()) if hidden or transpose == "all" else -1)
         pad = NL - len(layers)
         mask = sum(1 << s for s in skips)
         return ([len(layers), mask] + ins + [0] * pad + outs + [0] * pad

@@ -29,10 +29,15 @@ march, ``fused_ray_march_reference`` is ``models.endosurf.march_math`` and
 [R, 1] and the final bracket (d_low, d_high [R]) with the crossing's sample
 index idx [R], which the parity and consistency checks read.
 
-``fine_resample_math`` is the plain version of
-``fused_sampler.py::_fine_resample_math``, the EndoNeRF importance
-resampling: the render kernel of ``fused_render_dnerf`` runs it on the card
-(its resample kernel) and its plain twin here.
+The EndoNeRF importance resampling is the port of
+``fused_sampler.py::fused_fine_resample`` (a Pallas TPU kernel): the coarse
+weights of raw2outputs, the deterministic inverse-CDF draws over the
+midpoint bins and the sorted merge. ``fused_fine_resample_cuda`` launches
+``csrc/fused_render_dnerf.cu``'s standalone resample (the per-ray code of
+``csrc/dnerf_chain.cuh``, which the EndoNeRF render kernel runs too),
+``fine_resample_math`` is its plain version (``fused_fine_resample_reference``)
+and ``fused_fine_resample`` dispatches as above: the train step's
+deterministic draws on the card always run the kernel.
 """
 
 from __future__ import annotations
@@ -51,9 +56,10 @@ from endosurf_tpu_torch.kernels.fused_render import (
 KMAX = 64       # samples per ray the kernel holds
 KNEW_MAX = 8    # new samples per round
 
-# Launches of the CUDA kernels made by fused_upsample_z_cuda and
-# fused_ray_march_cuda (one per call).
-LAUNCHES = {"fused_upsample_z": 0, "fused_ray_march": 0}
+# Launches of the CUDA kernels made by fused_upsample_z_cuda,
+# fused_ray_march_cuda and fused_fine_resample_cuda (one per call).
+LAUNCHES = {"fused_upsample_z": 0, "fused_ray_march": 0, "fused_fine_resample": 0}
+RESAMPLE_MAX = 64        # csrc/dnerf_chain.cuh's DN_N0: coarse depths, and draws, a ray
 
 # The limits below were set from H100 readings of the sound pairs (kernel
 # and twin at one dot precision), the wrong-precision controls and kernels
@@ -228,6 +234,88 @@ def fine_resample_math(z_vals: torch.Tensor, sigma: torch.Tensor, d_norm: torch.
     z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
     z_new = sample_pdf(z_mid, weights[..., 1:-1], n_new)
     return torch.sort(torch.cat([z_vals, z_new], dim=-1), dim=-1).values
+
+
+# The resample kernel against fine_resample_math, on the per-ray max
+# absolute error of the resampled depths: (median, p99, max). Both sides run
+# the same arithmetic; the plain version sums the cdf and the transmittance
+# in another order, so a draw that sits on a cdf step or in a bin holding
+# only the 1e-5 weight floor moves by up to a fraction of a bin on a few
+# rays in a thousand (the max), while the median and p99 hold the bulk. Set
+# from H100 readings (PERF.md, PR 6; chip_smoke's 2048 train rays with
+# sigma 1.0 around the depth, seeded and opaque nets; the card tests' 1024
+# rays at 64 + 64, 32 + 16 and 8 + 8): sound median <= 1.8e-5, p99 <=
+# 9.7e-4, max <= 7.9e-3; draws half a step early read medians >= 0.13 (train
+# rays) and >= 1.3e-2 (card rays), coarse weights without |d| a median >=
+# 3.1e-4 and a p99 >= 1.3e-2.
+RESAMPLE_PARITY_TOL = (1e-4, 3e-3, 3e-2)
+
+
+def resample_parity(got: torch.Tensor, ref: torch.Tensor
+                    ) -> Tuple[float, float, float, bool]:
+    """(median, p99, max) of the per-ray max |z_got - z_ref| and whether all
+    three are within ``RESAMPLE_PARITY_TOL``."""
+    per_ray = (got - ref).abs().amax(dim=-1).float()
+    q = torch.quantile(per_ray, torch.tensor([0.5, 0.99], device=per_ray.device))
+    stats = (float(q[0]), float(q[1]), float(per_ray.max()))
+    return (*stats, all(v <= t for v, t in zip(stats, RESAMPLE_PARITY_TOL)))
+
+
+def fine_resample_shape_supported(n0: int, n_new: int) -> bool:
+    """The kernel's limits: 3 to 64 coarse depths and 1 to 64 draws (JAX's
+    kernel takes only 64 + 64)."""
+    return 3 <= n0 <= RESAMPLE_MAX and 1 <= n_new <= RESAMPLE_MAX
+
+
+def fused_fine_resample_reference(z_vals: torch.Tensor, sigma: torch.Tensor,
+                                  d_norm: torch.Tensor, n_new: int = 64) -> torch.Tensor:
+    """The plain version: ``fine_resample_math`` without gradient."""
+    with torch.no_grad():
+        return fine_resample_math(z_vals, sigma, d_norm, n_new)
+
+
+def fused_fine_resample_cuda(z_vals: torch.Tensor, sigma: torch.Tensor, d_norm: torch.Tensor,
+                             n_new: int = 64) -> torch.Tensor:
+    """Launch the resample kernel (``csrc/fused_render_dnerf.cu``) on the
+    current stream: z_vals [R, n0] sorted, sigma [R, n0] after the noise and the
+    relu, d_norm [R, 1] -> z [R, n0 + n_new] sorted."""
+    from endosurf_tpu_torch.kernels.build import load_library
+    if z_vals.device.type != "cuda":
+        raise ValueError(f"fused_fine_resample_cuda needs CUDA tensors, got {z_vals.device}")
+    if z_vals.ndim != 2:
+        raise ValueError(f"z_vals must be [R, n0], got {tuple(z_vals.shape)}")
+    n_rays, n0 = z_vals.shape
+    if tuple(sigma.shape) != (n_rays, n0) or tuple(d_norm.shape) != (n_rays, 1):
+        raise ValueError(f"expected sigma [R, n0], d_norm [R, 1]; got {tuple(sigma.shape)}, "
+                         f"{tuple(d_norm.shape)} for z {tuple(z_vals.shape)}")
+    if not fine_resample_shape_supported(n0, n_new):
+        raise ValueError(f"the resample kernel does not take {n0} + {n_new} samples")
+    device = z_vals.device
+    z, sig, dn = (a.detach().to(torch.float32).contiguous() for a in (z_vals, sigma, d_norm))
+    if sig.device != device or dn.device != device:
+        raise ValueError(f"z on {device}, sigma on {sig.device}, d_norm on {dn.device}")
+    out = torch.empty(n_rays, n0 + n_new, dtype=torch.float32, device=device)
+    lib = load_library()
+    with torch.cuda.device(device):
+        err = lib.fused_fine_resample_launch(z.data_ptr(), sig.data_ptr(), dn.data_ptr(), n_rays,
+                                             n0, n_new, out.data_ptr(),
+                                             torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("fused_fine_resample CUDA launch failed: "
+                           + lib.fused_render_error_string(err).decode())
+    LAUNCHES["fused_fine_resample"] += 1
+    return out
+
+
+def fused_fine_resample(z_vals: torch.Tensor, sigma: torch.Tensor, d_norm: torch.Tensor,
+                        n_new: int = 64) -> torch.Tensor:
+    """CUDA tensors run the kernel (a shape outside its limits raises); CPU
+    tensors run the plain version."""
+    if z_vals.device.type == "cuda":
+        return fused_fine_resample_cuda(z_vals, sigma, d_norm, n_new)
+    if z_vals.device.type != "cpu":
+        raise ValueError(f"no fused_fine_resample for device {z_vals.device}")
+    return fused_fine_resample_reference(z_vals, sigma, d_norm, n_new)
 
 
 def upsample_shape_supported(n0: int, n_importance: int, n_rounds: int) -> bool:

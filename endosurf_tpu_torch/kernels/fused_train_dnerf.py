@@ -1,7 +1,7 @@
-"""The D-NeRF field chain as three segments: the plain math, the CUDA forward
-kernels and the forward-only ``megakernel_field_raw``.
+"""The D-NeRF field chain as three segments: the plain math, the CUDA
+kernels and ``megakernel_field_raw``, the field of the EndoNeRF train step.
 
-Port of the serving half of ``endosurf_tpu/kernels/fused_train_dnerf.py``:
+Port of ``endosurf_tpu/kernels/fused_train_dnerf.py``:
 
     x_c          = seg_deform_math(eff_d, xt)                   warp
     (raw, feat)  = seg_density_math(eff_s, head, featw, x_c)    raw sigma, feature
@@ -11,36 +11,48 @@ Port of the serving half of ``endosurf_tpu/kernels/fused_train_dnerf.py``:
 into an h block and an encoding block (the nerf-style skip input is [h,
 enc]), the density net's 1 + F output layer into ``sigma_head`` [H, 1] and
 ``geo_feat`` [H, F]. ``forward_math`` composes the segments (the render
-kernel's fine evaluation and its plain twin). Under ``"default"`` the
-coordinates are rounded to bf16 before they are encoded, as the TPU kernels'
-selector dots round them. The JAX module's 128-lane padding and selector
-matmuls are layout and are dropped.
+kernel's plain twin). Under ``"default"`` the coordinates are rounded to
+bf16 before they are encoded, as the TPU kernels' selector dots round them.
+The JAX module's 128-lane padding and selector matmuls are layout and are
+dropped.
 
-On the card (``csrc/fused_train_dnerf.cu`` over ``csrc/dnerf_chain.cuh``):
-``dnerf_deform_fwd`` / ``dnerf_density_fwd`` / ``dnerf_color_fwd``, each
-counted in ``LAUNCHES``, on weights packed by ``pack_dnerf`` (the one
-layout every D-NeRF kernel reads: ``fused_density_raw`` and the render
-kernel too). ``megakernel_field_raw`` chains them under no_grad; the
-backward halves come with the EndoNeRF train step, so a gradient through
-the field on CUDA tensors raises.
+``megakernel_field_raw`` runs the chain through ``SegDeform`` /
+``SegDensity`` / ``SegColor``, autograd Functions with JAX's ``custom_vjp``
+contract: the deform segment gives its weights a gradient and ``xt`` none,
+the density segment its weights and ``x_c``, the colour segment its weights
+and ``feat`` (``d`` none). ``prepare_effective_dnerf`` stays differentiable
+torch outside them, so the ``{w, b}`` gradients follow by the chain rule.
+CPU tensors run the plain math and ``plain_bwd`` (autograd through it);
+CUDA tensors run the kernels of ``csrc/fused_train_dnerf.cu`` over
+``csrc/dnerf_chain.cuh``: ``dnerf_*_fwd`` and ``dnerf_*_bwd``, each counted
+in ``LAUNCHES``, on weights packed by ``pack_dnerf`` (the one layout every
+D-NeRF kernel reads: ``fused_density_raw`` and the render kernel too).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
-from endosurf_tpu_torch.kernels.fused_render import HMAX, NL, pack_nets
-from endosurf_tpu_torch.kernels.fused_train import _build, _mlp_fwd
+from endosurf_tpu_torch.kernels.fused_render import HMAX, META_NET, NL, pack_nets
+from endosurf_tpu_torch.kernels.fused_train import (
+    _build,
+    _mlp_fwd,
+    _no_grad_inputs,
+    flatten_layers,
+    unflatten_layers,
+)
 from endosurf_tpu_torch.ops.encoding import freq_encode, freq_encode_dim
 from endosurf_tpu_torch.ops.mlp import dot, operand
 
 SEGMENTS = ("deform", "density", "color")
 
-# Launches of the forward segment kernels (one per call).
-LAUNCHES = {f"dnerf_{s}_fwd": 0 for s in SEGMENTS}
+# Launches of the segment kernels, one per call (a backward call runs its
+# tile kernel and the weight-gradient product).
+LAUNCHES = {f"dnerf_{s}_{d}": 0 for d in ("fwd", "bwd") for s in SEGMENTS}
 
 # Kernel vs plain version on one card, per output: (median, p99, max) of the
 # per-point error, the max over channels of |kernel - plain| / rms(plain)
@@ -56,6 +68,26 @@ LAUNCHES = {f"dnerf_{s}_fwd": 0 for s in SEGMENTS}
 PARITY_TOL = {
     torch.float32: (2e-6, 2e-5, 1e-3),
     torch.bfloat16: (2e-6, 2e-5, 5e-2),
+}
+
+# Backward kernel vs plain version (``plain_bwd``) on one card: "cot" limits
+# the (median, p99, max) of the per-point error of each input cotangent (d
+# x_c, d feat; the statistic above), "leaf" the relative L2 norm of each
+# weight gradient. Both sides run the same math with float32 sums in other
+# orders; a relu gate within that noise of 0 flips and moves the cotangent
+# of its point (through ten octaves for d x_c), and in bf16 an ulp of it
+# tips a rounded cotangent now and then: the max only catches gross faults.
+# Set from H100 readings (PERF.md, PR 6; chip_smoke's 262,144 fine points
+# of a train batch and 65,536 of a second seed, the card tests' 65,531
+# random points over three nets, two seeds): sound float32 cot median <=
+# 4.3e-7, p99 <= 1.5e-6, max <= 0.64, leaf <= 9.7e-4; sound bf16 cot median
+# and p99 0, max <= 0.35, leaf <= 2.5e-3; the kernels at the other
+# precision read cot medians >= 9.9e-3 (d feat) and leaves >= 4.4e-2, and
+# the planted faults (a skip layer's encoding rows dropped from d x_c, the
+# sigma head's cotangent through the wrong column) d x_c medians >= 6.6e-2.
+BWD_PARITY_TOL = {
+    torch.float32: {"cot": (1e-6, 1e-5, 5.0), "leaf": 3e-3},
+    torch.bfloat16: {"cot": (1e-4, 1e-3, 5.0), "leaf": 1e-2},
 }
 
 
@@ -128,6 +160,63 @@ def forward_math(spec, eff: Dict[str, Any], x: torch.Tensor, t: torch.Tensor, d:
 
 
 # ---------------------------------------------------------------------------
+# the segments on flat weights, and their plain backward
+# ---------------------------------------------------------------------------
+
+# The segments' per-point inputs, in the order the Functions, the kernels and
+# ``seg_math`` take them, and those that receive a cotangent (JAX's
+# custom_vjp rules: xt and d get none).
+SEGMENT_INPUTS = {"deform": ("xt",), "density": ("x_c",), "color": ("d", "feat")}
+COTANGENT_INPUTS = {"deform": (), "density": ("x_c",), "color": ("feat",)}
+
+
+def segment_weights(eff: Dict[str, Any], seg: str
+                    ) -> Tuple[List[Dict[str, Any]], List[torch.Tensor]]:
+    """(layer structure, flat effective weights) of one segment
+    (``fused_train.flatten_layers`` order); the density segment's hidden
+    layers are followed by head w, head b, feat w, feat b."""
+    flat = flatten_layers(eff[seg])
+    if seg == "density":
+        flat += [eff["sigma_head"]["w"], eff["sigma_head"]["b"], eff["geo_feat"]["w"],
+                 eff["geo_feat"]["b"]]
+    return eff[seg], flat
+
+
+def seg_math(spec, seg: str, like, flat: Sequence[torch.Tensor],
+             inputs: Sequence[torch.Tensor], precision: str) -> Tuple[torch.Tensor, ...]:
+    """The plain version of one segment's forward on flat weights: its
+    outputs as a tuple."""
+    if seg == "deform":
+        return (seg_deform_math(spec, unflatten_layers(flat, like), *inputs, precision),)
+    if seg == "density":
+        n = len(flat) - 4
+        return seg_density_math(spec, unflatten_layers(flat[:n], like),
+                                {"w": flat[n], "b": flat[n + 1]},
+                                {"w": flat[n + 2], "b": flat[n + 3]}, *inputs, precision)
+    return (seg_color_math(spec, unflatten_layers(flat, like), *inputs, precision),)
+
+
+def plain_bwd(spec, seg: str, like, flat: Sequence[torch.Tensor],
+              inputs: Sequence[torch.Tensor], cots: Sequence[torch.Tensor], precision: str
+              ) -> Tuple[List[torch.Tensor], Tuple[Optional[torch.Tensor], ...]]:
+    """The plain version of one segment's backward: recompute ``seg_math`` on
+    detached copies and pull ``cots`` with autograd, as JAX's jnp path takes
+    ``jax.vjp``. Returns (gradients of the flat weights, cotangents of the
+    inputs: None for those in no ``COTANGENT_INPUTS``)."""
+    n = len(flat)
+    wanted = [name in COTANGENT_INPUTS[seg] for name in SEGMENT_INPUTS[seg]]
+    with torch.enable_grad():
+        w_leaves = [t.detach().requires_grad_(True) for t in flat]
+        ins = [t.detach().requires_grad_(True) if w else t for t, w in zip(inputs, wanted)]
+        outs = seg_math(spec, seg, like, w_leaves, ins, precision)
+        leaves = w_leaves + [t for t, w in zip(ins, wanted) if w]
+        got = torch.autograd.grad(outs, leaves, cots, allow_unused=True)
+    got = [torch.zeros_like(l) if g is None else g for l, g in zip(leaves, got)]
+    it = iter(got[n:])
+    return got[:n], tuple(next(it) if w else None for w in wanted)
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernels
 # ---------------------------------------------------------------------------
 
@@ -142,15 +231,25 @@ def cuda_dnerf_supported(spec) -> bool:
     return not spec.color_layers[2] and 0 < spec.geo_feat_dim <= HMAX
 
 
+SLOTS = {"deform": 0, "density": 1, "color": 2}     # the nets' places in the Model meta
+
+
 class DnPacked:
     """The D-NeRF nets packed for the kernels: ``w`` (float32, on the
     device), ``meta`` (ctypes int64 array, ``csrc/sdf_chain.cuh``'s Model
-    layout with the density net in the SDF slot) and ``rb`` (bf16
-    operands)."""
+    layout with the density net in the SDF slot; every layer with W^T for the
+    backward kernels) and ``rb`` (bf16 operands)."""
 
     def __init__(self, w: torch.Tensor, meta: List[int], rb: bool):
         self.w, self.rb = w, rb
         self.meta = (ctypes.c_longlong * len(meta))(*meta)
+
+    def layout(self, seg: str) -> List[Tuple[int, int, int, int]]:
+        """(w_off, b_off, in, out) of each layer of a segment's net."""
+        q = 8 + SLOTS[seg] * META_NET
+        n = self.meta[q]
+        return [(self.meta[q + 2 + 2 * NL + l], self.meta[q + 2 + 3 * NL + l],
+                 self.meta[q + 2 + l], self.meta[q + 2 + NL + l]) for l in range(n)]
 
 
 def pack_dnerf(spec, params: Dict[str, Any], dtype: torch.dtype) -> DnPacked:
@@ -163,13 +262,31 @@ def pack_dnerf(spec, params: Dict[str, Any], dtype: torch.dtype) -> DnPacked:
     with torch.no_grad():
         chunks, metas, _ = pack_nets(
             [(params["deform"]["layers"] if spec.use_deform else None, spec.deform_layers[2],
-              False),
-             (params["density"]["layers"], spec.density_layers[2], False),
-             (params["color"]["layers"], spec.color_layers[2], False)], dtype)
+              "all"),
+             (params["density"]["layers"], spec.density_layers[2], "all"),
+             (params["color"]["layers"], spec.color_layers[2], "all")], dtype)
         w = torch.cat(chunks).contiguous()
     header = [int(spec.use_deform), spec.pos_deform_freqs, spec.time_deform_freqs,
               spec.pos_density_freqs, 0, spec.dir_color_freqs, spec.geo_feat_dim, 0]
     return DnPacked(w, header + metas, dtype == torch.bfloat16)
+
+
+def unpack_grads(packed: DnPacked, seg: str, like, grad: torch.Tensor) -> List[torch.Tensor]:
+    """A backward kernel's packed gradient (dW and db at the weights'
+    offsets) -> gradients of the segment's flat weights."""
+    layout = packed.layout(seg)
+    out: List[torch.Tensor] = []
+    for l, (wo, bo, n_in, n_out) in enumerate(layout):
+        dw = grad[wo:wo + n_in * n_out].view(n_in, n_out)
+        db = grad[bo:bo + n_out]
+        if seg == "density" and l == len(layout) - 1:
+            out += [dw[:, :1], db[:1], dw[:, 1:], db[1:]]
+            continue
+        lay = like[l]
+        rows = ([lay["wh"]] if "wh" in lay else []) + list(lay.get("wsec", [])) + (
+            [lay["w"]] if "w" in lay else [])
+        out += list(torch.split(dw, [r.shape[0] for r in rows], dim=0)) + [db]
+    return out
 
 
 def _arg(t: torch.Tensor, shape, name: str) -> torch.Tensor:
@@ -226,35 +343,145 @@ def dnerf_color_fwd(packed: DnPacked, d: torch.Tensor, feat: torch.Tensor) -> to
     return rgb
 
 
-# the forward kernels by LAUNCHES name: (packed, *inputs) -> outputs
-FWD = {"dnerf_deform_fwd": dnerf_deform_fwd, "dnerf_density_fwd": dnerf_density_fwd,
-       "dnerf_color_fwd": dnerf_color_fwd}
+def _bwd_buffers(packed: DnPacked, seg: str, n: int, device):
+    """Scratch, partial sums and the packed gradient of one backward call."""
+    from endosurf_tpu_torch.kernels.build import load_library
+    sizes = (ctypes.c_longlong * 2)()
+    load_library().dnerf_bwd_sizes(packed.meta, SLOTS[seg], n, sizes)
+    return (torch.empty(max(sizes[0], 1), dtype=torch.float32, device=device),
+            torch.empty(max(sizes[1], 1), dtype=torch.float32, device=device),
+            torch.empty_like(packed.w))
 
 
-def _needs_grad(params: Dict[str, Any], *data: torch.Tensor) -> bool:
-    from endosurf_tpu_torch.bridge import flatten
-    return torch.is_grad_enabled() and any(
-        t.requires_grad for t in (*flatten(params).values(), *data) if torch.is_tensor(t))
+def dnerf_deform_bwd(packed: DnPacked, like, xt: torch.Tensor, g_xc: torch.Tensor
+                     ) -> Tuple[List[torch.Tensor], Tuple[None]]:
+    """Cotangent on x_c [N, 3] -> (flat weight gradients, (None,)): xt gets
+    no cotangent."""
+    n = xt.shape[0]
+    args = (_arg(xt, (n, 4), "xt"), _arg(g_xc, (n, 3), "g_xc"))
+    bufs = _bwd_buffers(packed, "deform", n, xt.device)
+    _run("dnerf_deform_bwd", packed, n, *args, *bufs)
+    return unpack_grads(packed, "deform", like, bufs[2]), (None,)
+
+
+def dnerf_density_bwd(packed: DnPacked, like, x_c: torch.Tensor, g_raw: torch.Tensor,
+                      g_feat: torch.Tensor
+                      ) -> Tuple[List[torch.Tensor], Tuple[torch.Tensor]]:
+    """Cotangents on raw sigma [N, 1] and feat [N, F] -> (flat weight
+    gradients, (d x_c [N, 3],))."""
+    n = x_c.shape[0]
+    f = packed.meta[6]
+    args = (_arg(x_c, (n, 3), "x_c"), _arg(g_raw, (n, 1), "g_raw"),
+            _arg(g_feat, (n, f), "g_feat"))
+    d_xc = torch.empty(n, 3, dtype=torch.float32, device=x_c.device)
+    bufs = _bwd_buffers(packed, "density", n, x_c.device)
+    _run("dnerf_density_bwd", packed, n, *args, d_xc, *bufs)
+    return unpack_grads(packed, "density", like, bufs[2]), (d_xc,)
+
+
+def dnerf_color_bwd(packed: DnPacked, like, d: torch.Tensor, feat: torch.Tensor,
+                    g_rgb: torch.Tensor) -> Tuple[List[torch.Tensor], Tuple[None, torch.Tensor]]:
+    """Cotangent on rgb [N, 3] -> (flat weight gradients, (None, d feat [N,
+    F])): d gets no cotangent."""
+    n = d.shape[0]
+    f = packed.meta[6]
+    args = (_arg(d, (n, 3), "d"), _arg(feat, (n, f), "feat"), _arg(g_rgb, (n, 3), "g_rgb"))
+    d_feat = torch.empty(n, f, dtype=torch.float32, device=d.device)
+    bufs = _bwd_buffers(packed, "color", n, d.device)
+    _run("dnerf_color_bwd", packed, n, *args, d_feat, *bufs)
+    return unpack_grads(packed, "color", like, bufs[2]), (None, d_feat)
+
+
+# by segment: forward (packed, *inputs) -> outputs; backward (packed, like,
+# *inputs, *output cotangents) -> (flat weight gradients, input cotangents)
+FWD = {"deform": dnerf_deform_fwd, "density": dnerf_density_fwd, "color": dnerf_color_fwd}
+BWD = {"deform": dnerf_deform_bwd, "density": dnerf_density_bwd, "color": dnerf_color_bwd}
+
+
+# ---------------------------------------------------------------------------
+# the segments as autograd Functions (port of _build_segments)
+# ---------------------------------------------------------------------------
+
+def _segment_function(seg: str, name: str, doc: str):
+    """The autograd Function of one segment: ``apply(spec, like, precision,
+    packed, *inputs, *flat)`` (``SEGMENT_INPUTS`` order, then the flat
+    effective weights) -> its outputs. With ``packed`` (CUDA tensors) the
+    forward and backward kernels run; without it (CPU tensors) ``seg_math``
+    and ``plain_bwd``."""
+    n_in = len(SEGMENT_INPUTS[seg])
+
+    class Segment(torch.autograd.Function):
+        __doc__ = doc
+
+        @staticmethod
+        def forward(ctx, spec, like, precision, packed, *args):
+            inputs, flat = args[:n_in], args[n_in:]
+            ctx.spec, ctx.like, ctx.precision, ctx.packed = spec, like, precision, packed
+            ctx.save_for_backward(*args)
+            if packed is not None:
+                outs = FWD[seg](packed, *inputs)
+                return outs
+            outs = seg_math(spec, seg, like, flat, inputs, precision)
+            return outs if len(outs) > 1 else outs[0]
+
+        @staticmethod
+        @once_differentiable
+        def backward(ctx, *cots):
+            args = ctx.saved_tensors
+            inputs, flat = args[:n_in], args[n_in:]
+            if ctx.packed is not None:
+                d_flat, d_in = BWD[seg](ctx.packed, ctx.like, *inputs, *cots)
+            else:
+                d_flat, d_in = plain_bwd(ctx.spec, seg, ctx.like, flat, inputs, cots,
+                                         ctx.precision)
+            return (None, None, None, None, *d_in, *d_flat)
+
+    Segment.__name__ = Segment.__qualname__ = name
+    return Segment
+
+
+SegDeform = _segment_function(
+    "deform", "SegDeform", "(xt, eff_d...) -> x_c [N, 3]; xt gets no cotangent. CUDA tensors "
+    "run dnerf_deform_fwd / dnerf_deform_bwd.")
+SegDensity = _segment_function(
+    "density", "SegDensity", "(x_c, eff_s..., head, featw) -> (raw sigma [N, 1], feat [N, F]). "
+    "CUDA tensors run dnerf_density_fwd / dnerf_density_bwd.")
+SegColor = _segment_function(
+    "color", "SegColor", "(d, feat, eff_c...) -> rgb [N, 3]; d gets no cotangent. CUDA "
+    "tensors run dnerf_color_fwd / dnerf_color_bwd.")
+SEGMENT_FUNCTIONS = {"deform": SegDeform, "density": SegDensity, "color": SegColor}
 
 
 def megakernel_field_raw(spec, params: Dict[str, Any], x: torch.Tensor, d: torch.Tensor,
                          t: torch.Tensor, precision: str = "highest"
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The D-NeRF field as its three segments: x, d [N, 3], t [N, 1] ->
-    (rgb [N, 3] after the sigmoid, raw sigma [N] before noise and relu).
-    CUDA tensors run the forward kernels (a gradient through them raises:
-    EndoNeRF training is not ported); CPU tensors run ``forward_math``."""
-    if x.device.type == "cuda":
-        if _needs_grad(params, x, d, t):
-            raise NotImplementedError("EndoNeRF training is not ported yet: the D-NeRF "
-                                      "segment kernels are forward only")
-        from endosurf_tpu_torch.kernels.fused_render import precision_dtype
-        packed = pack_dnerf(spec, params, precision_dtype(precision))
-        x_c = dnerf_deform_fwd(packed, torch.cat([x, t], dim=-1)) if spec.use_deform else x
-        raw, feat = dnerf_density_fwd(packed, x_c)
-        return dnerf_color_fwd(packed, d, feat), raw[:, 0]
-    if x.device.type != "cpu":
+    """The D-NeRF field as its three segments (contract of JAX's
+    ``megakernel_field_raw``): x, d [N, 3], t [N, 1] -> (rgb [N, 3] after the
+    sigmoid, raw sigma [N] before noise and relu). x, d and t receive no
+    cotangents (data rays and sample locations without grad). CUDA tensors
+    run the segment kernels, forward and backward; CPU tensors the plain
+    math."""
+    from endosurf_tpu_torch.kernels.fused_render import precision_dtype
+    if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no D-NeRF field segments for device {x.device}")
+    _no_grad_inputs("megakernel_field_raw", x, d, t)
+    eff = prepare_effective_dnerf(spec, params)
+    packed = (pack_dnerf(spec, params, precision_dtype(precision))
+              if x.device.type == "cuda" else None)
+
+    def run(seg, *inputs):
+        like, flat = segment_weights(eff, seg)
+        return SEGMENT_FUNCTIONS[seg].apply(spec, like, precision, packed, *inputs, *flat)
+    x_c = run("deform", torch.cat([x, t], dim=-1)) if spec.use_deform else x
+    raw, feat = run("density", x_c)
+    return run("color", d, feat), raw[:, 0]
+
+
+def plain_field_raw(spec, params: Dict[str, Any], x: torch.Tensor, d: torch.Tensor,
+                    t: torch.Tensor, precision: str = "highest"
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain twin of ``megakernel_field_raw`` on any device:
+    ``forward_math`` under autograd."""
     out = forward_math(spec, prepare_effective_dnerf(spec, params), x, t, d, precision)
     return out["rgb"], out["raw_sigma"][:, 0]
 
@@ -276,34 +503,107 @@ def parity_errors(got: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor],
     return out
 
 
+def _plain_chain(spec, eff, x, d, t, precision):
+    """The plain chain's per-segment inputs: {segment: inputs}."""
+    with torch.no_grad():
+        xt = torch.cat([x, t], dim=-1).contiguous()
+        x_c = seg_deform_math(spec, eff["deform"], xt, precision) if spec.use_deform else x
+        _, feat = seg_density_math(spec, eff["density"], eff["sigma_head"], eff["geo_feat"],
+                                   x_c, precision)
+    ins = {"density": (x_c,), "color": (d, feat)}
+    return {"deform": (xt,), **ins} if spec.use_deform else ins
+
+
 def segment_parity(spec, params: Dict[str, Any], x: torch.Tensor, d: torch.Tensor,
                    t: torch.Tensor, precision: str, kernel_precision: str = None
                    ) -> Tuple[Dict[str, Dict], Dict[str, float], Dict[str, Sequence]]:
     """Each forward kernel against its plain version on the same inputs (the
     plain chain's own values, so each segment is judged alone), at
     ``precision``'s limits; with ``kernel_precision`` the kernels run at that
-    precision instead (the wrong-precision control). Returns ({segment:
+    precision instead (the wrong-precision control). Returns ({kernel name:
     parity_errors}, {kernel name: max absolute error}, {kernel name: (packed,
     inputs)} for timing)."""
     from endosurf_tpu_torch.kernels.fused_render import precision_dtype
     dtype = precision_dtype(precision)
     packed = pack_dnerf(spec, params, precision_dtype(kernel_precision or precision))
-    with torch.no_grad():
-        eff = prepare_effective_dnerf(spec, params)
-        xt = torch.cat([x, t], dim=-1).contiguous()
-        x_c = seg_deform_math(spec, eff["deform"], xt, precision) if spec.use_deform else x
-        raw, feat = seg_density_math(spec, eff["density"], eff["sigma_head"], eff["geo_feat"],
-                                     x_c, precision)
-        rgb = seg_color_math(spec, eff["color"], d, feat, precision)
-    runs = {"dnerf_density_fwd": ((x_c,), {"raw_sigma": raw, "feat": feat}),
-            "dnerf_color_fwd": ((d, feat), {"rgb": rgb})}
-    if spec.use_deform:
-        runs = {"dnerf_deform_fwd": ((xt,), {"x_c": x_c}), **runs}
+    eff = prepare_effective_dnerf(spec, params)
+    names = {"deform": ("x_c",), "density": ("raw_sigma", "feat"), "color": ("rgb",)}
     res, abs_err, cases = {}, {}, {}
-    for name, (inputs, ref) in runs.items():
-        out = FWD[name](packed, *inputs)
+    for seg, inputs in _plain_chain(spec, eff, x, d, t, precision).items():
+        like, flat = segment_weights(eff, seg)
+        with torch.no_grad():
+            ref = dict(zip(names[seg], seg_math(spec, seg, like, flat, inputs, precision)))
+        out = FWD[seg](packed, *inputs)
         got = dict(zip(ref, out if isinstance(out, tuple) else (out,)))
+        name = f"dnerf_{seg}_fwd"
         res[name] = parity_errors(got, ref, dtype)
         abs_err[name] = max(float((got[k] - ref[k]).abs().max()) for k in ref)
         cases[name] = (packed, inputs)
     return res, abs_err, cases
+
+
+def leaf_names(like: Sequence[Dict[str, Any]], seg: str) -> List[str]:
+    """Names of a segment's flat weights, in ``segment_weights`` order."""
+    from endosurf_tpu_torch.kernels.fused_train_cuda import leaf_names as layer_names
+    return layer_names(like, "") + (["head.w", "head.b", "feat.w", "feat.b"]
+                                    if seg == "density" else [])
+
+
+def bwd_parity_errors(d_in: Dict[str, torch.Tensor], ref_in: Dict[str, torch.Tensor],
+                      leaves: Dict[str, torch.Tensor], ref_leaves: Dict[str, torch.Tensor],
+                      dtype: torch.dtype) -> Dict[str, Dict[str, Tuple]]:
+    """A backward kernel against its plain version: {"cot": {input: (median,
+    p99, max, ok)}, "leaf": {weight: (relative L2, ok)}} within
+    ``BWD_PARITY_TOL[dtype]`` (the per-point error of
+    ``fused_train_cuda._point_err``)."""
+    from endosurf_tpu_torch.kernels.fused_train_cuda import _point_err, _quantiles
+    tol = BWD_PARITY_TOL[dtype]
+    res: Dict[str, Dict[str, Tuple]] = {"cot": {}, "leaf": {}}
+    for k, r in ref_in.items():
+        med, p99, mx = _quantiles(_point_err(d_in[k], r))
+        res["cot"][k] = (med, p99, mx, med <= tol["cot"][0] and p99 <= tol["cot"][1]
+                         and mx <= tol["cot"][2])
+    for k, r in ref_leaves.items():
+        rel = float((leaves[k].float() - r.float()).norm()
+                    / max(float(r.float().norm()), 1e-30))
+        res["leaf"][k] = (rel, rel <= tol["leaf"])
+    return res
+
+
+def bwd_segment_parity(spec, params: Dict[str, Any], x: torch.Tensor, d: torch.Tensor,
+                       t: torch.Tensor, precision: str, seed: int = 0,
+                       kernel_precision: str = None):
+    """Each backward kernel against its plain version (``plain_bwd``) on the
+    plain chain's inputs with seeded random cotangents, at ``precision``'s
+    ``BWD_PARITY_TOL``; with ``kernel_precision`` the kernels run at that
+    precision (the control). Returns ({kernel name: bwd_parity_errors},
+    {kernel name: max absolute error over gradients and cotangents},
+    {kernel name: (packed, like, flat, inputs, cotangents)} for timing)."""
+    from endosurf_tpu_torch.kernels.fused_render import precision_dtype
+    dtype = precision_dtype(precision)
+    packed = pack_dnerf(spec, params, precision_dtype(kernel_precision or precision))
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    eff = prepare_effective_dnerf(spec, params)
+    res, abs_err, cases = {}, {}, {}
+    for seg, inputs in _plain_chain(spec, eff, x, d, t, precision).items():
+        like, flat = segment_weights(eff, seg)
+        with torch.no_grad():
+            outs = seg_math(spec, seg, like, flat, inputs, precision)
+        cots = tuple(torch.randn(*o.shape, generator=gen, device=x.device) for o in outs)
+        leaves, d_in = BWD[seg](packed, like, *inputs, *cots)
+        ref_leaves, ref_in = plain_bwd(spec, seg, like, flat, inputs, cots, precision)
+        names = leaf_names(like, seg)
+        got_in = {k: v for k, v in zip(SEGMENT_INPUTS[seg], d_in) if v is not None}
+        want_in = {k: v for k, v in zip(SEGMENT_INPUTS[seg], ref_in) if v is not None}
+        name = f"dnerf_{seg}_bwd"
+        res[name] = bwd_parity_errors(got_in, want_in, dict(zip(names, leaves)),
+                                      dict(zip(names, ref_leaves)), dtype)
+        abs_err[name] = max(float((g.float() - r.float()).abs().max()) for g, r in
+                            zip([*leaves, *got_in.values()], [*ref_leaves, *want_in.values()]))
+        cases[name] = (packed, like, flat, inputs, cots)
+    return res, abs_err, cases
+
+
+def bwd_parity_ok(res: Dict[str, Dict[str, Dict]]) -> bool:
+    """Every reading of ``bwd_segment_parity`` within its limits."""
+    return all(v[-1] for kinds in res.values() for vals in kinds.values() for v in vals.values())

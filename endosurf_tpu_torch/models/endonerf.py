@@ -1,4 +1,4 @@
-"""EndoNeRF: the D-NeRF density baseline (port of the serving subset of
+"""EndoNeRF: the D-NeRF density baseline (port of
 ``endosurf_tpu/models/endonerf.py``).
 
 Deform + density + colour MLPs: plain ``{w, b}`` layers (no weight norm),
@@ -12,13 +12,17 @@ Depth-guided sampling: with ``use_depth_sampling`` ray slots 6/7 carry (gt
 depth mean, sigma) instead of (near, far), and the initial depths are a
 sorted normal draw (``kernels.fused_render_dnerf.init_z``).
 
-Serving only: ``render_rays`` is the eval render (the JAX ``key=None``
-path: no perturbation, no density noise); ``render_rays_inference`` sends
-the shapes the render kernel takes to ``fused_render_rays_dnerf`` (the CUDA
-kernel on the card, its plain twin on the CPU). The field evaluation
-(``field_eval``) runs the three D-NeRF segment kernels on the card and
-their plain versions (``fused_train_dnerf.forward_math``) on the CPU; the
-sampling-only density (``density_observed``) runs ``fused_density_raw``.
+``render_rays`` is the eval render (the JAX ``key=None`` path: no
+perturbation, no density noise); ``render_rays_inference`` sends the shapes
+the render kernel takes to ``fused_render_rays_dnerf`` (the CUDA kernel on
+the card, its plain twin on the CPU); ``render_rays_train`` is the train
+render (the JAX path with a key): every random draw comes from one
+``torch.Generator`` or is passed in (``draws``). The field evaluation
+(``field_eval``) runs the three D-NeRF segments, forward and backward, as
+kernels on the card and as their plain versions on the CPU
+(``fused_train_dnerf.megakernel_field_raw``); the sampling-only density
+(``density_observed``) runs ``fused_density_raw`` and the train render's
+deterministic importance draws ``fused_sampler.fused_fine_resample``.
 Matmul precision is an explicit argument (``ops.mlp``).
 """
 
@@ -131,17 +135,21 @@ def _density_feat(spec: DNeRFSpec, params: Params, x_c, precision: str):
 
 
 def field_eval(spec: DNeRFSpec, params: Params, x, d, t,
-               generator: Optional[torch.Generator] = None, precision: str = "highest"):
+               generator: Optional[torch.Generator] = None, precision: str = "highest",
+               noise: Optional[torch.Tensor] = None):
     """(x, d, t) -> (rgb [N, 3], sigma [N]): relu of the raw density, with
-    Gaussian noise (``raw_noise_std``) on the raw density before the relu
-    when ``generator`` is given (the train-time noise). The field is
+    Gaussian noise (``raw_noise_std`` times ``noise`` [N], or a draw from
+    ``generator``) on the raw density before the relu when either is given
+    (the train-time noise). The field is
     ``fused_train_dnerf.megakernel_field_raw``: the segment kernels for CUDA
-    tensors (forward only), their plain versions for CPU tensors."""
+    tensors, their plain versions for CPU tensors."""
     from endosurf_tpu_torch.kernels.fused_train_dnerf import megakernel_field_raw
     rgb, raw = megakernel_field_raw(spec, params, x, d, t, precision)
-    if generator is not None and spec.raw_noise_std > 0:
-        raw = raw + spec.raw_noise_std * torch.randn(raw.shape, generator=generator,
-                                                     device=raw.device, dtype=raw.dtype)
+    if spec.raw_noise_std > 0 and (noise is not None or generator is not None):
+        if noise is None:
+            noise = torch.randn(raw.shape, generator=generator, device=raw.device,
+                                dtype=raw.dtype)
+        raw = raw + spec.raw_noise_std * noise
     return rgb, torch.relu(raw)
 
 
@@ -223,6 +231,96 @@ def render_rays(spec: DNeRFSpec, rspec: DNeRFRenderSpec, params: Params, rays: t
         lambda x, t: density_observed(spec, params, x, t, sp),
         lambda x, d, t: megakernel_field_raw(spec, params, x, d, t, precision),
         rspec.n_importance if use_importance else 0)
+
+
+def _train_draw(name: str, shape, normal: bool, generator: Optional[torch.Generator],
+                draws: Dict[str, torch.Tensor], device) -> torch.Tensor:
+    """Draw ``name`` of the train render: given in ``draws``, else from
+    ``generator`` (a normal or a uniform draw of ``shape``)."""
+    if name in draws:
+        out = draws[name].to(device=device, dtype=torch.float32)
+        if tuple(out.shape) != tuple(shape):
+            raise ValueError(f"draw {name}: expected shape {tuple(shape)}, got "
+                             f"{tuple(out.shape)}")
+        return out
+    if generator is None:
+        raise ValueError(f"the train render needs draw {name!r} or a generator")
+    fn = torch.randn if normal else torch.rand
+    return fn(shape, generator=generator, device=device)
+
+
+def render_rays_train(spec: DNeRFSpec, rspec: DNeRFRenderSpec, params: Params,
+                      rays: torch.Tensor, precision: str = "highest",
+                      sampling_precision: Optional[str] = None,
+                      generator: Optional[torch.Generator] = None,
+                      draws: Optional[Dict[str, torch.Tensor]] = None
+                      ) -> Dict[str, torch.Tensor]:
+    """The train render of a ray batch [R, 9] (JAX ``render_rays`` with a
+    key): {color_map [R, 3], depth_map [R, 1], weights [R, K]}, differentiable
+    in ``params`` through the fine pass.
+
+    Its draws, each taken from ``draws`` when given there and else from
+    ``generator``: "z", the depth-guided normal eps [R, n0] (``init_z``) or,
+    without depth sampling and with ``perturb``, the stratified-jitter
+    uniforms [R, n0]; "noise_c" [R * n0] and "noise_f" [R * K], the
+    standard normal density noise of the coarse and the fine pass (with
+    ``raw_noise_std`` > 0); "u_pdf" [R, n_importance], the importance
+    uniforms when ``perturb`` is off. The coarse pass is
+    ``density_observed`` at the sampling precision without gradient, then
+    the noise and the relu. JAX's det=perturb quirk is kept: with
+    ``perturb`` the importance depths are the deterministic midpoint draws
+    of ``fused_sampler.fused_fine_resample``, without it the random draws
+    of ``sample_pdf``."""
+    from endosurf_tpu_torch.kernels.fused_render_dnerf import init_z
+    from endosurf_tpu_torch.kernels.fused_sampler import fused_fine_resample
+    from endosurf_tpu_torch.ops.pdf import sample_pdf
+    draws = draws or {}
+    sp = sampling_precision or precision
+    n_rays, n0, dev = rays.shape[0], rspec.n_samples, rays.device
+    rays_o, rays_d, rays_d_z, _, _, t = split_rays(rays)
+
+    def take(name, shape, normal):
+        return _train_draw(name, shape, normal, generator, draws, dev)
+
+    def points(z):
+        pts = rays_o[:, None, :] + rays_d_z[:, None, :] * z[..., None]
+        tt = t[:, None, :].expand(n_rays, z.shape[1], 1)
+        return pts.reshape(-1, 3), tt.reshape(-1, 1)
+
+    with torch.no_grad():
+        if rspec.use_depth_sampling:
+            z_vals = init_z(rspec, rays, take("z", (n_rays, n0), True))
+        else:
+            z_vals = init_z(rspec, rays)
+            if rspec.perturb:
+                mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+                upper = torch.cat([mids, z_vals[..., -1:]], -1)
+                lower = torch.cat([z_vals[..., :1], mids], -1)
+                z_vals = lower + (upper - lower) * take("z", (n_rays, n0), False)
+        if rspec.n_importance > 0:
+            raw_c = density_observed(spec, params, *points(z_vals), sp)[:, 0]
+            if spec.raw_noise_std > 0:
+                raw_c = raw_c + spec.raw_noise_std * take("noise_c", (n_rays * n0,), True)
+            sigma_c = torch.relu(raw_c).reshape(n_rays, n0)
+            if rspec.perturb:
+                z_vals = fused_fine_resample(z_vals, sigma_c,
+                                             torch.linalg.norm(rays_d, dim=-1, keepdim=True),
+                                             rspec.n_importance)
+            else:
+                _, _, weights_c = raw2outputs(torch.zeros(*sigma_c.shape, 3, device=dev),
+                                              sigma_c, z_vals, rays_d)
+                z_new = sample_pdf(0.5 * (z_vals[..., 1:] + z_vals[..., :-1]),
+                                   weights_c[..., 1:-1], rspec.n_importance,
+                                   u=take("u_pdf", (n_rays, rspec.n_importance), False))
+                z_vals = torch.sort(torch.cat([z_vals, z_new], -1), dim=-1).values
+    k = z_vals.shape[1]
+    pts, tt = points(z_vals)
+    dirs = rays_d[:, None, :].expand(n_rays, k, 3).reshape(-1, 3)
+    noise = take("noise_f", (n_rays * k,), True) if spec.raw_noise_std > 0 else None
+    rgb, sigma = field_eval(spec, params, pts, dirs, tt, precision=precision, noise=noise)
+    rgb_map, depth_map, weights = raw2outputs(rgb.reshape(n_rays, k, 3),
+                                              sigma.reshape(n_rays, k), z_vals, rays_d)
+    return {"color_map": rgb_map, "depth_map": depth_map, "weights": weights}
 
 
 def render_rays_inference(spec: DNeRFSpec, rspec: DNeRFRenderSpec, params: Params,

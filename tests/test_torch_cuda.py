@@ -5,8 +5,9 @@ render kernel (``fused_render_rays``), the upsample kernel
 observed-SDF query (``fused_sdf_observed``) and the sphere-traced ray march
 (``fused_ray_march``), plus one train step with the upsample kernel against
 one with the plain upsampling; and the EndoNeRF kernels: the raw density
-query (``fused_density_raw``), the render (``fused_render_rays_dnerf``) and
-the three forward D-NeRF segments (``fused_train_dnerf``).
+query (``fused_density_raw``), the render (``fused_render_rays_dnerf``), the
+three D-NeRF segments forward and backward (``fused_train_dnerf``), the
+resample (``fused_fine_resample``) and the EndoNeRF train step on them.
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one. The
 file imports no JAX, so it also runs where JAX is absent:
@@ -19,8 +20,9 @@ the readings the tests print.) The tolerances and their reasons are
 ``fused_sampler.CONSISTENCY_TOL``, ``fused_train_cuda.PARITY_TOL`` and
 ``ORDER_TOL`` below, ``fused_sdf.PARITY_TOL`` and
 ``fused_sampler.MARCH_TOL``, ``fused_sdf.DENSITY_PARITY_TOL``,
-``fused_render_dnerf.PARITY_TOL`` and ``fused_train_dnerf.PARITY_TOL``; the
-planted-fault tests rebuild the kernels from a patched copy of the sources.
+``fused_render_dnerf.PARITY_TOL``, ``fused_train_dnerf.PARITY_TOL`` and
+``BWD_PARITY_TOL``, ``fused_sampler.RESAMPLE_PARITY_TOL``; the planted-fault
+tests rebuild the kernels from a patched copy of the sources.
 """
 
 import dataclasses
@@ -484,15 +486,19 @@ def test_segment_f32_tails_are_float32_noise(dev):
     assert k_err <= 2 * p_err
 
 
-# Faults planted in csrc/fused_train.cu: the text replaced and its replacement.
+# Faults planted in csrc/fused_train.cu and in the weight-gradient product it
+# includes (csrc/wgrad.cuh): the file, the text replaced and its replacement.
 SEG_FAULTS = {
     "sdf_bwd_no_softplus2": (
+        "fused_train.cu",
         "        sv.dz[l][row] = dag * sv.a[l][row] * 100.f * sig * (1.f - sig);",
         "        sv.dz[l][row] = 0.f;"),
     "wgrad_skips_last_partial_tile": (
+        "wgrad.cuh",
         "  for (int k = k0; k < k1; k += 16) {",
         "  for (int k = k0; k + 16 <= k1; k += 16) {"),
     "deform_bwd_drops_tangent_2": (
+        "fused_train.cu",
         "          base + p < n ? g_j[(size_t)(base + p) * 9 + k * 3 + c] : 0.f;",
         "          base + p < n && k != 2 ? g_j[(size_t)(base + p) * 9 + k * 3 + c] : 0.f;"),
 }
@@ -505,12 +511,12 @@ def test_segment_limits_catch_planted_faults(dev, fault, tmp_path, monkeypatch):
     in each dot mode."""
     if shutil.which("nvcc") is None and not osp.exists("/usr/local/cuda/bin/nvcc"):
         pytest.skip("needs nvcc")
-    old, new = SEG_FAULTS[fault]
+    name, old, new = SEG_FAULTS[fault]
     src = tmp_path / "csrc"
     shutil.copytree(build.CSRC, src)
-    text = (src / "fused_train.cu").read_text()
+    text = (src / name).read_text()
     assert text.count(old) == 1
-    (src / "fused_train.cu").write_text(text.replace(old, new))
+    (src / name).write_text(text.replace(old, new))
     monkeypatch.setattr(build, "CSRC", src)
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
     monkeypatch.setattr(build, "_LIB", None)
@@ -951,14 +957,20 @@ def test_dnerf_render_limits_reject_the_other_precision(dev, nets, depth_guided)
 # resample with its draws half a step early (u = j / n_new) or with its
 # coarse weights on distances without |d|, and the composite's depth sum
 # without |d|, move every opaque ray a little.
-RENDER_FAULTS = {
+# The resample is dnerf_chain.cuh's dn_resample_ray (the render kernel's and
+# the standalone fused_fine_resample's), the composite fused_render_dnerf.cu's.
+RESAMPLE_FAULTS = {
     "no_weight_floor": ("      const float wf = w + 1e-5f;        // the pdf's weight floor",
                         "      const float wf = w;", ("full",)),
     "draws_half_step": ("    const float u = ((float)jn + 0.5f) / (float)n_new;",
                         "    const float u = (float)jn / (float)n_new;", ("full-dense",)),
     "resample_dist_without_dn": ("    const float dist = (z[j + 1] - z[j]) * dn;",
                                  "    const float dist = z[j + 1] - z[j];", ("full-dense",)),
-    "depth_without_dn": ("    dsum += w * z[j] * dn;", "    dsum += w * z[j];", ("full-dense",)),
+}
+RENDER_FAULTS = {
+    **{k: ("dnerf_chain.cuh", *v) for k, v in RESAMPLE_FAULTS.items()},
+    "depth_without_dn": ("fused_render_dnerf.cu", "    dsum += w * z[j] * dn;",
+                         "    dsum += w * z[j];", ("full-dense",)),
 }
 
 
@@ -966,8 +978,8 @@ RENDER_FAULTS = {
 def test_dnerf_render_limits_catch_planted_faults(dev, fault, tmp_path, monkeypatch):
     """Each fault fails the limits in both modes, with either sampling, on
     the nets it names (the readings on both nets are printed)."""
-    old, new, must_fail = RENDER_FAULTS[fault]
-    _rebuild_with(monkeypatch, tmp_path, "fused_render_dnerf.cu", old, new)
+    name, old, new, must_fail = RENDER_FAULTS[fault]
+    _rebuild_with(monkeypatch, tmp_path, name, old, new)
     for nets in ("full", "full-dense"):
         spec, params = _render_params(nets, 0, dev)
         for depth_guided in (True, False):
@@ -1011,7 +1023,7 @@ def test_dnerf_inference_runs_the_kernels(dev, monkeypatch):
     assert ftd.LAUNCHES == seg_before
     out = en.render_rays_inference(DN_NARROW, rspec, params, rays, use_importance=False)
     assert frd.LAUNCHES["fused_render_rays_dnerf"] == before + 3
-    assert all(ftd.LAUNCHES[k] == seg_before[k] + 1 for k in seg_before)
+    assert all(ftd.LAUNCHES[k] == seg_before[k] + k.endswith("_fwd") for k in seg_before)
     assert fsd.LAUNCHES["fused_density_raw"] == dens_before
     assert all(bool(torch.isfinite(v).all()) for v in out.values())
     with pytest.raises(ValueError, match="rays must be"):
@@ -1068,22 +1080,38 @@ def test_dnerf_segment_limits_catch_planted_faults(dev, fault, tmp_path, monkeyp
 
 def test_dnerf_field_runs_the_segment_kernels(dev, tmp_path):
     """field_eval on CUDA tensors launches each forward segment once a call
-    (the renderer's vertex colours too); a gradient through it, a renderer
-    with train.megakernel "off" and a spec the kernels cannot take raise."""
+    (the renderer's vertex colours too) and, under a gradient, each backward
+    segment once, with parameter gradients that match the plain field's;
+    a renderer with train.megakernel "off" and a spec the kernels cannot
+    take raise."""
     from endosurf_tpu_torch.serve import EndoNeRFRenderer
+    fwd = [k for k in ftd.LAUNCHES if k.endswith("_fwd")]
     params = _dn_params(DN_NARROW, 0, dev)
     x, d, t = _seg_points(5000, dev)
     before = dict(ftd.LAUNCHES)
     rgb, sigma = en.field_eval(DN_NARROW, params, x, d, t, precision="default")
-    assert all(ftd.LAUNCHES[k] == before[k] + 1 for k in before)
+    assert all(ftd.LAUNCHES[k] == before[k] + (k in fwd) for k in before)
     ref = ftd.forward_math(DN_NARROW, ftd.prepare_effective_dnerf(DN_NARROW, params), x, t, d,
                            "default")
     assert rgb.shape == (5000, 3) and sigma.shape == (5000,)
     assert float((rgb - ref["rgb"]).abs().max()) < 1e-3
     for v in flatten(params).values():
         v.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="EndoNeRF training is not ported"):
-        en.field_eval(DN_NARROW, params, x, d, t)
+    w = torch.randn(5000, 4, generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    grads = {}
+    for name, field in (("kernels", ftd.megakernel_field_raw), ("plain", ftd.plain_field_raw)):
+        for v in flatten(params).values():
+            v.grad = None
+        before = dict(ftd.LAUNCHES)
+        rgb, raw = field(DN_NARROW, params, x, d, t, "highest")
+        ((rgb * w[:, :3]).sum() + (raw * w[:, 3]).sum()).backward()
+        grads[name] = {k: v.grad.clone() for k, v in flatten(params).items()}
+        if name == "kernels":
+            assert all(ftd.LAUNCHES[k] == before[k] + 1 for k in before)
+    tol = ftd.BWD_PARITY_TOL[torch.float32]["leaf"]
+    for k, g in grads["plain"].items():
+        rel = float((grads["kernels"][k] - g).norm() / g.norm())
+        assert rel <= tol, (k, rel)
     with torch.no_grad():
         en.field_eval(DN_NARROW, params, x, d, t)
     cfg = {"exp": {"project_name": "p", "exp_name": "e", "exp_dir": str(tmp_path)},
@@ -1095,7 +1123,182 @@ def test_dnerf_field_runs_the_segment_kernels(dev, tmp_path):
     renderer = EndoNeRFRenderer(cfg, scene=scene, device=dev)
     before = dict(ftd.LAUNCHES)
     cols = renderer.render_points_fn()(x.cpu().numpy(), d.cpu().numpy(), t.cpu().numpy())
-    assert cols.shape == (5000, 3) and all(ftd.LAUNCHES[k] == before[k] + 1 for k in before)
+    assert cols.shape == (5000, 3)
+    assert all(ftd.LAUNCHES[k] == before[k] + (k in fwd) for k in before)
     bad = dataclasses.replace(DN_NARROW, geo_feat_dim=300)
     with pytest.raises(ValueError, match="do not take"):
         en.field_eval(bad, _dn_params(bad, 0, dev), x, d, t)
+
+
+# ---------------------------------------------------------------------------
+# EndoNeRF training: the backward segments and the resample
+# ---------------------------------------------------------------------------
+
+def _bwd_report(res):
+    return {name: {"cot": {k: v[:3] for k, v in kinds["cot"].items()},
+                   "leaf": max(v[0] for v in kinds["leaf"].values()),
+                   "ok": ftd.bwd_parity_ok({name: kinds})} for name, kinds in res.items()}
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("spec", DN_SPECS, ids=SPEC_IDS)
+@pytest.mark.parametrize("precision", ["highest", "default"], ids=["f32", "bf16"])
+def test_dnerf_backward_matches_plain(dev, precision, spec, seed):
+    """Each D-NeRF backward kernel against its plain version on a ragged
+    point count, seeded random cotangents, at BWD_PARITY_TOL."""
+    params = _dn_params(spec, seed, dev)
+    x, d, t = _seg_points(RAGGED_N, dev, seed)
+    res, _, _ = ftd.bwd_segment_parity(spec, params, x, d, t, precision, seed)
+    torch.cuda.synchronize()
+    print(f"dnerf backward sound {precision} seed {seed}: {_bwd_report(res)}")
+    assert ftd.bwd_parity_ok(res), _bwd_report(res)
+
+
+@pytest.mark.parametrize("spec", DN_SPECS, ids=SPEC_IDS)
+def test_dnerf_backward_limits_reject_the_other_precision(dev, spec):
+    params = _dn_params(spec, 0, dev)
+    x, d, t = _seg_points(SEG_N, dev)
+    for prec, other in (("highest", "default"), ("default", "highest")):
+        res, _, _ = ftd.bwd_segment_parity(spec, params, x, d, t, prec, 0, other)
+        print(f"dnerf backward control: plain {prec} kernels {other}: {_bwd_report(res)}")
+        for name, kinds in res.items():
+            assert not ftd.bwd_parity_ok({name: kinds}), (name, _bwd_report(res))
+
+
+def test_dnerf_backward_is_deterministic(dev):
+    """Two calls give the same bits: the weight gradients are summed in a
+    fixed order (wgrad.cuh), the input cotangents per point."""
+    spec = en.DNeRFSpec()
+    params = _dn_params(spec, 0, dev)
+    x, d, t = _seg_points(RAGGED_N, dev)
+    _, _, cases = ftd.bwd_segment_parity(spec, params, x, d, t, "default")
+    for name, (packed, like, flat, inputs, cots) in cases.items():
+        seg = name.split("_")[1]
+        a, b = (ftd.BWD[seg](packed, like, *inputs, *cots) for _ in range(2))
+        for u, v in zip([*a[0], *a[1]], [*b[0], *b[1]]):
+            assert (u is None and v is None) or torch.equal(u, v), name
+
+
+# csrc/fused_train_dnerf.cu: the skip layer's encoding rows left out of d x_c
+# (the walk's section rows of skip layers dropped), and the sigma head's
+# cotangent reaching h through the first feature column's weights.
+DN_BWD_FAULTS = {
+    "skip_gradient_dropped": (
+        "    const int lo = l == 0 ? sec0 : (skip && skip_sec ? n_h : in_l);",
+        "    const int lo = l == 0 ? sec0 : in_l;", ("dnerf_density_bwd",)),
+    "head_cotangent_wrong_column": (
+        "      acc_seg<P>(acc_h, WT, n_in, i, 0, gout, G, 1);",
+        "      acc_seg<P>(acc_h, WT, n_in, i, 1, gout, G, 1);", ("dnerf_density_bwd",)),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(DN_BWD_FAULTS))
+def test_dnerf_backward_limits_catch_planted_faults(dev, fault, tmp_path, monkeypatch):
+    """A backward kernel built with a planted fault fails the limits in both
+    modes (the readings are printed)."""
+    old, new, kernels = DN_BWD_FAULTS[fault]
+    _rebuild_with(monkeypatch, tmp_path, "fused_train_dnerf.cu", old, new)
+    spec = en.DNeRFSpec()
+    params = _dn_params(spec, 0, dev)
+    x, d, t = _seg_points(RAGGED_N, dev)
+    for precision in ("highest", "default"):
+        res, _, _ = ftd.bwd_segment_parity(spec, params, x, d, t, precision)
+        print(f"{fault} {precision}: {_bwd_report(res)}")
+        for name in kernels:
+            assert not ftd.bwd_parity_ok({name: res[name]}), (precision, name)
+
+
+def _resample_inputs(nets: str, n0: int, dev, seed: int = 0):
+    """Coarse depths, densities (the kernel's raw density, unit noise, relu)
+    and |d| of 1024 depth-guided rays, on the seeded or the opaque full net."""
+    spec, params = _render_params(nets, seed, dev)
+    rays = _dn_rays(1024, dev, True, seed + 1)
+    rspec = en.DNeRFRenderSpec(n_samples=n0)
+    z0 = frd.init_z(rspec, rays, torch.randn(1024, n0, generator=torch.Generator(
+        device=dev).manual_seed(seed), device=dev))
+    o, dd, d_z, _, _, t = en.split_rays(rays)
+    pts = (o[:, None] + d_z[:, None] * z0[..., None]).reshape(-1, 3)
+    raw = fsd.fused_density_raw_cuda(spec, params, pts, t.repeat_interleave(n0, 0),
+                                     torch.float32).reshape(1024, n0)
+    noise = torch.randn(raw.shape, generator=torch.Generator(device=dev).manual_seed(9 + seed),
+                        device=dev)
+    return z0, torch.relu(raw + noise), dd.norm(dim=-1, keepdim=True)
+
+
+RESAMPLE_CELLS = [(64, 64), (32, 16), (8, 8)]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("nets", ["full", "full-dense"])
+@pytest.mark.parametrize("cell", RESAMPLE_CELLS, ids=[f"{a}+{b}" for a, b in RESAMPLE_CELLS])
+def test_fine_resample_matches_plain(dev, cell, nets, seed):
+    """fused_fine_resample against fine_resample_math at RESAMPLE_PARITY_TOL;
+    one launch a call, sorted output, the coarse depths kept."""
+    n0, n_new = cell
+    z0, sigma, dn = _resample_inputs(nets, n0, dev, seed)
+    before = fs.LAUNCHES["fused_fine_resample"]
+    got = fs.fused_fine_resample(z0, sigma, dn, n_new)
+    assert fs.LAUNCHES["fused_fine_resample"] == before + 1
+    ref = fs.fused_fine_resample_reference(z0, sigma, dn, n_new)
+    res = fs.resample_parity(got, ref)
+    print(f"resample {cell} {nets} seed {seed}: {res}")
+    assert res[-1], res
+    assert got.shape == (1024, n0 + n_new) and bool((got[:, 1:] >= got[:, :-1]).all())
+    assert bool(torch.isin(z0[:8], got[:8]).all())
+
+
+@pytest.mark.parametrize("fault", ["draws_half_step", "resample_dist_without_dn"])
+def test_fine_resample_limits_catch_planted_faults(dev, fault, tmp_path, monkeypatch):
+    """The resample built with its draws half a step early, or its coarse
+    weights on distances without |d|, fails the limits on the opaque nets
+    (the seeded nets' readings are printed)."""
+    old, new, _ = RESAMPLE_FAULTS[fault]
+    _rebuild_with(monkeypatch, tmp_path, "dnerf_chain.cuh", old, new)
+    for nets in ("full", "full-dense"):
+        z0, sigma, dn = _resample_inputs(nets, 64, dev)
+        res = fs.resample_parity(fs.fused_fine_resample_cuda(z0, sigma, dn),
+                                 fs.fused_fine_resample_reference(z0, sigma, dn))
+        print(f"{fault} {nets}: {res}")
+        if nets == "full-dense" or fault == "draws_half_step":
+            assert not res[-1], (nets, res)
+
+
+def test_fine_resample_entry_checks(dev):
+    z0, sigma, dn = _resample_inputs("full", 64, dev)
+    with pytest.raises(ValueError, match="does not take"):
+        fs.fused_fine_resample(z0, sigma, dn, 65)
+    with pytest.raises(ValueError, match="expected"):
+        fs.fused_fine_resample_cuda(z0, sigma[:, :8], dn)
+    assert fs.fused_fine_resample(z0.cpu(), sigma.cpu(), dn.cpu()).device.type == "cpu"
+
+
+def test_dnerf_train_step_runs_the_kernels(dev, tmp_path, monkeypatch):
+    """EndoNeRFTrainer on the card: a step launches fused_density_raw,
+    fused_fine_resample and each D-NeRF forward and backward segment once and
+    never the plain resample or plain field; megakernel: off and
+    sampler_kernel: off raise on a CUDA device."""
+    from endosurf_tpu_torch.train.trainer_endonerf import EndoNeRFTrainer
+
+    def plain(*args, **kw):
+        raise AssertionError("a plain version ran on CUDA tensors")
+    net = {"net_deform_cfg": {"n_layers": 3, "hidden_dim": 64, "skips": [1]},
+           "net_density_cfg": {"n_layers": 3, "hidden_dim": 64, "skips": [1]},
+           "net_color_cfg": {"n_layers": 2, "hidden_dim": 64, "skips": []}, "geo_feat_dim": 32}
+    cfg = {"exp": {"project_name": "p", "exp_name": "e", "exp_dir": str(tmp_path)},
+           "render": {"type": "endonerf"}, "net": net,
+           "train": {"n_iter": 2, "ray_batch": 256, "optim": {"lr": 5e-4}},
+           "log": {"i_eval": 0, "i_save": 2}}
+    scene = make_synthetic_arrays(4, 32, 40, 0, dev)
+    monkeypatch.setattr(fs, "fine_resample_math", plain)
+    monkeypatch.setattr(ftd, "forward_math", plain)
+    trainer = EndoNeRFTrainer(cfg, scene=scene, device=dev)
+    before = {**ftd.LAUNCHES, "resample": fs.LAUNCHES["fused_fine_resample"],
+              "density_raw": fsd.LAUNCHES["fused_density_raw"]}
+    trainer.start(log_every=1)
+    after = {**ftd.LAUNCHES, "resample": fs.LAUNCHES["fused_fine_resample"],
+             "density_raw": fsd.LAUNCHES["fused_density_raw"]}
+    assert all(after[k] == before[k] + 2 for k in before), (before, after)
+    for key in ("megakernel", "sampler_kernel"):
+        bad = {**cfg, "train": {**cfg["train"], key: "off"}}
+        with pytest.raises(NotImplementedError, match="off"):
+            EndoNeRFTrainer(bad, scene=scene, device=dev)

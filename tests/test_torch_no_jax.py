@@ -40,7 +40,8 @@ def test_import_loads_no_jax():
         "        'endosurf_tpu_torch.kernels.fused_sdf',\n"
         "        'endosurf_tpu_torch.models.endonerf',\n"
         "        'endosurf_tpu_torch.kernels.fused_render_dnerf',\n"
-        "        'endosurf_tpu_torch.kernels.fused_train_dnerf'} <= set(names), names\n"
+        "        'endosurf_tpu_torch.kernels.fused_train_dnerf',\n"
+        "        'endosurf_tpu_torch.train.trainer_endonerf'} <= set(names), names\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n")
     proc = _run(code)
@@ -118,6 +119,15 @@ def test_dnerf_cuda_entries_refuse_cpu_tensors():
     packed = ftd.pack_dnerf(spec, params, torch.float32)
     with pytest.raises(ValueError, match="CUDA"):
         ftd.dnerf_deform_fwd(packed, torch.zeros(8, 4))
+    eff = ftd.prepare_effective_dnerf(spec, params)
+    for seg, args in (("deform", (torch.zeros(8, 4), torch.zeros(8, 3))),
+                      ("density", (torch.zeros(8, 3), torch.zeros(8, 1), torch.zeros(8, 16))),
+                      ("color", (torch.zeros(8, 3), torch.zeros(8, 16), torch.zeros(8, 3)))):
+        with pytest.raises(ValueError, match="CUDA"):
+            ftd.BWD[seg](packed, ftd.segment_weights(eff, seg)[0], *args)
+    from endosurf_tpu_torch.kernels import fused_sampler as fs
+    with pytest.raises(ValueError, match="CUDA"):
+        fs.fused_fine_resample_cuda(torch.zeros(8, 64), torch.zeros(8, 64), torch.ones(8, 1))
     with pytest.raises(ValueError):
         frd.fused_render_rays_dnerf(spec, DNeRFRenderSpec(), params, torch.zeros(8, 9, device="meta"))
 
@@ -150,16 +160,17 @@ def test_cuda_device_without_gpu_raises():
 
 
 def test_cli_unported_mode_raises(tmp_path):
-    """Every CLI mode is ported for EndoSurf and every serving mode for
-    EndoNeRF; EndoNeRF training is not and raises."""
+    """Every CLI mode is ported for both render types (EndoNeRF training in
+    tests/test_torch_train_dnerf.py); --mode train on a render type the port
+    does not know raises."""
     cfg = tmp_path / "cfg.yml"
     cfg.write_text("exp: {project_name: p, exp_name: e, exp_dir: %s}\n"
-                   "render: {type: endonerf}\nnet: {}\ndata: {info_dir: none.pkl}\n"
+                   "render: {type: neus}\nnet: {}\ndata: {info_dir: none.pkl}\n"
                    % (tmp_path / "logs"))
     proc = _run(["-m", "endosurf_tpu_torch", "--cfg", str(cfg), "--mode", "train",
                  "--device", "cpu"])
     assert proc.returncode != 0
-    assert "not yet ported: --mode train for render type 'endonerf'" in proc.stderr
+    assert "unknown render type 'neus'" in proc.stderr
 
 
 def test_config_inherit_and_dict(tmp_path):

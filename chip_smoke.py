@@ -145,6 +145,7 @@ checkout's step with the same trace filter.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -186,13 +187,15 @@ DN_RAY_BATCH = 2048                            # EndoNeRF train rays a step (bas
 N_DN_BWD_SEED1 = 65536                         # points of phase 23's second weight seed
 DN_QUALITY = (64, 80, 300)                     # phase 28: scene height, width, train steps
 # EndoNeRF train step with the kernels vs the plain segments and resample
-# (phase 25): (metric relative difference, per-network gradient relative
-# L2) per dot mode. Set from H100 readings (PERF.md, PR 6): sound metrics
-# <= 1.8e-6 (f32) / 1.3e-5 (bf16), gradients <= 1.9e-2 (the deform net's,
-# which carries the density's spatial derivative; density <= 8.0e-4, colour
-# <= 3.3e-4); the kernels at the other precision read metrics up to >=
-# 4.9e-4 and deform gradients >= 0.81.
-DN_WHOLE_STEP_TOL = {"highest": (1e-5, 5e-2), "default": (5e-5, 5e-2)}
+# (phase 25): (metric relative difference, {network: gradient relative
+# L2}) per dot mode. Set from H100 readings (PERF.md, PR 6): sound metrics
+# <= 1.8e-6 (f32) / 1.3e-5 (bf16), gradients deform <= 1.9e-2 (it carries
+# the density's spatial derivative), density <= 8.0e-4, colour <= 3.3e-4;
+# the kernels at the other precision read metrics up to >= 4.9e-4 and
+# gradients deform >= 0.81, density >= 5.0e-2, colour >= 6.4e-3.
+DN_STEP_GRAD_TOL = {"deform": 5e-2, "density": 5e-3, "color": 2e-3}
+DN_WHOLE_STEP_TOL = {"highest": (1e-5, DN_STEP_GRAD_TOL),
+                     "default": (5e-5, DN_STEP_GRAD_TOL)}
 
 
 def base_cfg() -> dict:
@@ -1138,14 +1141,14 @@ def dnerf_timing(spec, rspec, renderer, seg_cases, n_seg, smi: str) -> dict:
 
 def endonerf_train_cfg(exp_dir: str, n_iter: int = N_STEPS) -> dict:
     """endonerf_cfg() with configs/endonerf/base.yml's train keys; no eval
-    during the run, images not written (the card machine has no imageio)."""
+    during the run."""
     cfg = endonerf_cfg()
     cfg["exp"]["exp_dir"] = exp_dir
     cfg["train"].update({
         "n_iter": n_iter, "ray_batch": DN_RAY_BATCH, "mask_guided_ray_sampling": True,
         "color_loss_weight": 1.0, "depth_loss_weight": 1.0, "resume": False,
         "optim": {"lr": 0.0005, "lr_decay": 250},
-        "eval": {"ray_batch": CHUNK, "save_images": False}})
+        "eval": {"ray_batch": CHUNK}})
     cfg["log"] = {"i_eval": 0, "i_save": n_iter}
     return cfg
 
@@ -1315,10 +1318,10 @@ def dnerf_whole_step_vs_plain(spec, rspec, scene, dev) -> None:
             print(f"dnerf train step kernels vs plain ({prec}, {what}): metrics "
                   + ", ".join(f"{kk[5:]} {v:.3e}" for kk, v in m_rel.items())
                   + f" (tol {m_tol:g}); gradients " + ", ".join(
-                      f"{kk} {v:.3e}" for kk, v in g_rel.items()) + f" (tol {g_tol:g})",
+                      f"{kk} {v:.3e} (tol {g_tol[kk]:g})" for kk, v in g_rel.items()),
                   flush=True)
             ok = (all(v <= m_tol for v in m_rel.values())
-                  and all(v <= g_tol for v in g_rel.values()))
+                  and all(v <= g_tol[kk] for kk, v in g_rel.items()))
             if what == "sound":
                 check(ok, f"dnerf step {prec} kernels vs plain: {m_rel} {g_rel}")
             else:
@@ -1337,6 +1340,7 @@ def dnerf_train_phase(scene, dev, smi: str):
     the run}, render launches of the eval)."""
     import numpy as np
 
+    from endosurf_tpu_torch.evaluation import render_eval
     from endosurf_tpu_torch.kernels import fused_render_dnerf as frd
     from endosurf_tpu_torch.kernels import fused_sampler as fs
     from endosurf_tpu_torch.kernels import fused_sdf as fsd
@@ -1395,10 +1399,16 @@ def dnerf_train_phase(scene, dev, smi: str):
                                                     trainer.generator)[0],
                          DN_FAMILIES, step_ms, smi, label="dnerf train step")
 
-        # eval: every test frame through the render kernel
+        # eval: every test frame through the render kernel; the composites
+        # are not written (the card machine has no imageio)
         frd.LAUNCHES["fused_render_rays_dnerf"] = 0
         t0 = time.perf_counter()
-        stats = trainer.eval(N_STEPS)
+        eval_frames = render_eval.eval_frames
+        render_eval.eval_frames = functools.partial(eval_frames, save_images=False)
+        try:
+            stats = trainer.eval(N_STEPS)
+        finally:
+            render_eval.eval_frames = eval_frames
         torch.cuda.synchronize()
         eval_launches = frd.LAUNCHES["fused_render_rays_dnerf"]
         n_chunks = math.ceil(H * W / CHUNK) * len(scene.list_test)

@@ -78,12 +78,19 @@ def make_train_step(spec, rspec, h: int, w: int, ray_batch: int, loss_weights: D
         optimizer.zero_grad(set_to_none=True)
         total, metrics = loss_fn(params, arrays, generator, draws)
         total.backward()
-        if schedule is not None:
-            for group in optimizer.param_groups:
-                group["lr"] = schedule(adam_count(optimizer))
-        optimizer.step()
+        apply_update(optimizer, schedule)
         return {k: v.detach() for k, v in metrics.items()}
     return step_fn
+
+
+def apply_update(optimizer: torch.optim.Optimizer,
+                 schedule: Optional[Callable[[int], float]] = None) -> None:
+    """One optimizer step on the parameters' ``.grad``, the lr set from
+    ``schedule(count)`` first (count: the updates taken so far)."""
+    if schedule is not None:
+        for group in optimizer.param_groups:
+            group["lr"] = schedule(adam_count(optimizer))
+    optimizer.step()
 
 
 def make_optimizer(params: Dict[str, Any], lr: float) -> torch.optim.Adam:
@@ -146,10 +153,9 @@ class EndoNeRFTrainer(Trainer, EndoNeRFRenderer):
         """Render every test frame in chunks of ``train.eval.ray_batch`` (the
         reference's EndoNeRF eval; EndoSurf's renders one frame)."""
         from endosurf_tpu_torch.evaluation.render_eval import eval_frames
-        eval_cfg = self.train_cfg.get("eval", {})
         stats = eval_frames(self, self.scene.list_test, step,
-                            ray_chunk=eval_cfg.get("ray_batch", 2048), save_dir_name="eval",
-                            save_images=eval_cfg.get("save_images", True))
+                            ray_chunk=self.train_cfg.get("eval", {}).get("ray_batch", 2048),
+                            save_dir_name="eval")
         if self.writer is not None:
             self.writer.add_scalars("eval", stats, step)
         return stats

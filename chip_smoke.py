@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --train-only   # phases 1, 2 and 7's timed run, split and trace
+    python3 chip_smoke.py --segments-only   # phases 1, 2, 9's bf16 seed-0 parity and 11
 
 Phases (any failure raises and exits non-zero):
   1. a CUDA card must be present; prints its name and power limit;
@@ -46,7 +47,8 @@ Phases (any failure raises and exits non-zero):
      metrics and per-network gradients, with the kernels at the other dot
      precision as the control that must fail;
  11. segment timing: each kernel vs its plain version at 65,536 points in
-     bf16, beside its bound from the parameter shapes;
+     bf16, beside its bound from the parameter shapes, with its TFLOP/s (in
+     bf16 deform_bwd and sdf_bwd run on tensor cores, csrc/field_tc.cuh);
  12. grid-query parity: the CUDA fused_sdf_observed against its plain
      version (fields.sdf_observed) on one 64x128x128 slab (1,048,576 points)
      of the synthetic scene's frame-0 grid (its bbox x 1.2) and on 8192
@@ -140,7 +142,9 @@ the kernel record (JSON), the last the device record (JSON).
 
 ``--train-only`` uses only what every slice with a train step has, so a
 copy of this file placed beside an older checkout's package measures that
-checkout's step with the same trace filter.
+checkout's step with the same trace filter; ``--segments-only`` likewise
+holds the six segment kernels against their plain versions on phase 9's
+bf16 seed-0 midpoints and times them as phase 11 does (with TFLOP/s).
 """
 
 from __future__ import annotations
@@ -167,7 +171,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 UPSAMPLE_KERNELS = ("sweep_kernel", "draw_kernel", "merge_kernel", "upsample_prep_kernel")
 SEGMENT_KERNELS = ("deform_fwd_kernel", "sdf_fwd_kernel", "color_fwd_kernel", "deform_bwd_kernel",
                    "sdf_bwd_kernel", "color_bwd_kernel", "wgrad_partial_kernel",
-                   "wgrad_reduce_kernel")
+                   "wgrad_reduce_kernel", "deform_bwd_tc_kernel", "sdf_bwd_tc_kernel",
+                   "wgrad_tc_partial_kernel")
 N_PARITY_SEED1 = 16384                         # points of the second weight seed's parity
 # train step with the segment kernels vs the plain field path (phase 10):
 # (metric relative difference, per-network gradient relative L2) per dot
@@ -1551,6 +1556,37 @@ def train_only(smi: str) -> int:
     return 0
 
 
+def segments_only(smi: str) -> int:
+    """``--segments-only``: the build, phase 9's bf16 seed-0 sound parity on
+    a train batch's midpoints, and phase 11's timing."""
+    from endosurf_tpu_torch.data.scene_data import make_synthetic_arrays
+    from endosurf_tpu_torch.kernels import build
+    from endosurf_tpu_torch.kernels import fused_train_cuda as ftc
+    from endosurf_tpu_torch.models.endosurf import RenderSpec
+    from endosurf_tpu_torch.models.fields import EndoSurfSpec, init_endosurf_params
+    build.load_library()
+    dev = torch.device("cuda")
+    cfg = base_cfg()
+    spec, rspec = EndoSurfSpec.from_config(cfg["net"]), RenderSpec.from_config(cfg["render"])
+    scene = make_synthetic_arrays(n_frames=4, h=H, w=W, seed=0, device=dev)
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(0), dev)
+    x, d, t = train_midpoints(spec, rspec, params, scene.device_arrays,
+                              torch.Generator(device=dev).manual_seed(3), dev)
+    res, _, cases = ftc.segment_parity(spec, params, x, d, t, "default", 0)
+    torch.cuda.synchronize()
+    root = os.path.dirname(os.path.abspath(__file__))
+    print_segment_readings(res, f"sound seed 0 default ({x.shape[0]} points, {root})",
+                           torch.bfloat16)
+    work = segment_work(params, x.shape[0])
+    for k, (k_ms, p_ms) in segment_timing(spec, cases, 3).items():
+        b_ms, b_by = bound_ms(*work[k], torch.bfloat16)
+        print(f"segment timing {k} ({x.shape[0]} points, bf16, {smi}, {root}): kernel "
+              f"{k_ms:.3f} ms, plain {p_ms:.3f} ms; {work[k][0] / 1e12:.4f} TFLOP -> bound "
+              f"{b_ms:.4f} ms ({b_by}); {work[k][0] / k_ms / 1e9:.2f} TFLOP/s", flush=True)
+    check(ftc.parity_ok(res), "segment kernels vs plain out of tolerance (bf16, seed 0)")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1570,8 +1606,10 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     if sys.argv[1:] == ["--train-only"]:
         return train_only(smi)
+    if sys.argv[1:] == ["--segments-only"]:
+        return segments_only(smi)
     if sys.argv[1:]:
-        raise SystemExit(f"usage: {sys.argv[0]} [--train-only]")
+        raise SystemExit(f"usage: {sys.argv[0]} [--train-only | --segments-only]")
 
     import numpy as np
 
@@ -1797,7 +1835,8 @@ def main() -> int:
     for k, (k_ms, p_ms) in seg_times.items():
         print(f"segment timing {k} ({x_mid.shape[0]} points, bf16, {smi}): kernel {k_ms:.3f} ms, "
               f"plain {p_ms:.3f} ms; {seg_work[k][0] / 1e12:.4f} TFLOP -> bound "
-              f"{seg_bounds[k][0]:.4f} ms ({seg_bounds[k][1]})", flush=True)
+              f"{seg_bounds[k][0]:.4f} ms ({seg_bounds[k][1]}); "
+              f"{seg_work[k][0] / k_ms / 1e9:.2f} TFLOP/s", flush=True)
 
     # 12-16. the 3D demo's grid query and the sphere-traced march
     sdf_abs = sdf_query_parity(spec, renderer_scene, dev)
@@ -1873,13 +1912,16 @@ def main() -> int:
          "max_abs_err": u_max_err,
          "ms": utimes["bfloat16"][0], "plain_ms": utimes["bfloat16"][1],
          "bound_ms": u_bound, "bound_by": u_by, "library_ms": None}] + [
-        {"name": k, "route": "cuda", "source": "endosurf_tpu_torch/kernels/csrc/fused_train.cu",
+        {"name": k, "route": "cuda", "source": f"endosurf_tpu_torch/kernels/csrc/{src}",
          "replaces": f"endosurf_tpu/kernels/fused_train_pallas.py:{line}",
          "launches": seg_launches[k], "max_abs_err": seg_abs[k],
          "ms": seg_times[k][0], "plain_ms": seg_times[k][1],
          "bound_ms": seg_bounds[k][0], "bound_by": seg_bounds[k][1], "library_ms": None}
-        for k, line in (("deform_fwd", 204), ("deform_bwd", 217), ("sdf_fwd", 238),
-                        ("sdf_bwd", 258), ("color_fwd", 284), ("color_bwd", 298))] + [
+        for k, line, src in (("deform_fwd", 204, "fused_train.cu"),
+                             ("deform_bwd", 217, "field_tc.cuh"),   # bf16: tensor cores
+                             ("sdf_fwd", 238, "fused_train.cu"), ("sdf_bwd", 258, "field_tc.cuh"),
+                             ("color_fwd", 284, "fused_train.cu"),
+                             ("color_bwd", 298, "fused_train.cu"))] + [
         {"name": k, "route": "cuda", "source": f"endosurf_tpu_torch/kernels/csrc/{src}",
          "replaces": f"endosurf_tpu/kernels/{rep}", "launches": n_launch, "max_abs_err": err,
          "ms": new_times[k][0], "plain_ms": new_times[k][1], "bound_ms": new_times[k][2],

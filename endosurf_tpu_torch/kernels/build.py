@@ -122,7 +122,7 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = head + [vp] * (n_ptrs + 1)
         fn.restype = i32
-    lib.train_bwd_sizes.argtypes = [ctypes.POINTER(i64), i32, i32, ctypes.POINTER(i64)]
+    lib.train_bwd_sizes.argtypes = [ctypes.POINTER(i64), i32, i32, i32, ctypes.POINTER(i64)]
     lib.train_bwd_sizes.restype = None
     # the EndoNeRF kernels (fused_sdf.cu, fused_render_dnerf.cu, fused_train_dnerf.cu)
     lib.fused_density_raw_launch.argtypes = [vp, vp, i64, vp, ctypes.POINTER(i64), i32, vp, vp]

@@ -1,0 +1,798 @@
+// The bf16 ("default" dot mode, rb) backward of the deform and SDF train
+// segments on Hopper's tensor cores: deform_bwd_tc_kernel and
+// sdf_bwd_tc_kernel, launched by fused_train.cu's train_deform_bwd /
+// train_sdf_bwd for rb = 1 in place of the SIMT deform_bwd_kernel /
+// sdf_bwd_kernel (which the float32 mode keeps), and the weight-gradient
+// product of wgrad_tc.cuh.
+//
+// Replaces, with fused_train.cu, the Pallas kernels deform_bwd and sdf_bwd of
+// endosurf_tpu/kernels/fused_train_pallas.py (_seg_pallas): there the weights
+// stay in VMEM and blocks of >= 128 points stream through the MXU. Here a
+// block of NT threads owns a tile of 64 rows (deform: 16 points x the primal
+// and three tangent streams, row 16 s + p; SDF: 64 points), recomputes the
+// forward and walks the layers back as 64-row tile products on mma.sync
+// (mma_tile.cuh): the rows' operand in shared memory as bf16, the weights
+// streaming from L2 in fragment order through a per-warp cp.async ring, each
+// warp owning 32 output columns for all 64 rows. What is not a 256-wide
+// product stays SIMT in the same kernel: the encodings, the deform net's
+// 3-wide output layer and its cotangent, the head column, the gates, the
+// softplus' second-order term and the d x_c tail. Each layer's (operand,
+// cotangent) pairs go to a global scratch and wgrad_tc.cuh's product sums
+// them over the points.
+//
+// The same maths as the SIMT kernels, operation for operation, except that
+// the float32 sums of the products run in the mma's order. bf16-exactness of
+// each product's operands (every weight is a bf16 value, packed by
+// pack_segment):
+//   deform: every operand (layer inputs op(h), op(encoding), tangent
+//     seeds; the cotangents op(acc * sc) leaving each dot) is a bf16 value.
+//     The incoming cotangents on x_c and the rows are float32, but they only
+//     meet the 3-wide output layer, which stays SIMT; its weight gradient
+//     takes them as float32 (split) operands.
+//   SDF: the forward's operands (op(softplus), op(encoding)) and the adjoint's
+//     op(a sigma) are bf16 values. Float32 and not bf16 values, so split
+//     (mma_tile.cuh): the adjoint walk's cotangent dag * sigma (a sum of two
+//     rounded dots times a float32 gate) and d aE = op(g_c sc) g'; the primal
+//     walk's dz = v sigma + dz_2nd and the top layer's incoming cotangents
+//     (g_sdf, g_feat), as hi + mid + lo (<= 2^-24 left); in the
+//     weight-gradient product the pre-activation cotangents dz and the
+//     adjoint-dot cotangents da, as hi + lo (<= 2^-16), against the bf16
+//     xin / ag.
+//
+// What bounds it: the products, 0.709 (deform) and 0.403 (SDF) TFLOP at
+// 65,536 points with the weight gradients (chip_smoke.py counts them), 0.72
+// and 0.41 ms at the bf16 tensor-core rate; the SDF's split operands take
+// three mma for each of its walks' products and two for its weight
+// gradients. Bytes: the scratch, bf16 where exact (2.0 GiB for the deform at
+// 65,536 points, half its float32 size), written once and read about once by
+// the weight-gradient product. On an H100 (PERF.md, PR 7) the deform
+// backward takes 7.2 ms (98 TFLOP/s) and the SDF's 12.9 ms (31 TFLOP/s),
+// against 59.2 and 44.5 ms for the SIMT kernels; mma.sync, one SDF block per
+// SM (199 KB of shared memory) and the L2-fed weight fragments leave both
+// far from the bound.
+//
+// Anonymous namespace: one copy per .cu, as sdf_chain.cuh.
+
+#pragma once
+
+#include "field_chain.cuh"
+#include "wgrad_tc.cuh"
+
+#define TC_P_DEFORM 16   // points per deform tile (x 4 streams = 64 rows)
+#define TC_P_SDF 64      // points per SDF tile
+
+static_assert(TC_WARPS * 32 == NT, "a warp owns 32 of the tile's 256 output columns");
+
+namespace {
+
+// Global scratch of a tensor-core backward (rows indexed by point; the deform
+// net's arrays hold 4 streams, stream-major: [4][n][width]); widths padded to
+// c16 where the row is a product operand.
+struct TcScratch {
+  bf16* xin[NL];    // layer l's dot operands [h_{l-1} | encoding] [n][c16(in_l)]
+  bf16* dzb[NL];    // deform: cotangent on layer l's pre-activation [4][n][c16(out_l)], l < NL-1
+  bf16* ag[NL];     // sdf: adjoint dot operand op(a_l sigma_l) [n][c16(out_l)], l < NL-1
+  float* dz[NL];    // deform: layer NL-1's [4][n][4]; sdf: every layer's [n][c16(out_l)]
+  float* z[NL];     // sdf: pre-activations [n][out_l], l < NL-1
+  float* a[NL];     // sdf: ungated adjoint reaching layer l's output [n][out_l], l < NL-2
+                    //   (layer NL-2's is the head column)
+  float* da[NL];    // sdf: cotangent on the adjoint dot's output [n][c16(in_l)], l < NL-1
+  float* dhead;     // sdf: cotangent on the adjoint seed [n][in_{NL-1}]
+};
+
+// Float offsets (in the packed weights) of each layer's W [in][out] and W^T
+// [out][in] as bf16 mma B operands in fragment order: the meta's extension
+// that pack_segment writes in the bf16 mode.
+struct TcFrags {
+  long long w[NL], wt[NL];
+};
+
+TcFrags decode_frags(const long long* meta) {
+  TcFrags f;
+  for (int l = 0; l < NL; ++l) {
+    f.w[l] = meta[META_LEN + l];
+    f.wt[l] = meta[META_LEN + NL + l];
+  }
+  return f;
+}
+
+// Row pitch (bf16) of the tile's operand buffer: the widest padded layer
+// input or output + 8 (16 bytes x odd).
+__host__ __device__ inline int tc_ldh(const Net& N) {
+  int k = 16;
+  for (int l = 0; l < NL; ++l) {
+    const int w = c16(N.in_dim[l]) > c16(N.out_dim[l]) ? c16(N.in_dim[l]) : c16(N.out_dim[l]);
+    k = w > k ? w : k;
+  }
+  return k + 8;
+}
+
+// Whether row p of the tile at base is a point (the last tile is partial):
+// input rows that are not load zeros.
+__device__ __forceinline__ bool in_tile(long long base, int p, long long n) {
+  return base + p < n;
+}
+
+__device__ __forceinline__ bf16 bzero() { return __float2bfloat16_rn(0.f); }
+
+// Operand rows -> dst [S][n][w] (w the padded width, a multiple of 16;
+// rows past n skipped), r = s * P + p.
+template <int S, int P>
+__device__ __forceinline__ void save_rows(bf16* __restrict__ dst, const bf16* h, int ldh, int w,
+                                          long long base, long long n, int tid) {
+  const int vec = w / 8;
+  for (int idx = tid; idx < S * P * vec; idx += NT) {
+    const int r = idx / vec, v = idx - r * vec;
+    const int s = r / P, p = r - s * P;
+    if (base + p >= n) continue;
+    *(uint4*)(dst + ((size_t)s * n + base + p) * w + v * 8) = *(const uint4*)(h + r * ldh + v * 8);
+  }
+}
+
+// The encoding e [rows][ew] into columns [c0, c0 + ew) of the operand, zeros
+// up to the next multiple of 16.
+__device__ __forceinline__ void put_enc(bf16* h, int ldh, int c0, const bf16* e, int ew, int rows,
+                                        int tid) {
+  const int w = c16(c0 + ew) - c0;
+  for (int idx = tid; idx < rows * w; idx += NT) {
+    const int r = idx / w, c = idx - r * w;
+    h[r * ldh + c0 + c] = c < ew ? e[r * ew + c] : bzero();
+  }
+}
+
+// The warp's accumulator pairs: f(row, col, v0, v1) for columns col, col + 1.
+template <int MT, class F>
+__device__ __forceinline__ void for_pairs(const float (&acc)[MT][2 * TC_NPW][4], int np0, int npw,
+                                          int lane, F&& f) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2 * TC_NPW; ++nt) {
+      if (nt >= 2 * npw) continue;
+      const int col = np0 * 16 + nt * 8 + 2 * t;
+      f(mt * 16 + g, col, acc[mt][nt][0], acc[mt][nt][1]);
+      f(mt * 16 + g + 8, col, acc[mt][nt][2], acc[mt][nt][3]);
+    }
+}
+
+__device__ __forceinline__ int clampw(int x) { return x < 0 ? 0 : (x > TC_NPW ? TC_NPW : x); }
+
+// ---------------------------------------------------------------------------
+// deform: cotangents on x_c [n][3] and the rows [n][3][3] -> the scratch
+// ---------------------------------------------------------------------------
+
+inline size_t deform_tc_smem(const Model& m) {
+  const int P = TC_P_DEFORM, R = 4 * P;
+  return TC_RING_BYTES + (size_t)R * tc_ldh(m.deform) * 2 + (size_t)R * m.ed * 2
+         + (size_t)(NL - 1) * P * (HMAX / 32) * 4 + (size_t)P * 4 * 4 + (size_t)R * 3 * 4;
+}
+
+__global__ void __launch_bounds__(NT, 2)
+deform_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long long n,
+                     const float* __restrict__ xt, const float* __restrict__ g_xc,
+                     const float* __restrict__ g_j, const __grid_constant__ TcScratch sv) {
+  constexpr int P = TC_P_DEFORM, R = 4 * P, MT = R / 16, WB = HMAX / 32;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const Net& N = m.deform;
+  const int ed = m.ed, ldh = tc_ldh(N);
+  uint4* ring = (uint4*)tc_smem + warp * (TC_STAGES * TC_NPW * 32);
+  bf16* H = (bf16*)(tc_smem + TC_RING_BYTES);       // [R][ldh] the layer's operand
+  const bf16* const A1[1] = {H};
+  bf16* E = H + R * ldh;                         // [R][ed] encoding + tangent seeds
+  uint32_t* gbit = (uint32_t*)(E + R * ed);      // [NL-1][P][WB] relu' of each hidden output
+  float* xs = (float*)(gbit + (NL - 1) * P * WB);   // [P][4]
+  float* dz8 = xs + P * 4;                       // [R][3] the output layer's cotangent
+  const long long base = (long long)blockIdx.x * P;
+  const int np_me = warp * TC_NPW;               // the warp's columns: 32 warp ..
+
+  for (int idx = tid; idx < R * ldh; idx += NT) H[idx] = bzero();
+  for (int idx = tid; idx < P * 4; idx += NT)
+    xs[idx] = in_tile(base, idx >> 2, n) ? xt[(size_t)base * 4 + idx] : 0.f;
+  __syncthreads();
+  const int ex = enc_width(3, m.f_dpos);
+  for (int idx = tid; idx < P * ed; idx += NT) {   // field_deform's encoding
+    const int p = idx / ed, c = idx - p * ed;
+    int dim, kind; float sc;
+    if (c < ex) enc_col(c, 3, dim, kind, sc);
+    else { enc_col(c - ex, 1, dim, kind, sc); dim = 3; }
+    const float v = bf16r(xs[p * 4 + dim]) * sc;
+    const float sv_ = sinf(v), cv = cosf(v);
+    const float e = kind == 0 ? v : (kind == 1 ? sv_ : cv);
+    const float g1 = kind == 0 ? 1.f : (kind == 1 ? cv : -sv_);
+    E[p * ed + c] = __float2bfloat16_rn(e);
+    for (int k = 0; k < 3; ++k)
+      E[((k + 1) * P + p) * ed + c] = __float2bfloat16_rn(dim == k ? sc * g1 : 0.f);
+  }
+  __syncthreads();
+  put_enc(H, ldh, 0, E, ed, R, tid);
+  __syncthreads();
+
+  // ---- forward recompute, layers 0 .. NL-2 (the output layer needs only its input)
+  float acc[MT][2 * TC_NPW][4];
+  for (int l = 0; l < NL - 1; ++l) {
+    const int in_l = N.in_dim[l], out_l = N.out_dim[l];
+    const bool skip = (N.skip_mask >> l) & 1;
+    if (l > 0 && skip) {
+      put_enc(H, ldh, in_l - ed, E, ed, R, tid);
+      __syncthreads();
+    }
+    save_rows<4, P>(sv.xin[l], H, ldh, c16(in_l), base, n, tid);
+    const int np_out = c16(out_l) / 16, npw = clampw(np_out - np_me);
+    zero_acc(acc);
+    tile_mma<MT, 1>(acc, A1, ldh, (const uint4*)(wts + fr.w[l]), np_out, np_me, npw, 0,
+                    c16(in_l) / 16, ring, lane);
+    __syncthreads();
+    // m-tile s holds stream s, so a thread holds the primal and the three
+    // tangents of the same (point, neuron)
+    const float sc = skip ? kInvSqrt2 : 1.f;
+    uint32_t bits[2] = {0u, 0u};                 // points g, g + 8
+#pragma unroll
+    for (int nt = 0; nt < 2 * TC_NPW; ++nt) {
+      if (nt >= 2 * npw) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int p = g + (e >> 1) * 8, cl = nt * 8 + 2 * t + (e & 1), c = np_me * 16 + cl;
+        if (c >= out_l) {
+          for (int s = 0; s < 4; ++s) H[(s * P + p) * ldh + c] = bzero();
+          continue;
+        }
+        const float z = acc[0][nt][e] * sc + wts[N.b_off[l] + c];
+        const float gate = z > 0.f ? 1.f : 0.f;
+        const bf16 h = __float2bfloat16_rn(fmaxf(z, 0.f));
+        H[p * ldh + c] = h;
+#pragma unroll
+        for (int k = 1; k < 4; ++k)
+          H[(k * P + p) * ldh + c] = __float2bfloat16_rn(acc[k][nt][e] * sc * gate);
+        if (__bfloat162float(h) > 0.f) bits[e >> 1] |= 1u << cl;
+      }
+    }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      bits[0] |= __shfl_xor_sync(0xffffffffu, bits[0], o);
+      bits[1] |= __shfl_xor_sync(0xffffffffu, bits[1], o);
+    }
+    if (t == 0 && warp < WB) {
+      gbit[(l * P + g) * WB + warp] = bits[0];
+      gbit[(l * P + g + 8) * WB + warp] = bits[1];
+    }
+    __syncthreads();
+  }
+  save_rows<4, P>(sv.xin[NL - 1], H, ldh, c16(N.in_dim[NL - 1]), base, n, tid);
+
+  // ---- backward: the output layer (3 wide, SIMT), float32 cotangents
+  for (int idx = tid; idx < R * 4; idx += NT) {
+    const int r = idx >> 2, c = idx & 3, s = r / P, p = r - s * P;
+    float v = 0.f;
+    if (c < 3 && in_tile(base, p, n))
+      v = s == 0 ? g_xc[(size_t)(base + p) * 3 + c]
+                 : g_j[(size_t)(base + p) * 9 + (s - 1) * 3 + c];
+    if (c < 3) dz8[r * 3 + c] = v;
+    if (base + p < n) sv.dz[NL - 1][((size_t)s * n + base + p) * 4 + c] = v;
+  }
+  __syncthreads();
+  {
+    const int l = NL - 1, in_l = N.in_dim[l], out_l = N.out_dim[l];
+    const bool skip = (N.skip_mask >> l) & 1;
+    const int n_h = skip ? in_l - ed : in_l, w = c16(n_h);
+    const float sc = skip ? kInvSqrt2 : 1.f;
+    const float* W = wts + N.w_off[l];           // [in][out]
+    for (int idx = tid; idx < R * w; idx += NT) {
+      const int r = idx / w, i = idx - r * w, p = r % P;
+      bf16 v = bzero();
+      if (i < n_h && ((gbit[((l - 1) * P + p) * WB + (i >> 5)] >> (i & 31)) & 1)) {
+        float a = 0.f;
+        for (int j = 0; j < out_l; ++j) a = fmaf(dz8[r * 3 + j], W[(size_t)i * out_l + j], a);
+        v = __float2bfloat16_rn(a * sc);
+      }
+      H[r * ldh + i] = v;
+    }
+  }
+  __syncthreads();
+
+  // ---- hidden layers NL-2 .. 1 through W^T, gated by the primal's relu'
+  for (int l = NL - 2; l >= 1; --l) {
+    const int in_l = N.in_dim[l], out_l = N.out_dim[l];
+    const bool skip = (N.skip_mask >> l) & 1;
+    const int n_h = skip ? in_l - ed : in_l;
+    save_rows<4, P>(sv.dzb[l], H, ldh, c16(out_l), base, n, tid);
+    const int npw = clampw(c16(n_h) / 16 - np_me);
+    zero_acc(acc);
+    tile_mma<MT, 1>(acc, A1, ldh, (const uint4*)(wts + fr.wt[l]), c16(in_l) / 16, np_me, npw,
+                    0, c16(out_l) / 16, ring, lane);
+    __syncthreads();
+    const float sc = skip ? kInvSqrt2 : 1.f;
+#pragma unroll
+    for (int nt = 0; nt < 2 * TC_NPW; ++nt) {
+      if (nt >= 2 * npw) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int p = g + (e >> 1) * 8, c = np_me * 16 + nt * 8 + 2 * t + (e & 1);
+        const bool on = c < n_h && ((gbit[((l - 1) * P + p) * WB + (c >> 5)] >> (c & 31)) & 1);
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+          H[(s * P + p) * ldh + c] = on ? __float2bfloat16_rn(acc[s][nt][e] * sc) : bzero();
+      }
+    }
+    __syncthreads();
+  }
+  save_rows<4, P>(sv.dzb[0], H, ldh, c16(N.out_dim[0]), base, n, tid);
+}
+
+// ---------------------------------------------------------------------------
+// SDF: cotangents on sdf [n], feat [n][F], grad_c [n][3] -> d x_c [n][3] and
+// the scratch
+// ---------------------------------------------------------------------------
+
+inline size_t sdf_tc_smem(const Model& m) {
+  const int P = TC_P_SDF;
+  return TC_RING_BYTES + (size_t)3 * P * tc_ldh(m.sdf) * 2 + (size_t)P * m.es * 2
+         + (size_t)4 * P * m.es * 4 + (size_t)P * 4 * 4 + (size_t)P * 4;
+}
+
+__global__ void __launch_bounds__(NT, 1)
+sdf_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long long n,
+                  const float* __restrict__ xc, const float* __restrict__ g_sdf,
+                  const float* __restrict__ g_feat, const float* __restrict__ g_gc,
+                  float* __restrict__ dxc, const __grid_constant__ TcScratch sv) {
+  constexpr int P = TC_P_SDF, MT = P / 16;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const Net& S = m.sdf;
+  const int es = m.es, F = m.feat_dim, G = 1 + F, ldh = tc_ldh(S);
+  uint4* ring = (uint4*)tc_smem + warp * (TC_STAGES * TC_NPW * 32);
+  bf16* Hh = (bf16*)(tc_smem + TC_RING_BYTES);      // [P][ldh] the operand (hi)
+  bf16* Hm = Hh + P * ldh;                       // [P][ldh] mid and lo terms of a split
+  bf16* Hl = Hm + P * ldh;                       //   float32 operand
+  bf16* E = Hl + P * ldh;                        // [P][es] encoding
+  const bf16* const A1[1] = {Hh};
+  const bf16* const A3[3] = {Hh, Hm, Hl};
+  float* g1 = (float*)(E + P * es);              // [P][es] encoding derivative
+  float* aE = g1 + P * es;                       // [P][es] adjoint on the encoding, then
+                                                 //   d v through g'' (the SIMT's s_dv2)
+  float* daE = aE + P * es;                      // [P][es] cotangent on aE
+  float* de = daE + P * es;                      // [P][es] cotangent on the encoding
+  float* xs = de + P * es;                       // [P][4]
+  float* gs = xs + P * 4;                        // [P] cotangent on sdf
+  const long long base = (long long)blockIdx.x * P;
+  const int np_me = warp * TC_NPW;
+  const int np_hmax = HMAX / 16;                 // pairs in place: the h columns
+
+  for (int idx = tid; idx < 3 * P * ldh; idx += NT) Hh[idx] = bzero();
+  for (int idx = tid; idx < P * 4; idx += NT) {
+    const int p = idx >> 2, c = idx & 3;
+    xs[idx] = c < 3 && in_tile(base, p, n) ? xc[(size_t)(base + p) * 3 + c] : 0.f;
+  }
+  __syncthreads();
+  for (int idx = tid; idx < P * es; idx += NT) {   // field_sdf's encoding
+    const int p = idx / es, c = idx - p * es;
+    int dim, kind; float sc;
+    enc_col(c, 3, dim, kind, sc);
+    const float v = bf16r(xs[p * 4 + dim]) * sc;
+    const float sv_ = sinf(v), cv = cosf(v);
+    E[idx] = __float2bfloat16_rn(kind == 0 ? v : (kind == 1 ? sv_ : cv));
+    g1[idx] = kind == 0 ? 1.f : (kind == 1 ? cv : -sv_);
+    aE[idx] = 0.f;
+  }
+  __syncthreads();
+  put_enc(Hh, ldh, 0, E, es, P, tid);
+  __syncthreads();
+
+  // The split of a float32 operand value into the three terms.
+  auto put_split = [&](int row, int c, float v) {
+    split3_bf16(v, Hh[row * ldh + c], Hm[row * ldh + c], Hl[row * ldh + c]);
+  };
+
+  // ---- forward recompute, hidden layers
+  float acc[MT][2 * TC_NPW][4];
+  for (int l = 0; l < NL - 1; ++l) {
+    const int in_l = S.in_dim[l], out_l = S.out_dim[l];
+    const bool skip = (S.skip_mask >> l) & 1;
+    if (l > 0 && skip) {
+      put_enc(Hh, ldh, in_l - es, E, es, P, tid);
+      __syncthreads();
+    }
+    save_rows<1, P>(sv.xin[l], Hh, ldh, c16(in_l), base, n, tid);
+    const int npw = clampw(c16(out_l) / 16 - np_me);
+    zero_acc(acc);
+    tile_mma<MT, 1>(acc, A1, ldh, (const uint4*)(wts + fr.w[l]), c16(out_l) / 16, np_me, npw, 0,
+                    c16(in_l) / 16, ring, lane);
+    __syncthreads();
+    const float sc = skip ? kInvSqrt2 : 1.f;
+    const float* b = wts + S.b_off[l];
+    for_pairs(acc, np_me, npw, lane, [&](int row, int c, float a0, float a1) {
+      const float z0 = a0 * sc + b[c], z1 = a1 * sc + b[c + 1];   // out_l: a multiple of 16
+      Hh[row * ldh + c] = __float2bfloat16_rn(softplus100(z0));
+      Hh[row * ldh + c + 1] = __float2bfloat16_rn(softplus100(z1));
+      if (base + row < n) *(float2*)(sv.z[l] + (size_t)(base + row) * out_l + c) = make_float2(z0, z1);
+    });
+    __syncthreads();
+  }
+  {
+    const int l = NL - 1, n_in = S.in_dim[l];
+    save_rows<1, P>(sv.xin[l], Hh, ldh, c16(n_in), base, n, tid);
+    __syncthreads();
+    // adjoint seed: the head column gated by the last hidden layer
+    for (int idx = tid; idx < P * n_in; idx += NT) {
+      const int p = idx / n_in, i = idx - p * n_in;
+      float v = 0.f;
+      if (base + p < n)
+        v = wts[m.head_off + i] * sigmoidf_(100.f * sv.z[l - 1][(size_t)(base + p) * n_in + i]);
+      Hh[p * ldh + i] = __float2bfloat16_rn(v);
+    }
+    __syncthreads();
+    save_rows<1, P>(sv.ag[l - 1], Hh, ldh, c16(n_in), base, n, tid);
+  }
+
+  // ---- the SDF adjoint: layers NL-2 .. 0 through W^T; the encoding part of
+  // a layer's input goes to aE, unrounded
+  for (int l = NL - 2; l >= 0; --l) {
+    const int in_l = S.in_dim[l], out_l = S.out_dim[l];
+    const bool skip = (S.skip_mask >> l) & 1;
+    const int n_h = l == 0 ? 0 : (skip ? in_l - es : in_l);
+    const float sc = skip ? kInvSqrt2 : 1.f;
+    const int np_in = c16(in_l) / 16;
+    const uint4* B = (const uint4*)(wts + fr.wt[l]);
+    auto epi = [&](int row, int c, float a0, float a1) {
+      const float v[2] = {a0 * sc, a1 * sc};
+      for (int e = 0; e < 2; ++e) {
+        const int i = c + e;
+        if (i >= in_l) continue;
+        if (i < n_h) {
+          float o = 0.f;
+          if (base + row < n) {
+            const size_t q = (size_t)(base + row) * n_h + i;
+            sv.a[l - 1][q] = v[e];
+            o = v[e] * sigmoidf_(100.f * sv.z[l - 1][q]);
+          }
+          Hh[row * ldh + i] = __float2bfloat16_rn(o);
+        } else {
+          aE[row * es + (i - n_h)] += v[e];
+        }
+      }
+    };
+    // columns past the h part's HMAX (a wide skip input's encoding) first:
+    // they touch only aE, so they need no barrier before the in-place rest
+    const int npx = clampw(np_in - np_hmax - np_me);
+    if (npx > 0) {
+      zero_acc(acc);
+      tile_mma<MT, 1>(acc, A1, ldh, B, np_in, np_hmax + np_me, npx, 0, c16(out_l) / 16, ring,
+                      lane);
+      for_pairs(acc, np_hmax + np_me, npx, lane, epi);
+    }
+    const int npw = clampw(min(np_in, np_hmax) - np_me);
+    zero_acc(acc);
+    tile_mma<MT, 1>(acc, A1, ldh, B, np_in, np_me, npw, 0, c16(out_l) / 16, ring, lane);
+    __syncthreads();
+    for_pairs(acc, np_me, npw, lane, epi);
+    __syncthreads();
+    if (l > 0) save_rows<1, P>(sv.ag[l - 1], Hh, ldh, c16(n_h), base, n, tid);
+  }
+
+  // ---- cotangents in: on aE (through grad_c), the g'' term, sdf and feat
+  for (int idx = tid; idx < P * es; idx += NT) {
+    const int p = idx / es, c = idx - p * es;
+    int dim, kind; float sc;
+    enc_col(c, 3, dim, kind, sc);
+    const float dP = in_tile(base, p, n) ? bf16r(g_gc[(size_t)(base + p) * 3 + dim] * sc) : 0.f;
+    daE[idx] = dP * g1[idx];
+    const float v = bf16r(xs[p * 4 + dim]) * sc;
+    const float g2 = kind == 0 ? 0.f : (kind == 1 ? -sinf(v) : -cosf(v));
+    aE[idx] = dP * aE[idx] * g2;
+    de[idx] = 0.f;
+  }
+  for (int idx = tid; idx < P; idx += NT) gs[idx] = in_tile(base, idx, n) ? g_sdf[base + idx] : 0.f;
+  {
+    const int w = c16(G);
+    for (int idx = tid; idx < P * w; idx += NT) {   // the output layer's cotangent [g_sdf | g_feat]
+      const int p = idx / w, f = idx - p * w;
+      if (base + p >= n) continue;
+      float v = 0.f;
+      if (in_tile(base, p, n) && f < G)
+        v = f == 0 ? g_sdf[base + p] : g_feat[(size_t)(base + p) * F + f - 1];
+      sv.dz[NL - 1][(size_t)(base + p) * w + f] = v;
+    }
+  }
+  __syncthreads();
+
+  // ---- the adjoint walk reversed: layers 0 .. NL-2. Layer l's adjoint dot
+  // a_l <- [da (n_h) | daE (es, at l = 0 and the skips)] W_l: two separately
+  // rounded dots; its output's cotangent dag gives the softplus' second-order
+  // term of dz_l and, gated, the operand of layer l + 1's dot
+  for (int l = 0; l < NL - 1; ++l) {
+    const int in_l = S.in_dim[l], out_l = S.out_dim[l];
+    const bool skip = (S.skip_mask >> l) & 1;
+    const bool sec = l == 0 || skip;
+    const int n_h = l == 0 ? 0 : (skip ? in_l - es : in_l);   // a multiple of 16
+    const int kin = c16(in_l);
+    const float sc = skip ? kInvSqrt2 : 1.f;
+    if (sec) {
+      for (int idx = tid; idx < P * (kin - n_h); idx += NT) {
+        const int p = idx / (kin - n_h), c = idx - p * (kin - n_h);
+        const float v = c < es ? daE[p * es + c] : 0.f;
+        put_split(p, n_h + c, v);
+        if (c < es && base + p < n) sv.da[l][(size_t)(base + p) * kin + n_h + c] = v;
+      }
+      __syncthreads();
+    }
+    const uint4* B = (const uint4*)(wts + fr.w[l]);
+    const int np_out = c16(out_l) / 16, npw = clampw(np_out - np_me);
+    uint32_t r2[MT][2 * TC_NPW][2] = {};       // the encoding dot, rounded (bf16 pairs)
+    if (sec) {
+      zero_acc(acc);
+      tile_mma<MT, 3>(acc, A3, ldh, B, np_out, np_me, npw, n_h / 16, kin / 16, ring, lane);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2 * TC_NPW; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const __nv_bfloat162 v = __floats2bfloat162_rn(acc[mt][nt][2 * h] * sc,
+                                                           acc[mt][nt][2 * h + 1] * sc);
+            r2[mt][nt][h] = *(const uint32_t*)&v;
+          }
+    }
+    zero_acc(acc);
+    if (n_h) tile_mma<MT, 3>(acc, A3, ldh, B, np_out, np_me, npw, 0, n_h / 16, ring, lane);
+    __syncthreads();
+    const bool top = l == NL - 2;
+    const int kn = c16(S.in_dim[l + 1]), kz = c16(out_l);
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2 * TC_NPW; ++nt) {
+        if (nt >= 2 * npw) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = mt * 16 + g + h * 8, c = np_me * 16 + nt * 8 + 2 * t;
+          const __nv_bfloat162 sec2 = *(const __nv_bfloat162*)&r2[mt][nt][h];
+          float dag[2], val[2] = {0.f, 0.f};
+          dag[0] = (n_h ? bf16r(acc[mt][nt][2 * h] * sc) : 0.f)
+                   + (sec ? __low2float(sec2) : 0.f);
+          dag[1] = (n_h ? bf16r(acc[mt][nt][2 * h + 1] * sc) : 0.f)
+                   + (sec ? __high2float(sec2) : 0.f);
+          if (base + row < n) {
+            const size_t rz = (size_t)(base + row) * out_l + c;
+            const float2 z = *(const float2*)(sv.z[l] + rz);
+            const float sig[2] = {sigmoidf_(100.f * z.x), sigmoidf_(100.f * z.y)};
+            float a[2];
+            if (top) {
+              a[0] = wts[m.head_off + c];
+              a[1] = wts[m.head_off + c + 1];
+            } else {
+              const float2 av = *(const float2*)(sv.a[l] + rz);
+              a[0] = av.x; a[1] = av.y;
+            }
+            for (int e = 0; e < 2; ++e) {
+              sv.dz[l][(size_t)(base + row) * kz + c + e] =
+                  dag[e] * a[e] * 100.f * sig[e] * (1.f - sig[e]);
+              val[e] = dag[e] * sig[e];
+            }
+            float* dst = top ? sv.dhead + (size_t)(base + row) * out_l + c
+                             : sv.da[l + 1] + (size_t)(base + row) * kn + c;
+            *(float2*)dst = make_float2(val[0], val[1]);
+          }
+          put_split(row, c, val[0]);
+          put_split(row, c + 1, val[1]);
+        }
+      }
+    __syncthreads();
+  }
+
+  // ---- the primal walk: the output layer (head + feature), then layers
+  // NL-2 .. 0 through W^T
+  {
+    const int l = NL - 1, n_in = S.in_dim[l], kh = c16(G);
+    for (int idx = tid; idx < P * kh; idx += NT) {   // [0 | g_feat]: the feature block's operand
+      const int p = idx / kh, f = idx - p * kh;
+      put_split(p, f, f >= 1 && f < G && in_tile(base, p, n)
+                          ? g_feat[(size_t)(base + p) * F + f - 1] : 0.f);
+    }
+    __syncthreads();
+    const int npw = clampw(c16(n_in) / 16 - np_me);
+    zero_acc(acc);
+    tile_mma<MT, 3>(acc, A3, ldh, (const uint4*)(wts + fr.wt[l]), c16(n_in) / 16, np_me, npw, 0,
+                    kh / 16, ring, lane);
+    __syncthreads();
+    const float* head = wts + S.wt_off[l];       // W^T row 0: the head column
+    const int kz = c16(S.out_dim[l - 1]);
+    for_pairs(acc, np_me, npw, lane, [&](int row, int c, float a0, float a1) {
+      float o[2] = {0.f, 0.f};
+      if (base + row < n) {
+        const float2 z = *(const float2*)(sv.z[l - 1] + (size_t)(base + row) * n_in + c);
+        const float zz[2] = {z.x, z.y}, af[2] = {a0, a1};
+        for (int e = 0; e < 2; ++e) {
+          const float acc_h = fmaf(gs[row], head[c + e], 0.f);
+          float* q = sv.dz[l - 1] + (size_t)(base + row) * kz + c + e;
+          o[e] = (bf16r(acc_h) + bf16r(af[e])) * sigmoidf_(100.f * zz[e]) + *q;
+          *q = o[e];
+        }
+      }
+      put_split(row, c, o[0]);
+      put_split(row, c + 1, o[1]);
+    });
+    __syncthreads();
+  }
+  for (int l = NL - 2; l >= 0; --l) {
+    const int in_l = S.in_dim[l], out_l = S.out_dim[l];
+    const bool skip = (S.skip_mask >> l) & 1;
+    const int n_h = l == 0 ? 0 : (skip ? in_l - es : in_l);
+    const float sc = skip ? kInvSqrt2 : 1.f;
+    const int np_in = c16(in_l) / 16, kz = l > 0 ? c16(S.out_dim[l - 1]) : 0;
+    const uint4* B = (const uint4*)(wts + fr.wt[l]);
+    auto epi = [&](int row, int c, float a0, float a1) {
+      const float v[2] = {bf16r(a0 * sc), bf16r(a1 * sc)};
+      if (c < n_h) {                              // n_h is a multiple of 16: both columns
+        float o[2] = {0.f, 0.f};
+        if (base + row < n) {
+          const size_t q = (size_t)(base + row) * n_h + c;
+          const float2 z = *(const float2*)(sv.z[l - 1] + q);
+          const float zz[2] = {z.x, z.y};
+          for (int e = 0; e < 2; ++e) {
+            float* d = sv.dz[l - 1] + (size_t)(base + row) * kz + c + e;
+            o[e] = v[e] * sigmoidf_(100.f * zz[e]) + *d;
+            *d = o[e];
+          }
+        }
+        put_split(row, c, o[0]);
+        put_split(row, c + 1, o[1]);
+      } else {
+        for (int e = 0; e < 2; ++e)
+          if (c + e < in_l) de[row * es + (c + e - n_h)] += v[e];
+      }
+    };
+    const int npx = clampw(np_in - np_hmax - np_me);
+    if (npx > 0) {
+      zero_acc(acc);
+      tile_mma<MT, 3>(acc, A3, ldh, B, np_in, np_hmax + np_me, npx, 0, c16(out_l) / 16, ring,
+                      lane);
+      for_pairs(acc, np_hmax + np_me, npx, lane, epi);
+    }
+    const int npw = clampw(min(np_in, np_hmax) - np_me);
+    zero_acc(acc);
+    tile_mma<MT, 3>(acc, A3, ldh, B, np_in, np_me, npw, 0, c16(out_l) / 16, ring, lane);
+    __syncthreads();
+    for_pairs(acc, np_me, npw, lane, epi);
+    __syncthreads();
+  }
+
+  // ---- d x_c: through the encoding (g') and grad_c's g'' term
+  for (int idx = tid; idx < P * 3; idx += NT) {
+    const int p = idx / 3, mm = idx - p * 3;
+    float gsum = 0.f;
+    for (int c = 0; c < es; ++c) {
+      int dim, kind; float sc;
+      enc_col(c, 3, dim, kind, sc);
+      if (dim == mm) gsum += (de[p * es + c] * g1[p * es + c] + aE[p * es + c]) * sc;
+    }
+    if (base + p < n) dxc[(size_t)(base + p) * 3 + mm] = bf16r(gsum);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+// Hands out 256-byte aligned slices of one scratch buffer (null base: only counts).
+struct BytePlanner {
+  char* base;
+  long long used = 0;
+  template <class T>
+  T* take(long long count) {
+    used = (used + 255) & ~255LL;
+    T* p = base ? (T*)(base + used) : nullptr;
+    used += count * (long long)sizeof(T);
+    return p;
+  }
+};
+
+template <class T>
+const T* offset(const T* p, long long k) { return p ? p + k : nullptr; }
+
+// The scratch of a bf16 deform (deform) or SDF backward and its
+// weight-gradient jobs (writing into grad at the packed weights' offsets);
+// with null pointers it only counts: *scratch_floats, *partial_floats.
+void plan_bwd_tc(const Model& m, bool deform, long long n, void* scratch, float* grad,
+                 TcScratch& sv, TcJobs& jobs, long long* scratch_floats,
+                 long long* partial_floats) {
+  BytePlanner pl{(char*)scratch};
+  sv = TcScratch{};
+  jobs.w.n_jobs = 0;
+  jobs.w.n_blocks = 0;
+  jobs.n_blocks = 0;
+  long long part = 0;
+  const Net& N = deform ? m.deform : m.sdf;
+  for (int l = 0; l < NL; ++l) {
+    const int in_l = N.in_dim[l], out_l = N.out_dim[l];
+    if (deform) {
+      sv.xin[l] = pl.take<bf16>(4 * n * c16(in_l));
+      if (l < NL - 1) sv.dzb[l] = pl.take<bf16>(4 * n * c16(out_l));
+      else sv.dz[l] = pl.take<float>(4 * n * 4);
+    } else {
+      sv.xin[l] = pl.take<bf16>(n * c16(in_l));
+      sv.dz[l] = pl.take<float>(n * c16(out_l));
+      if (l < NL - 1) {
+        sv.z[l] = pl.take<float>(n * out_l);
+        sv.ag[l] = pl.take<bf16>(n * c16(out_l));
+        sv.da[l] = pl.take<float>(n * c16(in_l));
+        if (l < NL - 2) sv.a[l] = pl.take<float>(n * out_l);
+      }
+    }
+  }
+  if (!deform) sv.dhead = pl.take<float>(n * N.in_dim[NL - 1]);
+  for (int l = 0; l < NL; ++l) {
+    const int in_l = N.in_dim[l], out_l = N.out_dim[l];
+    const int lda = c16(in_l);
+    const float sc = ((N.skip_mask >> l) & 1) ? kInvSqrt2 : 1.f;
+    float* dw = grad ? grad + N.w_off[l] : nullptr;
+    float* db = grad ? grad + N.b_off[l] : nullptr;
+    if (deform) {
+      const bool top = l == NL - 1;
+      const void* B = top ? (const void*)sv.dz[l] : (const void*)sv.dzb[l];
+      const int kb = top ? OP_F32 : OP_BF16, ldb = top ? 4 : c16(out_l);
+      const long long sb = n * ldb;
+      add_tc_job(jobs, part, sv.xin[l], OP_BF16, lda, B, kb, ldb, n, in_l, out_l, sc, 1, dw,
+                 out_l, 0);
+      add_tc_job(jobs, part, nullptr, OP_ONES, 1, B, kb, ldb, n, 1, out_l, 1.f, 0, db, out_l, 0);
+      // the three tangent streams, stacked on the point axis
+      add_tc_job(jobs, part, offset(sv.xin[l], n * lda), OP_BF16, lda,
+                 top ? (const void*)offset(sv.dz[l], sb) : (const void*)offset(sv.dzb[l], sb),
+                 kb, ldb, 3 * n, in_l, out_l, sc, 1, dw, out_l, 1);
+    } else {
+      const int ldz = c16(out_l);
+      add_tc_job(jobs, part, sv.xin[l], OP_BF16, lda, sv.dz[l], OP_F32, ldz, n, in_l, out_l, sc,
+                 1, dw, out_l, 0);
+      add_tc_job(jobs, part, nullptr, OP_ONES, 1, sv.dz[l], OP_F32, ldz, n, 1, out_l, 1.f, 0, db,
+                 out_l, 0);
+      if (l < NL - 1)      // the adjoint's product W^T
+        add_tc_job(jobs, part, sv.da[l], OP_F32, lda, sv.ag[l], OP_BF16, ldz, n, in_l, out_l, sc,
+                   1, dw, out_l, 1);
+      else                 // the adjoint seed: head column
+        add_tc_job(jobs, part, sv.dhead, OP_F32, in_l, nullptr, OP_ONES, 1, n, in_l, 1, 1.f, 0,
+                   dw, out_l, 1);
+    }
+  }
+  if (scratch_floats) *scratch_floats = (pl.used + 3) / 4;
+  if (partial_floats) *partial_floats = part;
+}
+
+cudaError_t launch_deform_bwd_tc(const float* w, const long long* meta, const Model& m,
+                                 long long n, const float* xt, const float* g_xc,
+                                 const float* g_j, float* scratch, float* partial, float* grad,
+                                 cudaStream_t st) {
+  TcScratch sv;
+  TcJobs jobs;
+  plan_bwd_tc(m, true, n, scratch, grad, sv, jobs, nullptr, nullptr);
+  const size_t smem = deform_tc_smem(m);
+  cudaError_t e = cudaFuncSetAttribute(deform_bwd_tc_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const long long tiles = (n + TC_P_DEFORM - 1) / TC_P_DEFORM;
+  deform_bwd_tc_kernel<<<(unsigned)tiles, NT, smem, st>>>(w, m, decode_frags(meta), n, xt, g_xc,
+                                                          g_j, sv);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  return run_wgrad_tc(jobs, partial, st);
+}
+
+cudaError_t launch_sdf_bwd_tc(const float* w, const long long* meta, const Model& m, long long n,
+                              const float* xc, const float* g_sdf, const float* g_feat,
+                              const float* g_gc, float* dxc, float* scratch, float* partial,
+                              float* grad, cudaStream_t st) {
+  TcScratch sv;
+  TcJobs jobs;
+  plan_bwd_tc(m, false, n, scratch, grad, sv, jobs, nullptr, nullptr);
+  const size_t smem = sdf_tc_smem(m);
+  cudaError_t e = cudaFuncSetAttribute(sdf_bwd_tc_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const long long tiles = (n + TC_P_SDF - 1) / TC_P_SDF;
+  sdf_bwd_tc_kernel<<<(unsigned)tiles, NT, smem, st>>>(w, m, decode_frags(meta), n, xc, g_sdf,
+                                                       g_feat, g_gc, dxc, sv);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  return run_wgrad_tc(jobs, partial, st);
+}
+
+}  // namespace

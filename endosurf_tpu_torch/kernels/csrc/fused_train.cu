@@ -40,15 +40,20 @@
 // column are never rounded.
 //
 // What bounds it: the MLP products, about 1.9 TFLOP per 65,536-point train
-// step with the recompute (chip_smoke.py counts them from the shapes). This
-// first version is SIMT float32 FMA throughout, far below the bf16 tensor-core
-// rate; the scratch (the per-layer operands and cotangents, 4.0 GiB for the
+// step with the recompute (chip_smoke.py counts them from the shapes). The
+// kernels below are SIMT float32 FMA, far below the bf16 tensor-core rate;
+// the scratch (the per-layer operands and cotangents, 4.0 GiB float32 for the
 // deform net at 65,536 points) is written once and read once by the product.
+// In the bf16 mode the deform and SDF backward run on tensor cores instead
+// (field_tc.cuh: 64-row tile products on mma.sync, a bf16 scratch where the
+// values are bf16, wgrad_tc.cuh's weight-gradient product); the float32 mode
+// and the other four kernels stay SIMT.
 // The backward recomputes the forward rather than reading a scratch the
 // forward stored: on an H100 the forward kernels are 30 of the segments'
 // 160 ms a step, and storing would hold 8.3 GiB from forward to backward.
 
 #include "field_chain.cuh"
+#include "field_tc.cuh"
 #include "wgrad.cuh"
 
 namespace {
@@ -513,17 +518,25 @@ int tiles(long long n) { return (int)((n + P_FIELD - 1) / P_FIELD); }
 extern "C" {
 
 // The floats of scratch and of partial sums a segment's backward needs for n
-// points: out[0] scratch, out[1] partial.
-void train_bwd_sizes(const long long* meta, int seg, int n, long long* out) {
+// points at the dot precision rb: out[0] scratch, out[1] partial.
+void train_bwd_sizes(const long long* meta, int seg, int rb, int n, long long* out) {
   const Model m = decode_model(meta);
+  if (rb && seg != SEG_COLOR) {
+    TcScratch sv;
+    TcJobs jobs;
+    plan_bwd_tc(m, seg == SEG_DEFORM, n, nullptr, nullptr, sv, jobs, out, out + 1);
+    return;
+  }
   FieldScratch sv;
   WgJobs jobs;
   plan_bwd(m, seg, n, 0, nullptr, nullptr, sv, jobs, out, out + 1);
 }
 
 // Every entry: w packed weights (fused_train_cuda.pack_segment), meta its
-// layout, rb 1 for the bf16-operand mode; tensors float32, contiguous, on the
-// current device; launches on stream. Returns a cudaError_t (0 on success).
+// layout, rb 1 for the bf16-operand mode (then the deform and SDF packs carry
+// the bf16 fragment copies field_tc.cuh reads); tensors float32, contiguous,
+// on the current device; launches on stream. Returns a cudaError_t (0 on
+// success).
 
 int train_deform_fwd(const float* w, const long long* meta, int rb, int n, const float* xt,
                      float* xc, float* jrows, void* stream) {
@@ -585,18 +598,15 @@ int train_deform_bwd(const float* w, const long long* meta, int rb, int n, const
   if (n <= 0) return 0;
   const Model m = decode_model(meta);
   cudaStream_t st = (cudaStream_t)stream;
+  if (rb)
+    return (int)launch_deform_bwd_tc(w, meta, m, n, xt, g_xc, g_j, scratch, partial, grad, st);
   FieldScratch sv;
   WgJobs jobs;
   plan_bwd(m, SEG_DEFORM, n, rb, scratch, grad, sv, jobs, nullptr, nullptr);
   const size_t smem = field_smem_floats(m);
   cudaError_t e;
-  if (rb) {
-    if ((e = prep_smem(deform_bwd_kernel<true>, smem)) != cudaSuccess) return (int)e;
-    deform_bwd_kernel<true><<<tiles(n), NT, smem * 4, st>>>(w, m, n, xt, g_xc, g_j, sv);
-  } else {
-    if ((e = prep_smem(deform_bwd_kernel<false>, smem)) != cudaSuccess) return (int)e;
-    deform_bwd_kernel<false><<<tiles(n), NT, smem * 4, st>>>(w, m, n, xt, g_xc, g_j, sv);
-  }
+  if ((e = prep_smem(deform_bwd_kernel<false>, smem)) != cudaSuccess) return (int)e;
+  deform_bwd_kernel<false><<<tiles(n), NT, smem * 4, st>>>(w, m, n, xt, g_xc, g_j, sv);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   return (int)run_wgrad(jobs, partial, st);
 }
@@ -607,20 +617,17 @@ int train_sdf_bwd(const float* w, const long long* meta, int rb, int n, const fl
   if (n <= 0) return 0;
   const Model m = decode_model(meta);
   cudaStream_t st = (cudaStream_t)stream;
+  if (rb)
+    return (int)launch_sdf_bwd_tc(w, meta, m, n, xc, g_sdf, g_feat, g_gc, dxc, scratch, partial,
+                                  grad, st);
   FieldScratch sv;
   WgJobs jobs;
   plan_bwd(m, SEG_SDF, n, rb, scratch, grad, sv, jobs, nullptr, nullptr);
   const size_t smem = field_smem_floats(m) + sdf_bwd_extra_floats(m);
   cudaError_t e;
-  if (rb) {
-    if ((e = prep_smem(sdf_bwd_kernel<true>, smem)) != cudaSuccess) return (int)e;
-    sdf_bwd_kernel<true><<<tiles(n), NT, smem * 4, st>>>(w, m, n, xc, g_sdf, g_feat, g_gc,
-                                                          dxc, sv);
-  } else {
-    if ((e = prep_smem(sdf_bwd_kernel<false>, smem)) != cudaSuccess) return (int)e;
-    sdf_bwd_kernel<false><<<tiles(n), NT, smem * 4, st>>>(w, m, n, xc, g_sdf, g_feat, g_gc,
-                                                           dxc, sv);
-  }
+  if ((e = prep_smem(sdf_bwd_kernel<false>, smem)) != cudaSuccess) return (int)e;
+  sdf_bwd_kernel<false><<<tiles(n), NT, smem * 4, st>>>(w, m, n, xc, g_sdf, g_feat, g_gc, dxc,
+                                                         sv);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   return (int)run_wgrad(jobs, partial, st);
 }

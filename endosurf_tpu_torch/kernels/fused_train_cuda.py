@@ -10,7 +10,10 @@ and ``torch.autograd.grad`` of them.
   ``fused_train.prepare_effective``, split skips and all) packed into one
   float32 buffer with the meta layout ``csrc/sdf_chain.cuh`` decodes: per
   layer W [in, out], b and W^T. Under ``"default"`` the weights are rounded to
-  bf16 values; biases and the SDF adjoint's head column are not.
+  bf16 values; biases and the SDF adjoint's head column are not. The deform
+  and SDF packs then also carry each layer's W and W^T as bf16 in mma
+  fragment order (``mma_frags``), their offsets appended to the meta: the
+  tensor-core backward of those segments (``csrc/field_tc.cuh``) reads them.
 * ``*_fwd`` / ``*_bwd`` (by segment in ``FWD`` / ``BWD``): the launches. A
   forward returns its outputs as a tuple; a backward returns the gradients
   of the flat effective weights (``fused_train.segment_weights`` order),
@@ -27,6 +30,12 @@ reproduce this: each dot's input cotangent and each dot's weight-gradient sum
 biases and the head column are not. What remains between kernel and plain
 version is the order of float32 sums, and a bf16 rounding that an ulp of it
 tips (PERF.md, PR 3 Findings, has the readings).
+
+In ``"default"`` the deform and SDF backward run on tensor cores
+(``csrc/field_tc.cuh``). A float32 operand of a product that is not a bf16
+value (the SDF's cotangents) goes in as a sum of bf16 terms, three in the
+tile walks and two in the weight-gradient product (``split_bf16_terms``;
+``split_product`` is the plain version of such a product).
 """
 
 from __future__ import annotations
@@ -40,6 +49,9 @@ from endosurf_tpu_torch.kernels.fused_render import META_NET, NL, cuda_spec_supp
 
 SEGMENTS = ("deform", "sdf", "color")
 _SEG_ID = {name: i for i, name in enumerate(SEGMENTS)}
+# segments whose bf16 backward runs on tensor cores (their packs carry mma fragments)
+TC_SEGMENTS = ("deform", "sdf")
+META_LEN = 8 + 3 * META_NET      # csrc/sdf_chain.cuh; the fragment offsets follow
 
 # Launches made through this module, one per segment kernel call (a backward
 # call runs its tile kernel and the weight-gradient product).
@@ -63,6 +75,16 @@ LAUNCHES = {f"{s}_{d}": 0 for s in SEGMENTS for d in ("fwd", "bwd")}
 # (PERF.md, PR 3 Findings): the limits sit between the sound pairs and the
 # wrong-precision controls, about 2x from each where they are closest (the
 # leaves: sound <= 2.4e-3 f32 / 4.4e-3 bf16, the SDF control ~1.9e-2).
+# Re-read for the tensor-core bf16 deform and SDF backward (PERF.md, PR 7;
+# chip_smoke phase 9 both seeds, the card tests, 65,531 ragged points): its
+# float32 sums no longer follow the plain version's k order, as the SIMT FMA
+# chains did (most bf16 readings were exactly 0), so bf16 roundings tip as
+# between any two float32 orders. Sound: SDF d x_c p99 <= 8.0e-3 (the
+# float32 plain version reads 7.6e-3 against a float64 one), max <= 3.9e-2;
+# leaves <= 3.9e-3 deform, 3.3e-3 SDF. Controls: the kernels at the other
+# precision, SDF d x_c p99 >= 1.7e-2, leaves >= 1.8e-2; the planted
+# tensor-core faults, SDF leaf >= 1.15e-2 or d x_c p99 >= 1.5e-2 or the
+# order check >= 7e-2. The limits stay.
 PARITY_TOL = {
     torch.float32: {"out": (1e-5, 1e-4, 0.1), "cot": (1e-4, 5.0), "leaf": 1e-2},
     torch.bfloat16: {"out": (2e-5, 2e-4, 0.1), "cot": (1e-2, 5.0), "leaf": 9e-3},
@@ -100,6 +122,48 @@ def parity_errors(got: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor],
         else:
             res[k] = (p99, mx, p99 <= tol[0] and mx <= tol[1])
     return res
+
+
+def _c16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def mma_frags(b: torch.Tensor) -> torch.Tensor:
+    """B [K, N] (bf16 values) as the tensor-core kernels load an mma B operand
+    (``csrc/mma_tile.cuh``): K and N zero-padded to multiples of 16; per
+    k-tile kt and per pair np of n-tiles, 32 lanes x 8 bf16, lane 4 g + t
+    holding at element 4 q + 2 h + e the value B[16 kt + 8 h + 2 t + e,
+    16 np + 8 q + g]. Returns a flat bfloat16 tensor."""
+    k, n = b.shape
+    kp, np_ = _c16(k), _c16(n)
+    pad = torch.zeros(kp, np_, dtype=torch.bfloat16, device=b.device)
+    pad[:k, :n] = b
+    # (kt, h, t, e, np, q, g) -> (kt, np, g, t, q, h, e)
+    return pad.view(kp // 16, 2, 4, 2, np_ // 16, 2, 8).permute(0, 4, 6, 2, 5, 1, 3).reshape(-1)
+
+
+def split_bf16_terms(x: torch.Tensor, terms: int) -> List[torch.Tensor]:
+    """x (float32) as ``terms`` bf16 values, each the bf16 rounding of what
+    the previous ones left: |x - sum| <= 2^(-8 terms) |x|."""
+    out, rest = [], x
+    for _ in range(terms):
+        out.append(rest.to(torch.bfloat16).to(torch.float32))
+        rest = rest - out[-1]
+    return out
+
+
+def split_product(a: torch.Tensor, b: torch.Tensor, terms: int = 2) -> torch.Tensor:
+    """The plain version of the kernels' product of a float32 operand a
+    [M, K] that is not a bf16 value with bf16 values b [K, N]: the sum of
+    a_i b over the bf16 terms a_i of a (two in the weight-gradient product,
+    three in the tile walks), in float32. Against the exact product each
+    element errs by at most (2^(-8 terms) + terms K 2^-24) (|a| |b|): the
+    split's remainder and the float32 sums."""
+    parts = split_bf16_terms(a, terms)
+    out = parts[0] @ b
+    for p in parts[1:]:
+        out = out + p @ b
+    return out
 
 
 class Packed:
@@ -154,9 +218,10 @@ def pack_segment(spec, seg: str, flat: Sequence[torch.Tensor],
     if i != len(flat) or len(blocks) != NL:
         raise ValueError(f"the CUDA segment kernels take {NL}-layer nets, got {len(blocks)}")
 
-    layers, ins, outs, w_off, b_off, wt_off = [], [], [], [], [], []
+    layers, ins, outs, w_off, b_off, wt_off, mats = [], [], [], [], [], [], []
     for rows, b in blocks:
         w = rnd(torch.cat(rows, dim=0))
+        mats.append(w)
         ins.append(w.shape[0])
         outs.append(w.shape[1])
         w_off.append(put(w))
@@ -171,6 +236,18 @@ def pack_segment(spec, seg: str, flat: Sequence[torch.Tensor],
               spec.sdf_pos_freqs, spec.color_pos_freqs, spec.color_dir_freqs,
               spec.color_feat_dim, head_off]
     meta = header + metas[0] + metas[1] + metas[2]
+    if rb and seg in TC_SEGMENTS:
+        if seg == "sdf" and any(o % 16 for o in outs[:-1]):
+            raise ValueError("the tensor-core SDF backward takes hidden widths that are "
+                             f"multiples of 16, got {outs[:-1]}")
+        offs = {"w": [], "wt": []}
+        for kind in offs:
+            for w in mats:
+                if size[0] % 4:                  # 16-byte aligned fragments
+                    put(torch.zeros(4 - size[0] % 4, device=w.device))
+                f = mma_frags((w if kind == "w" else w.T).to(torch.bfloat16))
+                offs[kind].append(put(f.view(torch.float32)))
+        meta += offs["w"] + offs["wt"]
     buf = torch.cat(chunks).contiguous()
     return Packed(seg, buf, (ctypes.c_longlong * len(meta))(*meta), rb, layers, len(flat))
 
@@ -211,10 +288,59 @@ def _run(fn_name: str, packed: Packed, device, *args) -> None:
                            + lib.fused_render_error_string(err).decode())
 
 
+WG_KC = 4096          # points per chunk of the weight-gradient sums (csrc/wgrad.cuh)
+
+
+def bwd_sizes(packed: Packed, n: int) -> Tuple[int, int]:
+    """(scratch floats, partial-sum floats) of a segment's backward at n
+    points, as csrc's planners lay them out (``train_bwd_sizes``): in the
+    float32 mode (fused_train.cu's plan_bwd) every array float32; in the
+    bf16 mode the deform and SDF (field_tc.cuh's plan_bwd_tc) keep their
+    bf16-exact arrays (operands, the deform's cotangents, the SDF's adjoint
+    operands) in bf16, rows padded to multiples of 16, each array 256-byte
+    aligned. The partial sums are the same in both: chunks x M x N a
+    product."""
+    seg = packed.seg
+    ins = [lay[2] for lay in packed.layers]
+    outs = [lay[3] for lay in packed.layers]
+    c16 = _c16
+    chunks = lambda k: -(-k // WG_KC)           # noqa: E731
+    part = 0
+    for l in range(NL):
+        part += chunks(n) * (ins[l] * outs[l] + outs[l])
+        if seg == "deform":
+            part += chunks(3 * n) * ins[l] * outs[l]
+        elif seg == "sdf":
+            part += chunks(n) * ins[l] * (outs[l] if l < NL - 1 else 1)
+    if not (packed.rb and seg in TC_SEGMENTS):
+        streams = 4 if seg == "deform" else 1
+        floats = sum(streams * n * (ins[l] + outs[l]) for l in range(NL))
+        if seg == "sdf":
+            floats += sum(n * (3 * outs[l] + ins[l]) for l in range(NL - 1)) + n * ins[-1]
+        return floats, part
+    arrays = []                                 # (elements, bytes each), in planner order
+    for l in range(NL):
+        if seg == "deform":
+            arrays.append((4 * n * c16(ins[l]), 2))
+            arrays.append((4 * n * c16(outs[l]), 2) if l < NL - 1 else (4 * n * 4, 4))
+        else:
+            arrays += [(n * c16(ins[l]), 2), (n * c16(outs[l]), 4)]
+            if l < NL - 1:
+                arrays += [(n * outs[l], 4), (n * c16(outs[l]), 2), (n * c16(ins[l]), 4)]
+                if l < NL - 2:
+                    arrays.append((n * outs[l], 4))
+    if seg == "sdf":
+        arrays.append((n * ins[-1], 4))
+    used = 0
+    for count, width in arrays:
+        used = -(-used // 256) * 256 + count * width
+    return -(-used // 4), part
+
+
 def _bwd_buffers(packed: Packed, n: int, device):
     from endosurf_tpu_torch.kernels.build import load_library
     sizes = (ctypes.c_longlong * 2)()
-    load_library().train_bwd_sizes(packed.meta, _SEG_ID[packed.seg], n, sizes)
+    load_library().train_bwd_sizes(packed.meta, _SEG_ID[packed.seg], int(packed.rb), n, sizes)
     scratch = torch.empty(max(sizes[0], 1), dtype=torch.float32, device=device)
     partial = torch.empty(max(sizes[1], 1), dtype=torch.float32, device=device)
     return scratch, partial, torch.empty_like(packed.w)

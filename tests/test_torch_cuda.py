@@ -486,21 +486,115 @@ def test_segment_f32_tails_are_float32_noise(dev):
     assert k_err <= 2 * p_err
 
 
-# Faults planted in csrc/fused_train.cu and in the weight-gradient product it
-# includes (csrc/wgrad.cuh): the file, the text replaced and its replacement.
+@pytest.mark.parametrize("spec", SPECS, ids=SPEC_IDS)
+def test_segment_scratch_sizes_match_the_planner(dev, spec):
+    """fused_train_cuda.bwd_sizes (the CPU tests' mirror) gives the scratch
+    and partial-sum floats of csrc's planners (train_bwd_sizes) for every
+    segment in both dot modes, at point counts around the tiles."""
+    import ctypes
+    from endosurf_tpu_torch.kernels import fused_train as ft
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(0), dev)
+    eff = ft.prepare_effective(spec, params)
+    lib = build.load_library()
+    for seg in ftc.SEGMENTS if spec.use_deform else ("sdf", "color"):
+        like, flat = ft.segment_weights(eff, seg)
+        for precision in ("highest", "default"):
+            packed = ftc.pack_segment(spec, seg, flat, like, precision)
+            for n in (1, 63, 4097, RAGGED_N, 65536):
+                got = (ctypes.c_longlong * 2)()
+                lib.train_bwd_sizes(packed.meta, ftc.SEGMENTS.index(seg), int(packed.rb), n, got)
+                assert tuple(got) == ftc.bwd_sizes(packed, n), (seg, precision, n)
+
+
+def _bf16_plain64(monkeypatch):
+    """The plain version's bf16 operand rounding for float64 tensors (the
+    rounded value stays float64, so the sums run in float64)."""
+    from endosurf_tpu_torch.kernels import fused_train as ft
+    from endosurf_tpu_torch.ops import mlp
+
+    def operand(x, precision):
+        return x.to(torch.bfloat16).to(x.dtype) if precision == "default" else x
+    monkeypatch.setattr(mlp, "operand", operand)
+    monkeypatch.setattr(ft, "operand", operand)
+
+
+@pytest.mark.parametrize("seg", ["deform", "sdf"])
+def test_segment_bf16_tails_are_float32_noise(dev, seg, monkeypatch):
+    """In bf16 the tensor-core deform and SDF backward sit about as far from a
+    float64 plain version (the same bf16 roundings of every dot operand,
+    input cotangent and weight gradient; float64 sums) as the float32 plain
+    version does: both sum in float32, in other orders, and a bf16 rounding
+    that the sums' last bits tip moves a cotangent by a bf16 ulp, which the
+    next layers carry on (the reason for PARITY_TOL's bf16 cot and leaf
+    limits). Against float64: the kernel's worst leaf relative L2 and, for
+    the SDF, its d x_c p99 within 2x the float32 plain version's."""
+    from endosurf_tpu_torch.kernels import fused_train as ft
+    spec = EndoSurfSpec()
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(0), dev)
+    x, d, t = _seg_points(65536, dev)
+    with torch.no_grad():
+        eff = ft.prepare_effective(spec, params)
+        x_c, _ = ft.seg_deform_math(spec, eff["deform"], torch.cat([x, t], -1), "default")
+    inputs = (torch.cat([x, t], -1),) if seg == "deform" else (x_c,)
+    like, flat = ft.segment_weights(eff, seg)
+    with torch.no_grad():
+        outs = ft.seg_math(spec, seg, like, flat, inputs, "default")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cots = tuple(torch.randn(*o.shape, generator=gen, device=dev) for o in outs)
+    kernel = ftc.BWD[seg](ftc.pack_segment(spec, seg, flat, like, "default"), *inputs, *cots)
+    plain = ft.plain_bwd(spec, seg, like, flat, inputs, cots, "default")
+    _bf16_plain64(monkeypatch)
+    ref = ft.plain_bwd(spec, seg, like, [v.double() for v in flat],
+                       [v.double() for v in inputs], [c.double() for c in cots], "default")
+
+    def worst(got):
+        leaf = max(float((g.double() - r).norm() / max(float(r.norm()), 1e-300))
+                   for g, r in zip(got[0], ref[0]))
+        cot = [ftc._quantiles(ftc._point_err(g.double(), r))[1] for g, r in zip(got[1], ref[1])]
+        return leaf, max(cot, default=0.0)
+    (k_leaf, k_cot), (p_leaf, p_cot) = worst(kernel), worst(plain)
+    print(f"{seg} bf16 vs float64: kernel leaf {k_leaf:.3e} cot p99 {k_cot:.3e}; float32 plain "
+          f"leaf {p_leaf:.3e} cot p99 {p_cot:.3e}")
+    assert k_leaf <= 2 * p_leaf and k_cot <= 2 * p_cot
+
+
+# Faults planted in the segment kernels: per fault, one (file, text replaced,
+# replacement) for each code path it lands in, and the dot modes that must
+# catch it. The first three land in the float32 mode's SIMT kernels
+# (fused_train.cu, wgrad.cuh) and in the bf16 mode's tensor-core ones
+# (field_tc.cuh, wgrad_tc.cuh); the last three are faults of the tensor-core
+# design (mma_tile.cuh, field_tc.cuh), which only the bf16 mode runs.
+BOTH, BF16 = ("highest", "default"), ("default",)
 SEG_FAULTS = {
-    "sdf_bwd_no_softplus2": (
-        "fused_train.cu",
-        "        sv.dz[l][row] = dag * sv.a[l][row] * 100.f * sig * (1.f - sig);",
-        "        sv.dz[l][row] = 0.f;"),
-    "wgrad_skips_last_partial_tile": (
-        "wgrad.cuh",
-        "  for (int k = k0; k < k1; k += 16) {",
-        "  for (int k = k0; k + 16 <= k1; k += 16) {"),
-    "deform_bwd_drops_tangent_2": (
-        "fused_train.cu",
-        "          base + p < n ? g_j[(size_t)(base + p) * 9 + k * 3 + c] : 0.f;",
-        "          base + p < n && k != 2 ? g_j[(size_t)(base + p) * 9 + k * 3 + c] : 0.f;"),
+    "sdf_bwd_no_softplus2": ([
+        ("fused_train.cu",
+         "        sv.dz[l][row] = dag * sv.a[l][row] * 100.f * sig * (1.f - sig);",
+         "        sv.dz[l][row] = 0.f;"),
+        ("field_tc.cuh", "dag[e] * a[e] * 100.f * sig[e] * (1.f - sig[e]);", "0.f;")], BOTH),
+    "wgrad_skips_last_partial_tile": ([
+        ("wgrad.cuh", "  for (int k = k0; k < k1; k += 16) {",
+         "  for (int k = k0; k + 16 <= k1; k += 16) {"),
+        ("wgrad_tc.cuh", "  for (long long k = k0; k < k1; k += TC_KS) {",
+         "  for (long long k = k0; k + TC_KS <= k1; k += TC_KS) {")], BOTH),
+    "deform_bwd_drops_tangent_2": ([
+        ("fused_train.cu",
+         "          base + p < n ? g_j[(size_t)(base + p) * 9 + k * 3 + c] : 0.f;",
+         "          base + p < n && k != 2 ? g_j[(size_t)(base + p) * 9 + k * 3 + c] : 0.f;"),
+        ("field_tc.cuh", "                 : g_j[(size_t)(base + p) * 9 + (s - 1) * 3 + c];",
+         "                 : (s == 3 ? 0.f : g_j[(size_t)(base + p) * 9 + (s - 1) * 3 + c]);")],
+        BOTH),
+    # a float32 operand's split keeps only its bf16 rounding (hi)
+    "split_drops_lo": ([
+        ("mma_tile.cuh", "  lo = __float2bfloat16_rn(x - __bfloat162float(hi));",
+         "  lo = __float2bfloat16_rn(0.f);"),
+        ("mma_tile.cuh", "  const float r = x - __bfloat162float(hi);", "  const float r = 0.f;")],
+        BF16),
+    # the tile product skips each product's last k-slab of weights
+    "tile_skips_last_k_slab": ([
+        ("mma_tile.cuh", "kt < kt1; ++kt,", "kt + 1 < kt1; ++kt,")], BF16),
+    # the last, partial point tile takes one point fewer: that point's inputs read as zeros
+    "ragged_tile_one_row_short": ([
+        ("field_tc.cuh", "  return base + p < n;", "  return base + p + 1 < n;")], BF16),
 }
 
 
@@ -508,22 +602,13 @@ SEG_FAULTS = {
 def test_segment_limits_catch_planted_faults(dev, fault, tmp_path, monkeypatch):
     """A segment kernel built with a planted fault fails the limits (parity
     with the plain versions, or the order check) at the ragged point count,
-    in each dot mode."""
-    if shutil.which("nvcc") is None and not osp.exists("/usr/local/cuda/bin/nvcc"):
-        pytest.skip("needs nvcc")
-    name, old, new = SEG_FAULTS[fault]
-    src = tmp_path / "csrc"
-    shutil.copytree(build.CSRC, src)
-    text = (src / name).read_text()
-    assert text.count(old) == 1
-    (src / name).write_text(text.replace(old, new))
-    monkeypatch.setattr(build, "CSRC", src)
-    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
-    monkeypatch.setattr(build, "_LIB", None)
+    in each dot mode whose kernels the fault reaches."""
+    edits, precisions = SEG_FAULTS[fault]
+    _rebuild_with_all(monkeypatch, tmp_path, edits)
     spec = EndoSurfSpec()
     params = init_endosurf_params(spec, torch.Generator().manual_seed(0), dev)
     pts = _seg_points(RAGGED_N, dev)
-    for precision in ("highest", "default"):
+    for precision in precisions:
         res, _, _ = ftc.segment_parity(spec, params, *pts, precision, 0)
         _, rel = _order_errors(spec, params, pts, precision)
         print(f"{fault} {precision}: parity worst {_worst(res)}; order worst "
@@ -582,13 +667,20 @@ def _sdf_points(n: int, dev, seed: int = 0):
 
 def _rebuild_with(monkeypatch, tmp_path, name: str, old: str, new: str) -> None:
     """Point build.py at a copy of csrc/ with ``old`` replaced in ``name``."""
+    _rebuild_with_all(monkeypatch, tmp_path, [(name, old, new)])
+
+
+def _rebuild_with_all(monkeypatch, tmp_path, edits) -> None:
+    """Point build.py at a copy of csrc/ with each (name, old, new) of
+    ``edits`` applied: ``old`` (found once) replaced in file ``name``."""
     if shutil.which("nvcc") is None and not osp.exists("/usr/local/cuda/bin/nvcc"):
         pytest.skip("needs nvcc")
     src = tmp_path / "csrc"
     shutil.copytree(build.CSRC, src)
-    text = (src / name).read_text()
-    assert text.count(old) == 1
-    (src / name).write_text(text.replace(old, new))
+    for name, old, new in edits:
+        text = (src / name).read_text()
+        assert text.count(old) == 1, (name, old)
+        (src / name).write_text(text.replace(old, new))
     monkeypatch.setattr(build, "CSRC", src)
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
     monkeypatch.setattr(build, "_LIB", None)

@@ -1,0 +1,180 @@
+"""The host side of the tensor-core (bf16 mode) deform and SDF backward, on the
+CPU: the bf16 fragment copies ``fused_train_cuda.pack_segment`` writes, the
+float32 packing it leaves as it was, the scratch sizes of both modes
+(``bwd_sizes``, which the card test ``test_segment_scratch_sizes_match_the_planner``
+holds against csrc's planners) and the plain version of the split product
+(``split_product``) against a float64 product.
+
+Weights come from a seeded init, points from numpy seeds; tolerances are
+stated per test.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from endosurf_tpu_torch.kernels import fused_train as ft
+from endosurf_tpu_torch.kernels import fused_train_cuda as ftc
+from endosurf_tpu_torch.kernels.fused_render import NL
+from endosurf_tpu_torch.models.fields import EndoSurfSpec, MLPSpec, init_endosurf_params
+
+NARROW = EndoSurfSpec(deform=MLPSpec(9, 64, (4,), 3), sdf=MLPSpec(9, 64, (4,), 65),
+                      color=MLPSpec(9, 64, (4,), 3), color_feat_dim=64)
+SPECS = {"narrow": NARROW, "full": EndoSurfSpec()}
+
+
+def _segment(spec, seg):
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(0), "cpu")
+    with torch.no_grad():
+        eff = ft.prepare_effective(spec, params)
+    return ft.segment_weights(eff, seg)
+
+
+def _unfrag(frag: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """The [K, N] matrix whose mma B fragments ``frag`` holds, read element by
+    element from the layout: lane 4 g + t of the (kt, np) block, element
+    4 q + 2 h + e, is B[16 kt + 8 h + 2 t + e, 16 np + 8 q + g]."""
+    kp, np_ = -(-k // 16) * 16, -(-n // 16) * 16
+    assert frag.numel() == kp * np_
+    idx = torch.arange(kp * np_)
+    el, lane, blk = idx % 8, (idx // 8) % 32, idx // 256
+    kt, npair = blk // (np_ // 16), blk % (np_ // 16)
+    g, t = lane // 4, lane % 4
+    q, h, e = el // 4, (el // 2) % 2, el % 2
+    out = torch.empty(kp, np_, dtype=frag.dtype)
+    out[16 * kt + 8 * h + 2 * t + e, 16 * npair + 8 * q + g] = frag
+    return out
+
+
+@pytest.mark.parametrize("spec_id", sorted(SPECS))
+@pytest.mark.parametrize("seg", ftc.TC_SEGMENTS)
+def test_pack_segment_bf16_fragments(seg, spec_id):
+    """In the bf16 mode the deform and SDF packs end with every layer's W and
+    W^T as bf16 mma fragments, at the (16-byte aligned) float offsets the
+    meta appends after its first META_LEN entries: bit for bit the bf16 of
+    the packed (bf16-rounded) float32 weights, zeros in the padding."""
+    like, flat = _segment(SPECS[spec_id], seg)
+    packed = ftc.pack_segment(SPECS[spec_id], seg, flat, like, "default")
+    meta = list(packed.meta)
+    assert len(meta) == ftc.META_LEN + 2 * NL
+    as_bf16 = packed.w.view(torch.bfloat16)
+    for l, (w_off, _, n_in, n_out, _) in enumerate(packed.layers):
+        w = packed.w[w_off:w_off + n_in * n_out].view(n_in, n_out)
+        assert torch.equal(w.to(torch.bfloat16).to(torch.float32), w)
+        for mat, off in ((w, meta[ftc.META_LEN + l]), (w.T, meta[ftc.META_LEN + NL + l])):
+            k, n = mat.shape
+            assert off % 4 == 0
+            size = -(-k // 16) * 16 * (-(-n // 16) * 16)
+            got = _unfrag(as_bf16[2 * off:2 * off + size], k, n)
+            assert torch.equal(got[:k, :n].view(torch.int16),
+                               mat.to(torch.bfloat16).contiguous().view(torch.int16))
+            assert not got[k:].any() and not got[:, n:].any()
+
+
+@pytest.mark.parametrize("spec_id", sorted(SPECS))
+@pytest.mark.parametrize("seg", ftc.SEGMENTS)
+def test_pack_segment_float32_layout_unchanged(seg, spec_id):
+    """Without the fragments the packing is the float32 layout the other
+    kernels read: per layer W [in, out] (row blocks stacked), b, W^T, then
+    the SDF head column; in the float32 mode exactly that and the meta's
+    META_LEN entries, in the bf16 mode the same with W rounded to bf16 (the
+    colour pack, whose backward stays SIMT, gets no fragments)."""
+    spec = SPECS[spec_id]
+    like, flat = _segment(spec, seg)
+    for precision in ("highest", "default"):
+        packed = ftc.pack_segment(spec, seg, flat, like, precision)
+        rnd = (lambda v: v.to(torch.bfloat16).to(torch.float32)) if precision == "default" \
+            else (lambda v: v)
+        blocks, i = [], 0
+        for lay in like:
+            n_rows = int("wh" in lay) + len(lay.get("wsec", [])) + int("w" in lay)
+            blocks.append((torch.cat(flat[i:i + n_rows], 0), flat[i + n_rows]))
+            i += n_rows + 1
+        if seg == "sdf":
+            hw, hb, fw, fb = flat[i:i + 4]
+            blocks.append((torch.cat([hw, fw], 1), torch.cat([hb, fb])))
+        want = [t for w, b in blocks for t in (rnd(w).reshape(-1), b, rnd(w).T.reshape(-1))]
+        if seg == "sdf":
+            want.append(hw[:, 0])
+        want = torch.cat(want)
+        assert torch.equal(packed.w[:want.numel()], want)
+        frags = precision == "default" and seg in ftc.TC_SEGMENTS
+        assert len(packed.meta) == ftc.META_LEN + (2 * NL if frags else 0)
+        if not frags:
+            assert packed.w.numel() == want.numel()
+
+
+def test_bwd_sizes_halve_the_deform_scratch():
+    """At the train step's 65,536 points: in the bf16 mode the deform
+    backward's scratch is about half its float32 size (every array but the
+    3-wide output layer's cotangent is bf16), the SDF's smaller, the colour's
+    unchanged; the partial sums are the same. So the step's peak (the largest
+    scratch: the float32 deform's) does not grow."""
+    spec = EndoSurfSpec()
+    sizes = {}
+    for seg in ftc.SEGMENTS:
+        like, flat = _segment(spec, seg)
+        for precision in ("highest", "default"):
+            packed = ftc.pack_segment(spec, seg, flat, like, precision)
+            sizes[seg, precision] = ftc.bwd_sizes(packed, 65536)
+    for seg in ftc.SEGMENTS:
+        assert sizes[seg, "default"][1] == sizes[seg, "highest"][1]
+    ratio = sizes["deform", "default"][0] / sizes["deform", "highest"][0]
+    assert 0.49 < ratio < 0.51, ratio
+    assert sizes["sdf", "default"][0] < sizes["sdf", "highest"][0]
+    assert sizes["color", "default"] == sizes["color", "highest"]
+    assert max(sizes[s, "default"][0] for s in ftc.SEGMENTS) <= \
+        max(sizes[s, "highest"][0] for s in ftc.SEGMENTS)
+    # the float32 deform scratch: 4 streams x (operands + cotangents) x 4 bytes
+    like, flat = _segment(spec, "deform")
+    packed = ftc.pack_segment(spec, "deform", flat, like, "highest")
+    widths = sum(lay[2] + lay[3] for lay in packed.layers)
+    assert sizes["deform", "highest"][0] == 4 * 65536 * widths
+
+
+def _sdf_dz(layer: int):
+    """The SDF segment's cotangent on layer ``layer``'s pre-activation per
+    point, from the plain backward (bf16 mode, narrow spec, 512 numpy-seeded
+    points, normal cotangents): the gradient of a per-point copy of the
+    layer's bias."""
+    like, flat = _segment(NARROW, "sdf")
+    rng = np.random.default_rng(7)
+    x_c = torch.from_numpy(rng.uniform(-0.8, 0.8, (512, 3)).astype(np.float32))
+    names = ftc.leaf_names(like, "sdf")
+    bi = names.index(f"{layer}.b")
+    flat = list(flat)
+    flat[bi] = flat[bi].expand(512, -1).clone()
+    with torch.no_grad():
+        outs = ft.seg_math(NARROW, "sdf", like, flat, (x_c,), "default")
+    cots = [torch.from_numpy(rng.standard_normal(o.shape).astype(np.float32)) for o in outs]
+    grads, _ = ft.plain_bwd(NARROW, "sdf", like, flat, (x_c,), cots, "default")
+    wt = flat[names.index(f"{layer}.w")].T                       # W^T [out, in]
+    return grads[bi], wt.to(torch.bfloat16).to(torch.float32)
+
+
+@pytest.mark.parametrize("layer", [3, 7])
+def test_split_product_error_bound(layer):
+    """The plain version of the kernels' split product (a float32 operand as a
+    sum of bf16 terms times bf16 weights), on the SDF primal walk's operands
+    dz_l W_l^T from the plain backward, against the float64 product: per
+    element |got - exact| <= (2^(-8 terms) + terms K 2^-24) (|dz| |W^T|), the
+    split's remainder and the float32 sums, for two and three terms; the
+    operand rounded once to bf16 (one term) misses the two-term bound."""
+    dz, wt = _sdf_dz(layer)
+    assert not torch.equal(dz, dz.to(torch.bfloat16).to(torch.float32))   # not bf16 values
+    k = dz.shape[1]
+    exact = dz.double() @ wt.double()
+    scale = dz.double().abs() @ wt.double().abs()
+    ratio = {}
+    for terms in (1, 2, 3):
+        parts = ftc.split_bf16_terms(dz, terms)
+        rest = (dz.double() - sum(p.double() for p in parts)).abs()
+        assert bool((rest <= 2.0 ** (-8 * terms) * dz.double().abs()).all())
+        err = (ftc.split_product(dz, wt, terms).double() - exact).abs()
+        ratio[terms] = float((err / scale).max())
+    bound = {t: 2.0 ** (-8 * t) + t * k * 2.0 ** -24 for t in (1, 2, 3)}
+    print(f"layer {layer}: max |err| / (|dz| |W^T|) one term {ratio[1]:.3e}, two "
+          f"{ratio[2]:.3e} (bound {bound[2]:.3e}), three {ratio[3]:.3e} "
+          f"(bound {bound[3]:.3e})")
+    assert ratio[2] <= bound[2] and ratio[3] <= bound[3]
+    assert ratio[1] > bound[2]

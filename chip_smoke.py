@@ -39,7 +39,8 @@ Phases (any failure raises and exits non-zero):
      (sample_train_batch, then fused_upsample_z), both dot modes, two weight
      seeds (the second on the first 16,384 points): per-point median, p99
      and max of every output and input cotangent, relative L2 of every
-     parameter gradient, with seeded random cotangents, at
+     parameter gradient and, apart, of the output layers' bias gradients,
+     with seeded random cotangents, at
      fused_train_cuda.PARITY_TOL, the wrong-precision controls failing;
  10. the whole train step with the segment kernels against one with the
      plain field path (fields.plain_point_eval put in place of
@@ -48,7 +49,8 @@ Phases (any failure raises and exits non-zero):
      precision as the control that must fail;
  11. segment timing: each kernel vs its plain version at 65,536 points in
      bf16, beside its bound from the parameter shapes, with its TFLOP/s (in
-     bf16 deform_bwd and sdf_bwd run on tensor cores, csrc/field_tc.cuh);
+     bf16 deform_fwd and the three backward kernels run on tensor cores,
+     csrc/field_tc.cuh);
  12. grid-query parity: the CUDA fused_sdf_observed against its plain
      version (fields.sdf_observed) on one 64x128x128 slab (1,048,576 points)
      of the synthetic scene's frame-0 grid (its bbox x 1.2) and on 8192
@@ -171,8 +173,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 UPSAMPLE_KERNELS = ("sweep_kernel", "draw_kernel", "merge_kernel", "upsample_prep_kernel")
 SEGMENT_KERNELS = ("deform_fwd_kernel", "sdf_fwd_kernel", "color_fwd_kernel", "deform_bwd_kernel",
                    "sdf_bwd_kernel", "color_bwd_kernel", "wgrad_partial_kernel",
-                   "wgrad_reduce_kernel", "deform_bwd_tc_kernel", "sdf_bwd_tc_kernel",
-                   "wgrad_tc_partial_kernel")
+                   "wgrad_reduce_kernel", "deform_fwd_tc_kernel", "deform_bwd_tc_kernel",
+                   "sdf_bwd_tc_kernel", "color_bwd_tc_kernel", "wgrad_tc_partial_kernel")
 N_PARITY_SEED1 = 16384                         # points of the second weight seed's parity
 # train step with the segment kernels vs the plain field path (phase 10):
 # (metric relative difference, per-network gradient relative L2) per dot
@@ -421,7 +423,7 @@ def print_segment_readings(res, what: str, dtype) -> None:
             stats = list(zip(*[v[:-1] for v in vals.values()]))
             worst = [max(zip(col, vals), key=lambda cv: cv[0]) for col in stats]
             label = {"out": ("median", "p99", "max"), "cot": ("p99", "max"),
-                     "leaf": ("rel L2",)}[kind]
+                     "leaf": ("rel L2",), "bias": ("rel L2",)}[kind]
             tols = tol if isinstance(tol, tuple) else (tol,)
             print(f"segment {what} {seg} {kind}: " + ", ".join(
                 f"{lab} {v:.3e} ({name}; tol {t:g})"
@@ -1917,11 +1919,11 @@ def main() -> int:
          "launches": seg_launches[k], "max_abs_err": seg_abs[k],
          "ms": seg_times[k][0], "plain_ms": seg_times[k][1],
          "bound_ms": seg_bounds[k][0], "bound_by": seg_bounds[k][1], "library_ms": None}
-        for k, line, src in (("deform_fwd", 204, "fused_train.cu"),
-                             ("deform_bwd", 217, "field_tc.cuh"),   # bf16: tensor cores
+        for k, line, src in (("deform_fwd", 204, "field_tc.cuh"),   # bf16: tensor cores
+                             ("deform_bwd", 217, "field_tc.cuh"),
                              ("sdf_fwd", 238, "fused_train.cu"), ("sdf_bwd", 258, "field_tc.cuh"),
                              ("color_fwd", 284, "fused_train.cu"),
-                             ("color_bwd", 298, "fused_train.cu"))] + [
+                             ("color_bwd", 298, "field_tc.cuh"))] + [
         {"name": k, "route": "cuda", "source": f"endosurf_tpu_torch/kernels/csrc/{src}",
          "replaces": f"endosurf_tpu/kernels/{rep}", "launches": n_launch, "max_abs_err": err,
          "ms": new_times[k][0], "plain_ms": new_times[k][1], "bound_ms": new_times[k][2],

@@ -1,34 +1,38 @@
-// The bf16 ("default" dot mode, rb) backward of the deform and SDF train
-// segments on Hopper's tensor cores: deform_bwd_tc_kernel and
-// sdf_bwd_tc_kernel, launched by fused_train.cu's train_deform_bwd /
-// train_sdf_bwd for rb = 1 in place of the SIMT deform_bwd_kernel /
-// sdf_bwd_kernel (which the float32 mode keeps), and the weight-gradient
-// product of wgrad_tc.cuh.
+// The bf16 ("default" dot mode, rb) train segments on Hopper's tensor cores:
+// the deform forward (deform_fwd_tc_kernel) and the three backward kernels
+// (deform_bwd_tc_kernel, sdf_bwd_tc_kernel, color_bwd_tc_kernel), launched by
+// fused_train.cu's train_deform_fwd / train_*_bwd for rb = 1 in place of the
+// SIMT kernels (which the float32 mode keeps), and the weight-gradient product
+// of wgrad_tc.cuh. The SDF and colour forward stay SIMT in both modes.
 //
-// Replaces, with fused_train.cu, the Pallas kernels deform_bwd and sdf_bwd of
-// endosurf_tpu/kernels/fused_train_pallas.py (_seg_pallas): there the weights
-// stay in VMEM and blocks of >= 128 points stream through the MXU. Here a
-// block of NT threads owns a tile of 64 rows (deform: 16 points x the primal
-// and three tangent streams, row 16 s + p; SDF: 64 points), recomputes the
-// forward and walks the layers back as 64-row tile products on mma.sync
+// Replaces, with fused_train.cu, the Pallas kernels deform_fwd, deform_bwd,
+// sdf_bwd and color_bwd of endosurf_tpu/kernels/fused_train_pallas.py
+// (_seg_pallas): there the weights stay in VMEM and blocks of >= 128 points
+// stream through the MXU. Here a block of NT threads owns a tile of rows
+// (deform: 16 points x the primal and three tangent streams, row 16 s + p;
+// SDF and colour: 64 points),
+// runs the forward and walks the layers back as tile products on mma.sync
 // (mma_tile.cuh): the rows' operand in shared memory as bf16, the weights
 // streaming from L2 in fragment order through a per-warp cp.async ring, each
-// warp owning 32 output columns for all 64 rows. What is not a 256-wide
-// product stays SIMT in the same kernel: the encodings, the deform net's
-// 3-wide output layer and its cotangent, the head column, the gates, the
-// softplus' second-order term and the d x_c tail. Each layer's (operand,
-// cotangent) pairs go to a global scratch and wgrad_tc.cuh's product sums
-// them over the points.
+// warp owning 32 output columns for all the rows; a product wider than the
+// 256 columns the warps own (the colour's 352-wide input layer and 608-wide
+// skip layer, the SDF's 295-wide skip layer) takes one pass per group of 256
+// columns. What is not a 256-wide product stays SIMT in the same kernel: the
+// encodings, the 3-wide output layers of the deform and colour nets and their
+// cotangents, the head column, the gates, the softplus' second-order term and
+// the input-cotangent tails. Each layer's (operand, cotangent) pairs go to a
+// global scratch and wgrad_tc.cuh's product sums them over the points.
 //
 // The same maths as the SIMT kernels, operation for operation, except that
 // the float32 sums of the products run in the mma's order. bf16-exactness of
 // each product's operands (every weight is a bf16 value, packed by
 // pack_segment):
-//   deform: every operand (layer inputs op(h), op(encoding), tangent
-//     seeds; the cotangents op(acc * sc) leaving each dot) is a bf16 value.
-//     The incoming cotangents on x_c and the rows are float32, but they only
-//     meet the 3-wide output layer, which stays SIMT; its weight gradient
-//     takes them as float32 (split) operands.
+//   deform and colour: every operand (layer inputs op(h), op(encoding), the
+//     tangent seeds, the colour input; the cotangents op(acc * sc) leaving
+//     each dot) is a bf16 value. The cotangents on the 3-wide output (x_c
+//     and the rows; g_color rgb (1 - rgb)) are float32, but they only meet
+//     the output layer, which stays SIMT; its weight gradient takes them as
+//     float32 (split) operands.
 //   SDF: the forward's operands (op(softplus), op(encoding)) and the adjoint's
 //     op(a sigma) are bf16 values. Float32 and not bf16 values, so split
 //     (mma_tile.cuh): the adjoint walk's cotangent dag * sigma (a sum of two
@@ -39,17 +43,17 @@
 //     adjoint-dot cotangents da, as hi + lo (<= 2^-16), against the bf16
 //     xin / ag.
 //
-// What bounds it: the products, 0.709 (deform) and 0.403 (SDF) TFLOP at
-// 65,536 points with the weight gradients (chip_smoke.py counts them), 0.72
-// and 0.41 ms at the bf16 tensor-core rate; the SDF's split operands take
-// three mma for each of its walks' products and two for its weight
-// gradients. Bytes: the scratch, bf16 where exact (2.0 GiB for the deform at
-// 65,536 points, half its float32 size), written once and read about once by
-// the weight-gradient product. On an H100 (PERF.md, PR 7) the deform
-// backward takes 7.2 ms (98 TFLOP/s) and the SDF's 12.9 ms (31 TFLOP/s),
-// against 59.2 and 44.5 ms for the SIMT kernels; mma.sync, one SDF block per
-// SM (199 KB of shared memory) and the L2-fed weight fragments leave both
-// far from the bound.
+// What bounds it: the products, 0.241 (deform forward), 0.709 (deform
+// backward), 0.403 (SDF) and 0.251 (colour backward) TFLOP at 65,536 points
+// with the weight gradients (chip_smoke.py counts them), 0.24, 0.72, 0.41 and
+// 0.25 ms at the bf16 tensor-core rate; the SDF's split operands take three
+// mma for each of its walks' products and two for its weight gradients.
+// Bytes: the backward scratch, bf16 where exact (2.0 GiB for the deform and
+// 0.6 GiB for the colour at 65,536 points, half their float32 size), written
+// once and read about once by the weight-gradient product; the forward stores
+// none. mma.sync, one block per SM where the shared memory is large (SDF and
+// colour ~200 KB) and the L2-fed weight fragments leave the kernels far from
+// the bound (PERF.md has the times on an H100).
 //
 // Anonymous namespace: one copy per .cu, as sdf_chain.cuh.
 
@@ -58,21 +62,28 @@
 #include "field_chain.cuh"
 #include "wgrad_tc.cuh"
 
-#define TC_P_DEFORM 16   // points per deform tile (x 4 streams = 64 rows)
+#define TC_P_DEFORM 16   // points per deform backward tile (x 4 streams = 64 rows)
+#define TC_P_DFWD 16     // points per deform forward tile: 16 (64 rows) ran 1.41-1.43 ms at
+                         // 65,536 points, 32 (128 rows, one block an SM) 1.92-1.95 ms
+                         // (tools/time_deform_fwd_tile.py on an H100; PERF.md)
 #define TC_P_SDF 64      // points per SDF tile
+#define TC_P_COLOR 64    // points per colour tile
 
 static_assert(TC_WARPS * 32 == NT, "a warp owns 32 of the tile's 256 output columns");
 
 namespace {
 
+enum Seg { SEG_DEFORM = 0, SEG_SDF = 1, SEG_COLOR = 2 };
+
 // Global scratch of a tensor-core backward (rows indexed by point; the deform
-// net's arrays hold 4 streams, stream-major: [4][n][width]); widths padded to
-// c16 where the row is a product operand.
+// net's arrays hold S = 4 streams, stream-major: [S][n][width], the others
+// S = 1); widths padded to c16 where the row is a product operand.
 struct TcScratch {
-  bf16* xin[NL];    // layer l's dot operands [h_{l-1} | encoding] [n][c16(in_l)]
-  bf16* dzb[NL];    // deform: cotangent on layer l's pre-activation [4][n][c16(out_l)], l < NL-1
+  bf16* xin[NL];    // layer l's dot operands [h_{l-1} | encoding] [S][n][c16(in_l)]
+  bf16* dzb[NL];    // deform, colour: cotangent on layer l's pre-activation
+                    //   [S][n][c16(out_l)], l < NL-1
   bf16* ag[NL];     // sdf: adjoint dot operand op(a_l sigma_l) [n][c16(out_l)], l < NL-1
-  float* dz[NL];    // deform: layer NL-1's [4][n][4]; sdf: every layer's [n][c16(out_l)]
+  float* dz[NL];    // deform, colour: layer NL-1's [S][n][4]; sdf: every layer's [n][c16(out_l)]
   float* z[NL];     // sdf: pre-activations [n][out_l], l < NL-1
   float* a[NL];     // sdf: ungated adjoint reaching layer l's output [n][out_l], l < NL-2
                     //   (layer NL-2's is the head column)
@@ -159,38 +170,70 @@ __device__ __forceinline__ void for_pairs(const float (&acc)[MT][2 * TC_NPW][4],
 __device__ __forceinline__ int clampw(int x) { return x < 0 ? 0 : (x > TC_NPW ? TC_NPW : x); }
 
 // ---------------------------------------------------------------------------
-// deform: cotangents on x_c [n][3] and the rows [n][3][3] -> the scratch
+// deform: the tile's forward (shared by the forward kernel and the backward's
+// recompute), the forward kernel (x_c and the rows), the backward
 // ---------------------------------------------------------------------------
 
-inline size_t deform_tc_smem(const Model& m) {
-  const int P = TC_P_DEFORM, R = 4 * P;
-  return TC_RING_BYTES + (size_t)R * tc_ldh(m.deform) * 2 + (size_t)R * m.ed * 2
-         + (size_t)(NL - 1) * P * (HMAX / 32) * 4 + (size_t)P * 4 * 4 + (size_t)R * 3 * 4;
+// Shared memory of a deform tile of P points x 4 streams (row s P + p), after
+// the weight ring: the layer's operand H [4P][ldh] and the encoding and
+// tangent seeds E [4P][ed] (bf16), x [P][4]; the backward adds the relu' of
+// each hidden output as bits [NL-1][P][HMAX / 32] and the output layer's
+// cotangent [4P][3] (float32).
+struct DeformTile {
+  bf16* H;
+  bf16* E;
+  float* xs;
+  uint32_t* gbit;
+  float* dz8;
+};
+
+template <int P>
+inline size_t deform_tc_smem(const Model& m, bool bwd) {
+  const int R = 4 * P;
+  size_t b = TC_RING_BYTES + (size_t)R * tc_ldh(m.deform) * 2 + (size_t)R * m.ed * 2
+             + (size_t)P * 4 * 4;
+  if (bwd) b += (size_t)(NL - 1) * P * (HMAX / 32) * 4 + (size_t)R * 3 * 4;
+  return b;
 }
 
-__global__ void __launch_bounds__(NT, 2)
-deform_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long long n,
-                     const float* __restrict__ xt, const float* __restrict__ g_xc,
-                     const float* __restrict__ g_j, const __grid_constant__ TcScratch sv) {
-  constexpr int P = TC_P_DEFORM, R = 4 * P, MT = R / 16, WB = HMAX / 32;
-  extern __shared__ __align__(16) unsigned char tc_smem[];
+template <int P>
+__device__ __forceinline__ DeformTile deform_tile(unsigned char* smem, const Model& m) {
+  DeformTile s;
+  s.H = (bf16*)(smem + TC_RING_BYTES);
+  s.E = s.H + 4 * P * tc_ldh(m.deform);
+  s.xs = (float*)(s.E + 4 * P * m.ed);
+  s.gbit = (uint32_t*)(s.xs + P * 4);
+  s.dz8 = (float*)(s.gbit + (NL - 1) * P * (HMAX / 32));
+  return s;
+}
+
+// The deform net's forward on the tile of P points at base, primal and three
+// tangent streams (field_deform's arithmetic, the products on tensor cores):
+// the encoding and tangent seeds, layers 0 .. NL-2 as tile products, the bf16
+// primal and the tangents gated by its relu'. Leaves in s.H the output
+// layer's operand rows (h_{NL-2} of each stream). With SAVE each layer's
+// operand rows go to sv.xin and the relu' of each hidden output to s.gbit.
+// The forward kernel and the backward's recompute both run it, so the forward
+// the loss sees is the one the backward differentiates, bit for bit.
+template <int P, bool SAVE>
+__device__ __forceinline__ void deform_tc_forward(const float* __restrict__ wts, const Model& m,
+                                                  const TcFrags& fr, long long n, long long base,
+                                                  const float* __restrict__ xt,
+                                                  const DeformTile& s, uint4* ring,
+                                                  const TcScratch& sv) {
+  constexpr int R = 4 * P, MT = R / 16, MS = P / 16, WB = HMAX / 32;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const Net& N = m.deform;
   const int ed = m.ed, ldh = tc_ldh(N);
-  uint4* ring = (uint4*)tc_smem + warp * (TC_STAGES * TC_NPW * 32);
-  bf16* H = (bf16*)(tc_smem + TC_RING_BYTES);       // [R][ldh] the layer's operand
+  bf16* H = s.H;
+  bf16* E = s.E;
   const bf16* const A1[1] = {H};
-  bf16* E = H + R * ldh;                         // [R][ed] encoding + tangent seeds
-  uint32_t* gbit = (uint32_t*)(E + R * ed);      // [NL-1][P][WB] relu' of each hidden output
-  float* xs = (float*)(gbit + (NL - 1) * P * WB);   // [P][4]
-  float* dz8 = xs + P * 4;                       // [R][3] the output layer's cotangent
-  const long long base = (long long)blockIdx.x * P;
   const int np_me = warp * TC_NPW;               // the warp's columns: 32 warp ..
 
   for (int idx = tid; idx < R * ldh; idx += NT) H[idx] = bzero();
   for (int idx = tid; idx < P * 4; idx += NT)
-    xs[idx] = in_tile(base, idx >> 2, n) ? xt[(size_t)base * 4 + idx] : 0.f;
+    s.xs[idx] = in_tile(base, idx >> 2, n) ? xt[(size_t)base * 4 + idx] : 0.f;
   __syncthreads();
   const int ex = enc_width(3, m.f_dpos);
   for (int idx = tid; idx < P * ed; idx += NT) {   // field_deform's encoding
@@ -198,7 +241,7 @@ deform_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long lo
     int dim, kind; float sc;
     if (c < ex) enc_col(c, 3, dim, kind, sc);
     else { enc_col(c - ex, 1, dim, kind, sc); dim = 3; }
-    const float v = bf16r(xs[p * 4 + dim]) * sc;
+    const float v = bf16r(s.xs[p * 4 + dim]) * sc;
     const float sv_ = sinf(v), cv = cosf(v);
     const float e = kind == 0 ? v : (kind == 1 ? sv_ : cv);
     const float g1 = kind == 0 ? 1.f : (kind == 1 ? cv : -sv_);
@@ -210,7 +253,6 @@ deform_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long lo
   put_enc(H, ldh, 0, E, ed, R, tid);
   __syncthreads();
 
-  // ---- forward recompute, layers 0 .. NL-2 (the output layer needs only its input)
   float acc[MT][2 * TC_NPW][4];
   for (int l = 0; l < NL - 1; ++l) {
     const int in_l = N.in_dim[l], out_l = N.out_dim[l];
@@ -219,48 +261,116 @@ deform_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long lo
       put_enc(H, ldh, in_l - ed, E, ed, R, tid);
       __syncthreads();
     }
-    save_rows<4, P>(sv.xin[l], H, ldh, c16(in_l), base, n, tid);
+    if (SAVE) save_rows<4, P>(sv.xin[l], H, ldh, c16(in_l), base, n, tid);
     const int np_out = c16(out_l) / 16, npw = clampw(np_out - np_me);
     zero_acc(acc);
     tile_mma<MT, 1>(acc, A1, ldh, (const uint4*)(wts + fr.w[l]), np_out, np_me, npw, 0,
                     c16(in_l) / 16, ring, lane);
     __syncthreads();
-    // m-tile s holds stream s, so a thread holds the primal and the three
-    // tangents of the same (point, neuron)
+    // m-tiles MS s .. MS s + MS - 1 hold stream s, so a thread holds the
+    // primal and the three tangents of the same (point, neuron)
     const float sc = skip ? kInvSqrt2 : 1.f;
-    uint32_t bits[2] = {0u, 0u};                 // points g, g + 8
+    uint32_t bits[MS][2] = {};                   // points 16 h + g, 16 h + g + 8
 #pragma unroll
     for (int nt = 0; nt < 2 * TC_NPW; ++nt) {
       if (nt >= 2 * npw) continue;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int p = g + (e >> 1) * 8, cl = nt * 8 + 2 * t + (e & 1), c = np_me * 16 + cl;
-        if (c >= out_l) {
-          for (int s = 0; s < 4; ++s) H[(s * P + p) * ldh + c] = bzero();
-          continue;
-        }
-        const float z = acc[0][nt][e] * sc + wts[N.b_off[l] + c];
-        const float gate = z > 0.f ? 1.f : 0.f;
-        const bf16 h = __float2bfloat16_rn(fmaxf(z, 0.f));
-        H[p * ldh + c] = h;
 #pragma unroll
-        for (int k = 1; k < 4; ++k)
-          H[(k * P + p) * ldh + c] = __float2bfloat16_rn(acc[k][nt][e] * sc * gate);
-        if (__bfloat162float(h) > 0.f) bits[e >> 1] |= 1u << cl;
+        for (int h = 0; h < MS; ++h) {
+          const int p = h * 16 + g + (e >> 1) * 8, cl = nt * 8 + 2 * t + (e & 1);
+          const int c = np_me * 16 + cl;
+          if (c >= out_l) {
+            for (int st = 0; st < 4; ++st) H[(st * P + p) * ldh + c] = bzero();
+            continue;
+          }
+          const float z = acc[h][nt][e] * sc + wts[N.b_off[l] + c];
+          const float gate = z > 0.f ? 1.f : 0.f;
+          const bf16 hv = __float2bfloat16_rn(fmaxf(z, 0.f));
+          H[p * ldh + c] = hv;
+#pragma unroll
+          for (int k = 1; k < 4; ++k)
+            H[(k * P + p) * ldh + c] = __float2bfloat16_rn(acc[k * MS + h][nt][e] * sc * gate);
+          if (SAVE && __bfloat162float(hv) > 0.f) bits[h][e >> 1] |= 1u << cl;
+        }
       }
     }
+    if (SAVE) {
 #pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      bits[0] |= __shfl_xor_sync(0xffffffffu, bits[0], o);
-      bits[1] |= __shfl_xor_sync(0xffffffffu, bits[1], o);
-    }
-    if (t == 0 && warp < WB) {
-      gbit[(l * P + g) * WB + warp] = bits[0];
-      gbit[(l * P + g + 8) * WB + warp] = bits[1];
+      for (int h = 0; h < MS; ++h) {
+#pragma unroll
+        for (int o = 1; o < 4; o <<= 1) {
+          bits[h][0] |= __shfl_xor_sync(0xffffffffu, bits[h][0], o);
+          bits[h][1] |= __shfl_xor_sync(0xffffffffu, bits[h][1], o);
+        }
+        if (t == 0 && warp < WB) {
+          s.gbit[(l * P + h * 16 + g) * WB + warp] = bits[h][0];
+          s.gbit[(l * P + h * 16 + g + 8) * WB + warp] = bits[h][1];
+        }
+      }
     }
     __syncthreads();
   }
-  save_rows<4, P>(sv.xin[NL - 1], H, ldh, c16(N.in_dim[NL - 1]), base, n, tid);
+  if (SAVE) save_rows<4, P>(sv.xin[NL - 1], H, ldh, c16(N.in_dim[NL - 1]), base, n, tid);
+}
+
+// xt [n][4] -> x_c [n][3], jrows [n][3][3]: the tile's forward, then the
+// 3-wide output layer in SIMT from the bf16 last hidden rows, each output an
+// FMA chain in k order as field_deform's (x_c = x + z, row k = e_k + the
+// tangent's output).
+template <int P>
+__global__ void __launch_bounds__(NT, P <= 16 ? 2 : 1)
+deform_fwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long long n,
+                     const float* __restrict__ xt, float* __restrict__ xc,
+                     float* __restrict__ jrows) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const Net& N = m.deform;
+  const int ldh = tc_ldh(N);
+  uint4* ring = (uint4*)tc_smem + warp * (TC_STAGES * TC_NPW * 32);
+  const DeformTile s = deform_tile<P>(tc_smem, m);
+  const long long base = (long long)blockIdx.x * P;
+  deform_tc_forward<P, false>(wts, m, fr, n, base, xt, s, ring, TcScratch{});
+
+  const int l = NL - 1, in_l = N.in_dim[l], out_l = N.out_dim[l];   // out_l == 3
+  const float sc = ((N.skip_mask >> l) & 1) ? kInvSqrt2 : 1.f;
+  const float* W = wts + N.w_off[l];             // [in][out]
+  for (int idx = tid; idx < 4 * P * 3; idx += NT) {
+    const int r = idx / 3, c = idx - r * 3, st = r / P, p = r - st * P;
+    if (base + p >= n) continue;
+    float a = 0.f;
+    for (int k = 0; k < in_l; ++k)
+      a = fmaf(__bfloat162float(s.H[r * ldh + k]), __ldg(W + (size_t)k * out_l + c), a);
+    if (st == 0)
+      xc[(size_t)(base + p) * 3 + c] = s.xs[p * 4 + c] + (a * sc + wts[N.b_off[l] + c]);
+    else
+      jrows[(size_t)(base + p) * 9 + (st - 1) * 3 + c] = (st - 1 == c ? 1.f : 0.f) + a * sc;
+  }
+}
+
+// Cotangents on x_c [n][3] and the rows [n][3][3] -> the scratch.
+__global__ void __launch_bounds__(NT, 2)
+deform_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long long n,
+                     const float* __restrict__ xt, const float* __restrict__ g_xc,
+                     const float* __restrict__ g_j, const __grid_constant__ TcScratch sv) {
+  constexpr int P = TC_P_DEFORM, R = 4 * P, MT = R / 16, WB = HMAX / 32;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const Net& N = m.deform;
+  const int ed = m.ed, ldh = tc_ldh(N);
+  uint4* ring = (uint4*)tc_smem + warp * (TC_STAGES * TC_NPW * 32);
+  const DeformTile tile = deform_tile<P>(tc_smem, m);
+  bf16* H = tile.H;                              // [R][ldh] the layer's operand
+  const bf16* const A1[1] = {H};
+  uint32_t* gbit = tile.gbit;                    // [NL-1][P][WB] relu' of each hidden output
+  float* dz8 = tile.dz8;                         // [R][3] the output layer's cotangent
+  const long long base = (long long)blockIdx.x * P;
+  const int np_me = warp * TC_NPW;
+
+  // ---- forward recompute, layers 0 .. NL-2 (the output layer needs only its input)
+  deform_tc_forward<P, true>(wts, m, fr, n, base, xt, tile, ring, sv);
+  float acc[MT][2 * TC_NPW][4];
 
   // ---- backward: the output layer (3 wide, SIMT), float32 cotangents
   for (int idx = tid; idx < R * 4; idx += NT) {
@@ -673,6 +783,241 @@ sdf_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long long 
 }
 
 // ---------------------------------------------------------------------------
+// colour: cotangent on color [n][3] -> d x_c, d grad_c, d d_c [n][3],
+// d feat [n][F] and the scratch
+// ---------------------------------------------------------------------------
+
+// Shared memory after the weight ring: the layer's operand H [P][ldh] and the
+// colour input E [P][ci] (bf16), the relu' bits [NL-1][P][HMAX / 32], x_c,
+// d_c and the output layer's cotangent [P][4] each, and the cotangent on the
+// colour input's first three sections [P][cp + 3 + cr] (float32).
+inline size_t color_tc_smem(const Model& m) {
+  const int P = TC_P_COLOR;
+  return TC_RING_BYTES + (size_t)P * tc_ldh(m.color) * 2 + (size_t)P * m.ci * 2
+         + (size_t)(NL - 1) * P * (HMAX / 32) * 4 + (size_t)3 * P * 4 * 4
+         + (size_t)P * (m.cp + 3 + m.cr) * 4;
+}
+
+__global__ void __launch_bounds__(NT, 1)
+color_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long long n,
+                    const float* __restrict__ xc, const float* __restrict__ gc,
+                    const float* __restrict__ dc, const float* __restrict__ feat,
+                    const float* __restrict__ g_color, float* __restrict__ dxc,
+                    float* __restrict__ dgc, float* __restrict__ ddc,
+                    float* __restrict__ dfeat, const __grid_constant__ TcScratch sv) {
+  constexpr int P = TC_P_COLOR, MT = P / 16, WB = HMAX / 32, NPG = HMAX / 16;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const Net& C = m.color;
+  const int ci = m.ci, cp = m.cp, cr = m.cr, F = m.feat_dim, nd = cp + 3 + cr;
+  const int ldh = tc_ldh(C);
+  uint4* ring = (uint4*)tc_smem + warp * (TC_STAGES * TC_NPW * 32);
+  bf16* H = (bf16*)(tc_smem + TC_RING_BYTES);      // [P][ldh] the layer's operand / cotangent
+  const bf16* const A1[1] = {H};
+  bf16* E = H + P * ldh;                         // [P][ci] the colour input; in the walk the
+                                                 //   cotangent the skip layer sends it
+  uint32_t* gbit = (uint32_t*)(E + P * ci);      // [NL-1][P][WB] relu' of each hidden output
+  float* xs = (float*)(gbit + (NL - 1) * P * WB);   // [P][4] x_c
+  float* ds = xs + P * 4;                        // [P][4] d_c
+  float* dz8 = ds + P * 4;                       // [P][4] the output layer's cotangent
+  float* Dc = dz8 + P * 4;                       // [P][nd] cotangent on enc(x_c), grad_c, enc(d_c)
+  const long long base = (long long)blockIdx.x * P;
+  const int np_me = warp * TC_NPW;
+  auto gate = [&](int l, int p, int i) {        // relu' of layer l's output i at point p
+    return (gbit[(l * P + p) * WB + (i >> 5)] >> (i & 31)) & 1u;
+  };
+
+  for (int idx = tid; idx < P * ldh; idx += NT) H[idx] = bzero();
+  for (int idx = tid; idx < P * 4; idx += NT) {
+    const int p = idx >> 2, c = idx & 3;
+    const bool in = c < 3 && in_tile(base, p, n);
+    xs[idx] = in ? xc[(size_t)(base + p) * 3 + c] : 0.f;
+    ds[idx] = in ? dc[(size_t)(base + p) * 3 + c] : 0.f;
+  }
+  __syncthreads();
+  for (int idx = tid; idx < P * ci; idx += NT) {   // field_color's input, feat as loaded
+    const int p = idx / ci, c = idx - p * ci;
+    float val;
+    if (c < cp || (c >= cp + 3 && c < nd)) {
+      const bool pos = c < cp;
+      int dim, kind; float sc;
+      enc_col(pos ? c : c - cp - 3, 3, dim, kind, sc);
+      const float v = bf16r((pos ? xs : ds)[p * 4 + dim]) * sc;
+      val = kind == 0 ? v : (kind == 1 ? sinf(v) : cosf(v));
+    } else if (c < cp + 3) {
+      val = in_tile(base, p, n) ? gc[(size_t)(base + p) * 3 + c - cp] : 0.f;
+    } else {
+      val = in_tile(base, p, n) ? feat[(size_t)(base + p) * F + c - nd] : 0.f;
+    }
+    E[idx] = __float2bfloat16_rn(val);
+  }
+  __syncthreads();
+  put_enc(H, ldh, 0, E, ci, P, tid);
+  __syncthreads();
+
+  // ---- forward recompute, hidden layers
+  float acc[MT][2 * TC_NPW][4];
+  for (int l = 0; l < NL - 1; ++l) {
+    const int in_l = C.in_dim[l], out_l = C.out_dim[l];
+    const bool skip = (C.skip_mask >> l) & 1;
+    if (l > 0 && skip) {
+      put_enc(H, ldh, in_l - ci, E, ci, P, tid);
+      __syncthreads();
+    }
+    save_rows<1, P>(sv.xin[l], H, ldh, c16(in_l), base, n, tid);
+    const int np_out = c16(out_l) / 16, npw = clampw(np_out - np_me);
+    zero_acc(acc);
+    tile_mma<MT, 1>(acc, A1, ldh, (const uint4*)(wts + fr.w[l]), np_out, np_me, npw, 0,
+                    c16(in_l) / 16, ring, lane);
+    __syncthreads();
+    const float sc = skip ? kInvSqrt2 : 1.f;
+    const float* b = wts + C.b_off[l];
+    uint32_t bits[MT][2] = {};                   // rows 16 mt + g, 16 mt + g + 8
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2 * TC_NPW; ++nt) {
+        if (nt >= 2 * npw) continue;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = mt * 16 + g + (e >> 1) * 8, cl = nt * 8 + 2 * t + (e & 1);
+          const int c = np_me * 16 + cl;
+          bf16 hv = bzero();
+          if (c < out_l) {
+            hv = __float2bfloat16_rn(fmaxf(acc[mt][nt][e] * sc + b[c], 0.f));
+            if (__bfloat162float(hv) > 0.f) bits[mt][e >> 1] |= 1u << cl;
+          }
+          H[row * ldh + c] = hv;
+        }
+      }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        bits[mt][0] |= __shfl_xor_sync(0xffffffffu, bits[mt][0], o);
+        bits[mt][1] |= __shfl_xor_sync(0xffffffffu, bits[mt][1], o);
+      }
+      if (t == 0 && warp < WB) {
+        gbit[(l * P + mt * 16 + g) * WB + warp] = bits[mt][0];
+        gbit[(l * P + mt * 16 + g + 8) * WB + warp] = bits[mt][1];
+      }
+    }
+    __syncthreads();
+  }
+  save_rows<1, P>(sv.xin[NL - 1], H, ldh, c16(C.in_dim[NL - 1]), base, n, tid);
+
+  // ---- the output layer (3 wide, SIMT): rgb, an FMA chain in k order as
+  // field_color's; its float32 cotangent g_color rgb (1 - rgb)
+  {
+    const int l = NL - 1, in_l = C.in_dim[l], out_l = C.out_dim[l];   // out_l == 3
+    const float sc = ((C.skip_mask >> l) & 1) ? kInvSqrt2 : 1.f;
+    const float* W = wts + C.w_off[l];           // [in][out]
+    for (int idx = tid; idx < P * 4; idx += NT) {
+      const int p = idx >> 2, c = idx & 3;
+      float v = 0.f;
+      if (c < out_l && in_tile(base, p, n)) {
+        float a = 0.f;
+        for (int k = 0; k < in_l; ++k)
+          a = fmaf(__bfloat162float(H[p * ldh + k]), __ldg(W + (size_t)k * out_l + c), a);
+        const float rgb = sigmoidf_(a * sc + wts[C.b_off[l] + c]);
+        v = g_color[(size_t)(base + p) * 3 + c] * rgb * (1.f - rgb);
+      }
+      dz8[idx] = v;
+      if (base + p < n) sv.dz[NL - 1][(size_t)(base + p) * 4 + c] = v;
+    }
+  }
+  __syncthreads();
+  // its product through W^T (3 -> in), gated by the last hidden layer's relu'
+  {
+    const int l = NL - 1, in_l = C.in_dim[l], out_l = C.out_dim[l], w = c16(in_l);
+    const float sc = ((C.skip_mask >> l) & 1) ? kInvSqrt2 : 1.f;
+    const float* W = wts + C.w_off[l];
+    for (int idx = tid; idx < P * w; idx += NT) {
+      const int p = idx / w, i = idx - p * w;
+      bf16 v = bzero();
+      if (i < in_l && gate(l - 1, p, i)) {
+        float a = 0.f;
+        for (int j = 0; j < out_l; ++j) a = fmaf(dz8[p * 4 + j], W[(size_t)i * out_l + j], a);
+        v = __float2bfloat16_rn(a * sc);
+      }
+      H[p * ldh + i] = v;
+    }
+  }
+  __syncthreads();
+
+  // ---- hidden layers NL-2 .. 0 through W^T. Each input column's cotangent
+  // op(acc sc) goes to the h part (gated, in place) or to the colour input:
+  // the skip layer's into E, then layer 0's added to it in float32, as the
+  // SIMT kernel's s_dcin. The inputs wider than the 256 columns the warps own
+  // in one pass take more passes, one per group of 16 column pairs: those
+  // past the h part first (they never touch H, so they need no barrier), the
+  // group with the h part last, written in place after a barrier.
+  for (int l = NL - 2; l >= 0; --l) {
+    const int in_l = C.in_dim[l], out_l = C.out_dim[l];
+    const bool skip = (C.skip_mask >> l) & 1;
+    const int n_h = l == 0 ? 0 : (skip ? in_l - ci : in_l);
+    const float sc = skip ? kInvSqrt2 : 1.f;
+    const int np_in = c16(in_l) / 16, kt1 = c16(out_l) / 16;
+    const uint4* B = (const uint4*)(wts + fr.wt[l]);
+    save_rows<1, P>(sv.dzb[l], H, ldh, c16(out_l), base, n, tid);
+    auto epi = [&](int row, int c, float a0, float a1) {
+      const float a[2] = {a0, a1};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = c + e;
+        const float v = bf16r(a[e] * sc);
+        if (l > 0 && i < HMAX)
+          H[row * ldh + i] = i < n_h && gate(l - 1, row, i) ? __float2bfloat16_rn(v) : bzero();
+        const int j = i - n_h;                   // the colour input's column
+        if (j < 0 || j >= ci) continue;
+        if (l > 0) E[row * ci + j] = __float2bfloat16_rn(v);
+        else if (j < nd) Dc[row * nd + j] = __bfloat162float(E[row * ci + j]) + v;
+        else if (base + row < n)
+          dfeat[(size_t)(base + row) * F + j - nd] = __bfloat162float(E[row * ci + j]) + v;
+      }
+    };
+    for (int gr = (np_in - 1) / NPG; gr >= 1; --gr) {
+      const int np0 = gr * NPG + np_me, npw = clampw(np_in - np0);
+      zero_acc(acc);
+      tile_mma<MT, 1>(acc, A1, ldh, B, np_in, np0, npw, 0, kt1, ring, lane);
+      for_pairs(acc, np0, npw, lane, epi);
+    }
+    const int npw = clampw(min(np_in, NPG) - np_me);
+    zero_acc(acc);
+    tile_mma<MT, 1>(acc, A1, ldh, B, np_in, np_me, npw, 0, kt1, ring, lane);
+    __syncthreads();
+    for_pairs(acc, np_me, npw, lane, epi);
+    __syncthreads();
+  }
+
+  // ---- the sections of the colour input: [enc(x_c), grad_c, enc(d_c), feat]
+  for (int idx = tid; idx < P * 3; idx += NT) {
+    const int p = idx / 3, mm = idx - p * 3;
+    float gx = 0.f, gd = 0.f;
+    for (int c = 0; c < cp; ++c) {
+      int dim, kind; float sc;
+      enc_col(c, 3, dim, kind, sc);
+      if (dim != mm) continue;
+      const float v = bf16r(xs[p * 4 + mm]) * sc;
+      gx += Dc[p * nd + c] * (kind == 0 ? 1.f : (kind == 1 ? cosf(v) : -sinf(v))) * sc;
+    }
+    for (int c = 0; c < cr; ++c) {
+      int dim, kind; float sc;
+      enc_col(c, 3, dim, kind, sc);
+      if (dim != mm) continue;
+      const float v = bf16r(ds[p * 4 + mm]) * sc;
+      gd += Dc[p * nd + cp + 3 + c] * (kind == 0 ? 1.f : (kind == 1 ? cosf(v) : -sinf(v))) * sc;
+    }
+    if (base + p < n) {
+      dxc[(size_t)(base + p) * 3 + mm] = bf16r(gx);
+      ddc[(size_t)(base + p) * 3 + mm] = bf16r(gd);
+      dgc[(size_t)(base + p) * 3 + mm] = Dc[p * nd + cp + mm];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -692,10 +1037,10 @@ struct BytePlanner {
 template <class T>
 const T* offset(const T* p, long long k) { return p ? p + k : nullptr; }
 
-// The scratch of a bf16 deform (deform) or SDF backward and its
-// weight-gradient jobs (writing into grad at the packed weights' offsets);
-// with null pointers it only counts: *scratch_floats, *partial_floats.
-void plan_bwd_tc(const Model& m, bool deform, long long n, void* scratch, float* grad,
+// The scratch of a segment's bf16 backward and its weight-gradient jobs
+// (writing into grad at the packed weights' offsets); with null pointers it
+// only counts: *scratch_floats, *partial_floats.
+void plan_bwd_tc(const Model& m, int seg, long long n, void* scratch, float* grad,
                  TcScratch& sv, TcJobs& jobs, long long* scratch_floats,
                  long long* partial_floats) {
   BytePlanner pl{(char*)scratch};
@@ -704,13 +1049,14 @@ void plan_bwd_tc(const Model& m, bool deform, long long n, void* scratch, float*
   jobs.w.n_blocks = 0;
   jobs.n_blocks = 0;
   long long part = 0;
-  const Net& N = deform ? m.deform : m.sdf;
+  const Net& N = seg == SEG_DEFORM ? m.deform : (seg == SEG_SDF ? m.sdf : m.color);
+  const long long S = seg == SEG_DEFORM ? 4 : 1;     // streams, stacked on the point axis
   for (int l = 0; l < NL; ++l) {
     const int in_l = N.in_dim[l], out_l = N.out_dim[l];
-    if (deform) {
-      sv.xin[l] = pl.take<bf16>(4 * n * c16(in_l));
-      if (l < NL - 1) sv.dzb[l] = pl.take<bf16>(4 * n * c16(out_l));
-      else sv.dz[l] = pl.take<float>(4 * n * 4);
+    if (seg != SEG_SDF) {
+      sv.xin[l] = pl.take<bf16>(S * n * c16(in_l));
+      if (l < NL - 1) sv.dzb[l] = pl.take<bf16>(S * n * c16(out_l));
+      else sv.dz[l] = pl.take<float>(S * n * 4);
     } else {
       sv.xin[l] = pl.take<bf16>(n * c16(in_l));
       sv.dz[l] = pl.take<float>(n * c16(out_l));
@@ -722,14 +1068,15 @@ void plan_bwd_tc(const Model& m, bool deform, long long n, void* scratch, float*
       }
     }
   }
-  if (!deform) sv.dhead = pl.take<float>(n * N.in_dim[NL - 1]);
+  if (seg == SEG_SDF) sv.dhead = pl.take<float>(n * N.in_dim[NL - 1]);
   for (int l = 0; l < NL; ++l) {
     const int in_l = N.in_dim[l], out_l = N.out_dim[l];
     const int lda = c16(in_l);
     const float sc = ((N.skip_mask >> l) & 1) ? kInvSqrt2 : 1.f;
     float* dw = grad ? grad + N.w_off[l] : nullptr;
     float* db = grad ? grad + N.b_off[l] : nullptr;
-    if (deform) {
+    if (seg != SEG_SDF) {
+      // the output layer's cotangent is float32 (split in the product), the others bf16
       const bool top = l == NL - 1;
       const void* B = top ? (const void*)sv.dz[l] : (const void*)sv.dzb[l];
       const int kb = top ? OP_F32 : OP_BF16, ldb = top ? 4 : c16(out_l);
@@ -737,10 +1084,10 @@ void plan_bwd_tc(const Model& m, bool deform, long long n, void* scratch, float*
       add_tc_job(jobs, part, sv.xin[l], OP_BF16, lda, B, kb, ldb, n, in_l, out_l, sc, 1, dw,
                  out_l, 0);
       add_tc_job(jobs, part, nullptr, OP_ONES, 1, B, kb, ldb, n, 1, out_l, 1.f, 0, db, out_l, 0);
-      // the three tangent streams, stacked on the point axis
-      add_tc_job(jobs, part, offset(sv.xin[l], n * lda), OP_BF16, lda,
-                 top ? (const void*)offset(sv.dz[l], sb) : (const void*)offset(sv.dzb[l], sb),
-                 kb, ldb, 3 * n, in_l, out_l, sc, 1, dw, out_l, 1);
+      if (seg == SEG_DEFORM)   // the three tangent streams, stacked on the point axis
+        add_tc_job(jobs, part, offset(sv.xin[l], n * lda), OP_BF16, lda,
+                   top ? (const void*)offset(sv.dz[l], sb) : (const void*)offset(sv.dzb[l], sb),
+                   kb, ldb, 3 * n, in_l, out_l, sc, 1, dw, out_l, 1);
     } else {
       const int ldz = c16(out_l);
       add_tc_job(jobs, part, sv.xin[l], OP_BF16, lda, sv.dz[l], OP_F32, ldz, n, in_l, out_l, sc,
@@ -759,20 +1106,37 @@ void plan_bwd_tc(const Model& m, bool deform, long long n, void* scratch, float*
   if (partial_floats) *partial_floats = part;
 }
 
+template <class K>
+cudaError_t set_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// blocks of p points that cover n
+unsigned n_tiles(long long n, int p) { return (unsigned)((n + p - 1) / p); }
+
+cudaError_t launch_deform_fwd_tc(const float* w, const long long* meta, const Model& m,
+                                 long long n, const float* xt, float* xc, float* jrows,
+                                 cudaStream_t st) {
+  const size_t smem = deform_tc_smem<TC_P_DFWD>(m, false);
+  cudaError_t e = set_smem(deform_fwd_tc_kernel<TC_P_DFWD>, smem);
+  if (e != cudaSuccess) return e;
+  deform_fwd_tc_kernel<TC_P_DFWD><<<n_tiles(n, TC_P_DFWD), NT, smem, st>>>(
+      w, m, decode_frags(meta), n, xt, xc, jrows);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_deform_bwd_tc(const float* w, const long long* meta, const Model& m,
                                  long long n, const float* xt, const float* g_xc,
                                  const float* g_j, float* scratch, float* partial, float* grad,
                                  cudaStream_t st) {
   TcScratch sv;
   TcJobs jobs;
-  plan_bwd_tc(m, true, n, scratch, grad, sv, jobs, nullptr, nullptr);
-  const size_t smem = deform_tc_smem(m);
-  cudaError_t e = cudaFuncSetAttribute(deform_bwd_tc_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  plan_bwd_tc(m, SEG_DEFORM, n, scratch, grad, sv, jobs, nullptr, nullptr);
+  const size_t smem = deform_tc_smem<TC_P_DEFORM>(m, true);
+  cudaError_t e = set_smem(deform_bwd_tc_kernel, smem);
   if (e != cudaSuccess) return e;
-  const long long tiles = (n + TC_P_DEFORM - 1) / TC_P_DEFORM;
-  deform_bwd_tc_kernel<<<(unsigned)tiles, NT, smem, st>>>(w, m, decode_frags(meta), n, xt, g_xc,
-                                                          g_j, sv);
+  deform_bwd_tc_kernel<<<n_tiles(n, TC_P_DEFORM), NT, smem, st>>>(w, m, decode_frags(meta), n,
+                                                                   xt, g_xc, g_j, sv);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   return run_wgrad_tc(jobs, partial, st);
 }
@@ -783,14 +1147,29 @@ cudaError_t launch_sdf_bwd_tc(const float* w, const long long* meta, const Model
                               float* grad, cudaStream_t st) {
   TcScratch sv;
   TcJobs jobs;
-  plan_bwd_tc(m, false, n, scratch, grad, sv, jobs, nullptr, nullptr);
+  plan_bwd_tc(m, SEG_SDF, n, scratch, grad, sv, jobs, nullptr, nullptr);
   const size_t smem = sdf_tc_smem(m);
-  cudaError_t e = cudaFuncSetAttribute(sdf_bwd_tc_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t e = set_smem(sdf_bwd_tc_kernel, smem);
   if (e != cudaSuccess) return e;
-  const long long tiles = (n + TC_P_SDF - 1) / TC_P_SDF;
-  sdf_bwd_tc_kernel<<<(unsigned)tiles, NT, smem, st>>>(w, m, decode_frags(meta), n, xc, g_sdf,
-                                                       g_feat, g_gc, dxc, sv);
+  sdf_bwd_tc_kernel<<<n_tiles(n, TC_P_SDF), NT, smem, st>>>(w, m, decode_frags(meta), n, xc,
+                                                             g_sdf, g_feat, g_gc, dxc, sv);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  return run_wgrad_tc(jobs, partial, st);
+}
+
+cudaError_t launch_color_bwd_tc(const float* w, const long long* meta, const Model& m,
+                                long long n, const float* xc, const float* gc, const float* dc,
+                                const float* feat, const float* g_color, float* dxc, float* dgc,
+                                float* ddc, float* dfeat, float* scratch, float* partial,
+                                float* grad, cudaStream_t st) {
+  TcScratch sv;
+  TcJobs jobs;
+  plan_bwd_tc(m, SEG_COLOR, n, scratch, grad, sv, jobs, nullptr, nullptr);
+  const size_t smem = color_tc_smem(m);
+  cudaError_t e = set_smem(color_bwd_tc_kernel, smem);
+  if (e != cudaSuccess) return e;
+  color_bwd_tc_kernel<<<n_tiles(n, TC_P_COLOR), NT, smem, st>>>(
+      w, m, decode_frags(meta), n, xc, gc, dc, feat, g_color, dxc, dgc, ddc, dfeat, sv);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   return run_wgrad_tc(jobs, partial, st);
 }

@@ -44,10 +44,10 @@
 // kernels below are SIMT float32 FMA, far below the bf16 tensor-core rate;
 // the scratch (the per-layer operands and cotangents, 4.0 GiB float32 for the
 // deform net at 65,536 points) is written once and read once by the product.
-// In the bf16 mode the deform and SDF backward run on tensor cores instead
-// (field_tc.cuh: 64-row tile products on mma.sync, a bf16 scratch where the
-// values are bf16, wgrad_tc.cuh's weight-gradient product); the float32 mode
-// and the other four kernels stay SIMT.
+// In the bf16 mode the three backward kernels and the deform forward run on
+// tensor cores instead (field_tc.cuh: tile products on mma.sync, a bf16
+// scratch where the values are bf16, wgrad_tc.cuh's weight-gradient product);
+// the float32 mode, and the SDF and colour forward in both modes, stay SIMT.
 // The backward recomputes the forward rather than reading a scratch the
 // forward stored: on an H100 the forward kernels are 30 of the segments'
 // 160 ms a step, and storing would hold 8.3 GiB from forward to backward.
@@ -455,8 +455,6 @@ color_bwd_kernel(const float* __restrict__ wts, Model m, long long n,
 // host side: scratch layout, weight-gradient jobs, launches
 // ---------------------------------------------------------------------------
 
-enum Seg { SEG_DEFORM = 0, SEG_SDF = 1, SEG_COLOR = 2 };
-
 // Lays out the scratch of a segment's backward and its weight-gradient jobs
 // (writing into grad at the packed weights' offsets). With null pointers it
 // only counts: *scratch_floats, *partial_floats.
@@ -505,14 +503,6 @@ void plan_bwd(const Model& m, int seg, long long n, int rb, float* scratch, floa
   if (partial_floats) *partial_floats = part;
 }
 
-template <typename K>
-cudaError_t prep_smem(K kernel, size_t floats) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)(floats * sizeof(float)));
-}
-
-int tiles(long long n) { return (int)((n + P_FIELD - 1) / P_FIELD); }
-
 }  // namespace
 
 extern "C" {
@@ -521,10 +511,10 @@ extern "C" {
 // points at the dot precision rb: out[0] scratch, out[1] partial.
 void train_bwd_sizes(const long long* meta, int seg, int rb, int n, long long* out) {
   const Model m = decode_model(meta);
-  if (rb && seg != SEG_COLOR) {
+  if (rb) {
     TcScratch sv;
     TcJobs jobs;
-    plan_bwd_tc(m, seg == SEG_DEFORM, n, nullptr, nullptr, sv, jobs, out, out + 1);
+    plan_bwd_tc(m, seg, n, nullptr, nullptr, sv, jobs, out, out + 1);
     return;
   }
   FieldScratch sv;
@@ -533,9 +523,10 @@ void train_bwd_sizes(const long long* meta, int seg, int rb, int n, long long* o
 }
 
 // Every entry: w packed weights (fused_train_cuda.pack_segment), meta its
-// layout, rb 1 for the bf16-operand mode (then the deform and SDF packs carry
-// the bf16 fragment copies field_tc.cuh reads); tensors float32, contiguous,
-// on the current device; launches on stream. Returns a cudaError_t (0 on
+// layout, rb 1 for the bf16-operand mode (then the packs carry the bf16
+// fragment copies field_tc.cuh reads, and the deform forward and every
+// backward launch its tensor-core kernel); tensors float32, contiguous, on
+// the current device; launches on stream. Returns a cudaError_t (0 on
 // success).
 
 int train_deform_fwd(const float* w, const long long* meta, int rb, int n, const float* xt,
@@ -543,15 +534,11 @@ int train_deform_fwd(const float* w, const long long* meta, int rb, int n, const
   if (n <= 0) return 0;
   const Model m = decode_model(meta);
   cudaStream_t st = (cudaStream_t)stream;
+  if (rb) return (int)launch_deform_fwd_tc(w, meta, m, n, xt, xc, jrows, st);
   const size_t smem = field_smem_floats(m);
   cudaError_t e;
-  if (rb) {
-    if ((e = prep_smem(deform_fwd_kernel<true>, smem)) != cudaSuccess) return (int)e;
-    deform_fwd_kernel<true><<<tiles(n), NT, smem * 4, st>>>(w, m, n, xt, xc, jrows);
-  } else {
-    if ((e = prep_smem(deform_fwd_kernel<false>, smem)) != cudaSuccess) return (int)e;
-    deform_fwd_kernel<false><<<tiles(n), NT, smem * 4, st>>>(w, m, n, xt, xc, jrows);
-  }
+  if ((e = set_smem(deform_fwd_kernel<false>, smem * 4)) != cudaSuccess) return (int)e;
+  deform_fwd_kernel<false><<<n_tiles(n, P_FIELD), NT, smem * 4, st>>>(w, m, n, xt, xc, jrows);
   return (int)cudaGetLastError();
 }
 
@@ -563,11 +550,11 @@ int train_sdf_fwd(const float* w, const long long* meta, int rb, int n, const fl
   const size_t smem = field_smem_floats(m);
   cudaError_t e;
   if (rb) {
-    if ((e = prep_smem(sdf_fwd_kernel<true>, smem)) != cudaSuccess) return (int)e;
-    sdf_fwd_kernel<true><<<tiles(n), NT, smem * 4, st>>>(w, m, n, xc, sdf, feat, gc);
+    if ((e = set_smem(sdf_fwd_kernel<true>, smem * 4)) != cudaSuccess) return (int)e;
+    sdf_fwd_kernel<true><<<n_tiles(n, P_FIELD), NT, smem * 4, st>>>(w, m, n, xc, sdf, feat, gc);
   } else {
-    if ((e = prep_smem(sdf_fwd_kernel<false>, smem)) != cudaSuccess) return (int)e;
-    sdf_fwd_kernel<false><<<tiles(n), NT, smem * 4, st>>>(w, m, n, xc, sdf, feat, gc);
+    if ((e = set_smem(sdf_fwd_kernel<false>, smem * 4)) != cudaSuccess) return (int)e;
+    sdf_fwd_kernel<false><<<n_tiles(n, P_FIELD), NT, smem * 4, st>>>(w, m, n, xc, sdf, feat, gc);
   }
   return (int)cudaGetLastError();
 }
@@ -581,11 +568,13 @@ int train_color_fwd(const float* w, const long long* meta, int rb, int n, const 
   const size_t smem = field_smem_floats(m);
   cudaError_t e;
   if (rb) {
-    if ((e = prep_smem(color_fwd_kernel<true>, smem)) != cudaSuccess) return (int)e;
-    color_fwd_kernel<true><<<tiles(n), NT, smem * 4, st>>>(w, m, n, xc, gc, dc, feat, color);
+    if ((e = set_smem(color_fwd_kernel<true>, smem * 4)) != cudaSuccess) return (int)e;
+    color_fwd_kernel<true><<<n_tiles(n, P_FIELD), NT, smem * 4, st>>>(w, m, n, xc, gc, dc, feat,
+                                                                       color);
   } else {
-    if ((e = prep_smem(color_fwd_kernel<false>, smem)) != cudaSuccess) return (int)e;
-    color_fwd_kernel<false><<<tiles(n), NT, smem * 4, st>>>(w, m, n, xc, gc, dc, feat, color);
+    if ((e = set_smem(color_fwd_kernel<false>, smem * 4)) != cudaSuccess) return (int)e;
+    color_fwd_kernel<false><<<n_tiles(n, P_FIELD), NT, smem * 4, st>>>(w, m, n, xc, gc, dc, feat,
+                                                                        color);
   }
   return (int)cudaGetLastError();
 }
@@ -605,8 +594,8 @@ int train_deform_bwd(const float* w, const long long* meta, int rb, int n, const
   plan_bwd(m, SEG_DEFORM, n, rb, scratch, grad, sv, jobs, nullptr, nullptr);
   const size_t smem = field_smem_floats(m);
   cudaError_t e;
-  if ((e = prep_smem(deform_bwd_kernel<false>, smem)) != cudaSuccess) return (int)e;
-  deform_bwd_kernel<false><<<tiles(n), NT, smem * 4, st>>>(w, m, n, xt, g_xc, g_j, sv);
+  if ((e = set_smem(deform_bwd_kernel<false>, smem * 4)) != cudaSuccess) return (int)e;
+  deform_bwd_kernel<false><<<n_tiles(n, P_FIELD), NT, smem * 4, st>>>(w, m, n, xt, g_xc, g_j, sv);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   return (int)run_wgrad(jobs, partial, st);
 }
@@ -625,9 +614,9 @@ int train_sdf_bwd(const float* w, const long long* meta, int rb, int n, const fl
   plan_bwd(m, SEG_SDF, n, rb, scratch, grad, sv, jobs, nullptr, nullptr);
   const size_t smem = field_smem_floats(m) + sdf_bwd_extra_floats(m);
   cudaError_t e;
-  if ((e = prep_smem(sdf_bwd_kernel<false>, smem)) != cudaSuccess) return (int)e;
-  sdf_bwd_kernel<false><<<tiles(n), NT, smem * 4, st>>>(w, m, n, xc, g_sdf, g_feat, g_gc, dxc,
-                                                         sv);
+  if ((e = set_smem(sdf_bwd_kernel<false>, smem * 4)) != cudaSuccess) return (int)e;
+  sdf_bwd_kernel<false><<<n_tiles(n, P_FIELD), NT, smem * 4, st>>>(w, m, n, xc, g_sdf, g_feat,
+                                                                    g_gc, dxc, sv);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   return (int)run_wgrad(jobs, partial, st);
 }
@@ -639,20 +628,18 @@ int train_color_bwd(const float* w, const long long* meta, int rb, int n, const 
   if (n <= 0) return 0;
   const Model m = decode_model(meta);
   cudaStream_t st = (cudaStream_t)stream;
+  if (rb)
+    return (int)launch_color_bwd_tc(w, meta, m, n, xc, gc, dc, feat, g_color, dxc, dgc, ddc,
+                                    dfeat, scratch, partial, grad, st);
   FieldScratch sv;
   WgJobs jobs;
   plan_bwd(m, SEG_COLOR, n, rb, scratch, grad, sv, jobs, nullptr, nullptr);
   const size_t smem = field_smem_floats(m);
   cudaError_t e;
-  if (rb) {
-    if ((e = prep_smem(color_bwd_kernel<true>, smem)) != cudaSuccess) return (int)e;
-    color_bwd_kernel<true><<<tiles(n), NT, smem * 4, st>>>(w, m, n, xc, gc, dc, feat, g_color,
-                                                            dxc, dgc, ddc, dfeat, sv);
-  } else {
-    if ((e = prep_smem(color_bwd_kernel<false>, smem)) != cudaSuccess) return (int)e;
-    color_bwd_kernel<false><<<tiles(n), NT, smem * 4, st>>>(w, m, n, xc, gc, dc, feat, g_color,
-                                                             dxc, dgc, ddc, dfeat, sv);
-  }
+  if ((e = set_smem(color_bwd_kernel<false>, smem * 4)) != cudaSuccess) return (int)e;
+  color_bwd_kernel<false><<<n_tiles(n, P_FIELD), NT, smem * 4, st>>>(w, m, n, xc, gc, dc, feat,
+                                                                      g_color, dxc, dgc, ddc,
+                                                                      dfeat, sv);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   return (int)run_wgrad(jobs, partial, st);
 }

@@ -490,7 +490,8 @@ def test_segment_f32_tails_are_float32_noise(dev):
 def test_segment_scratch_sizes_match_the_planner(dev, spec):
     """fused_train_cuda.bwd_sizes (the CPU tests' mirror) gives the scratch
     and partial-sum floats of csrc's planners (train_bwd_sizes) for every
-    segment in both dot modes, at point counts around the tiles."""
+    segment in both dot modes (the bf16 mode: field_tc.cuh's plan_bwd_tc for
+    all three), at point counts around the tiles."""
     import ctypes
     from endosurf_tpu_torch.kernels import fused_train as ft
     params = init_endosurf_params(spec, torch.Generator().manual_seed(0), dev)
@@ -518,30 +519,53 @@ def _bf16_plain64(monkeypatch):
     monkeypatch.setattr(ft, "operand", operand)
 
 
-@pytest.mark.parametrize("seg", ["deform", "sdf"])
+@pytest.mark.parametrize("seg", ["deform", "sdf", "color", "deform_fwd"])
 def test_segment_bf16_tails_are_float32_noise(dev, seg, monkeypatch):
-    """In bf16 the tensor-core deform and SDF backward sit about as far from a
-    float64 plain version (the same bf16 roundings of every dot operand,
-    input cotangent and weight gradient; float64 sums) as the float32 plain
-    version does: both sum in float32, in other orders, and a bf16 rounding
-    that the sums' last bits tip moves a cotangent by a bf16 ulp, which the
-    next layers carry on (the reason for PARITY_TOL's bf16 cot and leaf
-    limits). Against float64: the kernel's worst leaf relative L2 and, for
-    the SDF, its d x_c p99 within 2x the float32 plain version's."""
+    """In bf16 the tensor-core kernels (the three backward kernels and the
+    deform forward) sit about as far from a float64 plain version (the same
+    bf16 roundings of every dot operand, input cotangent and weight gradient;
+    float64 sums) as the float32 plain version does: both sum in float32, in
+    other orders, and a bf16 rounding that the sums' last bits tip moves an
+    activation or a cotangent by a bf16 ulp, which the next layers carry on
+    (the reason for PARITY_TOL's bf16 limits). Against float64: a backward's
+    worst leaf relative L2 and input-cotangent p99 (the SDF's d x_c; the
+    colour's d x_c, d grad_c, d d_c, d feat), the deform forward's x_c and
+    rows median and p99, each within 2x the float32 plain version's."""
     from endosurf_tpu_torch.kernels import fused_train as ft
+    fwd = seg == "deform_fwd"
+    seg = "deform" if fwd else seg
     spec = EndoSurfSpec()
     params = init_endosurf_params(spec, torch.Generator().manual_seed(0), dev)
     x, d, t = _seg_points(65536, dev)
     with torch.no_grad():
         eff = ft.prepare_effective(spec, params)
-        x_c, _ = ft.seg_deform_math(spec, eff["deform"], torch.cat([x, t], -1), "default")
-    inputs = (torch.cat([x, t], -1),) if seg == "deform" else (x_c,)
+        x_c, jrows = ft.seg_deform_math(spec, eff["deform"], torch.cat([x, t], -1), "default")
+        _, feat, grad_c = ft.seg_sdf_math(spec, eff["sdf"], eff["sdf_head"], eff["sdf_feat"],
+                                          x_c, "default")
+        _, d_c = ft.coupling_math(jrows, grad_c, d)
+    inputs = {"deform": (torch.cat([x, t], -1),), "sdf": (x_c,),
+              "color": (x_c, grad_c, d_c, feat)}[seg]
     like, flat = ft.segment_weights(eff, seg)
+    packed = ftc.pack_segment(spec, seg, flat, like, "default")
     with torch.no_grad():
         outs = ft.seg_math(spec, seg, like, flat, inputs, "default")
+    if fwd:
+        kernel = ftc.FWD[seg](packed, *inputs)
+        _bf16_plain64(monkeypatch)
+        with torch.no_grad():
+            ref = ft.seg_math(spec, seg, like, [v.double() for v in flat],
+                              [v.double() for v in inputs], "default")
+
+        def stats(got):
+            return [ftc._quantiles(ftc._point_err(g.double(), r))[:2] for g, r in zip(got, ref)]
+        k_st, p_st = stats(kernel), stats(outs)
+        print(f"deform fwd bf16 vs float64 (x_c, rows; median, p99): kernel {k_st}; float32 "
+              f"plain {p_st}")
+        assert all(k <= 2 * p for ks, ps in zip(k_st, p_st) for k, p in zip(ks, ps))
+        return
     gen = torch.Generator(device=dev).manual_seed(1)
     cots = tuple(torch.randn(*o.shape, generator=gen, device=dev) for o in outs)
-    kernel = ftc.BWD[seg](ftc.pack_segment(spec, seg, flat, like, "default"), *inputs, *cots)
+    kernel = ftc.BWD[seg](packed, *inputs, *cots)
     plain = ft.plain_bwd(spec, seg, like, flat, inputs, cots, "default")
     _bf16_plain64(monkeypatch)
     ref = ft.plain_bwd(spec, seg, like, [v.double() for v in flat],
@@ -562,7 +586,7 @@ def test_segment_bf16_tails_are_float32_noise(dev, seg, monkeypatch):
 # replacement) for each code path it lands in, and the dot modes that must
 # catch it. The first three land in the float32 mode's SIMT kernels
 # (fused_train.cu, wgrad.cuh) and in the bf16 mode's tensor-core ones
-# (field_tc.cuh, wgrad_tc.cuh); the last three are faults of the tensor-core
+# (field_tc.cuh, wgrad_tc.cuh); the others are faults of the tensor-core
 # design (mma_tile.cuh, field_tc.cuh), which only the bf16 mode runs.
 BOTH, BF16 = ("highest", "default"), ("default",)
 SEG_FAULTS = {
@@ -595,6 +619,22 @@ SEG_FAULTS = {
     # the last, partial point tile takes one point fewer: that point's inputs read as zeros
     "ragged_tile_one_row_short": ([
         ("field_tc.cuh", "  return base + p < n;", "  return base + p + 1 < n;")], BF16),
+    # the colour walk skips its second group of 256 input columns (the skip
+    # layer's encoding columns 256 .. 511, layer 0's feature columns past 255)
+    "color_walk_drops_group_2": ([
+        ("field_tc.cuh", "for (int gr = (np_in - 1) / NPG; gr >= 1; --gr) {",
+         "for (int gr = (np_in - 1) / NPG; gr >= 2; --gr) {")], BF16),
+    # the colour's float32 output-layer cotangent reaches the weight-gradient
+    # product as its bf16 rounding (hi) only
+    "color_top_dz_drops_lo": ([
+        ("field_tc.cuh", "      if (base + p < n) sv.dz[NL - 1][(size_t)(base + p) * 4 + c] = v;",
+         "      if (base + p < n) sv.dz[NL - 1][(size_t)(base + p) * 4 + c] = bf16r(v);")], BF16),
+    # the tile forward of the deform net leaves tangent stream 2 ungated (the
+    # forward kernel and the backward's recompute share it)
+    "deform_fwd_ungates_tangent_2": ([
+        ("field_tc.cuh",
+         "__float2bfloat16_rn(acc[k * MS + h][nt][e] * sc * gate);",
+         "__float2bfloat16_rn(acc[k * MS + h][nt][e] * sc * (k == 2 ? 1.f : gate));")], BF16),
 }
 
 

@@ -1,5 +1,5 @@
-"""The host side of the tensor-core (bf16 mode) deform and SDF backward, on the
-CPU: the bf16 fragment copies ``fused_train_cuda.pack_segment`` writes, the
+"""The host side of the tensor-core (bf16 mode) segment kernels, on the CPU:
+the bf16 fragment copies ``fused_train_cuda.pack_segment`` writes, the
 float32 packing it leaves as it was, the scratch sizes of both modes
 (``bwd_sizes``, which the card test ``test_segment_scratch_sizes_match_the_planner``
 holds against csrc's planners) and the plain version of the split product
@@ -49,7 +49,7 @@ def _unfrag(frag: torch.Tensor, k: int, n: int) -> torch.Tensor:
 @pytest.mark.parametrize("spec_id", sorted(SPECS))
 @pytest.mark.parametrize("seg", ftc.TC_SEGMENTS)
 def test_pack_segment_bf16_fragments(seg, spec_id):
-    """In the bf16 mode the deform and SDF packs end with every layer's W and
+    """In the bf16 mode every segment's pack ends with every layer's W and
     W^T as bf16 mma fragments, at the (16-byte aligned) float offsets the
     meta appends after its first META_LEN entries: bit for bit the bf16 of
     the packed (bf16-rounded) float32 weights, zeros in the padding."""
@@ -77,8 +77,8 @@ def test_pack_segment_float32_layout_unchanged(seg, spec_id):
     """Without the fragments the packing is the float32 layout the other
     kernels read: per layer W [in, out] (row blocks stacked), b, W^T, then
     the SDF head column; in the float32 mode exactly that and the meta's
-    META_LEN entries, in the bf16 mode the same with W rounded to bf16 (the
-    colour pack, whose backward stays SIMT, gets no fragments)."""
+    META_LEN entries, in the bf16 mode the same with W rounded to bf16,
+    followed by the fragments of the tensor-core segments (all three)."""
     spec = SPECS[spec_id]
     like, flat = _segment(spec, seg)
     for precision in ("highest", "default"):
@@ -105,10 +105,10 @@ def test_pack_segment_float32_layout_unchanged(seg, spec_id):
 
 
 def test_bwd_sizes_halve_the_deform_scratch():
-    """At the train step's 65,536 points: in the bf16 mode the deform
-    backward's scratch is about half its float32 size (every array but the
-    3-wide output layer's cotangent is bf16), the SDF's smaller, the colour's
-    unchanged; the partial sums are the same. So the step's peak (the largest
+    """At the train step's 65,536 points: in the bf16 mode the deform and
+    colour backward's scratch is about half its float32 size (every array
+    but the 3-wide output layer's float32 cotangent is bf16), the SDF's
+    smaller; the partial sums are the same. So the step's peak (the largest
     scratch: the float32 deform's) does not grow."""
     spec = EndoSurfSpec()
     sizes = {}
@@ -119,10 +119,10 @@ def test_bwd_sizes_halve_the_deform_scratch():
             sizes[seg, precision] = ftc.bwd_sizes(packed, 65536)
     for seg in ftc.SEGMENTS:
         assert sizes[seg, "default"][1] == sizes[seg, "highest"][1]
-    ratio = sizes["deform", "default"][0] / sizes["deform", "highest"][0]
-    assert 0.49 < ratio < 0.51, ratio
+    for seg in ("deform", "color"):
+        ratio = sizes[seg, "default"][0] / sizes[seg, "highest"][0]
+        assert 0.49 < ratio < 0.51, (seg, ratio)
     assert sizes["sdf", "default"][0] < sizes["sdf", "highest"][0]
-    assert sizes["color", "default"] == sizes["color", "highest"]
     assert max(sizes[s, "default"][0] for s in ftc.SEGMENTS) <= \
         max(sizes[s, "highest"][0] for s in ftc.SEGMENTS)
     # the float32 deform scratch: 4 streams x (operands + cotangents) x 4 bytes
@@ -178,3 +178,18 @@ def test_split_product_error_bound(layer):
           f"(bound {bound[3]:.3e})")
     assert ratio[2] <= bound[2] and ratio[3] <= bound[3]
     assert ratio[1] > bound[2]
+
+
+@pytest.mark.parametrize("seg", ftc.SEGMENTS)
+def test_out_biases_are_the_output_layer_biases(seg):
+    """The leaves PARITY_TOL's "bias" kind judges are the biases of the
+    segment's output layer (the SDF's: its head and feature columns), named
+    as fused_train_cuda.leaf_names names the flat weights, and each is a
+    bias: a vector as long as the layer's output columns it feeds."""
+    like, flat = _segment(EndoSurfSpec(), seg)
+    names = ftc.leaf_names(like, seg)
+    widths = {"deform": {"8.b": 3}, "sdf": {"head.b": 1, "feat.b": 256},
+              "color": {"8.b": 3}}[seg]
+    assert set(ftc.OUT_BIASES[seg]) == set(widths)
+    for name in ftc.OUT_BIASES[seg]:
+        assert tuple(flat[names.index(name)].shape) == (widths[name],)

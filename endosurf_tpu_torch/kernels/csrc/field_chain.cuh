@@ -23,6 +23,9 @@
 
 namespace {
 
+// The train segments, in the order of the packed meta's nets.
+enum Seg { SEG_DEFORM = 0, SEG_SDF = 1, SEG_COLOR = 2 };
+
 // Shared-memory tile of P_FIELD points.
 struct FieldTile {
   float* x;     // [P][4] x, t

@@ -62,18 +62,13 @@
 #include "field_chain.cuh"
 #include "wgrad_tc.cuh"
 
-#define TC_P_DEFORM 16   // points per deform backward tile (x 4 streams = 64 rows)
-#define TC_P_DFWD 16     // points per deform forward tile: 16 (64 rows) ran 1.41-1.43 ms at
-                         // 65,536 points, 32 (128 rows, one block an SM) 1.92-1.95 ms
-                         // (tools/time_deform_fwd_tile.py on an H100; PERF.md)
+#define TC_P_DEFORM 16   // points per deform tile (x 4 streams = 64 rows)
 #define TC_P_SDF 64      // points per SDF tile
 #define TC_P_COLOR 64    // points per colour tile
 
 static_assert(TC_WARPS * 32 == NT, "a warp owns 32 of the tile's 256 output columns");
 
 namespace {
-
-enum Seg { SEG_DEFORM = 0, SEG_SDF = 1, SEG_COLOR = 2 };
 
 // Global scratch of a tensor-core backward (rows indexed by point; the deform
 // net's arrays hold S = 4 streams, stream-major: [S][n][width], the others
@@ -187,17 +182,16 @@ struct DeformTile {
   float* dz8;
 };
 
-template <int P>
 inline size_t deform_tc_smem(const Model& m, bool bwd) {
-  const int R = 4 * P;
+  constexpr int P = TC_P_DEFORM, R = 4 * P;
   size_t b = TC_RING_BYTES + (size_t)R * tc_ldh(m.deform) * 2 + (size_t)R * m.ed * 2
              + (size_t)P * 4 * 4;
   if (bwd) b += (size_t)(NL - 1) * P * (HMAX / 32) * 4 + (size_t)R * 3 * 4;
   return b;
 }
 
-template <int P>
 __device__ __forceinline__ DeformTile deform_tile(unsigned char* smem, const Model& m) {
+  constexpr int P = TC_P_DEFORM;
   DeformTile s;
   s.H = (bf16*)(smem + TC_RING_BYTES);
   s.E = s.H + 4 * P * tc_ldh(m.deform);
@@ -215,13 +209,13 @@ __device__ __forceinline__ DeformTile deform_tile(unsigned char* smem, const Mod
 // operand rows go to sv.xin and the relu' of each hidden output to s.gbit.
 // The forward kernel and the backward's recompute both run it, so the forward
 // the loss sees is the one the backward differentiates, bit for bit.
-template <int P, bool SAVE>
+template <bool SAVE>
 __device__ __forceinline__ void deform_tc_forward(const float* __restrict__ wts, const Model& m,
                                                   const TcFrags& fr, long long n, long long base,
                                                   const float* __restrict__ xt,
                                                   const DeformTile& s, uint4* ring,
                                                   const TcScratch& sv) {
-  constexpr int R = 4 * P, MT = R / 16, MS = P / 16, WB = HMAX / 32;
+  constexpr int P = TC_P_DEFORM, R = 4 * P, MT = R / 16, WB = HMAX / 32;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const Net& N = m.deform;
@@ -267,46 +261,40 @@ __device__ __forceinline__ void deform_tc_forward(const float* __restrict__ wts,
     tile_mma<MT, 1>(acc, A1, ldh, (const uint4*)(wts + fr.w[l]), np_out, np_me, npw, 0,
                     c16(in_l) / 16, ring, lane);
     __syncthreads();
-    // m-tiles MS s .. MS s + MS - 1 hold stream s, so a thread holds the
-    // primal and the three tangents of the same (point, neuron)
+    // m-tile s holds stream s, so a thread holds the primal and the three
+    // tangents of the same (point, neuron)
     const float sc = skip ? kInvSqrt2 : 1.f;
-    uint32_t bits[MS][2] = {};                   // points 16 h + g, 16 h + g + 8
+    uint32_t bits[2] = {0u, 0u};                 // points g, g + 8
 #pragma unroll
     for (int nt = 0; nt < 2 * TC_NPW; ++nt) {
       if (nt >= 2 * npw) continue;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-#pragma unroll
-        for (int h = 0; h < MS; ++h) {
-          const int p = h * 16 + g + (e >> 1) * 8, cl = nt * 8 + 2 * t + (e & 1);
-          const int c = np_me * 16 + cl;
-          if (c >= out_l) {
-            for (int st = 0; st < 4; ++st) H[(st * P + p) * ldh + c] = bzero();
-            continue;
-          }
-          const float z = acc[h][nt][e] * sc + wts[N.b_off[l] + c];
-          const float gate = z > 0.f ? 1.f : 0.f;
-          const bf16 hv = __float2bfloat16_rn(fmaxf(z, 0.f));
-          H[p * ldh + c] = hv;
-#pragma unroll
-          for (int k = 1; k < 4; ++k)
-            H[(k * P + p) * ldh + c] = __float2bfloat16_rn(acc[k * MS + h][nt][e] * sc * gate);
-          if (SAVE && __bfloat162float(hv) > 0.f) bits[h][e >> 1] |= 1u << cl;
+        const int p = g + (e >> 1) * 8, cl = nt * 8 + 2 * t + (e & 1);
+        const int c = np_me * 16 + cl;
+        if (c >= out_l) {
+          for (int st = 0; st < 4; ++st) H[(st * P + p) * ldh + c] = bzero();
+          continue;
         }
+        const float z = acc[0][nt][e] * sc + wts[N.b_off[l] + c];
+        const float gate = z > 0.f ? 1.f : 0.f;
+        const bf16 hv = __float2bfloat16_rn(fmaxf(z, 0.f));
+        H[p * ldh + c] = hv;
+#pragma unroll
+        for (int k = 1; k < 4; ++k)
+          H[(k * P + p) * ldh + c] = __float2bfloat16_rn(acc[k][nt][e] * sc * gate);
+        if (SAVE && __bfloat162float(hv) > 0.f) bits[e >> 1] |= 1u << cl;
       }
     }
     if (SAVE) {
 #pragma unroll
-      for (int h = 0; h < MS; ++h) {
-#pragma unroll
-        for (int o = 1; o < 4; o <<= 1) {
-          bits[h][0] |= __shfl_xor_sync(0xffffffffu, bits[h][0], o);
-          bits[h][1] |= __shfl_xor_sync(0xffffffffu, bits[h][1], o);
-        }
-        if (t == 0 && warp < WB) {
-          s.gbit[(l * P + h * 16 + g) * WB + warp] = bits[h][0];
-          s.gbit[(l * P + h * 16 + g + 8) * WB + warp] = bits[h][1];
-        }
+      for (int o = 1; o < 4; o <<= 1) {
+        bits[0] |= __shfl_xor_sync(0xffffffffu, bits[0], o);
+        bits[1] |= __shfl_xor_sync(0xffffffffu, bits[1], o);
+      }
+      if (t == 0 && warp < WB) {
+        s.gbit[(l * P + g) * WB + warp] = bits[0];
+        s.gbit[(l * P + g + 8) * WB + warp] = bits[1];
       }
     }
     __syncthreads();
@@ -318,19 +306,19 @@ __device__ __forceinline__ void deform_tc_forward(const float* __restrict__ wts,
 // 3-wide output layer in SIMT from the bf16 last hidden rows, each output an
 // FMA chain in k order as field_deform's (x_c = x + z, row k = e_k + the
 // tangent's output).
-template <int P>
-__global__ void __launch_bounds__(NT, P <= 16 ? 2 : 1)
+__global__ void __launch_bounds__(NT, 2)
 deform_fwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long long n,
                      const float* __restrict__ xt, float* __restrict__ xc,
                      float* __restrict__ jrows) {
+  constexpr int P = TC_P_DEFORM;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   const int tid = threadIdx.x, warp = tid >> 5;
   const Net& N = m.deform;
   const int ldh = tc_ldh(N);
   uint4* ring = (uint4*)tc_smem + warp * (TC_STAGES * TC_NPW * 32);
-  const DeformTile s = deform_tile<P>(tc_smem, m);
+  const DeformTile s = deform_tile(tc_smem, m);
   const long long base = (long long)blockIdx.x * P;
-  deform_tc_forward<P, false>(wts, m, fr, n, base, xt, s, ring, TcScratch{});
+  deform_tc_forward<false>(wts, m, fr, n, base, xt, s, ring, TcScratch{});
 
   const int l = NL - 1, in_l = N.in_dim[l], out_l = N.out_dim[l];   // out_l == 3
   const float sc = ((N.skip_mask >> l) & 1) ? kInvSqrt2 : 1.f;
@@ -360,7 +348,7 @@ deform_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long lo
   const Net& N = m.deform;
   const int ed = m.ed, ldh = tc_ldh(N);
   uint4* ring = (uint4*)tc_smem + warp * (TC_STAGES * TC_NPW * 32);
-  const DeformTile tile = deform_tile<P>(tc_smem, m);
+  const DeformTile tile = deform_tile(tc_smem, m);
   bf16* H = tile.H;                              // [R][ldh] the layer's operand
   const bf16* const A1[1] = {H};
   uint32_t* gbit = tile.gbit;                    // [NL-1][P][WB] relu' of each hidden output
@@ -369,7 +357,7 @@ deform_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long lo
   const int np_me = warp * TC_NPW;
 
   // ---- forward recompute, layers 0 .. NL-2 (the output layer needs only its input)
-  deform_tc_forward<P, true>(wts, m, fr, n, base, xt, tile, ring, sv);
+  deform_tc_forward<true>(wts, m, fr, n, base, xt, tile, ring, sv);
   float acc[MT][2 * TC_NPW][4];
 
   // ---- backward: the output layer (3 wide, SIMT), float32 cotangents
@@ -926,6 +914,9 @@ color_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long lon
       dz8[idx] = v;
       if (base + p < n) sv.dz[NL - 1][(size_t)(base + p) * 4 + c] = v;
     }
+    // E now carries the skip layer's cotangent on the colour input (zero
+    // where the net has no skip layer)
+    for (int idx = tid; idx < P * ci; idx += NT) E[idx] = bzero();
   }
   __syncthreads();
   // its product through W^T (3 -> in), gated by the last hidden layer's relu'
@@ -949,7 +940,7 @@ color_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long lon
   // ---- hidden layers NL-2 .. 0 through W^T. Each input column's cotangent
   // op(acc sc) goes to the h part (gated, in place) or to the colour input:
   // the skip layer's into E, then layer 0's added to it in float32, as the
-  // SIMT kernel's s_dcin. The inputs wider than the 256 columns the warps own
+  // SIMT kernel's s_dcin. Columns past in_l are the padding to c16(in_l). The inputs wider than the 256 columns the warps own
   // in one pass take more passes, one per group of 16 column pairs: those
   // past the h part first (they never touch H, so they need no barrier), the
   // group with the h part last, written in place after a barrier.
@@ -969,8 +960,8 @@ color_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long lon
         const float v = bf16r(a[e] * sc);
         if (l > 0 && i < HMAX)
           H[row * ldh + i] = i < n_h && gate(l - 1, row, i) ? __float2bfloat16_rn(v) : bzero();
+        if (i < n_h || i >= in_l) continue;
         const int j = i - n_h;                   // the colour input's column
-        if (j < 0 || j >= ci) continue;
         if (l > 0) E[row * ci + j] = __float2bfloat16_rn(v);
         else if (j < nd) Dc[row * nd + j] = __bfloat162float(E[row * ci + j]) + v;
         else if (base + row < n)
@@ -1117,10 +1108,10 @@ unsigned n_tiles(long long n, int p) { return (unsigned)((n + p - 1) / p); }
 cudaError_t launch_deform_fwd_tc(const float* w, const long long* meta, const Model& m,
                                  long long n, const float* xt, float* xc, float* jrows,
                                  cudaStream_t st) {
-  const size_t smem = deform_tc_smem<TC_P_DFWD>(m, false);
-  cudaError_t e = set_smem(deform_fwd_tc_kernel<TC_P_DFWD>, smem);
+  const size_t smem = deform_tc_smem(m, false);
+  cudaError_t e = set_smem(deform_fwd_tc_kernel, smem);
   if (e != cudaSuccess) return e;
-  deform_fwd_tc_kernel<TC_P_DFWD><<<n_tiles(n, TC_P_DFWD), NT, smem, st>>>(
+  deform_fwd_tc_kernel<<<n_tiles(n, TC_P_DEFORM), NT, smem, st>>>(
       w, m, decode_frags(meta), n, xt, xc, jrows);
   return cudaGetLastError();
 }
@@ -1132,7 +1123,7 @@ cudaError_t launch_deform_bwd_tc(const float* w, const long long* meta, const Mo
   TcScratch sv;
   TcJobs jobs;
   plan_bwd_tc(m, SEG_DEFORM, n, scratch, grad, sv, jobs, nullptr, nullptr);
-  const size_t smem = deform_tc_smem<TC_P_DEFORM>(m, true);
+  const size_t smem = deform_tc_smem(m, true);
   cudaError_t e = set_smem(deform_bwd_tc_kernel, smem);
   if (e != cudaSuccess) return e;
   deform_bwd_tc_kernel<<<n_tiles(n, TC_P_DEFORM), NT, smem, st>>>(w, m, decode_frags(meta), n,

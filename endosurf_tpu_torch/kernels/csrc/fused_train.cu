@@ -503,6 +503,14 @@ void plan_bwd(const Model& m, int seg, long long n, int rb, float* scratch, floa
   if (partial_floats) *partial_floats = part;
 }
 
+template <typename K>
+cudaError_t prep_smem(K kernel, size_t floats) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)(floats * sizeof(float)));
+}
+
+int tiles(long long n) { return (int)((n + P_FIELD - 1) / P_FIELD); }
+
 }  // namespace
 
 extern "C" {
@@ -537,8 +545,8 @@ int train_deform_fwd(const float* w, const long long* meta, int rb, int n, const
   if (rb) return (int)launch_deform_fwd_tc(w, meta, m, n, xt, xc, jrows, st);
   const size_t smem = field_smem_floats(m);
   cudaError_t e;
-  if ((e = set_smem(deform_fwd_kernel<false>, smem * 4)) != cudaSuccess) return (int)e;
-  deform_fwd_kernel<false><<<n_tiles(n, P_FIELD), NT, smem * 4, st>>>(w, m, n, xt, xc, jrows);
+  if ((e = prep_smem(deform_fwd_kernel<false>, smem)) != cudaSuccess) return (int)e;
+  deform_fwd_kernel<false><<<tiles(n), NT, smem * 4, st>>>(w, m, n, xt, xc, jrows);
   return (int)cudaGetLastError();
 }
 
@@ -550,11 +558,11 @@ int train_sdf_fwd(const float* w, const long long* meta, int rb, int n, const fl
   const size_t smem = field_smem_floats(m);
   cudaError_t e;
   if (rb) {
-    if ((e = set_smem(sdf_fwd_kernel<true>, smem * 4)) != cudaSuccess) return (int)e;
-    sdf_fwd_kernel<true><<<n_tiles(n, P_FIELD), NT, smem * 4, st>>>(w, m, n, xc, sdf, feat, gc);
+    if ((e = prep_smem(sdf_fwd_kernel<true>, smem)) != cudaSuccess) return (int)e;
+    sdf_fwd_kernel<true><<<tiles(n), NT, smem * 4, st>>>(w, m, n, xc, sdf, feat, gc);
   } else {
-    if ((e = set_smem(sdf_fwd_kernel<false>, smem * 4)) != cudaSuccess) return (int)e;
-    sdf_fwd_kernel<false><<<n_tiles(n, P_FIELD), NT, smem * 4, st>>>(w, m, n, xc, sdf, feat, gc);
+    if ((e = prep_smem(sdf_fwd_kernel<false>, smem)) != cudaSuccess) return (int)e;
+    sdf_fwd_kernel<false><<<tiles(n), NT, smem * 4, st>>>(w, m, n, xc, sdf, feat, gc);
   }
   return (int)cudaGetLastError();
 }
@@ -568,13 +576,11 @@ int train_color_fwd(const float* w, const long long* meta, int rb, int n, const 
   const size_t smem = field_smem_floats(m);
   cudaError_t e;
   if (rb) {
-    if ((e = set_smem(color_fwd_kernel<true>, smem * 4)) != cudaSuccess) return (int)e;
-    color_fwd_kernel<true><<<n_tiles(n, P_FIELD), NT, smem * 4, st>>>(w, m, n, xc, gc, dc, feat,
-                                                                       color);
+    if ((e = prep_smem(color_fwd_kernel<true>, smem)) != cudaSuccess) return (int)e;
+    color_fwd_kernel<true><<<tiles(n), NT, smem * 4, st>>>(w, m, n, xc, gc, dc, feat, color);
   } else {
-    if ((e = set_smem(color_fwd_kernel<false>, smem * 4)) != cudaSuccess) return (int)e;
-    color_fwd_kernel<false><<<n_tiles(n, P_FIELD), NT, smem * 4, st>>>(w, m, n, xc, gc, dc, feat,
-                                                                        color);
+    if ((e = prep_smem(color_fwd_kernel<false>, smem)) != cudaSuccess) return (int)e;
+    color_fwd_kernel<false><<<tiles(n), NT, smem * 4, st>>>(w, m, n, xc, gc, dc, feat, color);
   }
   return (int)cudaGetLastError();
 }
@@ -594,8 +600,8 @@ int train_deform_bwd(const float* w, const long long* meta, int rb, int n, const
   plan_bwd(m, SEG_DEFORM, n, rb, scratch, grad, sv, jobs, nullptr, nullptr);
   const size_t smem = field_smem_floats(m);
   cudaError_t e;
-  if ((e = set_smem(deform_bwd_kernel<false>, smem * 4)) != cudaSuccess) return (int)e;
-  deform_bwd_kernel<false><<<n_tiles(n, P_FIELD), NT, smem * 4, st>>>(w, m, n, xt, g_xc, g_j, sv);
+  if ((e = prep_smem(deform_bwd_kernel<false>, smem)) != cudaSuccess) return (int)e;
+  deform_bwd_kernel<false><<<tiles(n), NT, smem * 4, st>>>(w, m, n, xt, g_xc, g_j, sv);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   return (int)run_wgrad(jobs, partial, st);
 }
@@ -614,9 +620,9 @@ int train_sdf_bwd(const float* w, const long long* meta, int rb, int n, const fl
   plan_bwd(m, SEG_SDF, n, rb, scratch, grad, sv, jobs, nullptr, nullptr);
   const size_t smem = field_smem_floats(m) + sdf_bwd_extra_floats(m);
   cudaError_t e;
-  if ((e = set_smem(sdf_bwd_kernel<false>, smem * 4)) != cudaSuccess) return (int)e;
-  sdf_bwd_kernel<false><<<n_tiles(n, P_FIELD), NT, smem * 4, st>>>(w, m, n, xc, g_sdf, g_feat,
-                                                                    g_gc, dxc, sv);
+  if ((e = prep_smem(sdf_bwd_kernel<false>, smem)) != cudaSuccess) return (int)e;
+  sdf_bwd_kernel<false><<<tiles(n), NT, smem * 4, st>>>(w, m, n, xc, g_sdf, g_feat, g_gc, dxc,
+                                                         sv);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   return (int)run_wgrad(jobs, partial, st);
 }
@@ -636,10 +642,9 @@ int train_color_bwd(const float* w, const long long* meta, int rb, int n, const 
   plan_bwd(m, SEG_COLOR, n, rb, scratch, grad, sv, jobs, nullptr, nullptr);
   const size_t smem = field_smem_floats(m);
   cudaError_t e;
-  if ((e = set_smem(color_bwd_kernel<false>, smem * 4)) != cudaSuccess) return (int)e;
-  color_bwd_kernel<false><<<n_tiles(n, P_FIELD), NT, smem * 4, st>>>(w, m, n, xc, gc, dc, feat,
-                                                                      g_color, dxc, dgc, ddc,
-                                                                      dfeat, sv);
+  if ((e = prep_smem(color_bwd_kernel<false>, smem)) != cudaSuccess) return (int)e;
+  color_bwd_kernel<false><<<tiles(n), NT, smem * 4, st>>>(w, m, n, xc, gc, dc, feat, g_color,
+                                                           dxc, dgc, ddc, dfeat, sv);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   return (int)run_wgrad(jobs, partial, st);
 }

@@ -407,6 +407,25 @@ def test_segment_limits_reject_the_other_precision(dev, spec, seed):
             assert not ftc.parity_ok({seg: kinds}), (seg, prec)
 
 
+# Colour nets besides base.yml's: no skip layer (the tensor-core walk then
+# sends no skip cotangent to the colour input), and a hidden width that is
+# not a multiple of 16 (the padding columns of the layers under the skip).
+COLOR_NETS = {"noskip": MLPSpec(9, 256, (), 3), "w200": MLPSpec(9, 200, (4,), 3)}
+
+
+@pytest.mark.parametrize("net_id", sorted(COLOR_NETS))
+@pytest.mark.parametrize("precision", ["highest", "default"], ids=["f32", "bf16"])
+def test_segment_kernels_take_other_colour_nets(dev, net_id, precision):
+    """The segment kernels against their plain versions at PARITY_TOL, for a
+    static spec whose colour net is one of COLOR_NETS."""
+    spec = dataclasses.replace(EndoSurfSpec(use_deform=False), color=COLOR_NETS[net_id])
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(0), dev)
+    res, _, _ = ftc.segment_parity(spec, params, *_seg_points(SEG_N, dev), precision, 0)
+    torch.cuda.synchronize()
+    print(f"segments colour {net_id} {precision}: worst {_worst(res)}")
+    assert ftc.parity_ok(res), _report(res)
+
+
 def _kernel_grads(spec, params, x, d, t, w, precision):
     """Parameter gradients of a weighted sum of the fields through the
     segment kernels (all six)."""
@@ -633,8 +652,8 @@ SEG_FAULTS = {
     # forward kernel and the backward's recompute share it)
     "deform_fwd_ungates_tangent_2": ([
         ("field_tc.cuh",
-         "__float2bfloat16_rn(acc[k * MS + h][nt][e] * sc * gate);",
-         "__float2bfloat16_rn(acc[k * MS + h][nt][e] * sc * (k == 2 ? 1.f : gate));")], BF16),
+         "__float2bfloat16_rn(acc[k][nt][e] * sc * gate);",
+         "__float2bfloat16_rn(acc[k][nt][e] * sc * (k == 2 ? 1.f : gate));")], BF16),
 }
 
 

@@ -9,6 +9,8 @@ Weights come from a seeded init, points from numpy seeds; tolerances are
 stated per test.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,9 @@ from endosurf_tpu_torch.models.fields import EndoSurfSpec, MLPSpec, init_endosur
 NARROW = EndoSurfSpec(deform=MLPSpec(9, 64, (4,), 3), sdf=MLPSpec(9, 64, (4,), 65),
                       color=MLPSpec(9, 64, (4,), 3), color_feat_dim=64)
 SPECS = {"narrow": NARROW, "full": EndoSurfSpec()}
+# Colour nets besides base.yml's that the tensor-core colour backward walks:
+# no skip layer, and hidden widths that are not multiples of 16.
+COLOR_NETS = {"noskip": MLPSpec(9, 256, (), 3), "w200": MLPSpec(9, 200, (4,), 3)}
 
 
 def _segment(spec, seg):
@@ -53,8 +58,36 @@ def test_pack_segment_bf16_fragments(seg, spec_id):
     W^T as bf16 mma fragments, at the (16-byte aligned) float offsets the
     meta appends after its first META_LEN entries: bit for bit the bf16 of
     the packed (bf16-rounded) float32 weights, zeros in the padding."""
-    like, flat = _segment(SPECS[spec_id], seg)
-    packed = ftc.pack_segment(SPECS[spec_id], seg, flat, like, "default")
+    _check_fragments(SPECS[spec_id], seg)
+
+
+@pytest.mark.parametrize("net_id", sorted(COLOR_NETS))
+def test_pack_segment_takes_other_colour_nets(net_id):
+    """A colour net with no skip layer, or with hidden widths that are not
+    multiples of 16, packs its fragments as base.yml's does, and its bf16
+    scratch is smaller than its float32 one."""
+    spec = dataclasses.replace(EndoSurfSpec(), color=COLOR_NETS[net_id])
+    _check_fragments(spec, "color")
+    like, flat = _segment(spec, "color")
+    sizes = {p: ftc.bwd_sizes(ftc.pack_segment(spec, "color", flat, like, p), 4096)
+             for p in ("highest", "default")}
+    assert sizes["default"][0] < sizes["highest"][0]
+    assert sizes["default"][1] == sizes["highest"][1]
+
+
+def test_pack_segment_refuses_two_colour_skip_layers():
+    """The tensor-core colour backward keeps one skip layer's cotangent on
+    the colour input: its pack refuses two; the float32 pack takes them."""
+    spec = dataclasses.replace(EndoSurfSpec(), color=MLPSpec(9, 256, (2, 5), 3))
+    like, flat = _segment(spec, "color")
+    ftc.pack_segment(spec, "color", flat, like, "highest")
+    with pytest.raises(ValueError, match="one skip layer at most"):
+        ftc.pack_segment(spec, "color", flat, like, "default")
+
+
+def _check_fragments(spec, seg):
+    like, flat = _segment(spec, seg)
+    packed = ftc.pack_segment(spec, seg, flat, like, "default")
     meta = list(packed.meta)
     assert len(meta) == ftc.META_LEN + 2 * NL
     as_bf16 = packed.w.view(torch.bfloat16)

@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --train-only   # phases 1, 2 and 7's timed run, split and trace
-    python3 chip_smoke.py --segments-only   # phases 1, 2, 9's bf16 seed-0 parity and 11
+    python3 chip_smoke.py --segments-only   # phases 1, 2, 9's bf16 seed-0 parity, 11, and
+                                            # the upsample's float64 readings and timing
 
 Phases (any failure raises and exits non-zero):
   1. a CUDA card must be present; prints its name and power limit;
@@ -23,7 +24,9 @@ Phases (any failure raises and exits non-zero):
      z0, return_sdf, both dot modes, two weight seeds, at
      fused_sampler.PARITY_TOL and, on the kernel's own samples, at
      fused_sampler.CONSISTENCY_TOL, with the wrong-precision controls
-     failing; prints every reading the limits were set from;
+     failing; prints every reading the limits were set from, and the bf16
+     kernel's and the float32 plain twin's distance from a float64 plain
+     upsample (the same bf16 operand roundings, float64 sums);
   7. training end to end: EndoSurfTrainer on the in-memory base.yml config
      and scene (1024 rays, all six losses, march reuse, bf16 dots), 12 steps
      through Trainer.start (2 warm-up steps, then 10), checkpoints in a
@@ -32,7 +35,11 @@ Phases (any failure raises and exits non-zero):
      reports train rays/s and peak memory; then splits a step into forward /
      backward / Adam (CUDA events) and traces the device's busy and idle
      time (torch.profiler);
-  8. upsample timing: kernel vs plain twin on one train batch;
+  8. upsample timing: kernel vs plain twin on one train batch, both modes:
+     the kernels' device time a call (torch.profiler; in bf16 the sweeps
+     run on tensor cores, csrc/sweep_tc.cuh) and the call's time (CUDA
+     events: host-bound where the device time is short, the pack is
+     rebuilt each call);
   9. field segment parity: the six CUDA segment kernels (deform / sdf /
      color, forward and backward, csrc/fused_train.cu) against their plain
      versions on the 65,536 midpoints of a real train batch
@@ -49,8 +56,8 @@ Phases (any failure raises and exits non-zero):
      precision as the control that must fail;
  11. segment timing: each kernel vs its plain version at 65,536 points in
      bf16, beside its bound from the parameter shapes, with its TFLOP/s (in
-     bf16 deform_fwd and the three backward kernels run on tensor cores,
-     csrc/field_tc.cuh);
+     bf16 deform_fwd, sdf_fwd and the three backward kernels run on tensor
+     cores, csrc/field_tc.cuh);
  12. grid-query parity: the CUDA fused_sdf_observed against its plain
      version (fields.sdf_observed) on one 64x128x128 slab (1,048,576 points)
      of the synthetic scene's frame-0 grid (its bbox x 1.2) and on 8192
@@ -146,7 +153,9 @@ the kernel record (JSON), the last the device record (JSON).
 copy of this file placed beside an older checkout's package measures that
 checkout's step with the same trace filter; ``--segments-only`` likewise
 holds the six segment kernels against their plain versions on phase 9's
-bf16 seed-0 midpoints and times them as phase 11 does (with TFLOP/s).
+bf16 seed-0 midpoints and times them as phase 11 does (with TFLOP/s), then
+reads phase 6's float64 distances of the bf16 upsample on both weight seeds
+and times the upsample as phase 8 does.
 """
 
 from __future__ import annotations
@@ -170,11 +179,13 @@ N_STEPS, N_WARM = 12, 2
 N_SPLIT = 3                                    # steps of the time split and trace
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-UPSAMPLE_KERNELS = ("sweep_kernel", "draw_kernel", "merge_kernel", "upsample_prep_kernel")
+UPSAMPLE_KERNELS = ("sweep_kernel", "sweep_tc_kernel", "draw_kernel", "merge_kernel",
+                    "upsample_prep_kernel")
 SEGMENT_KERNELS = ("deform_fwd_kernel", "sdf_fwd_kernel", "color_fwd_kernel", "deform_bwd_kernel",
                    "sdf_bwd_kernel", "color_bwd_kernel", "wgrad_partial_kernel",
-                   "wgrad_reduce_kernel", "deform_fwd_tc_kernel", "deform_bwd_tc_kernel",
-                   "sdf_bwd_tc_kernel", "color_bwd_tc_kernel", "wgrad_tc_partial_kernel")
+                   "wgrad_reduce_kernel", "deform_fwd_tc_kernel", "sdf_fwd_tc_kernel",
+                   "deform_bwd_tc_kernel", "sdf_bwd_tc_kernel", "color_bwd_tc_kernel",
+                   "wgrad_tc_partial_kernel")
 N_PARITY_SEED1 = 16384                         # points of the second weight seed's parity
 # train step with the segment kernels vs the plain field path (phase 10):
 # (metric relative difference, per-network gradient relative L2) per dot
@@ -283,6 +294,27 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_device_ms(fn, reps: int) -> dict:
+    """Device milliseconds a call by kernel name (torch.profiler over
+    ``reps`` calls after one warm-up): a call's kernels without the host
+    time between them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        dev_us = (getattr(evt, "self_device_time_total", None)
+                  or getattr(evt, "self_cuda_time_total", 0))
+        if dev_us > 0 and evt.device_type == DeviceType.CUDA:
+            out[evt.key] = out.get(evt.key, 0.0) + dev_us / reps / 1e3
+    return out
+
+
 def net_macs(params, name, head_cols=None):
     """Multiply-adds per point of a net's layers (the last layer with only
     ``head_cols`` outputs when given)."""
@@ -389,6 +421,71 @@ def endosurf_step_split(trainer, step_ms: float, smi: str) -> None:
                      step_ms, smi, detail=SEGMENT_KERNELS)
 
 
+def upsample_inputs(arrays, rspec, n, gen, dev):
+    """o, d_z, t and perturbed z0 [n, n_samples] of n train rays
+    (sample_train_batch), as phases 6 and 8 take them."""
+    from endosurf_tpu_torch.data.scene_data import sample_train_batch
+    from endosurf_tpu_torch.models.endosurf import _split_rays, _stratified_z
+    from endosurf_tpu_torch.ops.geometry import ray_sphere_intersection
+    rays_b = sample_train_batch(arrays, H, W, n, generator=gen)["rays"]
+    rays_o, rays_d, rays_d_z, t = _split_rays(rays_b)
+    near, far, _ = ray_sphere_intersection(rays_o, rays_d)
+    z0 = _stratified_z(near, far, rspec.n_samples, torch.rand(n, 1, generator=gen, device=dev))
+    return rays_o, rays_d_z, t, z0
+
+
+def _double(tree):
+    if isinstance(tree, dict):
+        return {k: _double(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_double(v) for v in tree]
+    return tree.double() if torch.is_tensor(tree) and tree.is_floating_point() else tree
+
+
+def upsample_f64_readings(spec, rspec, params, up_in, what: str) -> None:
+    """The bf16 upsample kernel's and the float32 plain twin's distance from
+    a float64 plain upsample (the same bf16 operand roundings, float64 sums),
+    per output: fused_sampler.parity_errors' (median, p99, max, share)."""
+    from endosurf_tpu_torch.kernels import fused_sampler as fs
+    from endosurf_tpu_torch.ops import mlp
+    bf, args = torch.bfloat16, (rspec.n_importance, rspec.up_sample_steps)
+    got = {"kernel": fs.fused_upsample_z_cuda(spec, params, *up_in, *args, bf, True),
+           "float32 plain": fs.fused_upsample_z_reference(spec, params, *up_in, *args, bf, True)}
+    operand = mlp.operand
+    mlp.operand = lambda x, p: x.to(bf).to(x.dtype) if p == "default" else x
+    try:
+        z, sdf = fs.fused_upsample_z_reference(spec, _double(params), *[a.double() for a in up_in],
+                                               *args, bf, True)
+    finally:
+        mlp.operand = operand
+    for name, (gz, gs) in got.items():
+        e = fs.parity_errors({"z": gz.double(), "sdf": gs.double()}, {"z": z, "sdf": sdf}, bf)
+        print(f"upsample bf16 vs float64 {what} {name}: " + "; ".join(
+            f"{k} median {v[0]:.3e} p99 {v[1]:.3e} max {v[2]:.3e} over "
+            f"{fs.PARITY_TOL[bf]['share'][0]:g} {100 * v[3]:.2f} %" for k, v in e.items()),
+            flush=True)
+
+
+def upsample_timing(spec, rspec, params, tb_in, smi: str, root: str = "") -> dict:
+    """Phase 8: per dot mode (the upsample kernels' device ms a call, the
+    plain twin's call ms), and the kernel call's ms, on one train batch."""
+    from endosurf_tpu_torch.kernels import fused_sampler as fs
+    args = (rspec.n_importance, rspec.up_sample_steps)
+    out = {}
+    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        def kern():
+            return fs.fused_upsample_z_cuda(spec, params, *tb_in, *args, dt, True)
+        call_ms = cuda_ms(kern, 10)
+        k_ms = sum(v for k, v in kernel_device_ms(kern, 10).items()
+                   if any(u in k for u in UPSAMPLE_KERNELS))
+        p_ms = cuda_ms(lambda: fs.fused_upsample_z_reference(spec, params, *tb_in, *args, dt, True),
+                       10)
+        out[name] = (k_ms, p_ms)
+        print(f"upsample timing {name} ({RAY_BATCH} rays, {smi}{root}): kernel {k_ms:.3f} ms of "
+              f"device time a call ({call_ms:.3f} ms the call), plain {p_ms:.3f} ms", flush=True)
+    return out
+
+
 def train_midpoints(spec, rspec, params, arrays, gen, dev):
     """The section midpoints of one train batch ([R * 64] x, d, t), as the
     train step's field evaluation gets them: sample_train_batch, jittered
@@ -422,7 +519,8 @@ def print_segment_readings(res, what: str, dtype) -> None:
             n_bad = sum(not v[-1] for v in vals.values())
             stats = list(zip(*[v[:-1] for v in vals.values()]))
             worst = [max(zip(col, vals), key=lambda cv: cv[0]) for col in stats]
-            label = {"out": ("median", "p99", "max"), "cot": ("p99", "max"),
+            label = {"out": ("median", "p99", "max"), "sdf_out": ("median", "p99", "max"),
+                     "cot": ("p99", "max"),
                      "leaf": ("rel L2",), "bias": ("rel L2",)}[kind]
             tols = tol if isinstance(tol, tuple) else (tol,)
             print(f"segment {what} {seg} {kind}: " + ", ".join(
@@ -1560,7 +1658,8 @@ def train_only(smi: str) -> int:
 
 def segments_only(smi: str) -> int:
     """``--segments-only``: the build, phase 9's bf16 seed-0 sound parity on
-    a train batch's midpoints, and phase 11's timing."""
+    a train batch's midpoints, phase 11's timing, phase 6's float64 readings
+    of the bf16 upsample and phase 8's timing."""
     from endosurf_tpu_torch.data.scene_data import make_synthetic_arrays
     from endosurf_tpu_torch.kernels import build
     from endosurf_tpu_torch.kernels import fused_train_cuda as ftc
@@ -1586,6 +1685,15 @@ def segments_only(smi: str) -> int:
               f"{k_ms:.3f} ms, plain {p_ms:.3f} ms; {work[k][0] / 1e12:.4f} TFLOP -> bound "
               f"{b_ms:.4f} ms ({b_by}); {work[k][0] / k_ms / 1e9:.2f} TFLOP/s", flush=True)
     check(ftc.parity_ok(res), "segment kernels vs plain out of tolerance (bf16, seed 0)")
+    for seed in (0, 1):
+        s_params = init_endosurf_params(spec, torch.Generator().manual_seed(seed), dev)
+        up_in = upsample_inputs(scene.device_arrays, rspec, N_PARITY,
+                                torch.Generator(device=dev).manual_seed(seed), dev)
+        upsample_f64_readings(spec, rspec, s_params, up_in,
+                              f"seed {seed} ({N_PARITY} rays, {root})")
+    upsample_timing(spec, rspec, params, upsample_inputs(
+        scene.device_arrays, rspec, RAY_BATCH, torch.Generator(device=dev).manual_seed(2), dev),
+        smi, f", {root}")
     return 0
 
 
@@ -1615,19 +1723,14 @@ def main() -> int:
 
     import numpy as np
 
-    from endosurf_tpu_torch.data.scene_data import (
-        frame_rays,
-        make_synthetic_arrays,
-        sample_train_batch,
-    )
+    from endosurf_tpu_torch.data.scene_data import frame_rays, make_synthetic_arrays
     from endosurf_tpu_torch.evaluation.render_eval import eval_frames
     from endosurf_tpu_torch.kernels import fused_render as fr
     from endosurf_tpu_torch.kernels import fused_sampler as fs
     from endosurf_tpu_torch.kernels import fused_train_cuda as ftc
-    from endosurf_tpu_torch.models.endosurf import RenderSpec, _split_rays, _stratified_z
+    from endosurf_tpu_torch.models.endosurf import RenderSpec
     from endosurf_tpu_torch.models.fields import EndoSurfSpec, init_endosurf_params
     from endosurf_tpu_torch.native import build as native_build
-    from endosurf_tpu_torch.ops.geometry import ray_sphere_intersection
     from endosurf_tpu_torch.serve import EndoSurfRenderer
     from endosurf_tpu_torch.train.checkpoint import load_checkpoint
 
@@ -1713,19 +1816,12 @@ def main() -> int:
     # 6. upsample parity on train-batch rays with perturbed z0, two seeds
     arrays = renderer_scene.device_arrays
     up_args = (rspec.n_importance, rspec.up_sample_steps)
-
-    def upsample_inputs(n, gen):
-        rays_b = sample_train_batch(arrays, H, W, n, generator=gen)["rays"]
-        rays_o, rays_d, rays_d_z, t = _split_rays(rays_b)
-        near, far, _ = ray_sphere_intersection(rays_o, rays_d)
-        z0 = _stratified_z(near, far, rspec.n_samples,
-                           torch.rand(n, 1, generator=gen, device=dev))
-        return rays_o, rays_d_z, t, z0
-
     u_max_err = 0.0
     for seed in (0, 1):
         s_params = init_endosurf_params(spec, torch.Generator().manual_seed(seed), dev)
-        up_in = upsample_inputs(N_PARITY, torch.Generator(device=dev).manual_seed(seed))
+        up_in = upsample_inputs(arrays, rspec, N_PARITY,
+                                torch.Generator(device=dev).manual_seed(seed), dev)
+        upsample_f64_readings(spec, rspec, s_params, up_in, f"seed {seed} ({N_PARITY} rays)")
         ugot, uref = {}, {}
         for name, dt in dtypes.items():
             z, sdf = fs.fused_upsample_z_cuda(spec, s_params, *up_in, *up_args, dt, True)
@@ -1810,14 +1906,9 @@ def main() -> int:
         endosurf_step_split(trainer, step_ms, smi)
 
     # 8. upsample timing on one train batch (the main path's shape), both modes
-    tb_in = upsample_inputs(RAY_BATCH, torch.Generator(device=dev).manual_seed(2))
-    utimes = {}
-    for name, dt in dtypes.items():
-        k_ms = cuda_ms(lambda: fs.fused_upsample_z_cuda(spec, params, *tb_in, *up_args, dt, True), 10)
-        p_ms = cuda_ms(lambda: fs.fused_upsample_z_reference(spec, params, *tb_in, *up_args, dt, True), 10)
-        utimes[name] = (k_ms, p_ms)
-        print(f"upsample timing {name} ({RAY_BATCH} rays, {smi}): kernel {k_ms:.3f} ms, "
-              f"plain {p_ms:.3f} ms", flush=True)
+    tb_in = upsample_inputs(arrays, rspec, RAY_BATCH, torch.Generator(device=dev).manual_seed(2),
+                            dev)
+    utimes = upsample_timing(spec, rspec, params, tb_in, smi)
     print(f"train step breakdown (bf16): {step_ms:.1f} ms/step, upsample kernel "
           f"{utimes['bfloat16'][0]:.3f} ms ({100 * utimes['bfloat16'][0] / step_ms:.1f} %), "
           f"rest {step_ms - utimes['bfloat16'][0]:.1f} ms", flush=True)
@@ -1907,8 +1998,8 @@ def main() -> int:
          "max_abs_err": max(v[1] for v in errs["bfloat16"].values()),
          "ms": times["bfloat16"][0], "plain_ms": times["bfloat16"][1],
          "bound_ms": r_bound, "bound_by": r_by, "library_ms": None},
-        {"name": "fused_upsample_z", "route": "cuda",
-         "source": "endosurf_tpu_torch/kernels/csrc/fused_sampler.cu",
+        {"name": "fused_upsample_z", "route": "cuda",   # bf16: the sweeps on tensor cores
+         "source": "endosurf_tpu_torch/kernels/csrc/sweep_tc.cuh",
          "replaces": "endosurf_tpu/kernels/fused_sampler.py:515",
          "launches": train_launches,
          "max_abs_err": u_max_err,
@@ -1921,7 +2012,7 @@ def main() -> int:
          "bound_ms": seg_bounds[k][0], "bound_by": seg_bounds[k][1], "library_ms": None}
         for k, line, src in (("deform_fwd", 204, "field_tc.cuh"),   # bf16: tensor cores
                              ("deform_bwd", 217, "field_tc.cuh"),
-                             ("sdf_fwd", 238, "fused_train.cu"), ("sdf_bwd", 258, "field_tc.cuh"),
+                             ("sdf_fwd", 238, "field_tc.cuh"), ("sdf_bwd", 258, "field_tc.cuh"),
                              ("color_fwd", 284, "fused_train.cu"),
                              ("color_bwd", 298, "field_tc.cuh"))] + [
         {"name": k, "route": "cuda", "source": f"endosurf_tpu_torch/kernels/csrc/{src}",

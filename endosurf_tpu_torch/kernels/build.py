@@ -116,7 +116,7 @@ def load_library() -> ctypes.CDLL:
     lib.fused_march_scratch_floats.restype = i64
     # the train segments (fused_train.cu): w, meta, rb, n, then tensors, stream
     head = [vp, ctypes.POINTER(i64), i32, i32]
-    for name, n_ptrs in (("train_deform_fwd", 3), ("train_sdf_fwd", 4),
+    for name, n_ptrs in (("train_deform_fwd", 3), ("train_sdf_fwd", 5),
                          ("train_color_fwd", 5), ("train_deform_bwd", 6),
                          ("train_sdf_bwd", 8), ("train_color_bwd", 12)):
         fn = getattr(lib, name)
@@ -124,6 +124,8 @@ def load_library() -> ctypes.CDLL:
         fn.restype = i32
     lib.train_bwd_sizes.argtypes = [ctypes.POINTER(i64), i32, i32, i32, ctypes.POINTER(i64)]
     lib.train_bwd_sizes.restype = None
+    lib.train_sdf_fwd_work_floats.argtypes = [ctypes.POINTER(i64), i32, i32]
+    lib.train_sdf_fwd_work_floats.restype = i64
     # the EndoNeRF kernels (fused_sdf.cu, fused_render_dnerf.cu, fused_train_dnerf.cu)
     lib.fused_density_raw_launch.argtypes = [vp, vp, i64, vp, ctypes.POINTER(i64), i32, vp, vp]
     lib.fused_density_raw_launch.restype = i32

@@ -1,12 +1,13 @@
 // The bf16 ("default" dot mode, rb) train segments on Hopper's tensor cores:
-// the deform forward (deform_fwd_tc_kernel) and the three backward kernels
-// (deform_bwd_tc_kernel, sdf_bwd_tc_kernel, color_bwd_tc_kernel), launched by
-// fused_train.cu's train_deform_fwd / train_*_bwd for rb = 1 in place of the
-// SIMT kernels (which the float32 mode keeps), and the weight-gradient product
-// of wgrad_tc.cuh. The SDF and colour forward stay SIMT in both modes.
+// the deform and SDF forward (deform_fwd_tc_kernel, sdf_fwd_tc_kernel) and
+// the three backward kernels (deform_bwd_tc_kernel, sdf_bwd_tc_kernel,
+// color_bwd_tc_kernel), launched by fused_train.cu's train_deform_fwd /
+// train_sdf_fwd / train_*_bwd for rb = 1 in place of the SIMT kernels (which
+// the float32 mode keeps), and the weight-gradient product of wgrad_tc.cuh.
+// The colour forward stays SIMT in both modes.
 //
 // Replaces, with fused_train.cu, the Pallas kernels deform_fwd, deform_bwd,
-// sdf_bwd and color_bwd of endosurf_tpu/kernels/fused_train_pallas.py
+// sdf_fwd, sdf_bwd and color_bwd of endosurf_tpu/kernels/fused_train_pallas.py
 // (_seg_pallas): there the weights stay in VMEM and blocks of >= 128 points
 // stream through the MXU. Here a block of NT threads owns a tile of rows
 // (deform: 16 points x the primal and three tangent streams, row 16 s + p;
@@ -19,8 +20,9 @@
 // skip layer, the SDF's 295-wide skip layer) takes one pass per group of 256
 // columns. What is not a 256-wide product stays SIMT in the same kernel: the
 // encodings, the 3-wide output layers of the deform and colour nets and their
-// cotangents, the head column, the gates, the softplus' second-order term and
-// the input-cotangent tails. Each layer's (operand, cotangent) pairs go to a
+// cotangents, the head column, the gates, the softplus' second-order term and the
+// input-cotangent tails. A forward kernel and its backward's recompute run
+// one tile function (deform_tc_forward, sdf_tc_forward). Each layer's (operand, cotangent) pairs go to a
 // global scratch and wgrad_tc.cuh's product sums them over the points.
 //
 // The same maths as the SIMT kernels, operation for operation, except that
@@ -44,14 +46,16 @@
 //     xin / ag.
 //
 // What bounds it: the products, 0.241 (deform forward), 0.709 (deform
-// backward), 0.403 (SDF) and 0.251 (colour backward) TFLOP at 65,536 points
-// with the weight gradients (chip_smoke.py counts them), 0.24, 0.72, 0.41 and
-// 0.25 ms at the bf16 tensor-core rate; the SDF's split operands take three
-// mma for each of its walks' products and two for its weight gradients.
-// Bytes: the backward scratch, bf16 where exact (2.0 GiB for the deform and
-// 0.6 GiB for the colour at 65,536 points, half their float32 size), written
-// once and read about once by the weight-gradient product; the forward stores
-// none. mma.sync, one block per SM where the shared memory is large (SDF and
+// backward), 0.134 (SDF forward), 0.403 (SDF backward) and 0.251 (colour
+// backward) TFLOP at 65,536 points with the weight gradients (chip_smoke.py
+// counts them), 0.24, 0.72, 0.14, 0.41 and 0.25 ms at the bf16 tensor-core
+// rate; the SDF's split operands take three mma for each of its walks'
+// products and two for its weight gradients. Bytes: the backward scratch,
+// bf16 where exact (2.0 GiB for the deform and 0.6 GiB for the colour at
+// 65,536 points, half their float32 size), written once and read about once
+// by the weight-gradient product; the deform forward stores none, the SDF
+// forward only its pre-activations (0.5 GiB), read back by its own adjoint.
+// mma.sync, one block per SM where the shared memory is large (SDF and
 // colour ~200 KB) and the L2-fed weight fragments leave the kernels far from
 // the bound (PERF.md has the times on an H100).
 //
@@ -119,8 +123,6 @@ __device__ __forceinline__ bool in_tile(long long base, int p, long long n) {
   return base + p < n;
 }
 
-__device__ __forceinline__ bf16 bzero() { return __float2bfloat16_rn(0.f); }
-
 // Operand rows -> dst [S][n][w] (w the padded width, a multiple of 16;
 // rows past n skipped), r = s * P + p.
 template <int S, int P>
@@ -135,34 +137,6 @@ __device__ __forceinline__ void save_rows(bf16* __restrict__ dst, const bf16* h,
   }
 }
 
-// The encoding e [rows][ew] into columns [c0, c0 + ew) of the operand, zeros
-// up to the next multiple of 16.
-__device__ __forceinline__ void put_enc(bf16* h, int ldh, int c0, const bf16* e, int ew, int rows,
-                                        int tid) {
-  const int w = c16(c0 + ew) - c0;
-  for (int idx = tid; idx < rows * w; idx += NT) {
-    const int r = idx / w, c = idx - r * w;
-    h[r * ldh + c0 + c] = c < ew ? e[r * ew + c] : bzero();
-  }
-}
-
-// The warp's accumulator pairs: f(row, col, v0, v1) for columns col, col + 1.
-template <int MT, class F>
-__device__ __forceinline__ void for_pairs(const float (&acc)[MT][2 * TC_NPW][4], int np0, int npw,
-                                          int lane, F&& f) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 2 * TC_NPW; ++nt) {
-      if (nt >= 2 * npw) continue;
-      const int col = np0 * 16 + nt * 8 + 2 * t;
-      f(mt * 16 + g, col, acc[mt][nt][0], acc[mt][nt][1]);
-      f(mt * 16 + g + 8, col, acc[mt][nt][2], acc[mt][nt][3]);
-    }
-}
-
-__device__ __forceinline__ int clampw(int x) { return x < 0 ? 0 : (x > TC_NPW ? TC_NPW : x); }
 
 // ---------------------------------------------------------------------------
 // deform: the tile's forward (shared by the forward kernel and the backward's
@@ -420,79 +394,99 @@ deform_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long lo
 }
 
 // ---------------------------------------------------------------------------
-// SDF: cotangents on sdf [n], feat [n][F], grad_c [n][3] -> d x_c [n][3] and
-// the scratch
+// SDF: the tile's forward (shared by the forward kernel and the backward's
+// recompute), the forward kernel (sdf, feat, grad_c), the backward
+// (cotangents on sdf [n], feat [n][F], grad_c [n][3] -> d x_c [n][3] and the
+// scratch)
 // ---------------------------------------------------------------------------
 
-inline size_t sdf_tc_smem(const Model& m) {
+// The shared arrays the SDF tile's forward uses (after the weight ring): the
+// layer's operand Hh [P][ldh] and the encoding E [P][es] (bf16), the
+// encoding derivative g1 and the adjoint on the encoding aE [P][es], x_c xs
+// [P][4] (float32).
+struct SdfTile {
+  bf16* Hh;
+  bf16* E;
+  float* g1;
+  float* aE;
+  float* xs;
+};
+
+// The forward kernel's shared memory: the ring and SdfTile.
+inline size_t sdf_fwd_tc_smem(const Model& m) {
   const int P = TC_P_SDF;
-  return TC_RING_BYTES + (size_t)3 * P * tc_ldh(m.sdf) * 2 + (size_t)P * m.es * 2
-         + (size_t)4 * P * m.es * 4 + (size_t)P * 4 * 4 + (size_t)P * 4;
+  return TC_RING_BYTES + (size_t)P * tc_ldh(m.sdf) * 2 + (size_t)P * m.es * 2
+         + (size_t)2 * P * m.es * 4 + (size_t)P * 4 * 4;
 }
 
-__global__ void __launch_bounds__(NT, 1)
-sdf_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long long n,
-                  const float* __restrict__ xc, const float* __restrict__ g_sdf,
-                  const float* __restrict__ g_feat, const float* __restrict__ g_gc,
-                  float* __restrict__ dxc, const __grid_constant__ TcScratch sv) {
+// The backward's: the forward's with the mid and lo terms of a split operand
+// (Hm, Hl) between Hh and E, and, after aE, the cotangents on aE and on the
+// encoding [P][es] each before xs, and the cotangent on sdf [P] after it.
+inline size_t sdf_tc_smem(const Model& m) {
+  const int P = TC_P_SDF;
+  return sdf_fwd_tc_smem(m) + (size_t)2 * P * tc_ldh(m.sdf) * 2 + (size_t)2 * P * m.es * 4
+         + (size_t)P * 4;
+}
+
+// The SDF net's forward on the tile of P points at base (field_sdf's
+// arithmetic, the products on tensor cores): the encoding and its derivative;
+// hidden layers 0 .. NL-2 as tile products (softplus100), each
+// pre-activation to sv.z, where the adjoint's gates read it back; then the
+// adjoint: the head column gated by the last hidden layer, walked back
+// through W^T (one pass per 256 input columns) to the encoding, whose part
+// accumulates unrounded in t.aE. Without SAVE the output layer runs between
+// the two, from the bf16 rows h_{NL-2}, as a tile product: sdf_out [n]
+// (column 0, the head) and feat_out [n][F] (unrounded), each plus the bias,
+// as field_sdf's. With SAVE each layer's operand rows go to
+// sv.xin, the adjoint's operand rows to sv.ag and its ungated values to sv.a.
+// The forward kernel and the backward's recompute both run it, so the
+// forward the loss sees is the one the backward differentiates, bit for bit.
+template <bool SAVE>
+__device__ __forceinline__ void sdf_tc_forward(const float* __restrict__ wts, const Model& m,
+                                               const TcFrags& fr, long long n, long long base,
+                                               const float* __restrict__ xc, const SdfTile& t,
+                                               uint4* ring, const TcScratch& sv,
+                                               float* __restrict__ sdf_out,
+                                               float* __restrict__ feat_out) {
   constexpr int P = TC_P_SDF, MT = P / 16;
-  extern __shared__ __align__(16) unsigned char tc_smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const Net& S = m.sdf;
-  const int es = m.es, F = m.feat_dim, G = 1 + F, ldh = tc_ldh(S);
-  uint4* ring = (uint4*)tc_smem + warp * (TC_STAGES * TC_NPW * 32);
-  bf16* Hh = (bf16*)(tc_smem + TC_RING_BYTES);      // [P][ldh] the operand (hi)
-  bf16* Hm = Hh + P * ldh;                       // [P][ldh] mid and lo terms of a split
-  bf16* Hl = Hm + P * ldh;                       //   float32 operand
-  bf16* E = Hl + P * ldh;                        // [P][es] encoding
+  const int es = m.es, ldh = tc_ldh(S);
+  bf16* Hh = t.Hh;
   const bf16* const A1[1] = {Hh};
-  const bf16* const A3[3] = {Hh, Hm, Hl};
-  float* g1 = (float*)(E + P * es);              // [P][es] encoding derivative
-  float* aE = g1 + P * es;                       // [P][es] adjoint on the encoding, then
-                                                 //   d v through g'' (the SIMT's s_dv2)
-  float* daE = aE + P * es;                      // [P][es] cotangent on aE
-  float* de = daE + P * es;                      // [P][es] cotangent on the encoding
-  float* xs = de + P * es;                       // [P][4]
-  float* gs = xs + P * 4;                        // [P] cotangent on sdf
-  const long long base = (long long)blockIdx.x * P;
   const int np_me = warp * TC_NPW;
   const int np_hmax = HMAX / 16;                 // pairs in place: the h columns
 
-  for (int idx = tid; idx < 3 * P * ldh; idx += NT) Hh[idx] = bzero();
+  for (int idx = tid; idx < P * ldh; idx += NT) Hh[idx] = bzero();
   for (int idx = tid; idx < P * 4; idx += NT) {
     const int p = idx >> 2, c = idx & 3;
-    xs[idx] = c < 3 && in_tile(base, p, n) ? xc[(size_t)(base + p) * 3 + c] : 0.f;
+    t.xs[idx] = c < 3 && in_tile(base, p, n) ? xc[(size_t)(base + p) * 3 + c] : 0.f;
   }
   __syncthreads();
   for (int idx = tid; idx < P * es; idx += NT) {   // field_sdf's encoding
     const int p = idx / es, c = idx - p * es;
     int dim, kind; float sc;
     enc_col(c, 3, dim, kind, sc);
-    const float v = bf16r(xs[p * 4 + dim]) * sc;
+    const float v = bf16r(t.xs[p * 4 + dim]) * sc;
     const float sv_ = sinf(v), cv = cosf(v);
-    E[idx] = __float2bfloat16_rn(kind == 0 ? v : (kind == 1 ? sv_ : cv));
-    g1[idx] = kind == 0 ? 1.f : (kind == 1 ? cv : -sv_);
-    aE[idx] = 0.f;
+    t.E[idx] = __float2bfloat16_rn(kind == 0 ? v : (kind == 1 ? sv_ : cv));
+    t.g1[idx] = kind == 0 ? 1.f : (kind == 1 ? cv : -sv_);
+    t.aE[idx] = 0.f;
   }
   __syncthreads();
-  put_enc(Hh, ldh, 0, E, es, P, tid);
+  put_enc(Hh, ldh, 0, t.E, es, P, tid);
   __syncthreads();
 
-  // The split of a float32 operand value into the three terms.
-  auto put_split = [&](int row, int c, float v) {
-    split3_bf16(v, Hh[row * ldh + c], Hm[row * ldh + c], Hl[row * ldh + c]);
-  };
-
-  // ---- forward recompute, hidden layers
+  // ---- hidden layers
   float acc[MT][2 * TC_NPW][4];
   for (int l = 0; l < NL - 1; ++l) {
     const int in_l = S.in_dim[l], out_l = S.out_dim[l];
     const bool skip = (S.skip_mask >> l) & 1;
     if (l > 0 && skip) {
-      put_enc(Hh, ldh, in_l - es, E, es, P, tid);
+      put_enc(Hh, ldh, in_l - es, t.E, es, P, tid);
       __syncthreads();
     }
-    save_rows<1, P>(sv.xin[l], Hh, ldh, c16(in_l), base, n, tid);
+    if (SAVE) save_rows<1, P>(sv.xin[l], Hh, ldh, c16(in_l), base, n, tid);
     const int npw = clampw(c16(out_l) / 16 - np_me);
     zero_acc(acc);
     tile_mma<MT, 1>(acc, A1, ldh, (const uint4*)(wts + fr.w[l]), c16(out_l) / 16, np_me, npw, 0,
@@ -510,7 +504,30 @@ sdf_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long long 
   }
   {
     const int l = NL - 1, n_in = S.in_dim[l];
-    save_rows<1, P>(sv.xin[l], Hh, ldh, c16(n_in), base, n, tid);
+    if (SAVE) save_rows<1, P>(sv.xin[l], Hh, ldh, c16(n_in), base, n, tid);
+    if (!SAVE) {
+      // the output layer (column 0 the head, 1 .. F the feature) as tile
+      // products, one pass per 256 columns, + the bias
+      const int n_out = S.out_dim[l], F = n_out - 1, np_o = c16(n_out) / 16;
+      const uint4* B = (const uint4*)(wts + fr.w[l]);
+      const float* b = wts + S.b_off[l];
+      auto out = [&](int row, int c, float a0, float a1) {
+        const long long i = base + row;
+        const float a[2] = {a0, a1};
+        for (int e = 0; e < 2; ++e) {
+          const int j = c + e;
+          if (i >= n || j >= n_out) continue;
+          if (j == 0) sdf_out[i] = a[e] + b[0];
+          else feat_out[(size_t)i * F + j - 1] = a[e] + b[j];
+        }
+      };
+      for (int np0 = np_me; np0 < np_o; np0 += np_hmax) {
+        const int npw = clampw(np_o - np0);
+        zero_acc(acc);
+        tile_mma<MT, 1>(acc, A1, ldh, B, np_o, np0, npw, 0, c16(n_in) / 16, ring, lane);
+        for_pairs(acc, np0, npw, lane, out);
+      }
+    }
     __syncthreads();
     // adjoint seed: the head column gated by the last hidden layer
     for (int idx = tid; idx < P * n_in; idx += NT) {
@@ -521,7 +538,7 @@ sdf_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long long 
       Hh[p * ldh + i] = __float2bfloat16_rn(v);
     }
     __syncthreads();
-    save_rows<1, P>(sv.ag[l - 1], Hh, ldh, c16(n_in), base, n, tid);
+    if (SAVE) save_rows<1, P>(sv.ag[l - 1], Hh, ldh, c16(n_in), base, n, tid);
   }
 
   // ---- the SDF adjoint: layers NL-2 .. 0 through W^T; the encoding part of
@@ -542,12 +559,12 @@ sdf_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long long 
           float o = 0.f;
           if (base + row < n) {
             const size_t q = (size_t)(base + row) * n_h + i;
-            sv.a[l - 1][q] = v[e];
+            if (SAVE) sv.a[l - 1][q] = v[e];
             o = v[e] * sigmoidf_(100.f * sv.z[l - 1][q]);
           }
           Hh[row * ldh + i] = __float2bfloat16_rn(o);
         } else {
-          aE[row * es + (i - n_h)] += v[e];
+          t.aE[row * es + (i - n_h)] += v[e];
         }
       }
     };
@@ -566,8 +583,88 @@ sdf_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long long 
     __syncthreads();
     for_pairs(acc, np_me, npw, lane, epi);
     __syncthreads();
-    if (l > 0) save_rows<1, P>(sv.ag[l - 1], Hh, ldh, c16(n_h), base, n, tid);
+    if (SAVE && l > 0) save_rows<1, P>(sv.ag[l - 1], Hh, ldh, c16(n_h), base, n, tid);
   }
+}
+
+// grad_c [n][3] from the tile's adjoint on the encoding, as field_sdf's: per
+// dimension the sum over its encoding columns c, in order, of op(aE_c g'_c)
+// times the column's scale.
+__device__ __forceinline__ void sdf_tc_grad_c(const Model& m, const SdfTile& t, long long base,
+                                              long long n, float* __restrict__ gc) {
+  const int P = TC_P_SDF, es = m.es;
+  for (int idx = threadIdx.x; idx < P * 3; idx += NT) {
+    const int p = idx / 3, mm = idx - p * 3;
+    float g = 0.f;
+    for (int c = 0; c < es; ++c) {
+      int dim, kind; float sc;
+      enc_col(c, 3, dim, kind, sc);
+      if (dim == mm) g += bf16r(t.aE[p * es + c] * t.g1[p * es + c]) * sc;
+    }
+    if (base + p < n) gc[(size_t)(base + p) * 3 + mm] = g;
+  }
+}
+
+// x_c [n][3] -> sdf [n], feat [n][F], grad_c [n][3]; sv holds only the
+// pre-activations (the workspace plan_sdf_fwd_tc lays out).
+__global__ void __launch_bounds__(NT, 2)
+sdf_fwd_tc_kernel(const float* __restrict__ wts, const __grid_constant__ Model m,
+                  const __grid_constant__ TcFrags fr, long long n,
+                  const float* __restrict__ xc, float* __restrict__ sdf,
+                  float* __restrict__ feat, float* __restrict__ gc,
+                  const __grid_constant__ TcScratch sv) {
+  constexpr int P = TC_P_SDF;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int warp = threadIdx.x >> 5;
+  uint4* ring = (uint4*)tc_smem + warp * (TC_STAGES * TC_NPW * 32);
+  SdfTile t;
+  t.Hh = (bf16*)(tc_smem + TC_RING_BYTES);
+  t.E = t.Hh + P * tc_ldh(m.sdf);
+  t.g1 = (float*)(t.E + P * m.es);
+  t.aE = t.g1 + P * m.es;
+  t.xs = t.aE + P * m.es;
+  const long long base = (long long)blockIdx.x * P;
+  sdf_tc_forward<false>(wts, m, fr, n, base, xc, t, ring, sv, sdf, feat);
+  sdf_tc_grad_c(m, t, base, n, gc);
+}
+
+__global__ void __launch_bounds__(NT, 1)
+sdf_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long long n,
+                  const float* __restrict__ xc, const float* __restrict__ g_sdf,
+                  const float* __restrict__ g_feat, const float* __restrict__ g_gc,
+                  float* __restrict__ dxc, const __grid_constant__ TcScratch sv) {
+  constexpr int P = TC_P_SDF, MT = P / 16;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const Net& S = m.sdf;
+  const int es = m.es, F = m.feat_dim, G = 1 + F, ldh = tc_ldh(S);
+  uint4* ring = (uint4*)tc_smem + warp * (TC_STAGES * TC_NPW * 32);
+  bf16* Hh = (bf16*)(tc_smem + TC_RING_BYTES);      // [P][ldh] the operand (hi)
+  bf16* Hm = Hh + P * ldh;                       // [P][ldh] mid and lo terms of a split
+  bf16* Hl = Hm + P * ldh;                       //   float32 operand
+  bf16* E = Hl + P * ldh;                        // [P][es] encoding
+  const bf16* const A3[3] = {Hh, Hm, Hl};
+  float* g1 = (float*)(E + P * es);              // [P][es] encoding derivative
+  float* aE = g1 + P * es;                       // [P][es] adjoint on the encoding, then
+                                                 //   d v through g'' (the SIMT's s_dv2)
+  float* daE = aE + P * es;                      // [P][es] cotangent on aE
+  float* de = daE + P * es;                      // [P][es] cotangent on the encoding
+  float* xs = de + P * es;                       // [P][4]
+  float* gs = xs + P * 4;                        // [P] cotangent on sdf
+  const long long base = (long long)blockIdx.x * P;
+  const int np_me = warp * TC_NPW;
+  const int np_hmax = HMAX / 16;                 // pairs in place: the h columns
+
+  // ---- forward recompute: hidden layers and the adjoint, with the saves
+  for (int idx = tid; idx < 2 * P * ldh; idx += NT) Hm[idx] = bzero();
+  sdf_tc_forward<true>(wts, m, fr, n, base, xc, SdfTile{Hh, E, g1, aE, xs}, ring, sv, nullptr,
+                       nullptr);
+
+  // The split of a float32 operand value into the three terms.
+  auto put_split = [&](int row, int c, float v) {
+    split3_bf16(v, Hh[row * ldh + c], Hm[row * ldh + c], Hl[row * ldh + c]);
+  };
+  float acc[MT][2 * TC_NPW][4];
 
   // ---- cotangents in: on aE (through grad_c), the g'' term, sdf and feat
   for (int idx = tid; idx < P * es; idx += NT) {
@@ -1097,6 +1194,17 @@ void plan_bwd_tc(const Model& m, int seg, long long n, void* scratch, float* gra
   if (partial_floats) *partial_floats = part;
 }
 
+// The SDF forward's workspace: each hidden layer's pre-activations
+// [n][out_l], which the adjoint's gates read back (a 64-point tile's are 512
+// KB at base.yml's widths, past shared memory); with a null base it only
+// counts. Returns its floats.
+long long plan_sdf_fwd_tc(const Model& m, long long n, void* work, TcScratch& sv) {
+  BytePlanner pl{(char*)work};
+  sv = TcScratch{};
+  for (int l = 0; l < NL - 1; ++l) sv.z[l] = pl.take<float>(n * m.sdf.out_dim[l]);
+  return (pl.used + 3) / 4;
+}
+
 template <class K>
 cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -1130,6 +1238,19 @@ cudaError_t launch_deform_bwd_tc(const float* w, const long long* meta, const Mo
                                                                    xt, g_xc, g_j, sv);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   return run_wgrad_tc(jobs, partial, st);
+}
+
+cudaError_t launch_sdf_fwd_tc(const float* w, const long long* meta, const Model& m, long long n,
+                              const float* xc, float* sdf, float* feat, float* gc, float* work,
+                              cudaStream_t st) {
+  TcScratch sv;
+  plan_sdf_fwd_tc(m, n, work, sv);
+  const size_t smem = sdf_fwd_tc_smem(m);
+  cudaError_t e = set_smem(sdf_fwd_tc_kernel, smem);
+  if (e != cudaSuccess) return e;
+  sdf_fwd_tc_kernel<<<n_tiles(n, TC_P_SDF), NT, smem, st>>>(w, m, decode_frags(meta), n, xc, sdf,
+                                                             feat, gc, sv);
+  return cudaGetLastError();
 }
 
 cudaError_t launch_sdf_bwd_tc(const float* w, const long long* meta, const Model& m, long long n,

@@ -230,8 +230,10 @@ int fused_render_launch(const float* rays, int R, const float* w_samp,
 
   prep_kernel<<<rblocks, tpb, 0, st>>>(rays, R, n0, rb, zl);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  e = run_upsample_rounds(w_samp, m, rb_samp != 0, R, n0, k_new, n_rounds, false, rb, zl, sl,
-                          zn, sn, st);
+  auto sweep = [&](int K, const float* z, int ldz, float* dst, int ldd) {
+    return sweep_rays(w_samp, m, rb_samp != 0, R, K, rb, z, ldz, dst, ldd, st);
+  };
+  e = run_upsample_rounds(sweep, R, n0, k_new, n_rounds, false, rb, zl, sl, zn, sn, st);
   if (e != cudaSuccess) return (int)e;
   e = rb_main ? launch_field<true>(w_main, m, R, n_final, sample_dist, rb, zl, pt, st)
               : launch_field<false>(w_main, m, R, n_final, sample_dist, rb, zl, pt, st);

@@ -16,14 +16,16 @@
 // with the kernels of sdf_chain.cuh, which the render entry runs too.
 //
 // What bounds it: the deform and SDF 9x256 MLPs at n0 + k * n_rounds points
-// per ray (about 2.0 MFLOP a point). The sweep is plain SIMT float32 FMA: a
-// block of 256 threads owns 32 points, thread j computes neuron j for all of
-// them from activations in shared memory, the weights stream from L2. The
-// per-ray draw / merge kernels are a few microseconds. Tensor cores are later
-// work.
+// per ray (1.877 MFLOP a point). In the float32 mode the sweep is plain SIMT
+// float32 FMA: a block of 256 threads owns 32 points, thread j computes
+// neuron j for all of them from activations in shared memory, the weights
+// stream from L2. In the bf16 mode it runs on tensor cores (sweep_tc.cuh:
+// tile products on mma.sync, one tile of SW_P points a block). The per-ray
+// draw / merge kernels are a few microseconds.
 //
 // Precision: with rb_samp every dot operand is rounded to bf16 and the
-// weights arrive rounded (pack_operands); products accumulate in float32 --
+// weights arrive rounded (fused_sampler.pack_sampling, which also appends
+// the hidden layers' bf16 mma fragments); products accumulate in float32 --
 // the sampling "default" mode of the JAX kernels.
 //
 // The ray march (fused_ray_march_launch) replaces the Pallas TPU kernel
@@ -43,6 +45,7 @@
 // rays); the secant sweeps fill only R / 32 blocks.
 
 #include "sdf_chain.cuh"
+#include "sweep_tc.cuh"
 
 #define MS_STRIDE 8     // march state a ray: d_low f_low d_high f_high d_pred sdf valid idx
 
@@ -163,7 +166,8 @@ long long fused_upsample_scratch_floats(int R) {
 }
 
 // rays7 [R, 7] (o, d_z, t); z0 [R, n0] ascending; w packed weights described
-// by meta (kernels/fused_render.pack_operands); z_out / sdf_out [R, 64]
+// by meta (kernels/fused_sampler.pack_sampling: with rb_samp the meta carries
+// the fragment offsets after its first META_LEN entries); z_out / sdf_out [R, 64]
 // (row stride 64; columns 0 .. n0 + k_new * n_rounds - 1 are written, sdf_out
 // in full only with return_sdf, else it is work space). Runs on the calling
 // thread's current device. Returns a cudaError_t (0 on success).
@@ -181,8 +185,14 @@ int fused_upsample_launch(const float* rays7, const float* z0, int R, int n0,
   const int tpb = 128;
   upsample_prep_kernel<<<(R + tpb - 1) / tpb, tpb, 0, st>>>(rays7, z0, R, n0, rb, z_out);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  e = run_upsample_rounds(w, m, rb_samp != 0, R, n0, k_new, n_rounds, return_sdf != 0, rb,
-                          z_out, sdf_out, zn, sn, st);
+  // bf16: the tensor-core sweep, its fragments in the meta's extension
+  const SweepFrags fr = rb_samp ? decode_sweep_frags(meta) : SweepFrags{};
+  auto sweep = [&](int K, const float* z, int ldz, float* dst, int ldd) {
+    return rb_samp ? sweep_rays_tc(w, m, fr, R, K, rb, z, ldz, dst, ldd, st)
+                   : sweep_rays(w, m, false, R, K, rb, z, ldz, dst, ldd, st);
+  };
+  e = run_upsample_rounds(sweep, R, n0, k_new, n_rounds, return_sdf != 0, rb, z_out, sdf_out, zn,
+                          sn, st);
   return (int)e;
 }
 

@@ -44,10 +44,10 @@
 // kernels below are SIMT float32 FMA, far below the bf16 tensor-core rate;
 // the scratch (the per-layer operands and cotangents, 4.0 GiB float32 for the
 // deform net at 65,536 points) is written once and read once by the product.
-// In the bf16 mode the three backward kernels and the deform forward run on
-// tensor cores instead (field_tc.cuh: tile products on mma.sync, a bf16
-// scratch where the values are bf16, wgrad_tc.cuh's weight-gradient product);
-// the float32 mode, and the SDF and colour forward in both modes, stay SIMT.
+// In the bf16 mode the three backward kernels and the deform and SDF forward
+// run on tensor cores instead (field_tc.cuh: tile products on mma.sync, a
+// bf16 scratch where the values are bf16, wgrad_tc.cuh's weight-gradient
+// product); the float32 mode, and the colour forward in both modes, stay SIMT.
 // The backward recomputes the forward rather than reading a scratch the
 // forward stored: on an H100 the forward kernels are 30 of the segments'
 // 160 ms a step, and storing would hold 8.3 GiB from forward to backward.
@@ -532,8 +532,8 @@ void train_bwd_sizes(const long long* meta, int seg, int rb, int n, long long* o
 
 // Every entry: w packed weights (fused_train_cuda.pack_segment), meta its
 // layout, rb 1 for the bf16-operand mode (then the packs carry the bf16
-// fragment copies field_tc.cuh reads, and the deform forward and every
-// backward launch its tensor-core kernel); tensors float32, contiguous, on
+// fragment copies field_tc.cuh reads, and the deform and SDF forward and
+// every backward launch its tensor-core kernel); tensors float32, contiguous, on
 // the current device; launches on stream. Returns a cudaError_t (0 on
 // success).
 
@@ -550,20 +550,25 @@ int train_deform_fwd(const float* w, const long long* meta, int rb, int n, const
   return (int)cudaGetLastError();
 }
 
+// The floats of workspace train_sdf_fwd needs for n points at the dot
+// precision rb (the tensor-core forward's pre-activations; none in float32).
+long long train_sdf_fwd_work_floats(const long long* meta, int rb, int n) {
+  if (!rb) return 0;
+  TcScratch sv;
+  return plan_sdf_fwd_tc(decode_model(meta), n, nullptr, sv);
+}
+
+// work: train_sdf_fwd_work_floats floats.
 int train_sdf_fwd(const float* w, const long long* meta, int rb, int n, const float* xc,
-                  float* sdf, float* feat, float* gc, void* stream) {
+                  float* sdf, float* feat, float* gc, float* work, void* stream) {
   if (n <= 0) return 0;
   const Model m = decode_model(meta);
   cudaStream_t st = (cudaStream_t)stream;
+  if (rb) return (int)launch_sdf_fwd_tc(w, meta, m, n, xc, sdf, feat, gc, work, st);
   const size_t smem = field_smem_floats(m);
   cudaError_t e;
-  if (rb) {
-    if ((e = prep_smem(sdf_fwd_kernel<true>, smem)) != cudaSuccess) return (int)e;
-    sdf_fwd_kernel<true><<<tiles(n), NT, smem * 4, st>>>(w, m, n, xc, sdf, feat, gc);
-  } else {
-    if ((e = prep_smem(sdf_fwd_kernel<false>, smem)) != cudaSuccess) return (int)e;
-    sdf_fwd_kernel<false><<<tiles(n), NT, smem * 4, st>>>(w, m, n, xc, sdf, feat, gc);
-  }
+  if ((e = prep_smem(sdf_fwd_kernel<false>, smem)) != cudaSuccess) return (int)e;
+  sdf_fwd_kernel<false><<<tiles(n), NT, smem * 4, st>>>(w, m, n, xc, sdf, feat, gc);
   return (int)cudaGetLastError();
 }
 

@@ -42,6 +42,7 @@
 #include <stdint.h>
 
 #define TC_WARPS 8       // warps per block of the tile kernels (NT threads)
+#define TC_THREADS (TC_WARPS * 32)
 #define TC_STAGES 4      // cp.async ring depth of a warp's weight fragments
 #define TC_NPW 2         // n-tile pairs (16 columns each) a warp owns
 #define TC_RING_BYTES (TC_WARPS * TC_STAGES * TC_NPW * 32 * 16)
@@ -93,6 +94,37 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+
+__device__ __forceinline__ bf16 bzero() { return __float2bfloat16_rn(0.f); }
+
+// The encoding e [rows][ew] into columns [c0, c0 + ew) of the operand, zeros
+// up to the next multiple of 16.
+__device__ __forceinline__ void put_enc(bf16* h, int ldh, int c0, const bf16* e, int ew, int rows,
+                                        int tid) {
+  const int w = c16(c0 + ew) - c0;
+  for (int idx = tid; idx < rows * w; idx += TC_THREADS) {
+    const int r = idx / w, c = idx - r * w;
+    h[r * ldh + c0 + c] = c < ew ? e[r * ew + c] : bzero();
+  }
+}
+
+// The warp's accumulator pairs: f(row, col, v0, v1) for columns col, col + 1.
+template <int MT, class F>
+__device__ __forceinline__ void for_pairs(const float (&acc)[MT][2 * TC_NPW][4], int np0, int npw,
+                                          int lane, F&& f) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2 * TC_NPW; ++nt) {
+      if (nt >= 2 * npw) continue;
+      const int col = np0 * 16 + nt * 8 + 2 * t;
+      f(mt * 16 + g, col, acc[mt][nt][0], acc[mt][nt][1]);
+      f(mt * 16 + g + 8, col, acc[mt][nt][2], acc[mt][nt][3]);
+    }
+}
+
+__device__ __forceinline__ int clampw(int x) { return x < 0 ? 0 : (x > TC_NPW ? TC_NPW : x); }
 
 // x -> (hi, lo) = (bf16(x), bf16(x - hi)); x - hi is exact in float32, so
 // |x - hi - lo| <= 2^-8 |x - hi| <= 2^-16 |x|.

@@ -431,14 +431,18 @@ cudaError_t sweep_rays(const float* w, const Model& m, bool rb, int R, int K, co
 // NeuS weights and k_new draws, the SDF at the new samples (when a later round
 // needs it, or every round with sdf_last), and the sorted merge. zl / sl hold
 // [R][KMAX], zn / sn [R][KNEW_MAX]; rb is the ray buffer (o, d_z, .., t, ..,
-// a, b, c). Returns the first launch error.
-cudaError_t run_upsample_rounds(const float* w, const Model& m, bool rbf, int R, int n0,
-                                int k_new, int n_rounds, bool sdf_last, const float* rb,
-                                float* zl, float* sl, float* zn, float* sn, cudaStream_t st) {
+// a, b, c). sweep(K, z, ldz, dst, ldd) launches the SDF at K samples a ray,
+// z[r * ldz + j] -> dst[r * ldd + j], and returns its error (the render's is
+// sweep_rays; the upsampling's bf16 one runs on tensor cores, sweep_tc.cuh).
+// Returns the first launch error.
+template <class Sweep>
+cudaError_t run_upsample_rounds(Sweep sweep, int R, int n0, int k_new, int n_rounds,
+                                bool sdf_last, const float* rb, float* zl, float* sl, float* zn,
+                                float* sn, cudaStream_t st) {
   cudaError_t e;
   const int tpb = 128;
   const int rblocks = (R + tpb - 1) / tpb;
-  e = sweep_rays(w, m, rbf, R, n0, rb, zl, KMAX, sl, KMAX, st);
+  e = sweep(n0, zl, KMAX, sl, KMAX);
   if (e != cudaSuccess) return e;
   float sharpness = 64.f;  // 64 * 2^i in round i
   for (int i = 0; i < n_rounds; ++i, sharpness *= 2.f) {
@@ -447,7 +451,7 @@ cudaError_t run_upsample_rounds(const float* w, const Model& m, bool rbf, int R,
     draw_kernel<<<rblocks, tpb, 0, st>>>(R, rb, zl, sl, s, k_new, sharpness, zn);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
     if (need_sdf) {
-      e = sweep_rays(w, m, rbf, R, k_new, rb, zn, KNEW_MAX, sn, KNEW_MAX, st);
+      e = sweep(k_new, zn, KNEW_MAX, sn, KNEW_MAX);
       if (e != cudaSuccess) return e;
     }
     merge_kernel<<<rblocks, tpb, 0, st>>>(R, zl, sl, s, zn, need_sdf ? sn : nullptr, k_new);

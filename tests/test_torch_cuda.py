@@ -37,6 +37,7 @@ from endosurf_tpu_torch.bridge import flatten
 from endosurf_tpu_torch.data.scene_data import make_synthetic_arrays
 from endosurf_tpu_torch.kernels import fused_render as fr
 from endosurf_tpu_torch.kernels import fused_render_dnerf as frd
+from endosurf_tpu_torch.kernels.fused_render import NL
 from endosurf_tpu_torch.kernels import fused_sampler as fs
 from endosurf_tpu_torch.kernels import fused_sdf as fsd
 from endosurf_tpu_torch.kernels import fused_train_cuda as ftc
@@ -217,42 +218,47 @@ def test_upsample_parity_limits_reject_the_other_precision(dev, spec, seed):
         assert not all(v[1] for v in report["own"].values()), report
 
 
-# Faults planted in csrc/sdf_chain.cuh that hit a minority of rays: the text
-# replaced, its replacement, and the dot modes in which the limits must
-# catch it. One operand rounding differently moves a bf16 point's SDF by up
-# to ~7e-3, so an SDF 0.1 % off is caught in float32 only.
+# Faults planted in the upsample's sources: per fault one (file, text
+# replaced, replacement) for each edit, and the dot modes in which the limits
+# must catch it. The first three hit a minority of rays in csrc/sdf_chain.cuh's
+# draws and merges, which both modes run. One operand rounding differently
+# moves a bf16 point's SDF by up to ~7e-3, so an SDF 0.1 % off is caught in
+# float32 only. The last is a fault of the bf16 tensor-core sweep
+# (csrc/sweep_tc.cuh): the skip scale applied to the accumulator after the
+# dot, as the train segments do, instead of to the operands before it.
 FAULTS = {
-    "skip_last_merge_r64": (
-        "  if (r >= R) return;\n  float* z = zl",
-        "  if (r >= R) return;\n  if (s + k == 64 && r % 64 == 0) return;\n  float* z = zl",
+    "skip_last_merge_r64": ([
+        ("sdf_chain.cuh", "  if (r >= R) return;\n  float* z = zl",
+         "  if (r >= R) return;\n  if (s + k == 64 && r % 64 == 0) return;\n  float* z = zl")],
         (torch.float32, torch.bfloat16)),
-    "shift_last_draws_r128": (
-        "    float u = ((float)n + 0.5f) / (float)k;",
-        "    float u = ((float)n + ((s + k == 64 && r % 128 == 0) ? 0.6f : 0.5f)) / (float)k;",
+    "shift_last_draws_r128": ([
+        ("sdf_chain.cuh", "    float u = ((float)n + 0.5f) / (float)k;",
+         "    float u = ((float)n + ((s + k == 64 && r % 128 == 0) ? 0.6f : 0.5f)) / (float)k;")],
         (torch.float32, torch.bfloat16)),
-    "scale_new_sdf_r64": (
-        "    float sn = snew ? snew[(size_t)r * KNEW_MAX + n] : 0.f;",
-        "    float sn = snew ? snew[(size_t)r * KNEW_MAX + n] * (r % 64 == 0 ? 1.001f : 1.f)"
-        " : 0.f;",
+    "scale_new_sdf_r64": ([
+        ("sdf_chain.cuh", "    float sn = snew ? snew[(size_t)r * KNEW_MAX + n] : 0.f;",
+         "    float sn = snew ? snew[(size_t)r * KNEW_MAX + n] * (r % 64 == 0 ? 1.001f : 1.f)"
+         " : 0.f;")],
         (torch.float32,)),
+    "sweep_skip_scale_after_dot": ([
+        ("sweep_tc.cuh", "v = __float2bfloat16_rn((relu ? fmaxf(z, 0.f) : softplus100(z)) * post);",
+         "v = __float2bfloat16_rn(relu ? fmaxf(z, 0.f) : softplus100(z));"),
+        ("sweep_tc.cuh", "      put_enc(H, ldh, in_l - ew, Es, ew, SW_P, tid);",
+         "      put_enc(H, ldh, in_l - ew, E0, ew, SW_P, tid);"),
+        ("sweep_tc.cuh", "          const float z = a[e] + b[c + e];",
+         "          const float z = a[e] * (((N.skip_mask >> l) & 1) ? EndoSurfChain::kSkip : 1.f)"
+         " + b[c + e];")],
+        (torch.bfloat16,)),
 }
 
 
 @pytest.mark.parametrize("fault", sorted(FAULTS))
 def test_upsample_limits_catch_planted_faults(dev, fault, tmp_path, monkeypatch):
-    """A kernel wrong on 1/64 or 1/128 of the rays fails the limits, where
-    the twin comparison alone lets the smaller faults through."""
-    if shutil.which("nvcc") is None and not osp.exists("/usr/local/cuda/bin/nvcc"):
-        pytest.skip("needs nvcc")
-    old, new, dtypes = FAULTS[fault]
-    src = tmp_path / "csrc"
-    shutil.copytree(build.CSRC, src)
-    text = (src / "sdf_chain.cuh").read_text()
-    assert text.count(old) == 1
-    (src / "sdf_chain.cuh").write_text(text.replace(old, new))
-    monkeypatch.setattr(build, "CSRC", src)
-    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
-    monkeypatch.setattr(build, "_LIB", None)
+    """A kernel wrong on 1/64 or 1/128 of the rays, or rounding its skip
+    operands in the wrong place, fails the limits, where the twin comparison
+    alone lets the smaller faults through."""
+    edits, dtypes = FAULTS[fault]
+    _rebuild_with_all(monkeypatch, tmp_path, edits)
     spec = EndoSurfSpec()
     params = init_endosurf_params(spec, torch.Generator().manual_seed(0), dev)
     inputs = _upsample_inputs(1024, dev)
@@ -262,6 +268,67 @@ def test_upsample_limits_catch_planted_faults(dev, fault, tmp_path, monkeypatch)
         ok, report = _upsample_check(spec, params, inputs, got, ref, dtype)
         print(f"{fault} {dtype}: {report}")
         assert not ok, report
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("spec", SPECS, ids=SPEC_IDS)
+def test_upsample_bf16_sweep_is_float32_noise(dev, spec, seed, monkeypatch):
+    """The bf16 upsample (its sweeps on tensor cores) sits about as far from
+    a float64 plain upsample (the same bf16 operand roundings, float64 sums)
+    as the float32 plain version does: every sum order tips a bf16 operand
+    rounding now and then, and the sharpness carries a tipped SDF into the
+    later rounds' draws. Per output (z, sdf) the median and p99 of the
+    per-ray max error against float64: the kernel's within 2x the float32
+    plain version's (both are printed; fused_sampler.PARITY_TOL has the
+    readings)."""
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(seed), dev)
+    inputs = _upsample_inputs(1024, dev, seed)
+    bf = torch.bfloat16
+    kernel = _upsample(fs.fused_upsample_z_cuda, spec, params, inputs, bf, True)
+    plain = _upsample(fs.fused_upsample_z_reference, spec, params, inputs, bf, True)
+    _bf16_plain64(monkeypatch)
+    ref = _upsample(fs.fused_upsample_z_reference, spec, _double(params), [a.double() for a in inputs],
+                    bf, True)
+    k_st, p_st = (fs.parity_errors({k: v.double() for k, v in got.items()}, ref, bf)
+                  for got in (kernel, plain))
+    print(f"upsample bf16 vs float64 seed {seed} (median, p99, max, share): kernel {k_st}; "
+          f"float32 plain {p_st}")
+    for k in ref:
+        assert k_st[k][0] <= 2 * p_st[k][0] and k_st[k][1] <= 2 * p_st[k][1], k
+
+
+def _double(tree):
+    """A parameter tree in float64."""
+    if isinstance(tree, dict):
+        return {k: _double(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_double(v) for v in tree]
+    return tree.double() if torch.is_tensor(tree) and tree.is_floating_point() else tree
+
+
+# Sampling nets besides base.yml's for the tensor-core sweep: no skip layer,
+# and hidden widths that are not multiples of 16 (the deform net's layer
+# before the skip is then 148 wide).
+SWEEP_NETS = {
+    "noskip": dict(deform=MLPSpec(9, 256, (), 3), sdf=MLPSpec(9, 256, (), 257)),
+    "w200": dict(deform=MLPSpec(9, 200, (4,), 3), sdf=MLPSpec(9, 200, (4,), 201),
+                 color_feat_dim=200),
+}
+
+
+@pytest.mark.parametrize("net_id", sorted(SWEEP_NETS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_upsample_kernel_takes_other_nets(dev, net_id, dtype):
+    """The upsample kernel against its plain twin at the limits, for nets
+    whose deform and SDF MLPs are one of SWEEP_NETS."""
+    spec = dataclasses.replace(EndoSurfSpec(), **SWEEP_NETS[net_id])
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(0), dev)
+    inputs = _upsample_inputs(1024, dev)
+    got = _upsample(fs.fused_upsample_z_cuda, spec, params, inputs, dtype, True)
+    ref = _upsample(fs.fused_upsample_z_reference, spec, params, inputs, dtype, True)
+    ok, report = _upsample_check(spec, params, inputs, got, ref, dtype)
+    print(f"upsample {net_id} {dtype}: {report}")
+    assert ok, report
 
 
 def test_render_rays_runs_the_upsample_kernel(dev):
@@ -510,7 +577,9 @@ def test_segment_scratch_sizes_match_the_planner(dev, spec):
     """fused_train_cuda.bwd_sizes (the CPU tests' mirror) gives the scratch
     and partial-sum floats of csrc's planners (train_bwd_sizes) for every
     segment in both dot modes (the bf16 mode: field_tc.cuh's plan_bwd_tc for
-    all three), at point counts around the tiles."""
+    all three), and fwd_work_floats the SDF forward's workspace
+    (train_sdf_fwd_work_floats: plan_sdf_fwd_tc in bf16), at point counts
+    around the tiles."""
     import ctypes
     from endosurf_tpu_torch.kernels import fused_train as ft
     params = init_endosurf_params(spec, torch.Generator().manual_seed(0), dev)
@@ -524,6 +593,9 @@ def test_segment_scratch_sizes_match_the_planner(dev, spec):
                 got = (ctypes.c_longlong * 2)()
                 lib.train_bwd_sizes(packed.meta, ftc.SEGMENTS.index(seg), int(packed.rb), n, got)
                 assert tuple(got) == ftc.bwd_sizes(packed, n), (seg, precision, n)
+                if seg == "sdf":
+                    assert lib.train_sdf_fwd_work_floats(packed.meta, int(packed.rb), n) == \
+                        ftc.fwd_work_floats(packed, n), (precision, n)
 
 
 def _bf16_plain64(monkeypatch):
@@ -538,21 +610,24 @@ def _bf16_plain64(monkeypatch):
     monkeypatch.setattr(ft, "operand", operand)
 
 
-@pytest.mark.parametrize("seg", ["deform", "sdf", "color", "deform_fwd"])
+@pytest.mark.parametrize("seg", ["deform", "sdf", "color", "deform_fwd", "sdf_fwd"])
 def test_segment_bf16_tails_are_float32_noise(dev, seg, monkeypatch):
     """In bf16 the tensor-core kernels (the three backward kernels and the
-    deform forward) sit about as far from a float64 plain version (the same
-    bf16 roundings of every dot operand, input cotangent and weight gradient;
-    float64 sums) as the float32 plain version does: both sum in float32, in
-    other orders, and a bf16 rounding that the sums' last bits tip moves an
-    activation or a cotangent by a bf16 ulp, which the next layers carry on
-    (the reason for PARITY_TOL's bf16 limits). Against float64: a backward's
-    worst leaf relative L2 and input-cotangent p99 (the SDF's d x_c; the
-    colour's d x_c, d grad_c, d d_c, d feat), the deform forward's x_c and
-    rows median and p99, each within 2x the float32 plain version's."""
+    deform and SDF forward) sit about as far from a float64 plain version
+    (the same bf16 roundings of every dot operand, input cotangent and weight
+    gradient; float64 sums) as the float32 plain version does: both sum in
+    float32, in other orders, and a bf16 rounding that the sums' last bits
+    tip moves an activation or a cotangent by a bf16 ulp, which the next
+    layers carry on (the reason for PARITY_TOL's bf16 limits). Against
+    float64: a backward's worst leaf relative L2 and input-cotangent p99 (the
+    SDF's d x_c; the colour's d x_c, d grad_c, d d_c, d feat), each within 2x
+    the float32 plain version's; a forward's outputs' median and p99 (the
+    deform's x_c and rows, the SDF's sdf, feat and grad_c), each within 2x
+    the float32 plain version's or under 1e-6 of the output's RMS, the
+    rounding of one float32 sum of 256 products."""
     from endosurf_tpu_torch.kernels import fused_train as ft
-    fwd = seg == "deform_fwd"
-    seg = "deform" if fwd else seg
+    fwd = seg.endswith("_fwd")
+    seg = seg.split("_")[0]
     spec = EndoSurfSpec()
     params = init_endosurf_params(spec, torch.Generator().manual_seed(0), dev)
     x, d, t = _seg_points(65536, dev)
@@ -578,9 +653,9 @@ def test_segment_bf16_tails_are_float32_noise(dev, seg, monkeypatch):
         def stats(got):
             return [ftc._quantiles(ftc._point_err(g.double(), r))[:2] for g, r in zip(got, ref)]
         k_st, p_st = stats(kernel), stats(outs)
-        print(f"deform fwd bf16 vs float64 (x_c, rows; median, p99): kernel {k_st}; float32 "
+        print(f"{seg} fwd bf16 vs float64 (outputs' median, p99): kernel {k_st}; float32 "
               f"plain {p_st}")
-        assert all(k <= 2 * p for ks, ps in zip(k_st, p_st) for k, p in zip(ks, ps))
+        assert all(k <= max(2 * p, 1e-6) for ks, ps in zip(k_st, p_st) for k, p in zip(ks, ps))
         return
     gen = torch.Generator(device=dev).manual_seed(1)
     cots = tuple(torch.randn(*o.shape, generator=gen, device=dev) for o in outs)
@@ -654,6 +729,15 @@ SEG_FAULTS = {
         ("field_tc.cuh",
          "__float2bfloat16_rn(acc[k][nt][e] * sc * gate);",
          "__float2bfloat16_rn(acc[k][nt][e] * sc * (k == 2 ? 1.f : gate));")], BF16),
+    # the SDF tile forward's adjoint drops its pass over the input columns past
+    # the first 256 (the skip layer's encoding columns 256 .. 294), which the
+    # forward kernel's grad_c and the backward's recompute share
+    "sdf_adjoint_drops_wide_pass": ([
+        ("field_tc.cuh",
+         "    const int npx = clampw(np_in - np_hmax - np_me);\n    if (npx > 0) {\n"
+         "      zero_acc(acc);\n      tile_mma<MT, 1>",
+         "    const int npx = 0;\n    if (npx > 0) {\n"
+         "      zero_acc(acc);\n      tile_mma<MT, 1>")], BF16),
 }
 
 
@@ -673,6 +757,82 @@ def test_segment_limits_catch_planted_faults(dev, fault, tmp_path, monkeypatch):
         print(f"{fault} {precision}: parity worst {_worst(res)}; order worst "
               f"{max(rel.values()):.3e}")
         assert not (ftc.parity_ok(res) and max(rel.values()) <= ORDER_TOL[precision]), precision
+
+
+def test_sdf_fwd_is_the_backward_recompute(dev, tmp_path, monkeypatch):
+    """In bf16 the SDF forward kernel and the SDF backward's recompute run one
+    tile forward (field_tc.cuh's sdf_tc_forward), so the forward the loss sees
+    is the one the backward differentiates, bit for bit: at a ragged point
+    count, every hidden layer's pre-activations in the forward's workspace
+    equal the backward's saved ones; sdf and feat are the output layer's
+    product of the last hidden rows the backward saves (within float32
+    rounding: the product's sum order is the mma's); grad_c equals, bit for
+    bit, the one a build whose backward writes its recompute's grad_c (through
+    the forward kernel's own sdf_tc_grad_c) in place of d x_c returns."""
+    recompute_grad_c = "sdf_tc_forward<true>(wts, m, fr, n, base, xc, SdfTile{Hh, E, g1, aE, xs}, ring, sv, nullptr,\n                       nullptr);\n"
+    _rebuild_with_all(monkeypatch, tmp_path, [(
+        "field_tc.cuh", recompute_grad_c,
+        recompute_grad_c + "  sdf_tc_grad_c(m, SdfTile{Hh, E, g1, aE, xs}, base, n, dxc);\n  return;\n")])
+    from endosurf_tpu_torch.kernels import fused_train as ft
+    spec = EndoSurfSpec()
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(0), dev)
+    x, _, _ = _seg_points(RAGGED_N, dev)
+    n = x.shape[0]
+    with torch.no_grad():
+        like, flat = ft.segment_weights(ft.prepare_effective(spec, params), "sdf")
+    packed = ftc.pack_segment(spec, "sdf", flat, like, "default")
+    lib = build.load_library()
+    f = packed.layers[-1][3] - 1
+    sdf, feat, grad_c = (torch.empty(n, w, device=dev) for w in (1, f, 3))
+    work = torch.empty(lib.train_sdf_fwd_work_floats(packed.meta, 1, n), device=dev)
+    ftc._run("train_sdf_fwd", packed, x.device, n, x, sdf, feat, grad_c, work)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cots = [torch.randn(n, w, generator=gen, device=dev) for w in (1, f, 3)]
+    scratch, partial, grad = ftc._bwd_buffers(packed, n, x.device)
+    probe = torch.empty(n, 3, device=dev)
+    ftc._run("train_sdf_bwd", packed, x.device, n, x, *cots, probe, scratch, partial, grad)
+    torch.cuda.synchronize()
+    layout, _ = ftc.tc_scratch_layout(packed, n)
+    off = 0
+    for l, lay in enumerate(packed.layers[:-1]):
+        z_fwd = work.view(torch.uint8)[off:off + 4 * n * lay[3]].view(torch.float32).view(n, -1)
+        off = -(-(off + 4 * n * lay[3]) // 256) * 256
+        assert torch.equal(z_fwd, ftc.scratch_array(scratch, layout, "z", l)), l
+    w_off, b_off, n_in, n_out, _ = packed.layers[-1]
+    h = ftc.scratch_array(scratch, layout, "xin", NL - 1)[:, :n_in].double()
+    w = packed.w[w_off:w_off + n_in * n_out].view(n_in, n_out).double()
+    ref = h @ w + packed.w[b_off:b_off + n_out].double()
+    bound = (h.abs() @ w.abs()) * 2.0 ** -18 + ref.abs() * 2.0 ** -23
+    got = torch.cat([sdf, feat], -1).double()
+    print(f"sdf fwd output layer vs float64 of the saved rows: max |err| / bound "
+          f"{float(((got - ref).abs() / bound).max()):.3e}")
+    assert bool(((got - ref).abs() <= bound).all())
+    assert torch.equal(grad_c, probe)
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"], ids=["f32", "bf16"])
+def test_sdf_segments_take_other_nets(dev, precision):
+    """The segment kernels against their plain versions at PARITY_TOL for a
+    static spec whose SDF net has no skip layer; an SDF net 200 wide runs in
+    float32, and its bf16 pack is refused (the tensor-core SDF backward splits
+    its adjoint's two rounded dots at a k-tile, so it takes hidden widths that
+    are multiples of 16, and the forward shares its pack)."""
+    spec = dataclasses.replace(EndoSurfSpec(use_deform=False), sdf=MLPSpec(9, 256, (), 257))
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(0), dev)
+    res, _, _ = ftc.segment_parity(spec, params, *_seg_points(SEG_N, dev), precision, 0)
+    torch.cuda.synchronize()
+    print(f"segments sdf noskip {precision}: worst {_worst(res)}")
+    assert ftc.parity_ok(res), _report(res)
+    w200 = dataclasses.replace(EndoSurfSpec(use_deform=False), sdf=MLPSpec(9, 200, (4,), 201),
+                               color_feat_dim=200)
+    params = init_endosurf_params(w200, torch.Generator().manual_seed(0), dev)
+    if precision == "default":
+        with pytest.raises(ValueError, match="multiples of 16"):
+            ftc.segment_parity(w200, params, *_seg_points(SEG_N, dev), precision, 0)
+        return
+    res, _, _ = ftc.segment_parity(w200, params, *_seg_points(SEG_N, dev), precision, 0)
+    print(f"segments sdf w200 {precision}: worst {_worst(res)}")
+    assert ftc.parity_ok(res), _report(res)
 
 
 def test_train_step_runs_the_segment_kernels(dev, tmp_path):

@@ -1,9 +1,11 @@
-"""The host side of the tensor-core (bf16 mode) segment kernels, on the CPU:
-the bf16 fragment copies ``fused_train_cuda.pack_segment`` writes, the
-float32 packing it leaves as it was, the scratch sizes of both modes
-(``bwd_sizes``, which the card test ``test_segment_scratch_sizes_match_the_planner``
-holds against csrc's planners) and the plain version of the split product
-(``split_product``) against a float64 product.
+"""The host side of the tensor-core (bf16 mode) kernels, on the CPU: the
+bf16 fragment copies ``fused_train_cuda.pack_segment`` and the upsampling's
+``fused_sampler.pack_sampling`` write, the float32 packing each leaves as it
+was, the scratch sizes of both modes (``bwd_sizes``) and the SDF forward's
+workspace (``fwd_work_floats``), which the card test
+``test_segment_scratch_sizes_match_the_planner`` holds against csrc's
+planners, and the plain version of the split product (``split_product``)
+against a float64 product.
 
 Weights come from a seeded init, points from numpy seeds; tolerances are
 stated per test.
@@ -15,9 +17,11 @@ import numpy as np
 import pytest
 import torch
 
+from endosurf_tpu_torch.kernels import fused_render as fr
+from endosurf_tpu_torch.kernels import fused_sampler as fs
 from endosurf_tpu_torch.kernels import fused_train as ft
 from endosurf_tpu_torch.kernels import fused_train_cuda as ftc
-from endosurf_tpu_torch.kernels.fused_render import NL
+from endosurf_tpu_torch.kernels.fused_render import META_NET, NL
 from endosurf_tpu_torch.models.fields import EndoSurfSpec, MLPSpec, init_endosurf_params
 
 NARROW = EndoSurfSpec(deform=MLPSpec(9, 64, (4,), 3), sdf=MLPSpec(9, 64, (4,), 65),
@@ -226,3 +230,101 @@ def test_out_biases_are_the_output_layer_biases(seg):
     assert set(ftc.OUT_BIASES[seg]) == set(widths)
     for name in ftc.OUT_BIASES[seg]:
         assert tuple(flat[names.index(name)].shape) == (widths[name],)
+
+
+# Sampling nets besides base.yml's that the tensor-core sweep takes: no skip
+# layer, and hidden widths that are not multiples of 16 (the deform net's
+# layer before the skip is then 148 wide).
+SWEEP_SPECS = {
+    "full": EndoSurfSpec(), "static": EndoSurfSpec(use_deform=False), "narrow": NARROW,
+    "noskip": dataclasses.replace(EndoSurfSpec(), deform=MLPSpec(9, 256, (), 3),
+                                  sdf=MLPSpec(9, 256, (), 257)),
+    "w200": dataclasses.replace(EndoSurfSpec(), deform=MLPSpec(9, 200, (4,), 3),
+                                sdf=MLPSpec(9, 200, (4,), 201), color_feat_dim=200),
+}
+
+
+def _meta_net(meta, q):
+    """(in dims, out dims, W offsets) of net q (0 deform, 1 sdf) of a render meta."""
+    net = meta[8 + q * META_NET:8 + (q + 1) * META_NET]
+    return net[2:2 + NL], net[2 + NL:2 + 2 * NL], net[2 + 2 * NL:2 + 3 * NL]
+
+
+@pytest.mark.parametrize("spec_id", sorted(SWEEP_SPECS))
+def test_pack_sampling_bf16_fragments(spec_id):
+    """In the bf16 mode the upsampling's pack ends with the deform and SDF
+    nets' hidden-layer W as bf16 mma fragments, at the 16-byte aligned float
+    offsets its meta appends after the render meta's entries (deform net,
+    then SDF; -1 for the output layers and an absent deform net): bit for
+    bit the bf16 of the packed (bf16-rounded) float32 W, zeros in the
+    padding."""
+    spec = SWEEP_SPECS[spec_id]
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(0), "cpu")
+    w, meta = fs.pack_sampling(spec, params, torch.bfloat16)
+    base_len = len(fr.pack_operands(spec, params, torch.bfloat16)[1])
+    assert len(meta) == base_len + 2 * NL
+    as_bf16 = w.view(torch.bfloat16)
+    for q in (0, 1):
+        offs = meta[base_len + q * NL:base_len + (q + 1) * NL]
+        if q == 0 and not spec.use_deform:
+            assert offs == [-1] * NL
+            continue
+        ins, outs, w_offs = _meta_net(meta, q)
+        assert offs[NL - 1] == -1
+        for l in range(NL - 1):
+            k, n = ins[l], outs[l]
+            mat = w[w_offs[l]:w_offs[l] + k * n].view(k, n)
+            assert torch.equal(mat.to(torch.bfloat16).to(torch.float32), mat)
+            assert offs[l] % 4 == 0
+            size = -(-k // 16) * 16 * (-(-n // 16) * 16)
+            got = _unfrag(as_bf16[2 * offs[l]:2 * offs[l] + size], k, n)
+            assert torch.equal(got[:k, :n].view(torch.int16),
+                               mat.to(torch.bfloat16).view(torch.int16))
+            assert not got[k:].any() and not got[:, n:].any()
+
+
+@pytest.mark.parametrize("spec_id", sorted(SWEEP_SPECS))
+def test_pack_sampling_keeps_the_float32_layout(spec_id):
+    """The upsampling's pack is ``pack_operands``' buffer and meta byte for
+    byte in float32, and their prefix in bf16, so the render (which packs with
+    ``pack_operands``) reads the layout it always did: a meta of the render's
+    META_LEN entries, which it decodes alone."""
+    spec = SWEEP_SPECS[spec_id]
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(0), "cpu")
+    for dtype in (torch.float32, torch.bfloat16):
+        w, meta = fs.pack_sampling(spec, params, dtype)
+        w0, meta0 = fr.pack_operands(spec, params, dtype)
+        assert len(meta0) == ftc.META_LEN
+        assert meta[:len(meta0)] == meta0
+        assert torch.equal(w[:w0.numel()], w0)
+        if dtype == torch.float32:
+            assert len(meta) == len(meta0) and w.numel() == w0.numel()
+
+
+@pytest.mark.parametrize("spec_id", sorted(SPECS))
+def test_fwd_work_floats_holds_the_sdf_pre_activations(spec_id):
+    """``fwd_work_floats`` (the CPU mirror of field_tc.cuh's
+    plan_sdf_fwd_tc, which the card test test_segment_scratch_sizes_match_the_planner
+    holds against csrc): in bf16 the SDF forward's workspace holds each hidden
+    layer's pre-activations [n, out] in float32, 256-byte aligned, the same
+    widths as the backward's saved pre-activations (``tc_scratch_layout``'s
+    "z"); no workspace in float32 or for the other segments."""
+    spec = SPECS[spec_id]
+    for seg in ftc.SEGMENTS:
+        like, flat = _segment(spec, seg)
+        for precision in ("highest", "default"):
+            packed = ftc.pack_segment(spec, seg, flat, like, precision)
+            for n in (1, 63, 4097, 65536):
+                got = ftc.fwd_work_floats(packed, n)
+                if seg != "sdf" or precision == "highest":
+                    assert got == 0
+                    continue
+                outs = [lay[3] for lay in packed.layers[:-1]]
+                z = [a for a in ftc.tc_scratch_layout(packed, n)[0] if a[0] == "z"]
+                assert [a[3] for a in z] == [(n, o) for o in outs]
+                used = 0
+                for o in outs:
+                    used = -(-used // 256) * 256 + 4 * n * o
+                assert got == -(-used // 4)
+                if n % 64 == 0:
+                    assert got == n * sum(outs)

@@ -367,14 +367,6 @@ def tc_scratch_layout(packed: Packed, n: int) -> Tuple[List[Tuple], int]:
     return layout, used
 
 
-def scratch_array(scratch: torch.Tensor, layout: List[Tuple], name: str, layer: int
-                  ) -> torch.Tensor:
-    """One array of ``tc_scratch_layout`` as a view of the float32 scratch."""
-    _, _, off, shape, dt = next(a for a in layout if a[:2] == (name, layer))
-    nbytes = shape[0] * shape[1] * (2 if dt == torch.bfloat16 else 4)
-    return scratch.view(torch.uint8)[off:off + nbytes].view(dt).view(shape)
-
-
 def bwd_sizes(packed: Packed, n: int) -> Tuple[int, int]:
     """(scratch floats, partial-sum floats) of a segment's backward at n
     points, as csrc's planners lay them out (``train_bwd_sizes``): in the

@@ -620,11 +620,9 @@ def test_segment_bf16_tails_are_float32_noise(dev, seg, monkeypatch):
     tip moves an activation or a cotangent by a bf16 ulp, which the next
     layers carry on (the reason for PARITY_TOL's bf16 limits). Against
     float64: a backward's worst leaf relative L2 and input-cotangent p99 (the
-    SDF's d x_c; the colour's d x_c, d grad_c, d d_c, d feat), each within 2x
-    the float32 plain version's; a forward's outputs' median and p99 (the
-    deform's x_c and rows, the SDF's sdf, feat and grad_c), each within 2x
-    the float32 plain version's or under 1e-6 of the output's RMS, the
-    rounding of one float32 sum of 256 products."""
+    SDF's d x_c; the colour's d x_c, d grad_c, d d_c, d feat) and a
+    forward's outputs' median and p99 (the deform's x_c and rows, the SDF's
+    sdf, feat and grad_c), each within 2x the float32 plain version's."""
     from endosurf_tpu_torch.kernels import fused_train as ft
     fwd = seg.endswith("_fwd")
     seg = seg.split("_")[0]
@@ -655,7 +653,7 @@ def test_segment_bf16_tails_are_float32_noise(dev, seg, monkeypatch):
         k_st, p_st = stats(kernel), stats(outs)
         print(f"{seg} fwd bf16 vs float64 (outputs' median, p99): kernel {k_st}; float32 "
               f"plain {p_st}")
-        assert all(k <= max(2 * p, 1e-6) for ks, ps in zip(k_st, p_st) for k, p in zip(ks, ps))
+        assert all(k <= 2 * p for ks, ps in zip(k_st, p_st) for k, p in zip(ks, ps))
         return
     gen = torch.Generator(device=dev).manual_seed(1)
     cots = tuple(torch.randn(*o.shape, generator=gen, device=dev) for o in outs)
@@ -759,6 +757,14 @@ def test_segment_limits_catch_planted_faults(dev, fault, tmp_path, monkeypatch):
         assert not (ftc.parity_ok(res) and max(rel.values()) <= ORDER_TOL[precision]), precision
 
 
+def _scratch_array(scratch, layout, name: str, layer: int) -> torch.Tensor:
+    """One array of ``fused_train_cuda.tc_scratch_layout`` as a view of the
+    float32 scratch."""
+    _, _, off, shape, dt = next(a for a in layout if a[:2] == (name, layer))
+    nbytes = shape[0] * shape[1] * (2 if dt == torch.bfloat16 else 4)
+    return scratch.view(torch.uint8)[off:off + nbytes].view(dt).view(shape)
+
+
 def test_sdf_fwd_is_the_backward_recompute(dev, tmp_path, monkeypatch):
     """In bf16 the SDF forward kernel and the SDF backward's recompute run one
     tile forward (field_tc.cuh's sdf_tc_forward), so the forward the loss sees
@@ -797,9 +803,9 @@ def test_sdf_fwd_is_the_backward_recompute(dev, tmp_path, monkeypatch):
     for l, lay in enumerate(packed.layers[:-1]):
         z_fwd = work.view(torch.uint8)[off:off + 4 * n * lay[3]].view(torch.float32).view(n, -1)
         off = -(-(off + 4 * n * lay[3]) // 256) * 256
-        assert torch.equal(z_fwd, ftc.scratch_array(scratch, layout, "z", l)), l
+        assert torch.equal(z_fwd, _scratch_array(scratch, layout, "z", l)), l
     w_off, b_off, n_in, n_out, _ = packed.layers[-1]
-    h = ftc.scratch_array(scratch, layout, "xin", NL - 1)[:, :n_in].double()
+    h = _scratch_array(scratch, layout, "xin", NL - 1)[:, :n_in].double()
     w = packed.w[w_off:w_off + n_in * n_out].view(n_in, n_out).double()
     ref = h @ w + packed.w[b_off:b_off + n_out].double()
     bound = (h.abs() @ w.abs()) * 2.0 ** -18 + ref.abs() * 2.0 ** -23

@@ -82,8 +82,8 @@ RESAMPLE_MAX = 64        # csrc/dnerf_chain.cuh's DN_N0: coarse depths, and draw
 # 1e-3), and the median ray (f32 sound <= 1.2e-6, controls >= 3.2e-3) is what
 # tells the precisions apart. The other limits sit at about 1.5-3x the
 # largest sound reading.
-# bf16, since the sweeps run on tensor cores (csrc/sweep_tc.cuh; PERF.md,
-# PR 9): the SIMT sweep summed in the plain version's k order and read a
+# bf16, since the sweeps run on tensor cores (csrc/sweep_tc.cuh; PERF.md
+# §6): the SIMT sweep summed in the plain version's k order and read a
 # median ray <= 1.2e-6; the mma's order tips bf16 operand roundings as any
 # two float32 orders do (the float32 plain version reads an sdf median up
 # to 2.9e-3 against a float64 one, the tensor-core kernel up to 2.6e-3, the

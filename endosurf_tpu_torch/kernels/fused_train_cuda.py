@@ -101,7 +101,7 @@ LAUNCHES = {f"{s}_{d}": 0 for s in SEGMENTS for d in ("fwd", "bwd")}
 # read p99 0 on feat and grad_c; the tensor-core forward sums in the mma's
 # order, so its bf16 roundings tip as the backward's do, and grad_c (the
 # adjoint through all eight hidden layers) carries them like the backward's
-# d x_c. Readings on an H100 (PERF.md, PR 9; phase 9, 65,536 midpoints,
+# d x_c. Readings on an H100 (PERF.md §6; phase 9, 65,536 midpoints,
 # seeds 0 / 1): sound median <= 6.9e-7, p99 sdf 2.22e-3 / 1.80e-3, feat
 # 2.22e-3 / 1.81e-3, grad_c 7.41e-3 / 7.46e-3, max <= 1.7e-2. Against a
 # float64 plain version the kernel reads p99 6.3e-4 / 3.7e-3 (sdf, grad_c),

@@ -25,8 +25,9 @@ Phases (any failure raises and exits non-zero):
      fused_sampler.PARITY_TOL and, on the kernel's own samples, at
      fused_sampler.CONSISTENCY_TOL, with the wrong-precision controls
      failing; prints every reading the limits were set from, and the bf16
-     kernel's and the float32 plain twin's distance from a float64 plain
-     upsample (the same bf16 operand roundings, float64 sums);
+     kernel's and the float32 plain twin's distance from the float64
+     yardstick (fused_sampler.fused_upsample_z_float64: the same bf16
+     operand roundings, float64 arithmetic);
   7. training end to end: EndoSurfTrainer on the in-memory base.yml config
      and scene (1024 rays, all six losses, march reuse, bf16 dots), 12 steps
      through Trainer.start (2 warm-up steps, then 10), checkpoints in a
@@ -36,10 +37,9 @@ Phases (any failure raises and exits non-zero):
      backward / Adam (CUDA events) and traces the device's busy and idle
      time (torch.profiler);
   8. upsample timing: kernel vs plain twin on one train batch, both modes:
-     the kernels' device time a call (torch.profiler; in bf16 the sweeps
-     run on tensor cores, csrc/sweep_tc.cuh) and the call's time (CUDA
-     events: host-bound where the device time is short, the pack is
-     rebuilt each call);
+     the call's time (CUDA events, as every kernel's; in bf16 the sweeps
+     run on tensor cores, csrc/sweep_tc.cuh) and beside it the call's
+     device time (torch.profiler), all its kernels and the upsample's own;
   9. field segment parity: the six CUDA segment kernels (deform / sdf /
      color, forward and backward, csrc/fused_train.cu) against their plain
      versions on the 65,536 midpoints of a real train batch
@@ -294,11 +294,23 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_events(prof, reps: int):
+    """(kernel name, launches, device ms a rep) of each device event of a
+    torch.profiler trace over ``reps`` repetitions. Device events only: a
+    host op's "self" device time repeats the kernels it launched outside an
+    aten op (the ctypes launches)."""
+    from torch.autograd import DeviceType
+    for evt in prof.key_averages():
+        dev_us = (getattr(evt, "self_device_time_total", None)
+                  or getattr(evt, "self_cuda_time_total", 0))
+        if dev_us > 0 and evt.device_type == DeviceType.CUDA:
+            yield evt.key, evt.count, dev_us / reps / 1e3
+
+
 def kernel_device_ms(fn, reps: int) -> dict:
     """Device milliseconds a call by kernel name (torch.profiler over
     ``reps`` calls after one warm-up): a call's kernels without the host
     time between them."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -307,11 +319,8 @@ def kernel_device_ms(fn, reps: int) -> dict:
             fn()
         torch.cuda.synchronize()
     out = {}
-    for evt in prof.key_averages():
-        dev_us = (getattr(evt, "self_device_time_total", None)
-                  or getattr(evt, "self_cuda_time_total", 0))
-        if dev_us > 0 and evt.device_type == DeviceType.CUDA:
-            out[evt.key] = out.get(evt.key, 0.0) + dev_us / reps / 1e3
+    for key, _, ms in device_events(prof, reps):
+        out[key] = out.get(key, 0.0) + ms
     return out
 
 
@@ -346,7 +355,6 @@ def train_step_split(trainer, loss_step, families, step_ms: float, smi: str,
     ``trainer.train_step`` (``families``: (name, key substrings); then
     matrix products and the rest; ``detail``: kernels also listed one by
     one), and the device's idle share of ``step_ms`` (the untraced step)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -376,22 +384,15 @@ def train_step_split(trainer, loss_step, families, step_ms: float, smi: str,
     fam = {name: 0.0 for name, _ in families}
     fam.update({"matrix products": 0.0, "other kernels": 0.0})
     launches, per_kernel = 0, {k: 0.0 for k in detail}
-    for evt in prof.key_averages():
-        dev_us = (getattr(evt, "self_device_time_total", None)
-                  or getattr(evt, "self_cuda_time_total", 0))
-        # device events only: a host op's "self" device time repeats the
-        # kernels it launched outside an aten op (the ctypes launches)
-        if dev_us <= 0 or evt.device_type != DeviceType.CUDA:
-            continue
-        launches += evt.count
-        ms = dev_us / N_SPLIT / 1e3
-        name = next((f for f, keys in families if any(k in evt.key for k in keys)), None)
+    for key, count, ms in device_events(prof, N_SPLIT):
+        launches += count
+        name = next((f for f, keys in families if any(k in key for k in keys)), None)
         if name is None:
-            name = ("matrix products" if any(k in evt.key.lower() for k in GEMM_KERNELS)
+            name = ("matrix products" if any(k in key.lower() for k in GEMM_KERNELS)
                     else "other kernels")
         fam[name] += ms
         for k in detail:
-            if k in evt.key:
+            if k in key:
                 per_kernel[k] += ms
     busy = sum(fam.values())
     if busy == 0:
@@ -434,30 +435,16 @@ def upsample_inputs(arrays, rspec, n, gen, dev):
     return rays_o, rays_d_z, t, z0
 
 
-def _double(tree):
-    if isinstance(tree, dict):
-        return {k: _double(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_double(v) for v in tree]
-    return tree.double() if torch.is_tensor(tree) and tree.is_floating_point() else tree
-
-
 def upsample_f64_readings(spec, rspec, params, up_in, what: str) -> None:
     """The bf16 upsample kernel's and the float32 plain twin's distance from
-    a float64 plain upsample (the same bf16 operand roundings, float64 sums),
-    per output: fused_sampler.parity_errors' (median, p99, max, share)."""
+    the float64 yardstick (fused_sampler.fused_upsample_z_float64: the same
+    bf16 operand roundings, float64 arithmetic), per output:
+    fused_sampler.parity_errors' (median, p99, max, share)."""
     from endosurf_tpu_torch.kernels import fused_sampler as fs
-    from endosurf_tpu_torch.ops import mlp
     bf, args = torch.bfloat16, (rspec.n_importance, rspec.up_sample_steps)
     got = {"kernel": fs.fused_upsample_z_cuda(spec, params, *up_in, *args, bf, True),
            "float32 plain": fs.fused_upsample_z_reference(spec, params, *up_in, *args, bf, True)}
-    operand = mlp.operand
-    mlp.operand = lambda x, p: x.to(bf).to(x.dtype) if p == "default" else x
-    try:
-        z, sdf = fs.fused_upsample_z_reference(spec, _double(params), *[a.double() for a in up_in],
-                                               *args, bf, True)
-    finally:
-        mlp.operand = operand
+    z, sdf = fs.fused_upsample_z_float64(spec, params, *up_in, *args)
     for name, (gz, gs) in got.items():
         e = fs.parity_errors({"z": gz.double(), "sdf": gs.double()}, {"z": z, "sdf": sdf}, bf)
         print(f"upsample bf16 vs float64 {what} {name}: " + "; ".join(
@@ -467,8 +454,10 @@ def upsample_f64_readings(spec, rspec, params, up_in, what: str) -> None:
 
 
 def upsample_timing(spec, rspec, params, tb_in, smi: str, root: str = "") -> dict:
-    """Phase 8: per dot mode (the upsample kernels' device ms a call, the
-    plain twin's call ms), and the kernel call's ms, on one train batch."""
+    """Phase 8: per dot mode (the kernel call's ms, the plain twin's call
+    ms), CUDA events, on one train batch; beside them the call's device time
+    by torch.profiler, all its kernels (the pack's gathers and casts too) and
+    the upsample kernels alone."""
     from endosurf_tpu_torch.kernels import fused_sampler as fs
     args = (rspec.n_importance, rspec.up_sample_steps)
     out = {}
@@ -476,13 +465,14 @@ def upsample_timing(spec, rspec, params, tb_in, smi: str, root: str = "") -> dic
         def kern():
             return fs.fused_upsample_z_cuda(spec, params, *tb_in, *args, dt, True)
         call_ms = cuda_ms(kern, 10)
-        k_ms = sum(v for k, v in kernel_device_ms(kern, 10).items()
-                   if any(u in k for u in UPSAMPLE_KERNELS))
+        dev = kernel_device_ms(kern, 10)
+        up_ms = sum(v for k, v in dev.items() if any(u in k for u in UPSAMPLE_KERNELS))
         p_ms = cuda_ms(lambda: fs.fused_upsample_z_reference(spec, params, *tb_in, *args, dt, True),
                        10)
-        out[name] = (k_ms, p_ms)
-        print(f"upsample timing {name} ({RAY_BATCH} rays, {smi}{root}): kernel {k_ms:.3f} ms of "
-              f"device time a call ({call_ms:.3f} ms the call), plain {p_ms:.3f} ms", flush=True)
+        out[name] = (call_ms, p_ms)
+        print(f"upsample timing {name} ({RAY_BATCH} rays, {smi}{root}): kernel call "
+              f"{call_ms:.3f} ms, plain {p_ms:.3f} ms; device time a call {sum(dev.values()):.3f} "
+              f"ms, of it the upsample kernels {up_ms:.3f} ms", flush=True)
     return out
 
 
@@ -515,7 +505,7 @@ def print_segment_readings(res, what: str, dtype) -> None:
     from endosurf_tpu_torch.kernels import fused_train_cuda as ftc
     for seg, kinds in res.items():
         for kind, vals in kinds.items():
-            tol = ftc.PARITY_TOL[dtype][kind]
+            tol = ftc.parity_tol(dtype, kind)
             n_bad = sum(not v[-1] for v in vals.values())
             stats = list(zip(*[v[:-1] for v in vals.values()]))
             worst = [max(zip(col, vals), key=lambda cv: cv[0]) for col in stats]
@@ -1157,23 +1147,10 @@ def dnerf_3d_phase(cfg, scene, dev) -> tuple:
 
 def render_split(fn, smi: str, reps: int = 3) -> None:
     """Device time of one EndoNeRF render chunk by kernel (torch.profiler)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     parts = {"sweep": 0.0, "dn_resample": 0.0, "dn_field": 0.0, "dn_composite": 0.0,
              "dn_prep": 0.0, "other": 0.0}
-    for evt in prof.key_averages():
-        dev_us = (getattr(evt, "self_device_time_total", None)
-                  or getattr(evt, "self_cuda_time_total", 0))
-        if dev_us <= 0 or evt.device_type != DeviceType.CUDA:
-            continue
-        name = next((k for k in parts if k in evt.key), "other")
-        parts[name] += dev_us / reps / 1e3
+    for key, ms in kernel_device_ms(fn, reps).items():
+        parts[next((k for k in parts if k in key), "other")] += ms
     busy = sum(parts.values())
     if busy == 0:
         print("dnerf render split: the profiler recorded no device time", flush=True)
@@ -1909,7 +1886,7 @@ def main() -> int:
     tb_in = upsample_inputs(arrays, rspec, RAY_BATCH, torch.Generator(device=dev).manual_seed(2),
                             dev)
     utimes = upsample_timing(spec, rspec, params, tb_in, smi)
-    print(f"train step breakdown (bf16): {step_ms:.1f} ms/step, upsample kernel "
+    print(f"train step breakdown (bf16): {step_ms:.1f} ms/step, upsample kernel call "
           f"{utimes['bfloat16'][0]:.3f} ms ({100 * utimes['bfloat16'][0] / step_ms:.1f} %), "
           f"rest {step_ms - utimes['bfloat16'][0]:.1f} ms", flush=True)
 

@@ -25,8 +25,9 @@
 //
 // Precision: with rb_samp every dot operand is rounded to bf16 and the
 // weights arrive rounded (fused_sampler.pack_sampling, which also appends
-// the hidden layers' bf16 mma fragments); products accumulate in float32 --
-// the sampling "default" mode of the JAX kernels.
+// the hidden layers' bf16 mma fragments) -- the sampling "default" mode of
+// the JAX kernels; the SIMT sweep sums in float32, the tensor-core one
+// nearer to exact (sweep_tc.cuh).
 //
 // The ray march (fused_ray_march_launch) replaces the Pallas TPU kernel
 // endosurf_tpu/kernels/fused_sampler.py (fused_ray_march, body _march_kernel)

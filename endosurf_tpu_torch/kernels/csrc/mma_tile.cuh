@@ -156,6 +156,22 @@ __device__ __forceinline__ void promote(float (&acc)[NT2][4], const float (&part
     for (int e = 0; e < 4; ++e) acc[nt][e] += part[nt][e];
 }
 
+// acc + lo += part, float32 adds, with each add's rounding error kept in lo
+// (Knuth's TwoSum: acc + lo is the exact float sum of the promoted parts, up
+// to lo's own roundings), for the sweep's near-exact sums (sweep_tc.cuh).
+template <int NT2>
+__device__ __forceinline__ void promote_2sum(float (&acc)[NT2][4], float (&lo)[NT2][4],
+                                             const float (&part)[NT2][4]) {
+#pragma unroll
+  for (int nt = 0; nt < NT2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float a = acc[nt][e], p = part[nt][e], s = a + p, bp = s - a;
+      lo[nt][e] += (a - (s - bp)) + (p - bp);
+      acc[nt][e] = s;
+    }
+}
+
 template <int MT>
 __device__ __forceinline__ void zero_acc(float (&acc)[MT][2 * TC_NPW][4]) {
 #pragma unroll
@@ -172,11 +188,16 @@ __device__ __forceinline__ void zero_acc(float (&acc)[MT][2 * TC_NPW][4]) {
 // of the operand, each [MT * 16][lda] in shared memory (one term: a bf16
 // operand; three: a split float32 one), their products added in that order
 // into the same accumulators. ring: the warp's TC_STAGES * TC_NPW * 32 slots.
-template <int MT, int TERMS>
-__device__ __forceinline__ void tile_mma(float (&acc)[MT][2 * TC_NPW][4],
-                                         const bf16* const (&a)[TERMS], int lda,
-                                         const uint4* __restrict__ bfrag, int np_row, int np0,
-                                         int npw, int kt0, int kt1, uint4* ring, int lane) {
+// With SPLIT the terms' products share no mma (each term's k-tile from zero,
+// the terms' parts added in float32) and each k-tile's sum goes in by
+// promote_2sum, its rounding errors into lo; else lo is unused.
+template <int MT, int TERMS, bool SPLIT>
+__device__ __forceinline__ void tile_mma_impl(float (&acc)[MT][2 * TC_NPW][4],
+                                              float (&lo)[MT][2 * TC_NPW][4],
+                                              const bf16* const (&a)[TERMS], int lda,
+                                              const uint4* __restrict__ bfrag, int np_row,
+                                              int np0, int npw, int kt0, int kt1, uint4* ring,
+                                              int lane) {
   if (npw <= 0 || kt0 >= kt1) return;
   auto issue = [&](int kt, int stage) {
 #pragma unroll
@@ -202,22 +223,51 @@ __device__ __forceinline__ void tile_mma(float (&acc)[MT][2 * TC_NPW][4],
     cp_async_commit();
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
-      float part[2 * TC_NPW][4] = {};          // this k-tile's sum, promoted below
+      float sum[2 * TC_NPW][4] = {};           // this k-tile's sum, promoted below
 #pragma unroll
       for (int term = 0; term < TERMS; ++term) {
+        float part[2 * TC_NPW][4] = {};
+        float (&dst)[2 * TC_NPW][4] = SPLIT ? part : sum;
         uint32_t af[4];
         ldsm_x4(af, a[term] + la + mt * 16 * lda + kt * 16);
 #pragma unroll
         for (int q = 0; q < TC_NPW; ++q)
           if (q < npw) {
-            mma16816(part[2 * q], af, b[q].x, b[q].y);
-            mma16816(part[2 * q + 1], af, b[q].z, b[q].w);
+            mma16816(dst[2 * q], af, b[q].x, b[q].y);
+            mma16816(dst[2 * q + 1], af, b[q].z, b[q].w);
           }
+        if (SPLIT)
+#pragma unroll
+          for (int nt = 0; nt < 2 * TC_NPW; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sum[nt][e] += part[nt][e];
       }
-      promote(acc[mt], part);
+      if constexpr (SPLIT) promote_2sum(acc[mt], lo[mt], sum);
+      else promote(acc[mt], sum);
     }
   }
   cp_async_wait<0>();
+}
+
+template <int MT, int TERMS>
+__device__ __forceinline__ void tile_mma(float (&acc)[MT][2 * TC_NPW][4],
+                                         const bf16* const (&a)[TERMS], int lda,
+                                         const uint4* __restrict__ bfrag, int np_row, int np0,
+                                         int npw, int kt0, int kt1, uint4* ring, int lane) {
+  tile_mma_impl<MT, TERMS, false>(acc, acc, a, lda, bfrag, np_row, np0, npw, kt0, kt1, ring,
+                                  lane);
+}
+
+// The terms' products kept apart and the k-tiles promoted exactly
+// (tile_mma_impl with SPLIT).
+template <int MT, int TERMS>
+__device__ __forceinline__ void tile_mma_split(float (&acc)[MT][2 * TC_NPW][4],
+                                               float (&lo)[MT][2 * TC_NPW][4],
+                                               const bf16* const (&a)[TERMS], int lda,
+                                               const uint4* __restrict__ bfrag, int np_row,
+                                               int np0, int npw, int kt0, int kt1, uint4* ring,
+                                               int lane) {
+  tile_mma_impl<MT, TERMS, true>(acc, lo, a, lda, bfrag, np_row, np0, npw, kt0, kt1, ring, lane);
 }
 
 }  // namespace

@@ -108,8 +108,7 @@ LAUNCHES = {f"{s}_{d}": 0 for s in SEGMENTS for d in ("fwd", "bwd")}
 # the float32 plain version and the SIMT kernel 2.1e-3 / 7.4e-3: the
 # kernel is the closer. The medians stay what tells the precisions apart.
 PARITY_TOL = {
-    torch.float32: {"out": (1e-5, 1e-4, 0.1), "sdf_out": (1e-5, 1e-4, 0.1), "cot": (1e-4, 5.0),
-                    "leaf": 1e-2, "bias": 2e-4},
+    torch.float32: {"out": (1e-5, 1e-4, 0.1), "cot": (1e-4, 5.0), "leaf": 1e-2, "bias": 2e-4},
     torch.bfloat16: {"out": (2e-5, 2e-4, 0.1), "sdf_out": (2e-5, 1.5e-2, 0.1),
                      "cot": (1e-2, 5.0), "leaf": 9e-3, "bias": 2e-4},
 }
@@ -138,13 +137,20 @@ def _quantiles(err: torch.Tensor) -> Tuple[float, float, float]:
     return float(q[0]), float(q[1]), float(err.max())
 
 
+def parity_tol(dtype: torch.dtype, kind: str):
+    """``PARITY_TOL``'s limits of a kind; "sdf_out" has its own in bf16 only
+    and is "out" in float32."""
+    tols = PARITY_TOL[dtype]
+    return tols["out"] if kind == "sdf_out" and kind not in tols else tols[kind]
+
+
 def parity_errors(got: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor],
                   dtype: torch.dtype, kind: str) -> Dict[str, Tuple]:
-    """Per entry its readings and whether they are within ``PARITY_TOL``:
-    kind "out" or "sdf_out" (forward outputs) -> (median, p99, max, ok); "cot" (input
-    cotangents) -> (p99, max, ok); "leaf" and "bias" (parameter gradients)
-    -> (rel L2, ok)."""
-    tol = PARITY_TOL[dtype][kind]
+    """Per entry its readings and whether they are within ``parity_tol``:
+    kind "out" or "sdf_out" (forward outputs) -> (median, p99, max, ok);
+    "cot" (input cotangents) -> (p99, max, ok); "leaf" and "bias" (parameter
+    gradients) -> (rel L2, ok)."""
+    tol = parity_tol(dtype, kind)
     res = {}
     for k, r in ref.items():
         g = got[k]
@@ -430,16 +436,14 @@ def fwd_work_floats(packed: Packed, n: int) -> int:
 def sdf_fwd(packed: Packed, x_c: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x_c [N, 3] -> (sdf [N, 1], feat [N, F], grad_c [N, 3])."""
-    from endosurf_tpu_torch.kernels.build import load_library
     n = x_c.shape[0]
     x_c = _arg(x_c, (n, 3), "x_c")
     f = packed.layers[-1][3] - 1
     sdf = torch.empty(n, 1, dtype=torch.float32, device=x_c.device)
     feat = torch.empty(n, f, dtype=torch.float32, device=x_c.device)
     grad_c = torch.empty(n, 3, dtype=torch.float32, device=x_c.device)
-    work = torch.empty(max(load_library().train_sdf_fwd_work_floats(packed.meta, int(packed.rb),
-                                                                     n), 1),
-                       dtype=torch.float32, device=x_c.device)
+    work = torch.empty(max(fwd_work_floats(packed, n), 1), dtype=torch.float32,
+                       device=x_c.device)
     _run("train_sdf_fwd", packed, x_c.device, n, x_c, sdf, feat, grad_c, work)
     LAUNCHES["sdf_fwd"] += 1
     return sdf, feat, grad_c

@@ -25,9 +25,12 @@ PRECISIONS = ("default", "high", "highest")
 
 
 def operand(x: torch.Tensor, precision: str) -> torch.Tensor:
-    """A dot operand as the precision mode feeds it (bf16-rounded or not)."""
+    """A dot operand as the precision mode feeds it (bf16-rounded or not).
+    The rounded value is float32, or float64 for a float64 ``x`` (the
+    float64 yardsticks: the same roundings, float64 sums)."""
     if precision == "default":
-        return x.to(torch.bfloat16).to(torch.float32)
+        return x.to(torch.bfloat16).to(torch.float64 if x.dtype == torch.float64
+                                        else torch.float32)
     return x
 
 

@@ -129,6 +129,33 @@ def test_bf16_tolerance_rejects_f32_dots(case, bf16_kernel):
     assert (_per_ray(sdf.numpy(), bf16_kernel[1]) > BF16_TOL).mean() > 0.5
 
 
+def test_float64_yardstick_matches_jax_kernel_bf16(case, bf16_kernel):
+    """fused_upsample_z_float64, the bf16 CUDA kernels' float64 yardstick, is
+    a bf16 upsampling in float64: float64 (z, sdf), within the bf16 limits of
+    the interpreted JAX kernel."""
+    _, pj, inputs = case
+    o, d_z, t, z0 = (torch.from_numpy(a) for a in inputs)
+    z, sdf = t_fs.fused_upsample_z_float64(_narrow(t_fields), params_from_jax(pj), o, d_z, t, z0,
+                                           32, 4)
+    assert z.dtype == sdf.dtype == torch.float64 and z.shape == (32, 64)
+    _assert_mostly_close(z.numpy(), bf16_kernel[0], BF16_TOL, "z")
+    _assert_mostly_close(sdf.numpy(), bf16_kernel[1], BF16_TOL, "sdf")
+
+
+def test_bf16_operand_keeps_float64():
+    """A "default" operand is the bf16 rounding, float64 for a float64 value
+    (the yardsticks' sums stay float64) and float32 otherwise."""
+    from endosurf_tpu_torch.ops.mlp import operand
+    x = torch.tensor([1.0 + 2.0 ** -7 + 2.0 ** -20, -3.0e-5], dtype=torch.float64)
+    want = x.to(torch.bfloat16)
+    got = operand(x, "default")
+    assert got.dtype == torch.float64 and torch.equal(got, want.double())
+    for dt in (torch.float32, torch.bfloat16):
+        got = operand(x.to(dt), "default")
+        assert got.dtype == torch.float32 and torch.equal(got, want.float())
+    assert operand(x, "highest") is x
+
+
 def test_return_sdf_keeps_z(case):
     """return_sdf adds the SDF at every sample and leaves z as it was."""
     _, pj, inputs = case

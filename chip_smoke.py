@@ -12,13 +12,20 @@ Phases (any failure raises and exits non-zero):
      source, in parallel) and the host geometry library (g++);
   3. render parity: the CUDA fused_render_rays against its plain PyTorch twin
      on 8192 rays of a synthetic 512x640 frame, full-width seeded model
-     (three 9x256 MLPs, 32+32 samples, 4 rounds), float32 and bf16 dot modes,
-     at fused_render.PARITY_TOL, with the wrong-precision controls failing;
+     (three 9x256 MLPs, 32+32 samples, 4 rounds), float32 and bf16 dot modes
+     (bf16: both passes on tensor cores), at fused_render.PARITY_TOL, with
+     the wrong-precision controls failing; then, on two weight seeds, the
+     distance of the tensor-core and of the SIMT bf16 render from the float64
+     yardstick (fused_render.fused_render_rays_float64), side by side;
   4. serving end to end: eval_frames with an EndoSurfRenderer on a synthetic
      512x640 scene with the base.yml settings (bf16 dots, 2048-ray chunks);
-     checks that the render kernel served every chunk and that maps and
-     metrics are finite;
-  5. render timing: kernel vs plain twin on one chunk in each mode;
+     checks that the render kernel served every chunk on one pack and that
+     maps and metrics are finite; prints the frame's time and peak memory;
+  5. render timing: kernel vs plain twin on one chunk in each mode (CUDA
+     events), the bf16 chunk's device time by family (sweep / deform / sdf /
+     coupling / colour / composite; torch.profiler), its TFLOP/s and bound,
+     and the host time of a chunk's call with its pack cached and of packing
+     (fused_render.pack_render);
   6. upsample parity: the CUDA fused_upsample_z against its plain twin on
      8192 rays from sample_train_batch on the synthetic scene with perturbed
      z0, return_sdf, both dot modes, two weight seeds, at
@@ -56,8 +63,7 @@ Phases (any failure raises and exits non-zero):
      precision as the control that must fail;
  11. segment timing: each kernel vs its plain version at 65,536 points in
      bf16, beside its bound from the parameter shapes, with its TFLOP/s (in
-     bf16 deform_fwd, sdf_fwd and the three backward kernels run on tensor
-     cores, csrc/field_tc.cuh);
+     bf16 all six run on tensor cores, csrc/field_tc.cuh);
  12. grid-query parity: the CUDA fused_sdf_observed against its plain
      version (fields.sdf_observed) on one 64x128x128 slab (1,048,576 points)
      of the synthetic scene's frame-0 grid (its bbox x 1.2) and on 8192
@@ -185,7 +191,15 @@ SEGMENT_KERNELS = ("deform_fwd_kernel", "sdf_fwd_kernel", "color_fwd_kernel", "d
                    "sdf_bwd_kernel", "color_bwd_kernel", "wgrad_partial_kernel",
                    "wgrad_reduce_kernel", "deform_fwd_tc_kernel", "sdf_fwd_tc_kernel",
                    "deform_bwd_tc_kernel", "sdf_bwd_tc_kernel", "color_bwd_tc_kernel",
-                   "wgrad_tc_partial_kernel")
+                   "wgrad_tc_partial_kernel", "color_fwd_tc_kernel")
+# a render chunk's kernels by family (phase 5); field_kernel is the SIMT
+# field evaluation (float32, and bf16 with simt=True)
+RENDER_FAMILIES = {"sweep": ("sweep_kernel", "sweep_tc_kernel", "draw_kernel", "merge_kernel",
+                             "prep_kernel"),
+                   "deform": ("deform_fwd_tc_kernel",), "sdf": ("sdf_fwd_tc_kernel",),
+                   "coupling": ("midpoint_kernel", "coupling_kernel"),
+                   "colour": ("color_fwd_tc_kernel",), "field (SIMT)": ("field_kernel",),
+                   "composite": ("composite_kernel",)}
 N_PARITY_SEED1 = 16384                         # points of the second weight seed's parity
 # train step with the segment kernels vs the plain field path (phase 10):
 # (metric relative difference, per-network gradient relative L2) per dot
@@ -1160,6 +1174,41 @@ def render_split(fn, smi: str, reps: int = 3) -> None:
           flush=True)
 
 
+def render_f64_readings(spec, params, rays, args, what: str) -> None:
+    """Phase 3: the tensor-core and the SIMT bf16 render's distance from the
+    float64 yardstick (fused_render.fused_render_rays_float64: the same bf16
+    operand roundings, float64 arithmetic), per map the median and p99 of
+    the per-ray error, side by side."""
+    from endosurf_tpu_torch.kernels import fused_render as fr
+    bf = torch.bfloat16
+    ref = fr.fused_render_rays_float64(spec, params, rays, *args)
+    tc, simt = (fr.float64_distance(fr.fused_render_rays_cuda(spec, params, rays, *args, bf, bf,
+                                                               simt=flag), ref)
+                for flag in (False, True))
+    ok = fr.no_farther(tc, simt)
+    for k in tc:
+        print(f"render bf16 vs float64 {what} {k} (median, p99): tensor cores {tc[k][0]:.4e}, "
+              f"{tc[k][1]:.4e}; SIMT {simt[k][0]:.4e}, {simt[k][1]:.4e}"
+              + ("" if ok[k] else "  FARTHER"), flush=True)
+
+
+def render_chunk_split(fn, smi: str, reps: int = 3) -> dict:
+    """Phase 5: device time of one render chunk by family (torch.profiler)."""
+    parts = {k: 0.0 for k in RENDER_FAMILIES}
+    parts["other"] = 0.0
+    for key, ms in kernel_device_ms(fn, reps).items():
+        parts[next((f for f, names in RENDER_FAMILIES.items()
+                    if any(n in key for n in names)), "other")] += ms
+    busy = sum(parts.values())
+    if busy == 0:
+        print("render split: the profiler recorded no device time", flush=True)
+        return parts
+    print(f"render split ({CHUNK} rays, bf16, {smi}): {busy:.3f} ms of device time = "
+          + ", ".join(f"{k} {v:.3f} ms ({100 * v / busy:.1f} %)" for k, v in parts.items()),
+          flush=True)
+    return parts
+
+
 def dnerf_timing(spec, rspec, renderer, seg_cases, n_seg, smi: str) -> dict:
     """Phase 22: device ms of the five EndoNeRF kernels and their plain
     versions at the paths' shapes, bf16, with (bound ms, bounded by) from the
@@ -1740,19 +1789,24 @@ def main() -> int:
         ref[name] = fr.fused_render_rays_reference(spec, params, rays, step, *args, dt, dt)
         torch.cuda.synchronize()
         errs[name] = fr.parity_errors(got[name], ref[name], dt)
-        bulk, max_tol = fr.PARITY_TOL[dt]
         for k, (p99, mx, ok) in errs[name].items():
-            print(f"parity {name} {k} ({N_PARITY} rays): max {mx:.3e} (tol {max_tol[k]:g}), "
+            bulk, loose = fr.PARITY_TOL[dt][k]
+            print(f"parity {name} {k} ({N_PARITY} rays): max {mx:.3e} (tol {loose:g}), "
                   f"p99 {p99:.3e} (tol {bulk:g})", flush=True)
     bad = [(n, k) for n, e in errs.items() for k, v in e.items() if not v[2]]
     check(not bad, f"kernel vs plain twin out of tolerance: {bad}")
+    for seed in (0, 1):
+        render_f64_readings(spec, init_endosurf_params(spec, torch.Generator().manual_seed(seed),
+                                                       dev),
+                            rays, (step, *args), f"seed {seed} ({N_PARITY} rays)")
     # The limits must tell the precisions apart: the kernel at one dot
     # precision fails against the twin at the other.
     for k_name, t_name in (("float32", "bfloat16"), ("bfloat16", "float32")):
         ctl = fr.parity_errors(got[k_name], ref[t_name], dtypes[t_name])
-        worst = max(ctl, key=lambda k: ctl[k][0])
-        print(f"control: kernel {k_name} vs twin {t_name}: worst p99 {worst} "
-              f"{ctl[worst][0]:.3e} (tol {fr.PARITY_TOL[dtypes[t_name]][0]:g})", flush=True)
+        tol = fr.PARITY_TOL[dtypes[t_name]]
+        print(f"control: kernel {k_name} vs twin {t_name}: " + "; ".join(
+            f"{k} p99 {v[0]:.3e} (tol {tol[k][0]:g}) max {v[1]:.3e} (tol {tol[k][1]:g})"
+            for k, v in ctl.items()), flush=True)
         check(not all(v[2] for v in ctl.values()),
               f"kernel {k_name} passes the {t_name} parity limits")
 
@@ -1760,19 +1814,25 @@ def main() -> int:
     renderer = EndoSurfRenderer(cfg, scene=renderer_scene, step=int(step), device=dev)
     fr.LAUNCHES["fused_render_rays"] = 0
     fs.LAUNCHES["fused_upsample_z"] = 0
+    packs = fr.PACKS["render"]
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     stats, pred = eval_frames(renderer, renderer_scene.list_test[:1], int(step),
                               ray_chunk=cfg["train"]["eval"]["ray_chunk"],
                               save_images=False, return_pred=True)
     torch.cuda.synchronize()
     e2e_s = time.perf_counter() - t0
+    e2e_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = fr.LAUNCHES["fused_render_rays"]
     n_chunks = math.ceil(H * W / CHUNK)
     print(f"e2e: {H}x{W} frame in {e2e_s:.2f} s ({H * W / e2e_s:.0f} rays/s), "
-          f"{launches} kernel launches for {n_chunks} chunks; "
+          f"peak memory {e2e_peak:.2f} GiB, {launches} kernel launches for {n_chunks} chunks; "
           + ", ".join(f"{k} {v:.4f}" for k, v in stats.items()), flush=True)
     check(launches == n_chunks, f"{launches} kernel launches for {n_chunks} chunks")
+    packs = fr.PACKS["render"] - packs
+    print(f"e2e: {packs} render pack(s) built for the frame", flush=True)
+    check(packs == 1, f"{packs} render packs for one frame on one parameter set")
     check(fs.LAUNCHES["fused_upsample_z"] == 0, "serving launched the upsample kernel")
     for k, ch in (("rgb", 3), ("depth", 1), ("normal", 3)):
         check(pred[k].shape == (1, H, W, ch), f"{k} map shape {pred[k].shape}")
@@ -1781,14 +1841,46 @@ def main() -> int:
 
     # 5. render timing on one main-path chunk, kernel vs plain, in each mode
     chunk = all_rays[:CHUNK].contiguous()
+    bf = torch.bfloat16
+    deform, sdf_hidden = net_macs(params, "deform_network"), net_macs(params, "sdf_network", 0)
+    sdf_full, color = net_macs(params, "sdf_network"), net_macs(params, "color_network")
+    chain = chain_macs(params)
+    k_new = rspec.n_importance // rspec.up_sample_steps
+    n_sweep = rspec.n_samples + k_new * (rspec.up_sample_steps - 1)
+    n_field = rspec.n_samples + rspec.n_importance
+    render_flops = 2 * CHUNK * (n_sweep * chain
+                                + n_field * (4 * deform + sdf_full + sdf_hidden + color))
+    render_bytes = (CHUNK * 9 * 4 * 2 + _param_bytes(
+        params, ("deform_network", "sdf_network", "color_network"), bf))
+    r_bound, r_by = bound_ms(render_flops, render_bytes, bf)
     times = {}
-    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        k_ms = cuda_ms(lambda: fr.fused_render_rays_cuda(spec, params, chunk, step, *args, dt, dt), 5)
-        p_ms = cuda_ms(lambda: fr.fused_render_rays_reference(spec, params, chunk, step, *args, dt, dt), 5)
+    for name, dt in (("float32", torch.float32), ("bfloat16", bf)):
+        def kern(dt=dt):
+            return fr.fused_render_rays_cuda(spec, params, chunk, step, *args, dt, dt)
+        k_ms = cuda_ms(kern, 5)
+        p_ms = cuda_ms(lambda dt=dt: fr.fused_render_rays_reference(spec, params, chunk, step,
+                                                                    *args, dt, dt), 5)
         times[name] = (k_ms, p_ms)
         print(f"timing {name} ({CHUNK} rays, {smi}): kernel {k_ms:.3f} ms "
-              f"({CHUNK / k_ms * 1e3:.0f} rays/s), plain {p_ms:.3f} ms "
-              f"({CHUNK / p_ms * 1e3:.0f} rays/s)", flush=True)
+              f"({CHUNK / k_ms * 1e3:.0f} rays/s, {render_flops / k_ms / 1e9:.2f} TFLOP/s), "
+              f"plain {p_ms:.3f} ms ({CHUNK / p_ms * 1e3:.0f} rays/s); "
+              f"{render_flops / 1e12:.3f} TFLOP -> bound {r_bound:.3f} ms ({r_by})", flush=True)
+        if dt == bf:
+            render_chunk_split(kern, smi)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                kern()
+            call_host_ms = (time.perf_counter() - t0) / 5 * 1e3
+            torch.cuda.synchronize()
+            fr._RENDER_PACKS.clear()
+            t0 = time.perf_counter()
+            fr.pack_render(spec, params, dt)
+            torch.cuda.synchronize()
+            pack_ms = 1e3 * (time.perf_counter() - t0)
+            print(f"render host time (bf16, {CHUNK} rays): a call with its pack cached "
+                  f"{call_host_ms:.3f} ms to enqueue; packing {pack_ms:.3f} ms (once a "
+                  f"parameter set)", flush=True)
 
     # 6. upsample parity on train-batch rays with perturbed z0, two seeds
     arrays = renderer_scene.device_arrays
@@ -1946,21 +2038,9 @@ def main() -> int:
     dnerf_render_quality(dev, smi)
 
     # the kernel record: work, bounds and times at the main paths' shapes (bf16)
-    bf = torch.bfloat16
-    deform, sdf_hidden = net_macs(params, "deform_network"), net_macs(params, "sdf_network", 0)
-    sdf_full, color = net_macs(params, "sdf_network"), net_macs(params, "color_network")
-    chain = chain_macs(params)
-    k_new = rspec.n_importance // rspec.up_sample_steps
-    n_sweep = rspec.n_samples + k_new * (rspec.up_sample_steps - 1)
-    n_field = rspec.n_samples + rspec.n_importance
-    render_flops = 2 * CHUNK * (n_sweep * chain
-                                + n_field * (4 * deform + sdf_full + sdf_hidden + color))
-    render_bytes = (CHUNK * 9 * 4 * 2 + _param_bytes(
-        params, ("deform_network", "sdf_network", "color_network"), bf))
     upsample_flops = 2 * RAY_BATCH * n_field * chain        # return_sdf: every sample
     upsample_bytes = (RAY_BATCH * (7 + rspec.n_samples + 2 * n_field) * 4
                       + _param_bytes(params, ("deform_network", "sdf_network"), bf))
-    r_bound, r_by = bound_ms(render_flops, render_bytes, bf)
     u_bound, u_by = bound_ms(upsample_flops, upsample_bytes, bf)
     print(f"bounds (H100 SXM peaks, bf16 989 TFLOP/s, 3.35 TB/s): render {CHUNK} rays "
           f"{render_flops / 1e12:.3f} TFLOP -> {r_bound:.3f} ms ({r_by}); upsample "
@@ -1990,7 +2070,7 @@ def main() -> int:
         for k, line, src in (("deform_fwd", 204, "field_tc.cuh"),   # bf16: tensor cores
                              ("deform_bwd", 217, "field_tc.cuh"),
                              ("sdf_fwd", 238, "field_tc.cuh"), ("sdf_bwd", 258, "field_tc.cuh"),
-                             ("color_fwd", 284, "fused_train.cu"),
+                             ("color_fwd", 284, "field_tc.cuh"),
                              ("color_bwd", 298, "field_tc.cuh"))] + [
         {"name": k, "route": "cuda", "source": f"endosurf_tpu_torch/kernels/csrc/{src}",
          "replaces": f"endosurf_tpu/kernels/{rep}", "launches": n_launch, "max_abs_err": err,

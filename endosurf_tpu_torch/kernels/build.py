@@ -93,11 +93,13 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library()))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.fused_render_launch.argtypes = [
-        vp, i32, vp, vp, ctypes.POINTER(i64), i32, i32, i32, i32, i32,
-        ctypes.c_float, vp, vp, vp, vp]
+        vp, i32, vp, vp, ctypes.POINTER(i64), i32, i32, i32, i32, i32, i32,
+        ctypes.c_float, vp, vp, vp, vp, vp]
     lib.fused_render_launch.restype = i32
     lib.fused_render_scratch_floats.argtypes = [i32]
     lib.fused_render_scratch_floats.restype = i64
+    lib.fused_render_work_floats.argtypes = [ctypes.POINTER(i64), i64]
+    lib.fused_render_work_floats.restype = i64
     lib.fused_render_meta_len.argtypes = []
     lib.fused_render_meta_len.restype = i32
     lib.fused_render_error_string.argtypes = [i32]

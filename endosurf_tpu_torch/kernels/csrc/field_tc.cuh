@@ -1,18 +1,19 @@
 // The bf16 ("default" dot mode, rb) train segments on Hopper's tensor cores:
-// the deform and SDF forward (deform_fwd_tc_kernel, sdf_fwd_tc_kernel) and
-// the three backward kernels (deform_bwd_tc_kernel, sdf_bwd_tc_kernel,
-// color_bwd_tc_kernel), launched by fused_train.cu's train_deform_fwd /
-// train_sdf_fwd / train_*_bwd for rb = 1 in place of the SIMT kernels (which
+// the three forward kernels (deform_fwd_tc_kernel, sdf_fwd_tc_kernel,
+// color_fwd_tc_kernel) and the three backward kernels (deform_bwd_tc_kernel,
+// sdf_bwd_tc_kernel, color_bwd_tc_kernel), launched by fused_train.cu's
+// train_*_fwd / train_*_bwd for rb = 1 in place of the SIMT kernels (which
 // the float32 mode keeps), and the weight-gradient product of wgrad_tc.cuh.
-// The colour forward stays SIMT in both modes.
+// The bf16 render's field stage (fused_render.cu) runs the three forward
+// kernels too, on the render's pack.
 //
 // Replaces, with fused_train.cu, the Pallas kernels deform_fwd, deform_bwd,
-// sdf_fwd, sdf_bwd and color_bwd of endosurf_tpu/kernels/fused_train_pallas.py
-// (_seg_pallas): there the weights stay in VMEM and blocks of >= 128 points
-// stream through the MXU. Here a block of NT threads owns a tile of rows
-// (deform: 16 points x the primal and three tangent streams, row 16 s + p;
-// SDF and colour: 64 points),
-// runs the forward and walks the layers back as tile products on mma.sync
+// sdf_fwd, sdf_bwd, color_fwd and color_bwd of
+// endosurf_tpu/kernels/fused_train_pallas.py (_seg_pallas): there the
+// weights stay in VMEM and blocks of >= 128 points stream through the MXU.
+// Here a block of NT threads owns a tile of rows (deform: 16 points x the
+// primal and three tangent streams, row 16 s + p; SDF and colour: 64
+// points), runs the forward and walks the layers back as tile products on mma.sync
 // (mma_tile.cuh): the rows' operand in shared memory as bf16, the weights
 // streaming from L2 in fragment order through a per-warp cp.async ring, each
 // warp owning 32 output columns for all the rows; a product wider than the
@@ -22,8 +23,9 @@
 // encodings, the 3-wide output layers of the deform and colour nets and their
 // cotangents, the head column, the gates, the softplus' second-order term and the
 // input-cotangent tails. A forward kernel and its backward's recompute run
-// one tile function (deform_tc_forward, sdf_tc_forward). Each layer's (operand, cotangent) pairs go to a
-// global scratch and wgrad_tc.cuh's product sums them over the points.
+// one tile function (deform_tc_forward, sdf_tc_forward, color_tc_forward).
+// Each layer's (operand, cotangent) pairs go to a global scratch and
+// wgrad_tc.cuh's product sums them over the points.
 //
 // The same maths as the SIMT kernels, operation for operation, except that
 // the float32 sums of the products run in the mma's order. bf16-exactness of
@@ -46,13 +48,13 @@
 //     xin / ag.
 //
 // What bounds it: the products, 0.241 (deform forward), 0.709 (deform
-// backward), 0.134 (SDF forward), 0.403 (SDF backward) and 0.251 (colour
-// backward) TFLOP at 65,536 points with the weight gradients (chip_smoke.py
-// counts them), 0.24, 0.72, 0.14, 0.41 and 0.25 ms at the bf16 tensor-core
-// rate; the SDF's split operands take three mma for each of its walks'
-// products and two for its weight gradients. Bytes: the backward scratch,
-// bf16 where exact (2.0 GiB for the deform and 0.6 GiB for the colour at
-// 65,536 points, half their float32 size), written once and read about once
+// backward), 0.134 (SDF forward), 0.403 (SDF backward), 0.084 (colour
+// forward) and 0.251 (colour backward) TFLOP at 65,536 points with the weight
+// gradients (chip_smoke.py counts them), 0.24, 0.72, 0.14, 0.41, 0.085 and
+// 0.25 ms at the bf16 tensor-core rate; the SDF's split operands take three
+// mma for each of its walks' products and two for its weight gradients.
+// Bytes: the backward scratch, bf16 where exact (2.0 GiB for the deform
+// and 0.6 GiB for the colour at 65,536 points, half their float32 size), written once and read about once
 // by the weight-gradient product; the deform forward stores none, the SDF
 // forward only its pre-activations (0.5 GiB), read back by its own adjoint.
 // mma.sync, one block per SM where the shared memory is large (SDF and
@@ -868,57 +870,81 @@ sdf_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long long 
 }
 
 // ---------------------------------------------------------------------------
-// colour: cotangent on color [n][3] -> d x_c, d grad_c, d d_c [n][3],
-// d feat [n][F] and the scratch
+// colour: the tile's forward (shared by the forward kernel and the backward's
+// recompute), the forward kernel (color), the backward (cotangent on color
+// [n][3] -> d x_c, d grad_c, d d_c [n][3], d feat [n][F] and the scratch)
 // ---------------------------------------------------------------------------
 
 // Shared memory after the weight ring: the layer's operand H [P][ldh] and the
-// colour input E [P][ci] (bf16), the relu' bits [NL-1][P][HMAX / 32], x_c,
-// d_c and the output layer's cotangent [P][4] each, and the cotangent on the
-// colour input's first three sections [P][cp + 3 + cr] (float32).
-inline size_t color_tc_smem(const Model& m) {
+// colour input E [P][ci] (bf16), x_c and d_c [P][4] each (float32); the
+// backward adds the relu' bits [NL-1][P][HMAX / 32], the output layer's
+// cotangent [P][4] and the cotangent on the colour input's first three
+// sections [P][cp + 3 + cr] (float32).
+struct ColorTile {
+  bf16* H;
+  bf16* E;
+  float* xs;
+  float* ds;
+  uint32_t* gbit;
+};
+
+inline size_t color_fwd_tc_smem(const Model& m) {
   const int P = TC_P_COLOR;
   return TC_RING_BYTES + (size_t)P * tc_ldh(m.color) * 2 + (size_t)P * m.ci * 2
-         + (size_t)(NL - 1) * P * (HMAX / 32) * 4 + (size_t)3 * P * 4 * 4
+         + (size_t)2 * P * 4 * 4;
+}
+
+inline size_t color_tc_smem(const Model& m) {
+  const int P = TC_P_COLOR;
+  return color_fwd_tc_smem(m) + (size_t)(NL - 1) * P * (HMAX / 32) * 4 + (size_t)P * 4 * 4
          + (size_t)P * (m.cp + 3 + m.cr) * 4;
 }
 
-__global__ void __launch_bounds__(NT, 1)
-color_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long long n,
-                    const float* __restrict__ xc, const float* __restrict__ gc,
-                    const float* __restrict__ dc, const float* __restrict__ feat,
-                    const float* __restrict__ g_color, float* __restrict__ dxc,
-                    float* __restrict__ dgc, float* __restrict__ ddc,
-                    float* __restrict__ dfeat, const __grid_constant__ TcScratch sv) {
-  constexpr int P = TC_P_COLOR, MT = P / 16, WB = HMAX / 32, NPG = HMAX / 16;
-  extern __shared__ __align__(16) unsigned char tc_smem[];
+__device__ __forceinline__ ColorTile color_tile(unsigned char* smem, const Model& m) {
+  constexpr int P = TC_P_COLOR;
+  ColorTile s;
+  s.H = (bf16*)(smem + TC_RING_BYTES);
+  s.E = s.H + P * tc_ldh(m.color);
+  s.xs = (float*)(s.E + P * m.ci);
+  s.ds = s.xs + P * 4;
+  s.gbit = (uint32_t*)(s.ds + P * 4);
+  return s;
+}
+
+// The colour net's forward on the tile of P points at base (field_color's
+// arithmetic, the products on tensor cores): the colour input [enc(x_c),
+// grad_c, enc(d_c), feat] (feat as loaded), each value rounded to bf16, then
+// hidden layers 0 .. NL-2 as tile products (relu). Leaves in s.H the output
+// layer's operand rows h_{NL-2}. With SAVE each layer's operand rows go to
+// sv.xin and the relu' of each hidden output to s.gbit. The forward kernel
+// and the backward's recompute both run it, so the forward the loss sees is
+// the one the backward differentiates, bit for bit.
+template <bool SAVE>
+__device__ __forceinline__ void color_tc_forward(const float* __restrict__ wts, const Model& m,
+                                                 const TcFrags& fr, long long n, long long base,
+                                                 const float* __restrict__ xc,
+                                                 const float* __restrict__ gc,
+                                                 const float* __restrict__ dc,
+                                                 const float* __restrict__ feat,
+                                                 const ColorTile& s, uint4* ring,
+                                                 const TcScratch& sv) {
+  constexpr int P = TC_P_COLOR, MT = P / 16, WB = HMAX / 32;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const Net& C = m.color;
   const int ci = m.ci, cp = m.cp, cr = m.cr, F = m.feat_dim, nd = cp + 3 + cr;
   const int ldh = tc_ldh(C);
-  uint4* ring = (uint4*)tc_smem + warp * (TC_STAGES * TC_NPW * 32);
-  bf16* H = (bf16*)(tc_smem + TC_RING_BYTES);      // [P][ldh] the layer's operand / cotangent
+  bf16* H = s.H;
+  bf16* E = s.E;
   const bf16* const A1[1] = {H};
-  bf16* E = H + P * ldh;                         // [P][ci] the colour input; in the walk the
-                                                 //   cotangent the skip layer sends it
-  uint32_t* gbit = (uint32_t*)(E + P * ci);      // [NL-1][P][WB] relu' of each hidden output
-  float* xs = (float*)(gbit + (NL - 1) * P * WB);   // [P][4] x_c
-  float* ds = xs + P * 4;                        // [P][4] d_c
-  float* dz8 = ds + P * 4;                       // [P][4] the output layer's cotangent
-  float* Dc = dz8 + P * 4;                       // [P][nd] cotangent on enc(x_c), grad_c, enc(d_c)
-  const long long base = (long long)blockIdx.x * P;
   const int np_me = warp * TC_NPW;
-  auto gate = [&](int l, int p, int i) {        // relu' of layer l's output i at point p
-    return (gbit[(l * P + p) * WB + (i >> 5)] >> (i & 31)) & 1u;
-  };
 
   for (int idx = tid; idx < P * ldh; idx += NT) H[idx] = bzero();
   for (int idx = tid; idx < P * 4; idx += NT) {
     const int p = idx >> 2, c = idx & 3;
     const bool in = c < 3 && in_tile(base, p, n);
-    xs[idx] = in ? xc[(size_t)(base + p) * 3 + c] : 0.f;
-    ds[idx] = in ? dc[(size_t)(base + p) * 3 + c] : 0.f;
+    s.xs[idx] = in ? xc[(size_t)(base + p) * 3 + c] : 0.f;
+    s.ds[idx] = in ? dc[(size_t)(base + p) * 3 + c] : 0.f;
   }
   __syncthreads();
   for (int idx = tid; idx < P * ci; idx += NT) {   // field_color's input, feat as loaded
@@ -928,7 +954,7 @@ color_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long lon
       const bool pos = c < cp;
       int dim, kind; float sc;
       enc_col(pos ? c : c - cp - 3, 3, dim, kind, sc);
-      const float v = bf16r((pos ? xs : ds)[p * 4 + dim]) * sc;
+      const float v = bf16r((pos ? s.xs : s.ds)[p * 4 + dim]) * sc;
       val = kind == 0 ? v : (kind == 1 ? sinf(v) : cosf(v));
     } else if (c < cp + 3) {
       val = in_tile(base, p, n) ? gc[(size_t)(base + p) * 3 + c - cp] : 0.f;
@@ -941,7 +967,6 @@ color_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long lon
   put_enc(H, ldh, 0, E, ci, P, tid);
   __syncthreads();
 
-  // ---- forward recompute, hidden layers
   float acc[MT][2 * TC_NPW][4];
   for (int l = 0; l < NL - 1; ++l) {
     const int in_l = C.in_dim[l], out_l = C.out_dim[l];
@@ -950,7 +975,7 @@ color_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long lon
       put_enc(H, ldh, in_l - ci, E, ci, P, tid);
       __syncthreads();
     }
-    save_rows<1, P>(sv.xin[l], H, ldh, c16(in_l), base, n, tid);
+    if (SAVE) save_rows<1, P>(sv.xin[l], H, ldh, c16(in_l), base, n, tid);
     const int np_out = c16(out_l) / 16, npw = clampw(np_out - np_me);
     zero_acc(acc);
     tile_mma<MT, 1>(acc, A1, ldh, (const uint4*)(wts + fr.w[l]), np_out, np_me, npw, 0,
@@ -971,41 +996,107 @@ color_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long lon
           bf16 hv = bzero();
           if (c < out_l) {
             hv = __float2bfloat16_rn(fmaxf(acc[mt][nt][e] * sc + b[c], 0.f));
-            if (__bfloat162float(hv) > 0.f) bits[mt][e >> 1] |= 1u << cl;
+            if (SAVE && __bfloat162float(hv) > 0.f) bits[mt][e >> 1] |= 1u << cl;
           }
           H[row * ldh + c] = hv;
         }
       }
+    if (SAVE) {
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
+      for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-      for (int o = 1; o < 4; o <<= 1) {
-        bits[mt][0] |= __shfl_xor_sync(0xffffffffu, bits[mt][0], o);
-        bits[mt][1] |= __shfl_xor_sync(0xffffffffu, bits[mt][1], o);
-      }
-      if (t == 0 && warp < WB) {
-        gbit[(l * P + mt * 16 + g) * WB + warp] = bits[mt][0];
-        gbit[(l * P + mt * 16 + g + 8) * WB + warp] = bits[mt][1];
+        for (int o = 1; o < 4; o <<= 1) {
+          bits[mt][0] |= __shfl_xor_sync(0xffffffffu, bits[mt][0], o);
+          bits[mt][1] |= __shfl_xor_sync(0xffffffffu, bits[mt][1], o);
+        }
+        if (t == 0 && warp < WB) {
+          s.gbit[(l * P + mt * 16 + g) * WB + warp] = bits[mt][0];
+          s.gbit[(l * P + mt * 16 + g + 8) * WB + warp] = bits[mt][1];
+        }
       }
     }
     __syncthreads();
   }
-  save_rows<1, P>(sv.xin[NL - 1], H, ldh, c16(C.in_dim[NL - 1]), base, n, tid);
+  if (SAVE) save_rows<1, P>(sv.xin[NL - 1], H, ldh, c16(C.in_dim[NL - 1]), base, n, tid);
+}
+
+// rgb channel c of tile row p from the output layer's bf16 operand rows (3
+// wide, SIMT): an FMA chain in k order, as field_color's, then the sigmoid.
+__device__ __forceinline__ float color_tc_rgb(const float* __restrict__ wts, const Net& C,
+                                              const bf16* H, int ldh, int p, int c) {
+  const int l = NL - 1, in_l = C.in_dim[l], out_l = C.out_dim[l];   // out_l == 3
+  const float sc = ((C.skip_mask >> l) & 1) ? kInvSqrt2 : 1.f;
+  const float* W = wts + C.w_off[l];             // [in][out]
+  float a = 0.f;
+  for (int k = 0; k < in_l; ++k)
+    a = fmaf(__bfloat162float(H[p * ldh + k]), __ldg(W + (size_t)k * out_l + c), a);
+  return sigmoidf_(a * sc + wts[C.b_off[l] + c]);
+}
+
+// (x_c, grad_c, d_c [n][3], feat [n][F]) -> color, row i at color + i * ldc.
+__global__ void __launch_bounds__(NT, 1)
+color_fwd_tc_kernel(const float* __restrict__ wts, const __grid_constant__ Model m,
+                    const __grid_constant__ TcFrags fr, long long n,
+                    const float* __restrict__ xc, const float* __restrict__ gc,
+                    const float* __restrict__ dc, const float* __restrict__ feat,
+                    float* __restrict__ color, int ldc) {
+  constexpr int P = TC_P_COLOR;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int warp = threadIdx.x >> 5;
+  uint4* ring = (uint4*)tc_smem + warp * (TC_STAGES * TC_NPW * 32);
+  const ColorTile s = color_tile(tc_smem, m);
+  const long long base = (long long)blockIdx.x * P;
+  color_tc_forward<false>(wts, m, fr, n, base, xc, gc, dc, feat, s, ring, TcScratch{});
+  const int ldh = tc_ldh(m.color);
+  for (int idx = threadIdx.x; idx < P * 3; idx += NT) {
+    const int p = idx / 3, c = idx - p * 3;
+    if (in_tile(base, p, n))
+      color[(size_t)(base + p) * ldc + c] = color_tc_rgb(wts, m.color, s.H, ldh, p, c);
+  }
+}
+
+__global__ void __launch_bounds__(NT, 1)
+color_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long long n,
+                    const float* __restrict__ xc, const float* __restrict__ gc,
+                    const float* __restrict__ dc, const float* __restrict__ feat,
+                    const float* __restrict__ g_color, float* __restrict__ dxc,
+                    float* __restrict__ dgc, float* __restrict__ ddc,
+                    float* __restrict__ dfeat, const __grid_constant__ TcScratch sv) {
+  constexpr int P = TC_P_COLOR, MT = P / 16, WB = HMAX / 32, NPG = HMAX / 16;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const Net& C = m.color;
+  const int ci = m.ci, cp = m.cp, cr = m.cr, F = m.feat_dim, nd = cp + 3 + cr;
+  const int ldh = tc_ldh(C);
+  uint4* ring = (uint4*)tc_smem + warp * (TC_STAGES * TC_NPW * 32);
+  const ColorTile tile = color_tile(tc_smem, m);
+  bf16* H = tile.H;                              // [P][ldh] the layer's operand / cotangent
+  const bf16* const A1[1] = {H};
+  bf16* E = tile.E;                              // [P][ci] the colour input; in the walk the
+                                                 //   cotangent the skip layer sends it
+  float* xs = tile.xs;                           // [P][4] x_c
+  float* ds = tile.ds;                           // [P][4] d_c
+  uint32_t* gbit = tile.gbit;                    // [NL-1][P][WB] relu' of each hidden output
+  float* dz8 = (float*)(gbit + (NL - 1) * P * WB);   // [P][4] the output layer's cotangent
+  float* Dc = dz8 + P * 4;                       // [P][nd] cotangent on enc(x_c), grad_c, enc(d_c)
+  const long long base = (long long)blockIdx.x * P;
+  const int np_me = warp * TC_NPW;
+  auto gate = [&](int l, int p, int i) {        // relu' of layer l's output i at point p
+    return (gbit[(l * P + p) * WB + (i >> 5)] >> (i & 31)) & 1u;
+  };
+
+  // ---- forward recompute, hidden layers, with the saves
+  color_tc_forward<true>(wts, m, fr, n, base, xc, gc, dc, feat, tile, ring, sv);
+  float acc[MT][2 * TC_NPW][4];
 
   // ---- the output layer (3 wide, SIMT): rgb, an FMA chain in k order as
   // field_color's; its float32 cotangent g_color rgb (1 - rgb)
   {
-    const int l = NL - 1, in_l = C.in_dim[l], out_l = C.out_dim[l];   // out_l == 3
-    const float sc = ((C.skip_mask >> l) & 1) ? kInvSqrt2 : 1.f;
-    const float* W = wts + C.w_off[l];           // [in][out]
     for (int idx = tid; idx < P * 4; idx += NT) {
       const int p = idx >> 2, c = idx & 3;
       float v = 0.f;
-      if (c < out_l && in_tile(base, p, n)) {
-        float a = 0.f;
-        for (int k = 0; k < in_l; ++k)
-          a = fmaf(__bfloat162float(H[p * ldh + k]), __ldg(W + (size_t)k * out_l + c), a);
-        const float rgb = sigmoidf_(a * sc + wts[C.b_off[l] + c]);
+      if (c < C.out_dim[NL - 1] && in_tile(base, p, n)) {
+        const float rgb = color_tc_rgb(wts, C, H, ldh, p, c);
         v = g_color[(size_t)(base + p) * 3 + c] * rgb * (1.f - rgb);
       }
       dz8[idx] = v;
@@ -1213,14 +1304,13 @@ cudaError_t set_smem(K kernel, size_t bytes) {
 // blocks of p points that cover n
 unsigned n_tiles(long long n, int p) { return (unsigned)((n + p - 1) / p); }
 
-cudaError_t launch_deform_fwd_tc(const float* w, const long long* meta, const Model& m,
+cudaError_t launch_deform_fwd_tc(const float* w, const TcFrags& fr, const Model& m,
                                  long long n, const float* xt, float* xc, float* jrows,
                                  cudaStream_t st) {
   const size_t smem = deform_tc_smem(m, false);
   cudaError_t e = set_smem(deform_fwd_tc_kernel, smem);
   if (e != cudaSuccess) return e;
-  deform_fwd_tc_kernel<<<n_tiles(n, TC_P_DEFORM), NT, smem, st>>>(
-      w, m, decode_frags(meta), n, xt, xc, jrows);
+  deform_fwd_tc_kernel<<<n_tiles(n, TC_P_DEFORM), NT, smem, st>>>(w, m, fr, n, xt, xc, jrows);
   return cudaGetLastError();
 }
 
@@ -1240,7 +1330,7 @@ cudaError_t launch_deform_bwd_tc(const float* w, const long long* meta, const Mo
   return run_wgrad_tc(jobs, partial, st);
 }
 
-cudaError_t launch_sdf_fwd_tc(const float* w, const long long* meta, const Model& m, long long n,
+cudaError_t launch_sdf_fwd_tc(const float* w, const TcFrags& fr, const Model& m, long long n,
                               const float* xc, float* sdf, float* feat, float* gc, float* work,
                               cudaStream_t st) {
   TcScratch sv;
@@ -1248,8 +1338,7 @@ cudaError_t launch_sdf_fwd_tc(const float* w, const long long* meta, const Model
   const size_t smem = sdf_fwd_tc_smem(m);
   cudaError_t e = set_smem(sdf_fwd_tc_kernel, smem);
   if (e != cudaSuccess) return e;
-  sdf_fwd_tc_kernel<<<n_tiles(n, TC_P_SDF), NT, smem, st>>>(w, m, decode_frags(meta), n, xc, sdf,
-                                                             feat, gc, sv);
+  sdf_fwd_tc_kernel<<<n_tiles(n, TC_P_SDF), NT, smem, st>>>(w, m, fr, n, xc, sdf, feat, gc, sv);
   return cudaGetLastError();
 }
 
@@ -1267,6 +1356,18 @@ cudaError_t launch_sdf_bwd_tc(const float* w, const long long* meta, const Model
                                                              g_sdf, g_feat, g_gc, dxc, sv);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   return run_wgrad_tc(jobs, partial, st);
+}
+
+// color [n][ldc]: rgb in columns 0 .. 2 of each row.
+cudaError_t launch_color_fwd_tc(const float* w, const TcFrags& fr, const Model& m, long long n,
+                                const float* xc, const float* gc, const float* dc,
+                                const float* feat, float* color, int ldc, cudaStream_t st) {
+  const size_t smem = color_fwd_tc_smem(m);
+  cudaError_t e = set_smem(color_fwd_tc_kernel, smem);
+  if (e != cudaSuccess) return e;
+  color_fwd_tc_kernel<<<n_tiles(n, TC_P_COLOR), NT, smem, st>>>(w, m, fr, n, xc, gc, dc, feat,
+                                                                 color, ldc);
+  return cudaGetLastError();
 }
 
 cudaError_t launch_color_bwd_tc(const float* w, const long long* meta, const Model& m,

@@ -70,7 +70,7 @@ RESAMPLE_MAX = 64        # csrc/dnerf_chain.cuh's DN_N0: coarse depths, and draw
 # and twin at one dot precision), the wrong-precision controls and kernels
 # with a planted fault on a minority of rays, on two weight seeds, over
 # chip_smoke.py's 8192 train rays and the 1024-ray cells of
-# tests/test_torch_cuda.py (the tables in PERF.md).
+# tests/test_torch_cuda.py (PERF.md §6 and CHANGES.md, PRs 2 and 9).
 #
 # 1. Kernel vs plain twin, on the per-ray max-over-samples absolute error of
 # z and of sdf: the median ray, the 99th percentile, the max per output, and
@@ -392,36 +392,55 @@ def fused_upsample_z_float64(spec, params: Dict[str, Any], rays_o: torch.Tensor,
                                       n_importance, n_rounds, torch.bfloat16, True)
 
 
-# (meta, buffer floats, device) -> (gather index of the fragment extension,
-# its float offsets): pack_sampling's layout, built once per weight layout
-_SWEEP_FRAGS: Dict[Tuple, Tuple[torch.Tensor, List[int]]] = {}
+# (meta, buffer floats, device, nets) -> (gather index of the fragment
+# extension, its float offsets): a fragment layout, built once per weight layout
+_FRAG_INDEX: Dict[Tuple, Tuple[torch.Tensor, List[int]]] = {}
+# pack_sampling's extension: the deform net's hidden-layer W, then the SDF's
+SWEEP_FRAG_NETS = ((0, False, False), (1, False, False))
 
 
-def _sweep_frag_index(meta: List[int], n_w: int, device) -> Tuple[torch.Tensor, List[int]]:
+def frag_index(meta: List[int], n_w: int, device, nets=SWEEP_FRAG_NETS
+               ) -> Tuple[torch.Tensor, List[int]]:
     """For a float32 pack of n_w floats described by ``meta`` (with one zero
-    appended at index n_w): the index, per bf16 element of the extension,
-    into that buffer (each hidden layer's W [in, out] in mma fragment order,
-    ``fused_train_cuda.mma_frags``; padding and the 16-byte alignment gaps
-    point at the zero), and each layer's float offset in the whole pack."""
-    key = (tuple(meta), n_w, str(device))
-    if key not in _SWEEP_FRAGS:
+    appended at index n_w): the index, per bf16 element of a fragment
+    extension, into that buffer, and each layer's float offset in the whole
+    pack (-1 for a layer it leaves out). ``nets`` lists the extension's
+    blocks in order, each ``(net, transposed, output)``: net 0 deform, 1
+    SDF, 2 colour; its NL layers' W [in, out] (or W^T [out, in], from the
+    meta's W^T offsets) in mma fragment order (``fused_train_cuda.
+    mma_frags``), the output layer only with ``output``, none for an absent
+    net. Padding and the 16-byte alignment gaps point at the zero."""
+    key = (tuple(meta), n_w, str(device), tuple(nets))
+    if key not in _FRAG_INDEX:
         parts, offs, size = [], [], n_w
-        for q in (0, 1):                          # the deform net's meta, then the SDF's
+        for q, transposed, output in nets:
             net = meta[8 + q * META_NET:8 + (q + 1) * META_NET]
             for l in range(NL):
-                if net[0] == 0 or l == NL - 1:
+                if net[0] == 0 or (l == NL - 1 and not output):
                     offs.append(-1)
                     continue
                 gap = -size % 4
                 parts.append(torch.full((2 * gap,), n_w, dtype=torch.int64))
                 size += gap
-                k, n, w_off = net[2 + l], net[2 + NL + l], net[2 + 2 * NL + l]
-                frag = mma_frags(w_off + torch.arange(k * n).view(k, n), fill=n_w)
+                k, n = net[2 + l], net[2 + NL + l]
+                if transposed:
+                    k, n = n, k
+                off = net[2 + (4 if transposed else 2) * NL + l]
+                frag = mma_frags(off + torch.arange(k * n).view(k, n), fill=n_w)
                 offs.append(size)
                 parts.append(frag)
                 size += frag.numel() // 2
-        _SWEEP_FRAGS[key] = (torch.cat(parts).to(device), offs)
-    return _SWEEP_FRAGS[key]
+        _FRAG_INDEX[key] = (torch.cat(parts).to(device), offs)
+    return _FRAG_INDEX[key]
+
+
+def frag_extension(w: torch.Tensor, meta: List[int], nets=SWEEP_FRAG_NETS
+                   ) -> Tuple[torch.Tensor, List[int]]:
+    """A float32 pack ``w`` (bf16-rounded weights) with the fragment
+    extension ``frag_index`` lays out appended, and the extension's offsets."""
+    idx, offs = frag_index(meta, w.numel(), w.device, nets)
+    ext = torch.cat([w, w.new_zeros(1)])[idx].to(torch.bfloat16).view(torch.float32)
+    return torch.cat([w, ext]), offs
 
 
 def pack_sampling(spec, params: Dict[str, Any], dtype: torch.dtype
@@ -433,13 +452,13 @@ def pack_sampling(spec, params: Dict[str, Any], dtype: torch.dtype
     offsets appended to the meta: the deform net's NL, then the SDF's NL, -1
     for the output layers and an absent deform net (``csrc/sweep_tc.cuh``
     reads them). The float32 layout is ``pack_operands``' byte for byte, and
-    the render, the march and the query pack with that."""
+    the march and the query pack with that; the render's ``fused_render.
+    pack_render`` extends it."""
     w, meta = pack_operands(spec, params, dtype)
     if dtype != torch.bfloat16:
         return w, meta
-    idx, offs = _sweep_frag_index(meta, w.numel(), w.device)
-    ext = torch.cat([w, w.new_zeros(1)])[idx].to(torch.bfloat16).view(torch.float32)
-    return torch.cat([w, ext]), meta + offs
+    w, offs = frag_extension(w, meta)
+    return w, meta + offs
 
 
 def fused_upsample_z_cuda(spec, params: Dict[str, Any], rays_o: torch.Tensor,

@@ -31,11 +31,10 @@ biases and the head column are not. What remains between kernel and plain
 version is the order of float32 sums, and a bf16 rounding that an ulp of it
 tips (PERF.md, PR 3 Findings, has the readings).
 
-In ``"default"`` the three backward kernels and the deform and SDF forward
-run on tensor cores (``csrc/field_tc.cuh``; each forward shares its tile
-function with its backward's recompute, so the forward the loss sees is the
-one the backward differentiates, bit for bit); the colour forward stays
-SIMT, as does every kernel in ``"highest"``. A float32 operand of a product that is
+In ``"default"`` all six kernels run on tensor cores (``csrc/field_tc.cuh``;
+each forward shares its tile function with its backward's recompute, so the
+forward the loss sees is the one the backward differentiates, bit for bit);
+every kernel in ``"highest"`` stays SIMT. A float32 operand of a product that is
 not a bf16 value (the SDF's cotangents; the float32 cotangent on the deform
 and colour nets' 3-wide outputs in their weight gradients) goes in as a sum
 of bf16 terms, three in the tile walks and two in the weight-gradient product

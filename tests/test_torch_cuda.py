@@ -89,6 +89,8 @@ def test_kernel_matches_plain_twin(dev, spec, dtype):
     for k in MAPS:
         assert got[k].shape == ref[k].shape and got[k].dtype == torch.float32
     errs = fr.parity_errors(got, ref, dtype)
+    print(f"render sound {dtype}: " + "; ".join(f"{k} p99 {v[0]:.3e} max {v[1]:.3e}"
+                                               for k, v in errs.items()))
     assert all(ok for _, _, ok in errs.values()), errs
 
 
@@ -108,6 +110,8 @@ def test_parity_limits_reject_the_other_precision(dev, spec):
         ref = run(fr.fused_render_rays_reference, twin_dt, twin_dt)
         for sd, md in kernel_dts:
             errs = fr.parity_errors(run(fr.fused_render_rays_cuda, sd, md), ref, twin_dt)
+            print(f"render control: kernel {sd} / {md} vs twin {twin_dt}: " + "; ".join(
+                f"{k} p99 {v[0]:.3e} max {v[1]:.3e}" for k, v in errs.items()))
             assert not all(ok for _, _, ok in errs.values()), (twin_dt, sd, md, errs)
 
 
@@ -153,6 +157,155 @@ def test_cuda_entry_checks_inputs(dev):
 
 SPECS = [NARROW, EndoSurfSpec(), EndoSurfSpec(use_deform=False)]
 SPEC_IDS = ["narrow", "full", "full-static"]
+RENDER_ARGS = (30000.0, 32, 32, 4, 50000.0)
+
+
+def _frame_rays(n: int, dev) -> torch.Tensor:
+    """n rays spread over a synthetic 512 x 640 frame, as chip_smoke.py's
+    phase 3 picks them."""
+    from endosurf_tpu_torch.data.scene_data import frame_rays
+    scene = make_synthetic_arrays(n_frames=4, h=512, w=640, seed=0, device=dev)
+    rays = frame_rays(scene.device_arrays, 512, 640, 3).reshape(-1, 9)
+    return rays[::rays.shape[0] // n][:n].contiguous()
+
+
+def test_render_tensor_cores_no_farther_from_float64(dev):
+    """The condition under which a bf16 render limit (fused_render.PARITY_TOL)
+    may move with the tensor-core render: on every card cell of
+    test_kernel_matches_plain_twin (three nets, 1024 rays) and on 8192 rays of
+    chip_smoke.py's frame, each on two weight seeds, the tensor-core render's
+    median and p99 per-ray error against the float64 yardstick
+    (fused_render_rays_float64) are no larger than the SIMT bf16 render's
+    (simt=True) on the same inputs, per map (fused_render.no_farther)."""
+    bf = torch.bfloat16
+    cells = [(sid, spec, seed, 1024) for sid, spec in zip(SPEC_IDS, SPECS) for seed in (0, 1)]
+    cells += [("frame", EndoSurfSpec(), seed, 8192) for seed in (0, 1)]
+    failed = []
+    for sid, spec, seed, n in cells:
+        params = init_endosurf_params(spec, torch.Generator().manual_seed(seed), dev)
+        rays = _rays(n, dev) if n == 1024 else _frame_rays(n, dev)
+        ref = fr.fused_render_rays_float64(spec, params, rays, *RENDER_ARGS)
+        tc, simt = (fr.float64_distance(fr.fused_render_rays_cuda(
+            spec, params, rays, *RENDER_ARGS, bf, bf, simt=flag), ref) for flag in (False, True))
+        ok = fr.no_farther(tc, simt)
+        for k in MAPS:
+            print(f"render bf16 vs float64 {sid} seed {seed} {k} (median, p99): tensor cores "
+                  f"{tc[k][0]:.4e}, {tc[k][1]:.4e}; SIMT {simt[k][0]:.4e}, {simt[k][1]:.4e}")
+            if not ok[k]:
+                failed.append((sid, seed, k))
+    assert not failed, failed
+
+
+# sha256 of the float32 render's maps (MAPS concatenated, float32 bytes) on
+# _rays(1024) with the full net (seed 0) at RENDER_ARGS, as the SIMT kernel of
+# the parent of the tensor-core render built it (tools/render_f32_digest.py on
+# an NVIDIA H100 80GB HBM3), and the nvcc release that compiled it: another
+# toolchain may compile other bits, so the test skips under it (rerun the
+# tool on both trees then).
+F32_RENDER_DIGEST = "41736c66a893780b441d4699464f7384c7fe981e96c2862ab4628365852e59d5"
+F32_RENDER_NVCC = "release 12.9,"
+
+
+def test_render_f32_is_the_simt_render(dev):
+    """The float32 render runs the SIMT code it ran before the bf16 passes
+    moved to tensor cores: its maps equal that kernel's bit for bit, and the
+    same with simt=True."""
+    import hashlib
+    import subprocess
+    params = init_endosurf_params(EndoSurfSpec(), torch.Generator().manual_seed(0), dev)
+    rays = _rays(1024, dev)
+    outs = [fr.fused_render_rays_cuda(EndoSurfSpec(), params, rays, *RENDER_ARGS, simt=flag)
+            for flag in (False, True)]
+    cat = [torch.cat([o[k] for k in MAPS], -1) for o in outs]
+    assert torch.equal(cat[0], cat[1])
+    digest = hashlib.sha256(cat[0].cpu().numpy().tobytes()).hexdigest()
+    nvcc = subprocess.run([build.find_nvcc(), "--version"], capture_output=True,
+                          text=True, check=True).stdout
+    release = next((ln for ln in nvcc.splitlines() if "release" in ln), nvcc.strip())
+    print(f"float32 render digest {digest} ({release})")
+    if F32_RENDER_NVCC not in release:
+        pytest.skip(f"the digest was taken with nvcc {F32_RENDER_NVCC.rstrip(',')}, "
+                    f"this one is {release}")
+    assert digest == F32_RENDER_DIGEST
+
+
+def test_render_reuses_the_pack(dev):
+    """Chunks on one parameter set share the render's pack: a second call
+    packs nothing and gives the same maps; after an in-place update of a
+    weight the next call repacks, and its maps equal those of a pack built
+    from scratch."""
+    params = init_endosurf_params(NARROW, torch.Generator().manual_seed(0), dev)
+    rays = _rays(256, dev)
+    bf = torch.bfloat16
+
+    def run():
+        out = fr.fused_render_rays_cuda(NARROW, params, rays, *RENDER_ARGS, bf, bf)
+        return torch.cat([out[k] for k in MAPS], -1)
+    first = run()
+    n = fr.PACKS["render"]
+    assert torch.equal(run(), first) and fr.PACKS["render"] == n
+    with torch.no_grad():
+        params["color_network"]["layers"][2]["b"].add_(0.5)
+    updated = run()
+    assert fr.PACKS["render"] == n + 1 and not torch.equal(updated, first)
+    fr._RENDER_PACKS.clear()
+    assert torch.equal(run(), updated) and fr.PACKS["render"] == n + 2
+
+
+@pytest.mark.parametrize("spec", SPECS, ids=SPEC_IDS)
+def test_render_workspace_matches_the_planner(dev, spec):
+    """fused_render.render_work_floats (the CPU mirror) equals csrc's
+    fused_render_work_floats (plan_render_work) at several point counts."""
+    import ctypes
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(0), dev)
+    _, meta = fr.pack_render(spec, params, torch.bfloat16)
+    lib = build.load_library()
+    arr = (ctypes.c_longlong * len(meta))(*meta)
+    for n in (1, 63, 4097, 2048 * 64):
+        assert lib.fused_render_work_floats(arr, n) == fr.render_work_floats(meta, n), n
+
+
+# Faults planted in the bf16 render's tensor-core field stage
+# (csrc/fused_render.cu): grad_o through J instead of J^T, and the sample
+# point at a quarter of its section instead of the middle.
+TC_RENDER_FAULTS = {
+    "coupling_grad_o_untransposed": (
+        "    go[k] = Jl[k * 3 + 0] * g[0] + Jl[k * 3 + 1] * g[1] + Jl[k * 3 + 2] * g[2];",
+        "    go[k] = Jl[0 * 3 + k] * g[0] + Jl[1 * 3 + k] * g[1] + Jl[2 * 3 + k] * g[2];"),
+    "midpoint_quarter_section": ("const float mid = z[j] + dist * 0.5f;",
+                                 "const float mid = z[j] + dist * 0.25f;"),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(TC_RENDER_FAULTS))
+def test_render_limits_catch_planted_faults(dev, fault, tmp_path, monkeypatch):
+    """The bf16 limits (PARITY_TOL) fail a tensor-core render with a planted
+    fault in its field stage, on the full net and 1024 rays."""
+    _rebuild_with(monkeypatch, tmp_path, "fused_render.cu", *TC_RENDER_FAULTS[fault])
+    params = init_endosurf_params(EndoSurfSpec(), torch.Generator().manual_seed(0), dev)
+    rays = _rays(1024, dev)
+    bf = torch.bfloat16
+    got = fr.fused_render_rays_cuda(EndoSurfSpec(), params, rays, *RENDER_ARGS, bf, bf)
+    ref = fr.fused_render_rays_reference(EndoSurfSpec(), params, rays, *RENDER_ARGS, bf, bf)
+    errs = fr.parity_errors(got, ref, bf)
+    print(f"render fault {fault}: " + "; ".join(f"{k} p99 {v[0]:.3e} max {v[1]:.3e}"
+                                              for k, v in errs.items()))
+    assert not all(ok for _, _, ok in errs.values())
+
+
+def test_render_refuses_nets_the_tensor_cores_do_not_take(dev):
+    """An SDF net 200 wide renders in float32; its bf16 render is refused (the
+    tensor-core SDF forward takes hidden widths that are multiples of 16),
+    with no fallback to the SIMT render."""
+    w200 = dataclasses.replace(EndoSurfSpec(use_deform=False), sdf=MLPSpec(9, 200, (4,), 201),
+                               color_feat_dim=200)
+    params = init_endosurf_params(w200, torch.Generator().manual_seed(0), dev)
+    rays = _rays(64, dev)
+    out = fr.fused_render_rays_cuda(w200, params, rays, *RENDER_ARGS)
+    assert all(bool(torch.isfinite(out[k]).all()) for k in MAPS)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        fr.fused_render_rays_cuda(w200, params, rays, *RENDER_ARGS, torch.bfloat16,
+                                  torch.bfloat16)
 
 
 def _upsample_inputs(n: int, dev, seed: int = 0):
@@ -538,6 +691,48 @@ def test_segment_kernels_take_other_colour_nets(dev, net_id, precision):
     assert ftc.parity_ok(res), _report(res)
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("net_id", ["full"] + sorted(COLOR_NETS))
+def test_color_fwd_tensor_cores_match_plain(dev, net_id, seed):
+    """In bf16 the colour forward runs color_fwd_tc_kernel (one launch a
+    call) and holds its plain version at PARITY_TOL's "out" limits, on both
+    weight seeds, for base.yml's colour net and COLOR_NETS."""
+    spec = (EndoSurfSpec() if net_id == "full"
+            else dataclasses.replace(EndoSurfSpec(), color=COLOR_NETS[net_id]))
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(seed), dev)
+    before = ftc.LAUNCHES["color_fwd"]
+    res, _, _ = ftc.segment_parity(spec, params, *_seg_points(SEG_N, dev, seed), "default",
+                                   seed)
+    torch.cuda.synchronize()
+    out = res["color"]["out"]["color"]
+    print(f"color_fwd bf16 {net_id} seed {seed}: median {out[0]:.3e}, p99 {out[1]:.3e}, "
+          f"max {out[2]:.3e}")
+    assert ftc.LAUNCHES["color_fwd"] == before + 1
+    assert out[-1], out
+
+
+def test_color_fwd_is_the_backward_recompute(dev, tmp_path, monkeypatch):
+    """In bf16 the colour forward kernel and the colour backward's recompute
+    run one tile forward (field_tc.cuh's color_tc_forward and color_tc_rgb),
+    so the forward the loss sees is the one the backward differentiates:
+    at a ragged point count the forward's colour equals, bit for bit, the rgb
+    that a build whose backward writes its recompute's rgb in place of d x_c
+    returns."""
+    rgb = "        const float rgb = color_tc_rgb(wts, C, H, ldh, p, c);\n"
+    sections = "  // ---- the sections of the colour input: [enc(x_c), grad_c, enc(d_c), feat]\n"
+    _rebuild_with_all(monkeypatch, tmp_path, [
+        ("field_tc.cuh", rgb, rgb + "        dxc[(size_t)(base + p) * 3 + c] = rgb;\n"),
+        ("field_tc.cuh", sections, "  return;\n" + sections)])
+    spec = EndoSurfSpec()
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(0), dev)
+    _, _, cases = ftc.segment_parity(spec, params, *_seg_points(RAGGED_N, dev), "default", 0)
+    _, _, packed, inputs, cots = cases["color"]
+    (color,) = ftc.color_fwd(packed, *inputs)
+    _, (probe, *_) = ftc.color_bwd(packed, *inputs, *cots)
+    torch.cuda.synchronize()
+    assert torch.equal(color, probe)
+
+
 def _kernel_grads(spec, params, x, d, t, w, precision):
     """Parameter gradients of a weighted sum of the fields through the
     segment kernels (all six)."""
@@ -761,6 +956,10 @@ SEG_FAULTS = {
     # the SDF tile forward's adjoint drops its pass over the input columns past
     # the first 256 (the skip layer's encoding columns 256 .. 294), which the
     # forward kernel's grad_c and the backward's recompute share
+    # the colour tile forward leaves the skip layer's colour input unwritten
+    # (the forward kernel and the backward's recompute share it)
+    "color_fwd_drops_skip_input": ([
+        ("field_tc.cuh", "      put_enc(H, ldh, in_l - ci, E, ci, P, tid);\n", "")], BF16),
     "sdf_adjoint_drops_wide_pass": ([
         ("field_tc.cuh",
          "    const int npx = clampw(np_in - np_hmax - np_me);\n    if (npx > 0) {\n"

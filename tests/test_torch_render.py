@@ -132,6 +132,23 @@ def test_reference_matches_jax_kernel_bf16(bf16_case):
     _check(twin(torch.bfloat16, torch.bfloat16), kern, BF16_TOL)
 
 
+def test_float64_yardstick_matches_jax_kernel_bf16(bf16_case):
+    """``fused_render_rays_float64`` (the bf16 render's float64 yardstick:
+    the kernels' bf16 operand roundings, float64 arithmetic) returns float64
+    maps within BF16_TOL of the interpreted bf16 JAX kernel, as the float32
+    twin does (the yardstick reads 2.7e-4 on normal_map, 1e-5 or less on the
+    other maps)."""
+    kern, _ = bf16_case
+    spec_j, spec_t = _narrow(j_fields), _narrow(t_fields)
+    pj = j_fields.init_endosurf_params(jax.random.PRNGKey(0), spec_j)
+    got = t_fr.fused_render_rays_float64(spec_t, params_from_jax(pj),
+                                         torch.from_numpy(_rays(32, seed=2)), 30000.0, 32, 32,
+                                         4, 50000.0)
+    assert all(got[k].dtype == torch.float64 and got[k].shape == np.asarray(kern[k]).shape
+               for k in MAPS)
+    _check(got, kern, BF16_TOL)
+
+
 @pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
                                     (torch.bfloat16, torch.float32),
                                     (torch.float32, torch.bfloat16)],

@@ -1,10 +1,12 @@
 """The host side of the tensor-core (bf16 mode) kernels, on the CPU: the
-bf16 fragment copies ``fused_train_cuda.pack_segment`` and the upsampling's
-``fused_sampler.pack_sampling`` write, the float32 packing each leaves as it
-was, the scratch sizes of both modes (``bwd_sizes``) and the SDF forward's
-workspace (``fwd_work_floats``), which the card test
-``test_segment_scratch_sizes_match_the_planner`` holds against csrc's
-planners, and the plain version of the split product (``split_product``)
+bf16 fragment copies ``fused_train_cuda.pack_segment``, the upsampling's
+``fused_sampler.pack_sampling`` and the render's ``fused_render.pack_render``
+write, the float32 packing each leaves as it was, the render pack's cache,
+the render's workspace (``render_work_floats``), the scratch sizes of both
+modes (``bwd_sizes``) and the SDF forward's workspace (``fwd_work_floats``),
+which the card tests ``test_segment_scratch_sizes_match_the_planner`` and
+``test_render_workspace_matches_the_planner`` hold against csrc's planners,
+and the plain version of the split product (``split_product``)
 against a float64 product.
 
 Weights come from a seeded init, points from numpy seeds; tolerances are
@@ -328,3 +330,144 @@ def test_fwd_work_floats_holds_the_sdf_pre_activations(spec_id):
                 assert got == -(-used // 4)
                 if n % 64 == 0:
                     assert got == n * sum(outs)
+
+
+def _unfrag_at(w: torch.Tensor, off: int, k: int, n: int) -> torch.Tensor:
+    """The [K, N] bf16 matrix whose fragments start at float offset off of w
+    (padding included)."""
+    size = -(-k // 16) * 16 * (-(-n // 16) * 16)
+    return _unfrag(w.view(torch.bfloat16)[2 * off:2 * off + size], k, n)
+
+
+@pytest.mark.parametrize("spec_id", sorted(SWEEP_SPECS))
+def test_pack_render_bf16_fragments(spec_id):
+    """In the bf16 mode the render's pack ends with four blocks of NL
+    fragment offsets after the render meta's entries: the deform net's W,
+    the SDF net's W (its output layer too), the colour net's W and the SDF
+    net's W^T, -1 where a layer has none. Each block equals
+    ``fused_train_cuda.mma_frags`` of the packed bf16 weights, bit for bit,
+    and the first two are ``pack_sampling``'s (but for the SDF output
+    layer's, which the sweeps do not read), so the sweeps read the same
+    offsets. Nets the tensor-core field stage does not take are refused."""
+    spec = SWEEP_SPECS[spec_id]
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(0), "cpu")
+    if spec_id == "w200":          # SDF hidden widths not multiples of 16
+        with pytest.raises(ValueError, match="multiples of 16"):
+            fr.pack_render(spec, params, torch.bfloat16)
+        return
+    w, meta = fr.pack_render(spec, params, torch.bfloat16)
+    base_len = len(fr.pack_operands(spec, params, torch.bfloat16)[1])
+    assert len(meta) == base_len + 4 * NL
+    samp_w, samp_meta = fs.pack_sampling(spec, params, torch.bfloat16)
+    # pack_sampling's layout up to its last block's -1 (the SDF output layer,
+    # which the render's SDF forward takes and the sweeps do not read)
+    assert meta[:base_len + 2 * NL - 1] == samp_meta[:-1] and samp_meta[-1] == -1
+    assert torch.equal(w[:samp_w.numel()], samp_w)
+    for block, (q, transposed, output) in enumerate(fr.RENDER_FRAG_NETS):
+        offs = meta[base_len + block * NL:base_len + (block + 1) * NL]
+        net = meta[8 + q * META_NET:8 + (q + 1) * META_NET]
+        if net[0] == 0:
+            assert offs == [-1] * NL
+            continue
+        for l in range(NL):
+            if l == NL - 1 and not output:
+                assert offs[l] == -1
+                continue
+            k, n = net[2 + l], net[2 + NL + l]
+            off = net[2 + (4 if transposed else 2) * NL + l]
+            mat = w[off:off + k * n].view((n, k) if transposed else (k, n))
+            assert torch.equal(mat.to(torch.bfloat16).to(torch.float32), mat)
+            assert offs[l] % 4 == 0
+            want = ftc.mma_frags(mat.to(torch.bfloat16))
+            got = w.view(torch.bfloat16)[2 * offs[l]:2 * offs[l] + want.numel()]
+            assert torch.equal(got.view(torch.int16), want.view(torch.int16)), (block, l)
+            kk, nn = mat.shape
+            assert torch.equal(_unfrag_at(w, offs[l], kk, nn)[:kk, :nn].view(torch.int16),
+                               mat.to(torch.bfloat16).view(torch.int16))
+
+
+@pytest.mark.parametrize("spec_id", sorted(SWEEP_SPECS))
+def test_pack_render_keeps_the_float32_layout(spec_id):
+    """The render's pack is ``pack_operands``' buffer and meta byte for
+    byte in float32, and their prefix in bf16."""
+    spec = SWEEP_SPECS[spec_id]
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(1), "cpu")
+    for dtype in (torch.float32, torch.bfloat16):
+        if dtype == torch.bfloat16 and spec_id == "w200":
+            continue
+        w, meta = fr.pack_render(spec, params, dtype)
+        w0, meta0 = fr.pack_operands(spec, params, dtype)
+        assert meta[:len(meta0)] == meta0
+        assert torch.equal(w[:w0.numel()].view(torch.int32), w0.view(torch.int32))
+        if dtype == torch.float32:
+            assert len(meta) == len(meta0) and w.numel() == w0.numel()
+
+
+def test_pack_render_is_cached_per_parameter_set():
+    """A frame's chunks share one pack: a second call on the same parameter
+    tensors returns it without packing; an in-place update of any weight
+    or an Adam step (the trainer's, in place) or new tensors repack, and the
+    new pack holds the new weights."""
+    spec = NARROW
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(0), "cpu")
+    for dtype in (torch.float32, torch.bfloat16):
+        first = fr.pack_render(spec, params, dtype)
+        n = fr.PACKS["render"]
+        assert fr.pack_render(spec, params, dtype) is first and fr.PACKS["render"] == n
+        layer = params["color_network"]["layers"][3]
+        with torch.no_grad():
+            layer["b"].add_(1.0)
+        w, meta = fr.pack_render(spec, params, dtype)
+        assert fr.PACKS["render"] == n + 1
+        assert torch.equal(w, fr.pack_render(spec, params, dtype)[0])
+        b_off = meta[8 + 2 * META_NET + 2 + 3 * NL + 3]
+        assert torch.equal(w[b_off:b_off + layer["b"].numel()], layer["b"])
+        w_sdf = params["sdf_network"]["layers"][1]["b"].requires_grad_(True)
+        opt = torch.optim.Adam([w_sdf], lr=1e-3)
+        w_sdf.sum().backward()
+        opt.step()                 # the trainer's update: in place
+        fr.pack_render(spec, params, dtype)
+        assert fr.PACKS["render"] == n + 2
+        params = init_endosurf_params(spec, torch.Generator().manual_seed(0), "cpu")
+        fr.pack_render(spec, params, dtype)
+        assert fr.PACKS["render"] == n + 3
+
+
+def test_pack_render_does_not_outlive_its_parameters():
+    """The cache holds its parameter tensors weakly: once they are freed the
+    pack goes too, and a parameter set made later at the same ids packs
+    anew."""
+    import gc
+    spec = NARROW
+    for dtype in (torch.float32, torch.bfloat16):
+        params = init_endosurf_params(spec, torch.Generator().manual_seed(0), "cpu")
+        pack = fr.pack_render(spec, params, dtype)
+        assert fr._RENDER_PACKS[dtype][2] is pack
+        del params
+        gc.collect()
+        assert dtype not in fr._RENDER_PACKS
+        n = fr.PACKS["render"]
+        params = init_endosurf_params(spec, torch.Generator().manual_seed(1), "cpu")
+        w, _ = fr.pack_render(spec, params, dtype)
+        assert fr.PACKS["render"] == n + 1 and not torch.equal(w, pack[0])
+
+
+@pytest.mark.parametrize("spec_id", sorted(SPECS))
+def test_render_work_floats_lays_out_the_field_stage(spec_id):
+    """``render_work_floats`` (the CPU mirror of csrc/fused_render.cu's
+    plan_render_work, which the card test
+    test_render_workspace_matches_the_planner holds against csrc): the field
+    stage's per-point arrays (xt 4, x_c 3, the rows 9, sdf 1, feat F, grad_c
+    3, d_c 3) and then the SDF forward's workspace as ``fwd_work_floats``
+    sizes it, each array 256-byte aligned."""
+    spec = SPECS[spec_id]
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(0), "cpu")
+    _, meta = fr.pack_render(spec, params, torch.bfloat16)
+    like, flat = _segment(spec, "sdf")
+    packed = ftc.pack_segment(spec, "sdf", flat, like, "default")
+    for n in (1, 63, 4097, 2048 * 64):
+        used = 0
+        for wd in (4, 3, 9, 1, spec.color_feat_dim, 3, 3):
+            used = -(-used // 256) * 256 + 4 * n * wd
+        head = -(-used // 256) * 256 // 4
+        assert fr.render_work_floats(meta, n) == head + ftc.fwd_work_floats(packed, n)

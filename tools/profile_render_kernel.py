@@ -3,10 +3,12 @@
 
 Runs ``fused_render_rays_cuda`` on one chunk of a synthetic 512x640 frame
 (full-width seeded model, 32+32 samples, 4 rounds) under torch.profiler and
-prints the device time of each __global__ kernel (prep, sdf sweep, draw,
-merge, field evaluation, composite), the share of each, the wrapper's host
-time per call, and the achieved FLOP rate from the model's shapes. Needs a
-CUDA device:
+prints the device time of each __global__ kernel and of each family
+(chip_smoke.py's RENDER_FAMILIES: sweep -- prep, sdf sweep, draw, merge;
+in bf16 the tensor-core field stage's deform, sdf, coupling -- midpoint and
+coupling kernels -- and colour; in float32 the SIMT field_kernel;
+composite), the share of each, the wrapper's host time per call, and the
+achieved FLOP rate from the model's shapes. Needs a CUDA device:
 
     python tools/profile_render_kernel.py [--rays 2048] [--dtype bf16|f32] [--reps 5]
 """
@@ -22,7 +24,7 @@ import time
 
 sys.path.insert(0, osp.dirname(osp.dirname(osp.abspath(__file__))))
 
-from chip_smoke import net_macs  # noqa: E402  (the work count chip_smoke's bounds use)
+from chip_smoke import RENDER_FAMILIES, net_macs  # noqa: E402  (chip_smoke's work count)
 
 
 def field_flops_per_ray(params, n0=32, k=8, rounds=4):
@@ -95,6 +97,13 @@ def main():
         ours = re.search(r"(\w+_kernel)(<\w+>)?\(", key)
         name = ours.group(1) + (ours.group(2) or "") if ours else "operand prep: " + key[:50]
         print(f"  {us / 1e3:9.3f} ms  {100 * us / max(total, 1):5.1f} %  x{n:<3d} {name}")
+    families = {}
+    for key, us, _ in rows:
+        fam = next((f for f, names in RENDER_FAMILIES.items() if any(n in key for n in names)),
+                   "other")
+        families[fam] = families.get(fam, 0.0) + us
+    print("  by family: " + ", ".join(f"{f} {us / 1e3:.3f} ms ({100 * us / max(total, 1):.1f} %)"
+                                      for f, us in sorted(families.items(), key=lambda r: -r[1])))
     sweep_f, field_f = field_flops_per_ray(params)
     flops = (sweep_f + field_f) * args.rays
     busy_ms = total / 1e3 if total > 0 else wall_ms

@@ -5,6 +5,8 @@
     python3 chip_smoke.py --train-only   # phases 1, 2 and 7's timed run, split and trace
     python3 chip_smoke.py --segments-only   # phases 1, 2, 9's bf16 seed-0 parity, 11, and
                                             # the upsample's float64 readings and timing
+    python3 chip_smoke.py --dnerf-train-only   # phases 1, 2 and 26's timed EndoNeRF run,
+                                               # split and trace
 
 Phases (any failure raises and exits non-zero):
   1. a CUDA card must be present; prints its name and power limit;
@@ -96,18 +98,22 @@ Phases (any failure raises and exits non-zero):
      fused_sdf.DENSITY_PARITY_TOL, the wrong-precision controls failing;
  18. render parity: the CUDA fused_render_rays_dnerf against its plain twin
      on 8192 depth-guided rays of a frame (slots 6/7 from the renderer's
-     eval_ray_transform) and 2048 uniform-z rays, the same draws, both modes,
-     two seeds of the seeded nets and one of the opaque nets
+     eval_ray_transform) and 2048 uniform-z rays, the same draws, both modes
+     (bf16: both passes on tensor cores, csrc/dnerf_tc.cuh), two seeds of
+     the seeded nets and one of the opaque nets
      (fused_render_dnerf.with_density_bias), per-map median, p99 and max
      (depth as depth x acc) at fused_render_dnerf.PARITY_TOL beside the
-     maps' median size, the controls failing;
+     maps' median size, the controls failing; then the distance of the
+     tensor-core and of the SIMT bf16 render from the float64 yardstick
+     (fused_render_dnerf.fused_render_rays_dnerf_float64), side by side;
  19. segment parity: the three forward D-NeRF segment kernels against
      their plain versions on the 65,536 fine samples of 512 rays (the
      render's resampled depths), both modes, two seeds, per output median /
      p99 / max at fused_train_dnerf.PARITY_TOL, the controls failing;
  20. EndoNeRF serving end to end: eval_frames with an EndoNeRFRenderer on one
-     512x640 frame in 2048-ray chunks: 160 render launches, finite maps and
-     metrics, normals from depth; rays/s and the frame time;
+     512x640 frame in 2048-ray chunks: 160 render launches on one pack,
+     finite maps and metrics, normals from depth; rays/s, the frame time and
+     its peak memory;
  21. one EndoNeRF 3D frame: EndoNeRFRenderer.demo(demo_2d=False,
      demo_3d=True, visualize=False) at 128^3, the iso-threshold the median
      raw density of a 32^3 probe of the frame's grid box (the seeded nets
@@ -117,7 +123,8 @@ Phases (any failure raises and exits non-zero):
      split;
  22. timing of the five EndoNeRF kernels against their plain versions at
      the paths' shapes (2048 rays; 1,048,576 points; 65,536 points), bf16,
-     beside their bounds, and a render chunk's device time by kernel.
+     beside their bounds (the render also against its SIMT bf16 kernel), and
+     a render chunk's device time by kernel family.
  23-28. EndoNeRF training, on the same config with base.yml's train keys
      (2048 rays, depth-guided sampling with sigma 1.0, perturb, raw noise
      1.0, bf16 dots, Adam at the exponential rate):
@@ -128,7 +135,11 @@ Phases (any failure raises and exits non-zero):
      fused_fine_resample), seeded random cotangents, both dot modes, two
      weight seeds (the second on the first 65,536 points): median / p99 /
      max of d x_c and d feat, relative L2 of every weight gradient, at
-     fused_train_dnerf.BWD_PARITY_TOL, the wrong-precision controls failing;
+     fused_train_dnerf.BWD_PARITY_TOL, the wrong-precision controls failing
+     (bf16: the density backward on tensor cores); then, on the first
+     seed, the distance of the tensor-core and of the SIMT bf16 density
+     backward from the float64 yardstick
+     (fused_train_dnerf.dnerf_density_bwd_float64), side by side;
  24. resample parity: fused_fine_resample against fine_resample_math on
      2048 train rays, the seeded nets (two seeds) and the opaque ones
      (fused_render_dnerf.with_density_bias): per-ray depth median / p99 /
@@ -146,7 +157,8 @@ Phases (any failure raises and exits non-zero):
      forward / backward / Adam split and a busy / idle trace; then
      trainer.eval on the test frame (the render kernel);
  27. timing of the four new kernels against their plain versions at the
-     train shape (262,144 points; 2048 rays), bf16, beside their bounds;
+     train shape (262,144 points; 2048 rays), bf16, beside their bounds (the
+     density backward also against its SIMT bf16 kernel);
  28. bf16 render quality: the port trains its own checkpoint for 300 steps
      on a smooth 64x80 synthetic scene, then renders the test frame in bf16
      and in float32: PSNR and depth RMSE of each against the scene.
@@ -157,7 +169,8 @@ the kernel record (JSON), the last the device record (JSON).
 
 ``--train-only`` uses only what every slice with a train step has, so a
 copy of this file placed beside an older checkout's package measures that
-checkout's step with the same trace filter; ``--segments-only`` likewise
+checkout's step with the same trace filter (``--dnerf-train-only`` likewise
+the EndoNeRF step); ``--segments-only`` likewise
 holds the six segment kernels against their plain versions on phase 9's
 bf16 seed-0 midpoints and times them as phase 11 does (with TFLOP/s), then
 reads phase 6's float64 distances of the bf16 upsample on both weight seeds
@@ -1020,7 +1033,27 @@ def dnerf_render_parity(spec, rspec, renderer, dev) -> float:
                             worst = max(worst, max(v[2] for v in errs.values()))
                     else:   # the limits must tell the precisions apart
                         check(not ok, f"dnerf render kernel {k_name} passes the {r_name} limits")
+            dnerf_render_f64_readings(spec, rs, params, rays,
+                                      f"{nets} seed {seed} {what} ({rays.shape[0]} rays)")
     return worst
+
+
+def dnerf_render_f64_readings(spec, rspec, params, rays, what: str) -> None:
+    """Phase 18: the tensor-core and the SIMT bf16 render's distance from
+    the float64 yardstick (fused_render_dnerf.fused_render_rays_dnerf_float64:
+    the same bf16 operand roundings, float64 arithmetic), per map the median
+    and p99 of the per-ray error (depth as depth x acc), side by side."""
+    from endosurf_tpu_torch.kernels import fused_render as fr
+    from endosurf_tpu_torch.kernels import fused_render_dnerf as frd
+    bf = torch.bfloat16
+    ref = frd.fused_render_rays_dnerf_float64(spec, rspec, params, rays)
+    tc, simt = (frd.float64_distance(frd.fused_render_rays_dnerf_cuda(
+        spec, rspec, params, rays, None, bf, bf, simt=flag), ref) for flag in (False, True))
+    ok = fr.no_farther(tc, simt)
+    for k in tc:
+        print(f"dnerf render bf16 vs float64 {what} {k} (median, p99): tensor cores "
+              f"{tc[k][0]:.4e}, {tc[k][1]:.4e}; SIMT {simt[k][0]:.4e}, {simt[k][1]:.4e}"
+              + ("" if ok[k] else "  FARTHER"), flush=True)
 
 
 def dnerf_fine_samples(spec, rspec, renderer, params, dev):
@@ -1083,19 +1116,26 @@ def dnerf_serving_phase(renderer, smi: str) -> int:
 
     from endosurf_tpu_torch.evaluation.render_eval import eval_frames
     from endosurf_tpu_torch.kernels import fused_render_dnerf as frd
+    from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
     frd.LAUNCHES["fused_render_rays_dnerf"] = 0
+    packs = ftd.PACKS["dnerf"]
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     stats, pred = eval_frames(renderer, renderer.scene.list_test[:1], 0, ray_chunk=CHUNK,
                               save_images=False, return_pred=True)
     torch.cuda.synchronize()
     e2e_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = frd.LAUNCHES["fused_render_rays_dnerf"]
+    packs = ftd.PACKS["dnerf"] - packs
     n_chunks = math.ceil(H * W / CHUNK)
     print(f"dnerf e2e ({smi}, save_images off): {H}x{W} frame in {e2e_s:.2f} s "
-          f"({H * W / e2e_s:.0f} rays/s), {launches} render kernel launches for {n_chunks} "
-          "chunks; " + ", ".join(f"{k} {v:.4f}" for k, v in stats.items()), flush=True)
+          f"({H * W / e2e_s:.0f} rays/s), peak memory {peak:.3f} GiB, {launches} render kernel "
+          f"launches for {n_chunks} chunks on {packs} pack(s); "
+          + ", ".join(f"{k} {v:.4f}" for k, v in stats.items()), flush=True)
     check(launches == n_chunks, f"{launches} dnerf render launches for {n_chunks} chunks")
+    check(packs <= 1, f"{packs} D-NeRF packs for one frame on one parameter set")
     for k, ch in (("rgb", 3), ("depth", 1), ("normal", 3)):
         check(pred[k].shape == (1, H, W, ch), f"dnerf {k} map shape {pred[k].shape}")
         check(bool(np.isfinite(pred[k]).all()), f"dnerf {k} map finite")
@@ -1159,19 +1199,30 @@ def dnerf_3d_phase(cfg, scene, dev) -> tuple:
     return launches, seg
 
 
-def render_split(fn, smi: str, reps: int = 3) -> None:
-    """Device time of one EndoNeRF render chunk by kernel (torch.profiler)."""
-    parts = {"sweep": 0.0, "dn_resample": 0.0, "dn_field": 0.0, "dn_composite": 0.0,
-             "dn_prep": 0.0, "other": 0.0}
+# an EndoNeRF render chunk's kernels by family (phase 22): the bf16 passes
+# on tensor cores, the SIMT ones (float32, and bf16 with simt=True)
+DN_RENDER_FAMILIES = {"coarse sweep (tensor cores)": ("dn_sweep_tc_kernel",),
+                      "field (tensor cores)": ("dn_field_tc_kernel",),
+                      "coarse sweep (SIMT)": ("sweep_kernel<",),
+                      "field (SIMT)": ("dn_field_kernel",), "resample": ("dn_resample",),
+                      "composite": ("dn_composite",), "prep": ("dn_prep",)}
+
+
+def render_split(fn, smi: str, what: str, reps: int = 3) -> None:
+    """Device time of one EndoNeRF render chunk by kernel family
+    (torch.profiler)."""
+    parts = {k: 0.0 for k in DN_RENDER_FAMILIES}
+    parts["other"] = 0.0
     for key, ms in kernel_device_ms(fn, reps).items():
-        parts[next((k for k in parts if k in key), "other")] += ms
+        parts[next((f for f, names in DN_RENDER_FAMILIES.items()
+                    if any(n in key for n in names)), "other")] += ms
     busy = sum(parts.values())
     if busy == 0:
         print("dnerf render split: the profiler recorded no device time", flush=True)
         return
-    print(f"dnerf render split ({CHUNK} rays, bf16, {smi}): {busy:.2f} ms of device time = "
-          + ", ".join(f"{k} {v:.2f} ms ({100 * v / busy:.1f} %)" for k, v in parts.items()),
-          flush=True)
+    print(f"dnerf render split ({CHUNK} rays, bf16, {what}, {smi}): {busy:.3f} ms of device "
+          "time = " + ", ".join(f"{k} {v:.3f} ms ({100 * v / busy:.1f} %)"
+                                for k, v in parts.items() if v), flush=True)
 
 
 def render_f64_readings(spec, params, rays, args, what: str) -> None:
@@ -1243,6 +1294,9 @@ def dnerf_timing(spec, rspec, renderer, seg_cases, n_seg, smi: str) -> dict:
             lambda: frd.fused_render_rays_dnerf_cuda(spec, rspec, params, chunk, None, bf, bf),
             lambda: frd.fused_render_rays_dnerf_reference(spec, rspec, params, chunk, None, bf,
                                                           bf), 5),
+        "fused_render_rays_dnerf (SIMT bf16)": (
+            lambda: frd.fused_render_rays_dnerf_cuda(spec, rspec, params, chunk, None, bf, bf,
+                                                     simt=True), None, 5),
         "fused_density_raw": (lambda: fsd.fused_density_raw_cuda(spec, params, x, t, bf),
                               lambda: fsd.fused_density_raw_reference(spec, params, x, t, bf), 3),
     }
@@ -1257,16 +1311,19 @@ def dnerf_timing(spec, rspec, renderer, seg_cases, n_seg, smi: str) -> dict:
     for name, (packed, inputs) in seg_cases.items():
         calls[name] = (lambda n=name, p=packed, i=inputs: ftd.FWD[n.split("_")[1]](p, *i),
                        lambda n=name, i=inputs: plain[n](*i), 5)
-    render_split(calls["fused_render_rays_dnerf"][0], smi)
+    render_split(calls["fused_render_rays_dnerf"][0], smi, "tensor cores")
+    render_split(calls["fused_render_rays_dnerf (SIMT bf16)"][0], smi, "SIMT")
     out = {}
     for k, (kern, pl, reps) in calls.items():
         with torch.no_grad():
-            k_ms, p_ms = cuda_ms(kern, reps), cuda_ms(pl, reps)
-        b_ms, b_by = bound_ms(*work[k], bf)
+            k_ms = cuda_ms(kern, reps)
+            p_ms = cuda_ms(pl, reps) if pl is not None else float("nan")
+        name = k.split(" ")[0]
+        b_ms, b_by = bound_ms(*work[name], bf)
         out[k] = (k_ms, p_ms, b_ms, b_by)
         print(f"{k} timing (bf16, {smi}): kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms; "
-              f"{work[k][0] / 1e12:.4f} TFLOP -> bound {b_ms:.4f} ms ({b_by}); "
-              f"{work[k][0] / k_ms / 1e9:.2f} TFLOP/s", flush=True)
+              f"{work[name][0] / 1e12:.4f} TFLOP -> bound {b_ms:.4f} ms ({b_by}); "
+              f"{work[name][0] / k_ms / 1e9:.2f} TFLOP/s", flush=True)
     return out
 
 
@@ -1339,7 +1396,9 @@ def dnerf_bwd_parity_phase(spec, x, d, t, dev):
                               f"d {k} median {v[0]:.3e} p99 {v[1]:.3e} max {v[2]:.3e}; "
                               for k, v in kinds["cot"].items())
                           + f"leaves: worst rel L2 {worst[1][0]:.3e} ({worst[0]}), {n_bad}/"
-                          f"{len(kinds['leaf'])} over; tol {tol}", flush=True)
+                          f"{len(kinds['leaf'])} over; tol cot "
+                          f"{[ftd.cot_tol(dtype, name, k) for k in kinds['cot']]} leaf "
+                          f"{tol['leaf']}", flush=True)
                     ok = ftd.bwd_parity_ok({name: kinds})
                     if sound:
                         check(ok, f"dnerf bwd {name} kernel vs plain ({prec}, seed {seed})")
@@ -1348,7 +1407,33 @@ def dnerf_bwd_parity_phase(spec, x, d, t, dev):
                 if sound and seed == 0 and prec == "default":
                     abs_err, cases = ae, seg_cases
                 del res, seg_cases
+        dnerf_bwd_f64_readings(spec, params, cases["dnerf_density_bwd"] if seed == 0 else
+                               ftd.bwd_segment_parity(spec, params, x[:n], d[:n], t[:n],
+                                                      "default", seed)[2]["dnerf_density_bwd"],
+                               f"seed {seed} ({n} points)")
     return abs_err, cases
+
+
+def dnerf_bwd_f64_readings(spec, params, case, what: str) -> None:
+    """Phase 23: the tensor-core and the SIMT bf16 density backward's
+    distance from the float64 yardstick
+    (fused_train_dnerf.dnerf_density_bwd_float64: the same bf16 operand and
+    cotangent roundings, float64 arithmetic): median and p99 of d x_c's
+    per-point error and of the weight gradients' per-element error, side by
+    side."""
+    from endosurf_tpu_torch.kernels import fused_render as fr
+    from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
+    packed, like, _, inputs, cots = case
+    ref_leaves, (ref_dxc,) = ftd.dnerf_density_bwd_float64(spec, params, *inputs, *cots)
+    dist = {}
+    for name, flag in (("tensor cores", False), ("SIMT", True)):
+        leaves, (d_xc,) = ftd.dnerf_density_bwd(packed, like, *inputs, *cots, simt=flag)
+        dist[name] = ftd.bwd_float64_distance(leaves, d_xc, ref_leaves, ref_dxc)
+    ok = fr.no_farther(dist["tensor cores"], dist["SIMT"])
+    for k in ok:
+        print(f"dnerf density bwd bf16 vs float64 {what} {k} (median, p99): " + "; ".join(
+            f"{nm} {v[k][0]:.4e}, {v[k][1]:.4e}" for nm, v in dist.items())
+              + ("" if ok[k] else "  FARTHER"), flush=True)
 
 
 def shifted_resample(z_vals, sigma, d_norm, n_new):
@@ -1459,6 +1544,9 @@ def dnerf_whole_step_vs_plain(spec, rspec, scene, dev) -> None:
                 check(not ok, f"dnerf step {prec}: the kernels at {other} pass the limits")
 
 
+# the EndoNeRF step's kernels listed one by one in its trace (phase 26)
+DN_DETAIL = ("dnerf_deform_bwd", "dnerf_density_bwd", "dnerf_color_bwd", "wgrad_",
+             "dnerf_deform_fwd", "dnerf_density_fwd", "dnerf_color_fwd")
 DN_FAMILIES = (("D-NeRF segment kernels", ("dnerf_", "wgrad_")),
                ("coarse density sweep", ("sweep_kernel",)),
                ("resample", ("dn_fine_resample_kernel",)))
@@ -1528,7 +1616,7 @@ def dnerf_train_phase(scene, dev, smi: str):
                                sampling_precision=trainer.sampling_precision)
         train_step_split(trainer, lambda s: loss_fn(trainer.params, scene.device_arrays,
                                                     trainer.generator)[0],
-                         DN_FAMILIES, step_ms, smi, label="dnerf train step")
+                         DN_FAMILIES, step_ms, smi, label="dnerf train step", detail=DN_DETAIL)
 
         # eval: every test frame through the render kernel; the composites
         # are not written (the card machine has no imageio)
@@ -1588,8 +1676,14 @@ def dnerf_train_timing(spec, rspec, bwd_cases, resample_in, smi: str) -> dict:
         times = (cuda_ms(lambda: ftd.BWD[seg](packed, like, *inputs, *cots), 2),
                  cuda_ms(lambda: ftd.plain_bwd(spec, seg, like, flat, inputs, cots, "default"), 2))
         out[name] = (*times, *bound_ms(flops, n * io * 4 + w_bytes, bf))
+        simt = ""
+        if seg == "density":      # the SIMT bf16 kernel beside it
+            simt_ms = cuda_ms(lambda: ftd.dnerf_density_bwd(packed, like, *inputs, *cots,
+                                                            simt=True), 2)
+            simt = (f"; the SIMT bf16 kernel {simt_ms:.3f} ms; tensor cores "
+                    f"{flops / out[name][0] / 1e9:.2f} TFLOP/s, SIMT {flops / simt_ms / 1e9:.2f}")
         print(f"{name}: {n} points, {flops / 1e12:.4f} TFLOP (recompute, input cotangents, "
-              f"weight gradients)", flush=True)
+              f"weight gradients){simt}", flush=True)
     z0, sigma, dn = resample_in
     n_rays, n0 = z0.shape
     k = n0 + rspec.n_importance
@@ -1682,6 +1776,41 @@ def train_only(smi: str) -> int:
     return 0
 
 
+def dnerf_train_only(smi: str) -> int:
+    """``--dnerf-train-only``: the build, then phase 26's timed EndoNeRF run
+    (N_WARM steps, then the rest), its peak memory, split and trace."""
+    from endosurf_tpu_torch.data.scene_data import make_synthetic_arrays
+    from endosurf_tpu_torch.kernels import build
+    from endosurf_tpu_torch.train.trainer_endonerf import EndoNeRFTrainer, make_loss_fn
+    build.load_library()
+    dev = torch.device("cuda")
+    scene = make_synthetic_arrays(n_frames=4, h=H, w=W, seed=0, device=dev)
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as exp_root:
+        trainer = EndoNeRFTrainer(endonerf_train_cfg(exp_root), mode="train", scene=scene,
+                                  device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer.start(log_every=N_STEPS, stop_after=N_WARM)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer.start(log_every=N_STEPS)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t1) / (N_STEPS - N_WARM) * 1e3
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"dnerf train ({root}): warm-up {t1 - t0:.2f} s for {N_WARM}, then "
+              f"{step_ms:.1f} ms/step, {DN_RAY_BATCH / step_ms * 1e3:.0f} rays/s ({smi}); peak "
+              f"memory {peak_gib:.2f} GiB", flush=True)
+        loss_fn = make_loss_fn(trainer.spec, trainer.rspec, scene.h, scene.w, DN_RAY_BATCH,
+                               trainer.loss_weights, precision=trainer.precision,
+                               sampling_precision=trainer.sampling_precision)
+        train_step_split(trainer, lambda s: loss_fn(trainer.params, scene.device_arrays,
+                                                    trainer.generator)[0],
+                         DN_FAMILIES, step_ms, smi, label="dnerf train step", detail=DN_DETAIL)
+    return 0
+
+
 def segments_only(smi: str) -> int:
     """``--segments-only``: the build, phase 9's bf16 seed-0 sound parity on
     a train batch's midpoints, phase 11's timing, phase 6's float64 readings
@@ -1744,8 +1873,11 @@ def main() -> int:
         return train_only(smi)
     if sys.argv[1:] == ["--segments-only"]:
         return segments_only(smi)
+    if sys.argv[1:] == ["--dnerf-train-only"]:
+        return dnerf_train_only(smi)
     if sys.argv[1:]:
-        raise SystemExit(f"usage: {sys.argv[0]} [--train-only | --segments-only]")
+        raise SystemExit(f"usage: {sys.argv[0]} [--train-only | --segments-only | "
+                         "--dnerf-train-only]")
 
     import numpy as np
 

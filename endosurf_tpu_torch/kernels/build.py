@@ -134,17 +134,19 @@ def load_library() -> ctypes.CDLL:
     lib.fused_render_dnerf_scratch_floats.argtypes = [i32]
     lib.fused_render_dnerf_scratch_floats.restype = i64
     lib.fused_render_dnerf_launch.argtypes = [
-        vp, vp, i32, i32, i32, vp, vp, ctypes.POINTER(i64), i32, i32, vp, vp, vp]
+        vp, vp, i32, i32, i32, vp, vp, ctypes.POINTER(i64), i32, i32, i32, vp, vp, vp]
     lib.fused_render_dnerf_launch.restype = i32
-    # the D-NeRF segments: w, meta, rb, n, then tensors (a backward's last
-    # three: scratch, partial sums, packed gradient), stream
+    # the D-NeRF segments: w, meta, rb (the density backward: rb, tc), n, then
+    # tensors (a backward's last three: scratch, partial sums, packed
+    # gradient), stream
     for name, n_ptrs in (("dnerf_deform_fwd", 2), ("dnerf_density_fwd", 3),
                          ("dnerf_color_fwd", 3), ("dnerf_deform_bwd", 5),
                          ("dnerf_density_bwd", 7), ("dnerf_color_bwd", 7)):
         fn = getattr(lib, name)
-        fn.argtypes = [vp, ctypes.POINTER(i64), i32, i64] + [vp] * (n_ptrs + 1)
+        modes = [i32, i32] if name == "dnerf_density_bwd" else [i32]
+        fn.argtypes = [vp, ctypes.POINTER(i64), *modes, i64] + [vp] * (n_ptrs + 1)
         fn.restype = i32
-    lib.dnerf_bwd_sizes.argtypes = [ctypes.POINTER(i64), i32, i64, ctypes.POINTER(i64)]
+    lib.dnerf_bwd_sizes.argtypes = [ctypes.POINTER(i64), i32, i32, i64, ctypes.POINTER(i64)]
     lib.dnerf_bwd_sizes.restype = None
     lib.fused_fine_resample_launch.argtypes = [vp, vp, vp, i32, i32, i32, vp, vp]
     lib.fused_fine_resample_launch.restype = i32

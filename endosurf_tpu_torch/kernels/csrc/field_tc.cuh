@@ -125,20 +125,6 @@ __device__ __forceinline__ bool in_tile(long long base, int p, long long n) {
   return base + p < n;
 }
 
-// Operand rows -> dst [S][n][w] (w the padded width, a multiple of 16;
-// rows past n skipped), r = s * P + p.
-template <int S, int P>
-__device__ __forceinline__ void save_rows(bf16* __restrict__ dst, const bf16* h, int ldh, int w,
-                                          long long base, long long n, int tid) {
-  const int vec = w / 8;
-  for (int idx = tid; idx < S * P * vec; idx += NT) {
-    const int r = idx / vec, v = idx - r * vec;
-    const int s = r / P, p = r - s * P;
-    if (base + p >= n) continue;
-    *(uint4*)(dst + ((size_t)s * n + base + p) * w + v * 8) = *(const uint4*)(h + r * ldh + v * 8);
-  }
-}
-
 
 // ---------------------------------------------------------------------------
 // deform: the tile's forward (shared by the forward kernel and the backward's
@@ -1200,19 +1186,6 @@ color_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long lon
 // host side
 // ---------------------------------------------------------------------------
 
-// Hands out 256-byte aligned slices of one scratch buffer (null base: only counts).
-struct BytePlanner {
-  char* base;
-  long long used = 0;
-  template <class T>
-  T* take(long long count) {
-    used = (used + 255) & ~255LL;
-    T* p = base ? (T*)(base + used) : nullptr;
-    used += count * (long long)sizeof(T);
-    return p;
-  }
-};
-
 template <class T>
 const T* offset(const T* p, long long k) { return p ? p + k : nullptr; }
 
@@ -1295,14 +1268,6 @@ long long plan_sdf_fwd_tc(const Model& m, long long n, void* work, TcScratch& sv
   for (int l = 0; l < NL - 1; ++l) sv.z[l] = pl.take<float>(n * m.sdf.out_dim[l]);
   return (pl.used + 3) / 4;
 }
-
-template <class K>
-cudaError_t set_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-// blocks of p points that cover n
-unsigned n_tiles(long long n, int p) { return (unsigned)((n + p - 1) / p); }
 
 cudaError_t launch_deform_fwd_tc(const float* w, const TcFrags& fr, const Model& m,
                                  long long n, const float* xt, float* xc, float* jrows,

@@ -23,7 +23,8 @@
 // midpoints:
 //   midpoint_kernel (x, t, d) -> deform_fwd_tc_kernel (x_c, rows) ->
 //   sdf_fwd_tc_kernel (sdf, feat, grad_c) -> coupling_kernel (grad_o,
-//   d . grad_o, d_c) -> color_fwd_tc_kernel (rgb) -> composite_kernel,
+//   d . grad_o, d_c) -> color_fwd_tc_kernel (rgb) -> composite_kernel (in
+//   double),
 // their per-point arrays in a workspace the caller sizes
 // (fused_render_work_floats; the SDF forward's pre-activations are most of
 // it, about 1 GiB a 2048-ray chunk). The weights come as bf16 mma fragments
@@ -82,36 +83,47 @@ __global__ void prep_kernel(const float* __restrict__ rays, int R, int n0,
   }
 }
 
-// NeuS composite over the K midpoints -> out [R, 9]: rgb, depth, normal, acc, max w.
+__device__ __forceinline__ float sigmoid_r(float x) { return sigmoidf_(x); }
+__device__ __forceinline__ double sigmoid_r(double x) { return 1.0 / (1.0 + exp(-x)); }
+
+// NeuS composite over the K midpoints -> out [R, 9]: rgb, depth, normal, acc,
+// max w, in Real arithmetic on the float32 field values. float: the SIMT
+// render's and the float32 render's. double: the bf16 tensor-core render's;
+// in float32 the transmittance's running product (T *= 1 - alpha + 1e-7,
+// whose 1e-7 sits at half an ulp of 1) and the sums put acc_map about 5e-7
+// a ray from the float64 yardstick whatever the field stage does
+// (tools/render_acc_floor.py), where the tensor-core field stage is nearer.
+template <class Real>
 __global__ void composite_kernel(int R, int K, float sample_dist,
                                  const float* __restrict__ zl,
                                  const float* __restrict__ pt, const float* __restrict__ scal,
                                  float* __restrict__ out) {
   int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
-  float anneal = scal[0], s_inv = scal[1];
+  const Real anneal = scal[0], s_inv = scal[1], half = 0.5f, one = 1.f, zero = 0.f;
+  const Real e6 = (Real)1e-6, e7 = (Real)1e-7;
   const float* z = zl + (size_t)r * KMAX;
-  float T = 1.f;
-  float c0 = 0.f, c1 = 0.f, c2 = 0.f, dep = 0.f, n0 = 0.f, n1 = 0.f, n2 = 0.f;
-  float acc = 0.f, wmax = 0.f;
+  Real T = one;
+  Real c0 = zero, c1 = zero, c2 = zero, dep = zero, n0 = zero, n1 = zero, n2 = zero;
+  Real acc = zero, wmax = zero;
   for (int j = 0; j < K; ++j) {
-    float dist = (j < K - 1) ? z[j + 1] - z[j] : sample_dist;
-    float mid = z[j] + dist * 0.5f;
+    Real dist = (j < K - 1) ? (Real)z[j + 1] - (Real)z[j] : (Real)sample_dist;
+    Real mid = z[j] + dist * half;
     const float* q = pt + ((size_t)r * K + j) * OUT_STRIDE;
-    float sdf = q[0], tc = q[7];
-    float ic = -(fmaxf(-tc * 0.5f + 0.5f, 0.f) * (1.f - anneal) + fmaxf(-tc, 0.f) * anneal);
-    float en = sdf + ic * dist * 0.5f;
-    float ep = sdf - ic * dist * 0.5f;
-    float pc = sigmoidf_(ep * s_inv);
-    float nc = sigmoidf_(en * s_inv);
-    float alpha = fminf(fmaxf((pc - nc + 1e-6f) / (pc + 1e-6f), 0.f), 1.f);
-    float w = alpha * T;
-    T *= (1.f - alpha + 1e-7f);
+    Real sdf = q[0], tc = q[7];
+    Real ic = -(fmax(-tc * half + half, zero) * (one - anneal) + fmax(-tc, zero) * anneal);
+    Real en = sdf + ic * dist * half;
+    Real ep = sdf - ic * dist * half;
+    Real pc = sigmoid_r(ep * s_inv);
+    Real nc = sigmoid_r(en * s_inv);
+    Real alpha = fmin(fmax((pc - nc + e6) / (pc + e6), zero), one);
+    Real w = alpha * T;
+    T *= (one - alpha + e7);
     c0 += w * q[1]; c1 += w * q[2]; c2 += w * q[3];
     dep += w * mid;
     n0 += w * q[4]; n1 += w * q[5]; n2 += w * q[6];
     acc += w;
-    wmax = fmaxf(wmax, w);
+    wmax = fmax(wmax, w);
   }
   float* o = out + (size_t)r * 9;
   o[0] = c0; o[1] = c1; o[2] = c2; o[3] = dep;
@@ -392,7 +404,10 @@ int fused_render_launch(const float* rays, int R, const float* w_samp,
   else
     e = launch_field<false>(w_main, m, R, n_final, sample_dist, rb, zl, pt, st);
   if (e != cudaSuccess) return (int)e;
-  composite_kernel<<<rblocks, tpb, 0, st>>>(R, n_final, sample_dist, zl, pt, scal, out);
+  if (tc_main)
+    composite_kernel<double><<<rblocks, tpb, 0, st>>>(R, n_final, sample_dist, zl, pt, scal, out);
+  else
+    composite_kernel<float><<<rblocks, tpb, 0, st>>>(R, n_final, sample_dist, zl, pt, scal, out);
   return (int)cudaGetLastError();
 }
 

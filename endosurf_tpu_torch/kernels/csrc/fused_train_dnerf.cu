@@ -43,13 +43,30 @@
 // 1.13, colour 0.07 with the 9x256 / 9x256 / 2x128 nets; a backward about
 // 3x its forward: recompute, input cotangents, weight gradients); per-point
 // inputs and outputs are at most 262 floats. Plain SIMT float32 FMA with
-// bf16-rounded operands under rb; tensor cores are later work. The scratch
-// (every layer's operands and cotangents: 4,267 floats a point for the
-// deform net, 4,479 for the density net) is written once and read once by
-// the product: 4.5-4.7 GB at the train step's 262,144 points.
+// bf16-rounded operands under rb. The scratch (every layer's operands and
+// cotangents: 4,267 floats a point for the deform net, 4,479 for the density
+// net) is written once and read once by the product: 4.5-4.7 GB at the train
+// step's 262,144 points.
+//
+// The bf16 density backward runs on tensor cores (dnerf_density_bwd_tc_kernel,
+// field_tc.cuh's deform_bwd_tc_kernel design): per tile of DT_P points the forward
+// recomputed by dnerf_tc.cuh's tile (each layer's bf16 operand rows to the
+// scratch, the relu' as bits in shared memory), the output layer's cotangent
+// [g_raw | g_feat] reaching h as two separately rounded dots -- the raw
+// column's rank-1 term in SIMT, the feature's a tile product on W_feat^T with
+// the float32 g_feat split in three bf16 terms (mma_tile.cuh's split3_bf16) --
+// then the hidden layers walked back through W^T on mma, gated by the bits
+// (the first with its float32 cotangent, a sum of the two rounded dots, split
+// in three terms, the others bf16 values), d x_c through the encoding's
+// derivative in SIMT, and the weight gradients by wgrad_tc.cuh's product on
+// the bf16 scratch (float32 where a cotangent is not a bf16 value, split in
+// three bf16 terms: in two, hi + lo, its remainder of up to 2^-16 put the
+// output layer's bias and feature gradients farther from float64 than the SIMT
+// product's, PERF.md §6): about 2,500 floats' worth a point, 2.6 GB at
+// 262,144 points.
 
-#include "dnerf_chain.cuh"
-#include "wgrad.cuh"
+#include "dnerf_tc.cuh"
+#include "wgrad_tc.cuh"
 
 namespace {
 
@@ -342,6 +359,233 @@ void dn_plan_bwd(const Model& m, int seg, long long n, int rb, float* scratch, f
   if (partial_floats) *partial_floats = part;
 }
 
+// ---------------------------------------------------------------------------
+// the bf16 density backward on tensor cores
+// ---------------------------------------------------------------------------
+
+// Global scratch of the tensor-core density backward, rows indexed by point.
+struct DtScratch {
+  bf16* xin[NL];   // layer l's operand rows [n][c16(in_l)]
+  bf16* dzb[NL];   // cotangent on layer l's pre-activation [n][c16(out_l)], l < L-2
+  float* dz[NL];   // the same for l = L-2 (a sum of two rounded dots) and the output
+                   //   layer's [g_raw | g_feat] [n][c16(1 + F)] (float32)
+};
+
+// The scratch of the tensor-core density backward and its weight-gradient
+// jobs (dW and db into grad at the packed weights' offsets); with null
+// pointers it only counts: *scratch_floats, *partial_floats
+// (kernels/fused_train_dnerf.bwd_sizes mirrors it).
+void plan_density_bwd_tc(const Model& m, long long n, void* scratch, float* grad, DtScratch& sv,
+                         TcJobs& jobs, long long* scratch_floats, long long* partial_floats) {
+  BytePlanner pl{(char*)scratch};
+  sv = DtScratch{};
+  jobs.w.n_jobs = 0;
+  jobs.w.n_blocks = 0;
+  jobs.n_blocks = 0;
+  long long part = 0;
+  const Net& N = m.sdf;
+  const int L = N.n_layers;
+  for (int l = 0; l < L; ++l) {
+    sv.xin[l] = pl.take<bf16>(n * c16(N.in_dim[l]));
+    if (l < L - 2) sv.dzb[l] = pl.take<bf16>(n * c16(N.out_dim[l]));
+    else sv.dz[l] = pl.take<float>(n * c16(N.out_dim[l]));
+  }
+  for (int l = 0; l < L; ++l) {
+    const int in_l = N.in_dim[l], out_l = N.out_dim[l];
+    const bool f32 = l >= L - 2;
+    const void* B = f32 ? (const void*)sv.dz[l] : (const void*)sv.dzb[l];
+    const int kb = f32 ? OP_F32X3 : OP_BF16;   // float32 cotangents in three bf16 terms
+    float* dw = grad ? grad + N.w_off[l] : nullptr;
+    float* db = grad ? grad + N.b_off[l] : nullptr;
+    add_tc_job(jobs, part, sv.xin[l], OP_BF16, c16(in_l), B, kb, c16(out_l), n, in_l, out_l, 1.f,
+               1, dw, out_l, 0);
+    add_tc_job(jobs, part, nullptr, OP_ONES, 1, B, kb, c16(out_l), n, 1, out_l, 1.f, 0, db, out_l,
+               0);
+  }
+  if (scratch_floats) *scratch_floats = (pl.used + 3) / 4;
+  if (partial_floats) *partial_floats = part;
+}
+
+// One hidden layer l of the density backward's walk through W_l^T (TERMS
+// bf16 terms of the cotangent in H, Hm, Hl): each input column's cotangent
+// op(acc) goes to the h part (gated by the relu' of layer l - 1's output, in
+// place in H) or, for the encoding columns of layer 0 and of a skip layer, is
+// added to den. An input wider than the 256 columns the warps own takes one
+// pass per group of 256: those past the h part first (they touch den only),
+// the group with the h part last, written after a barrier.
+template <int TERMS>
+__device__ __forceinline__ void dt_walk_layer(const Net& S, int l, const float* __restrict__ wts,
+                                              const DnFrags& fr, const DtTile& s, int ldh,
+                                              int es, uint4* ring) {
+  constexpr int MT = DT_MT, WB = HMAX / 32, NPG = HMAX / 16;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bf16* AT[TERMS];
+  AT[0] = s.H;
+  if constexpr (TERMS == 3) {
+    AT[1] = s.Hm;
+    AT[2] = s.Hl;
+  }
+  const int in_l = S.in_dim[l], out_l = S.out_dim[l];
+  const bool skip = (S.skip_mask >> l) & 1;
+  const int n_h = l == 0 ? 0 : (skip ? in_l - es : in_l);
+  const int np_in = c16(in_l) / 16, kt1 = c16(out_l) / 16, np_me = warp * TC_NPW;
+  const uint4* B = (const uint4*)(wts + fr.density_t[l]);
+  auto epi = [&](int row, int c, float a0, float a1) {
+    const float a[2] = {a0, a1};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int i = c + e;
+      const float v = bf16r(a[e]);
+      if (l > 0 && i < HMAX) {
+        const uint32_t word = s.gbit[((l - 1) * DT_P + row) * WB + (i >> 5)];
+        const bool on = i < n_h && ((word >> (i & 31)) & 1);
+        s.H[row * ldh + i] = on ? __float2bfloat16_rn(v) : bzero();
+      }
+      if (i >= n_h && i < in_l) s.den[row * es + i - n_h] += v;
+    }
+  };
+  float acc[MT][2 * TC_NPW][4];
+  for (int gr = (np_in - 1) / NPG; gr >= 1; --gr) {
+    const int np0 = gr * NPG + np_me, npw = clampw(np_in - np0);
+    zero_acc(acc);
+    tile_mma<MT, TERMS>(acc, AT, ldh, B, np_in, np0, npw, 0, kt1, ring, lane);
+    for_pairs(acc, np0, npw, lane, epi);
+  }
+  const int npw = clampw(min(np_in, NPG) - np_me);
+  zero_acc(acc);
+  tile_mma<MT, TERMS>(acc, AT, ldh, B, np_in, np_me, npw, 0, kt1, ring, lane);
+  __syncthreads();
+  for_pairs(acc, np_me, npw, lane, epi);
+  __syncthreads();
+}
+
+// Cotangents on raw sigma [n] and feat [n][F] -> d x_c [n][3] and the
+// scratch (dnerf_density_bwd_kernel<true>'s maths on tensor cores).
+__global__ void __launch_bounds__(NT, 1)
+dnerf_density_bwd_tc_kernel(const float* __restrict__ wts, const __grid_constant__ Model m,
+                            const __grid_constant__ DnFrags fr, long long n,
+                            const float* __restrict__ xc, const float* __restrict__ g_raw,
+                            const float* __restrict__ g_feat, float* __restrict__ dxc,
+                            const __grid_constant__ DtScratch sv) {
+  constexpr int MT = DT_MT, WB = HMAX / 32;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ldh = dt_ldh(m);
+  uint4* ring = (uint4*)tc_smem + warp * (TC_STAGES * TC_NPW * 32);
+  const DtTile s = dt_tile(tc_smem, m, true);
+  const Net& S = m.sdf;
+  const int L = S.n_layers, es = m.es, F = m.feat_dim, G = 1 + F;
+  const long long base = (long long)blockIdx.x * DT_P;
+  const int np_me = warp * TC_NPW;
+
+  for (int idx = tid; idx < 3 * DT_P * ldh; idx += NT) s.H[idx] = bzero();   // H, Hm, Hl
+  for (int idx = tid; idx < DT_P * 4; idx += NT) {
+    const int p = idx >> 2, c = idx & 3;
+    s.xc[idx] = c < 3 && base + p < n ? xc[(size_t)(base + p) * 3 + c] : 0.f;
+  }
+  for (int idx = tid; idx < DT_P; idx += NT) s.gs[idx] = base + idx < n ? g_raw[base + idx] : 0.f;
+  for (int idx = tid; idx < DT_P * es; idx += NT) s.den[idx] = 0.f;
+  __syncthreads();
+
+  // ---- forward recompute: hidden layers, each layer's operand rows saved
+  dt_encode<true>(s.xc, m.f_spos, s.E, es, tid);
+  __syncthreads();
+  put_enc(s.H, ldh, 0, s.E, es, DT_P, tid);
+  __syncthreads();
+  dt_hidden<true>(S, wts, fr.density, s.H, ldh, s.E, es, ring, base, n, sv.xin, s.gbit);
+  const int n_in = S.in_dim[L - 1];
+  save_rows<1, DT_P>(sv.xin[L - 1], s.H, ldh, c16(n_in), base, n, tid);
+  {   // the output layer's cotangent [g_raw | g_feat] (float32, the weight gradient's operand)
+    const int w = c16(G);
+    for (int idx = tid; idx < DT_P * w; idx += NT) {
+      const int p = idx / w, f = idx - p * w;
+      if (base + p >= n) continue;
+      sv.dz[L - 1][(size_t)(base + p) * w + f] =
+          f == 0 ? s.gs[p] : (f < G ? g_feat[(size_t)(base + p) * F + f - 1] : 0.f);
+    }
+  }
+  __syncthreads();
+  auto put_split = [&](int row, int c, float v) {
+    split3_bf16(v, s.H[row * ldh + c], s.Hm[row * ldh + c], s.Hl[row * ldh + c]);
+  };
+  for (int idx = tid; idx < DT_P * c16(F); idx += NT) {   // g_feat in three bf16 terms
+    const int p = idx / c16(F), f = idx - p * c16(F);
+    put_split(p, f, f < F && base + p < n ? g_feat[(size_t)(base + p) * F + f] : 0.f);
+  }
+  __syncthreads();
+
+  // ---- the output layer: the cotangent on h_{L-2} as two separately rounded
+  // dots, op(g_raw W[:, 0]) + op(g_feat W[:, 1:]^T), gated: layer L-2's
+  // pre-activation cotangent (float32), then split for its walk
+  float acc[MT][2 * TC_NPW][4];
+  {
+    const int npw = clampw(c16(n_in) / 16 - np_me);
+    zero_acc(acc);
+    const bf16* const A3[3] = {s.H, s.Hm, s.Hl};
+    tile_mma<MT, 3>(acc, A3, ldh, (const uint4*)(wts + fr.density_t[L - 1]), c16(n_in) / 16,
+                    np_me, npw, 0, c16(F) / 16, ring, lane);
+    __syncthreads();
+    const float* head = wts + S.wt_off[L - 1];   // W^T row 0: the raw column
+    const int kz = c16(n_in);
+    for_pairs(acc, np_me, npw, lane, [&](int row, int c, float a0, float a1) {
+      const float af[2] = {a0, a1};
+      for (int e = 0; e < 2; ++e) {
+        const int i = c + e;
+        float o = 0.f;
+        if (i < n_in && base + row < n &&
+            ((s.gbit[((L - 2) * DT_P + row) * WB + (i >> 5)] >> (i & 31)) & 1))
+          o = bf16r(fmaf(s.gs[row], head[i], 0.f)) + bf16r(af[e]);
+        if (base + row < n) sv.dz[L - 2][(size_t)(base + row) * kz + i] = o;
+        put_split(row, i, o);
+      }
+    });
+    __syncthreads();
+  }
+
+  // ---- the hidden layers L-2 .. 0 through W^T
+  for (int l = L - 2; l >= 0; --l) {
+    if (l == L - 2) {
+      dt_walk_layer<3>(S, l, wts, fr, s, ldh, es, ring);
+    } else {
+      save_rows<1, DT_P>(sv.dzb[l], s.H, ldh, c16(S.out_dim[l]), base, n, tid);
+      dt_walk_layer<1>(S, l, wts, fr, s, ldh, es, ring);
+    }
+  }
+
+  // ---- d x_c through the encoding: column c of dim mm is v = op(x_c) 2^f,
+  // its value v, sin v or cos v
+  for (int idx = tid; idx < DT_P * 3; idx += NT) {
+    const int p = idx / 3, mm = idx - p * 3;
+    const float x = bf16r(s.xc[p * 4 + mm]);
+    float g = 0.f;
+    for (int c = 0; c < es; ++c) {
+      int dim, kind; float sc;
+      enc_col(c, 3, dim, kind, sc);
+      if (dim != mm) continue;
+      const float v = x * sc;
+      g += s.den[p * es + c] * (kind == 0 ? 1.f : (kind == 1 ? cosf(v) : -sinf(v))) * sc;
+    }
+    if (base + p < n) dxc[(size_t)(base + p) * 3 + mm] = bf16r(g);
+  }
+}
+
+cudaError_t launch_density_bwd_tc(const float* w, const long long* meta, const Model& m,
+                                  long long n, const float* xc, const float* g_raw,
+                                  const float* g_feat, float* dxc, float* scratch, float* partial,
+                                  float* grad, cudaStream_t st) {
+  if (n <= 0) return cudaSuccess;
+  DtScratch sv;
+  TcJobs jobs;
+  plan_density_bwd_tc(m, n, scratch, grad, sv, jobs, nullptr, nullptr);
+  const size_t smem = dt_smem(m, true);
+  cudaError_t e = set_smem(dnerf_density_bwd_tc_kernel, smem);
+  if (e != cudaSuccess) return e;
+  dnerf_density_bwd_tc_kernel<<<n_tiles(n, DT_P), NT, smem, st>>>(
+      w, m, decode_dn_frags(meta), n, xc, g_raw, g_feat, dxc, sv);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  return run_wgrad_tc(jobs, partial, st);
+}
+
 // One backward: the tile kernel, then the weight-gradient product.
 template <class K, class... Args>
 int launch_bwd(K k_rb, K k_f32, bool rb, const Model& m, int seg, long long n, float* scratch,
@@ -405,9 +649,16 @@ int dnerf_color_fwd(const float* w, const long long* meta, int rb, long long n,
 }
 
 // The floats of scratch and of partial sums a backward needs for n points
-// (seg: 0 deform, 1 density, 2 colour): out[0] scratch, out[1] partial.
-void dnerf_bwd_sizes(const long long* meta, int seg, long long n, long long* out) {
+// (seg: 0 deform, 1 density, 2 colour; tc: the bf16 density backward on
+// tensor cores): out[0] scratch, out[1] partial.
+void dnerf_bwd_sizes(const long long* meta, int seg, int tc, long long n, long long* out) {
   const Model m = decode_model(meta);
+  if (seg == 1 && tc) {
+    DtScratch sv;
+    TcJobs jobs;
+    plan_density_bwd_tc(m, n, nullptr, nullptr, sv, jobs, out, out + 1);
+    return;
+  }
   DnScratch sv;
   WgJobs jobs;
   dn_plan_bwd(m, seg, n, 0, nullptr, nullptr, sv, jobs, out, out + 1);
@@ -423,10 +674,15 @@ int dnerf_deform_bwd(const float* w, const long long* meta, int rb, long long n,
                     0, n, scratch, partial, grad, (cudaStream_t)stream, w, m, n, xt, g_xc);
 }
 
-int dnerf_density_bwd(const float* w, const long long* meta, int rb, long long n,
+// With rb and tc the tensor-core kernel (meta then carries the bf16 pack's
+// fragment extension); rb without tc runs the SIMT one (a comparison only).
+int dnerf_density_bwd(const float* w, const long long* meta, int rb, int tc, long long n,
                       const float* xc, const float* g_raw, const float* g_feat, float* dxc,
                       float* scratch, float* partial, float* grad, void* stream) {
   const Model m = decode_model(meta);
+  if (rb && tc)
+    return (int)launch_density_bwd_tc(w, meta, m, n, xc, g_raw, g_feat, dxc, scratch, partial,
+                                      grad, (cudaStream_t)stream);
   return launch_bwd(dnerf_density_bwd_kernel<true>, dnerf_density_bwd_kernel<false>, rb != 0,
                     m, 1, n, scratch, partial, grad, (cudaStream_t)stream, w, m, n, xc, g_raw,
                     g_feat, dxc);

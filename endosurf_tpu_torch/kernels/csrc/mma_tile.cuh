@@ -1,7 +1,9 @@
-// Tensor-core building blocks of the bf16 ("default" dot mode) train backward
-// (field_tc.cuh, wgrad_tc.cuh): mma.sync m16n8k16 bf16 x bf16 -> float32,
-// ldmatrix, cp.async, the hi/lo split of a float32 operand, and the tile
-// product of a block's rows with one layer's weights.
+// Tensor-core building blocks of the bf16 ("default" dot mode) kernels
+// (field_tc.cuh, sweep_tc.cuh, dnerf_tc.cuh, wgrad_tc.cuh): mma.sync m16n8k16
+// bf16 x bf16 -> float32, ldmatrix, cp.async, the hi/lo split of a float32
+// operand, the tile product of a block's rows with one layer's weights, and
+// the tile kernels' shared helpers (saving operand rows, the scratch planner,
+// the launch's shared-memory opt-in).
 //
 // Tile product. A block of TC_WARPS warps owns a tile of MT x 16 rows (points,
 // or points x streams). The rows' operand A sits in shared memory as bf16,
@@ -20,9 +22,11 @@
 // 8 nt + 2t and 8 nt + 2t + 1 of the warp's 32.
 //
 // A float32 operand that is not a bf16 value goes in as a sum of bf16 terms,
-// one mma each: hi + lo (split_bf16: x to within 2^-16 |x|) in the
-// weight-gradient product, whose sums over 65,536 points average the
-// remainder away; hi + mid + lo (split3_bf16: to within 2^-24 |x|) in the
+// one mma each: hi + lo (split_bf16: x to within 2^-16 |x|) in the EndoSurf
+// SDF's weight-gradient product, whose sums over 65,536 points average the
+// remainder away (the D-NeRF density's takes three: with two, its output
+// layer's bias and feature gradients read 1.7-6x the SIMT product's distance
+// from float64, PERF.md §6); hi + mid + lo (split3_bf16: to within 2^-24 |x|) in the
 // tile walks, whose every dot is rounded to bf16 again, so that a remainder
 // above float32's own tips those roundings more often than the plain
 // version's float32 sums do. Each k-tile's mma start from zero and are
@@ -269,5 +273,44 @@ __device__ __forceinline__ void tile_mma_split(float (&acc)[MT][2 * TC_NPW][4],
                                                int lane) {
   tile_mma_impl<MT, TERMS, true>(acc, lo, a, lda, bfrag, np_row, np0, npw, kt0, kt1, ring, lane);
 }
+
+// Operand rows -> dst [S][n][w] (w the padded width, a multiple of 16;
+// rows past n skipped), r = s * P + p.
+template <int S, int P>
+__device__ __forceinline__ void save_rows(bf16* __restrict__ dst, const bf16* h, int ldh, int w,
+                                          long long base, long long n, int tid) {
+  const int vec = w / 8;
+  for (int idx = tid; idx < S * P * vec; idx += TC_THREADS) {
+    const int r = idx / vec, v = idx - r * vec;
+    const int s = r / P, p = r - s * P;
+    if (base + p >= n) continue;
+    *(uint4*)(dst + ((size_t)s * n + base + p) * w + v * 8) = *(const uint4*)(h + r * ldh + v * 8);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side of the tile kernels
+// ---------------------------------------------------------------------------
+
+// Hands out 256-byte aligned slices of one scratch buffer (null base: only counts).
+struct BytePlanner {
+  char* base;
+  long long used = 0;
+  template <class T>
+  T* take(long long count) {
+    used = (used + 255) & ~255LL;
+    T* p = base ? (T*)(base + used) : nullptr;
+    used += count * (long long)sizeof(T);
+    return p;
+  }
+};
+
+template <class K>
+cudaError_t set_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// blocks of p points that cover n
+unsigned n_tiles(long long n, int p) { return (unsigned)((n + p - 1) / p); }
 
 }  // namespace

@@ -1,5 +1,6 @@
-// The weight-gradient product of the bf16 deform and SDF backward
-// (field_tc.cuh) on tensor cores: dW = scale * A^T B over the point axis for
+// The weight-gradient product of the bf16 deform, SDF and colour backward
+// (field_tc.cuh) and of the D-NeRF density backward (fused_train_dnerf.cu)
+// on tensor cores: dW = scale * A^T B over the point axis for
 // a list of (operand, cotangent) pairs, as wgrad.cuh's SIMT product, with
 // bf16 operands and float32 accumulation (mma.sync m16n8k16).
 //
@@ -9,8 +10,9 @@
 // the current one computes) -> shared memory [point][column] bf16, read as
 // transposed ldmatrix fragments. An operand is bf16 (the scratch's
 // bf16-exact arrays), float32 (split into hi + lo, two mma into one
-// accumulator: the SDF's cotangents) or a column of ones (a bias gradient, or
-// the SDF head column's). Blocks of one chunk are adjacent in the grid, so the
+// accumulator: the SDF's cotangents; or, B only, into hi + mid + lo, three
+// mma from the smallest term up: the D-NeRF density's float32 cotangents) or
+// a column of ones (a bias gradient, or the SDF head column's). Blocks of one chunk are adjacent in the grid, so the
 // chunk's slabs are read from device memory about once and from L2 by the
 // other tiles. The chunk sums land in wgrad.cuh's partial layout and
 // wgrad_reduce_kernel adds them in a fixed order, scales, rounds each dot's
@@ -30,7 +32,7 @@
 
 namespace {
 
-enum { OP_ONES = 0, OP_BF16 = 1, OP_F32 = 2 };
+enum { OP_ONES = 0, OP_BF16 = 1, OP_F32 = 2, OP_F32X3 = 3 };
 
 struct TcJobs {
   WgJobs w;                          // shapes, chunks, partial offsets (the reduce reads these)
@@ -56,7 +58,7 @@ __device__ __forceinline__ void slab_load(Slab& s, int kind, const void* src, in
                    ? __ldg((const uint4*)((const bf16*)src + (size_t)(k + r) * ld + c))
                    : zero;
     }
-  } else if (kind == OP_F32) {
+  } else if (kind == OP_F32 || kind == OP_F32X3) {
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int idx = tid + q * 256, r = idx >> 5, c = c0 + (idx & 31) * 4;
@@ -68,9 +70,11 @@ __device__ __forceinline__ void slab_load(Slab& s, int kind, const void* src, in
 }
 
 // The slab into shared memory [TC_KS][TC_LD]: hi (and lo for a float32
-// operand); the ones operand writes 1 in global column 0 of points below k1.
-__device__ __forceinline__ void slab_store(const Slab& s, int kind, bf16* hi, bf16* lo, int c0,
-                                           long long k, long long k1, int tid) {
+// operand; mid in lo and lo in lo2 for a three-term one); the ones operand
+// writes 1 in global column 0 of points below k1.
+__device__ __forceinline__ void slab_store(const Slab& s, int kind, bf16* hi, bf16* lo,
+                                           bf16* lo2, int c0, long long k, long long k1,
+                                           int tid) {
   if (kind == OP_BF16) {
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
@@ -88,6 +92,18 @@ __device__ __forceinline__ void slab_store(const Slab& s, int kind, bf16* hi, bf
       *(uint2*)(hi + off) = *(const uint2*)h;
       *(uint2*)(lo + off) = *(const uint2*)l;
     }
+  } else if (kind == OP_F32X3) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int idx = tid + q * 256, off = (idx >> 5) * TC_LD + (idx & 31) * 4;
+      const float* f = (const float*)&s.v[q];
+      __align__(8) bf16 h[4], m[4], l[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split3_bf16(f[e], h[e], m[e], l[e]);
+      *(uint2*)(hi + off) = *(const uint2*)h;
+      *(uint2*)(lo + off) = *(const uint2*)m;
+      *(uint2*)(lo2 + off) = *(const uint2*)l;
+    }
   } else {
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
@@ -99,12 +115,16 @@ __device__ __forceinline__ void slab_store(const Slab& s, int kind, bf16* hi, bf
   }
 }
 
+// NB: the most bf16 terms a job's B takes (2, or 3 with an OP_F32X3 job).
+template <int NB>
 __global__ void __launch_bounds__(256)
 wgrad_tc_partial_kernel(const __grid_constant__ TcJobs jobs, float* __restrict__ partial) {
   __shared__ __align__(16) uint16_t sAr[2][TC_KS * TC_LD];   // hi, lo (bf16)
-  __shared__ __align__(16) uint16_t sBr[2][TC_KS * TC_LD];
+  __shared__ __align__(16) uint16_t sBr[NB][TC_KS * TC_LD];  // hi, lo (hi, mid, lo)
   bf16* sA[2] = {(bf16*)sAr[0], (bf16*)sAr[1]};
-  bf16* sB[2] = {(bf16*)sBr[0], (bf16*)sBr[1]};
+  bf16* sB[NB];
+#pragma unroll
+  for (int h = 0; h < NB; ++h) sB[h] = (bf16*)sBr[h];
   const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   int jid = 0;
   while (jid + 1 < jobs.w.n_jobs && b >= jobs.block0[jid + 1]) ++jid;
@@ -134,8 +154,8 @@ wgrad_tc_partial_kernel(const __grid_constant__ TcJobs jobs, float* __restrict__
   const int b_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * TC_LD + wn * 32 + ((lane >> 4) & 1) * 8;
   for (long long k = k0; k < k1; k += TC_KS) {
     __syncthreads();
-    slab_store(ra, ka, sA[0], sA[1], i0, k, k1, tid);
-    slab_store(rb, kb, sB[0], sB[1], j0, k, k1, tid);
+    slab_store(ra, ka, sA[0], sA[1], sA[1], i0, k, k1, tid);
+    slab_store(rb, kb, sB[0], sB[1], sB[NB - 1], j0, k, k1, tid);
     __syncthreads();
     if (k + TC_KS < k1) {
       slab_load(ra, ka, J.A, J.lda, i0, k + TC_KS, k1, tid);
@@ -144,11 +164,12 @@ wgrad_tc_partial_kernel(const __grid_constant__ TcJobs jobs, float* __restrict__
 #pragma unroll
     for (int ks = 0; ks < TC_KS / 16; ++ks) {
       // fragments: A^T (hi, and lo when A is split) and B (hi, and lo when B is)
-      uint32_t a[2][4][4], bq[2][4][2], r[4];
-      const int na = ka == OP_F32 ? 2 : 1, nb = kb == OP_F32 ? 2 : 1;
+      uint32_t a[2][4][4], bq[NB][4][2], r[4];
+      const int na = ka == OP_F32 ? 2 : 1;
+      const int nb = kb == OP_F32X3 ? 3 : kb == OP_F32 ? 2 : 1;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if (h < na)
+      for (int h = 0; h < NB; ++h) {
+        if (h < 2 && h < na)
 #pragma unroll
           for (int mt = 0; mt < 4; ++mt)
             ldsm_x4_t(a[h][mt], sA[h] + ks * 16 * TC_LD + a_off + mt * 16);
@@ -165,6 +186,11 @@ wgrad_tc_partial_kernel(const __grid_constant__ TcJobs jobs, float* __restrict__
         float part[4][4] = {};                   // this k-tile's products, promoted
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
+          if constexpr (NB == 3)
+            if (nb == 3) {   // A B_lo, A B_mid: the small terms before the large one
+              mma16816(part[nt], a[0][mt], bq[2][nt][0], bq[2][nt][1]);
+              mma16816(part[nt], a[0][mt], bq[1][nt][0], bq[1][nt][1]);
+            }
           mma16816(part[nt], a[0][mt], bq[0][nt][0], bq[0][nt][1]);
           if (na == 2) mma16816(part[nt], a[1][mt], bq[0][nt][0], bq[0][nt][1]);   // A_lo B
           if (nb == 2) mma16816(part[nt], a[0][mt], bq[1][nt][0], bq[1][nt][1]);   // A B_lo
@@ -192,8 +218,8 @@ wgrad_tc_partial_kernel(const __grid_constant__ TcJobs jobs, float* __restrict__
 // ---------------------------------------------------------------------------
 
 // A product out = scale * A^T B over K points; A [K][lda] of kind ka (null
-// for OP_ONES), B likewise; lda, ldb multiples of 8 (bf16) or 4 (float32)
-// and 16-byte aligned rows.
+// for OP_ONES; not OP_F32X3), B likewise; lda, ldb multiples of 8 (bf16) or
+// 4 (float32) and 16-byte aligned rows.
 void add_tc_job(TcJobs& jobs, long long& partial_used, const void* A, int ka, int lda,
                 const void* B, int kb, int ldb, long long K, int M, int N, float scale, int rnd,
                 float* out, int ldo, int pass) {
@@ -210,7 +236,12 @@ void add_tc_job(TcJobs& jobs, long long& partial_used, const void* A, int ka, in
 
 cudaError_t run_wgrad_tc(const TcJobs& jobs, float* partial, cudaStream_t st) {
   if (jobs.n_blocks == 0) return cudaSuccess;
-  wgrad_tc_partial_kernel<<<jobs.n_blocks, 256, 0, st>>>(jobs, partial);
+  bool three = false;
+  for (int i = 0; i < jobs.w.n_jobs; ++i) three = three || jobs.kind_b[i] == OP_F32X3;
+  if (three)
+    wgrad_tc_partial_kernel<3><<<jobs.n_blocks, 256, 0, st>>>(jobs, partial);
+  else
+    wgrad_tc_partial_kernel<2><<<jobs.n_blocks, 256, 0, st>>>(jobs, partial);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   long long mn = 0;

@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import weakref
-from typing import Any, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import torch
 
@@ -71,8 +71,10 @@ PACKS = {"render": 0}
 # larger than the SIMT render's on every cell
 # (test_render_tensor_cores_no_farther_from_float64): color, depth, normal
 # and weight_max. On acc_map the tensor cores read farther on four of the
-# 1024-ray cells' 24 readings (by up to 0.6 %, at about 5e-7 a ray), so its
-# limit stays at 1e-3. Sound p99: color 6.1e-4, depth 1.9e-3, normal
+# 1024-ray cells' 24 readings (by up to 0.6 %, at about 5e-7 a ray: the
+# float32 composite's own floor, tools/render_acc_floor.py), so its limit
+# stays at 1e-3; now that the tensor-core render composites in double it
+# reads nearer on acc_map too (about 2e-8 a ray). Sound p99: color 6.1e-4, depth 1.9e-3, normal
 # 1.3e-3, acc 9.2e-4 (chip_smoke's rays), weight_max 7.0e-3 (the SIMT render
 # read <= 7.3e-4, 4.9e-4 on its worst card map); max within the old limits
 # (weight_max 3.1e-2). The controls do not all fail on one map (weight_max
@@ -203,12 +205,13 @@ def pack_operands(spec, params: Dict[str, Any], dtype: torch.dtype
     return torch.cat(chunks).contiguous(), header + metas
 
 
-# pack_render's cache, one entry per dtype: (key, weak references to the
-# parameter tensors it was packed from, (buffer, meta)). The references tell
-# the same tensors from new ones at reused ids, and the entry goes when any
-# of its tensors is freed; a newer entry replaces it.
-_RENDER_PACKS: Dict[torch.dtype,
-                    Tuple[Any, List[weakref.ref], Tuple[torch.Tensor, List[int]]]] = {}
+# A pack cache (cached_pack's): one entry per dtype, (key, weak references
+# to the parameter tensors it was packed from, pack). The references tell the
+# same tensors from new ones at reused ids, and the entry goes when any of
+# its tensors is freed; a newer entry replaces it.
+PackCache = Dict[torch.dtype, Tuple[Any, List[weakref.ref], Any]]
+# pack_render's: packs (buffer, meta)
+_RENDER_PACKS: PackCache = {}
 # the render pack's fragment extension (csrc/fused_render.cu's
 # decode_render_frags): deform W, SDF W (with its output layer), colour W,
 # SDF W^T, each (net, transposed, output layer) as fused_sampler.frag_index
@@ -216,12 +219,26 @@ _RENDER_PACKS: Dict[torch.dtype,
 RENDER_FRAG_NETS = ((0, False, False), (1, False, True), (2, False, False), (1, True, False))
 
 
-def _net_tensors(params: Dict[str, Any]) -> List[torch.Tensor]:
-    out = []
-    for name in ("deform_network", "sdf_network", "color_network"):
-        for layer in params.get(name, {}).get("layers", []):
-            out += [layer[k] for k in sorted(layer)]
-    return out
+def cached_pack(cache: PackCache, spec, params: Dict[str, Any], nets: Sequence[str],
+                dtype: torch.dtype, build: Callable[[], Any]) -> Tuple[Any, bool]:
+    """(the pack of ``params``' nets ``nets`` at ``dtype``, whether it was
+    built now): ``cache``'s entry when it was packed from the same tensors
+    (identity and ``_version``: an in-place update, an optimizer step,
+    repacks) for the same ``spec``, else ``build()``, cached. The cache holds
+    the tensors weakly: a pack does not outlive its parameter set."""
+    tensors = [layer[k] for name in nets for layer in params.get(name, {}).get("layers", [])
+               for k in sorted(layer)]
+    key = (spec, tuple((id(t), t._version) for t in tensors))
+    hit = cache.get(dtype)
+    if hit is not None and hit[0] == key and all(r() is t for r, t in zip(hit[1], tensors)):
+        return hit[2], False
+    pack = build()
+
+    def drop(_, dtype=dtype, key=key):
+        if dtype in cache and cache[dtype][0] is key:
+            del cache[dtype]
+    cache[dtype] = (key, [weakref.ref(t, drop) for t in tensors], pack)
+    return pack, True
 
 
 def pack_render(spec, params: Dict[str, Any], dtype: torch.dtype
@@ -241,24 +258,18 @@ def pack_render(spec, params: Dict[str, Any], dtype: torch.dtype
     repack. The cache holds the tensors weakly: a pack does not outlive its
     parameter set. ``PACKS["render"]`` counts the packs built."""
     from endosurf_tpu_torch.kernels.fused_sampler import frag_extension
-    tensors = _net_tensors(params)
-    key = (spec, tuple((id(t), t._version) for t in tensors))
-    hit = _RENDER_PACKS.get(dtype)
-    if hit is not None and hit[0] == key and all(r() is t for r, t in zip(hit[1], tensors)):
-        return hit[2]
-    with torch.no_grad():
+
+    @torch.no_grad()
+    def build():
         w, meta = pack_operands(spec, params, dtype)
         if dtype == torch.bfloat16:
             _check_tc_nets(meta)
             w, offs = frag_extension(w, meta, RENDER_FRAG_NETS)
             meta = meta + offs
-
-    def drop(_, dtype=dtype, key=key):
-        if dtype in _RENDER_PACKS and _RENDER_PACKS[dtype][0] is key:
-            del _RENDER_PACKS[dtype]
-    pack = (w, meta)
-    _RENDER_PACKS[dtype] = (key, [weakref.ref(t, drop) for t in tensors], pack)
-    PACKS["render"] += 1
+        return w, meta
+    pack, built = cached_pack(_RENDER_PACKS, spec, params,
+                              ("deform_network", "sdf_network", "color_network"), dtype, build)
+    PACKS["render"] += built
     return pack
 
 
@@ -379,6 +390,18 @@ def fused_render_rays_float64(spec, params: Dict[str, Any], rays: torch.Tensor, 
                                            n_samples, n_importance, n_rounds, anneal_end, chunk)
                  for i in range(0, rays.shape[0], chunk)]
         return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+    return float64_fields(spec, params, rays, iter_step, n_samples, n_importance, n_rounds,
+                          anneal_end)["maps"]
+
+
+def float64_fields(spec, params: Dict[str, Any], rays: torch.Tensor, iter_step,
+                   n_samples: int, n_importance: int, n_rounds: int, anneal_end: float
+                   ) -> Dict[str, Any]:
+    """``fused_render_rays_float64`` on one chunk, with what its composite
+    read: {"maps", "z" [R, K] (the sorted samples), "fields" (sdf, color,
+    grad_o at the section midpoints, flat), "dirs" [R * K, 3], "anneal",
+    "inv_s" (the kernels' float32 scalars)}; ``tools/render_acc_floor.py``
+    runs the render's composite kernel on these."""
     from endosurf_tpu_torch.kernels.fused_sampler import fused_upsample_z_float64, to_float64
     from endosurf_tpu_torch.models.endosurf import (
         _split_rays,
@@ -395,7 +418,8 @@ def fused_render_rays_float64(spec, params: Dict[str, Any], rays: torch.Tensor, 
             p64[name] = {**p64[name], "layers": [
                 {"w": effective_weight(layer).double(), "b": layer["b"].double()}
                 for layer in params[name]["layers"]]}
-    p64["deviation_network"] = {"variance": torch.log(inv_s_f32(params)).double() / 10.0}
+    inv_s = inv_s_f32(params)
+    p64["deviation_network"] = {"variance": torch.log(inv_s).double() / 10.0}
     with torch.no_grad():
         rays = rays.double()
         rays_o, rays_d, rays_d_z, t = _split_rays(rays)
@@ -409,13 +433,15 @@ def fused_render_rays_float64(spec, params: Dict[str, Any], rays: torch.Tensor, 
         anneal = cos_anneal_ratio(iter_step, anneal_end, rays.device).to(torch.float32)
         out = composite(p64, fields, pts, dirs, mid_z, dists, anneal.double())
     w = out["weights"]
-    return {
+    maps = {
         "color_map": out["color_map"],
         "depth_map": out["depth_map"],
         "normal_map": (out["gradients_o"] * w[..., None]).sum(1),
         "acc_map": w.sum(-1, keepdim=True),
         "weight_max": out["weight_max"],
     }
+    return {"maps": maps, "z": z_vals, "fields": fields, "dirs": dirs.reshape(-1, 3),
+            "anneal": anneal, "inv_s": inv_s}
 
 
 def inv_s_f32(params: Dict[str, Any]) -> torch.Tensor:

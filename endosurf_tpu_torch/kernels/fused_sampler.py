@@ -406,17 +406,20 @@ def frag_index(meta: List[int], n_w: int, device, nets=SWEEP_FRAG_NETS
     extension, into that buffer, and each layer's float offset in the whole
     pack (-1 for a layer it leaves out). ``nets`` lists the extension's
     blocks in order, each ``(net, transposed, output)``: net 0 deform, 1
-    SDF, 2 colour; its NL layers' W [in, out] (or W^T [out, in], from the
-    meta's W^T offsets) in mma fragment order (``fused_train_cuda.
-    mma_frags``), the output layer only with ``output``, none for an absent
-    net. Padding and the 16-byte alignment gaps point at the zero."""
-    key = (tuple(meta), n_w, str(device), tuple(nets))
+    SDF (or the D-NeRF density), 2 colour; the W [in, out] (or W^T [out,
+    in], from the meta's W^T offsets) of the layers its meta has, in mma
+    fragment order (``fused_train_cuda.mma_frags``), the output layer only
+    with ``output`` (True: whole; a slice: those of its columns, W[:, output]
+    or W^T[output, :]), none for an absent net. Padding and the 16-byte
+    alignment gaps point at the zero."""
+    key = (tuple(meta), n_w, str(device), repr(nets))
     if key not in _FRAG_INDEX:
         parts, offs, size = [], [], n_w
         for q, transposed, output in nets:
             net = meta[8 + q * META_NET:8 + (q + 1) * META_NET]
             for l in range(NL):
-                if net[0] == 0 or (l == NL - 1 and not output):
+                last = l == net[0] - 1
+                if l >= net[0] or (last and not output):
                     offs.append(-1)
                     continue
                 gap = -size % 4
@@ -426,7 +429,10 @@ def frag_index(meta: List[int], n_w: int, device, nets=SWEEP_FRAG_NETS
                 if transposed:
                     k, n = n, k
                 off = net[2 + (4 if transposed else 2) * NL + l]
-                frag = mma_frags(off + torch.arange(k * n).view(k, n), fill=n_w)
+                idx = off + torch.arange(k * n).view(k, n)
+                if last and output is not True:
+                    idx = idx[output] if transposed else idx[:, output]
+                frag = mma_frags(idx.contiguous(), fill=n_w)
                 offs.append(size)
                 parts.append(frag)
                 size += frag.numel() // 2

@@ -26,7 +26,11 @@ CPU tensors run the plain math and ``plain_bwd`` (autograd through it);
 CUDA tensors run the kernels of ``csrc/fused_train_dnerf.cu`` over
 ``csrc/dnerf_chain.cuh``: ``dnerf_*_fwd`` and ``dnerf_*_bwd``, each counted
 in ``LAUNCHES``, on weights packed by ``pack_dnerf`` (the one layout every
-D-NeRF kernel reads: ``fused_density_raw`` and the render kernel too).
+D-NeRF kernel reads: ``fused_density_raw`` and the render kernel too;
+cached a parameter set). The bf16 density backward runs on tensor cores
+(``csrc/dnerf_tc.cuh``'s tile); ``dnerf_density_bwd(..., simt=True)`` runs
+the SIMT kernel, which only the float64 comparison asks for
+(``dnerf_density_bwd_float64``, the yardstick).
 """
 
 from __future__ import annotations
@@ -37,7 +41,15 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from endosurf_tpu_torch.kernels.fused_render import HMAX, META_NET, NL, pack_nets
+from endosurf_tpu_torch.kernels.fused_render import (
+    HMAX,
+    META_NET,
+    NL,
+    PackCache,
+    cached_pack,
+    pack_nets,
+)
+from endosurf_tpu_torch.kernels.fused_sampler import frag_extension
 from endosurf_tpu_torch.kernels.fused_train import (
     _build,
     _mlp_fwd,
@@ -53,6 +65,8 @@ SEGMENTS = ("deform", "density", "color")
 # Launches of the segment kernels, one per call (a backward call runs its
 # tile kernel and the weight-gradient product).
 LAUNCHES = {f"dnerf_{s}_{d}": 0 for d in ("fwd", "bwd") for s in SEGMENTS}
+# Packs built by pack_dnerf (a cached pack counts no new one).
+PACKS = {"dnerf": 0}
 
 # Kernel vs plain version on one card, per output: (median, p99, max) of the
 # per-point error, the max over channels of |kernel - plain| / rms(plain)
@@ -86,10 +100,31 @@ PARITY_TOL = {
 # 4.4e-2, and the planted faults (a skip layer's encoding rows dropped from
 # d x_c, the sigma head's cotangent through the wrong column) d x_c medians
 # >= 6.6e-2.
+# The tensor-core bf16 density backward's d x_c (PERF.md §6; NVIDIA H100
+# 80GB HBM3) has its own p99 limit: its products are exact bf16 terms summed
+# a k-tile at a time, and its d x_c equals the float64 yardstick's
+# (dnerf_density_bwd_float64) on 99 % of points (p99 0), where the SIMT
+# kernel and the float32 plain version, which share a float32 order, tip a
+# bf16 rounding of d x_c on 1-3 % of them (p99 1.5e-3 to 2.9e-3). So against
+# the plain version the kernel reads d x_c p99 2.4e-3 to 2.9e-3 (the card
+# tests' cells and chip_smoke's 262,144 train points), where the kernels at
+# the other precision read >= 2.09 and the planted faults >= 0.385. Its p99
+# limit moved 1e-3 -> 5e-3 on that evidence
+# (test_dnerf_density_bwd_tensor_cores_no_farther_from_float64: no farther
+# on every card cell and chip_smoke's train batch); its median and max, and
+# every other kernel's and cotangent's limits, stay ("cot").
 BWD_PARITY_TOL = {
     torch.float32: {"cot": (1e-6, 1e-5, 2.0), "leaf": 3e-3},
-    torch.bfloat16: {"cot": (1e-4, 1e-3, 2.0), "leaf": 1e-2},
+    torch.bfloat16: {"cot": (1e-4, 1e-3, 2.0), "leaf": 1e-2,
+                     ("dnerf_density_bwd", "x_c"): (1e-4, 5e-3, 2.0)},
 }
+
+
+def cot_tol(dtype: torch.dtype, kernel: str, name: str) -> Tuple[float, float, float]:
+    """The (median, p99, max) limits of input cotangent ``name`` of backward
+    kernel ``kernel`` (``BWD_PARITY_TOL``: its own entry, else "cot")."""
+    tol = BWD_PARITY_TOL[dtype]
+    return tol.get((kernel, name), tol["cot"])
 
 
 # ---------------------------------------------------------------------------
@@ -233,6 +268,18 @@ def cuda_dnerf_supported(spec) -> bool:
 
 
 SLOTS = {"deform": 0, "density": 1, "color": 2}     # the nets' places in the Model meta
+META_LEN = 8 + 3 * META_NET                         # csrc/sdf_chain.cuh's Model meta
+# The bf16 pack's fragment extension (csrc/dnerf_tc.cuh's decode_dn_frags):
+# NL float offsets each of the deform, density and colour nets' W and of the
+# density net's W^T, each (net slot, transposed, output layer) as
+# fused_sampler.frag_index takes them: the hidden layers, and at the density
+# net's output layer its feature columns W[:, 1:] (the raw column 0 stays
+# SIMT); -1 where a layer has none.
+FEATURE_COLS = slice(1, None)
+DN_FRAG_BLOCKS = ((0, False, False), (1, False, FEATURE_COLS), (2, False, False),
+                  (1, True, FEATURE_COLS))
+# The largest dynamic shared memory a block may take on an H100 (227 KiB).
+SMEM_LIMIT = 232448
 
 
 class DnPacked:
@@ -253,23 +300,91 @@ class DnPacked:
                  self.meta[q + 2 + l], self.meta[q + 2 + NL + l]) for l in range(n)]
 
 
+def _net_meta(meta: Sequence[int], q: int) -> List[int]:
+    return list(meta[8 + q * META_NET:8 + (q + 1) * META_NET])
+
+
+def _c16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def _enc_widths(meta: Sequence[int]) -> Tuple[int, int, int]:
+    """(deform, density, colour direction) encoding widths of a meta."""
+    return (3 * (1 + 2 * meta[1]) + (1 + 2 * meta[2]), 3 * (1 + 2 * meta[3]),
+            3 * (1 + 2 * meta[5]))
+
+
+def tc_smem_bytes(meta: Sequence[int], bwd: bool) -> int:
+    """Shared memory of a tensor-core D-NeRF tile (``csrc/dnerf_tc.cuh``'s
+    dt_smem): the weight ring, the points (x_c in double too), the operand
+    rows (three terms in the backward) at the pitch of the widest layer, the
+    encoding; the backward's cotangents and relu' bits."""
+    ed, es, cr = _enc_widths(meta)
+    k = _c16(cr + meta[6])
+    for q in range(0 if meta[0] else 1, 3):
+        net = _net_meta(meta, q)
+        for l in range(net[0]):
+            k = max(k, _c16(net[2 + l]), _c16(net[2 + NL + l]))
+    ring = 8 * 4 * 2 * 32 * 16
+    size = (ring + 64 * 4 * 8 + 4 * 64 * 4 * 4 + (3 if bwd else 1) * 64 * (k + 8) * 2
+            + 64 * max(ed, es, cr) * 2)
+    if bwd:
+        size += 64 * 4 + 64 * es * 4 + (NL - 1) * 64 * (HMAX // 32) * 4
+    return size
+
+
+def check_tc_nets(packed: DnPacked, bwd: bool) -> None:
+    """The nets the tensor-core D-NeRF kernels take: a bf16 pack whose tile
+    (the backward's with ``bwd``, else the forward's) fits in shared
+    memory."""
+    if not packed.rb or len(packed.meta) != META_LEN + 4 * NL:
+        raise ValueError("the tensor-core D-NeRF kernels take a bf16 pack with fragments")
+    need = tc_smem_bytes(packed.meta, bwd)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"the tensor-core D-NeRF kernels do not take these nets: a tile needs "
+                         f"{need} bytes of shared memory, more than {SMEM_LIMIT}")
+
+
+# pack_dnerf's cache (fused_render.cached_pack's): packs DnPacked
+_DN_PACKS: PackCache = {}
+
+
 def pack_dnerf(spec, params: Dict[str, Any], dtype: torch.dtype) -> DnPacked:
     """All three nets of ``params`` (the density output layer whole, [H, 1 +
-    F]) in one buffer, bf16-rounded weights for ``dtype`` bf16 (biases not)."""
+    F]) in one buffer, bf16-rounded weights for ``dtype`` bf16 (biases not).
+    In bf16 the fragment extension the tensor-core kernels read
+    (``DN_FRAG_BLOCKS``) follows the float32 layout, its offsets appended to
+    the meta; the float32 layout is the same in both.
+
+    A frame renders many chunks on one parameter set, so the pack is cached
+    on the parameter tensors' identity and ``_version``: a call on the same
+    tensors reuses it, an in-place update (an optimizer step) or new tensors
+    repack. The cache holds the tensors weakly: a pack does not outlive its
+    parameter set. ``PACKS["dnerf"]`` counts the packs built."""
     if not cuda_dnerf_supported(spec):
         raise ValueError(f"the CUDA D-NeRF kernels do not take {spec}")
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"unsupported dtype {dtype}")
-    with torch.no_grad():
+
+    @torch.no_grad()
+    def build():
         chunks, metas, _ = pack_nets(
             [(params["deform"]["layers"] if spec.use_deform else None, spec.deform_layers[2],
               "all"),
              (params["density"]["layers"], spec.density_layers[2], "all"),
              (params["color"]["layers"], spec.color_layers[2], "all")], dtype)
         w = torch.cat(chunks).contiguous()
-    header = [int(spec.use_deform), spec.pos_deform_freqs, spec.time_deform_freqs,
-              spec.pos_density_freqs, 0, spec.dir_color_freqs, spec.geo_feat_dim, 0]
-    return DnPacked(w, header + metas, dtype == torch.bfloat16)
+        header = [int(spec.use_deform), spec.pos_deform_freqs, spec.time_deform_freqs,
+                  spec.pos_density_freqs, 0, spec.dir_color_freqs, spec.geo_feat_dim, 0]
+        meta = header + metas
+        if dtype == torch.bfloat16:
+            w, offs = frag_extension(w, meta, DN_FRAG_BLOCKS)
+            meta = meta + offs
+        return DnPacked(w, meta, dtype == torch.bfloat16)
+    pack, built = cached_pack(_DN_PACKS, spec, params, ("deform", "density", "color"), dtype,
+                              build)
+    PACKS["dnerf"] += built
+    return pack
 
 
 def unpack_grads(packed: DnPacked, seg: str, like, grad: torch.Tensor) -> List[torch.Tensor]:
@@ -298,14 +413,18 @@ def _arg(t: torch.Tensor, shape, name: str) -> torch.Tensor:
     return t.detach().to(torch.float32).contiguous()
 
 
-def _run(name: str, packed: DnPacked, n: int, *tensors: torch.Tensor) -> None:
+def _run(name: str, packed: DnPacked, n: int, *tensors: torch.Tensor,
+         tc: Optional[bool] = None) -> None:
+    """Launch kernel entry ``name``; ``tc`` (the density backward's): the
+    tensor-core kernel in bf16."""
     from endosurf_tpu_torch.kernels.build import load_library
     lib = load_library()
     device = tensors[0].device
     if packed.w.device != device:
         raise ValueError(f"weights on {packed.w.device}, points on {device}")
+    modes = [int(packed.rb)] + ([] if tc is None else [int(tc)])
     with torch.cuda.device(device):
-        err = getattr(lib, name)(packed.w.data_ptr(), packed.meta, int(packed.rb), n,
+        err = getattr(lib, name)(packed.w.data_ptr(), packed.meta, *modes, n,
                                  *(t.data_ptr() for t in tensors),
                                  torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
@@ -344,13 +463,39 @@ def dnerf_color_fwd(packed: DnPacked, d: torch.Tensor, feat: torch.Tensor) -> to
     return rgb
 
 
-def _bwd_buffers(packed: DnPacked, seg: str, n: int, device):
+WG_KC = 4096          # points per chunk of the weight-gradient sums (csrc/wgrad.cuh)
+
+
+def bwd_sizes(meta: Sequence[int], seg: str, n: int, tc: bool = False) -> Tuple[int, int]:
+    """Floats of (scratch, partial sums) a backward needs for n points, as
+    ``csrc/fused_train_dnerf.cu``'s planners lay them out
+    (``dnerf_bwd_sizes``). SIMT (dn_plan_bwd): every layer's float32 operands
+    [n, in] and pre-activation cotangents [n, out], back to back. The
+    tensor-core density backward (``tc``, plan_density_bwd_tc): each layer's
+    bf16 operand rows [n, c16(in)], the bf16 cotangents [n, c16(out)] of
+    layers 0 .. L-3 and the float32 ones of layers L-2 and L-1, each array
+    256-byte aligned. Partial sums: each weight and bias gradient's
+    [chunks of WG_KC points][in or 1][out]."""
+    net = _net_meta(meta, SLOTS[seg])
+    n_layers = net[0]
+    ins, outs = net[2:2 + n_layers], net[2 + NL:2 + NL + n_layers]
+    chunks = -(-n // WG_KC)
+    partial = sum(chunks * (i + 1) * o for i, o in zip(ins, outs))
+    if not (tc and seg == "density"):
+        return sum(n * (i + o) for i, o in zip(ins, outs)), partial
+    used = 0
+    for l, (i, o) in enumerate(zip(ins, outs)):
+        arrays = [(2, _c16(i)), (2 if l < n_layers - 2 else 4, _c16(o))]
+        for item, width in arrays:
+            used = -(-used // 256) * 256 + n * width * item
+    return -(-used // 4), partial
+
+
+def _bwd_buffers(packed: DnPacked, seg: str, n: int, device, tc: bool = False):
     """Scratch, partial sums and the packed gradient of one backward call."""
-    from endosurf_tpu_torch.kernels.build import load_library
-    sizes = (ctypes.c_longlong * 2)()
-    load_library().dnerf_bwd_sizes(packed.meta, SLOTS[seg], n, sizes)
-    return (torch.empty(max(sizes[0], 1), dtype=torch.float32, device=device),
-            torch.empty(max(sizes[1], 1), dtype=torch.float32, device=device),
+    scratch, partial = bwd_sizes(packed.meta, seg, n, tc)
+    return (torch.empty(max(scratch, 1), dtype=torch.float32, device=device),
+            torch.empty(max(partial, 1), dtype=torch.float32, device=device),
             torch.empty_like(packed.w))
 
 
@@ -366,17 +511,21 @@ def dnerf_deform_bwd(packed: DnPacked, like, xt: torch.Tensor, g_xc: torch.Tenso
 
 
 def dnerf_density_bwd(packed: DnPacked, like, x_c: torch.Tensor, g_raw: torch.Tensor,
-                      g_feat: torch.Tensor
+                      g_feat: torch.Tensor, simt: bool = False
                       ) -> Tuple[List[torch.Tensor], Tuple[torch.Tensor]]:
     """Cotangents on raw sigma [N, 1] and feat [N, F] -> (flat weight
-    gradients, (d x_c [N, 3],))."""
+    gradients, (d x_c [N, 3],)). A bf16 pack runs the tensor-core kernel;
+    ``simt`` runs the SIMT one instead (the float64 comparison only)."""
     n = x_c.shape[0]
     f = packed.meta[6]
     args = (_arg(x_c, (n, 3), "x_c"), _arg(g_raw, (n, 1), "g_raw"),
             _arg(g_feat, (n, f), "g_feat"))
+    tc = packed.rb and not simt
+    if tc:
+        check_tc_nets(packed, bwd=True)
     d_xc = torch.empty(n, 3, dtype=torch.float32, device=x_c.device)
-    bufs = _bwd_buffers(packed, "density", n, x_c.device)
-    _run("dnerf_density_bwd", packed, n, *args, d_xc, *bufs)
+    bufs = _bwd_buffers(packed, "density", n, x_c.device, tc)
+    _run("dnerf_density_bwd", packed, n, *args, d_xc, *bufs, tc=tc)
     return unpack_grads(packed, "density", like, bufs[2]), (d_xc,)
 
 
@@ -550,24 +699,24 @@ def leaf_names(like: Sequence[Dict[str, Any]], seg: str) -> List[str]:
                                     if seg == "density" else [])
 
 
-def bwd_parity_errors(d_in: Dict[str, torch.Tensor], ref_in: Dict[str, torch.Tensor],
-                      leaves: Dict[str, torch.Tensor], ref_leaves: Dict[str, torch.Tensor],
-                      dtype: torch.dtype) -> Dict[str, Dict[str, Tuple]]:
-    """A backward kernel against its plain version: {"cot": {input: (median,
-    p99, max, ok)}, "leaf": {weight: (relative L2, ok)}} within
-    ``BWD_PARITY_TOL[dtype]`` (the per-point error of
+def bwd_parity_errors(kernel: str, d_in: Dict[str, torch.Tensor],
+                      ref_in: Dict[str, torch.Tensor], leaves: Dict[str, torch.Tensor],
+                      ref_leaves: Dict[str, torch.Tensor], dtype: torch.dtype
+                      ) -> Dict[str, Dict[str, Tuple]]:
+    """Backward kernel ``kernel`` against its plain version: {"cot": {input:
+    (median, p99, max, ok)}, "leaf": {weight: (relative L2, ok)}} within
+    ``BWD_PARITY_TOL[dtype]`` (``cot_tol``; the per-point error of
     ``fused_train_cuda._point_err``)."""
     from endosurf_tpu_torch.kernels.fused_train_cuda import _point_err, _quantiles
-    tol = BWD_PARITY_TOL[dtype]
     res: Dict[str, Dict[str, Tuple]] = {"cot": {}, "leaf": {}}
     for k, r in ref_in.items():
-        med, p99, mx = _quantiles(_point_err(d_in[k], r))
-        res["cot"][k] = (med, p99, mx, med <= tol["cot"][0] and p99 <= tol["cot"][1]
-                         and mx <= tol["cot"][2])
+        vals = _quantiles(_point_err(d_in[k], r))
+        res["cot"][k] = (*vals, all(v <= t for v, t in zip(vals, cot_tol(dtype, kernel, k))))
+    leaf_tol = BWD_PARITY_TOL[dtype]["leaf"]
     for k, r in ref_leaves.items():
         rel = float((leaves[k].float() - r.float()).norm()
                     / max(float(r.float().norm()), 1e-30))
-        res["leaf"][k] = (rel, rel <= tol["leaf"])
+        res["leaf"][k] = (rel, rel <= leaf_tol)
     return res
 
 
@@ -597,7 +746,7 @@ def bwd_segment_parity(spec, params: Dict[str, Any], x: torch.Tensor, d: torch.T
         got_in = {k: v for k, v in zip(SEGMENT_INPUTS[seg], d_in) if v is not None}
         want_in = {k: v for k, v in zip(SEGMENT_INPUTS[seg], ref_in) if v is not None}
         name = f"dnerf_{seg}_bwd"
-        res[name] = bwd_parity_errors(got_in, want_in, dict(zip(names, leaves)),
+        res[name] = bwd_parity_errors(name, got_in, want_in, dict(zip(names, leaves)),
                                       dict(zip(names, ref_leaves)), dtype)
         abs_err[name] = max(float((g.float() - r.float()).abs().max()) for g, r in
                             zip([*leaves, *got_in.values()], [*ref_leaves, *want_in.values()]))
@@ -608,3 +757,40 @@ def bwd_segment_parity(spec, params: Dict[str, Any], x: torch.Tensor, d: torch.T
 def bwd_parity_ok(res: Dict[str, Dict[str, Dict]]) -> bool:
     """Every reading of ``bwd_segment_parity`` within its limits."""
     return all(v[-1] for kinds in res.values() for vals in kinds.values() for v in vals.values())
+
+
+# ---------------------------------------------------------------------------
+# the density backward's float64 yardstick
+# ---------------------------------------------------------------------------
+
+def dnerf_density_bwd_float64(spec, params: Dict[str, Any], x_c: torch.Tensor,
+                              g_raw: torch.Tensor, g_feat: torch.Tensor,
+                              precision: str = "default"
+                              ) -> Tuple[List[torch.Tensor], Tuple[torch.Tensor]]:
+    """The bf16 density backward's float64 yardstick: ``plain_bwd`` on
+    float64 copies of the kernels' own weights (the float32 parameters;
+    "default" rounds them to the kernels' bf16 values), of x_c and of the
+    cotangents, with ``precision``'s operand and cotangent roundings and
+    float64 arithmetic between them. Returns (flat weight gradients, (d x_c
+    [N, 3],)) in float64, as ``dnerf_density_bwd``."""
+    from endosurf_tpu_torch.kernels.fused_sampler import to_float64
+    like, flat = segment_weights(prepare_effective_dnerf(spec, to_float64(params)), "density")
+    return plain_bwd(spec, "density", like, flat, (x_c.double(),),
+                     (g_raw.double(), g_feat.double()), precision)
+
+
+def bwd_float64_distance(leaves: Sequence[torch.Tensor], d_xc: torch.Tensor,
+                         ref_leaves: Sequence[torch.Tensor], ref_dxc: torch.Tensor
+                         ) -> Dict[str, Tuple[float, float]]:
+    """A density backward against its float64 yardstick: (median, p99) of
+    d x_c's per-point error (the max over channels, over the yardstick's
+    rms) and of the weight gradients' per-element error (over the rms of the
+    element's leaf in the yardstick)."""
+    def quantiles(err):
+        q = torch.quantile(err, torch.tensor([0.5, 0.99], dtype=err.dtype, device=err.device))
+        return float(q[0]), float(q[1])
+    r = ref_dxc.double()
+    e_x = (d_xc.double() - r).abs().amax(dim=-1) / (r.pow(2).mean().sqrt() + 1e-300)
+    e_w = torch.cat([((g.double() - rl).abs() / (rl.pow(2).mean().sqrt() + 1e-300)).reshape(-1)
+                     for g, rl in zip(leaves, ref_leaves)])
+    return {"d_xc": quantiles(e_x), "weights": quantiles(e_w)}

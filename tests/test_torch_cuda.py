@@ -22,7 +22,10 @@ the readings the tests print.) The tolerances and their reasons are
 ``fused_sampler.MARCH_TOL``, ``fused_sdf.DENSITY_PARITY_TOL``,
 ``fused_render_dnerf.PARITY_TOL``, ``fused_train_dnerf.PARITY_TOL`` and
 ``BWD_PARITY_TOL``, ``fused_sampler.RESAMPLE_PARITY_TOL``; the planted-fault
-tests rebuild the kernels from a patched copy of the sources.
+tests rebuild the kernels from a patched copy of the sources. The bf16
+tensor-core kernels are also held against float64 yardsticks (no farther
+from them than the SIMT kernels), and the float32 ones against digests of
+the SIMT kernels' outputs.
 """
 
 import dataclasses
@@ -1504,15 +1507,17 @@ def test_dnerf_render_limits_reject_the_other_precision(dev, nets, depth_guided)
 # resample with its draws half a step early (u = j / n_new) or with its
 # coarse weights on distances without |d|, and the composite's depth sum
 # without |d|, move every opaque ray a little.
-# The resample is dnerf_chain.cuh's dn_resample_ray (the render kernel's and
-# the standalone fused_fine_resample's), the composite fused_render_dnerf.cu's.
+# The resample is dnerf_chain.cuh's dn_resample_ray (the render kernel's, in
+# float32 or, for the bf16 tensor-core render, in double, and the standalone
+# fused_fine_resample's), the composite fused_render_dnerf.cu's.
 RESAMPLE_FAULTS = {
-    "no_weight_floor": ("      const float wf = w + 1e-5f;        // the pdf's weight floor",
-                        "      const float wf = w;", ("full",)),
-    "draws_half_step": ("    const float u = ((float)jn + 0.5f) / (float)n_new;",
-                        "    const float u = (float)jn / (float)n_new;", ("full-dense",)),
-    "resample_dist_without_dn": ("    const float dist = (z[j + 1] - z[j]) * dn;",
-                                 "    const float dist = z[j + 1] - z[j];", ("full-dense",)),
+    "no_weight_floor": ("      const Real wf = w + floor_w;       // the pdf's weight floor",
+                        "      const Real wf = w;", ("full",)),
+    "draws_half_step": ("    const Real u = ((Real)jn + half) / (Real)n_new;",
+                        "    const Real u = (Real)jn / (Real)n_new;", ("full-dense",)),
+    "resample_dist_without_dn": ("    const Real dist = ((Real)z[j + 1] - (Real)z[j]) * dn;",
+                                 "    const Real dist = (Real)z[j + 1] - (Real)z[j];",
+                                 ("full-dense",)),
 }
 RENDER_FAULTS = {
     **{k: ("dnerf_chain.cuh", *v) for k, v in RESAMPLE_FAULTS.items()},
@@ -1537,6 +1542,191 @@ def test_dnerf_render_limits_catch_planted_faults(dev, fault, tmp_path, monkeypa
                 print(f"{fault} {nets} depth_guided {depth_guided} {dtype}: {errs}")
                 if nets in must_fail:
                     assert not all(v[-1] for v in errs.values()), errs
+
+
+# Faults planted in the bf16 render's tensor-core passes (csrc/dnerf_tc.cuh,
+# csrc/fused_render_dnerf.cu): the raw density read from the output layer's
+# column 1 (the coarse sweep and the field stage), and the colour input's
+# feature without its bias (the field stage). The float32 render runs the
+# SIMT code and does not see them.
+TC_DN_RENDER_FAULTS = {
+    "raw_from_column_1": (
+        "dnerf_tc.cuh",
+        "  if (tid < DT_P) s.out[tid * 4] = (float)dt_out_col(S, wts, s.H, ldh, tid, 0);",
+        "  if (tid < DT_P) s.out[tid * 4] = (float)dt_out_col(S, wts, s.H, ldh, tid, 1);"),
+    "feature_without_bias": (
+        "fused_render_dnerf.cu",
+        "      if (c + e < F) H[row * ldh + cr + c + e] = __float2bfloat16_rn(a[e] + bf[c + e]);",
+        "      if (c + e < F) H[row * ldh + cr + c + e] = __float2bfloat16_rn(a[e]);"),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(TC_DN_RENDER_FAULTS))
+def test_dnerf_tc_render_limits_catch_planted_faults(dev, fault, tmp_path, monkeypatch):
+    """The bf16 limits fail a tensor-core render with a planted fault on the
+    seeded and the opaque full nets, depth-guided and uniform rays (the
+    readings are printed)."""
+    _rebuild_with(monkeypatch, tmp_path, *TC_DN_RENDER_FAULTS[fault])
+    bf = torch.bfloat16
+    for nets in ("full", "full-dense"):
+        spec, params = _render_params(nets, 0, dev)
+        for depth_guided in (True, False):
+            rays = _dn_rays(1024, dev, depth_guided)
+            errs = _render_errs(spec, params, rays, depth_guided, (bf, bf), bf)[0]
+            print(f"{fault} {nets} depth_guided {depth_guided}: {errs}")
+            assert not all(v[-1] for v in errs.values()), errs
+
+
+# The traced calls of the kernel-name tests, run in a fresh process: a long
+# test process's torch.profiler sessions can record no device events at all.
+_TRACE_SCRIPT = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+sys.path.insert(0, sys.argv[2])
+from test_torch_cuda import _dn_bwd_case, _dn_rays, _render_params
+from endosurf_tpu_torch.kernels import fused_render_dnerf as frd
+from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
+from endosurf_tpu_torch.models import endonerf as en
+dev, bf = torch.device("cuda"), torch.bfloat16
+spec, params = _render_params("full", 0, dev)
+rays = _dn_rays(1024, dev, True)
+_, packed, like, inputs, cots = _dn_bwd_case(en.DNeRFSpec(), 0, dev, 4096)
+calls = {
+    "render bf16": lambda: frd.fused_render_rays_dnerf_cuda(
+        spec, en.DNeRFRenderSpec(), params, rays, None, bf, bf),
+    "render bf16 simt": lambda: frd.fused_render_rays_dnerf_cuda(
+        spec, en.DNeRFRenderSpec(), params, rays, None, bf, bf, simt=True),
+    "render f32": lambda: frd.fused_render_rays_dnerf_cuda(spec, en.DNeRFRenderSpec(), params,
+                                                           rays),
+    "bwd bf16": lambda: ftd.dnerf_density_bwd(packed, like, *inputs, *cots),
+    "bwd bf16 simt": lambda: ftd.dnerf_density_bwd(packed, like, *inputs, *cots, simt=True),
+}
+names = {}
+for what in sys.argv[3:]:
+    calls[what]()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        calls[what]()
+        torch.cuda.synchronize()
+    names[what] = sorted({e.key for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA})
+print(json.dumps(names))
+"""
+
+
+def _traced_kernels(*calls):
+    """{call: the names of the device kernels one call launches}, traced by
+    torch.profiler after a warm-up call in a fresh process (``calls``:
+    _TRACE_SCRIPT's keys)."""
+    import json
+    import subprocess
+    import sys
+    repo = osp.dirname(osp.dirname(osp.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _TRACE_SCRIPT, repo, osp.join(repo, "tests"),
+                          *calls], capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return {k: set(v) for k, v in json.loads(out.stdout.strip().splitlines()[-1]).items()}
+
+
+def test_dnerf_bf16_render_runs_on_tensor_cores(dev):
+    """A bf16 render chunk launches the tensor-core coarse sweep and field
+    stage and neither dn_field_kernel nor the SIMT D-NeRF sweep; simt=True
+    and the float32 render launch the SIMT kernels and no tensor-core one
+    (the names the profiler records)."""
+    traced = _traced_kernels("render bf16", "render bf16 simt", "render f32")
+    tc = traced["render bf16"]
+    print(sorted(tc))
+    assert any("dn_sweep_tc_kernel" in k for k in tc) and any("dn_field_tc_kernel" in k for k in tc)
+    assert not any("dn_field_kernel" in k or "sweep_kernel<" in k for k in tc), tc
+    for what in ("render bf16 simt", "render f32"):
+        names = traced[what]
+        assert any("dn_field_kernel" in k for k in names) and any("sweep_kernel<" in k
+                                                                  for k in names), names
+        assert not any("_tc_kernel" in k for k in names), names
+
+
+def test_dnerf_render_tensor_cores_no_farther_from_float64(dev):
+    """The condition under which a bf16 D-NeRF render limit
+    (fused_render_dnerf.PARITY_TOL) may move with the tensor-core render: on
+    every card cell of test_dnerf_render_kernel_matches_twin (the narrow,
+    full and opaque full nets, depth-guided and uniform rays, 1024 each, two
+    weight seeds) the tensor-core render's median and p99 per-ray error
+    against the float64 yardstick (fused_render_rays_dnerf_float64) are no
+    larger than the SIMT bf16 render's (simt=True) on the same inputs, per
+    map (depth as depth x acc)."""
+    bf = torch.bfloat16
+    failed = []
+    for nets in sorted(RENDER_NETS):
+        for depth_guided in (True, False):
+            for seed in (0, 1):
+                spec, params = _render_params(nets, seed, dev)
+                rays = _dn_rays(1024, dev, depth_guided, seed)
+                rspec = en.DNeRFRenderSpec(use_depth_sampling=depth_guided)
+                ref = frd.fused_render_rays_dnerf_float64(spec, rspec, params, rays)
+                tc, simt = (frd.float64_distance(frd.fused_render_rays_dnerf_cuda(
+                    spec, rspec, params, rays, None, bf, bf, simt=flag), ref)
+                    for flag in (False, True))
+                ok = fr.no_farther(tc, simt)
+                for k in tc:
+                    print(f"dnerf render bf16 vs float64 {nets} depth_guided {depth_guided} "
+                          f"seed {seed} {k} (median, p99): tensor cores {tc[k][0]:.4e}, "
+                          f"{tc[k][1]:.4e}; SIMT {simt[k][0]:.4e}, {simt[k][1]:.4e}")
+                    if not ok[k]:
+                        failed.append((nets, depth_guided, seed, k))
+    assert not failed, failed
+
+
+def test_dnerf_render_reuses_the_pack(dev):
+    """Chunks on one parameter set share the D-NeRF pack: a second bf16 call
+    packs nothing and gives the same maps; after an in-place update of a
+    weight the next call repacks, and its maps equal those of a pack built
+    from scratch."""
+    spec, params = _render_params("narrow", 0, dev)
+    rays = _dn_rays(256, dev, True)
+    bf = torch.bfloat16
+
+    def run():
+        out = frd.fused_render_rays_dnerf_cuda(spec, en.DNeRFRenderSpec(), params, rays, None,
+                                               bf, bf)
+        return torch.cat([out[k] for k in ("color_map", "depth_map", "acc_map")], -1)
+    first = run()
+    n = ftd.PACKS["dnerf"]
+    assert torch.equal(run(), first) and ftd.PACKS["dnerf"] == n
+    with torch.no_grad():
+        params["color"]["layers"][0]["b"].add_(0.5)
+    updated = run()
+    assert ftd.PACKS["dnerf"] == n + 1 and not torch.equal(updated, first)
+    ftd._DN_PACKS.clear()
+    assert torch.equal(run(), updated) and ftd.PACKS["dnerf"] == n + 2
+
+
+def test_dnerf_tensor_cores_refuse_nets_they_do_not_take(dev):
+    """D-NeRF nets whose tiles do not fit in shared memory render and train
+    in float32; their bf16 render (a 110-octave density encoding at full
+    width) and bf16 density backward (a 40-octave one, narrow) are refused,
+    with no fallback to the SIMT kernels."""
+    spec = dataclasses.replace(en.DNeRFSpec(), pos_density_freqs=110)
+    params = _dn_params(spec, 0, dev)
+    rays = _dn_rays(64, dev, True)
+    out = frd.fused_render_rays_dnerf_cuda(spec, en.DNeRFRenderSpec(), params, rays)
+    assert all(bool(torch.isfinite(v).all()) for v in out.values())
+    before = frd.LAUNCHES["fused_render_rays_dnerf"]
+    with pytest.raises(ValueError, match="shared memory"):
+        frd.fused_render_rays_dnerf_cuda(spec, en.DNeRFRenderSpec(), params, rays, None,
+                                         torch.bfloat16, torch.bfloat16)
+    assert frd.LAUNCHES["fused_render_rays_dnerf"] == before
+    spec = dataclasses.replace(DN_NARROW, pos_density_freqs=40)
+    params = _dn_params(spec, 0, dev)
+    x, d, t = _seg_points(256, dev)
+    _, _, cases = ftd.bwd_segment_parity(spec, params, x, d, t, "highest")
+    packed, like, _, inputs, cots = cases["dnerf_density_bwd"]
+    ftd.dnerf_density_bwd(packed, like, *inputs, *cots)
+    bf_pack = ftd.pack_dnerf(spec, params, torch.bfloat16)
+    with pytest.raises(ValueError, match="shared memory"):
+        ftd.dnerf_density_bwd(bf_pack, like, *inputs, *cots)
 
 
 def test_dnerf_inference_runs_the_kernels(dev, monkeypatch):
@@ -1728,14 +1918,21 @@ def test_dnerf_backward_is_deterministic(dev):
 
 # csrc/fused_train_dnerf.cu: the skip layer's encoding rows left out of d x_c
 # (the walk's section rows of skip layers dropped), and the sigma head's
-# cotangent reaching h through the first feature column's weights.
+# cotangent reaching h through the first feature column's weights; each in
+# the SIMT kernel (float32) and in the tensor-core one (bf16).
 DN_BWD_FAULTS = {
     "skip_gradient_dropped": (
-        "    const int lo = l == 0 ? sec0 : (skip && skip_sec ? n_h : in_l);",
-        "    const int lo = l == 0 ? sec0 : in_l;", ("dnerf_density_bwd",)),
+        [("    const int lo = l == 0 ? sec0 : (skip && skip_sec ? n_h : in_l);",
+          "    const int lo = l == 0 ? sec0 : in_l;"),
+         ("      if (i >= n_h && i < in_l) s.den[row * es + i - n_h] += v;",
+          "      if (i >= n_h && i < in_l && l == 0) s.den[row * es + i - n_h] += v;")],
+        ("dnerf_density_bwd",)),
     "head_cotangent_wrong_column": (
-        "      acc_seg<P>(acc_h, WT, n_in, i, 0, gout, G, 1);",
-        "      acc_seg<P>(acc_h, WT, n_in, i, 1, gout, G, 1);", ("dnerf_density_bwd",)),
+        [("      acc_seg<P>(acc_h, WT, n_in, i, 0, gout, G, 1);",
+          "      acc_seg<P>(acc_h, WT, n_in, i, 1, gout, G, 1);"),
+         ("    const float* head = wts + S.wt_off[L - 1];   // W^T row 0: the raw column",
+          "    const float* head = wts + S.wt_off[L - 1] + n_in;")],
+        ("dnerf_density_bwd",)),
 }
 
 
@@ -1743,8 +1940,9 @@ DN_BWD_FAULTS = {
 def test_dnerf_backward_limits_catch_planted_faults(dev, fault, tmp_path, monkeypatch):
     """A backward kernel built with a planted fault fails the limits in both
     modes (the readings are printed)."""
-    old, new, kernels = DN_BWD_FAULTS[fault]
-    _rebuild_with(monkeypatch, tmp_path, "fused_train_dnerf.cu", old, new)
+    edits, kernels = DN_BWD_FAULTS[fault]
+    _rebuild_with_all(monkeypatch, tmp_path, [("fused_train_dnerf.cu", old, new)
+                                              for old, new in edits])
     spec = en.DNeRFSpec()
     params = _dn_params(spec, 0, dev)
     x, d, t = _seg_points(RAGGED_N, dev)
@@ -1753,6 +1951,110 @@ def test_dnerf_backward_limits_catch_planted_faults(dev, fault, tmp_path, monkey
         print(f"{fault} {precision}: {_bwd_report(res)}")
         for name in kernels:
             assert not ftd.bwd_parity_ok({name: res[name]}), (precision, name)
+
+
+@pytest.mark.parametrize("spec", DN_SPECS, ids=SPEC_IDS)
+def test_dnerf_bwd_sizes_match_the_planner(dev, spec):
+    """fused_train_dnerf.bwd_sizes (the CPU mirror) equals csrc's
+    dnerf_bwd_sizes (dn_plan_bwd, plan_density_bwd_tc) for every segment,
+    both modes, at several point counts."""
+    import ctypes
+    params = _dn_params(spec, 0, dev)
+    packed = ftd.pack_dnerf(spec, params, torch.bfloat16)
+    lib = build.load_library()
+    out = (ctypes.c_longlong * 2)()
+    for seg in ftd.SEGMENTS if spec.use_deform else ("density", "color"):
+        for tc in (False, True):
+            for n in (1, 63, 4097, 262144):
+                lib.dnerf_bwd_sizes(packed.meta, ftd.SLOTS[seg], int(tc), n, out)
+                assert (out[0], out[1]) == ftd.bwd_sizes(packed.meta, seg, n, tc), (seg, tc, n)
+
+
+def _dn_bwd_case(spec, seed, dev, n=RAGGED_N):
+    """The density backward's inputs on n ragged points: x_c from the plain
+    deform segment, seeded cotangents, and the like / packs."""
+    params = _dn_params(spec, seed, dev)
+    x, d, t = _seg_points(n, dev, seed)
+    _, _, cases = ftd.bwd_segment_parity(spec, params, x, d, t, "default", seed)
+    packed, like, _, inputs, cots = cases["dnerf_density_bwd"]
+    return params, packed, like, inputs, cots
+
+
+def test_dnerf_density_bwd_tensor_cores_no_farther_from_float64(dev):
+    """The condition under which the bf16 d x_c limit of the density
+    backward (fused_train_dnerf.BWD_PARITY_TOL[("dnerf_density_bwd",
+    "x_c")]) moved with the tensor-core kernel: on the cells of
+    test_dnerf_backward_matches_plain (three nets, 65,531 points, two seeds)
+    the tensor-core kernel's median and p99 per-point error of d x_c
+    against the float64 yardstick (dnerf_density_bwd_float64) are no larger
+    than the SIMT bf16 kernel's (simt=True). The weight gradients'
+    per-element readings are printed beside them and not judged here: their
+    limit ("leaf") did not move, and their p99 sits at the bf16 roundings
+    the walk's float32 sums tip, which the two kernels tip on other points
+    (0.79-1.34x the SIMT kernel's, PERF.md §6; tools/dnerf_wgrad_floor.py
+    reads them leaf by leaf)."""
+    failed = []
+    for sid, spec in zip(SPEC_IDS, DN_SPECS):
+        for seed in (0, 1):
+            params, packed, like, inputs, cots = _dn_bwd_case(spec, seed, dev)
+            ref_leaves, (ref_dxc,) = ftd.dnerf_density_bwd_float64(spec, params, *inputs, *cots)
+            dist = {}
+            for name, flag in (("tensor cores", False), ("SIMT", True)):
+                leaves, (d_xc,) = ftd.dnerf_density_bwd(packed, like, *inputs, *cots, simt=flag)
+                dist[name] = ftd.bwd_float64_distance(leaves, d_xc, ref_leaves, ref_dxc)
+            ok = fr.no_farther(dist["tensor cores"], dist["SIMT"])
+            for k in ok:
+                print(f"dnerf density bwd bf16 vs float64 {sid} seed {seed} {k} (median, p99): "
+                      + "; ".join(f"{nm} {v[k][0]:.4e}, {v[k][1]:.4e}" for nm, v in dist.items()))
+            if not ok["d_xc"]:
+                failed.append((sid, seed))
+    assert not failed, failed
+
+
+def test_dnerf_density_bwd_runs_on_tensor_cores(dev):
+    """A bf16 density backward launches the tensor-core tile and product
+    (dnerf_density_bwd_tc_kernel, wgrad_tc_partial_kernel) and not the SIMT
+    ones; simt=True launches the SIMT kernel."""
+    traced = _traced_kernels("bwd bf16", "bwd bf16 simt")
+    tc, simt = traced["bwd bf16"], traced["bwd bf16 simt"]
+    print(sorted(tc), sorted(simt))
+    assert any("dnerf_density_bwd_tc_kernel" in k for k in tc)
+    assert any("wgrad_tc_partial_kernel" in k for k in tc)
+    assert not any("dnerf_density_bwd_kernel" in k or "wgrad_partial_kernel" in k for k in tc)
+    assert any("dnerf_density_bwd_kernel" in k for k in simt)
+    assert not any("_tc_" in k for k in simt)
+
+
+# sha256 of the float32 D-NeRF render's maps and of the float32 density
+# backward's outputs (tools/dnerf_f32_digest.py's cases) as the SIMT kernels
+# compute them, taken on an NVIDIA H100 80GB HBM3 from the tree before the
+# bf16 kernels took tensor cores, and the nvcc release that compiled them:
+# another toolchain may compile other bits, so the test skips under it (rerun
+# the tool on both trees then).
+F32_DN_RENDER_DIGEST = "b3e4a35b127df95a3c9a71e6b7db75576f0b578f2399281952151dd9710939b3"
+F32_DN_BWD_DIGEST = "4c4f5d2f96ca75accf71af777e9b3717a249a97ffcfbdcede9e41cedd4c04897"
+
+
+def test_dnerf_f32_is_the_simt_path(dev):
+    """The float32 D-NeRF render and density backward run the SIMT code,
+    untouched by the tensor-core bf16 kernels: their outputs equal that
+    code's recorded digests bit for bit."""
+    import importlib.util
+    import subprocess
+    spec_ = importlib.util.spec_from_file_location(
+        "dnerf_f32_digest", osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))), "tools",
+                                     "dnerf_f32_digest.py"))
+    tool = importlib.util.module_from_spec(spec_)
+    spec_.loader.exec_module(tool)
+    render, bwd = tool.digests(dev)
+    nvcc = subprocess.run([build.find_nvcc(), "--version"], capture_output=True,
+                          text=True, check=True).stdout
+    release = next((ln for ln in nvcc.splitlines() if "release" in ln), nvcc.strip())
+    print(f"float32 dnerf render digest {render}, density backward digest {bwd} ({release})")
+    if F32_RENDER_NVCC not in release:
+        pytest.skip(f"the digests were taken with nvcc {F32_RENDER_NVCC.rstrip(',')}, "
+                    f"this one is {release}")
+    assert (render, bwd) == (F32_DN_RENDER_DIGEST, F32_DN_BWD_DIGEST)
 
 
 def _resample_inputs(nets: str, n0: int, dev, seed: int = 0):

@@ -110,11 +110,12 @@ def test_losses_and_schedule_match_jax():
 # the segments' backward
 # ---------------------------------------------------------------------------
 
-def _jax_segment_grads(js, pj, seg, inputs, cots):
-    """JAX's custom_vjp segment forced onto its Pallas kernels (interpreted),
-    composed with the differentiable prep: gradients of the segment's {w, b}
-    and of its differentiable input."""
-    segs = dict(zip(("deform", "density", "color"), j_ftd._build_segments(js, True)))
+def _jax_segment_grads(js, pj, seg, inputs, cots, force=True):
+    """JAX's custom_vjp segment forced onto its Pallas kernels (interpreted;
+    with ``force`` False and the megakernel mode "off", its plain reference:
+    jax.vjp of the segment maths), composed with the differentiable prep:
+    gradients of the segment's {w, b} and of its differentiable input."""
+    segs = dict(zip(("deform", "density", "color"), j_ftd._build_segments(js, force)))
     net = {"deform": "deform", "density": "density", "color": "color"}[seg]
 
     def f(p_net, *ins):
@@ -207,6 +208,62 @@ def test_segment_backward_matches_jax_pallas(seg, precision, use_deform):
     else:
         assert leaf <= BF16_LEAF and cot <= BF16_COT, (leaf, cot)
         leaf32, cot32 = readings("highest")
+        assert leaf32 > F32_LEAF * 10, leaf32     # the rounding is on
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"], ids=["f32", "bf16"])
+@pytest.mark.parametrize("use_deform", [True, False], ids=["deform", "static"])
+def test_density_bwd_float64_yardstick_matches_jax(precision, use_deform):
+    """The density backward's float64 yardstick (dnerf_density_bwd_float64:
+    plain_bwd in float64 on the float32 weights) against JAX's density
+    segment backward through its plain reference (jax.vjp of
+    seg_density_math; the megakernel mode "off"), 48 points: in float32 per
+    leaf within F32_LEAF and d x_c within 10 F32_LEAF of its RMS (float64
+    against float32 sums); with bf16 operand and cotangent roundings on both
+    sides within BF16_LEAF / BF16_COT (a rounding on an ulp of float32 noise
+    tips now and then), and the float32 yardstick fails the bf16 limits."""
+    js, ts = _specs(**SMALL, use_deform=use_deform)
+    pj = j_en.init_dnerf_params(jax.random.PRNGKey(3), js)
+    pt = params_from_jax(pj)
+    j_in, j_ct, t_in, t_ct = _segment_case(js, ts, pj, "density", 48, 4)
+    if precision == "default":
+        j_ft.set_compute_mode(jnp.bfloat16, None)
+    j_ftd.set_dnerf_megakernel_mode("off")
+    j_grads = _jax_segment_grads(js, pj, "density", [jnp.asarray(a) for a in j_in],
+                                 jax.tree_util.tree_map(jnp.asarray, j_ct), force=False)
+    j_ft.set_compute_mode(jnp.float32, "highest")
+    ref_leaves = {k: np.asarray(v) for k, v in flatten(j_grads[0]).items()}
+    ref_dxc = np.asarray(j_grads[1])[:, :3]
+    eff = t_ftd.prepare_effective_dnerf(ts, pt)
+    like, _ = t_ftd.segment_weights(eff, "density")
+    names = t_ftd.leaf_names(like, "density")
+
+    def readings(prec):
+        leaves, (d_xc,) = t_ftd.dnerf_density_bwd_float64(
+            ts, pt, torch.from_numpy(t_in[0]), *(torch.from_numpy(c) for c in t_ct), prec)
+        assert d_xc.dtype == torch.float64 and all(v.dtype == torch.float64 for v in leaves)
+        got = dict(zip(names, leaves))
+        # the flat leaves against JAX's {w, b} tree: the density's last layer
+        # as head + feature columns, the hidden layers' skip blocks stacked
+        dw_last = torch.cat([got["head.w"], got["feat.w"]], 1).numpy()
+        db_last = torch.cat([got["head.b"], got["feat.b"]]).numpy()
+        n_last = len(pj["density"]["layers"]) - 1
+        rows = {}
+        for l in range(n_last):
+            parts = [got[k] for k in names if k.startswith(f"{l}.") and k != f"{l}.b"]
+            rows[f"layers/{l}/w"] = torch.cat(parts, 0).numpy()
+            rows[f"layers/{l}/b"] = got[f"{l}.b"].numpy()
+        rows[f"layers/{n_last}/w"], rows[f"layers/{n_last}/b"] = dw_last, db_last
+        leaf = max(_rel(rows[k], r) for k, r in ref_leaves.items())
+        cot = float((np.abs(d_xc.numpy() - ref_dxc).max(-1)
+                     / np.sqrt((ref_dxc ** 2).mean())).max())
+        return leaf, cot
+    leaf, cot = readings(precision)
+    if precision == "highest":
+        assert leaf <= F32_LEAF and cot <= F32_LEAF * 10, (leaf, cot)
+    else:
+        assert leaf <= BF16_LEAF and cot <= BF16_COT, (leaf, cot)
+        leaf32, _ = readings("highest")
         assert leaf32 > F32_LEAF * 10, leaf32     # the rounding is on
 
 

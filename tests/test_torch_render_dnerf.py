@@ -133,6 +133,42 @@ def test_render_twin_matches_jax_kernel(depth_guided, dtype):
     assert not ok, errs          # the limits reject the float32 twin
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("depth_guided", [True, False], ids=["depth-guided", "uniform"])
+def test_float64_yardstick_matches_jax_kernel(depth_guided, dtype):
+    """The bf16 render's float64 yardstick (fused_render_rays_dnerf_float64,
+    given the float32 weights) against JAX's fused_render_rays_dnerf
+    (interpreted) at the full DNeRFSpec, 64 + 64 samples, 24 rays: at
+    precision "highest" within _check_maps' limits (float64 against float32
+    sums: a draw on a cdf step moves with a float32 ulp), and with the
+    kernels' bf16 roundings ("default") against JAX's bf16 kernel within
+    BF16_MAPS_TOL, where the yardstick without them fails."""
+    rspec_kw = {} if depth_guided else {"use_depth_sampling": False}
+    js, ts = j_en.DNeRFSpec(), t_en.DNeRFSpec()
+    jr, tr = j_en.DNeRFRenderSpec(**rspec_kw), t_en.DNeRFRenderSpec(**rspec_kw)
+    pj = j_en.init_dnerf_params(jax.random.PRNGKey(0), js)
+    pt = params_from_jax(pj)
+    rays = _rays(24, depth_guided)
+    eps = torch.from_numpy(_jax_eps(24))
+
+    def yardstick(precision):
+        got = t_frd.fused_render_rays_dnerf_float64(ts, tr, pt, torch.from_numpy(rays), eps=eps,
+                                                    precision=precision)
+        assert all(v.dtype == torch.float64 for v in got.values())
+        return {k: v.float() for k, v in got.items()}
+    if dtype == "f32":
+        ref = j_frd.fused_render_rays_dnerf(js, jr, pj, jnp.asarray(rays), interpret=True)
+        _check_maps(yardstick("highest"), ref)
+        return
+    ref = j_frd.fused_render_rays_dnerf(js, jr, pj, jnp.asarray(rays),
+                                        sampling_dtype=jnp.bfloat16, main_dtype=jnp.bfloat16,
+                                        main_precision=None, interpret=True)
+    ok, errs = _bf16_maps_ok(yardstick("default"), ref)
+    assert ok, errs
+    ok, errs = _bf16_maps_ok(yardstick("highest"), ref)
+    assert not ok, errs          # the limits reject the unrounded yardstick
+
+
 def _small_specs(**kw):
     net = dict(deform_layers=(3, 64, (1,)), density_layers=(3, 64, (1,)),
                color_layers=(2, 64, ()), geo_feat_dim=32)

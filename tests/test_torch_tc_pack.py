@@ -5,7 +5,11 @@ write, the float32 packing each leaves as it was, the render pack's cache,
 the render's workspace (``render_work_floats``), the scratch sizes of both
 modes (``bwd_sizes``) and the SDF forward's workspace (``fwd_work_floats``),
 which the card tests ``test_segment_scratch_sizes_match_the_planner`` and
-``test_render_workspace_matches_the_planner`` hold against csrc's planners,
+``test_render_workspace_matches_the_planner`` hold against csrc's planners;
+the D-NeRF pack's fragments and cache (``fused_train_dnerf.pack_dnerf``),
+its backward scratch sizes (``fused_train_dnerf.bwd_sizes``, held against
+csrc by ``test_dnerf_bwd_sizes_match_the_planner``) and its tiles' shared
+memory gate,
 and the plain version of the split product (``split_product``)
 against a float64 product.
 
@@ -23,7 +27,9 @@ from endosurf_tpu_torch.kernels import fused_render as fr
 from endosurf_tpu_torch.kernels import fused_sampler as fs
 from endosurf_tpu_torch.kernels import fused_train as ft
 from endosurf_tpu_torch.kernels import fused_train_cuda as ftc
+from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
 from endosurf_tpu_torch.kernels.fused_render import META_NET, NL
+from endosurf_tpu_torch.models import endonerf as en
 from endosurf_tpu_torch.models.fields import EndoSurfSpec, MLPSpec, init_endosurf_params
 
 NARROW = EndoSurfSpec(deform=MLPSpec(9, 64, (4,), 3), sdf=MLPSpec(9, 64, (4,), 65),
@@ -471,3 +477,189 @@ def test_render_work_floats_lays_out_the_field_stage(spec_id):
             used = -(-used // 256) * 256 + 4 * n * wd
         head = -(-used // 256) * 256 // 4
         assert fr.render_work_floats(meta, n) == head + ftc.fwd_work_floats(packed, n)
+
+
+# ---------------------------------------------------------------------------
+# the D-NeRF pack (fused_train_dnerf.pack_dnerf) and the density backward's
+# scratch (fused_train_dnerf.bwd_sizes)
+# ---------------------------------------------------------------------------
+
+DN_SPECS = {"narrow": en.DNeRFSpec(deform_layers=(3, 64, (1,)), density_layers=(3, 64, (1,)),
+                                   color_layers=(2, 64, ()), geo_feat_dim=32),
+            "full": en.DNeRFSpec(), "full-static": en.DNeRFSpec(use_deform=False)}
+
+
+@pytest.mark.parametrize("spec_id", sorted(DN_SPECS))
+def test_pack_dnerf_bf16_fragments(spec_id):
+    """In the bf16 mode the D-NeRF pack ends with four blocks of NL fragment
+    offsets after the Model meta (``fused_train_dnerf.DN_FRAG_BLOCKS``): the
+    deform, density and colour nets' hidden W, the density output layer's
+    feature columns W[:, 1:], then the density net's W^T of the same layers;
+    -1 where a layer has none (output layers but the density's, an absent
+    deform net, layers past a net's depth). Each block is
+    ``fused_train_cuda.mma_frags`` of the packed bf16 weights bit for bit,
+    16-byte aligned; the float32 buffer and meta before it are the float32
+    pack's layout with bf16-rounded weights."""
+    spec = DN_SPECS[spec_id]
+    params = en.init_dnerf_params(spec, torch.Generator().manual_seed(0), "cpu")
+    packed = ftd.pack_dnerf(spec, params, torch.bfloat16)
+    f32 = ftd.pack_dnerf(spec, params, torch.float32)
+    meta = list(packed.meta)
+    assert meta[:ftd.META_LEN] == list(f32.meta) and len(meta) == ftd.META_LEN + 4 * NL
+    n_w = f32.w.numel()
+    for block, (q, transposed, output) in enumerate(ftd.DN_FRAG_BLOCKS):
+        offs = meta[ftd.META_LEN + block * NL:ftd.META_LEN + (block + 1) * NL]
+        net = meta[8 + q * META_NET:8 + (q + 1) * META_NET]
+        assert bool(output) == (q == ftd.SLOTS["density"])
+        for l in range(NL):
+            out_layer = l == net[0] - 1
+            if l >= net[0] or (out_layer and q != ftd.SLOTS["density"]):
+                assert offs[l] == -1, (block, l)
+                continue
+            k, n = net[2 + l], net[2 + NL + l]
+            mat = packed.w[net[2 + 2 * NL + l]:net[2 + 2 * NL + l] + k * n].view(k, n)
+            assert torch.equal(mat.to(torch.bfloat16).to(torch.float32), mat)
+            if out_layer:
+                mat = mat[:, 1:]
+            if transposed:
+                mat = mat.T
+            assert offs[l] % 4 == 0 and offs[l] >= n_w
+            kk, nn = mat.shape
+            want = ftc.mma_frags(mat.contiguous().to(torch.bfloat16))
+            got = packed.w.view(torch.bfloat16)[2 * offs[l]:2 * offs[l] + want.numel()]
+            assert torch.equal(got.view(torch.int16), want.view(torch.int16)), (block, l)
+            assert torch.equal(_unfrag_at(packed.w, offs[l], kk, nn)[:kk, :nn].view(torch.int16),
+                               mat.to(torch.bfloat16).view(torch.int16))
+
+
+@pytest.mark.parametrize("spec_id", sorted(DN_SPECS))
+def test_pack_dnerf_keeps_the_float32_layout(spec_id):
+    """The float32 D-NeRF pack is the Model meta and the weights as they
+    were packed before the fragments (no extension); the bf16 pack's first
+    floats are the same layout with each weight rounded to bf16 and the
+    biases unrounded."""
+    spec = DN_SPECS[spec_id]
+    params = en.init_dnerf_params(spec, torch.Generator().manual_seed(1), "cpu")
+    f32 = ftd.pack_dnerf(spec, params, torch.float32)
+    bf = ftd.pack_dnerf(spec, params, torch.bfloat16)
+    assert len(f32.meta) == ftd.META_LEN and not f32.rb and bf.rb
+    for seg in ftd.SEGMENTS if spec.use_deform else ("density", "color"):
+        for l, ((wo, bo, n_in, n_out), layer) in enumerate(
+                zip(f32.layout(seg), params[seg]["layers"])):
+            w = layer["w"].detach()
+            assert torch.equal(f32.w[wo:wo + n_in * n_out].view(n_in, n_out), w)
+            assert torch.equal(bf.w[wo:wo + n_in * n_out].view(n_in, n_out),
+                               w.to(torch.bfloat16).to(torch.float32))
+            assert torch.equal(bf.w[bo:bo + n_out], layer["b"].detach())
+
+
+def test_pack_dnerf_is_cached_per_parameter_set():
+    """A frame's chunks share one D-NeRF pack: a second call on the same
+    parameter tensors returns it without packing; an in-place update (an
+    Adam step) or new tensors repack; the cache holds the tensors weakly, so
+    a pack goes with its parameters."""
+    import gc
+    spec = DN_SPECS["narrow"]
+    for dtype in (torch.float32, torch.bfloat16):
+        params = en.init_dnerf_params(spec, torch.Generator().manual_seed(0), "cpu")
+        first = ftd.pack_dnerf(spec, params, dtype)
+        n = ftd.PACKS["dnerf"]
+        assert ftd.pack_dnerf(spec, params, dtype) is first and ftd.PACKS["dnerf"] == n
+        b = params["color"]["layers"][0]["b"].requires_grad_(True)
+        opt = torch.optim.Adam([b], lr=1e-3)
+        b.sum().backward()
+        opt.step()                 # the trainer's update: in place
+        again = ftd.pack_dnerf(spec, params, dtype)
+        assert ftd.PACKS["dnerf"] == n + 1 and not torch.equal(again.w, first.w)
+        bo = again.layout("color")[0][1]
+        assert torch.equal(again.w[bo:bo + b.numel()], b.detach())
+        del params, b, opt
+        gc.collect()
+        assert dtype not in ftd._DN_PACKS
+        params = en.init_dnerf_params(spec, torch.Generator().manual_seed(0), "cpu")
+        ftd.pack_dnerf(spec, params, dtype)
+        assert ftd.PACKS["dnerf"] == n + 2
+
+
+@pytest.mark.parametrize("kernel, name", [("dnerf_density_bwd", "x_c"),
+                                          ("dnerf_color_bwd", "feat")])
+def test_dnerf_bwd_cot_limits_per_input(kernel, name):
+    """``fused_train_dnerf.cot_tol``: in bf16 only the density backward's
+    d x_c has a p99 limit of its own (5e-3); every other input cotangent of
+    a backward, and every one in float32, is held at "cot" (p99 1e-3 in
+    bf16). ``bwd_parity_errors`` judges each input at its own limits: a d
+    x_c p99 of 3e-3 passes, a d feat p99 of 3e-3 fails."""
+    bf, f32 = torch.bfloat16, torch.float32
+    own = kernel == "dnerf_density_bwd"
+    assert ftd.cot_tol(bf, kernel, name) == ((1e-4, 5e-3, 2.0) if own
+                                              else ftd.BWD_PARITY_TOL[bf]["cot"])
+    assert ftd.BWD_PARITY_TOL[bf]["cot"][1] == 1e-3
+    assert ftd.cot_tol(f32, kernel, name) == ftd.BWD_PARITY_TOL[f32]["cot"]
+    ref = torch.ones(1000, 3)
+    got = ref.clone()
+    got[:20, 0] += 3e-3        # 2 % of the points off by 3e-3 of the rms
+    med, p99, _, ok = ftd.bwd_parity_errors(kernel, {name: got}, {name: ref}, {}, {},
+                                            bf)["cot"][name]
+    assert med == 0 and abs(p99 - 3e-3) < 1e-4 and ok == own
+
+
+@pytest.mark.parametrize("spec_id", sorted(DN_SPECS))
+def test_dnerf_bwd_sizes_lay_out_the_scratch(spec_id):
+    """``fused_train_dnerf.bwd_sizes`` (the CPU mirror of csrc's planners,
+    which the card test test_dnerf_bwd_sizes_match_the_planner holds against
+    them): the SIMT backward's float32 operands and cotangents of every
+    layer back to back; the tensor-core density backward's bf16 operand rows
+    [n, c16(in)] and bf16 cotangents [n, c16(out)] of layers 0 .. L-3, the
+    float32 cotangents of layers L-2 and L-1, each array 256-byte aligned,
+    under 60 % of the SIMT scratch at base.yml's widths; partial sums of
+    each weight and bias gradient per chunk of 4096 points."""
+    spec = DN_SPECS[spec_id]
+    params = en.init_dnerf_params(spec, torch.Generator().manual_seed(0), "cpu")
+    meta = list(ftd.pack_dnerf(spec, params, torch.bfloat16).meta)
+    net = meta[8 + META_NET:8 + 2 * META_NET]
+    n_layers = net[0]
+    ins, outs = net[2:2 + n_layers], net[2 + NL:2 + NL + n_layers]
+
+    def c16(x):
+        return -(-x // 16) * 16
+    for n in (1, 63, 4097, 262144):
+        chunks = -(-n // 4096)
+        partial = chunks * sum((i + 1) * o for i, o in zip(ins, outs))
+        simt = ftd.bwd_sizes(meta, "density", n)
+        assert simt == (n * sum(i + o for i, o in zip(ins, outs)), partial)
+        used = 0
+        for l, (i, o) in enumerate(zip(ins, outs)):
+            for size in (2 * c16(i), (2 if l < n_layers - 2 else 4) * c16(o)):
+                used = -(-used // 256) * 256 + n * size
+        tc = ftd.bwd_sizes(meta, "density", n, tc=True)
+        assert tc == (-(-used // 4), partial)
+        assert ftd.bwd_sizes(meta, "color", n, tc=True) == ftd.bwd_sizes(meta, "color", n)
+        if spec_id != "narrow" and n == 262144:
+            assert tc[0] < 0.6 * simt[0], (tc, simt)
+
+
+def test_tc_smem_gates_the_nets():
+    """The tensor-core D-NeRF tiles fit base.yml's nets (the backward's tile
+    at most 227 KiB, one block an SM; the forward's under half of it, two),
+    and a net whose tile would not fit is refused: a 40-octave density
+    encoding by the backward (its forward tile fits), a 110-octave one by
+    both."""
+    spec = en.DNeRFSpec()
+    params = en.init_dnerf_params(spec, torch.Generator().manual_seed(0), "cpu")
+    packed = ftd.pack_dnerf(spec, params, torch.bfloat16)
+    assert ftd.tc_smem_bytes(packed.meta, True) <= ftd.SMEM_LIMIT
+    assert 2 * ftd.tc_smem_bytes(packed.meta, False) <= ftd.SMEM_LIMIT
+    for bwd in (False, True):
+        ftd.check_tc_nets(packed, bwd)
+        with pytest.raises(ValueError, match="bf16 pack"):
+            ftd.check_tc_nets(ftd.pack_dnerf(spec, params, torch.float32), bwd)
+    for freqs, refused in ((40, (True,)), (110, (False, True))):
+        wide = dataclasses.replace(spec, pos_density_freqs=freqs)
+        packed = ftd.pack_dnerf(wide, en.init_dnerf_params(
+            wide, torch.Generator().manual_seed(0), "cpu"), torch.bfloat16)
+        for bwd in (False, True):
+            if bwd in refused:
+                with pytest.raises(ValueError, match="shared memory"):
+                    ftd.check_tc_nets(packed, bwd)
+            else:
+                ftd.check_tc_nets(packed, bwd)

@@ -7,6 +7,8 @@
                                             # the upsample's float64 readings and timing
     python3 chip_smoke.py --dnerf-train-only   # phases 1, 2 and 26's timed EndoNeRF run,
                                                # split and trace
+    python3 chip_smoke.py --dnerf-segments-only   # phases 1, 2, 23's bf16 seed-0 parity
+                                                  # and 27's segment timing
 
 Phases (any failure raises and exits non-zero):
   1. a CUDA card must be present; prints its name and power limit;
@@ -109,7 +111,11 @@ Phases (any failure raises and exits non-zero):
  19. segment parity: the three forward D-NeRF segment kernels against
      their plain versions on the 65,536 fine samples of 512 rays (the
      render's resampled depths), both modes, two seeds, per output median /
-     p99 / max at fused_train_dnerf.PARITY_TOL, the controls failing;
+     p99 / max at fused_train_dnerf.PARITY_TOL, the controls failing (bf16:
+     the density forward on tensor cores); then, on each seed, the distance
+     of the tensor-core and of the SIMT bf16 density forward from the
+     float64 yardstick (fused_train_dnerf.dnerf_density_fwd_float64), side
+     by side;
  20. EndoNeRF serving end to end: eval_frames with an EndoNeRFRenderer on one
      512x640 frame in 2048-ray chunks: 160 render launches on one pack,
      finite maps and metrics, normals from depth; rays/s, the frame time and
@@ -123,8 +129,9 @@ Phases (any failure raises and exits non-zero):
      split;
  22. timing of the five EndoNeRF kernels against their plain versions at
      the paths' shapes (2048 rays; 1,048,576 points; 65,536 points), bf16,
-     beside their bounds (the render also against its SIMT bf16 kernel), and
-     a render chunk's device time by kernel family.
+     beside their bounds (the render and the density forward also against
+     their SIMT bf16 kernels), and a render chunk's device time by kernel
+     family.
  23-28. EndoNeRF training, on the same config with base.yml's train keys
      (2048 rays, depth-guided sampling with sigma 1.0, perturb, raw noise
      1.0, bf16 dots, Adam at the exponential rate):
@@ -136,10 +143,11 @@ Phases (any failure raises and exits non-zero):
      weight seeds (the second on the first 65,536 points): median / p99 /
      max of d x_c and d feat, relative L2 of every weight gradient, at
      fused_train_dnerf.BWD_PARITY_TOL, the wrong-precision controls failing
-     (bf16: the density backward on tensor cores); then, on the first
-     seed, the distance of the tensor-core and of the SIMT bf16 density
-     backward from the float64 yardstick
-     (fused_train_dnerf.dnerf_density_bwd_float64), side by side;
+     (bf16: the deform and density backwards on tensor cores); then, on
+     each seed, the distance of the tensor-core and of the SIMT bf16 deform
+     and density backwards from their float64 yardsticks
+     (fused_train_dnerf.dnerf_deform_bwd_float64,
+     dnerf_density_bwd_float64), side by side;
  24. resample parity: fused_fine_resample against fine_resample_math on
      2048 train rays, the seeded nets (two seeds) and the opaque ones
      (fused_render_dnerf.with_density_bias): per-ray depth median / p99 /
@@ -156,9 +164,11 @@ Phases (any failure raises and exits non-zero):
      steps 1 and 12, the checkpoint read back; train rays/s, peak memory, a
      forward / backward / Adam split and a busy / idle trace; then
      trainer.eval on the test frame (the render kernel);
- 27. timing of the four new kernels against their plain versions at the
-     train shape (262,144 points; 2048 rays), bf16, beside their bounds (the
-     density backward also against its SIMT bf16 kernel);
+ 27. timing of the three backward kernels, the three forward ones and the
+     resample against their plain versions at the train shape (262,144
+     points; 2048 rays), bf16, beside their bounds (the deform and density
+     backwards and the density forward also against their SIMT bf16
+     kernels, with TFLOP/s);
  28. bf16 render quality: the port trains its own checkpoint for 300 steps
      on a smooth 64x80 synthetic scene, then renders the test frame in bf16
      and in float32: PSNR and depth RMSE of each against the scene.
@@ -170,7 +180,10 @@ the kernel record (JSON), the last the device record (JSON).
 ``--train-only`` uses only what every slice with a train step has, so a
 copy of this file placed beside an older checkout's package measures that
 checkout's step with the same trace filter (``--dnerf-train-only`` likewise
-the EndoNeRF step); ``--segments-only`` likewise
+the EndoNeRF step, ``--dnerf-segments-only`` the D-NeRF segment kernels as
+phase 27 times them, on phase 23's bf16 seed-0 train points after their
+parity; the SIMT kernels and the float64 readings where the checkout has
+tensor-core ones); ``--segments-only`` likewise
 holds the six segment kernels against their plain versions on phase 9's
 bf16 seed-0 midpoints and times them as phase 11 does (with TFLOP/s), then
 reads phase 6's float64 distances of the bf16 upsample on both weight seeds
@@ -1105,8 +1118,12 @@ def dnerf_segment_parity(spec, rspec, renderer, dev):
                         check(ok, f"dnerf segment {name} kernel vs plain ({prec}, seed {seed})")
                     else:   # each segment's limits must tell the precisions apart
                         check(not ok, f"dnerf segment {name} kernel {kp} passes the {prec} limits")
-                if sound and seed == 0 and prec == "default":
-                    abs_err, cases = ae, seg_cases
+                if sound and prec == "default":
+                    packed, inputs = seg_cases["dnerf_density_fwd"]
+                    tc_f64_readings(spec, params, "dnerf_density_fwd", (packed, None, inputs),
+                                    f"seed {seed} ({x.shape[0]} points)")
+                    if seed == 0:
+                        abs_err, cases = ae, seg_cases
     return abs_err, cases, x.shape[0]
 
 
@@ -1260,6 +1277,30 @@ def render_chunk_split(fn, smi: str, reps: int = 3) -> dict:
     return parts
 
 
+def dnerf_fwd_work(spec, params, n: int) -> dict:
+    """{forward segment kernel: (flops, bytes)} at n points, bf16: the
+    net's products; per-point inputs and outputs once, the bf16 weights."""
+    bf = torch.bfloat16
+    f = spec.geo_feat_dim
+    macs = {k: net_macs(params, k) for k in ("deform", "density", "color")}
+    wb = {k: _param_bytes(params, (k,), bf) for k in macs}
+    io = {"deform": 4 + 3, "density": 3 + 1 + f, "color": 3 + f + 3}
+    return {f"dnerf_{k}_fwd": (2.0 * n * macs[k], n * io[k] * 4 + wb[k]) for k in macs}
+
+
+def dnerf_fwd_plain(spec, params) -> dict:
+    """{forward segment kernel: its plain version on the kernel's inputs}, bf16."""
+    from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
+    eff = ftd.prepare_effective_dnerf(spec, params)
+    return {
+        "dnerf_deform_fwd": lambda xt: ftd.seg_deform_math(spec, eff["deform"], xt, "default"),
+        "dnerf_density_fwd": lambda xc: ftd.seg_density_math(
+            spec, eff["density"], eff["sigma_head"], eff["geo_feat"], xc, "default"),
+        "dnerf_color_fwd": lambda d, feat: ftd.seg_color_math(spec, eff["color"], d, feat,
+                                                              "default"),
+    }
+
+
 def dnerf_timing(spec, rspec, renderer, seg_cases, n_seg, smi: str) -> dict:
     """Phase 22: device ms of the five EndoNeRF kernels and their plain
     versions at the paths' shapes, bf16, with (bound ms, bounded by) from the
@@ -1277,7 +1318,6 @@ def dnerf_timing(spec, rspec, renderer, seg_cases, n_seg, smi: str) -> dict:
     full = deform + dens + color
     wb = {k: _param_bytes(params, (k,), bf) for k in params}
     n_pts = x.shape[0]
-    f = spec.geo_feat_dim
     work = {
         "fused_render_rays_dnerf": (2.0 * CHUNK * (rspec.n_samples * chain
                                                    + (rspec.n_samples + rspec.n_importance)
@@ -1285,9 +1325,7 @@ def dnerf_timing(spec, rspec, renderer, seg_cases, n_seg, smi: str) -> dict:
                                     CHUNK * (9 + 5) * 4 + sum(wb.values())),
         "fused_density_raw": (2.0 * n_pts * chain,
                               n_pts * (3 + 1 + 1) * 4 + wb["deform"] + wb["density"]),
-        "dnerf_deform_fwd": (2.0 * n_seg * deform, n_seg * (4 + 3) * 4 + wb["deform"]),
-        "dnerf_density_fwd": (2.0 * n_seg * dens, n_seg * (3 + 1 + f) * 4 + wb["density"]),
-        "dnerf_color_fwd": (2.0 * n_seg * color, n_seg * (3 + f + 3) * 4 + wb["color"]),
+        **dnerf_fwd_work(spec, params, n_seg),
     }
     calls = {
         "fused_render_rays_dnerf": (
@@ -1300,17 +1338,13 @@ def dnerf_timing(spec, rspec, renderer, seg_cases, n_seg, smi: str) -> dict:
         "fused_density_raw": (lambda: fsd.fused_density_raw_cuda(spec, params, x, t, bf),
                               lambda: fsd.fused_density_raw_reference(spec, params, x, t, bf), 3),
     }
-    eff = ftd.prepare_effective_dnerf(spec, params)
-    plain = {
-        "dnerf_deform_fwd": lambda xt: ftd.seg_deform_math(spec, eff["deform"], xt, "default"),
-        "dnerf_density_fwd": lambda xc: ftd.seg_density_math(
-            spec, eff["density"], eff["sigma_head"], eff["geo_feat"], xc, "default"),
-        "dnerf_color_fwd": lambda d, feat: ftd.seg_color_math(spec, eff["color"], d, feat,
-                                                              "default"),
-    }
+    plain = dnerf_fwd_plain(spec, params)
     for name, (packed, inputs) in seg_cases.items():
         calls[name] = (lambda n=name, p=packed, i=inputs: ftd.FWD[n.split("_")[1]](p, *i),
                        lambda n=name, i=inputs: plain[n](*i), 5)
+    packed, inputs = seg_cases["dnerf_density_fwd"]
+    calls["dnerf_density_fwd (SIMT bf16)"] = (
+        lambda: ftd.dnerf_density_fwd(packed, *inputs, simt=True), None, 5)
     render_split(calls["fused_render_rays_dnerf"][0], smi, "tensor cores")
     render_split(calls["fused_render_rays_dnerf (SIMT bf16)"][0], smi, "SIMT")
     out = {}
@@ -1404,34 +1438,50 @@ def dnerf_bwd_parity_phase(spec, x, d, t, dev):
                         check(ok, f"dnerf bwd {name} kernel vs plain ({prec}, seed {seed})")
                     else:   # each kernel's limits must tell the precisions apart
                         check(not ok, f"dnerf bwd {name} kernel {kp} passes the {prec} limits")
-                if sound and seed == 0 and prec == "default":
-                    abs_err, cases = ae, seg_cases
+                if sound and prec == "default":
+                    f64_cases = seg_cases
+                    if seed == 0:
+                        abs_err, cases = ae, seg_cases
                 del res, seg_cases
-        dnerf_bwd_f64_readings(spec, params, cases["dnerf_density_bwd"] if seed == 0 else
-                               ftd.bwd_segment_parity(spec, params, x[:n], d[:n], t[:n],
-                                                      "default", seed)[2]["dnerf_density_bwd"],
-                               f"seed {seed} ({n} points)")
+        tc_f64_train_readings(spec, params, f64_cases, f"seed {seed} ({n} points)")
+        del f64_cases
     return abs_err, cases
 
 
-def dnerf_bwd_f64_readings(spec, params, case, what: str) -> None:
-    """Phase 23: the tensor-core and the SIMT bf16 density backward's
-    distance from the float64 yardstick
-    (fused_train_dnerf.dnerf_density_bwd_float64: the same bf16 operand and
-    cotangent roundings, float64 arithmetic): median and p99 of d x_c's
-    per-point error and of the weight gradients' per-element error, side by
-    side."""
+def tc_f64_train_readings(spec, params, cases, what: str) -> None:
+    """Phase 23: tc_f64_readings of the deform and density backwards on
+    their bf16 cases (bwd_segment_parity's) and of the density forward on
+    the density backward's x_c; the deform backward's walk against float64
+    (fused_train_dnerf.deform_walk_distance)."""
+    from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
+    packed, like, _, inputs, cots = cases["dnerf_deform_bwd"]
+    tc_f64_readings(spec, params, "dnerf_deform_bwd", (packed, like, inputs, cots), what)
+    walk = ftd.deform_walk_distance(spec, params, packed, *inputs, *cots)
+    print(f"dnerf_deform_bwd bf16 vs float64 {what}: points whose operands or cotangents are off "
+          f"the float64 walk, weight elements off float64, weight elements off the exact product "
+          f"of the kernel's own operands " + "; ".join(
+              f"{nm} {100 * v['points']:.3f} %, {100 * v['weights']:.3f} %, "
+              f"{100 * v['product']:.3f} %" for nm, v in walk.items())
+          + ("" if walk["tensor cores"]["points"] <= walk["SIMT"]["points"] else "  FARTHER"),
+          flush=True)
+    packed, like, _, inputs, cots = cases["dnerf_density_bwd"]
+    tc_f64_readings(spec, params, "dnerf_density_fwd", (packed, None, inputs), what)
+    tc_f64_readings(spec, params, "dnerf_density_bwd", (packed, like, inputs, cots), what)
+
+
+def tc_f64_readings(spec, params, kernel: str, case, what: str) -> None:
+    """Phases 19 and 23: a tensor-core bf16 D-NeRF kernel's and its SIMT
+    bf16 kernel's distance from the float64 yardstick on the same inputs
+    (fused_train_dnerf.tc_float64_distance: the same bf16 operand and
+    cotangent roundings, float64 arithmetic), side by side: median and p99
+    of each output's (a backward's d x_c) per-point error and of the weight
+    gradients' per-element error. ``case``: (packed, like, inputs[, cots])."""
     from endosurf_tpu_torch.kernels import fused_render as fr
     from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
-    packed, like, _, inputs, cots = case
-    ref_leaves, (ref_dxc,) = ftd.dnerf_density_bwd_float64(spec, params, *inputs, *cots)
-    dist = {}
-    for name, flag in (("tensor cores", False), ("SIMT", True)):
-        leaves, (d_xc,) = ftd.dnerf_density_bwd(packed, like, *inputs, *cots, simt=flag)
-        dist[name] = ftd.bwd_float64_distance(leaves, d_xc, ref_leaves, ref_dxc)
+    dist = ftd.tc_float64_distance(spec, params, kernel, *case)
     ok = fr.no_farther(dist["tensor cores"], dist["SIMT"])
     for k in ok:
-        print(f"dnerf density bwd bf16 vs float64 {what} {k} (median, p99): " + "; ".join(
+        print(f"{kernel} bf16 vs float64 {what} {k} (median, p99): " + "; ".join(
             f"{nm} {v[k][0]:.4e}, {v[k][1]:.4e}" for nm, v in dist.items())
               + ("" if ok[k] else "  FARTHER"), flush=True)
 
@@ -1640,12 +1690,53 @@ def dnerf_train_phase(scene, dev, smi: str):
     return launches, eval_launches
 
 
-def dnerf_train_timing(spec, rspec, bwd_cases, resample_in, smi: str) -> dict:
-    """Phase 27: device ms of the three backward kernels and the resample
-    against their plain versions at the train shape, bf16, with (bound ms,
-    bounded by) from the shapes: a backward's recompute, input-cotangent and
-    weight-gradient products; per-point inputs and outputs once, bf16
-    weights, float32 gradients."""
+def simt_note(name: str, flops: float, k_ms: float, call) -> str:
+    """For a kernel with a tensor-core version (fused_train_dnerf.TC_KERNELS),
+    its SIMT bf16 kernel's time (``call(simt=True)``) and both TFLOP/s, as a
+    note; else nothing."""
+    from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
+    if name not in getattr(ftd, "TC_KERNELS", ("dnerf_density_bwd",)):
+        return ""
+    simt_ms = cuda_ms(lambda: call(simt=True), 2)
+    return (f"; the SIMT bf16 kernel {simt_ms:.3f} ms; tensor cores "
+            f"{flops / k_ms / 1e9:.2f} TFLOP/s, SIMT {flops / simt_ms / 1e9:.2f}")
+
+
+def dnerf_fwd_timing(spec, params, bwd_cases, n, what: str) -> dict:
+    """Phase 27: the three forward kernels against their plain versions on
+    the inputs of bf16 backward cases (bwd_segment_parity's; the first n
+    points, all with None), bf16, beside their bounds and TFLOP/s, and a
+    tensor-core kernel's SIMT one: {f"{kernel} ({n} {what})": (kernel ms,
+    plain ms, bound ms, bounded by)}."""
+    from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
+    packed = bwd_cases["dnerf_density_bwd"][0]
+    inputs = {seg: tuple(v[:n] for v in bwd_cases[f"dnerf_{seg}_bwd"][3])
+              for seg in ("deform", "density", "color")}
+    n = inputs["density"][0].shape[0]
+    work, plain = dnerf_fwd_work(spec, params, n), dnerf_fwd_plain(spec, params)
+    out = {}
+    for seg, ins in inputs.items():
+        name = f"dnerf_{seg}_fwd"
+        with torch.no_grad():
+            times = (cuda_ms(lambda: ftd.FWD[seg](packed, *ins), 3),
+                     cuda_ms(lambda: plain[name](*ins), 3))
+            simt = simt_note(name, work[name][0], times[0],
+                             functools.partial(ftd.FWD[seg], packed, *ins))
+        out[f"{name} ({n} {what})"] = (*times, *bound_ms(*work[name], torch.bfloat16))
+        print(f"{name}: {n} {what}, {work[name][0] / 1e12:.4f} TFLOP, "
+              f"{work[name][0] / times[0] / 1e9:.2f} TFLOP/s{simt}", flush=True)
+    return out
+
+
+def dnerf_train_timing(spec, rspec, bwd_cases, resample_in, smi: str, params=None) -> dict:
+    """Phase 27: device ms of the three backward kernels, the three forward
+    ones and the resample against their plain versions at the train shape,
+    bf16, with (bound ms, bounded by) from the shapes: a backward's
+    recompute, input-cotangent and weight-gradient products; per-point
+    inputs and outputs once, bf16 weights, float32 gradients. The forward
+    kernels run on the backward cases' inputs (``params``: the cases'
+    parameters, for the forward bounds; without them no forward is timed).
+    Beside a kernel with a tensor-core version (bf16), its SIMT kernel."""
     from endosurf_tpu_torch.kernels import fused_sampler as fs
     from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
     bf = torch.bfloat16
@@ -1676,14 +1767,12 @@ def dnerf_train_timing(spec, rspec, bwd_cases, resample_in, smi: str) -> dict:
         times = (cuda_ms(lambda: ftd.BWD[seg](packed, like, *inputs, *cots), 2),
                  cuda_ms(lambda: ftd.plain_bwd(spec, seg, like, flat, inputs, cots, "default"), 2))
         out[name] = (*times, *bound_ms(flops, n * io * 4 + w_bytes, bf))
-        simt = ""
-        if seg == "density":      # the SIMT bf16 kernel beside it
-            simt_ms = cuda_ms(lambda: ftd.dnerf_density_bwd(packed, like, *inputs, *cots,
-                                                            simt=True), 2)
-            simt = (f"; the SIMT bf16 kernel {simt_ms:.3f} ms; tensor cores "
-                    f"{flops / out[name][0] / 1e9:.2f} TFLOP/s, SIMT {flops / simt_ms / 1e9:.2f}")
+        simt = simt_note(name, flops, times[0], functools.partial(
+            ftd.BWD[seg], packed, like, *inputs, *cots))
         print(f"{name}: {n} points, {flops / 1e12:.4f} TFLOP (recompute, input cotangents, "
               f"weight gradients){simt}", flush=True)
+    if params is not None:
+        out.update(dnerf_fwd_timing(spec, params, bwd_cases, None, "train points"))
     z0, sigma, dn = resample_in
     n_rays, n0 = z0.shape
     k = n0 + rspec.n_importance
@@ -1811,6 +1900,45 @@ def dnerf_train_only(smi: str) -> int:
     return 0
 
 
+def dnerf_segments_only(smi: str) -> int:
+    """``--dnerf-segments-only``: the build, phase 23's bf16 seed-0 sound
+    parity on a train batch's 262,144 fine points, then phase 27's timing of
+    the segment kernels there and of the forward ones on the first 65,536,
+    and, where the checkout has tensor-core D-NeRF kernels, phase 23's
+    float64 readings."""
+    from endosurf_tpu_torch.data.scene_data import make_synthetic_arrays
+    from endosurf_tpu_torch.kernels import build
+    from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
+    from endosurf_tpu_torch.models.endonerf import DNeRFRenderSpec, DNeRFSpec, init_dnerf_params
+    build.load_library()
+    dev = torch.device("cuda")
+    ncfg = endonerf_cfg()
+    spec, rspec = DNeRFSpec.from_config(ncfg["net"]), DNeRFRenderSpec.from_config(ncfg["render"])
+    scene = make_synthetic_arrays(n_frames=4, h=H, w=W, seed=0, device=dev)
+    params = init_dnerf_params(spec, torch.Generator().manual_seed(0), dev)
+    x, d, t, resample_in, _ = dnerf_train_batch(spec, rspec, params, scene,
+                                                torch.Generator(device=dev).manual_seed(7), dev)
+    root = os.path.dirname(os.path.abspath(__file__))
+    res, _, cases = ftd.bwd_segment_parity(spec, params, x, d, t, "default", 0)
+    torch.cuda.synchronize()
+    for name, kinds in res.items():
+        worst = max(v[0] for v in kinds["leaf"].values())
+        print(f"dnerf bwd sound seed 0 default {name} ({x.shape[0]} points, {root}): " + "".join(
+            f"d {k} median {v[0]:.3e} p99 {v[1]:.3e} max {v[2]:.3e}; "
+            for k, v in kinds["cot"].items()) + f"worst leaf rel L2 {worst:.3e}", flush=True)
+    check(ftd.bwd_parity_ok(res), "dnerf backward kernels vs plain (bf16, seed 0)")
+    del x, d, t
+    dnerf_train_timing(spec, rspec, cases, resample_in, f"{smi}, {root}", params)
+    for k, (k_ms, p_ms, b_ms, b_by) in dnerf_fwd_timing(spec, params, cases, 65536,
+                                                        "points").items():
+        print(f"{k} timing (bf16, {smi}, {root}): kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms; "
+              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+    if hasattr(ftd, "TC_KERNELS"):
+        n = cases["dnerf_density_bwd"][3][0].shape[0]
+        tc_f64_train_readings(spec, params, cases, f"seed 0 ({n} points, {root})")
+    return 0
+
+
 def segments_only(smi: str) -> int:
     """``--segments-only``: the build, phase 9's bf16 seed-0 sound parity on
     a train batch's midpoints, phase 11's timing, phase 6's float64 readings
@@ -1875,9 +2003,11 @@ def main() -> int:
         return segments_only(smi)
     if sys.argv[1:] == ["--dnerf-train-only"]:
         return dnerf_train_only(smi)
+    if sys.argv[1:] == ["--dnerf-segments-only"]:
+        return dnerf_segments_only(smi)
     if sys.argv[1:]:
         raise SystemExit(f"usage: {sys.argv[0]} [--train-only | --segments-only | "
-                         "--dnerf-train-only]")
+                         "--dnerf-train-only | --dnerf-segments-only]")
 
     import numpy as np
 
@@ -2165,7 +2295,8 @@ def main() -> int:
     resample_abs = dnerf_resample_phase(dn_spec, dn_rspec, renderer_scene, dev)
     dnerf_whole_step_vs_plain(dn_spec, dn_rspec, renderer_scene, dev)
     dn_train_launches, _ = dnerf_train_phase(renderer_scene, dev, smi)
-    dn_train_times = dnerf_train_timing(dn_spec, dn_rspec, dn_bwd_cases, resample_in, smi)
+    dn_train_times = dnerf_train_timing(dn_spec, dn_rspec, dn_bwd_cases, resample_in, smi,
+                                        dn_params)
     del dn_bwd_cases
     dnerf_render_quality(dev, smi)
 

@@ -3,13 +3,15 @@
 // ("default" dot mode) kernels: a tile of DT_P points, the forward of a net's
 // hidden layers as tile products on mma.sync (mma_tile.cuh), and the coarse
 // sweep kernel (deform -> density -> the raw density column) over a point
-// source. The EndoNeRF render's field stage (fused_render_dnerf.cu) and the
-// density backward's recompute (fused_train_dnerf.cu) run the same tile.
+// source. The EndoNeRF render's field stage (fused_render_dnerf.cu), the
+// density forward and the density and deform backwards' recompute
+// (fused_train_dnerf.cu) run the same tile.
 //
 // Replaces, for the bf16 mode, the SIMT code of dnerf_chain.cuh and
 // sdf_chain.cuh's D-NeRF sweep inside the ports of the Pallas TPU kernels
 // endosurf_tpu/kernels/fused_render_dnerf.py (fused_render_rays_dnerf) and
-// fused_train_dnerf.py (_density_bwd_pl): there the weights stay in VMEM and
+// fused_train_dnerf.py (_density_fwd_pl, _deform_bwd_pl, _density_bwd_pl):
+// there the weights stay in VMEM and
 // the samples stream through the MXU. Here a block of NT threads owns DT_P
 // points: the layer's operand rows sit in shared memory as bf16, the weights
 // stream from L2 in fragment order through each warp's cp.async ring, each
@@ -63,9 +65,9 @@ namespace {
 // nets; at the density net's output layer its feature columns W[:, 1:]
 // [in][F] (column 0, the raw density, stays SIMT); then the density net's
 // W^T [out][in] of the same layers (the backward's walk), the output layer's
-// as [F][in].
+// as [F][in]; then the deform net's hidden W^T (its backward's walk).
 struct DnFrags {
-  long long deform[NL], density[NL], color[NL], density_t[NL];
+  long long deform[NL], density[NL], color[NL], density_t[NL], deform_t[NL];
 };
 
 DnFrags decode_dn_frags(const long long* meta) {
@@ -76,6 +78,7 @@ DnFrags decode_dn_frags(const long long* meta) {
     f.density[l] = x[NL + l];
     f.color[l] = x[2 * NL + l];
     f.density_t[l] = x[3 * NL + l];
+    f.deform_t[l] = x[4 * NL + l];
   }
   return f;
 }
@@ -95,13 +98,20 @@ __host__ __device__ inline int dt_ldh(const Model& m) {
   return k + 8;
 }
 
+// The tiles: the forward's (the sweep, the render's field stage, the
+// density forward), the density backward's (relu' bits, the cotangents on
+// the raw column and on the encoding, a float32 operand split in three bf16
+// terms) and the deform backward's (relu' bits; its cotangents are bf16
+// values, one term).
+enum DtKind { DT_FWD = 0, DT_DENSITY_BWD = 1, DT_DEFORM_BWD = 2 };
+
 // Shared memory of a tile after the weight ring: x_c [DT_P][4] (double), the
 // points x (and t), x_c, d and the outputs (raw sigma, rgb) [DT_P][4]
-// (float32); with the backward,
-// the cotangent on raw sigma [DT_P], on the density encoding [DT_P][es]
-// (float32) and the relu' bits [NL-1][DT_P][HMAX / 32]; the operand rows H
-// [DT_P][ldh] (with the backward, the mid and lo terms of a split operand
-// Hm, Hl beside it) and the encoding E [DT_P][emax] (bf16).
+// (float32); in the density backward the cotangent on raw sigma [DT_P] and on
+// the density encoding [DT_P][es] (float32); in a backward the relu' bits
+// [NL-1][DT_P][HMAX / 32]; the operand rows H [DT_P][ldh] (in the density
+// backward the mid and lo terms of a split operand Hm, Hl beside it) and the
+// encoding E [DT_P][emax] (bf16).
 struct DtTile {
   double* xcd;
   float *x, *xc, *d, *out;
@@ -110,15 +120,15 @@ struct DtTile {
   bf16 *H, *Hm, *Hl, *E;
 };
 
-inline size_t dt_smem(const Model& m, bool bwd) {
+inline size_t dt_smem(const Model& m, int kind) {
   size_t b = TC_RING_BYTES + (size_t)DT_P * 4 * 8 + (size_t)4 * DT_P * 4 * 4;
-  if (bwd)
-    b += (size_t)DT_P * 4 + (size_t)DT_P * m.es * 4 + (size_t)(NL - 1) * DT_P * (HMAX / 32) * 4;
-  b += (size_t)(bwd ? 3 : 1) * DT_P * dt_ldh(m) * 2 + (size_t)DT_P * dn_emax(m) * 2;
-  return b;
+  if (kind == DT_DENSITY_BWD) b += (size_t)DT_P * 4 + (size_t)DT_P * m.es * 4;
+  if (kind != DT_FWD) b += (size_t)(NL - 1) * DT_P * (HMAX / 32) * 4;
+  const int terms = kind == DT_DENSITY_BWD ? 3 : 1;
+  return b + (size_t)terms * DT_P * dt_ldh(m) * 2 + (size_t)DT_P * dn_emax(m) * 2;
 }
 
-__device__ __forceinline__ DtTile dt_tile(unsigned char* smem, const Model& m, bool bwd) {
+__device__ __forceinline__ DtTile dt_tile(unsigned char* smem, const Model& m, int kind) {
   DtTile s;
   s.xcd = (double*)(smem + TC_RING_BYTES);
   s.x = (float*)(s.xcd + DT_P * 4);
@@ -128,17 +138,21 @@ __device__ __forceinline__ DtTile dt_tile(unsigned char* smem, const Model& m, b
   float* f = s.out + DT_P * 4;
   s.gs = s.den = nullptr;
   s.gbit = nullptr;
-  if (bwd) {
+  if (kind == DT_DENSITY_BWD) {
     s.gs = f;
     s.den = s.gs + DT_P;
-    s.gbit = (uint32_t*)(s.den + DT_P * m.es);
+    f = s.den + DT_P * m.es;
+  }
+  if (kind != DT_FWD) {
+    s.gbit = (uint32_t*)f;
     f = (float*)(s.gbit + (NL - 1) * DT_P * (HMAX / 32));
   }
   const int ldh = dt_ldh(m);
+  const bool three = kind == DT_DENSITY_BWD;
   s.H = (bf16*)f;                                  // 16-byte aligned: the sizes above are
-  s.Hm = bwd ? s.H + DT_P * ldh : nullptr;
-  s.Hl = bwd ? s.Hm + DT_P * ldh : nullptr;
-  s.E = s.H + (bwd ? 3 : 1) * DT_P * ldh;
+  s.Hm = three ? s.H + DT_P * ldh : nullptr;
+  s.Hl = three ? s.Hm + DT_P * ldh : nullptr;
+  s.E = s.H + (three ? 3 : 1) * DT_P * ldh;
   return s;
 }
 
@@ -244,11 +258,15 @@ __device__ __forceinline__ double dt_out_col(const Net& N, const float* __restri
 
 // The deform net on the tile's rows s.x: x_c = x + the output layer, in
 // double to s.xcd and rounded once to s.xc. RX: the field's encoding
-// (coordinates rounded), else the sweep's (unrounded).
-template <bool RX>
+// (coordinates rounded), else the sweep's (unrounded). SAVE (the deform
+// backward's recompute): the hidden layers only, each layer's operand rows of
+// tile rows base .. (< n) to xin[l], the relu' bits to gbit; op(h_{L-2}) is
+// left in s.H.
+template <bool RX, bool SAVE = false>
 __device__ __forceinline__ void dt_deform(const float* __restrict__ wts, const Model& m,
                                           const DnFrags& fr, const DtTile& s, int ldh,
-                                          uint4* ring) {
+                                          uint4* ring, long long base = 0, long long n = 0,
+                                          bf16* const* xin = nullptr) {
   const int tid = threadIdx.x;
   const Net& N = m.deform;
   if (m.use_deform) {
@@ -256,8 +274,9 @@ __device__ __forceinline__ void dt_deform(const float* __restrict__ wts, const M
     __syncthreads();
     put_enc(s.H, ldh, 0, s.E, m.ed, DT_P, tid);
     __syncthreads();
-    dt_hidden<false>(N, wts, fr.deform, s.H, ldh, s.E, m.ed, ring, 0, 0, nullptr, nullptr);
+    dt_hidden<SAVE>(N, wts, fr.deform, s.H, ldh, s.E, m.ed, ring, base, n, xin, s.gbit);
   }
+  if (SAVE) return;
   for (int idx = tid; idx < 3 * DT_P; idx += NT) {
     const int p = idx / 3, col = idx - p * 3;
     const double xc = (double)s.x[p * 4 + col]
@@ -270,11 +289,13 @@ __device__ __forceinline__ void dt_deform(const float* __restrict__ wts, const M
 
 // The density net's hidden layers on x_c (encoded with RX: s.xc rounded,
 // else s.xcd) and its raw density column: raw sigma to s.out[p * 4]; leaves
-// op(h_{L-2}) in s.H.
-template <bool RX>
+// op(h_{L-2}) in s.H. SAVE (the density backward's recompute): the hidden
+// layers only, saved as dt_deform's.
+template <bool RX, bool SAVE = false>
 __device__ __forceinline__ void dt_density(const float* __restrict__ wts, const Model& m,
                                            const DnFrags& fr, const DtTile& s, int ldh,
-                                           uint4* ring) {
+                                           uint4* ring, long long base = 0, long long n = 0,
+                                           bf16* const* xin = nullptr) {
   const int tid = threadIdx.x;
   const Net& S = m.sdf;
   if (RX) dt_encode<true>(s.xc, m.f_spos, s.E, m.es, tid);
@@ -282,7 +303,8 @@ __device__ __forceinline__ void dt_density(const float* __restrict__ wts, const 
   __syncthreads();
   put_enc(s.H, ldh, 0, s.E, m.es, DT_P, tid);
   __syncthreads();
-  dt_hidden<false>(S, wts, fr.density, s.H, ldh, s.E, m.es, ring, 0, 0, nullptr, nullptr);
+  dt_hidden<SAVE>(S, wts, fr.density, s.H, ldh, s.E, m.es, ring, base, n, xin, s.gbit);
+  if (SAVE) return;
   if (tid < DT_P) s.out[tid * 4] = (float)dt_out_col(S, wts, s.H, ldh, tid, 0);
 }
 
@@ -297,7 +319,7 @@ dn_sweep_tc_kernel(const float* __restrict__ wts, const __grid_constant__ Model 
   const int tid = threadIdx.x, warp = tid >> 5;
   const int ldh = dt_ldh(m);
   uint4* ring = (uint4*)tc_smem + warp * (TC_STAGES * TC_NPW * 32);
-  const DtTile s = dt_tile(tc_smem, m, false);
+  const DtTile s = dt_tile(tc_smem, m, DT_FWD);
   const long long base = (long long)blockIdx.x * DT_P;
   for (int idx = tid; idx < DT_P * ldh; idx += NT) s.H[idx] = bzero();
   if (tid < DT_P) {
@@ -315,7 +337,7 @@ template <class Src>
 cudaError_t launch_dn_sweep_tc(const float* w, const Model& m, const DnFrags& fr, const Src& src,
                                cudaStream_t st) {
   if (src.n <= 0) return cudaSuccess;
-  const size_t smem = dt_smem(m, false);
+  const size_t smem = dt_smem(m, DT_FWD);
   cudaError_t e = set_smem(dn_sweep_tc_kernel<Src>, smem);
   if (e != cudaSuccess) return e;
   const long long blocks = (src.n + DT_P - 1) / DT_P;

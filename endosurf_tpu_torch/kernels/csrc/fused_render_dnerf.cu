@@ -216,7 +216,7 @@ dn_field_tc_kernel(const float* __restrict__ wts, const __grid_constant__ Model 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int ldh = dt_ldh(m);
   uint4* ring = (uint4*)tc_smem + warp * (TC_STAGES * TC_NPW * 32);
-  const DtTile s = dt_tile(tc_smem, m, false);
+  const DtTile s = dt_tile(tc_smem, m, DT_FWD);
   bf16* H = s.H;
   const bf16* const A1[1] = {H};
   const long long base = (long long)blockIdx.x * DT_P;
@@ -277,7 +277,7 @@ dn_field_tc_kernel(const float* __restrict__ wts, const __grid_constant__ Model 
 
 cudaError_t launch_dn_field_tc(const float* w, const Model& m, const DnFrags& fr, int R, int K,
                                const float* rb, const float* zl, float* pt, cudaStream_t st) {
-  const size_t smem = dt_smem(m, false);
+  const size_t smem = dt_smem(m, DT_FWD);
   cudaError_t e = set_smem(dn_field_tc_kernel, smem);
   if (e != cudaSuccess) return e;
   dn_field_tc_kernel<<<n_tiles((long long)R * K, DT_P), NT, smem, st>>>(w, m, fr, R, K, rb, zl,

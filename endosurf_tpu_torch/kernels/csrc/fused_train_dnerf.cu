@@ -48,22 +48,40 @@
 // net) is written once and read once by the product: 4.5-4.7 GB at the train
 // step's 262,144 points.
 //
-// The bf16 density backward runs on tensor cores (dnerf_density_bwd_tc_kernel,
-// field_tc.cuh's deform_bwd_tc_kernel design): per tile of DT_P points the forward
-// recomputed by dnerf_tc.cuh's tile (each layer's bf16 operand rows to the
-// scratch, the relu' as bits in shared memory), the output layer's cotangent
-// [g_raw | g_feat] reaching h as two separately rounded dots -- the raw
-// column's rank-1 term in SIMT, the feature's a tile product on W_feat^T with
-// the float32 g_feat split in three bf16 terms (mma_tile.cuh's split3_bf16) --
-// then the hidden layers walked back through W^T on mma, gated by the bits
-// (the first with its float32 cotangent, a sum of the two rounded dots, split
-// in three terms, the others bf16 values), d x_c through the encoding's
-// derivative in SIMT, and the weight gradients by wgrad_tc.cuh's product on
+// In bf16 the density forward and the density and deform backwards run on
+// tensor cores, each on dnerf_tc.cuh's tile of DT_P points (the forward's
+// hidden layers as tile products, the relu' as bits in shared memory).
+//
+// dnerf_density_fwd_tc_kernel: dt_density<true> (the same code the density
+// backward recomputes with, so both gate every relu alike), the raw column in
+// double, the feature columns W[:, 1:] a tile product from op(h_{L-2}) plus
+// the bias, written as float32 unrounded (the colour segments round it
+// themselves). 0.296 TFLOP at the train step's 262,144 points.
+//
+// dnerf_density_bwd_tc_kernel (field_tc.cuh's deform_bwd_tc_kernel design):
+// per tile the forward recomputed (each layer's bf16 operand rows to the
+// scratch), the output layer's cotangent [g_raw | g_feat] reaching h as two
+// separately rounded dots -- the raw column's rank-1 term in SIMT, the
+// feature's a tile product on W_feat^T with the float32 g_feat split in three
+// bf16 terms (mma_tile.cuh's split3_bf16) -- then the hidden layers walked
+// back through W^T on mma, gated by the bits (the first with its float32
+// cotangent, a sum of the two rounded dots, split in three terms, the others
+// bf16 values), d x_c through the encoding's derivative in SIMT.
+//
+// dnerf_deform_bwd_tc_kernel: the recompute likewise; the output layer's
+// cotangent g_xc (3 wide, float32) reaches h_{L-2} as one rank-3 dot in
+// double, rounded once, so every hidden cotangent of its walk is a bf16
+// value (one operand term, a smaller tile: two blocks an SM); the walk forms
+// only the h rows (xt gets no cotangent: no encoding rows, nothing below
+// layer 0).
+//
+// Both backwards then take the weight gradients by wgrad_tc.cuh's product on
 // the bf16 scratch (float32 where a cotangent is not a bf16 value, split in
 // three bf16 terms: in two, hi + lo, its remainder of up to 2^-16 put the
-// output layer's bias and feature gradients farther from float64 than the SIMT
-// product's, PERF.md §6): about 2,500 floats' worth a point, 2.6 GB at
-// 262,144 points.
+// density output layer's bias and feature gradients farther from float64
+// than the SIMT product's, PERF.md §6). Scratch a point at base.yml's nets:
+// about 2,500 floats' worth for the density (2.6 GB at 262,144 points), 8,640
+// bytes for the deform (2.3 GB; the SIMT kernel's 4.5 GB).
 
 #include "dnerf_tc.cuh"
 #include "wgrad_tc.cuh"
@@ -360,39 +378,40 @@ void dn_plan_bwd(const Model& m, int seg, long long n, int rb, float* scratch, f
 }
 
 // ---------------------------------------------------------------------------
-// the bf16 density backward on tensor cores
+// the bf16 density forward and density and deform backwards on tensor cores
 // ---------------------------------------------------------------------------
 
-// Global scratch of the tensor-core density backward, rows indexed by point.
+// Global scratch of a tensor-core backward, rows indexed by point.
 struct DtScratch {
   bf16* xin[NL];   // layer l's operand rows [n][c16(in_l)]
-  bf16* dzb[NL];   // cotangent on layer l's pre-activation [n][c16(out_l)], l < L-2
-  float* dz[NL];   // the same for l = L-2 (a sum of two rounded dots) and the output
-                   //   layer's [g_raw | g_feat] [n][c16(1 + F)] (float32)
+  bf16* dzb[NL];   // cotangent on layer l's pre-activation [n][c16(out_l)] (a bf16 value)
+  float* dz[NL];   // the same where it is not: the density's layers L-2 (a sum of two
+                   //   rounded dots) and L-1 ([g_raw | g_feat]), the deform's L-1 (g_xc)
 };
 
-// The scratch of the tensor-core density backward and its weight-gradient
-// jobs (dW and db into grad at the packed weights' offsets); with null
-// pointers it only counts: *scratch_floats, *partial_floats
+// The scratch of a tensor-core backward of net N and its weight-gradient
+// jobs (dW and db into grad at the packed weights' offsets); the
+// cotangents of layers f32_from .. L-1 are float32, those below bf16. With
+// null pointers it only counts: *scratch_floats, *partial_floats
 // (kernels/fused_train_dnerf.bwd_sizes mirrors it).
-void plan_density_bwd_tc(const Model& m, long long n, void* scratch, float* grad, DtScratch& sv,
-                         TcJobs& jobs, long long* scratch_floats, long long* partial_floats) {
+void plan_bwd_tc(const Net& N, int f32_from, long long n, void* scratch, float* grad,
+                 DtScratch& sv, TcJobs& jobs, long long* scratch_floats,
+                 long long* partial_floats) {
   BytePlanner pl{(char*)scratch};
   sv = DtScratch{};
   jobs.w.n_jobs = 0;
   jobs.w.n_blocks = 0;
   jobs.n_blocks = 0;
   long long part = 0;
-  const Net& N = m.sdf;
   const int L = N.n_layers;
   for (int l = 0; l < L; ++l) {
     sv.xin[l] = pl.take<bf16>(n * c16(N.in_dim[l]));
-    if (l < L - 2) sv.dzb[l] = pl.take<bf16>(n * c16(N.out_dim[l]));
+    if (l < f32_from) sv.dzb[l] = pl.take<bf16>(n * c16(N.out_dim[l]));
     else sv.dz[l] = pl.take<float>(n * c16(N.out_dim[l]));
   }
   for (int l = 0; l < L; ++l) {
     const int in_l = N.in_dim[l], out_l = N.out_dim[l];
-    const bool f32 = l >= L - 2;
+    const bool f32 = l >= f32_from;
     const void* B = f32 ? (const void*)sv.dz[l] : (const void*)sv.dzb[l];
     const int kb = f32 ? OP_F32X3 : OP_BF16;   // float32 cotangents in three bf16 terms
     float* dw = grad ? grad + N.w_off[l] : nullptr;
@@ -406,17 +425,78 @@ void plan_density_bwd_tc(const Model& m, long long n, void* scratch, float* grad
   if (partial_floats) *partial_floats = part;
 }
 
-// One hidden layer l of the density backward's walk through W_l^T (TERMS
-// bf16 terms of the cotangent in H, Hm, Hl): each input column's cotangent
-// op(acc) goes to the h part (gated by the relu' of layer l - 1's output, in
-// place in H) or, for the encoding columns of layer 0 and of a skip layer, is
-// added to den. An input wider than the 256 columns the warps own takes one
-// pass per group of 256: those past the h part first (they touch den only),
-// the group with the h part last, written after a barrier.
+// The float32 cotangents of the density backward: layers L-2 and L-1; of the
+// deform backward: L-1.
+inline int density_f32_from(const Model& m) { return m.sdf.n_layers - 2; }
+inline int deform_f32_from(const Model& m) { return m.deform.n_layers - 1; }
+
+// x_c [n][3] -> raw sigma [n] and feat [n][F] (dnerf_density_fwd_kernel<true>'s
+// maths on tensor cores; the feature float32, unrounded).
+__global__ void __launch_bounds__(NT, 2)
+dnerf_density_fwd_tc_kernel(const float* __restrict__ wts, const __grid_constant__ Model m,
+                            const __grid_constant__ DnFrags fr, long long n,
+                            const float* __restrict__ xc, float* __restrict__ sigma,
+                            float* __restrict__ feat) {
+  constexpr int MT = DT_MT;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ldh = dt_ldh(m);
+  uint4* ring = (uint4*)tc_smem + warp * (TC_STAGES * TC_NPW * 32);
+  const DtTile s = dt_tile(tc_smem, m, DT_FWD);
+  const long long base = (long long)blockIdx.x * DT_P;
+  for (int idx = tid; idx < DT_P * ldh; idx += NT) s.H[idx] = bzero();
+  for (int idx = tid; idx < DT_P * 4; idx += NT) {
+    const int p = idx >> 2, c = idx & 3;
+    s.xc[idx] = c < 3 && base + p < n ? xc[(size_t)(base + p) * 3 + c] : 0.f;
+  }
+  __syncthreads();
+  dt_density<true>(wts, m, fr, s, ldh, ring);
+  // the feature: columns 1 .. F of the output layer, a tile product from
+  // op(h_{L-2}), + the bias
+  const Net& S = m.sdf;
+  const int lo = S.n_layers - 1, F = m.feat_dim;
+  const int np_me = warp * TC_NPW, np_f = c16(F) / 16, npw = clampw(np_f - np_me);
+  const bf16* const A1[1] = {s.H};
+  float acc[MT][2 * TC_NPW][4];
+  zero_acc(acc);
+  tile_mma<MT, 1>(acc, A1, ldh, (const uint4*)(wts + fr.density[lo]), np_f, np_me, npw, 0,
+                  c16(S.in_dim[lo]) / 16, ring, lane);
+  const float* bf = wts + S.b_off[lo] + 1;
+  for_pairs(acc, np_me, npw, lane, [&](int row, int c, float a0, float a1) {
+    if (base + row >= n) return;
+    float* o = feat + (size_t)(base + row) * F + c;
+    if (c < F) o[0] = a0 + bf[c];
+    if (c + 1 < F) o[1] = a1 + bf[c + 1];
+  });
+  if (tid < DT_P && base + tid < n) sigma[base + tid] = s.out[tid * 4];
+}
+
+cudaError_t launch_density_fwd_tc(const float* w, const long long* meta, const Model& m,
+                                  long long n, const float* xc, float* sigma, float* feat,
+                                  cudaStream_t st) {
+  if (n <= 0) return cudaSuccess;
+  const size_t smem = dt_smem(m, DT_FWD);
+  cudaError_t e = set_smem(dnerf_density_fwd_tc_kernel, smem);
+  if (e != cudaSuccess) return e;
+  dnerf_density_fwd_tc_kernel<<<n_tiles(n, DT_P), NT, smem, st>>>(w, m, decode_dn_frags(meta), n,
+                                                                  xc, sigma, feat);
+  return cudaGetLastError();
+}
+
+// One hidden layer l (> 0, or 0 with den) of a backward's walk through
+// W_l^T (frag: its fragments; TERMS bf16 terms of the cotangent in H, Hm,
+// Hl): each input column's cotangent op(acc) goes to the h part (gated by
+// the relu' of layer l - 1's output, in place in H) or, with den (the
+// density's), for the encoding columns of layer 0 and of a skip layer, is
+// added to den [DT_P][ew]; without den only the h part is formed (the
+// deform's: its encoding gets no cotangent). An input wider than the 256
+// columns the warps own takes one pass per group of 256: those past the h
+// part first (they touch den only), the group with the h part last, written
+// after a barrier.
 template <int TERMS>
-__device__ __forceinline__ void dt_walk_layer(const Net& S, int l, const float* __restrict__ wts,
-                                              const DnFrags& fr, const DtTile& s, int ldh,
-                                              int es, uint4* ring) {
+__device__ __forceinline__ void dt_walk_layer(const Net& N, int l, const float* __restrict__ wts,
+                                              long long frag, const DtTile& s, int ldh, int ew,
+                                              float* den, uint4* ring) {
   constexpr int MT = DT_MT, WB = HMAX / 32, NPG = HMAX / 16;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const bf16* AT[TERMS];
@@ -425,11 +505,12 @@ __device__ __forceinline__ void dt_walk_layer(const Net& S, int l, const float* 
     AT[1] = s.Hm;
     AT[2] = s.Hl;
   }
-  const int in_l = S.in_dim[l], out_l = S.out_dim[l];
-  const bool skip = (S.skip_mask >> l) & 1;
-  const int n_h = l == 0 ? 0 : (skip ? in_l - es : in_l);
+  const int in_l = N.in_dim[l], out_l = N.out_dim[l];
+  const bool skip = (N.skip_mask >> l) & 1;
+  const int n_h = l == 0 ? 0 : (skip ? in_l - ew : in_l);
   const int np_in = c16(in_l) / 16, kt1 = c16(out_l) / 16, np_me = warp * TC_NPW;
-  const uint4* B = (const uint4*)(wts + fr.density_t[l]);
+  const int np_do = den ? np_in : c16(n_h) / 16;   // the column pairs formed
+  const uint4* B = (const uint4*)(wts + frag);
   auto epi = [&](int row, int c, float a0, float a1) {
     const float a[2] = {a0, a1};
 #pragma unroll
@@ -441,17 +522,17 @@ __device__ __forceinline__ void dt_walk_layer(const Net& S, int l, const float* 
         const bool on = i < n_h && ((word >> (i & 31)) & 1);
         s.H[row * ldh + i] = on ? __float2bfloat16_rn(v) : bzero();
       }
-      if (i >= n_h && i < in_l) s.den[row * es + i - n_h] += v;
+      if (den && i >= n_h && i < in_l) den[row * ew + i - n_h] += v;
     }
   };
   float acc[MT][2 * TC_NPW][4];
-  for (int gr = (np_in - 1) / NPG; gr >= 1; --gr) {
-    const int np0 = gr * NPG + np_me, npw = clampw(np_in - np0);
+  for (int gr = (np_do - 1) / NPG; gr >= 1; --gr) {
+    const int np0 = gr * NPG + np_me, npw = clampw(np_do - np0);
     zero_acc(acc);
     tile_mma<MT, TERMS>(acc, AT, ldh, B, np_in, np0, npw, 0, kt1, ring, lane);
     for_pairs(acc, np0, npw, lane, epi);
   }
-  const int npw = clampw(min(np_in, NPG) - np_me);
+  const int npw = clampw(min(np_do, NPG) - np_me);
   zero_acc(acc);
   tile_mma<MT, TERMS>(acc, AT, ldh, B, np_in, np_me, npw, 0, kt1, ring, lane);
   __syncthreads();
@@ -472,7 +553,7 @@ dnerf_density_bwd_tc_kernel(const float* __restrict__ wts, const __grid_constant
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int ldh = dt_ldh(m);
   uint4* ring = (uint4*)tc_smem + warp * (TC_STAGES * TC_NPW * 32);
-  const DtTile s = dt_tile(tc_smem, m, true);
+  const DtTile s = dt_tile(tc_smem, m, DT_DENSITY_BWD);
   const Net& S = m.sdf;
   const int L = S.n_layers, es = m.es, F = m.feat_dim, G = 1 + F;
   const long long base = (long long)blockIdx.x * DT_P;
@@ -488,11 +569,7 @@ dnerf_density_bwd_tc_kernel(const float* __restrict__ wts, const __grid_constant
   __syncthreads();
 
   // ---- forward recompute: hidden layers, each layer's operand rows saved
-  dt_encode<true>(s.xc, m.f_spos, s.E, es, tid);
-  __syncthreads();
-  put_enc(s.H, ldh, 0, s.E, es, DT_P, tid);
-  __syncthreads();
-  dt_hidden<true>(S, wts, fr.density, s.H, ldh, s.E, es, ring, base, n, sv.xin, s.gbit);
+  dt_density<true, true>(wts, m, fr, s, ldh, ring, base, n, sv.xin);
   const int n_in = S.in_dim[L - 1];
   save_rows<1, DT_P>(sv.xin[L - 1], s.H, ldh, c16(n_in), base, n, tid);
   {   // the output layer's cotangent [g_raw | g_feat] (float32, the weight gradient's operand)
@@ -545,10 +622,10 @@ dnerf_density_bwd_tc_kernel(const float* __restrict__ wts, const __grid_constant
   // ---- the hidden layers L-2 .. 0 through W^T
   for (int l = L - 2; l >= 0; --l) {
     if (l == L - 2) {
-      dt_walk_layer<3>(S, l, wts, fr, s, ldh, es, ring);
+      dt_walk_layer<3>(S, l, wts, fr.density_t[l], s, ldh, es, s.den, ring);
     } else {
       save_rows<1, DT_P>(sv.dzb[l], s.H, ldh, c16(S.out_dim[l]), base, n, tid);
-      dt_walk_layer<1>(S, l, wts, fr, s, ldh, es, ring);
+      dt_walk_layer<1>(S, l, wts, fr.density_t[l], s, ldh, es, s.den, ring);
     }
   }
 
@@ -576,12 +653,95 @@ cudaError_t launch_density_bwd_tc(const float* w, const long long* meta, const M
   if (n <= 0) return cudaSuccess;
   DtScratch sv;
   TcJobs jobs;
-  plan_density_bwd_tc(m, n, scratch, grad, sv, jobs, nullptr, nullptr);
-  const size_t smem = dt_smem(m, true);
+  plan_bwd_tc(m.sdf, density_f32_from(m), n, scratch, grad, sv, jobs, nullptr, nullptr);
+  const size_t smem = dt_smem(m, DT_DENSITY_BWD);
   cudaError_t e = set_smem(dnerf_density_bwd_tc_kernel, smem);
   if (e != cudaSuccess) return e;
   dnerf_density_bwd_tc_kernel<<<n_tiles(n, DT_P), NT, smem, st>>>(
       w, m, decode_dn_frags(meta), n, xc, g_raw, g_feat, dxc, sv);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  return run_wgrad_tc(jobs, partial, st);
+}
+
+// Cotangent on x_c [n][3] -> the deform net's scratch
+// (dnerf_deform_bwd_kernel<true>'s maths on tensor cores; x_c = x + z_last:
+// d z_last = g_xc, xt gets none).
+__global__ void __launch_bounds__(NT, 2)
+dnerf_deform_bwd_tc_kernel(const float* __restrict__ wts, const __grid_constant__ Model m,
+                           const __grid_constant__ DnFrags fr, long long n,
+                           const float* __restrict__ xt, const float* __restrict__ g_xc,
+                           const __grid_constant__ DtScratch sv) {
+  constexpr int WB = HMAX / 32;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int ldh = dt_ldh(m);
+  uint4* ring = (uint4*)tc_smem + warp * (TC_STAGES * TC_NPW * 32);
+  const DtTile s = dt_tile(tc_smem, m, DT_DEFORM_BWD);
+  const Net& N = m.deform;
+  const int L = N.n_layers, ed = m.ed;
+  const long long base = (long long)blockIdx.x * DT_P;
+  for (int idx = tid; idx < DT_P * ldh; idx += NT) s.H[idx] = bzero();
+  for (int idx = tid; idx < DT_P * 4; idx += NT) {
+    const int p = idx >> 2, c = idx & 3;
+    const bool in = base + p < n;
+    s.x[idx] = in ? xt[(size_t)(base + p) * 4 + c] : 0.f;
+    s.out[idx] = in && c < 3 ? g_xc[(size_t)(base + p) * 3 + c] : 0.f;   // g_xc
+  }
+  __syncthreads();
+
+  // ---- forward recompute: hidden layers, each layer's operand rows saved
+  dt_deform<true, true>(wts, m, fr, s, ldh, ring, base, n, sv.xin);
+  const int n_in = N.in_dim[L - 1];
+  save_rows<1, DT_P>(sv.xin[L - 1], s.H, ldh, c16(n_in), base, n, tid);
+  {   // the output layer's cotangent g_xc (float32, the weight gradient's operand)
+    const int w = c16(N.out_dim[L - 1]);
+    for (int idx = tid; idx < DT_P * w; idx += NT) {
+      const int p = idx / w, f = idx - p * w;
+      if (base + p < n) sv.dz[L - 1][(size_t)(base + p) * w + f] = f < 3 ? s.out[p * 4 + f] : 0.f;
+    }
+  }
+  __syncthreads();
+
+  // ---- the output layer: the cotangent on h_{L-2}, g_xc W^T (rank 3) in
+  // double, rounded once, gated: layer L-2's pre-activation cotangent
+  {
+    const bool skip = (N.skip_mask >> (L - 1)) & 1;
+    const int n_h = skip ? n_in - ed : n_in, w = c16(n_h);
+    const float* W = wts + N.w_off[L - 1];      // [n_in][3]
+    for (int idx = tid; idx < DT_P * w; idx += NT) {
+      const int p = idx / w, i = idx - p * w;
+      bf16 v = bzero();
+      if (i < n_h && ((s.gbit[((L - 2) * DT_P + p) * WB + (i >> 5)] >> (i & 31)) & 1)) {
+        double o = 0.0;
+        for (int c = 0; c < 3; ++c)
+          o = fma((double)s.out[p * 4 + c], (double)W[(size_t)i * 3 + c], o);
+        v = dt_bf16(o);
+      }
+      s.H[p * ldh + i] = v;
+    }
+    __syncthreads();
+  }
+
+  // ---- the hidden layers L-2 .. 1 through W^T (the h rows only); layer 0's
+  // cotangent is saved, its input (the encoding) gets none
+  for (int l = L - 2; l >= 0; --l) {
+    save_rows<1, DT_P>(sv.dzb[l], s.H, ldh, c16(N.out_dim[l]), base, n, tid);
+    if (l > 0) dt_walk_layer<1>(N, l, wts, fr.deform_t[l], s, ldh, ed, nullptr, ring);
+  }
+}
+
+cudaError_t launch_deform_bwd_tc(const float* w, const long long* meta, const Model& m,
+                                 long long n, const float* xt, const float* g_xc, float* scratch,
+                                 float* partial, float* grad, cudaStream_t st) {
+  if (n <= 0) return cudaSuccess;
+  DtScratch sv;
+  TcJobs jobs;
+  plan_bwd_tc(m.deform, deform_f32_from(m), n, scratch, grad, sv, jobs, nullptr, nullptr);
+  const size_t smem = dt_smem(m, DT_DEFORM_BWD);
+  cudaError_t e = set_smem(dnerf_deform_bwd_tc_kernel, smem);
+  if (e != cudaSuccess) return e;
+  dnerf_deform_bwd_tc_kernel<<<n_tiles(n, DT_P), NT, smem, st>>>(w, m, decode_dn_frags(meta), n,
+                                                                 xt, g_xc, sv);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   return run_wgrad_tc(jobs, partial, st);
 }
@@ -634,9 +794,13 @@ int dnerf_deform_fwd(const float* w, const long long* meta, int rb, long long n,
                     n, (cudaStream_t)stream, w, m, n, xt, xc);
 }
 
-int dnerf_density_fwd(const float* w, const long long* meta, int rb, long long n,
+// With rb and tc the tensor-core kernel (meta then carries the bf16 pack's
+// fragment extension); rb without tc runs the SIMT one (a comparison only).
+int dnerf_density_fwd(const float* w, const long long* meta, int rb, int tc, long long n,
                       const float* xc, float* sigma, float* feat, void* stream) {
   const Model m = decode_model(meta);
+  if (rb && tc)
+    return (int)launch_density_fwd_tc(w, meta, m, n, xc, sigma, feat, (cudaStream_t)stream);
   return launch_seg(dnerf_density_fwd_kernel<true>, dnerf_density_fwd_kernel<false>, rb != 0,
                     m, n, (cudaStream_t)stream, w, m, n, xc, sigma, feat);
 }
@@ -649,14 +813,16 @@ int dnerf_color_fwd(const float* w, const long long* meta, int rb, long long n,
 }
 
 // The floats of scratch and of partial sums a backward needs for n points
-// (seg: 0 deform, 1 density, 2 colour; tc: the bf16 density backward on
-// tensor cores): out[0] scratch, out[1] partial.
+// (seg: 0 deform, 1 density, 2 colour; tc: the bf16 deform or density
+// backward on tensor cores): out[0] scratch, out[1] partial.
 void dnerf_bwd_sizes(const long long* meta, int seg, int tc, long long n, long long* out) {
   const Model m = decode_model(meta);
-  if (seg == 1 && tc) {
+  if (seg < 2 && tc) {
     DtScratch sv;
     TcJobs jobs;
-    plan_density_bwd_tc(m, n, nullptr, nullptr, sv, jobs, out, out + 1);
+    if (seg == 0) plan_bwd_tc(m.deform, deform_f32_from(m), n, nullptr, nullptr, sv, jobs, out,
+                              out + 1);
+    else plan_bwd_tc(m.sdf, density_f32_from(m), n, nullptr, nullptr, sv, jobs, out, out + 1);
     return;
   }
   DnScratch sv;
@@ -665,17 +831,21 @@ void dnerf_bwd_sizes(const long long* meta, int seg, int tc, long long n, long l
 }
 
 // The backwards: scratch / partial of dnerf_bwd_sizes floats; grad of the
-// packed weights' size (dW and db land at their weights' offsets).
-int dnerf_deform_bwd(const float* w, const long long* meta, int rb, long long n,
+// packed weights' size (dW and db land at their weights' offsets). With rb
+// and tc the deform and density backwards run their tensor-core kernels
+// (meta then carries the bf16 pack's fragment extension); rb without tc the
+// SIMT ones (a comparison only).
+int dnerf_deform_bwd(const float* w, const long long* meta, int rb, int tc, long long n,
                      const float* xt, const float* g_xc, float* scratch, float* partial,
                      float* grad, void* stream) {
   const Model m = decode_model(meta);
+  if (rb && tc)
+    return (int)launch_deform_bwd_tc(w, meta, m, n, xt, g_xc, scratch, partial, grad,
+                                     (cudaStream_t)stream);
   return launch_bwd(dnerf_deform_bwd_kernel<true>, dnerf_deform_bwd_kernel<false>, rb != 0, m,
                     0, n, scratch, partial, grad, (cudaStream_t)stream, w, m, n, xt, g_xc);
 }
 
-// With rb and tc the tensor-core kernel (meta then carries the bf16 pack's
-// fragment extension); rb without tc runs the SIMT one (a comparison only).
 int dnerf_density_bwd(const float* w, const long long* meta, int rb, int tc, long long n,
                       const float* xc, const float* g_raw, const float* g_feat, float* dxc,
                       float* scratch, float* partial, float* grad, void* stream) {

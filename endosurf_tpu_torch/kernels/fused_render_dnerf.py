@@ -280,7 +280,7 @@ def fused_render_rays_dnerf_cuda(spec, rspec, params: Dict[str, Any], rays: torc
     meta = main.meta if main.rb else samp.meta    # the bf16 one: its extension, the same prefix
     tc = not simt and (samp.rb or main.rb)
     if tc:
-        check_tc_nets(main if main.rb else samp, bwd=False)
+        check_tc_nets(main if main.rb else samp, "fwd")
     z0 = init_z(rspec, rays, eps).contiguous()
     scratch = torch.empty(lib.fused_render_dnerf_scratch_floats(n_rays), dtype=torch.float32,
                           device=device)

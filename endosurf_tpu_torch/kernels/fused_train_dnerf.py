@@ -27,10 +27,12 @@ CUDA tensors run the kernels of ``csrc/fused_train_dnerf.cu`` over
 ``csrc/dnerf_chain.cuh``: ``dnerf_*_fwd`` and ``dnerf_*_bwd``, each counted
 in ``LAUNCHES``, on weights packed by ``pack_dnerf`` (the one layout every
 D-NeRF kernel reads: ``fused_density_raw`` and the render kernel too;
-cached a parameter set). The bf16 density backward runs on tensor cores
-(``csrc/dnerf_tc.cuh``'s tile); ``dnerf_density_bwd(..., simt=True)`` runs
-the SIMT kernel, which only the float64 comparison asks for
-(``dnerf_density_bwd_float64``, the yardstick).
+cached a parameter set). The bf16 density forward and the bf16 deform and
+density backwards run on tensor cores (``csrc/dnerf_tc.cuh``'s tile);
+``simt=True`` (``dnerf_density_fwd``, ``dnerf_deform_bwd``,
+``dnerf_density_bwd``) runs the SIMT kernel, which only the float64
+comparisons ask for (the yardsticks ``dnerf_density_fwd_float64``,
+``dnerf_deform_bwd_float64``, ``dnerf_density_bwd_float64``).
 """
 
 from __future__ import annotations
@@ -270,14 +272,14 @@ def cuda_dnerf_supported(spec) -> bool:
 SLOTS = {"deform": 0, "density": 1, "color": 2}     # the nets' places in the Model meta
 META_LEN = 8 + 3 * META_NET                         # csrc/sdf_chain.cuh's Model meta
 # The bf16 pack's fragment extension (csrc/dnerf_tc.cuh's decode_dn_frags):
-# NL float offsets each of the deform, density and colour nets' W and of the
-# density net's W^T, each (net slot, transposed, output layer) as
-# fused_sampler.frag_index takes them: the hidden layers, and at the density
-# net's output layer its feature columns W[:, 1:] (the raw column 0 stays
-# SIMT); -1 where a layer has none.
+# NL float offsets each of the deform, density and colour nets' W, of the
+# density net's W^T and of the deform net's W^T, each (net slot, transposed,
+# output layer) as fused_sampler.frag_index takes them: the hidden layers,
+# and at the density net's output layer its feature columns W[:, 1:] (the raw
+# column 0 stays SIMT); -1 where a layer has none.
 FEATURE_COLS = slice(1, None)
 DN_FRAG_BLOCKS = ((0, False, False), (1, False, FEATURE_COLS), (2, False, False),
-                  (1, True, FEATURE_COLS))
+                  (1, True, FEATURE_COLS), (0, True, False))
 # The largest dynamic shared memory a block may take on an H100 (227 KiB).
 SMEM_LIMIT = 232448
 
@@ -314,11 +316,20 @@ def _enc_widths(meta: Sequence[int]) -> Tuple[int, int, int]:
             3 * (1 + 2 * meta[5]))
 
 
-def tc_smem_bytes(meta: Sequence[int], bwd: bool) -> int:
+# The tensor-core tiles (csrc/dnerf_tc.cuh's DtKind): "fwd" the coarse sweep's,
+# the render's field stage's and the density forward's; "density_bwd" and
+# "deform_bwd" the backwards'.
+TC_TILES = ("fwd", "density_bwd", "deform_bwd")
+
+
+def tc_smem_bytes(meta: Sequence[int], tile: str) -> int:
     """Shared memory of a tensor-core D-NeRF tile (``csrc/dnerf_tc.cuh``'s
     dt_smem): the weight ring, the points (x_c in double too), the operand
-    rows (three terms in the backward) at the pitch of the widest layer, the
-    encoding; the backward's cotangents and relu' bits."""
+    rows (three terms in the density backward) at the pitch of the widest
+    layer, the encoding; a backward's relu' bits, the density backward's
+    cotangents on the raw column and the encoding."""
+    if tile not in TC_TILES:
+        raise ValueError(f"no tensor-core tile {tile!r}")
     ed, es, cr = _enc_widths(meta)
     k = _c16(cr + meta[6])
     for q in range(0 if meta[0] else 1, 3):
@@ -326,20 +337,22 @@ def tc_smem_bytes(meta: Sequence[int], bwd: bool) -> int:
         for l in range(net[0]):
             k = max(k, _c16(net[2 + l]), _c16(net[2 + NL + l]))
     ring = 8 * 4 * 2 * 32 * 16
-    size = (ring + 64 * 4 * 8 + 4 * 64 * 4 * 4 + (3 if bwd else 1) * 64 * (k + 8) * 2
+    terms = 3 if tile == "density_bwd" else 1
+    size = (ring + 64 * 4 * 8 + 4 * 64 * 4 * 4 + terms * 64 * (k + 8) * 2
             + 64 * max(ed, es, cr) * 2)
-    if bwd:
-        size += 64 * 4 + 64 * es * 4 + (NL - 1) * 64 * (HMAX // 32) * 4
+    if tile != "fwd":
+        size += (NL - 1) * 64 * (HMAX // 32) * 4
+    if tile == "density_bwd":
+        size += 64 * 4 + 64 * es * 4
     return size
 
 
-def check_tc_nets(packed: DnPacked, bwd: bool) -> None:
-    """The nets the tensor-core D-NeRF kernels take: a bf16 pack whose tile
-    (the backward's with ``bwd``, else the forward's) fits in shared
-    memory."""
-    if not packed.rb or len(packed.meta) != META_LEN + 4 * NL:
+def check_tc_nets(packed: DnPacked, tile: str) -> None:
+    """The nets a tensor-core D-NeRF kernel takes: a bf16 pack whose tile
+    (``TC_TILES``) fits in shared memory."""
+    if not packed.rb or len(packed.meta) != META_LEN + len(DN_FRAG_BLOCKS) * NL:
         raise ValueError("the tensor-core D-NeRF kernels take a bf16 pack with fragments")
-    need = tc_smem_bytes(packed.meta, bwd)
+    need = tc_smem_bytes(packed.meta, tile)
     if need > SMEM_LIMIT:
         raise ValueError(f"the tensor-core D-NeRF kernels do not take these nets: a tile needs "
                          f"{need} bytes of shared memory, more than {SMEM_LIMIT}")
@@ -415,8 +428,8 @@ def _arg(t: torch.Tensor, shape, name: str) -> torch.Tensor:
 
 def _run(name: str, packed: DnPacked, n: int, *tensors: torch.Tensor,
          tc: Optional[bool] = None) -> None:
-    """Launch kernel entry ``name``; ``tc`` (the density backward's): the
-    tensor-core kernel in bf16."""
+    """Launch kernel entry ``name``; ``tc`` (the density forward's and the
+    deform and density backwards'): the tensor-core kernel in bf16."""
     from endosurf_tpu_torch.kernels.build import load_library
     lib = load_library()
     device = tensors[0].device
@@ -442,14 +455,27 @@ def dnerf_deform_fwd(packed: DnPacked, xt: torch.Tensor) -> torch.Tensor:
     return x_c
 
 
-def dnerf_density_fwd(packed: DnPacked, x_c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x_c [N, 3] -> (raw sigma [N, 1], feat [N, F])."""
+def _tc(packed: DnPacked, simt: bool, tile: str) -> bool:
+    """Whether a call runs its tensor-core kernel: a bf16 pack, not ``simt``;
+    the nets are checked against the kernel's tile."""
+    tc = packed.rb and not simt
+    if tc:
+        check_tc_nets(packed, tile)
+    return tc
+
+
+def dnerf_density_fwd(packed: DnPacked, x_c: torch.Tensor, simt: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x_c [N, 3] -> (raw sigma [N, 1], feat [N, F]). A bf16 pack runs the
+    tensor-core kernel; ``simt`` runs the SIMT one instead (the float64
+    comparison only)."""
     n = x_c.shape[0]
     x_c = _arg(x_c, (n, 3), "x_c")
     f = packed.meta[6]
+    tc = _tc(packed, simt, "fwd")
     raw = torch.empty(n, 1, dtype=torch.float32, device=x_c.device)
     feat = torch.empty(n, f, dtype=torch.float32, device=x_c.device)
-    _run("dnerf_density_fwd", packed, n, x_c, raw, feat)
+    _run("dnerf_density_fwd", packed, n, x_c, raw, feat, tc=tc)
     return raw, feat
 
 
@@ -466,29 +492,47 @@ def dnerf_color_fwd(packed: DnPacked, d: torch.Tensor, feat: torch.Tensor) -> to
 WG_KC = 4096          # points per chunk of the weight-gradient sums (csrc/wgrad.cuh)
 
 
-def bwd_sizes(meta: Sequence[int], seg: str, n: int, tc: bool = False) -> Tuple[int, int]:
-    """Floats of (scratch, partial sums) a backward needs for n points, as
-    ``csrc/fused_train_dnerf.cu``'s planners lay them out
-    (``dnerf_bwd_sizes``). SIMT (dn_plan_bwd): every layer's float32 operands
-    [n, in] and pre-activation cotangents [n, out], back to back. The
-    tensor-core density backward (``tc``, plan_density_bwd_tc): each layer's
-    bf16 operand rows [n, c16(in)], the bf16 cotangents [n, c16(out)] of
-    layers 0 .. L-3 and the float32 ones of layers L-2 and L-1, each array
-    256-byte aligned. Partial sums: each weight and bias gradient's
-    [chunks of WG_KC points][in or 1][out]."""
+def scratch_layout(meta: Sequence[int], seg: str, n: int, tc: bool = False
+                   ) -> List[Tuple[Tuple[int, torch.dtype, int], Tuple[int, torch.dtype, int]]]:
+    """Where a backward's scratch holds each layer's operand rows and
+    pre-activation cotangents for n points, as ``csrc/fused_train_dnerf.cu``'s
+    planners lay them out: per layer ((byte offset, dtype, row width) of the
+    operands, (the same) of the cotangents). SIMT (dn_plan_bwd): float32
+    [n, in] and [n, out], back to back. The tensor-core deform and density
+    backwards (``tc``, plan_bwd_tc): bf16 operand rows [n, c16(in)] and
+    cotangents [n, c16(out)], float32 from layer L-2 on in the density's, at
+    layer L-1 in the deform's, bf16 below, each array 256-byte aligned."""
     net = _net_meta(meta, SLOTS[seg])
     n_layers = net[0]
     ins, outs = net[2:2 + n_layers], net[2 + NL:2 + NL + n_layers]
-    chunks = -(-n // WG_KC)
-    partial = sum(chunks * (i + 1) * o for i, o in zip(ins, outs))
-    if not (tc and seg == "density"):
-        return sum(n * (i + o) for i, o in zip(ins, outs)), partial
-    used = 0
+    tc = tc and seg in ("deform", "density")
+    f32_from = n_layers - (2 if seg == "density" else 1)
+    bf, f32 = torch.bfloat16, torch.float32
+    layout, used = [], 0
     for l, (i, o) in enumerate(zip(ins, outs)):
-        arrays = [(2, _c16(i)), (2 if l < n_layers - 2 else 4, _c16(o))]
-        for item, width in arrays:
-            used = -(-used // 256) * 256 + n * width * item
-    return -(-used // 4), partial
+        arrays = ([(bf, _c16(i)), (bf if l < f32_from else f32, _c16(o))] if tc
+                  else [(f32, i), (f32, o)])
+        pair = []
+        for dtype, width in arrays:
+            if tc:
+                used = -(-used // 256) * 256
+            pair.append((used, dtype, width))
+            used += n * width * (2 if dtype == bf else 4)
+        layout.append(tuple(pair))
+    return layout
+
+
+def bwd_sizes(meta: Sequence[int], seg: str, n: int, tc: bool = False) -> Tuple[int, int]:
+    """Floats of (scratch, partial sums) a backward needs for n points
+    (``csrc/fused_train_dnerf.cu``'s ``dnerf_bwd_sizes``): the scratch of
+    ``scratch_layout``; partial sums: each weight and bias gradient's [chunks
+    of WG_KC points][in or 1][out]."""
+    net = _net_meta(meta, SLOTS[seg])
+    n_layers = net[0]
+    ins, outs = net[2:2 + n_layers], net[2 + NL:2 + NL + n_layers]
+    partial = sum(-(-n // WG_KC) * (i + 1) * o for i, o in zip(ins, outs))
+    off, dtype, width = scratch_layout(meta, seg, n, tc)[-1][1]
+    return -(-(off + n * width * (2 if dtype == torch.bfloat16 else 4)) // 4), partial
 
 
 def _bwd_buffers(packed: DnPacked, seg: str, n: int, device, tc: bool = False):
@@ -499,14 +543,16 @@ def _bwd_buffers(packed: DnPacked, seg: str, n: int, device, tc: bool = False):
             torch.empty_like(packed.w))
 
 
-def dnerf_deform_bwd(packed: DnPacked, like, xt: torch.Tensor, g_xc: torch.Tensor
-                     ) -> Tuple[List[torch.Tensor], Tuple[None]]:
+def dnerf_deform_bwd(packed: DnPacked, like, xt: torch.Tensor, g_xc: torch.Tensor,
+                     simt: bool = False) -> Tuple[List[torch.Tensor], Tuple[None]]:
     """Cotangent on x_c [N, 3] -> (flat weight gradients, (None,)): xt gets
-    no cotangent."""
+    no cotangent. A bf16 pack runs the tensor-core kernel; ``simt`` runs the
+    SIMT one instead (the float64 comparison only)."""
     n = xt.shape[0]
     args = (_arg(xt, (n, 4), "xt"), _arg(g_xc, (n, 3), "g_xc"))
-    bufs = _bwd_buffers(packed, "deform", n, xt.device)
-    _run("dnerf_deform_bwd", packed, n, *args, *bufs)
+    tc = _tc(packed, simt, "deform_bwd")
+    bufs = _bwd_buffers(packed, "deform", n, xt.device, tc)
+    _run("dnerf_deform_bwd", packed, n, *args, *bufs, tc=tc)
     return unpack_grads(packed, "deform", like, bufs[2]), (None,)
 
 
@@ -520,9 +566,7 @@ def dnerf_density_bwd(packed: DnPacked, like, x_c: torch.Tensor, g_raw: torch.Te
     f = packed.meta[6]
     args = (_arg(x_c, (n, 3), "x_c"), _arg(g_raw, (n, 1), "g_raw"),
             _arg(g_feat, (n, f), "g_feat"))
-    tc = packed.rb and not simt
-    if tc:
-        check_tc_nets(packed, bwd=True)
+    tc = _tc(packed, simt, "density_bwd")
     d_xc = torch.empty(n, 3, dtype=torch.float32, device=x_c.device)
     bufs = _bwd_buffers(packed, "density", n, x_c.device, tc)
     _run("dnerf_density_bwd", packed, n, *args, d_xc, *bufs, tc=tc)
@@ -760,8 +804,68 @@ def bwd_parity_ok(res: Dict[str, Dict[str, Dict]]) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# the density backward's float64 yardstick
+# the tensor-core kernels' float64 yardsticks
 # ---------------------------------------------------------------------------
+
+def _float64_segment(spec, params: Dict[str, Any], seg: str):
+    """(like, flat) of one segment on float64 copies of the float32
+    parameters (the dots of "default" round them to the kernels' bf16
+    values)."""
+    from endosurf_tpu_torch.kernels.fused_sampler import to_float64
+    return segment_weights(prepare_effective_dnerf(spec, to_float64(params)), seg)
+
+
+def dnerf_density_fwd_float64(spec, params: Dict[str, Any], x_c: torch.Tensor,
+                              precision: str = "default") -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 density forward's float64 yardstick: ``seg_math`` on float64
+    copies of the kernels' own weights and of x_c, with ``precision``'s
+    operand roundings and float64 arithmetic between them. Returns (raw sigma
+    [N, 1], feat [N, F]) in float64, as ``dnerf_density_fwd``."""
+    like, flat = _float64_segment(spec, params, "density")
+    with torch.no_grad():
+        return seg_math(spec, "density", like, flat, (x_c.double(),), precision)
+
+
+def dnerf_deform_bwd_float64(spec, params: Dict[str, Any], xt: torch.Tensor,
+                             g_xc: torch.Tensor, precision: str = "default"
+                             ) -> Tuple[List[torch.Tensor], Tuple[None]]:
+    """The bf16 deform backward's float64 yardstick: ``plain_bwd`` on float64
+    copies of the kernels' own weights, of xt and of the cotangent, with
+    ``precision``'s operand and cotangent roundings and float64 arithmetic
+    between them. Returns (flat weight gradients, (None,)) in float64, as
+    ``dnerf_deform_bwd``."""
+    like, flat = _float64_segment(spec, params, "deform")
+    return plain_bwd(spec, "deform", like, flat, (xt.double(),), (g_xc.double(),), precision)
+
+
+def dnerf_deform_walk_float64(spec, params: Dict[str, Any], xt: torch.Tensor,
+                              g_xc: torch.Tensor, precision: str = "default"
+                              ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """The deform backward's recompute and walk in float64 on the float32
+    parameters, with ``precision``'s operand and cotangent roundings (those
+    of ``dnerf_deform_bwd_float64``): per layer its operand rows (op([h |
+    enc])) and the cotangent on its pre-activation, as a backward's scratch
+    holds them ([N, in_l], [N, out_l])."""
+    from endosurf_tpu_torch.kernels.fused_sampler import to_float64
+    layers = to_float64(params)["deform"]["layers"]
+    skips = spec.deform_layers[2]
+    xr = operand(xt.double(), precision)
+    enc = torch.cat([freq_encode(xr[:, :3], spec.pos_deform_freqs),
+                     freq_encode(xr[:, 3:4], spec.time_deform_freqs)], dim=-1)
+    ins, zs, h = [], [], enc
+    with torch.no_grad():
+        for l, lay in enumerate(layers):
+            ins.append(operand(torch.cat([h, enc], -1) if 0 < l and l in skips else h, precision))
+            zs.append(ins[-1] @ operand(lay["w"], precision) + lay["b"])
+            h = torch.relu(zs[-1])
+        dzs, g = [], g_xc.double()
+        for l in range(len(layers) - 1, -1, -1):
+            dzs.insert(0, g)
+            if l > 0:
+                g_in = operand(g @ operand(layers[l]["w"], precision).T, precision)
+                g = g_in[:, :zs[l - 1].shape[1]] * (zs[l - 1] > 0)
+    return ins, dzs
+
 
 def dnerf_density_bwd_float64(spec, params: Dict[str, Any], x_c: torch.Tensor,
                               g_raw: torch.Tensor, g_feat: torch.Tensor,
@@ -773,24 +877,117 @@ def dnerf_density_bwd_float64(spec, params: Dict[str, Any], x_c: torch.Tensor,
     cotangents, with ``precision``'s operand and cotangent roundings and
     float64 arithmetic between them. Returns (flat weight gradients, (d x_c
     [N, 3],)) in float64, as ``dnerf_density_bwd``."""
-    from endosurf_tpu_torch.kernels.fused_sampler import to_float64
-    like, flat = segment_weights(prepare_effective_dnerf(spec, to_float64(params)), "density")
+    like, flat = _float64_segment(spec, params, "density")
     return plain_bwd(spec, "density", like, flat, (x_c.double(),),
                      (g_raw.double(), g_feat.double()), precision)
 
 
-def bwd_float64_distance(leaves: Sequence[torch.Tensor], d_xc: torch.Tensor,
-                         ref_leaves: Sequence[torch.Tensor], ref_dxc: torch.Tensor
+def _median_p99(err: torch.Tensor) -> Tuple[float, float]:
+    q = torch.quantile(err, torch.tensor([0.5, 0.99], dtype=err.dtype, device=err.device))
+    return float(q[0]), float(q[1])
+
+
+def _point_dist(got: torch.Tensor, ref: torch.Tensor) -> Tuple[float, float]:
+    """(median, p99) of the per-point error: the max over channels, over the
+    yardstick's rms."""
+    r = ref.double()
+    return _median_p99((got.double() - r).abs().amax(dim=-1) / (r.pow(2).mean().sqrt() + 1e-300))
+
+
+def fwd_float64_distance(outs: Dict[str, torch.Tensor], refs: Dict[str, torch.Tensor]
                          ) -> Dict[str, Tuple[float, float]]:
-    """A density backward against its float64 yardstick: (median, p99) of
-    d x_c's per-point error (the max over channels, over the yardstick's
-    rms) and of the weight gradients' per-element error (over the rms of the
-    element's leaf in the yardstick)."""
-    def quantiles(err):
-        q = torch.quantile(err, torch.tensor([0.5, 0.99], dtype=err.dtype, device=err.device))
-        return float(q[0]), float(q[1])
-    r = ref_dxc.double()
-    e_x = (d_xc.double() - r).abs().amax(dim=-1) / (r.pow(2).mean().sqrt() + 1e-300)
+    """A forward against its float64 yardstick: per output, (median, p99) of
+    the per-point error."""
+    return {k: _point_dist(outs[k], r) for k, r in refs.items()}
+
+
+def bwd_float64_distance(leaves: Sequence[torch.Tensor], d_xc: Optional[torch.Tensor],
+                         ref_leaves: Sequence[torch.Tensor], ref_dxc: Optional[torch.Tensor]
+                         ) -> Dict[str, Tuple[float, float]]:
+    """A backward against its float64 yardstick: (median, p99) of the weight
+    gradients' per-element error (over the rms of the element's leaf in the
+    yardstick) and, where the backward forms one (the density's), of d x_c's
+    per-point error."""
+    dist = {} if ref_dxc is None else {"d_xc": _point_dist(d_xc, ref_dxc)}
     e_w = torch.cat([((g.double() - rl).abs() / (rl.pow(2).mean().sqrt() + 1e-300)).reshape(-1)
                      for g, rl in zip(leaves, ref_leaves)])
-    return {"d_xc": quantiles(e_x), "weights": quantiles(e_w)}
+    dist["weights"] = _median_p99(e_w)
+    return dist
+
+
+# the kernels with a tensor-core bf16 version beside their SIMT one (simt=True)
+TC_KERNELS = ("dnerf_density_fwd", "dnerf_deform_bwd", "dnerf_density_bwd")
+_FLOAT64_BWD = {"deform": dnerf_deform_bwd_float64, "density": dnerf_density_bwd_float64}
+
+
+def tc_float64_distance(spec, params: Dict[str, Any], kernel: str, packed: DnPacked, like,
+                        inputs: Sequence[torch.Tensor], cots: Sequence[torch.Tensor] = ()
+                        ) -> Dict[str, Dict[str, Tuple[float, float]]]:
+    """A ``TC_KERNELS`` kernel on a bf16 pack and its SIMT kernel, each
+    against the float64 yardstick on the same inputs (and, for a backward,
+    cotangents): {"tensor cores": distance, "SIMT": distance}, each
+    ``fwd_float64_distance`` (per output) or ``bwd_float64_distance``."""
+    if kernel not in TC_KERNELS:
+        raise ValueError(f"{kernel} has no tensor-core kernel")
+    flags = (("tensor cores", False), ("SIMT", True))
+    if kernel == "dnerf_density_fwd":
+        ref = dict(zip(("raw_sigma", "feat"), dnerf_density_fwd_float64(spec, params, *inputs)))
+        return {name: fwd_float64_distance(
+            dict(zip(ref, dnerf_density_fwd(packed, *inputs, simt=flag))), ref)
+            for name, flag in flags}
+    seg = kernel.split("_")[1]
+    ref_leaves, (ref_in,) = _FLOAT64_BWD[seg](spec, params, *inputs, *cots)
+    out = {}
+    for name, flag in flags:
+        leaves, (d_in,) = BWD[seg](packed, like, *inputs, *cots, simt=flag)
+        out[name] = bwd_float64_distance(leaves, d_in, ref_leaves, ref_in)
+    return out
+
+
+def deform_walk_distance(spec, params: Dict[str, Any], packed: DnPacked, xt: torch.Tensor,
+                         g_xc: torch.Tensor) -> Dict[str, Dict[str, float]]:
+    """The deform backward's own arithmetic against float64, below its
+    weight gradients: the tensor-core kernel and the SIMT one (a bf16 pack)
+    run on (xt, g_xc), each layer's operand rows and pre-activation
+    cotangents read back from the scratch (``scratch_layout``) and held
+    against ``dnerf_deform_walk_float64``. Returns {"tensor cores": {"points":
+    share of the points with any element off, "x<l>" / "dz<l>": share of
+    layer l's operand / cotangent elements off, "weights": share of the
+    weight-gradient elements off float64 (the walk's exact product, rounded
+    as the yardstick rounds), "product": share off the exact product of the
+    kernel's own operands and cotangents}, "SIMT": the same}. A float32 sum
+    that tips one bf16 rounding moves the later layers of its point through
+    the chaotic net, and the weight gradients sum every point: at base.yml's
+    widths a third of their elements sit an ulp or more off float64 for
+    either kernel, so their distance says little about which is nearer."""
+    def rounded(w):
+        return w.to(torch.float32).to(torch.bfloat16).double()
+    n = xt.shape[0]
+    ins, dzs = dnerf_deform_walk_float64(spec, params, xt, g_xc)
+    ref_w = [rounded(a.T @ dz) for a, dz in zip(ins, dzs)]
+    args = (_arg(xt, (n, 4), "xt"), _arg(g_xc, (n, 3), "g_xc"))
+    out = {}
+    for name, simt in (("tensor cores", False), ("SIMT", True)):
+        tc = _tc(packed, simt, "deform_bwd")
+        bufs = _bwd_buffers(packed, "deform", n, xt.device, tc)
+        _run("dnerf_deform_bwd", packed, n, *args, *bufs, tc=tc)
+        raw = bufs[0].view(torch.uint8)
+        off = torch.zeros(n, dtype=torch.bool, device=xt.device)
+        shares, w_off, w_own, w_all = {}, 0, 0, 0
+        for l, (pair, (wo, _, i, o)) in enumerate(zip(
+                scratch_layout(packed.meta, "deform", n, tc), packed.layout("deform"))):
+            got = []
+            for (at, dtype, width), ref, key in zip(pair, (ins[l], dzs[l]), (f"x{l}", f"dz{l}")):
+                item = 2 if dtype == torch.bfloat16 else 4
+                got.append(raw[at:at + n * width * item].view(dtype).view(n, width)
+                           [:, :ref.shape[1]].double())
+                diff = got[-1] != ref
+                off |= diff.any(1)
+                shares[key] = float(diff.double().mean())
+            dw = bufs[2][wo:wo + i * o].view(i, o).double()
+            w_off += int((dw != ref_w[l]).sum())
+            w_own += int((dw != rounded(got[0].T @ got[1])).sum())
+            w_all += i * o
+        out[name] = {"points": float(off.double().mean()), "weights": w_off / w_all,
+                     "product": w_own / w_all, **shares}
+    return out

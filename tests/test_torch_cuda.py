@@ -1594,6 +1594,7 @@ dev, bf = torch.device("cuda"), torch.bfloat16
 spec, params = _render_params("full", 0, dev)
 rays = _dn_rays(1024, dev, True)
 _, packed, like, inputs, cots = _dn_bwd_case(en.DNeRFSpec(), 0, dev, 4096)
+_, d_packed, d_like, d_inputs, d_cots = _dn_bwd_case(en.DNeRFSpec(), 0, dev, 4096, "deform")
 calls = {
     "render bf16": lambda: frd.fused_render_rays_dnerf_cuda(
         spec, en.DNeRFRenderSpec(), params, rays, None, bf, bf),
@@ -1603,6 +1604,11 @@ calls = {
                                                            rays),
     "bwd bf16": lambda: ftd.dnerf_density_bwd(packed, like, *inputs, *cots),
     "bwd bf16 simt": lambda: ftd.dnerf_density_bwd(packed, like, *inputs, *cots, simt=True),
+    "deform bwd bf16": lambda: ftd.dnerf_deform_bwd(d_packed, d_like, *d_inputs, *d_cots),
+    "deform bwd bf16 simt": lambda: ftd.dnerf_deform_bwd(d_packed, d_like, *d_inputs, *d_cots,
+                                                         simt=True),
+    "density fwd bf16": lambda: ftd.dnerf_density_fwd(packed, *inputs),
+    "density fwd bf16 simt": lambda: ftd.dnerf_density_fwd(packed, *inputs, simt=True),
 }
 names = {}
 for what in sys.argv[3:]:
@@ -1705,9 +1711,11 @@ def test_dnerf_render_reuses_the_pack(dev):
 
 def test_dnerf_tensor_cores_refuse_nets_they_do_not_take(dev):
     """D-NeRF nets whose tiles do not fit in shared memory render and train
-    in float32; their bf16 render (a 110-octave density encoding at full
-    width) and bf16 density backward (a 40-octave one, narrow) are refused,
-    with no fallback to the SIMT kernels."""
+    in float32; their bf16 render and density forward (a 110-octave density
+    encoding at full width), bf16 density backward (a 40-octave one, narrow)
+    and bf16 deform backward (a 90-octave deform encoding at full width,
+    whose density forward still runs on tensor cores) are refused, with no
+    fallback to the SIMT kernels."""
     spec = dataclasses.replace(en.DNeRFSpec(), pos_density_freqs=110)
     params = _dn_params(spec, 0, dev)
     rays = _dn_rays(64, dev, True)
@@ -1718,9 +1726,24 @@ def test_dnerf_tensor_cores_refuse_nets_they_do_not_take(dev):
         frd.fused_render_rays_dnerf_cuda(spec, en.DNeRFRenderSpec(), params, rays, None,
                                          torch.bfloat16, torch.bfloat16)
     assert frd.LAUNCHES["fused_render_rays_dnerf"] == before
+    x, d, t = _seg_points(256, dev)
+    assert all(bool(torch.isfinite(v).all())
+               for v in ftd.dnerf_density_fwd(ftd.pack_dnerf(spec, params, torch.float32), x))
+    before = ftd.LAUNCHES["dnerf_density_fwd"]
+    with pytest.raises(ValueError, match="shared memory"):
+        ftd.dnerf_density_fwd(ftd.pack_dnerf(spec, params, torch.bfloat16), x)
+    assert ftd.LAUNCHES["dnerf_density_fwd"] == before
+    spec = dataclasses.replace(en.DNeRFSpec(), pos_deform_freqs=90)
+    params = _dn_params(spec, 0, dev)
+    _, _, cases = ftd.bwd_segment_parity(spec, params, x, d, t, "highest")
+    packed, like, _, inputs, cots = cases["dnerf_deform_bwd"]
+    ftd.dnerf_deform_bwd(packed, like, *inputs, *cots)
+    bf_pack = ftd.pack_dnerf(spec, params, torch.bfloat16)
+    with pytest.raises(ValueError, match="shared memory"):
+        ftd.dnerf_deform_bwd(bf_pack, like, *inputs, *cots)
+    assert all(bool(torch.isfinite(v).all()) for v in ftd.dnerf_density_fwd(bf_pack, x))
     spec = dataclasses.replace(DN_NARROW, pos_density_freqs=40)
     params = _dn_params(spec, 0, dev)
-    x, d, t = _seg_points(256, dev)
     _, _, cases = ftd.bwd_segment_parity(spec, params, x, d, t, "highest")
     packed, like, _, inputs, cots = cases["dnerf_density_bwd"]
     ftd.dnerf_density_bwd(packed, like, *inputs, *cots)
@@ -1796,16 +1819,29 @@ def test_dnerf_segment_limits_reject_the_other_precision(dev, spec):
             assert not all(v[-1] for v in outs.values()), (name, outs)
 
 
-DN_SEG_FAULTS = {   # csrc/dnerf_chain.cuh: the sigma head read from feature column 1
-    "head_from_column_1": (
-        "    const float* Wh = W;                 // the sigma head: column 0 of the output layer",
-        "    const float* Wh = W + 1;"),
+DN_SEG_FAULTS = {   # the density forward's, each in the SIMT kernel (dnerf_chain.cuh, float32)
+    # and the tensor-core one (bf16): the sigma head read from feature column 1,
+    # the feature's bias read one column early
+    "head_from_column_1": [
+        ("dnerf_chain.cuh",
+         "    const float* Wh = W;                 // the sigma head: column 0 of the output layer",
+         "    const float* Wh = W + 1;"),
+        ("dnerf_tc.cuh",
+         "  if (tid < DT_P) s.out[tid * 4] = (float)dt_out_col(S, wts, s.H, ldh, tid, 0);",
+         "  if (tid < DT_P) s.out[tid * 4] = (float)dt_out_col(S, wts, s.H, ldh, tid, 1);")],
+    "feature_bias_shifted": [
+        ("dnerf_chain.cuh", "    const float b = wts[N.b_off[l] + 1 + tid];",
+         "    const float b = wts[N.b_off[l] + tid];"),
+        ("fused_train_dnerf.cu", "  const float* bf = wts + S.b_off[lo] + 1;",
+         "  const float* bf = wts + S.b_off[lo];")],
 }
 
 
 @pytest.mark.parametrize("fault", sorted(DN_SEG_FAULTS))
 def test_dnerf_segment_limits_catch_planted_faults(dev, fault, tmp_path, monkeypatch):
-    _rebuild_with(monkeypatch, tmp_path, "dnerf_chain.cuh", *DN_SEG_FAULTS[fault])
+    """The density forward built with a planted fault fails the limits in
+    both modes (the SIMT kernel in float32, the tensor-core one in bf16)."""
+    _rebuild_with_all(monkeypatch, tmp_path, DN_SEG_FAULTS[fault])
     spec = en.DNeRFSpec()
     params = _dn_params(spec, 0, dev)
     x, d, t = _seg_points(RAGGED_N, dev)
@@ -1917,16 +1953,32 @@ def test_dnerf_backward_is_deterministic(dev):
 
 
 # csrc/fused_train_dnerf.cu: the skip layer's encoding rows left out of d x_c
-# (the walk's section rows of skip layers dropped), and the sigma head's
-# cotangent reaching h through the first feature column's weights; each in
-# the SIMT kernel (float32) and in the tensor-core one (bf16).
+# (the walk's section rows of skip layers dropped), the sigma head's
+# cotangent reaching h through the first feature column's weights, the
+# deform backward's cotangent g_xc read with its channels rotated, and the
+# walks' relu' gates dropped (judged on the deform backward); each in the SIMT
+# kernel (float32) and in the tensor-core one (bf16).
 DN_BWD_FAULTS = {
     "skip_gradient_dropped": (
         [("    const int lo = l == 0 ? sec0 : (skip && skip_sec ? n_h : in_l);",
           "    const int lo = l == 0 ? sec0 : in_l;"),
-         ("      if (i >= n_h && i < in_l) s.den[row * es + i - n_h] += v;",
-          "      if (i >= n_h && i < in_l && l == 0) s.den[row * es + i - n_h] += v;")],
+         ("      if (den && i >= n_h && i < in_l) den[row * ew + i - n_h] += v;",
+          "      if (den && i >= n_h && i < in_l && l == 0) den[row * ew + i - n_h] += v;")],
         ("dnerf_density_bwd",)),
+    "deform_cotangent_channels_rotated": (
+        [("    cur[p * HMAX + c] = base + p < n ? g_xc[(size_t)(base + p) * 3 + c] : 0.f;",
+          "    cur[p * HMAX + c] = base + p < n ? g_xc[(size_t)(base + p) * 3 + (c + 1) % 3]"
+          " : 0.f;"),
+         ("    s.out[idx] = in && c < 3 ? g_xc[(size_t)(base + p) * 3 + c] : 0.f;   // g_xc",
+          "    s.out[idx] = in && c < 3 ? g_xc[(size_t)(base + p) * 3 + (c + 1) % 3] : 0.f;")],
+        ("dnerf_deform_bwd",)),
+    "deform_relu_gate_dropped": (
+        [("          const bool on = base + p < n && sv.xin[l][(size_t)(base + p) * in_l + i]"
+          " > 0.f;",
+          "          const bool on = base + p < n;"),
+         ("        const bool on = i < n_h && ((word >> (i & 31)) & 1);",
+          "        const bool on = i < n_h;")],
+        ("dnerf_deform_bwd",)),
     "head_cotangent_wrong_column": (
         [("      acc_seg<P>(acc_h, WT, n_in, i, 0, gout, G, 1);",
           "      acc_seg<P>(acc_h, WT, n_in, i, 1, gout, G, 1);"),
@@ -1970,13 +2022,14 @@ def test_dnerf_bwd_sizes_match_the_planner(dev, spec):
                 assert (out[0], out[1]) == ftd.bwd_sizes(packed.meta, seg, n, tc), (seg, tc, n)
 
 
-def _dn_bwd_case(spec, seed, dev, n=RAGGED_N):
-    """The density backward's inputs on n ragged points: x_c from the plain
-    deform segment, seeded cotangents, and the like / packs."""
+def _dn_bwd_case(spec, seed, dev, n=RAGGED_N, seg="density"):
+    """A backward's inputs on n ragged points (the density's: x_c from the
+    plain deform segment; the deform's: xt), seeded cotangents, and the like
+    / packs."""
     params = _dn_params(spec, seed, dev)
     x, d, t = _seg_points(n, dev, seed)
     _, _, cases = ftd.bwd_segment_parity(spec, params, x, d, t, "default", seed)
-    packed, like, _, inputs, cots = cases["dnerf_density_bwd"]
+    packed, like, _, inputs, cots = cases[f"dnerf_{seg}_bwd"]
     return params, packed, like, inputs, cots
 
 
@@ -1997,11 +2050,8 @@ def test_dnerf_density_bwd_tensor_cores_no_farther_from_float64(dev):
     for sid, spec in zip(SPEC_IDS, DN_SPECS):
         for seed in (0, 1):
             params, packed, like, inputs, cots = _dn_bwd_case(spec, seed, dev)
-            ref_leaves, (ref_dxc,) = ftd.dnerf_density_bwd_float64(spec, params, *inputs, *cots)
-            dist = {}
-            for name, flag in (("tensor cores", False), ("SIMT", True)):
-                leaves, (d_xc,) = ftd.dnerf_density_bwd(packed, like, *inputs, *cots, simt=flag)
-                dist[name] = ftd.bwd_float64_distance(leaves, d_xc, ref_leaves, ref_dxc)
+            dist = ftd.tc_float64_distance(spec, params, "dnerf_density_bwd", packed, like, inputs,
+                                           cots)
             ok = fr.no_farther(dist["tensor cores"], dist["SIMT"])
             for k in ok:
                 print(f"dnerf density bwd bf16 vs float64 {sid} seed {seed} {k} (median, p99): "
@@ -2025,20 +2075,111 @@ def test_dnerf_density_bwd_runs_on_tensor_cores(dev):
     assert not any("_tc_" in k for k in simt)
 
 
+def test_dnerf_deform_bwd_tensor_cores_no_farther_from_float64(dev):
+    """On the cells of test_dnerf_backward_matches_plain with a deform net
+    (narrow and full, 65,531 points, two seeds) the tensor-core deform
+    backward's own arithmetic is no farther from float64 than the SIMT bf16
+    kernel's (simt=True): its operand rows and pre-activation cotangents,
+    read back from the scratch, differ from the float64 recompute and walk
+    (dnerf_deform_walk_float64) on no larger a share of the points
+    (fused_train_dnerf.deform_walk_distance). The weight gradients' median
+    and p99 against the float64 yardstick (dnerf_deform_bwd_float64) are
+    printed beside it and not judged: a float32 sum that tips one bf16
+    rounding moves every later layer of its point through the chaotic net,
+    so on the full nets a third of the gradient elements sit an ulp or more
+    off float64 for either kernel, and the p99, one ulp of whichever element
+    lands there, falls on either side (PERF.md §6)."""
+    failed = []
+    for sid, spec in zip(SPEC_IDS, DN_SPECS):
+        if not spec.use_deform:
+            continue
+        for seed in (0, 1):
+            params, packed, like, inputs, cots = _dn_bwd_case(spec, seed, dev, seg="deform")
+            walk = ftd.deform_walk_distance(spec, params, packed, *inputs, *cots)
+            dist = ftd.tc_float64_distance(spec, params, "dnerf_deform_bwd", packed, like, inputs,
+                                           cots)
+            print(f"dnerf deform bwd bf16 vs float64 {sid} seed {seed}: points off the float64 "
+                  f"walk, weight elements off float64, weight elements off the exact product "
+                  f"of the kernel's own operands " + "; ".join(
+                      f"{nm} {100 * v['points']:.3f} %, {100 * v['weights']:.3f} %, "
+                      f"{100 * v['product']:.3f} %" for nm, v in walk.items())
+                  + "; weights (median, p99) " + "; ".join(
+                      f"{nm} {v['weights'][0]:.4e}, {v['weights'][1]:.4e}"
+                      for nm, v in dist.items()))
+            if walk["tensor cores"]["points"] > walk["SIMT"]["points"]:
+                failed.append((sid, seed))
+    assert not failed, failed
+
+
+def test_dnerf_density_fwd_tensor_cores_no_farther_from_float64(dev):
+    """On the cells of test_dnerf_segments_match_plain (three nets, 65,531
+    points, two seeds) the tensor-core density forward's median and p99
+    per-point error of raw sigma and of the feature against the float64
+    yardstick (dnerf_density_fwd_float64) are no larger than the SIMT bf16
+    kernel's (simt=True) on the same x_c (the plain deform segment's)."""
+    failed = []
+    for sid, spec in zip(SPEC_IDS, DN_SPECS):
+        for seed in (0, 1):
+            params = _dn_params(spec, seed, dev)
+            x, d, t = _seg_points(RAGGED_N, dev, seed)
+            _, _, cases = ftd.segment_parity(spec, params, x, d, t, "default")
+            packed, inputs = cases["dnerf_density_fwd"]
+            dist = ftd.tc_float64_distance(spec, params, "dnerf_density_fwd", packed, None, inputs)
+            ok = fr.no_farther(dist["tensor cores"], dist["SIMT"])
+            for k in ok:
+                print(f"dnerf density fwd bf16 vs float64 {sid} seed {seed} {k} (median, p99): "
+                      + "; ".join(f"{nm} {v[k][0]:.4e}, {v[k][1]:.4e}" for nm, v in dist.items()))
+            if not all(ok.values()):
+                failed.append((sid, seed, ok))
+    assert not failed, failed
+
+
+def test_dnerf_deform_bwd_runs_on_tensor_cores(dev):
+    """A bf16 deform backward launches the tensor-core tile and product
+    (dnerf_deform_bwd_tc_kernel, wgrad_tc_partial_kernel) and not the SIMT
+    ones; simt=True launches the SIMT kernel."""
+    traced = _traced_kernels("deform bwd bf16", "deform bwd bf16 simt")
+    tc, simt = traced["deform bwd bf16"], traced["deform bwd bf16 simt"]
+    print(sorted(tc), sorted(simt))
+    assert any("dnerf_deform_bwd_tc_kernel" in k for k in tc)
+    assert any("wgrad_tc_partial_kernel" in k for k in tc)
+    assert not any("dnerf_deform_bwd_kernel" in k or "wgrad_partial_kernel" in k for k in tc)
+    assert any("dnerf_deform_bwd_kernel" in k for k in simt)
+    assert not any("_tc_" in k for k in simt)
+
+
+def test_dnerf_density_fwd_runs_on_tensor_cores(dev):
+    """A bf16 density forward launches the tensor-core kernel
+    (dnerf_density_fwd_tc_kernel) and not the SIMT one; simt=True launches
+    the SIMT kernel."""
+    traced = _traced_kernels("density fwd bf16", "density fwd bf16 simt")
+    tc, simt = traced["density fwd bf16"], traced["density fwd bf16 simt"]
+    print(sorted(tc), sorted(simt))
+    assert any("dnerf_density_fwd_tc_kernel" in k for k in tc)
+    assert not any("dnerf_density_fwd_kernel" in k for k in tc)
+    assert any("dnerf_density_fwd_kernel" in k for k in simt)
+    assert not any("_tc_" in k for k in simt)
+
+
 # sha256 of the float32 D-NeRF render's maps and of the float32 density
-# backward's outputs (tools/dnerf_f32_digest.py's cases) as the SIMT kernels
-# compute them, taken on an NVIDIA H100 80GB HBM3 from the tree before the
-# bf16 kernels took tensor cores, and the nvcc release that compiled them:
-# another toolchain may compile other bits, so the test skips under it (rerun
-# the tool on both trees then).
+# backward's, deform backward's and density forward's outputs
+# (tools/dnerf_f32_digest.py's cases) as the SIMT kernels compute them, taken
+# on an NVIDIA H100 80GB HBM3 from the trees before each bf16 kernel took
+# tensor cores (the render and density backward's before the render's, the
+# deform backward and density forward's before theirs), and the nvcc release
+# that compiled them: another toolchain may compile other bits, so the test
+# skips under it (rerun the tool on both trees then).
 F32_DN_RENDER_DIGEST = "b3e4a35b127df95a3c9a71e6b7db75576f0b578f2399281952151dd9710939b3"
 F32_DN_BWD_DIGEST = "4c4f5d2f96ca75accf71af777e9b3717a249a97ffcfbdcede9e41cedd4c04897"
+F32_DN_DEFORM_BWD_DIGEST = "22f84ebab5f4a77018efaf36bbebc7b6b7b1f1737d8fc2f51361efdf84e5ef31"
+F32_DN_DENSITY_FWD_DIGEST = "2c3c9c5948a1620f725f4190e43481ec5ad45c9fe5331e177e079e653b180315"
 
 
 def test_dnerf_f32_is_the_simt_path(dev):
-    """The float32 D-NeRF render and density backward run the SIMT code,
-    untouched by the tensor-core bf16 kernels: their outputs equal that
-    code's recorded digests bit for bit."""
+    """The float32 D-NeRF render, density backward, deform backward and
+    density forward run the SIMT code, untouched by the tensor-core bf16
+    kernels: their outputs equal that code's recorded digests bit for
+    bit."""
     import importlib.util
     import subprocess
     spec_ = importlib.util.spec_from_file_location(
@@ -2046,15 +2187,17 @@ def test_dnerf_f32_is_the_simt_path(dev):
                                      "dnerf_f32_digest.py"))
     tool = importlib.util.module_from_spec(spec_)
     spec_.loader.exec_module(tool)
-    render, bwd = tool.digests(dev)
+    got = tool.digests(dev)
     nvcc = subprocess.run([build.find_nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout
     release = next((ln for ln in nvcc.splitlines() if "release" in ln), nvcc.strip())
-    print(f"float32 dnerf render digest {render}, density backward digest {bwd} ({release})")
+    print(f"float32 dnerf render, density backward, deform backward, density forward "
+          f"digests {got} ({release})")
     if F32_RENDER_NVCC not in release:
         pytest.skip(f"the digests were taken with nvcc {F32_RENDER_NVCC.rstrip(',')}, "
                     f"this one is {release}")
-    assert (render, bwd) == (F32_DN_RENDER_DIGEST, F32_DN_BWD_DIGEST)
+    assert got == (F32_DN_RENDER_DIGEST, F32_DN_BWD_DIGEST, F32_DN_DEFORM_BWD_DIGEST,
+                   F32_DN_DENSITY_FWD_DIGEST)
 
 
 def _resample_inputs(nets: str, n0: int, dev, seed: int = 0):

@@ -4,8 +4,10 @@ backward (the port's autograd Functions on CPU tensors, whose backward is
 the plain ``plain_bwd``) against JAX's custom_vjp segments forced onto their
 Pallas backward kernels (``_deform_bwd_pl`` / ``_density_bwd_pl`` /
 ``_color_bwd_pl``, interpreted on the CPU), the field's parameter gradients
-with the train noise fed in, ``fused_fine_resample`` on CPU tensors, and the
-train render (``render_rays_train``) against JAX's ``render_rays`` with a key.
+with the train noise fed in, ``fused_fine_resample`` on CPU tensors, the
+train render (``render_rays_train``) against JAX's ``render_rays`` with a
+key, and the float64 yardsticks of the tensor-core kernels (the density
+forward's and the deform and density backwards') against JAX's segments.
 
 Both sides start from one JAX init bridged to torch and get JAX's random
 numbers: the segment cotangents from numpy, the render's draws rebuilt from
@@ -15,7 +17,9 @@ Tolerances, per test: float32 gradients per leaf within 1e-5 relative L2
 (same math, float32 sums in other orders); bf16 operands on both sides
 within 2e-2 per leaf and 5e-2 per point of d x_c / d feat relative to their
 RMS (a bf16-rounded cotangent tips on an ulp of float noise now and then),
-and the float32 Function fails the bf16 limits as the control.
+and the float32 Function fails the bf16 limits as the control; a forward's
+outputs per point within 1e-4 of their RMS in float32 and 5e-2 with bf16
+operands.
 """
 
 import jax
@@ -211,6 +215,23 @@ def test_segment_backward_matches_jax_pallas(seg, precision, use_deform):
         assert leaf32 > F32_LEAF * 10, leaf32     # the rounding is on
 
 
+def _as_jax_tree(names, leaves, n_layers, seg):
+    """A segment's flat leaves (``leaf_names`` order) as JAX's {w, b} tree
+    of its net, flattened: the hidden layers' skip blocks stacked; the
+    density's last layer as head + feature columns."""
+    got = dict(zip(names, leaves))
+    rows = {}
+    n_hidden = n_layers - 1 if seg == "density" else n_layers
+    for l in range(n_hidden):
+        parts = [got[k] for k in names if k.startswith(f"{l}.") and k != f"{l}.b"]
+        rows[f"layers/{l}/w"] = torch.cat(parts, 0).numpy()
+        rows[f"layers/{l}/b"] = got[f"{l}.b"].numpy()
+    if seg == "density":
+        rows[f"layers/{n_hidden}/w"] = torch.cat([got["head.w"], got["feat.w"]], 1).numpy()
+        rows[f"layers/{n_hidden}/b"] = torch.cat([got["head.b"], got["feat.b"]]).numpy()
+    return rows
+
+
 @pytest.mark.parametrize("precision", ["highest", "default"], ids=["f32", "bf16"])
 @pytest.mark.parametrize("use_deform", [True, False], ids=["deform", "static"])
 def test_density_bwd_float64_yardstick_matches_jax(precision, use_deform):
@@ -242,18 +263,7 @@ def test_density_bwd_float64_yardstick_matches_jax(precision, use_deform):
         leaves, (d_xc,) = t_ftd.dnerf_density_bwd_float64(
             ts, pt, torch.from_numpy(t_in[0]), *(torch.from_numpy(c) for c in t_ct), prec)
         assert d_xc.dtype == torch.float64 and all(v.dtype == torch.float64 for v in leaves)
-        got = dict(zip(names, leaves))
-        # the flat leaves against JAX's {w, b} tree: the density's last layer
-        # as head + feature columns, the hidden layers' skip blocks stacked
-        dw_last = torch.cat([got["head.w"], got["feat.w"]], 1).numpy()
-        db_last = torch.cat([got["head.b"], got["feat.b"]]).numpy()
-        n_last = len(pj["density"]["layers"]) - 1
-        rows = {}
-        for l in range(n_last):
-            parts = [got[k] for k in names if k.startswith(f"{l}.") and k != f"{l}.b"]
-            rows[f"layers/{l}/w"] = torch.cat(parts, 0).numpy()
-            rows[f"layers/{l}/b"] = got[f"{l}.b"].numpy()
-        rows[f"layers/{n_last}/w"], rows[f"layers/{n_last}/b"] = dw_last, db_last
+        rows = _as_jax_tree(names, leaves, len(pj["density"]["layers"]), "density")
         leaf = max(_rel(rows[k], r) for k, r in ref_leaves.items())
         cot = float((np.abs(d_xc.numpy() - ref_dxc).max(-1)
                      / np.sqrt((ref_dxc ** 2).mean())).max())
@@ -265,6 +275,77 @@ def test_density_bwd_float64_yardstick_matches_jax(precision, use_deform):
         assert leaf <= BF16_LEAF and cot <= BF16_COT, (leaf, cot)
         leaf32, _ = readings("highest")
         assert leaf32 > F32_LEAF * 10, leaf32     # the rounding is on
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"], ids=["f32", "bf16"])
+def test_deform_bwd_float64_yardstick_matches_jax(precision):
+    """The deform backward's float64 yardstick (dnerf_deform_bwd_float64:
+    plain_bwd in float64 on the float32 weights) against JAX's deform
+    segment backward forced onto its Pallas kernel (_deform_bwd_pl,
+    interpreted), 48 points: per leaf within F32_LEAF in float32 (float64
+    against float32 sums) and BF16_LEAF with bf16 operand and cotangent
+    roundings on both sides; the float32 yardstick fails the bf16 limit."""
+    js, ts = _specs(**SMALL)
+    pj = j_en.init_dnerf_params(jax.random.PRNGKey(3), js)
+    pt = params_from_jax(pj)
+    j_in, j_ct, t_in, t_ct = _segment_case(js, ts, pj, "deform", 48, 4)
+    if precision == "default":
+        j_ft.set_compute_mode(jnp.bfloat16, None)
+    j_grads = _jax_segment_grads(js, pj, "deform", [jnp.asarray(a) for a in j_in],
+                                 jnp.asarray(j_ct))
+    j_ft.set_compute_mode(jnp.float32, "highest")
+    ref_leaves = {k: np.asarray(v) for k, v in flatten(j_grads[0]).items()}
+    like, _ = t_ftd.segment_weights(t_ftd.prepare_effective_dnerf(ts, pt), "deform")
+    names = t_ftd.leaf_names(like, "deform")
+
+    def reading(prec):
+        leaves, (none,) = t_ftd.dnerf_deform_bwd_float64(
+            ts, pt, torch.from_numpy(t_in[0]), torch.from_numpy(t_ct[0]), prec)
+        assert none is None and all(v.dtype == torch.float64 for v in leaves)
+        rows = _as_jax_tree(names, leaves, len(pj["deform"]["layers"]), "deform")
+        return max(_rel(rows[k], r) for k, r in ref_leaves.items())
+    leaf = reading(precision)
+    if precision == "highest":
+        assert leaf <= F32_LEAF, leaf
+    else:
+        assert leaf <= BF16_LEAF, leaf
+        assert reading("highest") > F32_LEAF * 10     # the rounding is on
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"], ids=["f32", "bf16"])
+def test_density_fwd_float64_yardstick_matches_jax(precision):
+    """The density forward's float64 yardstick (dnerf_density_fwd_float64:
+    seg_math in float64 on the float32 weights) against JAX's density
+    segment forced onto its Pallas kernel (_density_fwd_pl, interpreted), 48
+    points: per point, the largest |difference| of raw sigma and of the
+    feature over the output's RMS, within 10 F32_LEAF in float32 (float64
+    against float32 sums) and BF16_COT with bf16 operand roundings on both
+    sides (an operand rounding on an ulp of float32 noise tips now and then);
+    the float32 yardstick fails the bf16 limit by reading above 10 F32_LEAF
+    on the feature."""
+    js, ts = _specs(**SMALL)
+    pj = j_en.init_dnerf_params(jax.random.PRNGKey(3), js)
+    pt = params_from_jax(pj)
+    j_in, _, t_in, _ = _segment_case(js, ts, pj, "density", 48, 4)
+    if precision == "default":
+        j_ft.set_compute_mode(jnp.bfloat16, None)
+    seg_density = j_ftd._build_segments(js, True)[1]
+    eff = j_ftd.prepare_effective_dnerf(js, pj)
+    ref = [np.asarray(v) for v in seg_density(eff["density"], eff["sigma_head"], eff["geo_feat"],
+                                              jnp.asarray(j_in[0]))]
+    j_ft.set_compute_mode(jnp.float32, "highest")
+
+    def readings(prec):
+        outs = t_ftd.dnerf_density_fwd_float64(ts, pt, torch.from_numpy(t_in[0]), prec)
+        assert all(v.dtype == torch.float64 for v in outs)
+        return [float((np.abs(g.numpy() - r).max(-1) / np.sqrt((r ** 2).mean())).max())
+                for g, r in zip(outs, ref)]
+    errs = readings(precision)
+    if precision == "highest":
+        assert max(errs) <= F32_LEAF * 10, errs
+    else:
+        assert max(errs) <= BF16_COT, errs
+        assert readings("highest")[1] > F32_LEAF * 10     # the rounding is on
 
 
 @pytest.mark.parametrize("precision", ["highest", "default"], ids=["f32", "bf16"])

@@ -491,26 +491,29 @@ DN_SPECS = {"narrow": en.DNeRFSpec(deform_layers=(3, 64, (1,)), density_layers=(
 
 @pytest.mark.parametrize("spec_id", sorted(DN_SPECS))
 def test_pack_dnerf_bf16_fragments(spec_id):
-    """In the bf16 mode the D-NeRF pack ends with four blocks of NL fragment
+    """In the bf16 mode the D-NeRF pack ends with five blocks of NL fragment
     offsets after the Model meta (``fused_train_dnerf.DN_FRAG_BLOCKS``): the
     deform, density and colour nets' hidden W, the density output layer's
-    feature columns W[:, 1:], then the density net's W^T of the same layers;
-    -1 where a layer has none (output layers but the density's, an absent
-    deform net, layers past a net's depth). Each block is
-    ``fused_train_cuda.mma_frags`` of the packed bf16 weights bit for bit,
-    16-byte aligned; the float32 buffer and meta before it are the float32
-    pack's layout with bf16-rounded weights."""
+    feature columns W[:, 1:], then the density net's W^T of the same layers,
+    then the deform net's hidden W^T; -1 where a layer has none (output
+    layers but the density's, an absent deform net, layers past a net's
+    depth). Each block is ``fused_train_cuda.mma_frags`` of the packed bf16
+    weights bit for bit, 16-byte aligned; the float32 buffer and meta before
+    it are the float32 pack's layout with bf16-rounded weights."""
     spec = DN_SPECS[spec_id]
     params = en.init_dnerf_params(spec, torch.Generator().manual_seed(0), "cpu")
     packed = ftd.pack_dnerf(spec, params, torch.bfloat16)
     f32 = ftd.pack_dnerf(spec, params, torch.float32)
     meta = list(packed.meta)
-    assert meta[:ftd.META_LEN] == list(f32.meta) and len(meta) == ftd.META_LEN + 4 * NL
+    assert meta[:ftd.META_LEN] == list(f32.meta) and len(meta) == ftd.META_LEN + 5 * NL
+    assert ftd.DN_FRAG_BLOCKS[4] == (ftd.SLOTS["deform"], True, False)   # the deform's W^T
     n_w = f32.w.numel()
     for block, (q, transposed, output) in enumerate(ftd.DN_FRAG_BLOCKS):
         offs = meta[ftd.META_LEN + block * NL:ftd.META_LEN + (block + 1) * NL]
         net = meta[8 + q * META_NET:8 + (q + 1) * META_NET]
         assert bool(output) == (q == ftd.SLOTS["density"])
+        if q == ftd.SLOTS["deform"] and not spec.use_deform:
+            assert offs == [-1] * NL, block
         for l in range(NL):
             out_layer = l == net[0] - 1
             if l >= net[0] or (out_layer and q != ftd.SLOTS["density"]):
@@ -608,58 +611,73 @@ def test_dnerf_bwd_sizes_lay_out_the_scratch(spec_id):
     """``fused_train_dnerf.bwd_sizes`` (the CPU mirror of csrc's planners,
     which the card test test_dnerf_bwd_sizes_match_the_planner holds against
     them): the SIMT backward's float32 operands and cotangents of every
-    layer back to back; the tensor-core density backward's bf16 operand rows
-    [n, c16(in)] and bf16 cotangents [n, c16(out)] of layers 0 .. L-3, the
-    float32 cotangents of layers L-2 and L-1, each array 256-byte aligned,
-    under 60 % of the SIMT scratch at base.yml's widths; partial sums of
-    each weight and bias gradient per chunk of 4096 points."""
+    layer back to back; the tensor-core backwards' bf16 operand rows [n,
+    c16(in)] and cotangents [n, c16(out)], float32 from layer L-2 on in the
+    density's and at layer L-1 in the deform's, bf16 below, each array
+    256-byte aligned, under 60 % of the SIMT scratch at base.yml's widths
+    (the deform's 50.6 %); partial sums of each weight and bias gradient per
+    chunk of 4096 points."""
     spec = DN_SPECS[spec_id]
     params = en.init_dnerf_params(spec, torch.Generator().manual_seed(0), "cpu")
     meta = list(ftd.pack_dnerf(spec, params, torch.bfloat16).meta)
-    net = meta[8 + META_NET:8 + 2 * META_NET]
-    n_layers = net[0]
-    ins, outs = net[2:2 + n_layers], net[2 + NL:2 + NL + n_layers]
 
     def c16(x):
         return -(-x // 16) * 16
-    for n in (1, 63, 4097, 262144):
-        chunks = -(-n // 4096)
-        partial = chunks * sum((i + 1) * o for i, o in zip(ins, outs))
-        simt = ftd.bwd_sizes(meta, "density", n)
-        assert simt == (n * sum(i + o for i, o in zip(ins, outs)), partial)
-        used = 0
-        for l, (i, o) in enumerate(zip(ins, outs)):
-            for size in (2 * c16(i), (2 if l < n_layers - 2 else 4) * c16(o)):
-                used = -(-used // 256) * 256 + n * size
-        tc = ftd.bwd_sizes(meta, "density", n, tc=True)
-        assert tc == (-(-used // 4), partial)
-        assert ftd.bwd_sizes(meta, "color", n, tc=True) == ftd.bwd_sizes(meta, "color", n)
-        if spec_id != "narrow" and n == 262144:
-            assert tc[0] < 0.6 * simt[0], (tc, simt)
+    for seg, f32_layers in (("density", 2), ("deform", 1)):
+        if seg == "deform" and not spec.use_deform:
+            continue
+        net = meta[8 + ftd.SLOTS[seg] * META_NET:8 + (ftd.SLOTS[seg] + 1) * META_NET]
+        n_layers = net[0]
+        ins, outs = net[2:2 + n_layers], net[2 + NL:2 + NL + n_layers]
+        for n in (1, 63, 4097, 262144):
+            chunks = -(-n // 4096)
+            partial = chunks * sum((i + 1) * o for i, o in zip(ins, outs))
+            simt = ftd.bwd_sizes(meta, seg, n)
+            assert simt == (n * sum(i + o for i, o in zip(ins, outs)), partial)
+            used = 0
+            for l, (i, o) in enumerate(zip(ins, outs)):
+                for size in (2 * c16(i), (2 if l < n_layers - f32_layers else 4) * c16(o)):
+                    used = -(-used // 256) * 256 + n * size
+            tc = ftd.bwd_sizes(meta, seg, n, tc=True)
+            assert tc == (-(-used // 4), partial), (seg, n)
+            assert ftd.bwd_sizes(meta, "color", n, tc=True) == ftd.bwd_sizes(meta, "color", n)
+            if spec_id != "narrow" and n == 262144:
+                assert tc[0] < 0.6 * simt[0], (seg, tc, simt)
 
 
 def test_tc_smem_gates_the_nets():
-    """The tensor-core D-NeRF tiles fit base.yml's nets (the backward's tile
-    at most 227 KiB, one block an SM; the forward's under half of it, two),
-    and a net whose tile would not fit is refused: a 40-octave density
-    encoding by the backward (its forward tile fits), a 110-octave one by
-    both."""
+    """The tensor-core D-NeRF tiles fit base.yml's nets: the density
+    backward's at most 227 KiB (one block an SM), the deform backward's and
+    the forward's (the sweep's, the render field stage's and the density
+    forward's) under half of it (two); a net whose tile would not fit is
+    refused: a 40-octave density encoding by the density backward (the other
+    tiles fit), a 90-octave deform encoding by both backwards (the forward's
+    fits; the density backward's tile, with the same row pitch and three
+    operand terms, is never the smaller), a 110-octave one of either by every
+    tile; an unknown tile raises."""
     spec = en.DNeRFSpec()
     params = en.init_dnerf_params(spec, torch.Generator().manual_seed(0), "cpu")
     packed = ftd.pack_dnerf(spec, params, torch.bfloat16)
-    assert ftd.tc_smem_bytes(packed.meta, True) <= ftd.SMEM_LIMIT
-    assert 2 * ftd.tc_smem_bytes(packed.meta, False) <= ftd.SMEM_LIMIT
-    for bwd in (False, True):
-        ftd.check_tc_nets(packed, bwd)
+    assert ftd.tc_smem_bytes(packed.meta, "density_bwd") <= ftd.SMEM_LIMIT
+    for tile in ("fwd", "deform_bwd"):
+        assert 2 * ftd.tc_smem_bytes(packed.meta, tile) <= ftd.SMEM_LIMIT, tile
+    assert ftd.TC_TILES == ("fwd", "density_bwd", "deform_bwd")
+    for tile in ftd.TC_TILES:
+        ftd.check_tc_nets(packed, tile)
         with pytest.raises(ValueError, match="bf16 pack"):
-            ftd.check_tc_nets(ftd.pack_dnerf(spec, params, torch.float32), bwd)
-    for freqs, refused in ((40, (True,)), (110, (False, True))):
-        wide = dataclasses.replace(spec, pos_density_freqs=freqs)
+            ftd.check_tc_nets(ftd.pack_dnerf(spec, params, torch.float32), tile)
+    with pytest.raises(ValueError, match="no tensor-core tile"):
+        ftd.tc_smem_bytes(packed.meta, "bwd")
+    for key, freqs, refused in (("pos_density_freqs", 40, ("density_bwd",)),
+                                ("pos_deform_freqs", 90, ("density_bwd", "deform_bwd")),
+                                ("pos_density_freqs", 110, ftd.TC_TILES),
+                                ("pos_deform_freqs", 110, ftd.TC_TILES)):
+        wide = dataclasses.replace(spec, **{key: freqs})
         packed = ftd.pack_dnerf(wide, en.init_dnerf_params(
             wide, torch.Generator().manual_seed(0), "cpu"), torch.bfloat16)
-        for bwd in (False, True):
-            if bwd in refused:
+        for tile in ftd.TC_TILES:
+            if tile in refused:
                 with pytest.raises(ValueError, match="shared memory"):
-                    ftd.check_tc_nets(packed, bwd)
+                    ftd.check_tc_nets(packed, tile)
             else:
-                ftd.check_tc_nets(packed, bwd)
+                ftd.check_tc_nets(packed, tile)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """sha256 of the float32 EndoNeRF render's maps and of the float32 density
-backward's outputs, to hold a checkout's float32 D-NeRF kernels against
-another's bit for bit on one card.
+backward's, deform backward's and density forward's outputs, to hold a
+checkout's float32 D-NeRF kernels against another's bit for bit on one card.
 
 The render: 1024 depth-guided rays (tests/test_torch_cuda.py's
 ``_dn_rays(1024, dev, True)``) with the full seeded D-NeRF nets (seed 0),
@@ -10,10 +10,13 @@ The render: 1024 depth-guided rays (tests/test_torch_cuda.py's
 (float32 bytes). The backward: ``dnerf_density_bwd`` on 65,531 points
 (``_seg_points(65531, dev)``) with the full nets (seed 0), x_c from the
 plain deform segment and seeded cotangents (a generator seeded 5 on the
-card), float32: the digest of d x_c and the packed gradient. Run on the
-checkout at ``--root`` (default: this one); prints both digests with the
-card and nvcc's version. The card test ``test_dnerf_f32_is_the_simt_path``
-holds the digests it prints. Needs a CUDA device:
+card), float32: the digest of d x_c and the packed gradient. The deform
+backward on the same points' xt with a cotangent on x_c drawn next from that
+generator: the digest of its packed gradient. The density forward on the
+same x_c: the digest of raw sigma and the feature. Run on the checkout at
+``--root`` (default: this one); prints the four digests with the card and
+nvcc's version. The card test ``test_dnerf_f32_is_the_simt_path`` holds the
+digests it prints. Needs a CUDA device:
 
     python tools/dnerf_f32_digest.py [--root CHECKOUT]
 """
@@ -28,7 +31,8 @@ import sys
 
 
 def digests(dev):
-    """(render digest, backward digest) of the checkout on sys.path."""
+    """(render, density backward, deform backward, density forward) digests
+    of the checkout on sys.path."""
     import torch
     from endosurf_tpu_torch.kernels import fused_render_dnerf as frd
     from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
@@ -55,8 +59,9 @@ def digests(dev):
     torch.randn(m, 3, generator=g)
     t = torch.rand(m, 1, generator=g).to(dev)
     eff = ftd.prepare_effective_dnerf(spec, params)
+    xt = torch.cat([x, t], -1)
     with torch.no_grad():
-        x_c = ftd.seg_deform_math(spec, eff["deform"], torch.cat([x, t], -1), "highest")
+        x_c = ftd.seg_deform_math(spec, eff["deform"], xt, "highest")
     gen = torch.Generator(device=dev).manual_seed(5)
     g_raw = torch.randn(m, 1, generator=gen, device=dev)
     g_feat = torch.randn(m, spec.geo_feat_dim, generator=gen, device=dev)
@@ -64,8 +69,13 @@ def digests(dev):
     like, _ = ftd.segment_weights(eff, "density")
     leaves, (d_xc,) = ftd.dnerf_density_bwd(packed, like, x_c, g_raw, g_feat)
     bwd = torch.cat([d_xc.reshape(-1)] + [v.reshape(-1) for v in leaves])
+    g_xc = torch.randn(m, 3, generator=gen, device=dev)
+    like, _ = ftd.segment_weights(eff, "deform")
+    leaves, _ = ftd.dnerf_deform_bwd(packed, like, xt, g_xc)
+    deform_bwd = torch.cat([v.reshape(-1) for v in leaves])
+    density_fwd = torch.cat(ftd.dnerf_density_fwd(packed, x_c), -1)
     return tuple(hashlib.sha256(v.detach().cpu().numpy().tobytes()).hexdigest()
-                 for v in (render, bwd))
+                 for v in (render, bwd, deform_bwd, density_fwd))
 
 
 def main():
@@ -79,13 +89,14 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    render, bwd = digests(torch.device("cuda"))
+    render, bwd, deform_bwd, density_fwd = digests(torch.device("cuda"))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     nvcc = subprocess.run([build.find_nvcc(), "--version"], capture_output=True,
                           text=True).stdout.strip().splitlines()[-1]
     print(f"{osp.abspath(args.root)}: float32 dnerf render digest {render}; float32 density "
-          f"backward digest {bwd} ({smi}; {nvcc})")
+          f"backward digest {bwd}; float32 deform backward digest {deform_bwd}; float32 "
+          f"density forward digest {density_fwd} ({smi}; {nvcc})")
 
 
 if __name__ == "__main__":

@@ -8,7 +8,7 @@
     python3 chip_smoke.py --dnerf-train-only   # phases 1, 2 and 26's timed EndoNeRF run,
                                                # split and trace
     python3 chip_smoke.py --dnerf-segments-only   # phases 1, 2, 23's bf16 seed-0 parity
-                                                  # and 27's segment timing
+                                                  # and 27's segment and coarse timing
 
 Phases (any failure raises and exits non-zero):
   1. a CUDA card must be present; prints its name and power limit;
@@ -96,8 +96,12 @@ Phases (any failure raises and exits non-zero):
      off and demo.depth_filter unset (the card machine has no OpenCV):
  17. raw-density parity: the CUDA fused_density_raw against its plain
      version on phase 12's grid slab and 8192 random points with use_deform
-     false, both dot modes, two weight seeds, median / p99 / max at
+     false, both dot modes (bf16: the sweep on tensor cores,
+     csrc/dnerf_tc.cuh), two weight seeds, median / p99 / max at
      fused_sdf.DENSITY_PARITY_TOL, the wrong-precision controls failing;
+     then the distance of the tensor-core and of the SIMT bf16 sweep from
+     the float64 yardstick (fused_sdf.fused_density_raw_float64), side by
+     side;
  18. render parity: the CUDA fused_render_rays_dnerf against its plain twin
      on 8192 depth-guided rays of a frame (slots 6/7 from the renderer's
      eval_ray_transform) and 2048 uniform-z rays, the same draws, both modes
@@ -112,10 +116,11 @@ Phases (any failure raises and exits non-zero):
      their plain versions on the 65,536 fine samples of 512 rays (the
      render's resampled depths), both modes, two seeds, per output median /
      p99 / max at fused_train_dnerf.PARITY_TOL, the controls failing (bf16:
-     the density forward on tensor cores); then, on each seed, the distance
-     of the tensor-core and of the SIMT bf16 density forward from the
-     float64 yardstick (fused_train_dnerf.dnerf_density_fwd_float64), side
-     by side;
+     the deform and density forwards on tensor cores); then, on each seed,
+     the distance of the tensor-core and of the SIMT bf16 deform and density
+     forwards from their float64 yardsticks
+     (fused_train_dnerf.dnerf_deform_fwd_float64, dnerf_density_fwd_float64),
+     side by side;
  20. EndoNeRF serving end to end: eval_frames with an EndoNeRFRenderer on one
      512x640 frame in 2048-ray chunks: 160 render launches on one pack,
      finite maps and metrics, normals from depth; rays/s, the frame time and
@@ -129,9 +134,9 @@ Phases (any failure raises and exits non-zero):
      split;
  22. timing of the five EndoNeRF kernels against their plain versions at
      the paths' shapes (2048 rays; 1,048,576 points; 65,536 points), bf16,
-     beside their bounds (the render and the density forward also against
-     their SIMT bf16 kernels), and a render chunk's device time by kernel
-     family.
+     beside their bounds (the render, the raw density query and the deform
+     and density forwards also against their SIMT bf16 kernels), and a
+     render chunk's device time by kernel family.
  23-28. EndoNeRF training, on the same config with base.yml's train keys
      (2048 rays, depth-guided sampling with sigma 1.0, perturb, raw noise
      1.0, bf16 dots, Adam at the exponential rate):
@@ -145,9 +150,14 @@ Phases (any failure raises and exits non-zero):
      fused_train_dnerf.BWD_PARITY_TOL, the wrong-precision controls failing
      (bf16: the deform and density backwards on tensor cores); then, on
      each seed, the distance of the tensor-core and of the SIMT bf16 deform
-     and density backwards from their float64 yardsticks
+     and density backwards and forwards from their float64 yardsticks
      (fused_train_dnerf.dnerf_deform_bwd_float64,
-     dnerf_density_bwd_float64), side by side;
+     dnerf_density_bwd_float64, dnerf_deform_fwd_float64,
+     dnerf_density_fwd_float64), side by side; and the raw density query on
+     the batch's 131,072 coarse points (the train step's coarse pass)
+     against its plain version at fused_sdf.DENSITY_PARITY_TOL (the kernel
+     in float32 failing) and, side by side with the SIMT sweep, against its
+     float64 yardstick;
  24. resample parity: fused_fine_resample against fine_resample_math on
      2048 train rays, the seeded nets (two seeds) and the opaque ones
      (fused_render_dnerf.with_density_bias): per-ray depth median / p99 /
@@ -164,11 +174,12 @@ Phases (any failure raises and exits non-zero):
      steps 1 and 12, the checkpoint read back; train rays/s, peak memory, a
      forward / backward / Adam split and a busy / idle trace; then
      trainer.eval on the test frame (the render kernel);
- 27. timing of the three backward kernels, the three forward ones and the
-     resample against their plain versions at the train shape (262,144
-     points; 2048 rays), bf16, beside their bounds (the deform and density
-     backwards and the density forward also against their SIMT bf16
-     kernels, with TFLOP/s);
+ 27. timing of the three backward kernels, the three forward ones, the
+     coarse pass's raw density query and the resample against their plain
+     versions at the train shape (262,144 points; 131,072 coarse points;
+     2048 rays), bf16, beside their bounds (the deform and density
+     backwards and forwards and the raw density query also against their
+     SIMT bf16 kernels, with TFLOP/s);
  28. bf16 render quality: the port trains its own checkpoint for 300 steps
      on a smooth 64x80 synthetic scene, then renders the test frame in bf16
      and in float32: PSNR and depth RMSE of each against the scene.
@@ -986,6 +997,8 @@ def density_raw_parity(spec, scene, dev) -> float:
                             worst = max(worst, mx)
                     else:   # the limits must tell the precisions apart
                         check(not ok, f"density raw kernel {k_name} passes the {r_name} limits")
+            tc_f64_readings(s_spec, params, "fused_density_raw", (None, None, (x, t)),
+                            f"seed {seed} {what} ({x.shape[0]} points)")
     return worst
 
 
@@ -1119,9 +1132,10 @@ def dnerf_segment_parity(spec, rspec, renderer, dev):
                     else:   # each segment's limits must tell the precisions apart
                         check(not ok, f"dnerf segment {name} kernel {kp} passes the {prec} limits")
                 if sound and prec == "default":
-                    packed, inputs = seg_cases["dnerf_density_fwd"]
-                    tc_f64_readings(spec, params, "dnerf_density_fwd", (packed, None, inputs),
-                                    f"seed {seed} ({x.shape[0]} points)")
+                    for name in ("dnerf_deform_fwd", "dnerf_density_fwd"):
+                        packed, inputs = seg_cases[name]
+                        tc_f64_readings(spec, params, name, (packed, None, inputs),
+                                        f"seed {seed} ({x.shape[0]} points)")
                     if seed == 0:
                         abs_err, cases = ae, seg_cases
     return abs_err, cases, x.shape[0]
@@ -1342,9 +1356,12 @@ def dnerf_timing(spec, rspec, renderer, seg_cases, n_seg, smi: str) -> dict:
     for name, (packed, inputs) in seg_cases.items():
         calls[name] = (lambda n=name, p=packed, i=inputs: ftd.FWD[n.split("_")[1]](p, *i),
                        lambda n=name, i=inputs: plain[n](*i), 5)
-    packed, inputs = seg_cases["dnerf_density_fwd"]
-    calls["dnerf_density_fwd (SIMT bf16)"] = (
-        lambda: ftd.dnerf_density_fwd(packed, *inputs, simt=True), None, 5)
+    calls["fused_density_raw (SIMT bf16)"] = (
+        lambda: fsd.fused_density_raw_cuda(spec, params, x, t, bf, simt=True), None, 3)
+    for name in ("dnerf_deform_fwd", "dnerf_density_fwd"):
+        packed, inputs = seg_cases[name]
+        calls[f"{name} (SIMT bf16)"] = (
+            lambda f=ftd.FWD[name.split("_")[1]], p=packed, i=inputs: f(p, *i, simt=True), None, 5)
     render_split(calls["fused_render_rays_dnerf"][0], smi, "tensor cores")
     render_split(calls["fused_render_rays_dnerf (SIMT bf16)"][0], smi, "SIMT")
     out = {}
@@ -1379,7 +1396,8 @@ def dnerf_train_batch(spec, rspec, params, scene, gen, dev, n_rays=DN_RAY_BATCH)
     """The fine samples of one EndoNeRF train batch as the train step forms
     them: sample_train_batch, slots 6/7 = (depth, sigma), init_z with drawn
     eps, fused_density_raw (bf16) + unit noise + relu, fused_fine_resample.
-    Returns (x, d [N, 3], t [N, 1], (z0, sigma, |d|), rays_d)."""
+    Returns (x, d [N, 3], t [N, 1], (z0, sigma, |d|), (x0 [M, 3], t0 [M, 1]):
+    the coarse points the raw density query took)."""
     from endosurf_tpu_torch.data.scene_data import sample_train_batch
     from endosurf_tpu_torch.kernels import fused_sampler as fs
     from endosurf_tpu_torch.kernels.fused_render_dnerf import init_z
@@ -1395,19 +1413,41 @@ def dnerf_train_batch(spec, rspec, params, scene, gen, dev, n_rays=DN_RAY_BATCH)
 
     def pts(z):
         return (o[:, None] + d_z[:, None] * z[..., None]).reshape(-1, 3)
-    raw = fused_density_raw_cuda(spec, params, pts(z0), t.repeat_interleave(n0, 0),
-                                 torch.bfloat16).reshape(n_rays, n0)
+    coarse = (pts(z0).contiguous(), t.repeat_interleave(n0, 0).contiguous())
+    raw = fused_density_raw_cuda(spec, params, *coarse, torch.bfloat16).reshape(n_rays, n0)
     sigma = torch.relu(raw + torch.randn(raw.shape, generator=gen, device=dev))
     dn = torch.linalg.norm(d, dim=-1, keepdim=True)
     z = fs.fused_fine_resample_cuda(z0, sigma, dn, rspec.n_importance)
     k = z.shape[1]
     return (pts(z).contiguous(), d.repeat_interleave(k, 0).contiguous(),
-            t.repeat_interleave(k, 0).contiguous(), (z0, sigma, dn), d)
+            t.repeat_interleave(k, 0).contiguous(), (z0, sigma, dn), coarse)
 
 
-def dnerf_bwd_parity_phase(spec, x, d, t, dev):
+def density_raw_coarse_parity(spec, params, coarse, what: str) -> None:
+    """Phase 23: the bf16 raw density query against its plain version on a
+    train batch's coarse points (the train step's coarse pass), sound and
+    with the kernel in float32 (the control, which must fail), and its
+    float64 readings."""
+    from endosurf_tpu_torch.kernels import fused_sdf as fsd
+    bf, f32 = torch.bfloat16, torch.float32
+    ref = fsd.fused_density_raw_reference(spec, params, *coarse, bf)
+    for k_dt in (bf, f32):
+        med, p99, mx, ok = fsd.parity_errors(fsd.fused_density_raw_cuda(spec, params, *coarse,
+                                                                        k_dt),
+                                             ref, bf, fsd.DENSITY_PARITY_TOL)
+        sound = k_dt == bf
+        print(f"density raw {'sound' if sound else 'control'} {what} kernel {k_dt} plain "
+              f"bf16: median {med:.3e}, p99 {p99:.3e}, max {mx:.3e} "
+              f"(tol {fsd.DENSITY_PARITY_TOL[bf]})", flush=True)
+        check(ok if sound else not ok,
+              f"density raw kernel {k_dt} vs plain bf16 at the coarse points ({what})")
+    tc_f64_readings(spec, params, "fused_density_raw", (None, None, coarse), what)
+
+
+def dnerf_bwd_parity_phase(spec, x, d, t, dev, coarse=None):
     """Phase 23; returns each kernel's max absolute error and the bf16 seed-0
-    sound cases (phase 27 times them)."""
+    sound cases (phase 27 times them). ``coarse``: the train batch's coarse
+    points, where the raw density query is held too."""
     from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
     from endosurf_tpu_torch.models.endonerf import init_dnerf_params
     abs_err, cases = {}, {}
@@ -1445,16 +1485,21 @@ def dnerf_bwd_parity_phase(spec, x, d, t, dev):
                 del res, seg_cases
         tc_f64_train_readings(spec, params, f64_cases, f"seed {seed} ({n} points)")
         del f64_cases
+        if coarse is not None:
+            density_raw_coarse_parity(spec, params, coarse,
+                                      f"seed {seed} ({coarse[0].shape[0]} coarse points)")
     return abs_err, cases
 
 
 def tc_f64_train_readings(spec, params, cases, what: str) -> None:
     """Phase 23: tc_f64_readings of the deform and density backwards on
-    their bf16 cases (bwd_segment_parity's) and of the density forward on
-    the density backward's x_c; the deform backward's walk against float64
+    their bf16 cases (bwd_segment_parity's), of the deform forward on the
+    deform backward's xt and of the density forward on the density
+    backward's x_c; the deform backward's walk against float64
     (fused_train_dnerf.deform_walk_distance)."""
     from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
     packed, like, _, inputs, cots = cases["dnerf_deform_bwd"]
+    tc_f64_readings(spec, params, "dnerf_deform_fwd", (packed, None, inputs), what)
     tc_f64_readings(spec, params, "dnerf_deform_bwd", (packed, like, inputs, cots), what)
     walk = ftd.deform_walk_distance(spec, params, packed, *inputs, *cots)
     print(f"dnerf_deform_bwd bf16 vs float64 {what}: points whose operands or cotangents are off "
@@ -1470,12 +1515,13 @@ def tc_f64_train_readings(spec, params, cases, what: str) -> None:
 
 
 def tc_f64_readings(spec, params, kernel: str, case, what: str) -> None:
-    """Phases 19 and 23: a tensor-core bf16 D-NeRF kernel's and its SIMT
+    """Phases 17, 19 and 23: a tensor-core bf16 D-NeRF kernel's and its SIMT
     bf16 kernel's distance from the float64 yardstick on the same inputs
     (fused_train_dnerf.tc_float64_distance: the same bf16 operand and
     cotangent roundings, float64 arithmetic), side by side: median and p99
     of each output's (a backward's d x_c) per-point error and of the weight
-    gradients' per-element error. ``case``: (packed, like, inputs[, cots])."""
+    gradients' per-element error. ``case``: (packed, like, inputs[, cots]);
+    the raw density query takes (None, None, (x, t))."""
     from endosurf_tpu_torch.kernels import fused_render as fr
     from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
     dist = ftd.tc_float64_distance(spec, params, kernel, *case)
@@ -1598,7 +1644,7 @@ def dnerf_whole_step_vs_plain(spec, rspec, scene, dev) -> None:
 DN_DETAIL = ("dnerf_deform_bwd", "dnerf_density_bwd", "dnerf_color_bwd", "wgrad_",
              "dnerf_deform_fwd", "dnerf_density_fwd", "dnerf_color_fwd")
 DN_FAMILIES = (("D-NeRF segment kernels", ("dnerf_", "wgrad_")),
-               ("coarse density sweep", ("sweep_kernel",)),
+               ("coarse density sweep", ("sweep_kernel", "dn_sweep_tc_kernel")),
                ("resample", ("dn_fine_resample_kernel",)))
 
 
@@ -1695,7 +1741,7 @@ def simt_note(name: str, flops: float, k_ms: float, call) -> str:
     its SIMT bf16 kernel's time (``call(simt=True)``) and both TFLOP/s, as a
     note; else nothing."""
     from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
-    if name not in getattr(ftd, "TC_KERNELS", ("dnerf_density_bwd",)):
+    if name not in ftd.TC_KERNELS:
         return ""
     simt_ms = cuda_ms(lambda: call(simt=True), 2)
     return (f"; the SIMT bf16 kernel {simt_ms:.3f} ms; tensor cores "
@@ -1728,16 +1774,20 @@ def dnerf_fwd_timing(spec, params, bwd_cases, n, what: str) -> dict:
     return out
 
 
-def dnerf_train_timing(spec, rspec, bwd_cases, resample_in, smi: str, params=None) -> dict:
+def dnerf_train_timing(spec, rspec, bwd_cases, resample_in, smi: str, params=None,
+                       coarse=None) -> dict:
     """Phase 27: device ms of the three backward kernels, the three forward
-    ones and the resample against their plain versions at the train shape,
-    bf16, with (bound ms, bounded by) from the shapes: a backward's
-    recompute, input-cotangent and weight-gradient products; per-point
-    inputs and outputs once, bf16 weights, float32 gradients. The forward
-    kernels run on the backward cases' inputs (``params``: the cases'
-    parameters, for the forward bounds; without them no forward is timed).
-    Beside a kernel with a tensor-core version (bf16), its SIMT kernel."""
+    ones, the coarse pass's raw density query and the resample against their
+    plain versions at the train shape, bf16, with (bound ms, bounded by)
+    from the shapes: a backward's recompute, input-cotangent and
+    weight-gradient products; per-point inputs and outputs once, bf16
+    weights, float32 gradients. The forward kernels run on the backward
+    cases' inputs, the raw density query on the train batch's ``coarse``
+    points (``params``: the cases' parameters, for the forward bounds;
+    without them neither is timed). Beside a kernel with a tensor-core
+    version (bf16), its SIMT kernel."""
     from endosurf_tpu_torch.kernels import fused_sampler as fs
+    from endosurf_tpu_torch.kernels import fused_sdf as fsd
     from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
     bf = torch.bfloat16
     out = {}
@@ -1773,6 +1823,19 @@ def dnerf_train_timing(spec, rspec, bwd_cases, resample_in, smi: str, params=Non
               f"weight gradients){simt}", flush=True)
     if params is not None:
         out.update(dnerf_fwd_timing(spec, params, bwd_cases, None, "train points"))
+    if params is not None and coarse is not None:
+        n = coarse[0].shape[0]
+        flops = 2.0 * n * (net_macs(params, "deform") + net_macs(params, "density", 1))
+        with torch.no_grad():
+            times = (cuda_ms(lambda: fsd.fused_density_raw_cuda(spec, params, *coarse, bf), 5),
+                     cuda_ms(lambda: fsd.fused_density_raw_reference(spec, params, *coarse, bf),
+                             5))
+            simt = simt_note("fused_density_raw", flops, times[0], functools.partial(
+                fsd.fused_density_raw_cuda, spec, params, *coarse, bf))
+        out[f"fused_density_raw ({n} coarse points)"] = (*times, *bound_ms(
+            flops, n * (3 + 1 + 1) * 4 + _param_bytes(params, ("deform", "density"), bf), bf))
+        print(f"fused_density_raw: {n} coarse points of the train batch, {flops / 1e12:.4f} "
+              f"TFLOP, {flops / times[0] / 1e9:.2f} TFLOP/s{simt}", flush=True)
     z0, sigma, dn = resample_in
     n_rays, n0 = z0.shape
     k = n0 + rspec.n_importance
@@ -1916,7 +1979,7 @@ def dnerf_segments_only(smi: str) -> int:
     spec, rspec = DNeRFSpec.from_config(ncfg["net"]), DNeRFRenderSpec.from_config(ncfg["render"])
     scene = make_synthetic_arrays(n_frames=4, h=H, w=W, seed=0, device=dev)
     params = init_dnerf_params(spec, torch.Generator().manual_seed(0), dev)
-    x, d, t, resample_in, _ = dnerf_train_batch(spec, rspec, params, scene,
+    x, d, t, resample_in, coarse = dnerf_train_batch(spec, rspec, params, scene,
                                                 torch.Generator(device=dev).manual_seed(7), dev)
     root = os.path.dirname(os.path.abspath(__file__))
     res, _, cases = ftd.bwd_segment_parity(spec, params, x, d, t, "default", 0)
@@ -1928,14 +1991,15 @@ def dnerf_segments_only(smi: str) -> int:
             for k, v in kinds["cot"].items()) + f"worst leaf rel L2 {worst:.3e}", flush=True)
     check(ftd.bwd_parity_ok(res), "dnerf backward kernels vs plain (bf16, seed 0)")
     del x, d, t
-    dnerf_train_timing(spec, rspec, cases, resample_in, f"{smi}, {root}", params)
+    dnerf_train_timing(spec, rspec, cases, resample_in, f"{smi}, {root}", params, coarse)
     for k, (k_ms, p_ms, b_ms, b_by) in dnerf_fwd_timing(spec, params, cases, 65536,
                                                         "points").items():
         print(f"{k} timing (bf16, {smi}, {root}): kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms; "
               f"bound {b_ms:.4f} ms ({b_by})", flush=True)
-    if hasattr(ftd, "TC_KERNELS"):
-        n = cases["dnerf_density_bwd"][3][0].shape[0]
-        tc_f64_train_readings(spec, params, cases, f"seed 0 ({n} points, {root})")
+    n = cases["dnerf_density_bwd"][3][0].shape[0]
+    tc_f64_train_readings(spec, params, cases, f"seed 0 ({n} points, {root})")
+    density_raw_coarse_parity(spec, params, coarse,
+                              f"seed 0 ({coarse[0].shape[0]} coarse points, {root})")
     return 0
 
 
@@ -2287,16 +2351,17 @@ def main() -> int:
 
     # 23-28. EndoNeRF training
     dn_params = init_dnerf_params(dn_spec, torch.Generator().manual_seed(0), dev)
-    x_f, d_f, t_f, resample_in, _ = dnerf_train_batch(
+    x_f, d_f, t_f, resample_in, coarse = dnerf_train_batch(
         dn_spec, dn_rspec, dn_params, renderer_scene, torch.Generator(device=dev).manual_seed(7),
         dev)
-    dn_bwd_abs, dn_bwd_cases = dnerf_bwd_parity_phase(dn_spec, x_f, d_f, t_f, dev)
+    dn_bwd_abs, dn_bwd_cases = dnerf_bwd_parity_phase(dn_spec, x_f, d_f, t_f, dev, coarse)
     del x_f, d_f, t_f
     resample_abs = dnerf_resample_phase(dn_spec, dn_rspec, renderer_scene, dev)
     dnerf_whole_step_vs_plain(dn_spec, dn_rspec, renderer_scene, dev)
     dn_train_launches, _ = dnerf_train_phase(renderer_scene, dev, smi)
     dn_train_times = dnerf_train_timing(dn_spec, dn_rspec, dn_bwd_cases, resample_in, smi,
-                                        dn_params)
+                                        dn_params, coarse)
+    del coarse
     del dn_bwd_cases
     dnerf_render_quality(dev, smi)
 

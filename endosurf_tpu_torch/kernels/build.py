@@ -129,21 +129,23 @@ def load_library() -> ctypes.CDLL:
     lib.train_sdf_fwd_work_floats.argtypes = [ctypes.POINTER(i64), i32, i32]
     lib.train_sdf_fwd_work_floats.restype = i64
     # the EndoNeRF kernels (fused_sdf.cu, fused_render_dnerf.cu, fused_train_dnerf.cu)
-    lib.fused_density_raw_launch.argtypes = [vp, vp, i64, vp, ctypes.POINTER(i64), i32, vp, vp]
+    lib.fused_density_raw_launch.argtypes = [vp, vp, i64, vp, ctypes.POINTER(i64), i32, i32, vp,
+                                             vp]
     lib.fused_density_raw_launch.restype = i32
     lib.fused_render_dnerf_scratch_floats.argtypes = [i32]
     lib.fused_render_dnerf_scratch_floats.restype = i64
     lib.fused_render_dnerf_launch.argtypes = [
         vp, vp, i32, i32, i32, vp, vp, ctypes.POINTER(i64), i32, i32, i32, vp, vp, vp]
     lib.fused_render_dnerf_launch.restype = i32
-    # the D-NeRF segments: w, meta, rb (the density forward and the deform and
-    # density backwards: rb, tc), n, then tensors (a backward's last three:
+    # the D-NeRF segments: w, meta, rb (the deform and density forwards and
+    # backwards: rb, tc), n, then tensors (a backward's last three:
     # scratch, partial sums, packed gradient), stream
     for name, n_ptrs in (("dnerf_deform_fwd", 2), ("dnerf_density_fwd", 3),
                          ("dnerf_color_fwd", 3), ("dnerf_deform_bwd", 5),
                          ("dnerf_density_bwd", 7), ("dnerf_color_bwd", 7)):
         fn = getattr(lib, name)
-        tc = name in ("dnerf_density_fwd", "dnerf_deform_bwd", "dnerf_density_bwd")
+        tc = name in ("dnerf_deform_fwd", "dnerf_density_fwd", "dnerf_deform_bwd",
+                      "dnerf_density_bwd")
         modes = [i32, i32] if tc else [i32]
         fn.argtypes = [vp, ctypes.POINTER(i64), *modes, i64] + [vp] * (n_ptrs + 1)
         fn.restype = i32

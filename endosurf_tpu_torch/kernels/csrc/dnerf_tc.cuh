@@ -3,14 +3,16 @@
 // ("default" dot mode) kernels: a tile of DT_P points, the forward of a net's
 // hidden layers as tile products on mma.sync (mma_tile.cuh), and the coarse
 // sweep kernel (deform -> density -> the raw density column) over a point
-// source. The EndoNeRF render's field stage (fused_render_dnerf.cu), the
-// density forward and the density and deform backwards' recompute
-// (fused_train_dnerf.cu) run the same tile.
+// source: the EndoNeRF render's rays (fused_render_dnerf.cu) and the raw
+// density query's point list (fused_sdf.cu). The render's field stage, the
+// deform and density forwards and the density and deform backwards'
+// recompute (fused_train_dnerf.cu) run the same tile.
 //
 // Replaces, for the bf16 mode, the SIMT code of dnerf_chain.cuh and
 // sdf_chain.cuh's D-NeRF sweep inside the ports of the Pallas TPU kernels
-// endosurf_tpu/kernels/fused_render_dnerf.py (fused_render_rays_dnerf) and
-// fused_train_dnerf.py (_density_fwd_pl, _deform_bwd_pl, _density_bwd_pl):
+// endosurf_tpu/kernels/fused_render_dnerf.py (fused_render_rays_dnerf),
+// fused_sdf.py (fused_density_raw) and fused_train_dnerf.py
+// (_deform_fwd_pl, _density_fwd_pl, _deform_bwd_pl, _density_bwd_pl):
 // there the weights stay in VMEM and
 // the samples stream through the MXU. Here a block of NT threads owns DT_P
 // points: the layer's operand rows sit in shared memory as bf16, the weights

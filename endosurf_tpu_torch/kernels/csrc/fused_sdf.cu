@@ -34,8 +34,17 @@
 // arrive rounded (pack_operands); products accumulate in float32. Without it
 // every dot is float32. Coordinates are not rounded (the CPU-interpreted JAX
 // kernel's semantics, ROADMAP section C).
+//
+// With rb the raw density query runs on tensor cores: dnerf_tc.cuh's coarse
+// sweep kernel (dn_sweep_tc_kernel, the EndoNeRF render's) over the same
+// point list, 64 points a block, the hidden layers as mma.sync tile products
+// (bf16 operands, each k-tile's sum promoted into float32), the encodings of
+// the unrounded coordinates, x_c and the raw column in double. 0.262 TFLOP
+// at the train step's 131,072 coarse points. rb without tc runs the SIMT
+// sweep (a comparison only); float32 always does.
 
 #include "sdf_chain.cuh"
+#include "dnerf_tc.cuh"
 
 extern "C" {
 
@@ -50,12 +59,15 @@ int fused_sdf_observed_launch(const float* x, const float* t, long long n, const
 }
 
 // The D-NeRF chain over the same point list; w / meta packed by
-// kernels/fused_train_dnerf.pack_dnerf.
+// kernels/fused_train_dnerf.pack_dnerf. With rb and tc the tensor-core sweep
+// (meta then carries the bf16 pack's fragment extension).
 int fused_density_raw_launch(const float* x, const float* t, long long n, const float* w,
-                             const long long* meta, int rb, float* out, void* stream) {
+                             const long long* meta, int rb, int tc, float* out, void* stream) {
   if (n <= 0) return 0;
   const Model m = decode_model(meta);
   PointList src{x, t, out, n};
+  if (rb && tc)
+    return (int)launch_dn_sweep_tc(w, m, decode_dn_frags(meta), src, (cudaStream_t)stream);
   return (int)launch_sweep<DNeRFChain>(w, m, rb != 0, src, (cudaStream_t)stream);
 }
 

@@ -48,9 +48,14 @@
 // net) is written once and read once by the product: 4.5-4.7 GB at the train
 // step's 262,144 points.
 //
-// In bf16 the density forward and the density and deform backwards run on
-// tensor cores, each on dnerf_tc.cuh's tile of DT_P points (the forward's
-// hidden layers as tile products, the relu' as bits in shared memory).
+// In bf16 the deform and density forwards and the density and deform
+// backwards run on tensor cores, each on dnerf_tc.cuh's tile of DT_P points
+// (the forward's hidden layers as tile products, the relu' as bits in shared
+// memory).
+//
+// dnerf_deform_fwd_tc_kernel: dt_deform<true> (the code the deform backward
+// recomputes with), x_c = x + the 3-wide output layer in double, rounded
+// once. 0.263 TFLOP at the train step's 262,144 points.
 //
 // dnerf_density_fwd_tc_kernel: dt_density<true> (the same code the density
 // backward recomputes with, so both gate every relu alike), the raw column in
@@ -483,6 +488,42 @@ cudaError_t launch_density_fwd_tc(const float* w, const long long* meta, const M
   return cudaGetLastError();
 }
 
+// xt [n][4] -> x_c [n][3] (dnerf_deform_fwd_kernel<true>'s maths on tensor
+// cores): dt_deform<true>, the code the deform backward recomputes with, so
+// both gate every relu alike; x_c = x + the 3-wide output layer in double,
+// rounded once.
+__global__ void __launch_bounds__(NT, 2)
+dnerf_deform_fwd_tc_kernel(const float* __restrict__ wts, const __grid_constant__ Model m,
+                           const __grid_constant__ DnFrags fr, long long n,
+                           const float* __restrict__ xt, float* __restrict__ xc) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int ldh = dt_ldh(m);
+  uint4* ring = (uint4*)tc_smem + warp * (TC_STAGES * TC_NPW * 32);
+  const DtTile s = dt_tile(tc_smem, m, DT_FWD);
+  const long long base = (long long)blockIdx.x * DT_P;
+  for (int idx = tid; idx < DT_P * ldh; idx += NT) s.H[idx] = bzero();
+  for (int idx = tid; idx < DT_P * 4; idx += NT)
+    s.x[idx] = base + (idx >> 2) < n ? xt[(size_t)base * 4 + idx] : 0.f;
+  __syncthreads();
+  dt_deform<true>(wts, m, fr, s, ldh, ring);
+  for (int idx = tid; idx < DT_P * 3; idx += NT) {
+    const int p = idx / 3, c = idx - p * 3;
+    if (base + p < n) xc[(size_t)(base + p) * 3 + c] = s.xc[p * 4 + c];
+  }
+}
+
+cudaError_t launch_deform_fwd_tc(const float* w, const long long* meta, const Model& m,
+                                 long long n, const float* xt, float* xc, cudaStream_t st) {
+  if (n <= 0) return cudaSuccess;
+  const size_t smem = dt_smem(m, DT_FWD);
+  cudaError_t e = set_smem(dnerf_deform_fwd_tc_kernel, smem);
+  if (e != cudaSuccess) return e;
+  dnerf_deform_fwd_tc_kernel<<<n_tiles(n, DT_P), NT, smem, st>>>(w, m, decode_dn_frags(meta), n,
+                                                                 xt, xc);
+  return cudaGetLastError();
+}
+
 // One hidden layer l (> 0, or 0 with den) of a backward's walk through
 // W_l^T (frag: its fragments; TERMS bf16 terms of the cotangent in H, Hm,
 // Hl): each input column's cotangent op(acc) goes to the h part (gated by
@@ -787,15 +828,17 @@ extern "C" {
 // w / meta packed by kernels/fused_train_dnerf.pack_dnerf; every tensor float32
 // contiguous on the current device. Each returns a cudaError_t (0 on success).
 
-int dnerf_deform_fwd(const float* w, const long long* meta, int rb, long long n,
+// The deform and density forwards: with rb and tc the tensor-core kernel
+// (meta then carries the bf16 pack's fragment extension); rb without tc runs
+// the SIMT one (a comparison only).
+int dnerf_deform_fwd(const float* w, const long long* meta, int rb, int tc, long long n,
                      const float* xt, float* xc, void* stream) {
   const Model m = decode_model(meta);
+  if (rb && tc) return (int)launch_deform_fwd_tc(w, meta, m, n, xt, xc, (cudaStream_t)stream);
   return launch_seg(dnerf_deform_fwd_kernel<true>, dnerf_deform_fwd_kernel<false>, rb != 0, m,
                     n, (cudaStream_t)stream, w, m, n, xt, xc);
 }
 
-// With rb and tc the tensor-core kernel (meta then carries the bf16 pack's
-// fragment extension); rb without tc runs the SIMT one (a comparison only).
 int dnerf_density_fwd(const float* w, const long long* meta, int rb, int tc, long long n,
                       const float* xc, float* sigma, float* feat, void* stream) {
   const Model m = decode_model(meta);

@@ -27,12 +27,13 @@ CUDA tensors run the kernels of ``csrc/fused_train_dnerf.cu`` over
 ``csrc/dnerf_chain.cuh``: ``dnerf_*_fwd`` and ``dnerf_*_bwd``, each counted
 in ``LAUNCHES``, on weights packed by ``pack_dnerf`` (the one layout every
 D-NeRF kernel reads: ``fused_density_raw`` and the render kernel too;
-cached a parameter set). The bf16 density forward and the bf16 deform and
-density backwards run on tensor cores (``csrc/dnerf_tc.cuh``'s tile);
-``simt=True`` (``dnerf_density_fwd``, ``dnerf_deform_bwd``,
+cached a parameter set). The bf16 deform and density forwards and
+backwards run on tensor cores (``csrc/dnerf_tc.cuh``'s tile); ``simt=True``
+(``dnerf_deform_fwd``, ``dnerf_density_fwd``, ``dnerf_deform_bwd``,
 ``dnerf_density_bwd``) runs the SIMT kernel, which only the float64
-comparisons ask for (the yardsticks ``dnerf_density_fwd_float64``,
-``dnerf_deform_bwd_float64``, ``dnerf_density_bwd_float64``).
+comparisons ask for (the yardsticks ``dnerf_deform_fwd_float64``,
+``dnerf_density_fwd_float64``, ``dnerf_deform_bwd_float64``,
+``dnerf_density_bwd_float64``).
 """
 
 from __future__ import annotations
@@ -316,9 +317,10 @@ def _enc_widths(meta: Sequence[int]) -> Tuple[int, int, int]:
             3 * (1 + 2 * meta[5]))
 
 
-# The tensor-core tiles (csrc/dnerf_tc.cuh's DtKind): "fwd" the coarse sweep's,
-# the render's field stage's and the density forward's; "density_bwd" and
-# "deform_bwd" the backwards'.
+# The tensor-core tiles (csrc/dnerf_tc.cuh's DtKind): "fwd" the coarse sweep's
+# (the render's and the raw density query's), the render's field stage's and
+# the deform and density forwards'; "density_bwd" and "deform_bwd" the
+# backwards'.
 TC_TILES = ("fwd", "density_bwd", "deform_bwd")
 
 
@@ -428,8 +430,8 @@ def _arg(t: torch.Tensor, shape, name: str) -> torch.Tensor:
 
 def _run(name: str, packed: DnPacked, n: int, *tensors: torch.Tensor,
          tc: Optional[bool] = None) -> None:
-    """Launch kernel entry ``name``; ``tc`` (the density forward's and the
-    deform and density backwards'): the tensor-core kernel in bf16."""
+    """Launch kernel entry ``name``; ``tc`` (the deform and density
+    forwards' and backwards'): the tensor-core kernel in bf16."""
     from endosurf_tpu_torch.kernels.build import load_library
     lib = load_library()
     device = tensors[0].device
@@ -446,15 +448,6 @@ def _run(name: str, packed: DnPacked, n: int, *tensors: torch.Tensor,
     LAUNCHES[name] += 1
 
 
-def dnerf_deform_fwd(packed: DnPacked, xt: torch.Tensor) -> torch.Tensor:
-    """xt [N, 4] (x, t) -> x_c [N, 3]."""
-    n = xt.shape[0]
-    xt = _arg(xt, (n, 4), "xt")
-    x_c = torch.empty(n, 3, dtype=torch.float32, device=xt.device)
-    _run("dnerf_deform_fwd", packed, n, xt, x_c)
-    return x_c
-
-
 def _tc(packed: DnPacked, simt: bool, tile: str) -> bool:
     """Whether a call runs its tensor-core kernel: a bf16 pack, not ``simt``;
     the nets are checked against the kernel's tile."""
@@ -462,6 +455,18 @@ def _tc(packed: DnPacked, simt: bool, tile: str) -> bool:
     if tc:
         check_tc_nets(packed, tile)
     return tc
+
+
+def dnerf_deform_fwd(packed: DnPacked, xt: torch.Tensor, simt: bool = False) -> torch.Tensor:
+    """xt [N, 4] (x, t) -> x_c [N, 3]. A bf16 pack runs the tensor-core
+    kernel (its nets checked first, on any device); ``simt`` runs the SIMT
+    one instead (the float64 comparison only)."""
+    tc = _tc(packed, simt, "fwd")
+    n = xt.shape[0]
+    xt = _arg(xt, (n, 4), "xt")
+    x_c = torch.empty(n, 3, dtype=torch.float32, device=xt.device)
+    _run("dnerf_deform_fwd", packed, n, xt, x_c, tc=tc)
+    return x_c
 
 
 def dnerf_density_fwd(packed: DnPacked, x_c: torch.Tensor, simt: bool = False
@@ -815,6 +820,18 @@ def _float64_segment(spec, params: Dict[str, Any], seg: str):
     return segment_weights(prepare_effective_dnerf(spec, to_float64(params)), seg)
 
 
+def dnerf_deform_fwd_float64(spec, params: Dict[str, Any], xt: torch.Tensor,
+                             precision: str = "default") -> torch.Tensor:
+    """The bf16 deform forward's float64 yardstick: ``seg_math`` on float64
+    copies of the kernels' own weights and of xt, with ``precision``'s
+    operand roundings (the coordinates rounded before they are encoded, as
+    the field rounds them) and float64 arithmetic between them. Returns x_c
+    [N, 3] in float64, as ``dnerf_deform_fwd``."""
+    like, flat = _float64_segment(spec, params, "deform")
+    with torch.no_grad():
+        return seg_math(spec, "deform", like, flat, (xt.double(),), precision)[0]
+
+
 def dnerf_density_fwd_float64(spec, params: Dict[str, Any], x_c: torch.Tensor,
                               precision: str = "default") -> Tuple[torch.Tensor, torch.Tensor]:
     """The bf16 density forward's float64 yardstick: ``seg_math`` on float64
@@ -915,32 +932,61 @@ def bwd_float64_distance(leaves: Sequence[torch.Tensor], d_xc: Optional[torch.Te
     return dist
 
 
-# the kernels with a tensor-core bf16 version beside their SIMT one (simt=True)
-TC_KERNELS = ("dnerf_density_fwd", "dnerf_deform_bwd", "dnerf_density_bwd")
-_FLOAT64_BWD = {"deform": dnerf_deform_bwd_float64, "density": dnerf_density_bwd_float64}
+def _raw_density(spec, params: Dict[str, Any], x: torch.Tensor, t: torch.Tensor,
+                 simt: bool = False) -> torch.Tensor:
+    from endosurf_tpu_torch.kernels.fused_sdf import fused_density_raw_cuda
+    return fused_density_raw_cuda(spec, params, x, t, torch.bfloat16, simt)
 
 
-def tc_float64_distance(spec, params: Dict[str, Any], kernel: str, packed: DnPacked, like,
-                        inputs: Sequence[torch.Tensor], cots: Sequence[torch.Tensor] = ()
+def _raw_density_float64(spec, params: Dict[str, Any], x: torch.Tensor, t: torch.Tensor
+                         ) -> torch.Tensor:
+    from endosurf_tpu_torch.kernels.fused_sdf import fused_density_raw_float64
+    return fused_density_raw_float64(spec, params, x, t)
+
+
+# The kernels with a tensor-core bf16 version beside their SIMT one
+# (simt=True), for tc_float64_distance: name -> (its outputs' names, None for
+# a backward; its float64 yardstick (spec, params, *inputs, *cots); the
+# kernel (spec, params, packed, like, *inputs, *cots, simt=)).
+TC_KERNELS = {
+    "dnerf_deform_fwd": (("x_c",), dnerf_deform_fwd_float64,
+                         lambda spec, params, packed, like, xt, simt:
+                         dnerf_deform_fwd(packed, xt, simt)),
+    "dnerf_density_fwd": (("raw_sigma", "feat"), dnerf_density_fwd_float64,
+                          lambda spec, params, packed, like, x_c, simt:
+                          dnerf_density_fwd(packed, x_c, simt)),
+    "dnerf_deform_bwd": (None, dnerf_deform_bwd_float64,
+                         lambda spec, params, packed, like, *args, simt:
+                         dnerf_deform_bwd(packed, like, *args, simt=simt)),
+    "dnerf_density_bwd": (None, dnerf_density_bwd_float64,
+                          lambda spec, params, packed, like, *args, simt:
+                          dnerf_density_bwd(packed, like, *args, simt=simt)),
+    "fused_density_raw": (("raw",), _raw_density_float64,
+                          lambda spec, params, packed, like, x, t, simt:
+                          _raw_density(spec, params, x, t, simt)),
+}
+
+
+def tc_float64_distance(spec, params: Dict[str, Any], kernel: str, packed: Optional[DnPacked],
+                        like, inputs: Sequence[torch.Tensor], cots: Sequence[torch.Tensor] = ()
                         ) -> Dict[str, Dict[str, Tuple[float, float]]]:
-    """A ``TC_KERNELS`` kernel on a bf16 pack and its SIMT kernel, each
-    against the float64 yardstick on the same inputs (and, for a backward,
-    cotangents): {"tensor cores": distance, "SIMT": distance}, each
+    """A ``TC_KERNELS`` kernel in bf16 (a bf16 pack; the raw density query
+    packs its own and takes None) and its SIMT kernel, each against the
+    float64 yardstick on the same inputs (and, for a backward, cotangents):
+    {"tensor cores": distance, "SIMT": distance}, each
     ``fwd_float64_distance`` (per output) or ``bwd_float64_distance``."""
     if kernel not in TC_KERNELS:
         raise ValueError(f"{kernel} has no tensor-core kernel")
-    flags = (("tensor cores", False), ("SIMT", True))
-    if kernel == "dnerf_density_fwd":
-        ref = dict(zip(("raw_sigma", "feat"), dnerf_density_fwd_float64(spec, params, *inputs)))
-        return {name: fwd_float64_distance(
-            dict(zip(ref, dnerf_density_fwd(packed, *inputs, simt=flag))), ref)
-            for name, flag in flags}
-    seg = kernel.split("_")[1]
-    ref_leaves, (ref_in,) = _FLOAT64_BWD[seg](spec, params, *inputs, *cots)
+    names, yardstick, run = TC_KERNELS[kernel]
+
+    def outs(v):
+        return dict(zip(names, v if isinstance(v, tuple) else (v,)))
+    ref = yardstick(spec, params, *inputs, *cots)
     out = {}
-    for name, flag in flags:
-        leaves, (d_in,) = BWD[seg](packed, like, *inputs, *cots, simt=flag)
-        out[name] = bwd_float64_distance(leaves, d_in, ref_leaves, ref_in)
+    for name, simt in (("tensor cores", False), ("SIMT", True)):
+        got = run(spec, params, packed, like, *inputs, *cots, simt=simt)
+        out[name] = (bwd_float64_distance(got[0], got[1][0], ref[0], ref[1][0]) if names is None
+                     else fwd_float64_distance(outs(got), outs(ref)))
     return out
 
 

@@ -349,6 +349,41 @@ def test_density_fwd_float64_yardstick_matches_jax(precision):
 
 
 @pytest.mark.parametrize("precision", ["highest", "default"], ids=["f32", "bf16"])
+def test_deform_fwd_float64_yardstick_matches_jax(precision):
+    """The deform forward's float64 yardstick (dnerf_deform_fwd_float64:
+    seg_math in float64 on the float32 weights) against JAX's deform segment
+    forced onto its Pallas kernel (_deform_fwd_pl, interpreted), 48 points:
+    per point, the largest |difference| of x_c over its RMS, within F32_LEAF
+    in float32 (float64 against float32 sums) and BF16_COT with bf16 operand
+    roundings on both sides; the float32 yardstick fails the bf16 case by
+    reading above 10 F32_LEAF."""
+    js, ts = _specs(**SMALL)
+    pj = j_en.init_dnerf_params(jax.random.PRNGKey(3), js)
+    pt = params_from_jax(pj)
+    j_in, _, t_in, _ = _segment_case(js, ts, pj, "deform", 48, 4)
+    if precision == "default":
+        j_ft.set_compute_mode(jnp.bfloat16, None)
+    seg_deform = j_ftd._build_segments(js, True)[0]
+    eff = j_ftd.prepare_effective_dnerf(js, pj)
+    ref = np.asarray(seg_deform(eff["deform"], jnp.asarray(j_in[0])))[:, :3]
+    j_ft.set_compute_mode(jnp.float32, "highest")
+
+    def reading(prec):
+        got = t_ftd.dnerf_deform_fwd_float64(ts, pt, torch.from_numpy(t_in[0]), prec)
+        assert got.dtype == torch.float64 and got.shape == (48, 3)
+        return float((np.abs(got.numpy() - ref).max(-1) / np.sqrt((ref ** 2).mean())).max())
+    err = reading(precision)
+    print(f"deform fwd float64 yardstick vs JAX {precision}: {err:.3e}")
+    if precision == "highest":
+        assert err <= F32_LEAF, err
+    else:
+        assert err <= BF16_COT, err
+        control = reading("highest")
+        print(f"control (float32 yardstick vs JAX bf16): {control:.3e}")
+        assert control > F32_LEAF * 10     # the rounding is on
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"], ids=["f32", "bf16"])
 def test_field_gradients_match_jax_megakernel(precision):
     """field_eval with the train noise fed in, under autograd through the
     three Functions, against JAX's field_eval on megakernel_field_raw forced

@@ -217,6 +217,54 @@ def test_fused_density_raw_matches_jax_kernel(use_deform, dtype):
         _close_bf16(got.numpy(), ref)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("use_deform", [True, False], ids=["deform", "static"])
+def test_fused_density_raw_float64_matches_jax_kernel(use_deform, dtype):
+    """The float64 yardstick of the bf16 raw density query
+    (fused_density_raw_float64: the plain chain in float64 on the float32
+    weights, coordinates unrounded) against JAX's interpreted
+    fused_density_raw at the same dot precision, 300 points: float32 within
+    F32_TOL (float64 against float32 sums), bf16 operand roundings on both
+    sides within the bf16 limits of test_fused_density_raw_matches_jax_kernel
+    (an operand on a rounding edge rounds the other way now and then). The
+    control: the float32 yardstick fails the bf16 limits against JAX's bf16
+    kernel, more than 10 BF16_FRAC of its points over BF16_TOL (read 74-96
+    %), so the rounding is on."""
+    js, ts = _specs(**SMALL, **({} if use_deform else {"use_deform": False}))
+    pj, pt = _params(js, 9)
+    x, _, t = _points(300, seed=10)
+    jd, td = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
+                                                                       torch.bfloat16)
+    ref = np.asarray(j_fsd.fused_density_raw(js, pj, jnp.asarray(x), jnp.asarray(t),
+                                             compute_dtype=jd, interpret=True))
+    xt, tt = torch.from_numpy(x), torch.from_numpy(t)
+    got = t_fsd.fused_density_raw_float64(ts, pt, xt, tt, td)
+    assert got.shape == (300, 1) and got.dtype == torch.float64
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=F32_TOL)
+    else:
+        _close_bf16(got.numpy(), ref)
+        control = t_fsd.fused_density_raw_float64(ts, pt, xt, tt, torch.float32).numpy()
+        assert (np.abs(control - ref) > BF16_TOL).mean() > 10 * BF16_FRAC
+
+
+
+@pytest.mark.parametrize("scale", [0.06, 0.65], ids=["full", "narrow"])
+def test_density_parity_bf16_max_is_a_share_of_the_raw_scale(scale):
+    """fused_sdf.DENSITY_PARITY_TOL's bf16 max is a share (0.1) of the
+    reference's largest |raw density|, at the seeded full and narrow nets'
+    scales (about 0.06 and 0.65): one point of 65,537 moved by 0.09 of it
+    passes, by 0.11 fails; the float32 max stays a fixed 5e-5."""
+    ref = torch.linspace(-scale, scale, 65537).reshape(-1, 1)
+    tol = t_fsd.DENSITY_PARITY_TOL
+    for share, ok in ((0.09, True), (0.11, False)):
+        got = ref.clone()
+        got[-1] -= share * scale
+        assert t_fsd.parity_errors(got, ref, torch.bfloat16, tol)[-1] is ok, share
+    got = ref.clone()
+    got[-1] -= 6e-5
+    assert not t_fsd.parity_errors(got, ref, torch.float32, tol)[-1]
+
 def _coarse(n, seed):
     rng = np.random.default_rng(seed)
     z = np.sort(rng.normal(1.8, 0.3, (n, 64)), axis=-1).astype(np.float32)

@@ -25,6 +25,7 @@ import torch
 
 from endosurf_tpu_torch.kernels import fused_render as fr
 from endosurf_tpu_torch.kernels import fused_sampler as fs
+from endosurf_tpu_torch.kernels import fused_sdf as fsd
 from endosurf_tpu_torch.kernels import fused_train as ft
 from endosurf_tpu_torch.kernels import fused_train_cuda as ftc
 from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
@@ -654,7 +655,11 @@ def test_tc_smem_gates_the_nets():
     tiles fit), a 90-octave deform encoding by both backwards (the forward's
     fits; the density backward's tile, with the same row pitch and three
     operand terms, is never the smaller), a 110-octave one of either by every
-    tile; an unknown tile raises."""
+    tile; an unknown tile raises. The forward tile's gate runs before the
+    device checks in its two point callers, the deform forward
+    (dnerf_deform_fwd) and the raw density query (fused_density_raw_cuda):
+    in bf16 they refuse the nets it refuses, with simt=True they reach the
+    device check instead."""
     spec = en.DNeRFSpec()
     params = en.init_dnerf_params(spec, torch.Generator().manual_seed(0), "cpu")
     packed = ftd.pack_dnerf(spec, params, torch.bfloat16)
@@ -673,11 +678,18 @@ def test_tc_smem_gates_the_nets():
                                 ("pos_density_freqs", 110, ftd.TC_TILES),
                                 ("pos_deform_freqs", 110, ftd.TC_TILES)):
         wide = dataclasses.replace(spec, **{key: freqs})
-        packed = ftd.pack_dnerf(wide, en.init_dnerf_params(
-            wide, torch.Generator().manual_seed(0), "cpu"), torch.bfloat16)
+        wide_params = en.init_dnerf_params(wide, torch.Generator().manual_seed(0), "cpu")
+        packed = ftd.pack_dnerf(wide, wide_params, torch.bfloat16)
         for tile in ftd.TC_TILES:
             if tile in refused:
                 with pytest.raises(ValueError, match="shared memory"):
                     ftd.check_tc_nets(packed, tile)
             else:
                 ftd.check_tc_nets(packed, tile)
+        x, t = torch.zeros(5, 3), torch.zeros(5, 1)
+        for simt in (False, True):
+            gated = "fwd" in refused and not simt
+            with pytest.raises(ValueError, match="shared memory" if gated else "CUDA tensor"):
+                ftd.dnerf_deform_fwd(packed, torch.cat([x, t], -1), simt=simt)
+            with pytest.raises(ValueError, match="shared memory" if gated else "CUDA tensors"):
+                fsd.fused_density_raw_cuda(wide, wide_params, x, t, torch.bfloat16, simt=simt)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python
 """sha256 of the float32 EndoNeRF render's maps and of the float32 density
-backward's, deform backward's and density forward's outputs, to hold a
-checkout's float32 D-NeRF kernels against another's bit for bit on one card.
+backward's, deform backward's, density forward's, deform forward's and raw
+density query's outputs, to hold a checkout's float32 D-NeRF kernels
+against another's bit for bit on one card.
 
 The render: 1024 depth-guided rays (tests/test_torch_cuda.py's
 ``_dn_rays(1024, dev, True)``) with the full seeded D-NeRF nets (seed 0),
@@ -13,9 +14,11 @@ plain deform segment and seeded cotangents (a generator seeded 5 on the
 card), float32: the digest of d x_c and the packed gradient. The deform
 backward on the same points' xt with a cotangent on x_c drawn next from that
 generator: the digest of its packed gradient. The density forward on the
-same x_c: the digest of raw sigma and the feature. Run on the checkout at
-``--root`` (default: this one); prints the four digests with the card and
-nvcc's version. The card test ``test_dnerf_f32_is_the_simt_path`` holds the
+same x_c: the digest of raw sigma and the feature. The deform forward on
+the same xt: the digest of x_c. The raw density query
+(``fused_density_raw_cuda``) on the same points: the digest of the raw
+density. Run on the checkout at ``--root`` (default: this one); prints the
+six digests with the card and nvcc's version. The card test ``test_dnerf_f32_is_the_simt_path`` holds the
 digests it prints. Needs a CUDA device:
 
     python tools/dnerf_f32_digest.py [--root CHECKOUT]
@@ -31,10 +34,11 @@ import sys
 
 
 def digests(dev):
-    """(render, density backward, deform backward, density forward) digests
-    of the checkout on sys.path."""
+    """(render, density backward, deform backward, density forward, deform
+    forward, raw density) digests of the checkout on sys.path."""
     import torch
     from endosurf_tpu_torch.kernels import fused_render_dnerf as frd
+    from endosurf_tpu_torch.kernels import fused_sdf as fsd
     from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
     from endosurf_tpu_torch.models import endonerf as en
     n = 1024
@@ -74,8 +78,10 @@ def digests(dev):
     leaves, _ = ftd.dnerf_deform_bwd(packed, like, xt, g_xc)
     deform_bwd = torch.cat([v.reshape(-1) for v in leaves])
     density_fwd = torch.cat(ftd.dnerf_density_fwd(packed, x_c), -1)
+    deform_fwd = ftd.dnerf_deform_fwd(packed, xt)
+    density_raw = fsd.fused_density_raw_cuda(spec, params, x, t)
     return tuple(hashlib.sha256(v.detach().cpu().numpy().tobytes()).hexdigest()
-                 for v in (render, bwd, deform_bwd, density_fwd))
+                 for v in (render, bwd, deform_bwd, density_fwd, deform_fwd, density_raw))
 
 
 def main():
@@ -89,14 +95,16 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    render, bwd, deform_bwd, density_fwd = digests(torch.device("cuda"))
+    render, bwd, deform_bwd, density_fwd, deform_fwd, density_raw = digests(
+        torch.device("cuda"))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     nvcc = subprocess.run([build.find_nvcc(), "--version"], capture_output=True,
                           text=True).stdout.strip().splitlines()[-1]
     print(f"{osp.abspath(args.root)}: float32 dnerf render digest {render}; float32 density "
           f"backward digest {bwd}; float32 deform backward digest {deform_bwd}; float32 "
-          f"density forward digest {density_fwd} ({smi}; {nvcc})")
+          f"density forward digest {density_fwd}; float32 deform forward digest "
+          f"{deform_fwd}; float32 raw density digest {density_raw} ({smi}; {nvcc})")
 
 
 if __name__ == "__main__":

@@ -71,13 +71,17 @@ Phases (any failure raises and exits non-zero):
  12. grid-query parity: the CUDA fused_sdf_observed against its plain
      version (fields.sdf_observed) on one 64x128x128 slab (1,048,576 points)
      of the synthetic scene's frame-0 grid (its bbox x 1.2) and on 8192
-     random points with use_deform false, both dot modes, two weight seeds,
-     median / p99 / max at fused_sdf.PARITY_TOL, the wrong-precision controls
-     failing;
+     random points with use_deform false, both dot modes (bf16: the
+     tensor-core sweep, csrc/sweep_tc.cuh), two weight seeds, median / p99 /
+     max at fused_sdf.PARITY_TOL, the wrong-precision controls failing; the
+     bf16 query against its float64 yardstick
+     (fused_sdf.fused_sdf_observed_float64) at fused_sdf.FLOAT64_TOL, and the
+     tensor-core and SIMT bf16 sweeps' distances from it side by side;
  13. the 3D demo end to end: EndoSurfRenderer.demo(demo_2d=False,
      demo_3d=True, visualize=False) on the in-memory base.yml config and
      scene, one test frame at 128^3: checks that the grid ran on the kernel
-     (two launches), the vertex colours on the segment forward kernels, a
+     (two launches on one pack), the vertex colours on the segment forward
+     kernels, a
      non-empty mesh, the four PLYs and a finite geo_err_mean; prints the
      frame's grid / mesh / colour / metrics split;
  14. march parity: the CUDA fused_ray_march against its plain twin
@@ -89,7 +93,8 @@ Phases (any failure raises and exits non-zero):
      4 steps through Trainer.start at full width: one march launch per
      step, finite losses, rays/s;
  16. timing of the two kernels against their plain versions at the main
-     paths' shapes (1,048,576 points; 1024 rays), bf16, with their bounds.
+     paths' shapes (1,048,576 points; 1024 rays), bf16, with their bounds
+     and TFLOP/s (the grid query also against its SIMT bf16 sweep).
  17-22. the EndoNeRF vertical, on configs/endonerf/base.yml's keys in memory
      (three 9x256 / 9x256 / 2x128 nets, 64 + 64 samples, bf16 dots, seeded
      weights) and the synthetic 512x640 scene, with visualize / save_images
@@ -148,12 +153,13 @@ Phases (any failure raises and exits non-zero):
      weight seeds (the second on the first 65,536 points): median / p99 /
      max of d x_c and d feat, relative L2 of every weight gradient, at
      fused_train_dnerf.BWD_PARITY_TOL, the wrong-precision controls failing
-     (bf16: the deform and density backwards on tensor cores); then, on
-     each seed, the distance of the tensor-core and of the SIMT bf16 deform
-     and density backwards and forwards from their float64 yardsticks
+     (bf16: the three backwards on tensor cores); then, on each seed, the
+     distance of the tensor-core and of the SIMT bf16 backwards and the
+     deform and density forwards from their float64 yardsticks
      (fused_train_dnerf.dnerf_deform_bwd_float64,
-     dnerf_density_bwd_float64, dnerf_deform_fwd_float64,
-     dnerf_density_fwd_float64), side by side; and the raw density query on
+     dnerf_density_bwd_float64, dnerf_color_bwd_float64,
+     dnerf_deform_fwd_float64, dnerf_density_fwd_float64), side by side; and
+     the raw density query on
      the batch's 131,072 coarse points (the train step's coarse pass)
      against its plain version at fused_sdf.DENSITY_PARITY_TOL (the kernel
      in float32 failing) and, side by side with the SIMT sweep, against its
@@ -177,12 +183,18 @@ Phases (any failure raises and exits non-zero):
  27. timing of the three backward kernels, the three forward ones, the
      coarse pass's raw density query and the resample against their plain
      versions at the train shape (262,144 points; 131,072 coarse points;
-     2048 rays), bf16, beside their bounds (the deform and density
-     backwards and forwards and the raw density query also against their
-     SIMT bf16 kernels, with TFLOP/s);
+     2048 rays), bf16, beside their bounds (the three backwards, the deform
+     and density forwards and the raw density query also against their SIMT
+     bf16 kernels, with TFLOP/s);
  28. bf16 render quality: the port trains its own checkpoint for 300 steps
      on a smooth 64x80 synthetic scene, then renders the test frame in bf16
-     and in float32: PSNR and depth RMSE of each against the scene.
+     and in float32: PSNR and depth RMSE of each against the scene;
+ 29. the device kernels each tensor-core kernel's call launches
+     (fused_train_dnerf.TC_KERNELS: the D-NeRF kernels, the raw density and
+     grid queries) in bf16 and with simt=True, by torch.profiler in a fresh
+     process a kernel: the bf16 calls launch tensor-core kernels
+     (sweep_tc_kernel<PointList>, dnerf_color_bwd_tc_kernel and
+     wgrad_tc_partial_kernel, ...), the simt=True calls none.
 Phase 7 also checks one launch of each segment kernel per step, and its
 trace counts the segment kernels (the weight-gradient product included) as
 their own family. The third-to-last line is the card, the second-to-last
@@ -191,10 +203,10 @@ the kernel record (JSON), the last the device record (JSON).
 ``--train-only`` uses only what every slice with a train step has, so a
 copy of this file placed beside an older checkout's package measures that
 checkout's step with the same trace filter (``--dnerf-train-only`` likewise
-the EndoNeRF step, ``--dnerf-segments-only`` the D-NeRF segment kernels as
-phase 27 times them, on phase 23's bf16 seed-0 train points after their
-parity; the SIMT kernels and the float64 readings where the checkout has
-tensor-core ones); ``--segments-only`` likewise
+the EndoNeRF step); ``--dnerf-segments-only`` runs the D-NeRF segment
+kernels as phase 27 times them, on phase 23's bf16 seed-0 train points after
+their parity, the SIMT kernels and the float64 readings beside them (it
+needs a checkout with every backward on tensor cores); ``--segments-only``
 holds the six segment kernels against their plain versions on phase 9's
 bf16 seed-0 midpoints and times them as phase 11 does (with TFLOP/s), then
 reads phase 6's float64 distances of the bf16 upsample on both weight seeds
@@ -674,7 +686,10 @@ def grid_slab_inputs(scene, dev):
 
 
 def sdf_query_parity(spec, scene, dev) -> float:
-    """Phase 12; returns the largest bf16 sound max error on the grid."""
+    """Phase 12; returns the largest bf16 sound max error on the grid. The
+    bf16 query (tensor cores) is held to its plain version and to its float64
+    yardstick (fused_sdf.FLOAT64_TOL); the tensor-core and SIMT sweeps'
+    distances from float64 are printed side by side."""
     import dataclasses
 
     from endosurf_tpu_torch.kernels import fused_sdf as fsd
@@ -709,6 +724,14 @@ def sdf_query_parity(spec, scene, dev) -> float:
                             worst = max(worst, mx)
                     else:   # the limits must tell the precisions apart
                         check(not ok, f"sdf query kernel {k_name} passes the {r_name} limits")
+            med, p99, mx, ok = fsd.float64_errors(got["bfloat16"], fsd.fused_sdf_observed_float64(
+                s_spec, params, x, t))
+            print(f"sdf query sound seed {seed} {what} ({x.shape[0]} points) kernel bfloat16 vs "
+                  f"float64: median {med:.3e}, p99 {p99:.3e}, max {mx:.3e} (tol "
+                  f"{fsd.FLOAT64_TOL[torch.bfloat16]})", flush=True)
+            check(ok, f"sdf query kernel vs float64 ({what}, bfloat16, seed {seed})")
+            tc_f64_readings(s_spec, params, "fused_sdf_observed", (None, None, (x, t)),
+                            f"seed {seed} {what} ({x.shape[0]} points)")
     return worst
 
 
@@ -722,6 +745,7 @@ def demo_3d_phase(cfg, scene, dev) -> int:
         dcfg["exp"]["exp_dir"] = exp_root
         renderer = EndoSurfRenderer(dcfg, scene=scene, step=0, device=dev)
         fsd.LAUNCHES["fused_sdf_observed"] = 0
+        packs = fsd.PACKS["fused_sdf_observed"]
         for k in ftc.LAUNCHES:
             ftc.LAUNCHES[k] = 0
         torch.cuda.synchronize()
@@ -744,6 +768,8 @@ def demo_3d_phase(cfg, scene, dev) -> int:
               f"{stats['geo_err_mean']:.4f} mm; {plys}", flush=True)
         check(launches == GRID_RES // GRID_SLAB,
               f"{launches} grid kernel launches for {GRID_RES // GRID_SLAB} slabs")
+        packs = fsd.PACKS["fused_sdf_observed"] - packs
+        check(packs == 1, f"{packs} grid query packs for one frame on one parameter set")
         check(all(seg[k] == (n_chunks if k.endswith("fwd") else 0) for k in seg),
               f"segment launches {seg} for {n_chunks} colour chunks")
         check(tim["n_verts"] > 0 and tim["n_tris"] > 0, "empty mesh")
@@ -856,7 +882,8 @@ def chain_macs(params) -> int:
 def new_kernel_timing(spec, scene, dev, smi: str) -> dict:
     """Phase 16: device ms of fused_sdf_observed (one grid slab) and
     fused_ray_march (1024 train rays) against their plain versions, bf16,
-    with the bound of each from the shapes."""
+    with the bound of each from the shapes and TFLOP/s; beside the query
+    (tensor cores) its SIMT bf16 sweep."""
     from endosurf_tpu_torch.kernels import fused_sampler as fs
     from endosurf_tpu_torch.kernels import fused_sdf as fsd
     from endosurf_tpu_torch.models.fields import init_endosurf_params
@@ -882,9 +909,11 @@ def new_kernel_timing(spec, scene, dev, smi: str) -> dict:
     for k, (k_ms, p_ms) in times.items():
         b_ms, b_by = bound_ms(*work[k], bf)
         out[k] = (k_ms, p_ms, b_ms, b_by)
+        simt = simt_note(k, work[k][0], k_ms, functools.partial(calls[k][0], spec, params,
+                                                                *calls[k][2]))
         print(f"{k} timing (bf16, {smi}): kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms; "
               f"{work[k][0] / 1e12:.4f} TFLOP -> bound {b_ms:.4f} ms ({b_by}); "
-              f"{work[k][0] / k_ms / 1e9:.2f} TFLOP/s", flush=True)
+              f"{work[k][0] / k_ms / 1e9:.2f} TFLOP/s{simt}", flush=True)
     return out
 
 
@@ -1492,36 +1521,46 @@ def dnerf_bwd_parity_phase(spec, x, d, t, dev, coarse=None):
 
 
 def tc_f64_train_readings(spec, params, cases, what: str) -> None:
-    """Phase 23: tc_f64_readings of the deform and density backwards on
-    their bf16 cases (bwd_segment_parity's), of the deform forward on the
-    deform backward's xt and of the density forward on the density
-    backward's x_c; the deform backward's walk against float64
-    (fused_train_dnerf.deform_walk_distance)."""
+    """Phase 23: tc_f64_readings of the three backwards on their bf16 cases
+    (bwd_segment_parity's), of the deform forward on the deform backward's xt
+    and of the density forward on the density backward's x_c; the deform
+    and colour backwards' walks against float64 (walk_readings)."""
     from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
     packed, like, _, inputs, cots = cases["dnerf_deform_bwd"]
     tc_f64_readings(spec, params, "dnerf_deform_fwd", (packed, None, inputs), what)
     tc_f64_readings(spec, params, "dnerf_deform_bwd", (packed, like, inputs, cots), what)
-    walk = ftd.deform_walk_distance(spec, params, packed, *inputs, *cots)
-    print(f"dnerf_deform_bwd bf16 vs float64 {what}: points whose operands or cotangents are off "
+    walk_readings(spec, params, "deform", cases, what)
+    packed, like, _, inputs, cots = cases["dnerf_density_bwd"]
+    tc_f64_readings(spec, params, "dnerf_density_fwd", (packed, None, inputs), what)
+    tc_f64_readings(spec, params, "dnerf_density_bwd", (packed, like, inputs, cots), what)
+    packed, like, _, inputs, cots = cases["dnerf_color_bwd"]
+    tc_f64_readings(spec, params, "dnerf_color_bwd", (packed, like, inputs, cots), what)
+    walk_readings(spec, params, "color", cases, what)
+
+
+def walk_readings(spec, params, seg: str, cases, what: str) -> None:
+    """Phase 23: a backward's walk against float64, the tensor-core kernel
+    beside the SIMT one (fused_train_dnerf.walk_distance)."""
+    from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
+    packed, _, _, inputs, cots = cases[f"dnerf_{seg}_bwd"]
+    walk = ftd.walk_distance(spec, params, seg, packed, inputs, cots)
+    print(f"dnerf_{seg}_bwd bf16 vs float64 {what}: points whose operands or cotangents are off "
           f"the float64 walk, weight elements off float64, weight elements off the exact product "
           f"of the kernel's own operands " + "; ".join(
               f"{nm} {100 * v['points']:.3f} %, {100 * v['weights']:.3f} %, "
               f"{100 * v['product']:.3f} %" for nm, v in walk.items())
           + ("" if walk["tensor cores"]["points"] <= walk["SIMT"]["points"] else "  FARTHER"),
           flush=True)
-    packed, like, _, inputs, cots = cases["dnerf_density_bwd"]
-    tc_f64_readings(spec, params, "dnerf_density_fwd", (packed, None, inputs), what)
-    tc_f64_readings(spec, params, "dnerf_density_bwd", (packed, like, inputs, cots), what)
 
 
 def tc_f64_readings(spec, params, kernel: str, case, what: str) -> None:
-    """Phases 17, 19 and 23: a tensor-core bf16 D-NeRF kernel's and its SIMT
+    """Phases 12, 17, 19 and 23: a tensor-core bf16 D-NeRF kernel's and its SIMT
     bf16 kernel's distance from the float64 yardstick on the same inputs
     (fused_train_dnerf.tc_float64_distance: the same bf16 operand and
     cotangent roundings, float64 arithmetic), side by side: median and p99
     of each output's (a backward's d x_c) per-point error and of the weight
     gradients' per-element error. ``case``: (packed, like, inputs[, cots]);
-    the raw density query takes (None, None, (x, t))."""
+    the raw density and observed-SDF queries take (None, None, (x, t))."""
     from endosurf_tpu_torch.kernels import fused_render as fr
     from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
     dist = ftd.tc_float64_distance(spec, params, kernel, *case)
@@ -1746,6 +1785,68 @@ def simt_note(name: str, flops: float, k_ms: float, call) -> str:
     simt_ms = cuda_ms(lambda: call(simt=True), 2)
     return (f"; the SIMT bf16 kernel {simt_ms:.3f} ms; tensor cores "
             f"{flops / k_ms / 1e9:.2f} TFLOP/s, SIMT {flops / simt_ms / 1e9:.2f}")
+
+
+# Phase 29: one kernel of fused_train_dnerf.TC_KERNELS, in bf16 and with
+# simt=True, on 4096 points of the full seeded nets, each traced by
+# torch.profiler after a warm-up call; prints {mode: device kernel names}.
+_NAMES_SCRIPT = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
+from endosurf_tpu_torch.models.endonerf import DNeRFSpec, init_dnerf_params
+from endosurf_tpu_torch.models.fields import EndoSurfSpec, init_endosurf_params
+kernel, dev = sys.argv[2], torch.device("cuda")
+g = torch.Generator(device=dev).manual_seed(0)
+x = torch.rand(4096, 3, generator=g, device=dev) * 1.6 - 0.8
+d = torch.randn(4096, 3, generator=g, device=dev)
+t = torch.rand(4096, 1, generator=g, device=dev)
+if kernel == "fused_sdf_observed":
+    spec = EndoSurfSpec()
+    args = (spec, init_endosurf_params(spec, torch.Generator().manual_seed(0), dev), None, None,
+            x, t)
+else:
+    spec = DNeRFSpec()
+    params = init_dnerf_params(spec, torch.Generator().manual_seed(0), dev)
+    _, _, cases = ftd.bwd_segment_parity(spec, params, x, d, t, "default")
+    seg = kernel.split("_")[1]
+    packed, like, _, inputs, cots = cases[f"dnerf_{seg}_bwd"]
+    args = (spec, params, *(
+        (None, None, x, t) if kernel == "fused_density_raw" else
+        (packed, None, *inputs) if kernel.endswith("_fwd") else (packed, like, *inputs, *cots)))
+run, names = ftd.TC_KERNELS[kernel][2], {}
+for mode, simt in (("tensor cores", False), ("SIMT", True)):
+    run(*args, simt=simt)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(*args, simt=simt)
+        torch.cuda.synchronize()
+    names[mode] = sorted({e.key.replace("(anonymous namespace)::", "").replace("void ", "")
+                          .split("(")[0] for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA})
+print(json.dumps(names))
+"""
+
+
+def tc_kernel_names() -> None:
+    """Phase 29: the device kernels each fused_train_dnerf.TC_KERNELS kernel
+    launches in bf16 and with simt=True (_NAMES_SCRIPT, a fresh process a
+    kernel, as the card tests trace them): the bf16 call must launch a
+    tensor-core kernel, simt=True none."""
+    from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
+    root = os.path.dirname(os.path.abspath(__file__))
+    for kernel in ftd.TC_KERNELS:
+        out = subprocess.run([sys.executable, "-c", _NAMES_SCRIPT, root, kernel],
+                             capture_output=True, text=True, timeout=300)
+        check(out.returncode == 0, f"tracing {kernel}: {out.stderr[-2000:]}")
+        names = json.loads(out.stdout.strip().splitlines()[-1])
+        print(f"{kernel} kernels (torch.profiler, 4096 points): " + "; ".join(
+            f"{mode} {', '.join(ks)}" for mode, ks in names.items()), flush=True)
+        check(any("_tc_" in k for k in names["tensor cores"])
+              and not any("_tc_" in k for k in names["SIMT"]), f"{kernel} kernels: {names}")
 
 
 def dnerf_fwd_timing(spec, params, bwd_cases, n, what: str) -> dict:
@@ -2365,6 +2466,9 @@ def main() -> int:
     del dn_bwd_cases
     dnerf_render_quality(dev, smi)
 
+    # 29. the kernels the tensor-core calls launch, by name
+    tc_kernel_names()
+
     # the kernel record: work, bounds and times at the main paths' shapes (bf16)
     upsample_flops = 2 * RAY_BATCH * n_field * chain        # return_sdf: every sample
     upsample_bytes = (RAY_BATCH * (7 + rspec.n_samples + 2 * n_field) * 4
@@ -2405,7 +2509,7 @@ def main() -> int:
          "ms": new_times[k][0], "plain_ms": new_times[k][1], "bound_ms": new_times[k][2],
          "bound_by": new_times[k][3], "library_ms": None}
         for k, src, rep, n_launch, err in (
-            ("fused_sdf_observed", "fused_sdf.cu", "fused_sdf.py:424", sdf_launches, sdf_abs),
+            ("fused_sdf_observed", "sweep_tc.cuh", "fused_sdf.py:424", sdf_launches, sdf_abs),
             ("fused_ray_march", "fused_sampler.cu", "fused_sampler.py:685", march_launches,
              march_abs))] + [
         {"name": k, "route": "cuda", "source": f"endosurf_tpu_torch/kernels/csrc/{src}",

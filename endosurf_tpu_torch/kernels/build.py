@@ -109,7 +109,8 @@ def load_library() -> ctypes.CDLL:
     lib.fused_upsample_launch.restype = i32
     lib.fused_upsample_scratch_floats.argtypes = [i32]
     lib.fused_upsample_scratch_floats.restype = i64
-    lib.fused_sdf_observed_launch.argtypes = [vp, vp, i64, vp, ctypes.POINTER(i64), i32, vp, vp]
+    lib.fused_sdf_observed_launch.argtypes = [vp, vp, i64, vp, ctypes.POINTER(i64), i32, i32, vp,
+                                              vp]
     lib.fused_sdf_observed_launch.restype = i32
     lib.fused_ray_march_launch.argtypes = [
         vp, vp, vp, i32, i32, i32, ctypes.c_float, vp, ctypes.POINTER(i64), i32, vp, vp, vp, vp]
@@ -137,15 +138,14 @@ def load_library() -> ctypes.CDLL:
     lib.fused_render_dnerf_launch.argtypes = [
         vp, vp, i32, i32, i32, vp, vp, ctypes.POINTER(i64), i32, i32, i32, vp, vp, vp]
     lib.fused_render_dnerf_launch.restype = i32
-    # the D-NeRF segments: w, meta, rb (the deform and density forwards and
-    # backwards: rb, tc), n, then tensors (a backward's last three:
-    # scratch, partial sums, packed gradient), stream
+    # the D-NeRF segments: w, meta, rb (all but the colour forward: rb, tc),
+    # n, then tensors (a backward's last three: scratch, partial sums, packed
+    # gradient), stream
     for name, n_ptrs in (("dnerf_deform_fwd", 2), ("dnerf_density_fwd", 3),
                          ("dnerf_color_fwd", 3), ("dnerf_deform_bwd", 5),
                          ("dnerf_density_bwd", 7), ("dnerf_color_bwd", 7)):
         fn = getattr(lib, name)
-        tc = name in ("dnerf_deform_fwd", "dnerf_density_fwd", "dnerf_deform_bwd",
-                      "dnerf_density_bwd")
+        tc = name != "dnerf_color_fwd"
         modes = [i32, i32] if tc else [i32]
         fn.argtypes = [vp, ctypes.POINTER(i64), *modes, i64] + [vp] * (n_ptrs + 1)
         fn.restype = i32

@@ -5,14 +5,15 @@
 // sweep kernel (deform -> density -> the raw density column) over a point
 // source: the EndoNeRF render's rays (fused_render_dnerf.cu) and the raw
 // density query's point list (fused_sdf.cu). The render's field stage, the
-// deform and density forwards and the density and deform backwards'
+// deform and density forwards and the density, deform and colour backwards'
 // recompute (fused_train_dnerf.cu) run the same tile.
 //
 // Replaces, for the bf16 mode, the SIMT code of dnerf_chain.cuh and
 // sdf_chain.cuh's D-NeRF sweep inside the ports of the Pallas TPU kernels
 // endosurf_tpu/kernels/fused_render_dnerf.py (fused_render_rays_dnerf),
 // fused_sdf.py (fused_density_raw) and fused_train_dnerf.py
-// (_deform_fwd_pl, _density_fwd_pl, _deform_bwd_pl, _density_bwd_pl):
+// (_deform_fwd_pl, _density_fwd_pl, _deform_bwd_pl, _density_bwd_pl,
+// _color_bwd_pl):
 // there the weights stay in VMEM and
 // the samples stream through the MXU. Here a block of NT threads owns DT_P
 // points: the layer's operand rows sit in shared memory as bf16, the weights
@@ -67,9 +68,10 @@ namespace {
 // nets; at the density net's output layer its feature columns W[:, 1:]
 // [in][F] (column 0, the raw density, stays SIMT); then the density net's
 // W^T [out][in] of the same layers (the backward's walk), the output layer's
-// as [F][in]; then the deform net's hidden W^T (its backward's walk).
+// as [F][in]; then the deform net's hidden W^T (its backward's walk); then the
+// colour net's hidden W^T (its backward's walk and input cotangent).
 struct DnFrags {
-  long long deform[NL], density[NL], color[NL], density_t[NL], deform_t[NL];
+  long long deform[NL], density[NL], color[NL], density_t[NL], deform_t[NL], color_t[NL];
 };
 
 DnFrags decode_dn_frags(const long long* meta) {
@@ -81,6 +83,7 @@ DnFrags decode_dn_frags(const long long* meta) {
     f.color[l] = x[2 * NL + l];
     f.density_t[l] = x[3 * NL + l];
     f.deform_t[l] = x[4 * NL + l];
+    f.color_t[l] = x[5 * NL + l];
   }
   return f;
 }
@@ -103,9 +106,9 @@ __host__ __device__ inline int dt_ldh(const Model& m) {
 // The tiles: the forward's (the sweep, the render's field stage, the
 // density forward), the density backward's (relu' bits, the cotangents on
 // the raw column and on the encoding, a float32 operand split in three bf16
-// terms) and the deform backward's (relu' bits; its cotangents are bf16
-// values, one term).
-enum DtKind { DT_FWD = 0, DT_DENSITY_BWD = 1, DT_DEFORM_BWD = 2 };
+// terms) and the deform and colour backwards' (relu' bits; their walks'
+// cotangents are bf16 values, one term).
+enum DtKind { DT_FWD = 0, DT_DENSITY_BWD = 1, DT_DEFORM_BWD = 2, DT_COLOR_BWD = 3 };
 
 // Shared memory of a tile after the weight ring: x_c [DT_P][4] (double), the
 // points x (and t), x_c, d and the outputs (raw sigma, rgb) [DT_P][4]

@@ -18,8 +18,17 @@
 // is one sin / cos / copy written to shared memory.
 //
 // What bounds it: the deform and SDF 9x256 MLPs, about 1.88 MFLOP a point
-// (3.94 TFLOP for a 128^3 grid); the inputs are 16 bytes a point. Plain SIMT
-// float32 FMA; tensor cores are later work.
+// (1.97 TFLOP a 1,048,576-point slab, 3.94 for a 128^3 grid); the inputs are
+// 16 bytes a point.
+//
+// With rb (bf16 dots) and tc the query runs on tensor cores: sweep_tc.cuh's
+// sweep_tc_kernel, the bf16 upsampling's, over the same point list (32
+// points a block, each hidden layer a split mma.sync tile product with
+// TwoSum-promoted k-tiles, the epilogue redone in double near a bf16 tie,
+// the encodings of the unrounded coordinates, the deform output layer, x_c
+// and the head in double). meta then carries fused_sampler.pack_sampling's
+// fragment extension. rb without tc runs the SIMT sweep (a comparison only);
+// float32 always does.
 //
 // fused_density_raw_launch replaces the Pallas TPU kernel
 // endosurf_tpu/kernels/fused_sdf.py (fused_density_raw, the same body with the
@@ -45,16 +54,20 @@
 
 #include "sdf_chain.cuh"
 #include "dnerf_tc.cuh"
+#include "sweep_tc.cuh"
 
 extern "C" {
 
 // x [n, 3], t [n, 1] float32 contiguous; out [n]; w / meta packed by
-// kernels/fused_render.pack_operands. Returns a cudaError_t (0 on success).
+// kernels/fused_sampler.pack_sampling (with rb and tc its bf16 fragment
+// extension follows the Model meta). Returns a cudaError_t (0 on success).
 int fused_sdf_observed_launch(const float* x, const float* t, long long n, const float* w,
-                              const long long* meta, int rb, float* out, void* stream) {
+                              const long long* meta, int rb, int tc, float* out, void* stream) {
   if (n <= 0) return 0;
   const Model m = decode_model(meta);
   PointList src{x, t, out, n};
+  if (rb && tc)
+    return (int)launch_sweep_tc(w, m, decode_sweep_frags(meta), src, (cudaStream_t)stream);
   return (int)launch_sweep(w, m, rb != 0, src, (cudaStream_t)stream);
 }
 

@@ -48,8 +48,8 @@
 // net) is written once and read once by the product: 4.5-4.7 GB at the train
 // step's 262,144 points.
 //
-// In bf16 the deform and density forwards and the density and deform
-// backwards run on tensor cores, each on dnerf_tc.cuh's tile of DT_P points
+// In bf16 the deform and density forwards and all three backwards run on
+// tensor cores, each on dnerf_tc.cuh's tile of DT_P points
 // (the forward's hidden layers as tile products, the relu' as bits in shared
 // memory).
 //
@@ -80,7 +80,22 @@
 // only the h rows (xt gets no cotangent: no encoding rows, nothing below
 // layer 0).
 //
-// Both backwards then take the weight gradients by wgrad_tc.cuh's product on
+// dnerf_color_bwd_tc_kernel: the recompute on the render field stage's
+// colour operand [enc(d) | op(feat)] (dt_hidden, each layer's operand rows
+// saved), the 3-wide output layer and the sigmoid in double (as the render
+// field stage computes them), d z = d rgb * rgb (1 - rgb) in double, rounded
+// once to float32; its cotangent reaches h_{L-2} as one rank-3 dot in
+// double, rounded once, gated (the deform backward's design: every hidden
+// cotangent a bf16 value, one term, two blocks an SM); a deeper net's hidden
+// layers walked back on mma; d feat the feature columns of layer 0's input
+// cotangent d z_0 W_0^T, a tile product on the colour net's W^T fragments,
+// each value rounded to bf16 as it leaves the dot and written float32. What
+// bounds it: the bytes, feat in and d feat out (2 KB a point, 0.16 ms at
+// 262,144 points; its 0.056 TFLOP take 0.06 ms on tensor cores), then its
+// bf16 scratch (1,152 bytes a point with base.yml's 2x128 net, written once
+// and read once by the product: 0.6 GB).
+//
+// The three backwards then take the weight gradients by wgrad_tc.cuh's product on
 // the bf16 scratch (float32 where a cotangent is not a bf16 value, split in
 // three bf16 terms: in two, hi + lo, its remainder of up to 2^-16 put the
 // density output layer's bias and feature gradients farther from float64
@@ -787,6 +802,133 @@ cudaError_t launch_deform_bwd_tc(const float* w, const long long* meta, const Mo
   return run_wgrad_tc(jobs, partial, st);
 }
 
+// The float32 cotangent of the colour backward: its output layer's (d z =
+// d rgb * rgb (1 - rgb)).
+inline int color_f32_from(const Model& m) { return m.color.n_layers - 1; }
+
+// Cotangent on rgb [n][3] -> d feat [n][F] and the colour net's scratch
+// (dnerf_color_bwd_kernel<true>'s maths on tensor cores; d gets none).
+__global__ void __launch_bounds__(NT, 2)
+dnerf_color_bwd_tc_kernel(const float* __restrict__ wts, const __grid_constant__ Model m,
+                          const __grid_constant__ DnFrags fr, long long n,
+                          const float* __restrict__ d, const float* __restrict__ feat,
+                          const float* __restrict__ g_rgb, float* __restrict__ dfeat,
+                          const __grid_constant__ DtScratch sv) {
+  constexpr int MT = DT_MT, WB = HMAX / 32, NPG = HMAX / 16;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ldh = dt_ldh(m);
+  uint4* ring = (uint4*)tc_smem + warp * (TC_STAGES * TC_NPW * 32);
+  const DtTile s = dt_tile(tc_smem, m, DT_COLOR_BWD);
+  const Net& C = m.color;
+  const int L = C.n_layers, cr = m.cr, F = m.feat_dim;
+  const long long base = (long long)blockIdx.x * DT_P;
+  for (int idx = tid; idx < DT_P * ldh; idx += NT) s.H[idx] = bzero();
+  for (int idx = tid; idx < DT_P * 4; idx += NT) {
+    const int p = idx >> 2, c = idx & 3;
+    const bool in = base + p < n && c < 3;
+    s.d[idx] = in ? d[(size_t)(base + p) * 3 + c] : 0.f;
+    s.x[idx] = in ? g_rgb[(size_t)(base + p) * 3 + c] : 0.f;   // g_rgb
+  }
+  __syncthreads();
+
+  // ---- forward recompute: the operand [enc(d) | op(feat) | 0 ..] (the render
+  // field stage's), the hidden layers, each layer's operand rows saved
+  dt_encode<true>(s.d, m.f_cdir, s.E, cr, tid);
+  for (int idx = tid; idx < DT_P * F; idx += NT) {
+    const int p = idx / F, c = idx - p * F;
+    if (base + p < n) s.H[p * ldh + cr + c] = __float2bfloat16_rn(feat[(size_t)(base + p) * F + c]);
+  }
+  __syncthreads();
+  for (int idx = tid; idx < DT_P * cr; idx += NT) {
+    const int p = idx / cr, c = idx - p * cr;
+    s.H[p * ldh + c] = s.E[idx];
+  }
+  __syncthreads();
+  dt_hidden<true>(C, wts, fr.color, s.H, ldh, s.E, cr, ring, base, n, sv.xin, s.gbit);
+  const int n_in = C.in_dim[L - 1];
+  save_rows<1, DT_P>(sv.xin[L - 1], s.H, ldh, c16(n_in), base, n, tid);
+
+  // ---- the output layer and the sigmoid in double (the render field
+  // stage's): d z = d rgb * rgb (1 - rgb), rounded once to float32 (the
+  // weight gradient's operand)
+  for (int idx = tid; idx < 3 * DT_P; idx += NT) {
+    const int p = idx / 3, col = idx - p * 3;
+    const double rgb = 1.0 / (1.0 + exp(-dt_out_col(C, wts, s.H, ldh, p, col)));
+    s.out[p * 4 + col] = (float)((double)s.x[p * 4 + col] * rgb * (1.0 - rgb));
+  }
+  __syncthreads();
+  {
+    const int w = c16(C.out_dim[L - 1]);
+    for (int idx = tid; idx < DT_P * w; idx += NT) {
+      const int p = idx / w, f = idx - p * w;
+      if (base + p < n) sv.dz[L - 1][(size_t)(base + p) * w + f] = f < 3 ? s.out[p * 4 + f] : 0.f;
+    }
+  }
+
+  // ---- the cotangent on h_{L-2}: d z W^T (rank 3) in double, rounded once,
+  // gated: layer L-2's pre-activation cotangent
+  {
+    const int w = c16(n_in);
+    const float* W = wts + C.w_off[L - 1];      // [n_in][3]
+    for (int idx = tid; idx < DT_P * w; idx += NT) {
+      const int p = idx / w, i = idx - p * w;
+      bf16 v = bzero();
+      if (i < n_in && ((s.gbit[((L - 2) * DT_P + p) * WB + (i >> 5)] >> (i & 31)) & 1)) {
+        double o = 0.0;
+        for (int c = 0; c < 3; ++c)
+          o = fma((double)s.out[p * 4 + c], (double)W[(size_t)i * 3 + c], o);
+        v = dt_bf16(o);
+      }
+      s.H[p * ldh + i] = v;
+    }
+    __syncthreads();
+  }
+
+  // ---- the hidden layers L-2 .. 1 through W^T (the h rows); each layer's
+  // cotangent saved
+  for (int l = L - 2; l >= 0; --l) {
+    save_rows<1, DT_P>(sv.dzb[l], s.H, ldh, c16(C.out_dim[l]), base, n, tid);
+    if (l > 0) dt_walk_layer<1>(C, l, wts, fr.color_t[l], s, ldh, cr, nullptr, ring);
+  }
+
+  // ---- d feat: the feature columns cr .. cr + F of layer 0's input
+  // cotangent d z_0 W_0^T, a tile product rounded to bf16 as it leaves the
+  // dot, one pass per 256 columns
+  const int np_in = c16(C.in_dim[0]) / 16, kt1 = c16(C.out_dim[0]) / 16;
+  const bf16* const A1[1] = {s.H};
+  float acc[MT][2 * TC_NPW][4];
+  for (int gr = (np_in - 1) / NPG; gr >= 0; --gr) {
+    const int np0 = gr * NPG + warp * TC_NPW, npw = clampw(np_in - np0);
+    zero_acc(acc);
+    tile_mma<MT, 1>(acc, A1, ldh, (const uint4*)(wts + fr.color_t[0]), np_in, np0, npw, 0, kt1,
+                    ring, lane);
+    for_pairs(acc, np0, npw, lane, [&](int row, int c, float a0, float a1) {
+      if (base + row >= n) return;
+      float* o = dfeat + (size_t)(base + row) * F;
+      if (c >= cr && c < cr + F) o[c - cr] = bf16r(a0);
+      if (c + 1 >= cr && c + 1 < cr + F) o[c + 1 - cr] = bf16r(a1);
+    });
+  }
+}
+
+cudaError_t launch_color_bwd_tc(const float* w, const long long* meta, const Model& m,
+                                long long n, const float* d, const float* feat,
+                                const float* g_rgb, float* dfeat, float* scratch, float* partial,
+                                float* grad, cudaStream_t st) {
+  if (n <= 0) return cudaSuccess;
+  DtScratch sv;
+  TcJobs jobs;
+  plan_bwd_tc(m.color, color_f32_from(m), n, scratch, grad, sv, jobs, nullptr, nullptr);
+  const size_t smem = dt_smem(m, DT_COLOR_BWD);
+  cudaError_t e = set_smem(dnerf_color_bwd_tc_kernel, smem);
+  if (e != cudaSuccess) return e;
+  dnerf_color_bwd_tc_kernel<<<n_tiles(n, DT_P), NT, smem, st>>>(w, m, decode_dn_frags(meta), n, d,
+                                                                feat, g_rgb, dfeat, sv);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  return run_wgrad_tc(jobs, partial, st);
+}
+
 // One backward: the tile kernel, then the weight-gradient product.
 template <class K, class... Args>
 int launch_bwd(K k_rb, K k_f32, bool rb, const Model& m, int seg, long long n, float* scratch,
@@ -856,16 +998,17 @@ int dnerf_color_fwd(const float* w, const long long* meta, int rb, long long n,
 }
 
 // The floats of scratch and of partial sums a backward needs for n points
-// (seg: 0 deform, 1 density, 2 colour; tc: the bf16 deform or density
-// backward on tensor cores): out[0] scratch, out[1] partial.
+// (seg: 0 deform, 1 density, 2 colour; tc: the bf16 backward on tensor
+// cores): out[0] scratch, out[1] partial.
 void dnerf_bwd_sizes(const long long* meta, int seg, int tc, long long n, long long* out) {
   const Model m = decode_model(meta);
-  if (seg < 2 && tc) {
+  if (tc) {
     DtScratch sv;
     TcJobs jobs;
-    if (seg == 0) plan_bwd_tc(m.deform, deform_f32_from(m), n, nullptr, nullptr, sv, jobs, out,
-                              out + 1);
-    else plan_bwd_tc(m.sdf, density_f32_from(m), n, nullptr, nullptr, sv, jobs, out, out + 1);
+    const Net& N = seg == 0 ? m.deform : (seg == 1 ? m.sdf : m.color);
+    const int f32_from = seg == 0 ? deform_f32_from(m)
+                                  : (seg == 1 ? density_f32_from(m) : color_f32_from(m));
+    plan_bwd_tc(N, f32_from, n, nullptr, nullptr, sv, jobs, out, out + 1);
     return;
   }
   DnScratch sv;
@@ -875,9 +1018,9 @@ void dnerf_bwd_sizes(const long long* meta, int seg, int tc, long long n, long l
 
 // The backwards: scratch / partial of dnerf_bwd_sizes floats; grad of the
 // packed weights' size (dW and db land at their weights' offsets). With rb
-// and tc the deform and density backwards run their tensor-core kernels
-// (meta then carries the bf16 pack's fragment extension); rb without tc the
-// SIMT ones (a comparison only).
+// and tc they run their tensor-core kernels (meta then carries the bf16
+// pack's fragment extension); rb without tc the SIMT ones (a comparison
+// only).
 int dnerf_deform_bwd(const float* w, const long long* meta, int rb, int tc, long long n,
                      const float* xt, const float* g_xc, float* scratch, float* partial,
                      float* grad, void* stream) {
@@ -901,10 +1044,13 @@ int dnerf_density_bwd(const float* w, const long long* meta, int rb, int tc, lon
                     g_feat, dxc);
 }
 
-int dnerf_color_bwd(const float* w, const long long* meta, int rb, long long n, const float* d,
-                    const float* feat, const float* g_rgb, float* dfeat, float* scratch,
-                    float* partial, float* grad, void* stream) {
+int dnerf_color_bwd(const float* w, const long long* meta, int rb, int tc, long long n,
+                    const float* d, const float* feat, const float* g_rgb, float* dfeat,
+                    float* scratch, float* partial, float* grad, void* stream) {
   const Model m = decode_model(meta);
+  if (rb && tc)
+    return (int)launch_color_bwd_tc(w, meta, m, n, d, feat, g_rgb, dfeat, scratch, partial, grad,
+                                    (cudaStream_t)stream);
   return launch_bwd(dnerf_color_bwd_kernel<true>, dnerf_color_bwd_kernel<false>, rb != 0, m, 2,
                     n, scratch, partial, grad, (cudaStream_t)stream, w, m, n, d, feat, g_rgb,
                     dfeat);

@@ -3,9 +3,9 @@
 // MLP (softplus100) -> head column -> sdf, the arithmetic of sdf_chain.cuh's
 // sweep_kernel and sweep_mlp for EndoSurfChain over a point source
 // (RaySamples, PointList), with each hidden layer's product on mma.sync
-// (mma_tile.cuh). fused_sampler.cu's upsampling runs it for its bf16 sweeps;
-// the render, the ray march, the observed-SDF query and the D-NeRF chain keep
-// the SIMT sweep.
+// (mma_tile.cuh). fused_sampler.cu's upsampling, the render's sweeps
+// (fused_render.cu) and the observed-SDF grid query (fused_sdf.cu) run it in
+// bf16; the ray march and the float32 mode keep the SIMT sweep.
 //
 // Replaces, for the bf16 mode, the SIMT sweep inside the port of the Pallas
 // TPU kernel endosurf_tpu/kernels/fused_sampler.py (fused_upsample_z): there

@@ -370,6 +370,22 @@ def to_float64(tree):
     return tree.double() if torch.is_tensor(tree) and tree.is_floating_point() else tree
 
 
+def sampling_params_float64(params: Dict[str, Any], precision: str = "default"
+                            ) -> Dict[str, Any]:
+    """Float64 copies of ``params`` whose deform and SDF nets hold the
+    weights the sampling kernels pack (``pack_operands``: the weight norm in
+    float32, then, under ``precision`` "default", rounded to bf16) as plain
+    ``{w, b}`` layers: the float64 yardsticks' parameters."""
+    from endosurf_tpu_torch.ops.mlp import effective_weight, operand
+    p64 = to_float64(params)
+    for name in ("deform_network", "sdf_network"):
+        if name in params:
+            p64[name] = {**p64[name], "layers": [
+                {"w": operand(effective_weight(layer), precision).double(),
+                 "b": layer["b"].double()} for layer in params[name]["layers"]]}
+    return p64
+
+
 def fused_upsample_z_float64(spec, params: Dict[str, Any], rays_o: torch.Tensor,
                              rays_d_z: torch.Tensor, t: torch.Tensor, z_vals: torch.Tensor,
                              n_importance: int, n_rounds: int
@@ -378,17 +394,10 @@ def fused_upsample_z_float64(spec, params: Dict[str, Any], rays_o: torch.Tensor,
     plain upsampling (``fused_upsample_z_reference`` with ``return_sdf``)
     with the kernels' bf16 operand roundings and float64 arithmetic between
     them. The deform and SDF weights are the bf16 values ``pack_operands``
-    packs (the weight norm in float32, then rounded); every activation and
-    encoding operand is rounded to bf16 from its float64 value."""
-    from endosurf_tpu_torch.ops.mlp import effective_weight, operand
-    p64 = to_float64(params)
-    for name in ("deform_network", "sdf_network"):
-        if name in params:
-            p64[name] = {**p64[name], "layers": [
-                {"w": operand(effective_weight(layer), "default").double(),
-                 "b": layer["b"].double()} for layer in params[name]["layers"]]}
-    return fused_upsample_z_reference(spec, p64, *(a.double() for a in (rays_o, rays_d_z, t,
-                                                                        z_vals)),
+    packs (``sampling_params_float64``); every activation and encoding
+    operand is rounded to bf16 from its float64 value."""
+    return fused_upsample_z_reference(spec, sampling_params_float64(params),
+                                      *(a.double() for a in (rays_o, rays_d_z, t, z_vals)),
                                       n_importance, n_rounds, torch.bfloat16, True)
 
 

@@ -27,13 +27,14 @@ CUDA tensors run the kernels of ``csrc/fused_train_dnerf.cu`` over
 ``csrc/dnerf_chain.cuh``: ``dnerf_*_fwd`` and ``dnerf_*_bwd``, each counted
 in ``LAUNCHES``, on weights packed by ``pack_dnerf`` (the one layout every
 D-NeRF kernel reads: ``fused_density_raw`` and the render kernel too;
-cached a parameter set). The bf16 deform and density forwards and
-backwards run on tensor cores (``csrc/dnerf_tc.cuh``'s tile); ``simt=True``
-(``dnerf_deform_fwd``, ``dnerf_density_fwd``, ``dnerf_deform_bwd``,
-``dnerf_density_bwd``) runs the SIMT kernel, which only the float64
-comparisons ask for (the yardsticks ``dnerf_deform_fwd_float64``,
-``dnerf_density_fwd_float64``, ``dnerf_deform_bwd_float64``,
-``dnerf_density_bwd_float64``).
+cached a parameter set). The bf16 deform and density forwards and the
+three backwards run on tensor cores (``csrc/dnerf_tc.cuh``'s tile);
+``simt=True`` (``dnerf_deform_fwd``, ``dnerf_density_fwd``,
+``dnerf_deform_bwd``, ``dnerf_density_bwd``, ``dnerf_color_bwd``) runs the
+SIMT kernel, which only the float64 comparisons ask for (the yardsticks
+``dnerf_deform_fwd_float64``, ``dnerf_density_fwd_float64``,
+``dnerf_deform_bwd_float64``, ``dnerf_density_bwd_float64``,
+``dnerf_color_bwd_float64``).
 """
 
 from __future__ import annotations
@@ -274,13 +275,13 @@ SLOTS = {"deform": 0, "density": 1, "color": 2}     # the nets' places in the Mo
 META_LEN = 8 + 3 * META_NET                         # csrc/sdf_chain.cuh's Model meta
 # The bf16 pack's fragment extension (csrc/dnerf_tc.cuh's decode_dn_frags):
 # NL float offsets each of the deform, density and colour nets' W, of the
-# density net's W^T and of the deform net's W^T, each (net slot, transposed,
-# output layer) as fused_sampler.frag_index takes them: the hidden layers,
-# and at the density net's output layer its feature columns W[:, 1:] (the raw
-# column 0 stays SIMT); -1 where a layer has none.
+# density net's W^T, of the deform net's W^T and of the colour net's W^T,
+# each (net slot, transposed, output layer) as fused_sampler.frag_index takes
+# them: the hidden layers, and at the density net's output layer its feature
+# columns W[:, 1:] (the raw column 0 stays SIMT); -1 where a layer has none.
 FEATURE_COLS = slice(1, None)
 DN_FRAG_BLOCKS = ((0, False, False), (1, False, FEATURE_COLS), (2, False, False),
-                  (1, True, FEATURE_COLS), (0, True, False))
+                  (1, True, FEATURE_COLS), (0, True, False), (2, True, False))
 # The largest dynamic shared memory a block may take on an H100 (227 KiB).
 SMEM_LIMIT = 232448
 
@@ -319,9 +320,9 @@ def _enc_widths(meta: Sequence[int]) -> Tuple[int, int, int]:
 
 # The tensor-core tiles (csrc/dnerf_tc.cuh's DtKind): "fwd" the coarse sweep's
 # (the render's and the raw density query's), the render's field stage's and
-# the deform and density forwards'; "density_bwd" and "deform_bwd" the
-# backwards'.
-TC_TILES = ("fwd", "density_bwd", "deform_bwd")
+# the deform and density forwards'; "density_bwd", "deform_bwd" and
+# "color_bwd" the backwards'.
+TC_TILES = ("fwd", "density_bwd", "deform_bwd", "color_bwd")
 
 
 def tc_smem_bytes(meta: Sequence[int], tile: str) -> int:
@@ -329,7 +330,8 @@ def tc_smem_bytes(meta: Sequence[int], tile: str) -> int:
     dt_smem): the weight ring, the points (x_c in double too), the operand
     rows (three terms in the density backward) at the pitch of the widest
     layer, the encoding; a backward's relu' bits, the density backward's
-    cotangents on the raw column and the encoding."""
+    cotangents on the raw column and the encoding (the deform and colour
+    backwards' tiles are the same size)."""
     if tile not in TC_TILES:
         raise ValueError(f"no tensor-core tile {tile!r}")
     ed, es, cr = _enc_widths(meta)
@@ -430,8 +432,8 @@ def _arg(t: torch.Tensor, shape, name: str) -> torch.Tensor:
 
 def _run(name: str, packed: DnPacked, n: int, *tensors: torch.Tensor,
          tc: Optional[bool] = None) -> None:
-    """Launch kernel entry ``name``; ``tc`` (the deform and density
-    forwards' and backwards'): the tensor-core kernel in bf16."""
+    """Launch kernel entry ``name``; ``tc`` (every entry but the colour
+    forward's): the tensor-core kernel in bf16."""
     from endosurf_tpu_torch.kernels.build import load_library
     lib = load_library()
     device = tensors[0].device
@@ -503,14 +505,14 @@ def scratch_layout(meta: Sequence[int], seg: str, n: int, tc: bool = False
     pre-activation cotangents for n points, as ``csrc/fused_train_dnerf.cu``'s
     planners lay them out: per layer ((byte offset, dtype, row width) of the
     operands, (the same) of the cotangents). SIMT (dn_plan_bwd): float32
-    [n, in] and [n, out], back to back. The tensor-core deform and density
-    backwards (``tc``, plan_bwd_tc): bf16 operand rows [n, c16(in)] and
-    cotangents [n, c16(out)], float32 from layer L-2 on in the density's, at
-    layer L-1 in the deform's, bf16 below, each array 256-byte aligned."""
+    [n, in] and [n, out], back to back. The tensor-core backwards (``tc``,
+    plan_bwd_tc): bf16 operand rows [n, c16(in)] and cotangents [n,
+    c16(out)], float32 from layer L-2 on in the density's, at layer L-1 in
+    the deform's and the colour's, bf16 below, each array 256-byte
+    aligned."""
     net = _net_meta(meta, SLOTS[seg])
     n_layers = net[0]
     ins, outs = net[2:2 + n_layers], net[2 + NL:2 + NL + n_layers]
-    tc = tc and seg in ("deform", "density")
     f32_from = n_layers - (2 if seg == "density" else 1)
     bf, f32 = torch.bfloat16, torch.float32
     layout, used = [], 0
@@ -579,15 +581,19 @@ def dnerf_density_bwd(packed: DnPacked, like, x_c: torch.Tensor, g_raw: torch.Te
 
 
 def dnerf_color_bwd(packed: DnPacked, like, d: torch.Tensor, feat: torch.Tensor,
-                    g_rgb: torch.Tensor) -> Tuple[List[torch.Tensor], Tuple[None, torch.Tensor]]:
+                    g_rgb: torch.Tensor, simt: bool = False
+                    ) -> Tuple[List[torch.Tensor], Tuple[None, torch.Tensor]]:
     """Cotangent on rgb [N, 3] -> (flat weight gradients, (None, d feat [N,
-    F])): d gets no cotangent."""
+    F])): d gets no cotangent. A bf16 pack runs the tensor-core kernel (its
+    nets checked first, on any device); ``simt`` runs the SIMT one instead
+    (the float64 comparison only)."""
+    tc = _tc(packed, simt, "color_bwd")
     n = d.shape[0]
     f = packed.meta[6]
     args = (_arg(d, (n, 3), "d"), _arg(feat, (n, f), "feat"), _arg(g_rgb, (n, 3), "g_rgb"))
     d_feat = torch.empty(n, f, dtype=torch.float32, device=d.device)
-    bufs = _bwd_buffers(packed, "color", n, d.device)
-    _run("dnerf_color_bwd", packed, n, *args, d_feat, *bufs)
+    bufs = _bwd_buffers(packed, "color", n, d.device, tc)
+    _run("dnerf_color_bwd", packed, n, *args, d_feat, *bufs, tc=tc)
     return unpack_grads(packed, "color", like, bufs[2]), (None, d_feat)
 
 
@@ -899,6 +905,20 @@ def dnerf_density_bwd_float64(spec, params: Dict[str, Any], x_c: torch.Tensor,
                      (g_raw.double(), g_feat.double()), precision)
 
 
+def dnerf_color_bwd_float64(spec, params: Dict[str, Any], d: torch.Tensor, feat: torch.Tensor,
+                            g_rgb: torch.Tensor, precision: str = "default"
+                            ) -> Tuple[List[torch.Tensor], Tuple[None, torch.Tensor]]:
+    """The bf16 colour backward's float64 yardstick: ``plain_bwd`` on float64
+    copies of the kernels' own weights (the float32 parameters; "default"
+    rounds them to the kernels' bf16 values), of d, of the feature and of the
+    cotangent, with ``precision``'s operand and cotangent roundings and
+    float64 arithmetic between them. Returns (flat weight gradients, (None, d
+    feat [N, F])) in float64, as ``dnerf_color_bwd``."""
+    like, flat = _float64_segment(spec, params, "color")
+    return plain_bwd(spec, "color", like, flat, (d.double(), feat.double()), (g_rgb.double(),),
+                     precision)
+
+
 def _median_p99(err: torch.Tensor) -> Tuple[float, float]:
     q = torch.quantile(err, torch.tensor([0.5, 0.99], dtype=err.dtype, device=err.device))
     return float(q[0]), float(q[1])
@@ -919,13 +939,14 @@ def fwd_float64_distance(outs: Dict[str, torch.Tensor], refs: Dict[str, torch.Te
 
 
 def bwd_float64_distance(leaves: Sequence[torch.Tensor], d_xc: Optional[torch.Tensor],
-                         ref_leaves: Sequence[torch.Tensor], ref_dxc: Optional[torch.Tensor]
-                         ) -> Dict[str, Tuple[float, float]]:
+                         ref_leaves: Sequence[torch.Tensor], ref_dxc: Optional[torch.Tensor],
+                         cot: str = "d_xc") -> Dict[str, Tuple[float, float]]:
     """A backward against its float64 yardstick: (median, p99) of the weight
     gradients' per-element error (over the rms of the element's leaf in the
-    yardstick) and, where the backward forms one (the density's), of d x_c's
-    per-point error."""
-    dist = {} if ref_dxc is None else {"d_xc": _point_dist(d_xc, ref_dxc)}
+    yardstick) and, where the backward forms one (the density's d x_c, the
+    colour's d feat: ``cot`` names it), of the input cotangent's per-point
+    error."""
+    dist = {} if ref_dxc is None else {cot: _point_dist(d_xc, ref_dxc)}
     e_w = torch.cat([((g.double() - rl).abs() / (rl.pow(2).mean().sqrt() + 1e-300)).reshape(-1)
                      for g, rl in zip(leaves, ref_leaves)])
     dist["weights"] = _median_p99(e_w)
@@ -944,10 +965,23 @@ def _raw_density_float64(spec, params: Dict[str, Any], x: torch.Tensor, t: torch
     return fused_density_raw_float64(spec, params, x, t)
 
 
+def _sdf_query(spec, params: Dict[str, Any], x: torch.Tensor, t: torch.Tensor,
+               simt: bool = False) -> torch.Tensor:
+    from endosurf_tpu_torch.kernels.fused_sdf import fused_sdf_observed_cuda
+    return fused_sdf_observed_cuda(spec, params, x, t, torch.bfloat16, simt)
+
+
+def _sdf_query_float64(spec, params: Dict[str, Any], x: torch.Tensor, t: torch.Tensor
+                       ) -> torch.Tensor:
+    from endosurf_tpu_torch.kernels.fused_sdf import fused_sdf_observed_float64
+    return fused_sdf_observed_float64(spec, params, x, t)
+
+
 # The kernels with a tensor-core bf16 version beside their SIMT one
 # (simt=True), for tc_float64_distance: name -> (its outputs' names, None for
 # a backward; its float64 yardstick (spec, params, *inputs, *cots); the
-# kernel (spec, params, packed, like, *inputs, *cots, simt=)).
+# kernel (spec, params, packed, like, *inputs, *cots, simt=)). The D-NeRF
+# kernels and the EndoSurf grid query (fused_sdf_observed).
 TC_KERNELS = {
     "dnerf_deform_fwd": (("x_c",), dnerf_deform_fwd_float64,
                          lambda spec, params, packed, like, xt, simt:
@@ -961,73 +995,135 @@ TC_KERNELS = {
     "dnerf_density_bwd": (None, dnerf_density_bwd_float64,
                           lambda spec, params, packed, like, *args, simt:
                           dnerf_density_bwd(packed, like, *args, simt=simt)),
+    "dnerf_color_bwd": (None, dnerf_color_bwd_float64,
+                        lambda spec, params, packed, like, *args, simt:
+                        dnerf_color_bwd(packed, like, *args, simt=simt)),
     "fused_density_raw": (("raw",), _raw_density_float64,
                           lambda spec, params, packed, like, x, t, simt:
                           _raw_density(spec, params, x, t, simt)),
+    "fused_sdf_observed": (("sdf",), _sdf_query_float64,
+                           lambda spec, params, packed, like, x, t, simt:
+                           _sdf_query(spec, params, x, t, simt)),
 }
 
 
 def tc_float64_distance(spec, params: Dict[str, Any], kernel: str, packed: Optional[DnPacked],
                         like, inputs: Sequence[torch.Tensor], cots: Sequence[torch.Tensor] = ()
                         ) -> Dict[str, Dict[str, Tuple[float, float]]]:
-    """A ``TC_KERNELS`` kernel in bf16 (a bf16 pack; the raw density query
-    packs its own and takes None) and its SIMT kernel, each against the
-    float64 yardstick on the same inputs (and, for a backward, cotangents):
+    """A ``TC_KERNELS`` kernel in bf16 (a bf16 pack; the raw density and
+    observed-SDF queries pack their own and take None) and its SIMT kernel,
+    each against the float64 yardstick on the same inputs (and, for a
+    backward, cotangents):
     {"tensor cores": distance, "SIMT": distance}, each
-    ``fwd_float64_distance`` (per output) or ``bwd_float64_distance``."""
+    ``fwd_float64_distance`` (per output) or ``bwd_float64_distance`` (its
+    input cotangent named "d_" + the input's name without "_": d_xc,
+    d_feat)."""
     if kernel not in TC_KERNELS:
         raise ValueError(f"{kernel} has no tensor-core kernel")
     names, yardstick, run = TC_KERNELS[kernel]
+    if names is None:
+        cot = "d_" + "".join(COTANGENT_INPUTS[kernel.split("_")[1]]).replace("_", "")
 
     def outs(v):
         return dict(zip(names, v if isinstance(v, tuple) else (v,)))
+
+    def d_in(v):
+        return next((c for c in v[1] if c is not None), None)
     ref = yardstick(spec, params, *inputs, *cots)
     out = {}
     for name, simt in (("tensor cores", False), ("SIMT", True)):
         got = run(spec, params, packed, like, *inputs, *cots, simt=simt)
-        out[name] = (bwd_float64_distance(got[0], got[1][0], ref[0], ref[1][0]) if names is None
-                     else fwd_float64_distance(outs(got), outs(ref)))
+        out[name] = (bwd_float64_distance(got[0], d_in(got), ref[0], d_in(ref), cot)
+                     if names is None else fwd_float64_distance(outs(got), outs(ref)))
     return out
 
 
-def deform_walk_distance(spec, params: Dict[str, Any], packed: DnPacked, xt: torch.Tensor,
-                         g_xc: torch.Tensor) -> Dict[str, Dict[str, float]]:
-    """The deform backward's own arithmetic against float64, below its
-    weight gradients: the tensor-core kernel and the SIMT one (a bf16 pack)
-    run on (xt, g_xc), each layer's operand rows and pre-activation
-    cotangents read back from the scratch (``scratch_layout``) and held
-    against ``dnerf_deform_walk_float64``. Returns {"tensor cores": {"points":
-    share of the points with any element off, "x<l>" / "dz<l>": share of
-    layer l's operand / cotangent elements off, "weights": share of the
-    weight-gradient elements off float64 (the walk's exact product, rounded
-    as the yardstick rounds), "product": share off the exact product of the
-    kernel's own operands and cotangents}, "SIMT": the same}. A float32 sum
-    that tips one bf16 rounding moves the later layers of its point through
-    the chaotic net, and the weight gradients sum every point: at base.yml's
-    widths a third of their elements sit an ulp or more off float64 for
-    either kernel, so their distance says little about which is nearer."""
+def dnerf_color_walk_float64(spec, params: Dict[str, Any], d: torch.Tensor, feat: torch.Tensor,
+                             g_rgb: torch.Tensor, precision: str = "default"
+                             ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """The colour backward's recompute and walk in float64 on the float32
+    parameters, with ``precision``'s operand and cotangent roundings (those
+    of ``dnerf_color_bwd_float64``): per layer its operand rows (op([enc(d) |
+    feat]), op(h)) and the cotangent on its pre-activation (the output
+    layer's d rgb * rgb (1 - rgb)), as a backward's scratch holds them ([N,
+    in_l], [N, out_l])."""
+    from endosurf_tpu_torch.kernels.fused_sampler import to_float64
+    layers = to_float64(params)["color"]["layers"]
+    h = torch.cat([freq_encode(operand(d.double(), precision), spec.dir_color_freqs),
+                   feat.double()], -1)
+    ins, zs = [], []
+    with torch.no_grad():
+        for lay in layers:
+            ins.append(operand(h, precision))
+            zs.append(ins[-1] @ operand(lay["w"], precision) + lay["b"])
+            h = torch.relu(zs[-1])
+        rgb = torch.sigmoid(zs[-1])
+        dzs, g = [], g_rgb.double() * rgb * (1 - rgb)
+        for l in range(len(layers) - 1, -1, -1):
+            dzs.insert(0, g)
+            if l > 0:
+                g = operand(g @ operand(layers[l]["w"], precision).T, precision) * (zs[l - 1] > 0)
+    return ins, dzs
+
+
+# the float64 walks of walk_distance: segment -> (yardstick (spec, params,
+# *inputs, *cots), the kernel's inputs and outputs besides the scratch (packed,
+# *inputs, *cots))
+WALKS = {
+    "deform": (dnerf_deform_walk_float64,
+               lambda packed, xt, g_xc: (_arg(xt, (xt.shape[0], 4), "xt"),
+                                         _arg(g_xc, (xt.shape[0], 3), "g_xc"))),
+    "color": (dnerf_color_walk_float64,
+              lambda packed, d, feat, g_rgb: (
+                  _arg(d, (d.shape[0], 3), "d"), _arg(feat, (d.shape[0], packed.meta[6]), "feat"),
+                  _arg(g_rgb, (d.shape[0], 3), "g_rgb"),
+                  torch.empty(d.shape[0], packed.meta[6], dtype=torch.float32, device=d.device))),
+}
+
+
+def walk_distance(spec, params: Dict[str, Any], seg: str, packed: DnPacked,
+                  inputs: Sequence[torch.Tensor], cots: Sequence[torch.Tensor]
+                  ) -> Dict[str, Dict[str, float]]:
+    """A backward's own arithmetic against float64, below its weight
+    gradients (the deform's and the colour's, ``WALKS``): the tensor-core
+    kernel and the SIMT one (a bf16 pack) run on (inputs, cots), each layer's
+    operand rows and pre-activation cotangents read back from the scratch
+    (``scratch_layout``) and held against the float64 walk, each value
+    rounded to the scratch's float32 where it is float32. Returns {"tensor
+    cores": {"points": share of the points with any element off, "x<l>" /
+    "dz<l>": share of layer l's operand / cotangent elements off, "weights":
+    share of the weight-gradient elements off float64 (the walk's exact
+    product, rounded as the yardstick rounds), "product": share off the exact
+    product of the kernel's own operands and cotangents}, "SIMT": the same}.
+    A float32 sum that tips one bf16 rounding moves the later layers of its
+    point through the chaotic deform net, and the weight gradients sum every
+    point: at base.yml's widths a third of the deform's gradient elements
+    sit an ulp or more off float64 for either kernel, and the colour's bias
+    and output-layer gradients sit at one float32 summation floor for
+    either, so their distance says little about which is nearer."""
     def rounded(w):
         return w.to(torch.float32).to(torch.bfloat16).double()
-    n = xt.shape[0]
-    ins, dzs = dnerf_deform_walk_float64(spec, params, xt, g_xc)
+    walk, args = WALKS[seg]
+    n = inputs[0].shape[0]
+    ins, dzs = walk(spec, params, *inputs, *cots)
     ref_w = [rounded(a.T @ dz) for a, dz in zip(ins, dzs)]
-    args = (_arg(xt, (n, 4), "xt"), _arg(g_xc, (n, 3), "g_xc"))
+    tensors = args(packed, *inputs, *cots)
     out = {}
     for name, simt in (("tensor cores", False), ("SIMT", True)):
-        tc = _tc(packed, simt, "deform_bwd")
-        bufs = _bwd_buffers(packed, "deform", n, xt.device, tc)
-        _run("dnerf_deform_bwd", packed, n, *args, *bufs, tc=tc)
+        tc = _tc(packed, simt, f"{seg}_bwd")
+        bufs = _bwd_buffers(packed, seg, n, inputs[0].device, tc)
+        _run(f"dnerf_{seg}_bwd", packed, n, *tensors, *bufs, tc=tc)
         raw = bufs[0].view(torch.uint8)
-        off = torch.zeros(n, dtype=torch.bool, device=xt.device)
+        off = torch.zeros(n, dtype=torch.bool, device=inputs[0].device)
         shares, w_off, w_own, w_all = {}, 0, 0, 0
         for l, (pair, (wo, _, i, o)) in enumerate(zip(
-                scratch_layout(packed.meta, "deform", n, tc), packed.layout("deform"))):
+                scratch_layout(packed.meta, seg, n, tc), packed.layout(seg))):
             got = []
             for (at, dtype, width), ref, key in zip(pair, (ins[l], dzs[l]), (f"x{l}", f"dz{l}")):
                 item = 2 if dtype == torch.bfloat16 else 4
                 got.append(raw[at:at + n * width * item].view(dtype).view(n, width)
                            [:, :ref.shape[1]].double())
-                diff = got[-1] != ref
+                diff = got[-1] != ref.float().double()
                 off |= diff.any(1)
                 shares[key] = float(diff.double().mean())
             dw = bufs[2][wo:wo + i * o].view(i, o).double()

@@ -201,18 +201,32 @@ def test_render_tensor_cores_no_farther_from_float64(dev):
 
 # sha256 of the float32 render's maps (MAPS concatenated, float32 bytes) on
 # _rays(1024) with the full net (seed 0) at RENDER_ARGS, as the SIMT kernel of
-# the parent of the tensor-core render built it (tools/render_f32_digest.py on
-# an NVIDIA H100 80GB HBM3), and the nvcc release that compiled it: another
-# toolchain may compile other bits, so the test skips under it (rerun the
-# tool on both trees then).
+# the parent of the tensor-core render built it, and of the float32
+# observed-SDF query's output on a grid slab (tools/render_f32_digest.py's
+# case) as the SIMT sweep of the parent of the tensor-core query computed it
+# (tools/render_f32_digest.py on an NVIDIA H100 80GB HBM3), and the nvcc
+# release that compiled them: another toolchain may compile other bits, so
+# the test skips under it (rerun the tool on both trees then).
 F32_RENDER_DIGEST = "41736c66a893780b441d4699464f7384c7fe981e96c2862ab4628365852e59d5"
+F32_SDF_QUERY_DIGEST = "ef0d45bb023dad05050a79f78a93ada5a694537f4543d838545c17473d0408ad"
 F32_RENDER_NVCC = "release 12.9,"
+
+
+def _tool(name: str):
+    """The module of tools/<name>.py."""
+    import importlib.util
+    spec_ = importlib.util.spec_from_file_location(
+        name, osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))), "tools", name + ".py"))
+    tool = importlib.util.module_from_spec(spec_)
+    spec_.loader.exec_module(tool)
+    return tool
 
 
 def test_render_f32_is_the_simt_render(dev):
     """The float32 render runs the SIMT code it ran before the bf16 passes
     moved to tensor cores: its maps equal that kernel's bit for bit, and the
-    same with simt=True."""
+    same with simt=True; the float32 grid query likewise runs the SIMT sweep
+    it ran before the bf16 query moved to tensor cores."""
     import hashlib
     import subprocess
     params = init_endosurf_params(EndoSurfSpec(), torch.Generator().manual_seed(0), dev)
@@ -225,11 +239,13 @@ def test_render_f32_is_the_simt_render(dev):
     nvcc = subprocess.run([build.find_nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout
     release = next((ln for ln in nvcc.splitlines() if "release" in ln), nvcc.strip())
-    print(f"float32 render digest {digest} ({release})")
+    query = _tool("render_f32_digest").sdf_query_digest(dev)
+    print(f"float32 render digest {digest}, sdf query digest {query} ({release})")
     if F32_RENDER_NVCC not in release:
         pytest.skip(f"the digest was taken with nvcc {F32_RENDER_NVCC.rstrip(',')}, "
                     f"this one is {release}")
     assert digest == F32_RENDER_DIGEST
+    assert query == F32_SDF_QUERY_DIGEST
 
 
 def test_render_reuses_the_pack(dev):
@@ -1154,6 +1170,9 @@ SDF_CELLS = [("full", 1000), ("full", 65537), ("full", 1048576), ("narrow", 6553
 @pytest.mark.parametrize("cell", SDF_CELLS, ids=[f"{s}-{n}" for s, n in SDF_CELLS])
 @pytest.mark.parametrize("dtype", F32_BF16, ids=["f32", "bf16"])
 def test_sdf_query_kernel_matches_plain(dev, dtype, cell, seed):
+    """The query against its plain version (fused_sdf.PARITY_TOL) and, in
+    bf16 (tensor cores), against its float64 yardstick too
+    (fused_sdf.FLOAT64_TOL)."""
     spec = SPEC_BY_ID[cell[0]]
     params = init_endosurf_params(spec, torch.Generator().manual_seed(seed), dev)
     x, t = _sdf_points(cell[1], dev, seed)
@@ -1164,6 +1183,11 @@ def test_sdf_query_kernel_matches_plain(dev, dtype, cell, seed):
     errs = fsd.parity_errors(got, ref, dtype)
     print(f"sdf query sound {dtype} {cell} seed {seed}: median / p99 / max {errs[:3]}")
     assert errs[-1], errs
+    if dtype == torch.bfloat16:
+        errs = fsd.float64_errors(got, fsd.fused_sdf_observed_float64(spec, params, x, t))
+        print(f"sdf query sound bf16 {cell} seed {seed} vs float64: median / p99 / max "
+              f"{errs[:3]}")
+        assert errs[-1], errs
 
 
 @pytest.mark.parametrize("spec", SPECS, ids=SPEC_IDS)
@@ -1203,25 +1227,87 @@ def test_sdf_query_entry_and_dispatch(dev):
     assert fsd.LAUNCHES["fused_sdf_observed"] == before + 2
 
 
-SDF_FAULTS = {   # csrc/sdf_chain.cuh, the point-list store: 0.1 % off on 1 point in 64
-    "scale_sdf_i64": ("  __device__ void store(long long i, float v) const { dst[i] = v; }",
-                      "  __device__ void store(long long i, float v) const {\n"
-                      "    dst[i] = (i % 64 == 0) ? v * 1.001f : v;\n  }"),
+SDF_FAULTS = {
+    # csrc/sdf_chain.cuh, the point-list store, which the SIMT sweep (float32)
+    # and the tensor-core one (bf16) both store through: 0.1 % off on 1
+    # point in 64
+    "scale_sdf_i64": [("sdf_chain.cuh",
+                       "  __device__ void store(long long i, float v) const { dst[i] = v; }",
+                       "  __device__ void store(long long i, float v) const {\n"
+                       "    dst[i] = (i % 64 == 0) ? v * 1.001f : v;\n  }")],
+    # a sparse fault in each sweep's own point path: the last partial tile's
+    # points (one of 65,537) written as 0 (tensor cores: csrc/sweep_tc.cuh)
+    "tail_tile_zeroed": [
+        ("sdf_chain.cuh", "    if (i < src.n) src.store(i, a + wts[N.b_off[l]]);",
+         "    if (i < src.n) src.store(i, base + P_SWEEP > src.n ? 0.f : a + wts[N.b_off[l]]);"),
+        ("sweep_tc.cuh",
+         "    if (base + tid < src.n) src.store(base + tid, (float)(a + (double)wts[S.b_off[l]]));",
+         "    if (base + tid < src.n)\n"
+         "      src.store(base + tid, base + SW_P > src.n ? 0.f\n"
+         "                            : (float)(a + (double)wts[S.b_off[l]]));")],
 }
 
 
 @pytest.mark.parametrize("fault", sorted(SDF_FAULTS))
 def test_sdf_query_limits_catch_planted_faults(dev, fault, tmp_path, monkeypatch):
-    _rebuild_with(monkeypatch, tmp_path, "sdf_chain.cuh", *SDF_FAULTS[fault])
+    """The query built with a planted fault fails its limits in both modes:
+    the SIMT sweep in float32 (against the plain version), the tensor-core
+    sweep in bf16 (the plain version's limits or the float64 yardstick's;
+    the profiler shows that sweep_tc_kernel ran)."""
+    _rebuild_with_all(monkeypatch, tmp_path, SDF_FAULTS[fault])
     spec = EndoSurfSpec()
     params = init_endosurf_params(spec, torch.Generator().manual_seed(0), dev)
     x, t = _sdf_points(65537, dev)
     for dtype in F32_BF16:
-        errs = fsd.parity_errors(fsd.fused_sdf_observed_cuda(spec, params, x, t, dtype),
-                                 fsd.fused_sdf_observed_reference(spec, params, x, t, dtype),
+        got = fsd.fused_sdf_observed_cuda(spec, params, x, t, dtype)
+        errs = fsd.parity_errors(got, fsd.fused_sdf_observed_reference(spec, params, x, t, dtype),
                                  dtype)
         print(f"{fault} {dtype}: {errs[:3]}")
-        assert not errs[-1], errs
+        if dtype == torch.float32:
+            assert not errs[-1], errs
+            continue
+        f64 = fsd.float64_errors(got, fsd.fused_sdf_observed_float64(spec, params, x, t))
+        print(f"{fault} bf16 vs float64: {f64[:3]}")
+        assert not (errs[-1] and f64[-1]), (errs, f64)
+        names = _traced_kernels("sdf query bf16")["sdf query bf16"]
+        assert any("sweep_tc_kernel" in k and "dn_" not in k for k in names), names
+
+
+def test_sdf_query_tensor_cores_no_farther_from_float64(dev):
+    """The condition under which the bf16 query's p99 limit against the plain
+    version moved (fused_sdf.PARITY_TOL): on SDF_CELLS (the full net at
+    three sizes, the narrow net, the static net), two weight seeds, the
+    tensor-core query's median and p99 per-point error against its float64
+    yardstick (fused_sdf_observed_float64) are no larger than the SIMT bf16
+    sweep's (simt=True) on the same points
+    (fused_train_dnerf.tc_float64_distance)."""
+    failed = []
+    for sid, n in SDF_CELLS:
+        spec = SPEC_BY_ID[sid]
+        for seed in (0, 1):
+            params = init_endosurf_params(spec, torch.Generator().manual_seed(seed), dev)
+            dist = ftd.tc_float64_distance(spec, params, "fused_sdf_observed", None, None,
+                                           _sdf_points(n, dev, seed))
+            print(f"sdf query bf16 vs float64 {sid} {n} seed {seed} (median, p99): "
+                  + "; ".join(f"{nm} {v['sdf'][0]:.4e}, {v['sdf'][1]:.4e}"
+                              for nm, v in dist.items()))
+            if not fr.no_farther(dist["tensor cores"], dist["SIMT"])["sdf"]:
+                failed.append((sid, n, seed))
+    assert not failed, failed
+
+
+def test_sdf_query_runs_on_tensor_cores(dev):
+    """A bf16 query launches the tensor-core sweep (sweep_tc_kernel over a
+    point list) and not the SIMT sweep; simt=True and the float32 query
+    launch the SIMT sweep and no tensor-core kernel."""
+    traced = _traced_kernels("sdf query bf16", "sdf query bf16 simt", "sdf query f32")
+    tc = traced["sdf query bf16"]
+    print(sorted(tc), sorted(traced["sdf query bf16 simt"]), sorted(traced["sdf query f32"]))
+    assert any("sweep_tc_kernel" in k and "PointList" in k for k in tc)
+    assert not any("sweep_kernel<" in k for k in tc)
+    for what in ("sdf query bf16 simt", "sdf query f32"):
+        assert any("sweep_kernel<" in k for k in traced[what]), what
+        assert not any("_tc_" in k for k in traced[what]), what
 
 
 def _march_inputs(n: int, dev, seed: int = 0):
@@ -1599,7 +1685,8 @@ def test_dnerf_tc_render_limits_catch_planted_faults(dev, fault, tmp_path, monke
 # The traced calls of the kernel-name tests, run in a fresh process: a long
 # test process's torch.profiler sessions can record no device events at all.
 _TRACE_SCRIPT = """
-import json, sys
+import json, os, sys
+from pathlib import Path
 sys.path.insert(0, sys.argv[1])
 import torch
 from torch.autograd import DeviceType
@@ -1610,11 +1697,16 @@ from endosurf_tpu_torch.kernels import fused_render_dnerf as frd
 from endosurf_tpu_torch.kernels import fused_sdf as fsd
 from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
 from endosurf_tpu_torch.models import endonerf as en
+from endosurf_tpu_torch.models.fields import EndoSurfSpec, init_endosurf_params
+from endosurf_tpu_torch.kernels import build
+build.CSRC, build.BUILD_DIR = Path(os.environ["TRACE_CSRC"]), Path(os.environ["TRACE_BUILD_DIR"])
 dev, bf = torch.device("cuda"), torch.bfloat16
 spec, params = _render_params("full", 0, dev)
 rays = _dn_rays(1024, dev, True)
 _, packed, like, inputs, cots = _dn_bwd_case(en.DNeRFSpec(), 0, dev, 4096)
 _, d_packed, d_like, d_inputs, d_cots = _dn_bwd_case(en.DNeRFSpec(), 0, dev, 4096, "deform")
+_, c_packed, c_like, c_inputs, c_cots = _dn_bwd_case(en.DNeRFSpec(), 0, dev, 4096, "color")
+es_params = init_endosurf_params(EndoSurfSpec(), torch.Generator().manual_seed(0), dev)
 dn_params = _dn_params(en.DNeRFSpec(), 0, dev)
 px, pt = _sdf_points(4096, dev)
 calls = {
@@ -1636,6 +1728,13 @@ calls = {
     "density raw bf16": lambda: fsd.fused_density_raw_cuda(en.DNeRFSpec(), dn_params, px, pt, bf),
     "density raw bf16 simt": lambda: fsd.fused_density_raw_cuda(en.DNeRFSpec(), dn_params, px,
                                                                 pt, bf, simt=True),
+    "color bwd bf16": lambda: ftd.dnerf_color_bwd(c_packed, c_like, *c_inputs, *c_cots),
+    "color bwd bf16 simt": lambda: ftd.dnerf_color_bwd(c_packed, c_like, *c_inputs, *c_cots,
+                                                       simt=True),
+    "sdf query bf16": lambda: fsd.fused_sdf_observed_cuda(EndoSurfSpec(), es_params, px, pt, bf),
+    "sdf query bf16 simt": lambda: fsd.fused_sdf_observed_cuda(EndoSurfSpec(), es_params, px, pt,
+                                                               bf, simt=True),
+    "sdf query f32": lambda: fsd.fused_sdf_observed_cuda(EndoSurfSpec(), es_params, px, pt),
 }
 names = {}
 for what in sys.argv[3:]:
@@ -1653,13 +1752,16 @@ print(json.dumps(names))
 def _traced_kernels(*calls):
     """{call: the names of the device kernels one call launches}, traced by
     torch.profiler after a warm-up call in a fresh process (``calls``:
-    _TRACE_SCRIPT's keys)."""
+    _TRACE_SCRIPT's keys), on the kernels built from this process's
+    ``build.CSRC`` (a planted fault's patched copy too)."""
     import json
+    import os
     import subprocess
     import sys
     repo = osp.dirname(osp.dirname(osp.abspath(__file__)))
+    env = {**os.environ, "TRACE_CSRC": str(build.CSRC), "TRACE_BUILD_DIR": str(build.BUILD_DIR)}
     out = subprocess.run([sys.executable, "-c", _TRACE_SCRIPT, repo, osp.join(repo, "tests"),
-                          *calls], capture_output=True, text=True, timeout=600)
+                          *calls], capture_output=True, text=True, timeout=600, env=env)
     assert out.returncode == 0, out.stderr[-3000:]
     return {k: set(v) for k, v in json.loads(out.stdout.strip().splitlines()[-1]).items()}
 
@@ -2066,6 +2168,23 @@ DN_BWD_FAULTS = {
          ("    const float* head = wts + S.wt_off[L - 1];   // W^T row 0: the raw column",
           "    const float* head = wts + S.wt_off[L - 1] + n_in;")],
         ("dnerf_density_bwd",)),
+    # the colour walk's relu' gate dropped (SIMT: dn_bwd_walk, which every SIMT
+    # backward walks with; tensor cores: the colour kernel's gate on h_{L-2})
+    "color_relu_gate_dropped": (
+        [("          const bool on = base + p < n && sv.xin[l][(size_t)(base + p) * in_l + i]"
+          " > 0.f;",
+          "          const bool on = base + p < n;"),
+         ("      if (i < n_in && ((s.gbit[((L - 2) * DT_P + p) * WB + (i >> 5)] >> (i & 31)) & 1))"
+          " {",
+          "      if (i < n_in) {")],
+        ("dnerf_color_bwd",)),
+    # the sigmoid's derivative without its (1 - rgb) factor
+    "color_sigmoid_slope_halved": (
+        [("g_rgb[(size_t)(base + p) * 3 + c] * rgb * (1.f - rgb)",
+          "g_rgb[(size_t)(base + p) * 3 + c] * rgb"),
+         ("(float)((double)s.x[p * 4 + col] * rgb * (1.0 - rgb));",
+          "(float)((double)s.x[p * 4 + col] * rgb);")],
+        ("dnerf_color_bwd",)),
 }
 
 
@@ -2156,6 +2275,63 @@ def test_dnerf_density_bwd_runs_on_tensor_cores(dev):
     assert not any("_tc_" in k for k in simt)
 
 
+def test_dnerf_color_bwd_tensor_cores_no_farther_from_float64(dev):
+    """On the cells of test_dnerf_backward_matches_plain (three nets, 65,531
+    points, two seeds) the tensor-core colour backward is no farther from
+    float64 than the SIMT bf16 kernel (simt=True): d feat's median and p99
+    per-point error against the float64 yardstick (dnerf_color_bwd_float64),
+    and, one level down, the share of the points whose operand rows or
+    pre-activation cotangents, read back from the scratch, differ from the
+    float64 recompute and walk (dnerf_color_walk_float64,
+    fused_train_dnerf.walk_distance). Each weight leaf's median and p99
+    against the yardstick are printed beside them and not judged: the bias
+    and output-layer gradients are float32 sums over every point, which sit
+    at one summation floor for either kernel and land on either side of
+    each other (PERF.md §6)."""
+    failed = []
+    for sid, spec in zip(SPEC_IDS, DN_SPECS):
+        for seed in (0, 1):
+            params, packed, like, inputs, cots = _dn_bwd_case(spec, seed, dev, seg="color")
+            ref_leaves, (_, ref_df) = ftd.dnerf_color_bwd_float64(spec, params, *inputs, *cots)
+            names = ftd.leaf_names(like, "color")
+            dist = {}
+            for nm, simt in (("tensor cores", False), ("SIMT", True)):
+                leaves, (_, d_feat) = ftd.dnerf_color_bwd(packed, like, *inputs, *cots, simt=simt)
+                dist[nm] = {"d_feat": ftd.bwd_float64_distance(leaves, d_feat, ref_leaves,
+                                                               ref_df, "d_feat")["d_feat"],
+                            **{k: ftd.bwd_float64_distance([g], None, [r], None)["weights"]
+                               for k, g, r in zip(names, leaves, ref_leaves)}}
+            walk = ftd.walk_distance(spec, params, "color", packed, inputs, cots)
+            for k in dist["SIMT"]:
+                print(f"dnerf colour bwd bf16 vs float64 {sid} seed {seed} {k} (median, p99): "
+                      + "; ".join(f"{nm} {v[k][0]:.4e}, {v[k][1]:.4e}" for nm, v in dist.items()))
+            print(f"dnerf colour bwd bf16 vs float64 {sid} seed {seed}: points off the float64 "
+                  f"walk, weight elements off float64, weight elements off the exact product "
+                  f"of the kernel's own operands " + "; ".join(
+                      f"{nm} {100 * v['points']:.3f} %, {100 * v['weights']:.3f} %, "
+                      f"{100 * v['product']:.3f} %" for nm, v in walk.items()))
+            if not fr.no_farther(dist["tensor cores"], dist["SIMT"])["d_feat"]:
+                failed.append((sid, seed, "d_feat"))
+            if walk["tensor cores"]["points"] > walk["SIMT"]["points"]:
+                failed.append((sid, seed, "walk"))
+    assert not failed, failed
+
+
+def test_dnerf_color_bwd_runs_on_tensor_cores(dev):
+    """A bf16 colour backward launches the tensor-core tile and product
+    (dnerf_color_bwd_tc_kernel, wgrad_tc_partial_kernel) and not the SIMT
+    ones; simt=True launches the SIMT kernel and product."""
+    traced = _traced_kernels("color bwd bf16", "color bwd bf16 simt")
+    tc, simt = traced["color bwd bf16"], traced["color bwd bf16 simt"]
+    print(sorted(tc), sorted(simt))
+    assert any("dnerf_color_bwd_tc_kernel" in k for k in tc)
+    assert any("wgrad_tc_partial_kernel" in k for k in tc)
+    assert not any("dnerf_color_bwd_kernel" in k or "wgrad_partial_kernel" in k for k in tc)
+    assert any("dnerf_color_bwd_kernel" in k for k in simt)
+    assert any("wgrad_partial_kernel" in k for k in simt)
+    assert not any("_tc_" in k for k in simt)
+
+
 def test_dnerf_deform_bwd_tensor_cores_no_farther_from_float64(dev):
     """On the cells of test_dnerf_backward_matches_plain with a deform net
     (narrow and full, 65,531 points, two seeds) the tensor-core deform
@@ -2163,7 +2339,7 @@ def test_dnerf_deform_bwd_tensor_cores_no_farther_from_float64(dev):
     kernel's (simt=True): its operand rows and pre-activation cotangents,
     read back from the scratch, differ from the float64 recompute and walk
     (dnerf_deform_walk_float64) on no larger a share of the points
-    (fused_train_dnerf.deform_walk_distance). The weight gradients' median
+    (fused_train_dnerf.walk_distance). The weight gradients' median
     and p99 against the float64 yardstick (dnerf_deform_bwd_float64) are
     printed beside it and not judged: a float32 sum that tips one bf16
     rounding moves every later layer of its point through the chaotic net,
@@ -2176,7 +2352,7 @@ def test_dnerf_deform_bwd_tensor_cores_no_farther_from_float64(dev):
             continue
         for seed in (0, 1):
             params, packed, like, inputs, cots = _dn_bwd_case(spec, seed, dev, seg="deform")
-            walk = ftd.deform_walk_distance(spec, params, packed, *inputs, *cots)
+            walk = ftd.walk_distance(spec, params, "deform", packed, inputs, cots)
             dist = ftd.tc_float64_distance(spec, params, "dnerf_deform_bwd", packed, like, inputs,
                                            cots)
             print(f"dnerf deform bwd bf16 vs float64 {sid} seed {seed}: points off the float64 "
@@ -2327,13 +2503,13 @@ def test_density_raw_runs_on_tensor_cores(dev):
 
 
 # sha256 of the float32 D-NeRF render's maps and of the float32 density
-# backward's, deform backward's, density forward's, deform forward's and raw
-# density query's outputs (tools/dnerf_f32_digest.py's cases) as the SIMT
-# kernels compute them, taken on an NVIDIA H100 80GB HBM3 from the trees
-# before each bf16 kernel took tensor cores (the render and density
-# backward's before the render's, the deform backward and density forward's
-# before theirs, the deform forward and raw density's before theirs), and the
-# nvcc release
+# backward's, deform backward's, density forward's, deform forward's, raw
+# density query's and colour backward's outputs (tools/dnerf_f32_digest.py's
+# cases) as the SIMT kernels compute them, taken on an NVIDIA H100 80GB HBM3
+# from the trees before each bf16 kernel took tensor cores (the render and
+# density backward's before the render's, the deform backward and density
+# forward's before theirs, the deform forward and raw density's before
+# theirs, the colour backward's before its own), and the nvcc release
 # that compiled them: another toolchain may compile other bits, so the test
 # skips under it (rerun the tool on both trees then).
 F32_DN_RENDER_DIGEST = "b3e4a35b127df95a3c9a71e6b7db75576f0b578f2399281952151dd9710939b3"
@@ -2342,32 +2518,27 @@ F32_DN_DEFORM_BWD_DIGEST = "22f84ebab5f4a77018efaf36bbebc7b6b7b1f1737d8fc2f51361
 F32_DN_DENSITY_FWD_DIGEST = "2c3c9c5948a1620f725f4190e43481ec5ad45c9fe5331e177e079e653b180315"
 F32_DN_DEFORM_FWD_DIGEST = "f6c35c5c0443c3be02e0051438a8805ee08b2fe8e59ad838eaf94206705bd1a1"
 F32_DN_DENSITY_RAW_DIGEST = "ce7cb9fe9b6e1e424f8f9d058c64bb67cb893998beda92e15c4d2fa2b9169b4b"
+F32_DN_COLOR_BWD_DIGEST = "026e761fe54a5fb2d4d9d3623d53f0e5489351da8fcae25b0f6bc25f50301d69"
 
 
 def test_dnerf_f32_is_the_simt_path(dev):
     """The float32 D-NeRF render, density backward, deform backward,
-    density forward, deform forward and raw density query run the SIMT code,
-    untouched by the tensor-core bf16 kernels: their outputs equal that
-    code's recorded digests bit for bit."""
-    import importlib.util
+    density forward, deform forward, raw density query and colour backward
+    run the SIMT code, untouched by the tensor-core bf16 kernels: their
+    outputs equal that code's recorded digests bit for bit."""
     import subprocess
-    spec_ = importlib.util.spec_from_file_location(
-        "dnerf_f32_digest", osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))), "tools",
-                                     "dnerf_f32_digest.py"))
-    tool = importlib.util.module_from_spec(spec_)
-    spec_.loader.exec_module(tool)
-    got = tool.digests(dev)
+    got = _tool("dnerf_f32_digest").digests(dev)
     nvcc = subprocess.run([build.find_nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout
     release = next((ln for ln in nvcc.splitlines() if "release" in ln), nvcc.strip())
     print(f"float32 dnerf render, density backward, deform backward, density forward, "
-          f"deform forward, raw density digests {got} ({release})")
+          f"deform forward, raw density, colour backward digests {got} ({release})")
     if F32_RENDER_NVCC not in release:
         pytest.skip(f"the digests were taken with nvcc {F32_RENDER_NVCC.rstrip(',')}, "
                     f"this one is {release}")
     assert got == (F32_DN_RENDER_DIGEST, F32_DN_BWD_DIGEST, F32_DN_DEFORM_BWD_DIGEST,
                    F32_DN_DENSITY_FWD_DIGEST, F32_DN_DEFORM_FWD_DIGEST,
-                   F32_DN_DENSITY_RAW_DIGEST)
+                   F32_DN_DENSITY_RAW_DIGEST, F32_DN_COLOR_BWD_DIGEST)
 
 
 def _resample_inputs(nets: str, n0: int, dev, seed: int = 0):

@@ -7,7 +7,8 @@ Pallas backward kernels (``_deform_bwd_pl`` / ``_density_bwd_pl`` /
 with the train noise fed in, ``fused_fine_resample`` on CPU tensors, the
 train render (``render_rays_train``) against JAX's ``render_rays`` with a
 key, and the float64 yardsticks of the tensor-core kernels (the density
-forward's and the deform and density backwards') against JAX's segments.
+forward's and the deform, density and colour backwards') against JAX's
+segments.
 
 Both sides start from one JAX init bridged to torch and get JAX's random
 numbers: the segment cotangents from numpy, the render's draws rebuilt from
@@ -275,6 +276,80 @@ def test_density_bwd_float64_yardstick_matches_jax(precision, use_deform):
         assert leaf <= BF16_LEAF and cot <= BF16_COT, (leaf, cot)
         leaf32, _ = readings("highest")
         assert leaf32 > F32_LEAF * 10, leaf32     # the rounding is on
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"], ids=["f32", "bf16"])
+@pytest.mark.parametrize("use_deform", [True, False], ids=["deform", "static"])
+def test_color_bwd_float64_yardstick_matches_jax(precision, use_deform):
+    """The colour backward's float64 yardstick (dnerf_color_bwd_float64:
+    plain_bwd in float64 on the float32 weights) against JAX's colour
+    segment backward forced onto its Pallas kernel (_color_bwd_pl,
+    interpreted), 48 points: in float32 per leaf within F32_LEAF and d feat
+    within 10 F32_LEAF of its RMS (float64 against float32 sums); with bf16
+    operand and cotangent roundings on both sides within BF16_LEAF /
+    BF16_COT (a rounding on an ulp of float32 noise tips now and then); the
+    float32 yardstick fails the bf16 limits on the leaves."""
+    js, ts = _specs(**SMALL, use_deform=use_deform)
+    pj = j_en.init_dnerf_params(jax.random.PRNGKey(3), js)
+    pt = params_from_jax(pj)
+    j_in, j_ct, t_in, t_ct = _segment_case(js, ts, pj, "color", 48, 4)
+    if precision == "default":
+        j_ft.set_compute_mode(jnp.bfloat16, None)
+    j_grads = _jax_segment_grads(js, pj, "color", [jnp.asarray(a) for a in j_in],
+                                 jnp.asarray(j_ct))
+    j_ft.set_compute_mode(jnp.float32, "highest")
+    ref_leaves = {k: np.asarray(v) for k, v in flatten(j_grads[0]).items()}
+    ref_dfeat = np.asarray(j_grads[2])
+    like, _ = t_ftd.segment_weights(t_ftd.prepare_effective_dnerf(ts, pt), "color")
+    names = t_ftd.leaf_names(like, "color")
+
+    def readings(prec):
+        leaves, (none, d_feat) = t_ftd.dnerf_color_bwd_float64(
+            ts, pt, *(torch.from_numpy(a) for a in t_in), torch.from_numpy(t_ct[0]), prec)
+        assert none is None and d_feat.dtype == torch.float64
+        assert all(v.dtype == torch.float64 for v in leaves)
+        rows = _as_jax_tree(names, leaves, len(pj["color"]["layers"]), "color")
+        leaf = max(_rel(rows[k], r) for k, r in ref_leaves.items())
+        cot = float((np.abs(d_feat.numpy() - ref_dfeat).max(-1)
+                     / np.sqrt((ref_dfeat ** 2).mean())).max())
+        return leaf, cot
+    leaf, cot = readings(precision)
+    print(f"colour bwd float64 yardstick vs JAX {precision}: leaf {leaf:.3e}, d feat {cot:.3e}")
+    if precision == "highest":
+        assert leaf <= F32_LEAF and cot <= F32_LEAF * 10, (leaf, cot)
+    else:
+        assert leaf <= BF16_LEAF and cot <= BF16_COT, (leaf, cot)
+        leaf32, _ = readings("highest")
+        assert leaf32 > F32_LEAF * 10, leaf32     # the rounding is on
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"], ids=["f32", "bf16"])
+def test_color_walk_float64_is_the_yardstick_walk(precision):
+    """The colour backward's float64 walk (dnerf_color_walk_float64, what
+    walk_distance holds the kernels' scratch against) is the yardstick's
+    (dnerf_color_bwd_float64) own arithmetic: its operands and cotangents
+    give the yardstick's weight gradients (each layer's rounded as the
+    yardstick rounds: bf16 under "default", the bias unrounded) and d feat
+    (the feature columns of layer 0's input cotangent, rounded), within
+    1e-12 relative (float64 sums in other orders)."""
+    js, ts = _specs(**SMALL)
+    pj = j_en.init_dnerf_params(jax.random.PRNGKey(3), js)
+    pt = params_from_jax(pj)
+    _, _, t_in, t_ct = _segment_case(js, ts, pj, "color", 48, 4)
+    d, feat, g_rgb = (torch.from_numpy(np.asarray(a)) for a in (*t_in, t_ct[0]))
+    ins, dzs = t_ftd.dnerf_color_walk_float64(ts, pt, d, feat, g_rgb, precision)
+    leaves, (_, d_feat) = t_ftd.dnerf_color_bwd_float64(ts, pt, d, feat, g_rgb, precision)
+    like, _ = t_ftd.segment_weights(t_ftd.prepare_effective_dnerf(ts, pt), "color")
+    rows = _as_jax_tree(t_ftd.leaf_names(like, "color"), leaves, len(ins), "color")
+
+    def op(x):
+        return x.float().to(torch.bfloat16).double() if precision == "default" else x
+    for l, (a, dz) in enumerate(zip(ins, dzs)):
+        assert _rel(op(a.T @ dz).numpy(), rows[f"layers/{l}/w"]) <= 1e-12, l
+        assert _rel(dz.sum(0).numpy(), rows[f"layers/{l}/b"]) <= 1e-12, l
+    w0 = pt["color"]["layers"][0]["w"].double()
+    want = op(dzs[0] @ (op(w0) if precision == "default" else w0).T)[:, -feat.shape[1]:]
+    assert _rel(want.numpy(), d_feat.numpy()) <= 1e-12
 
 
 @pytest.mark.parametrize("precision", ["highest", "default"], ids=["f32", "bf16"])

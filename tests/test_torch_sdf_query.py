@@ -16,6 +16,10 @@ Read here: float32 worst 9.5e-7; bf16 worst 1.53e-3, over 1e-4 on 0.59 % of
 the points. The float32 math misses the bf16 kernel on most points, so
 ``test_bf16_tolerance_rejects_f32_dots`` holds the bf16 limit to that.
 
+The bf16 query's float64 yardstick (``fused_sdf_observed_float64``) is held
+against the same interpreted kernel at both precisions, with the same
+limits.
+
 The CUDA kernel itself is held against the plain version in
 test_torch_cuda.py.
 """
@@ -123,6 +127,41 @@ def test_bf16_tolerance_rejects_f32_dots(params):
     got = _port(_narrow(t_fields), pt, x, t, torch.float32)
     ref = _jax_kernel(_narrow(j_fields), pj, x, t, jnp.bfloat16)
     ok, err = _bf16_close(got, ref)
+    assert not ok and (err > BF16_TOL).mean() > 0.5, np.median(err)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("use_deform", [True, False], ids=["deform", "static"])
+def test_float64_yardstick_matches_interpreted_jax_kernel(params, use_deform, dtype):
+    """The bf16 query's float64 yardstick (``fused_sdf_observed_float64``: the
+    plain version in float64 on the kernel's own weights, coordinates
+    unrounded) against JAX's Pallas kernel, interpreted, on the same 1024
+    points: in float32 within F32_TOL (float64 against float32 sums), with
+    bf16 operand roundings on both sides within the bf16 limits (BF16_TOL on
+    all but BF16_FRAC of the points, BF16_LOOSE on every one: an operand on
+    a rounding edge rounds the other way on one side); the float32 yardstick
+    misses the bf16 kernel on most points (the rounding is on)."""
+    pj, pt = params
+    x, t = _points(1024, seed=5)
+    spec = _narrow(t_fields, use_deform)
+    tdt, jdt = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}[dtype]
+
+    def yardstick(compute_dtype):
+        out = t_fsd.fused_sdf_observed_float64(spec, pt, torch.from_numpy(x), torch.from_numpy(t),
+                                               compute_dtype)
+        assert out.shape == (1024, 1) and out.dtype == torch.float64
+        return out.numpy()
+    ref = _jax_kernel(_narrow(j_fields, use_deform), pj, x, t, jdt)
+    got = yardstick(tdt)
+    if dtype == "f32":
+        print(f"float64 yardstick vs JAX f32 worst {np.abs(got - ref).max():.3e}")
+        np.testing.assert_allclose(got, ref, rtol=0, atol=F32_TOL)
+        return
+    ok, err = _bf16_close(got, ref)
+    print(f"float64 yardstick vs JAX bf16 worst {err.max():.3e}, over {BF16_TOL:g} on "
+          f"{100 * (err > BF16_TOL).mean():.2f} %")
+    assert ok, (err.max(), (err > BF16_TOL).mean())
+    ok, err = _bf16_close(yardstick(torch.float32), ref)
     assert not ok and (err > BF16_TOL).mean() > 0.5, np.median(err)
 
 

@@ -492,22 +492,24 @@ DN_SPECS = {"narrow": en.DNeRFSpec(deform_layers=(3, 64, (1,)), density_layers=(
 
 @pytest.mark.parametrize("spec_id", sorted(DN_SPECS))
 def test_pack_dnerf_bf16_fragments(spec_id):
-    """In the bf16 mode the D-NeRF pack ends with five blocks of NL fragment
+    """In the bf16 mode the D-NeRF pack ends with six blocks of NL fragment
     offsets after the Model meta (``fused_train_dnerf.DN_FRAG_BLOCKS``): the
     deform, density and colour nets' hidden W, the density output layer's
     feature columns W[:, 1:], then the density net's W^T of the same layers,
-    then the deform net's hidden W^T; -1 where a layer has none (output
-    layers but the density's, an absent deform net, layers past a net's
-    depth). Each block is ``fused_train_cuda.mma_frags`` of the packed bf16
-    weights bit for bit, 16-byte aligned; the float32 buffer and meta before
-    it are the float32 pack's layout with bf16-rounded weights."""
+    then the deform net's hidden W^T, then the colour net's hidden W^T; -1
+    where a layer has none (output layers but the density's, an absent
+    deform net, layers past a net's depth). Each block is
+    ``fused_train_cuda.mma_frags`` of the packed bf16 weights bit for bit,
+    16-byte aligned; the float32 buffer and meta before it are the float32
+    pack's layout with bf16-rounded weights."""
     spec = DN_SPECS[spec_id]
     params = en.init_dnerf_params(spec, torch.Generator().manual_seed(0), "cpu")
     packed = ftd.pack_dnerf(spec, params, torch.bfloat16)
     f32 = ftd.pack_dnerf(spec, params, torch.float32)
     meta = list(packed.meta)
-    assert meta[:ftd.META_LEN] == list(f32.meta) and len(meta) == ftd.META_LEN + 5 * NL
+    assert meta[:ftd.META_LEN] == list(f32.meta) and len(meta) == ftd.META_LEN + 6 * NL
     assert ftd.DN_FRAG_BLOCKS[4] == (ftd.SLOTS["deform"], True, False)   # the deform's W^T
+    assert ftd.DN_FRAG_BLOCKS[5] == (ftd.SLOTS["color"], True, False)    # the colour's W^T
     n_w = f32.w.numel()
     for block, (q, transposed, output) in enumerate(ftd.DN_FRAG_BLOCKS):
         offs = meta[ftd.META_LEN + block * NL:ftd.META_LEN + (block + 1) * NL]
@@ -614,17 +616,17 @@ def test_dnerf_bwd_sizes_lay_out_the_scratch(spec_id):
     them): the SIMT backward's float32 operands and cotangents of every
     layer back to back; the tensor-core backwards' bf16 operand rows [n,
     c16(in)] and cotangents [n, c16(out)], float32 from layer L-2 on in the
-    density's and at layer L-1 in the deform's, bf16 below, each array
-    256-byte aligned, under 60 % of the SIMT scratch at base.yml's widths
-    (the deform's 50.6 %); partial sums of each weight and bias gradient per
-    chunk of 4096 points."""
+    density's and at layer L-1 in the deform's and the colour's, bf16 below,
+    each array 256-byte aligned, under 60 % of the SIMT scratch at base.yml's
+    widths (the deform's 50.6 %, the colour's 53.1 %); partial sums of each
+    weight and bias gradient per chunk of 4096 points."""
     spec = DN_SPECS[spec_id]
     params = en.init_dnerf_params(spec, torch.Generator().manual_seed(0), "cpu")
     meta = list(ftd.pack_dnerf(spec, params, torch.bfloat16).meta)
 
     def c16(x):
         return -(-x // 16) * 16
-    for seg, f32_layers in (("density", 2), ("deform", 1)):
+    for seg, f32_layers in (("density", 2), ("deform", 1), ("color", 1)):
         if seg == "deform" and not spec.use_deform:
             continue
         net = meta[8 + ftd.SLOTS[seg] * META_NET:8 + (ftd.SLOTS[seg] + 1) * META_NET]
@@ -641,32 +643,35 @@ def test_dnerf_bwd_sizes_lay_out_the_scratch(spec_id):
                     used = -(-used // 256) * 256 + n * size
             tc = ftd.bwd_sizes(meta, seg, n, tc=True)
             assert tc == (-(-used // 4), partial), (seg, n)
-            assert ftd.bwd_sizes(meta, "color", n, tc=True) == ftd.bwd_sizes(meta, "color", n)
             if spec_id != "narrow" and n == 262144:
                 assert tc[0] < 0.6 * simt[0], (seg, tc, simt)
 
 
 def test_tc_smem_gates_the_nets():
     """The tensor-core D-NeRF tiles fit base.yml's nets: the density
-    backward's at most 227 KiB (one block an SM), the deform backward's and
-    the forward's (the sweep's, the render field stage's and the density
+    backward's at most 227 KiB (one block an SM), the deform and colour
+    backwards' (one size: one operand term, the relu' bits) and the
+    forward's (the sweep's, the render field stage's and the density
     forward's) under half of it (two); a net whose tile would not fit is
     refused: a 40-octave density encoding by the density backward (the other
-    tiles fit), a 90-octave deform encoding by both backwards (the forward's
-    fits; the density backward's tile, with the same row pitch and three
-    operand terms, is never the smaller), a 110-octave one of either by every
-    tile; an unknown tile raises. The forward tile's gate runs before the
-    device checks in its two point callers, the deform forward
-    (dnerf_deform_fwd) and the raw density query (fused_density_raw_cuda):
-    in bf16 they refuse the nets it refuses, with simt=True they reach the
-    device check instead."""
+    tiles fit), a 90-octave deform encoding by the three backwards (the
+    forward's fits; the density backward's tile, with the same row pitch and
+    three operand terms, is never the smaller), a 110-octave one of either by
+    every tile; an unknown tile raises. The forward tile's gate runs before
+    the device checks in its two point callers, the deform forward
+    (dnerf_deform_fwd) and the raw density query (fused_density_raw_cuda),
+    and the colour backward's in dnerf_color_bwd: in bf16 they refuse the
+    nets their tile refuses, with simt=True they reach the device check
+    instead."""
     spec = en.DNeRFSpec()
     params = en.init_dnerf_params(spec, torch.Generator().manual_seed(0), "cpu")
     packed = ftd.pack_dnerf(spec, params, torch.bfloat16)
     assert ftd.tc_smem_bytes(packed.meta, "density_bwd") <= ftd.SMEM_LIMIT
-    for tile in ("fwd", "deform_bwd"):
+    for tile in ("fwd", "deform_bwd", "color_bwd"):
         assert 2 * ftd.tc_smem_bytes(packed.meta, tile) <= ftd.SMEM_LIMIT, tile
-    assert ftd.TC_TILES == ("fwd", "density_bwd", "deform_bwd")
+    assert (ftd.tc_smem_bytes(packed.meta, "color_bwd")
+            == ftd.tc_smem_bytes(packed.meta, "deform_bwd"))
+    assert ftd.TC_TILES == ("fwd", "density_bwd", "deform_bwd", "color_bwd")
     for tile in ftd.TC_TILES:
         ftd.check_tc_nets(packed, tile)
         with pytest.raises(ValueError, match="bf16 pack"):
@@ -674,7 +679,8 @@ def test_tc_smem_gates_the_nets():
     with pytest.raises(ValueError, match="no tensor-core tile"):
         ftd.tc_smem_bytes(packed.meta, "bwd")
     for key, freqs, refused in (("pos_density_freqs", 40, ("density_bwd",)),
-                                ("pos_deform_freqs", 90, ("density_bwd", "deform_bwd")),
+                                ("pos_deform_freqs", 90, ("density_bwd", "deform_bwd",
+                                                          "color_bwd")),
                                 ("pos_density_freqs", 110, ftd.TC_TILES),
                                 ("pos_deform_freqs", 110, ftd.TC_TILES)):
         wide = dataclasses.replace(spec, **{key: freqs})
@@ -687,9 +693,14 @@ def test_tc_smem_gates_the_nets():
             else:
                 ftd.check_tc_nets(packed, tile)
         x, t = torch.zeros(5, 3), torch.zeros(5, 1)
+        like, _ = ftd.segment_weights(ftd.prepare_effective_dnerf(wide, wide_params), "color")
         for simt in (False, True):
             gated = "fwd" in refused and not simt
             with pytest.raises(ValueError, match="shared memory" if gated else "CUDA tensor"):
                 ftd.dnerf_deform_fwd(packed, torch.cat([x, t], -1), simt=simt)
             with pytest.raises(ValueError, match="shared memory" if gated else "CUDA tensors"):
                 fsd.fused_density_raw_cuda(wide, wide_params, x, t, torch.bfloat16, simt=simt)
+            gated = "color_bwd" in refused and not simt
+            with pytest.raises(ValueError, match="shared memory" if gated else "CUDA tensor"):
+                ftd.dnerf_color_bwd(packed, like, x, torch.zeros(5, wide.geo_feat_dim), x,
+                                    simt=simt)

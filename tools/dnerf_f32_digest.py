@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """sha256 of the float32 EndoNeRF render's maps and of the float32 density
-backward's, deform backward's, density forward's, deform forward's and raw
-density query's outputs, to hold a checkout's float32 D-NeRF kernels
+backward's, deform backward's, density forward's, deform forward's, raw
+density query's and colour backward's outputs, to hold a checkout's float32 D-NeRF kernels
 against another's bit for bit on one card.
 
 The render: 1024 depth-guided rays (tests/test_torch_cuda.py's
@@ -17,9 +17,13 @@ generator: the digest of its packed gradient. The density forward on the
 same x_c: the digest of raw sigma and the feature. The deform forward on
 the same xt: the digest of x_c. The raw density query
 (``fused_density_raw_cuda``) on the same points: the digest of the raw
-density. Run on the checkout at ``--root`` (default: this one); prints the
-six digests with the card and nvcc's version. The card test ``test_dnerf_f32_is_the_simt_path`` holds the
-digests it prints. Needs a CUDA device:
+density. The colour backward on the same points' directions (the normal
+draw after x) and the plain density segment's feature, with a cotangent on
+rgb drawn next from the card's generator: the digest of d feat and the
+packed gradient. Run on the checkout at ``--root`` (default: this one);
+prints the seven digests with the card and nvcc's version. The card test
+``test_dnerf_f32_is_the_simt_path`` holds the digests it prints. Needs a
+CUDA device:
 
     python tools/dnerf_f32_digest.py [--root CHECKOUT]
 """
@@ -35,7 +39,8 @@ import sys
 
 def digests(dev):
     """(render, density backward, deform backward, density forward, deform
-    forward, raw density) digests of the checkout on sys.path."""
+    forward, raw density, colour backward) digests of the checkout on
+    sys.path."""
     import torch
     from endosurf_tpu_torch.kernels import fused_render_dnerf as frd
     from endosurf_tpu_torch.kernels import fused_sdf as fsd
@@ -60,7 +65,7 @@ def digests(dev):
     m = 65531
     g = torch.Generator().manual_seed(10)
     x = (torch.rand(m, 3, generator=g) * 1.6 - 0.8).to(dev)
-    torch.randn(m, 3, generator=g)
+    d = torch.randn(m, 3, generator=g).to(dev)
     t = torch.rand(m, 1, generator=g).to(dev)
     eff = ftd.prepare_effective_dnerf(spec, params)
     xt = torch.cat([x, t], -1)
@@ -80,8 +85,16 @@ def digests(dev):
     density_fwd = torch.cat(ftd.dnerf_density_fwd(packed, x_c), -1)
     deform_fwd = ftd.dnerf_deform_fwd(packed, xt)
     density_raw = fsd.fused_density_raw_cuda(spec, params, x, t)
+    with torch.no_grad():
+        _, feat = ftd.seg_density_math(spec, eff["density"], eff["sigma_head"], eff["geo_feat"],
+                                       x_c, "highest")
+    g_rgb = torch.randn(m, 3, generator=gen, device=dev)
+    like, _ = ftd.segment_weights(eff, "color")
+    leaves, (_, d_feat) = ftd.dnerf_color_bwd(packed, like, d, feat, g_rgb)
+    color_bwd = torch.cat([d_feat.reshape(-1)] + [v.reshape(-1) for v in leaves])
     return tuple(hashlib.sha256(v.detach().cpu().numpy().tobytes()).hexdigest()
-                 for v in (render, bwd, deform_bwd, density_fwd, deform_fwd, density_raw))
+                 for v in (render, bwd, deform_bwd, density_fwd, deform_fwd, density_raw,
+                           color_bwd))
 
 
 def main():
@@ -95,7 +108,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    render, bwd, deform_bwd, density_fwd, deform_fwd, density_raw = digests(
+    render, bwd, deform_bwd, density_fwd, deform_fwd, density_raw, color_bwd = digests(
         torch.device("cuda"))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
@@ -104,7 +117,8 @@ def main():
     print(f"{osp.abspath(args.root)}: float32 dnerf render digest {render}; float32 density "
           f"backward digest {bwd}; float32 deform backward digest {deform_bwd}; float32 "
           f"density forward digest {density_fwd}; float32 deform forward digest "
-          f"{deform_fwd}; float32 raw density digest {density_raw} ({smi}; {nvcc})")
+          f"{deform_fwd}; float32 raw density digest {density_raw}; float32 colour backward "
+          f"digest {color_bwd} ({smi}; {nvcc})")
 
 
 if __name__ == "__main__":

@@ -1,14 +1,18 @@
 #!/usr/bin/env python
-"""sha256 of the float32 render's maps, to hold a checkout's float32 render
-against another's bit for bit on one card.
+"""sha256 of the float32 render's maps and of the float32 observed-SDF
+query's output, to hold a checkout's float32 render and grid query against
+another's bit for bit on one card.
 
 Renders 1024 rays (tests/test_torch_cuda.py's ``_rays(1024)``) with the full
 seeded net (seed 0) at step 30000, 32 + 32 samples, 4 rounds, anneal end
 50000, float32 in both passes, through ``fused_render_rays_cuda`` of the
-checkout at ``--root`` (default: this one), and prints the digest of the five
-maps concatenated (float32 bytes) with the card and nvcc's version. The card
-test ``test_render_f32_is_the_simt_render`` holds the digest it prints. Needs
-a CUDA device:
+checkout at ``--root`` (default: this one): the digest of the five maps
+concatenated (float32 bytes). Queries the same net's SDF with
+``fused_sdf_observed_cuda`` in float32 on a 1,048,576-point grid slab (the
+first 64 x-planes of a 128^3 grid over [-1.2, 1.2]^3, as the demo builds
+them, at t = 0.5): the digest of the SDF. Prints both with the card and
+nvcc's version. The card test ``test_render_f32_is_the_simt_render`` holds
+the digests it prints. Needs a CUDA device:
 
     python tools/render_f32_digest.py [--root CHECKOUT]
 """
@@ -22,6 +26,24 @@ import subprocess
 import sys
 
 MAPS = ("color_map", "depth_map", "normal_map", "acc_map", "weight_max")
+
+
+def sdf_query_digest(dev) -> str:
+    """The float32 observed-SDF query's digest on the grid slab, of the
+    checkout on sys.path."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    from endosurf_tpu_torch.evaluation.geometry3d import grid_axes, grid_slab
+    from endosurf_tpu_torch.kernels import fused_sdf as fsd
+    from endosurf_tpu_torch.models.fields import EndoSurfSpec, init_endosurf_params
+    spec = EndoSurfSpec()
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(0), dev)
+    x = grid_slab(grid_axes(np.full(3, -1.2), np.full(3, 1.2), 128), 0, 64, dev)
+    t = torch.full((x.shape[0], 1), 0.5, device=dev)
+    sdf = fsd.fused_sdf_observed_cuda(spec, params, x, t, torch.float32)
+    return hashlib.sha256(sdf.cpu().numpy().tobytes()).hexdigest()
 
 
 def main():
@@ -52,7 +74,8 @@ def main():
     nvcc = subprocess.run([build.find_nvcc(), "--version"], capture_output=True,
                           text=True).stdout.strip().splitlines()[-1]
     print(f"{osp.abspath(args.root)}: float32 render digest "
-          f"{hashlib.sha256(cat.cpu().numpy().tobytes()).hexdigest()} ({smi}; {nvcc})")
+          f"{hashlib.sha256(cat.cpu().numpy().tobytes()).hexdigest()}; float32 sdf query digest "
+          f"{sdf_query_digest(dev)} ({smi}; {nvcc})")
 
 
 if __name__ == "__main__":

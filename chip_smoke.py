@@ -9,6 +9,8 @@
                                                # split and trace
     python3 chip_smoke.py --dnerf-segments-only   # phases 1, 2, 23's bf16 seed-0 parity
                                                   # and 27's segment and coarse timing
+    python3 chip_smoke.py --march-only   # phases 1, 2, 14 and 16
+    python3 chip_smoke.py --march-train-only   # phases 1, 2 and 15 (run, split, trace)
 
 Phases (any failure raises and exits non-zero):
   1. a CUDA card must be present; prints its name and power limit;
@@ -85,16 +87,26 @@ Phases (any failure raises and exits non-zero):
      non-empty mesh, the four PLYs and a finite geo_err_mean; prints the
      frame's grid / mesh / colour / metrics split;
  14. march parity: the CUDA fused_ray_march against its plain twin
-     (models.endosurf.march_math) on a 1024-ray train batch, both dot modes,
-     two weight seeds, at fused_sampler.MARCH_TOL (flipped crossings, depth
-     median / p99, and on its own output the bracket signs and the residual
-     |sdf(depth) - tau|), the wrong-precision controls failing;
+     (models.endosurf.march_math) on a 1024-ray train batch, both dot modes
+     (bf16: every sweep on tensor cores, csrc/sweep_tc.cuh), two weight
+     seeds, at fused_sampler.MARCH_TOL (flipped crossings, depth median /
+     p99, and on its own output the bracket signs and the residual
+     |sdf(depth) - tau|), the wrong-precision controls failing; then, on
+     each seed, the tensor-core and the SIMT bf16 march against the float64
+     yardstick (fused_sampler.march_float64_distance: flips, depth, residual
+     against the float64 SDF) side by side, the tensor-core one within
+     fused_sampler.MARCH_FLOAT64_TOL;
  15. the march train path: EndoSurfTrainer with surf_march_reuse: false,
      4 steps through Trainer.start at full width: one march launch per
-     step, finite losses, rays/s;
+     step, finite losses, rays/s; the step's forward / backward / Adam
+     split and its busy / idle trace; one sampling pack a step, shared by
+     the upsampling and the march (fused_sampler.PACKS);
  16. timing of the two kernels against their plain versions at the main
      paths' shapes (1,048,576 points; 1024 rays), bf16, with their bounds
-     and TFLOP/s (the grid query also against its SIMT bf16 sweep).
+     and TFLOP/s (the grid query also against its SIMT bf16 sweep); the
+     march on tensor cores and with simt=True, its scan and secant phase
+     apart (the march with no secant step; the difference), and its device
+     time by kernel.
  17-22. the EndoNeRF vertical, on configs/endonerf/base.yml's keys in memory
      (three 9x256 / 9x256 / 2x128 nets, 64 + 64 samples, bf16 dots, seeded
      weights) and the synthetic 512x640 scene, with visualize / save_images
@@ -121,11 +133,10 @@ Phases (any failure raises and exits non-zero):
      their plain versions on the 65,536 fine samples of 512 rays (the
      render's resampled depths), both modes, two seeds, per output median /
      p99 / max at fused_train_dnerf.PARITY_TOL, the controls failing (bf16:
-     the deform and density forwards on tensor cores); then, on each seed,
-     the distance of the tensor-core and of the SIMT bf16 deform and density
-     forwards from their float64 yardsticks
-     (fused_train_dnerf.dnerf_deform_fwd_float64, dnerf_density_fwd_float64),
-     side by side;
+     all three on tensor cores); then, on each seed, the distance of the
+     tensor-core and of the SIMT bf16 forwards from their float64
+     yardsticks (fused_train_dnerf.dnerf_deform_fwd_float64,
+     dnerf_density_fwd_float64, dnerf_color_fwd_float64), side by side;
  20. EndoNeRF serving end to end: eval_frames with an EndoNeRFRenderer on one
      512x640 frame in 2048-ray chunks: 160 render launches on one pack,
      finite maps and metrics, normals from depth; rays/s, the frame time and
@@ -139,9 +150,9 @@ Phases (any failure raises and exits non-zero):
      split;
  22. timing of the five EndoNeRF kernels against their plain versions at
      the paths' shapes (2048 rays; 1,048,576 points; 65,536 points), bf16,
-     beside their bounds (the render, the raw density query and the deform
-     and density forwards also against their SIMT bf16 kernels), and a
-     render chunk's device time by kernel family.
+     beside their bounds with TFLOP/s and GB/s (the render, the raw density
+     query and the three forwards also against their SIMT bf16 kernels),
+     and a render chunk's device time by kernel family.
  23-28. EndoNeRF training, on the same config with base.yml's train keys
      (2048 rays, depth-guided sampling with sigma 1.0, perturb, raw noise
      1.0, bf16 dots, Adam at the exponential rate):
@@ -155,10 +166,11 @@ Phases (any failure raises and exits non-zero):
      fused_train_dnerf.BWD_PARITY_TOL, the wrong-precision controls failing
      (bf16: the three backwards on tensor cores); then, on each seed, the
      distance of the tensor-core and of the SIMT bf16 backwards and the
-     deform and density forwards from their float64 yardsticks
+     three forwards from their float64 yardsticks
      (fused_train_dnerf.dnerf_deform_bwd_float64,
      dnerf_density_bwd_float64, dnerf_color_bwd_float64,
-     dnerf_deform_fwd_float64, dnerf_density_fwd_float64), side by side; and
+     dnerf_deform_fwd_float64, dnerf_density_fwd_float64,
+     dnerf_color_fwd_float64), side by side; and
      the raw density query on
      the batch's 131,072 coarse points (the train step's coarse pass)
      against its plain version at fused_sdf.DENSITY_PARITY_TOL (the kernel
@@ -178,23 +190,27 @@ Phases (any failure raises and exits non-zero):
      then 10): one launch a step of fused_density_raw, fused_fine_resample
      and each D-NeRF forward and backward segment kernel, finite losses at
      steps 1 and 12, the checkpoint read back; train rays/s, peak memory, a
-     forward / backward / Adam split and a busy / idle trace; then
+     forward / backward / Adam split and a busy / idle trace (where it
+     records device kernels: the bf16 colour forward on tensor cores); then
      trainer.eval on the test frame (the render kernel);
  27. timing of the three backward kernels, the three forward ones, the
      coarse pass's raw density query and the resample against their plain
      versions at the train shape (262,144 points; 131,072 coarse points;
-     2048 rays), bf16, beside their bounds (the three backwards, the deform
-     and density forwards and the raw density query also against their SIMT
-     bf16 kernels, with TFLOP/s);
+     2048 rays), bf16, beside their bounds (the three backwards, the three
+     forwards and the raw density query also against their SIMT bf16
+     kernels, with TFLOP/s; the forwards with GB/s);
  28. bf16 render quality: the port trains its own checkpoint for 300 steps
      on a smooth 64x80 synthetic scene, then renders the test frame in bf16
      and in float32: PSNR and depth RMSE of each against the scene;
  29. the device kernels each tensor-core kernel's call launches
      (fused_train_dnerf.TC_KERNELS: the D-NeRF kernels, the raw density and
-     grid queries) in bf16 and with simt=True, by torch.profiler in a fresh
-     process a kernel: the bf16 calls launch tensor-core kernels
-     (sweep_tc_kernel<PointList>, dnerf_color_bwd_tc_kernel and
-     wgrad_tc_partial_kernel, ...), the simt=True calls none.
+     grid queries; and the march) in bf16 and with simt=True, by
+     torch.profiler in a fresh process a kernel: the bf16 calls launch
+     tensor-core kernels (sweep_tc_kernel<PointList>,
+     dnerf_color_bwd_tc_kernel and wgrad_tc_partial_kernel, ...; the march
+     sweep_tc_kernel<RaySamples> 9 times, no SIMT sweep), the simt=True
+     calls none; the D-NeRF field of a train step (forward and backward) in
+     bf16 launches dnerf_color_fwd_tc_kernel and no SIMT segment kernel.
 Phase 7 also checks one launch of each segment kernel per step, and its
 trace counts the segment kernels (the weight-gradient product included) as
 their own family. The third-to-last line is the card, the second-to-last
@@ -210,7 +226,8 @@ needs a checkout with every backward on tensor cores); ``--segments-only``
 holds the six segment kernels against their plain versions on phase 9's
 bf16 seed-0 midpoints and times them as phase 11 does (with TFLOP/s), then
 reads phase 6's float64 distances of the bf16 upsample on both weight seeds
-and times the upsample as phase 8 does.
+and times the upsample as phase 8 does. ``--march-train-only`` likewise
+measures an older checkout's sphere-trace step beside this one's.
 """
 
 from __future__ import annotations
@@ -260,6 +277,9 @@ WHOLE_STEP_TOL = {"highest": (1e-6, 1e-4), "default": (3e-4, 3e-3)}
 GRID_RES, GRID_SLAB = 128, 64                  # the demo grid and one slab of it
 N_STATIC = 8192                                # random points of the use_deform-false check
 MARCH_STEPS, MARCH_WARM = 4, 1                 # phase 15's train steps
+# the march's own kernels (its sweeps are the upsampling's sweep kernels)
+MARCH_KERNELS = ("march_prep_kernel", "march_crossing_kernel", "march_secant_kernel",
+                 "march_finish_kernel")
 GEMM_KERNELS = ("gemm", "xmma", "cutlass", "cublas", "sm90_", "sm80_")
 N_DN_UNIFORM = 2048                            # uniform-z rays of phase 18
 N_DN_SEG_RAYS = 512                            # rays whose 128 fine samples phase 19 takes
@@ -411,13 +431,15 @@ def bound_ms(flops: float, bytes_moved: float, dtype):
 
 
 def train_step_split(trainer, loss_step, families, step_ms: float, smi: str,
-                     label: str = "train step", detail=()) -> None:
+                     label: str = "train step", detail=()) -> set:
     """Where a train step's time goes, after the counted run: forward
     (``loss_step(s)`` -> the loss) / backward / Adam by CUDA events, then
     device time by kernel family in a torch.profiler trace of
     ``trainer.train_step`` (``families``: (name, key substrings); then
     matrix products and the rest; ``detail``: kernels also listed one by
-    one), and the device's idle share of ``step_ms`` (the untraced step)."""
+    one), and the device's idle share of ``step_ms`` (the untraced step).
+    Returns the names of the traced device kernels (none where the trace
+    recorded no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -446,9 +468,10 @@ def train_step_split(trainer, loss_step, families, step_ms: float, smi: str,
         torch.cuda.synchronize()
     fam = {name: 0.0 for name, _ in families}
     fam.update({"matrix products": 0.0, "other kernels": 0.0})
-    launches, per_kernel = 0, {k: 0.0 for k in detail}
+    launches, per_kernel, names = 0, {k: 0.0 for k in detail}, set()
     for key, count, ms in device_events(prof, N_SPLIT):
         launches += count
+        names.add(key)
         name = next((f for f, keys in families if any(k in key for k in keys)), None)
         if name is None:
             name = ("matrix products" if any(k in key.lower() for k in GEMM_KERNELS)
@@ -460,29 +483,37 @@ def train_step_split(trainer, loss_step, families, step_ms: float, smi: str,
     busy = sum(fam.values())
     if busy == 0:
         print(f"{label} trace: the profiler recorded no device time", flush=True)
-        return
+        return names
     print(f"{label} trace ({N_SPLIT} steps): device busy {busy:.2f} ms of the "
           f"{step_ms:.1f} ms step (idle {100 * (1 - busy / step_ms):.1f} %), "
           f"{launches // N_SPLIT} kernel launches a step; "
           + ", ".join(f"{k} {v:.2f} ms" for k, v in fam.items())
           + ("; segment kernels: " + ", ".join(f"{k} {v:.2f}" for k, v in per_kernel.items())
              if detail else ""), flush=True)
+    return names
 
 
-def endosurf_step_split(trainer, step_ms: float, smi: str) -> None:
-    """Phase 7's split and trace of the EndoSurf step."""
+def endosurf_step_split(trainer, step_ms: float, smi: str, march_reuse: bool = True) -> None:
+    """Phase 7's split and trace of the EndoSurf step; with ``march_reuse``
+    false phase 15's, the sphere trace's step (its march kernels a family
+    of their own; the march's sweeps are the upsampling's sweep kernel and
+    count with the upsample)."""
     from endosurf_tpu_torch.train.trainer_endosurf import make_loss_fn
     tc = trainer.train_cfg
     loss_fn = make_loss_fn(trainer.spec, trainer.rspec, H, W, RAY_BATCH, trainer.loss_weights,
-                           tc["surf_neig_rad"], precision=trainer.precision,
+                           tc["surf_neig_rad"], march_reuse=march_reuse,
+                           precision=trainer.precision,
                            sampling_precision=trainer.sampling_precision)
 
     def loss_step(s):
         return loss_fn(trainer.params, trainer.scene.device_arrays, N_STEPS + 1 + s,
                        trainer.generator)[0]
-    train_step_split(trainer, loss_step, (("field segment kernels", SEGMENT_KERNELS),
-                                          ("upsample kernel", UPSAMPLE_KERNELS)),
-                     step_ms, smi, detail=SEGMENT_KERNELS)
+    families = (("field segment kernels", SEGMENT_KERNELS),
+                ("upsample kernel", UPSAMPLE_KERNELS))
+    if not march_reuse:
+        families += (("march kernels", MARCH_KERNELS),)
+    train_step_split(trainer, loss_step, families, step_ms, smi,
+                     "train step" if march_reuse else "march train step", SEGMENT_KERNELS)
 
 
 def upsample_inputs(arrays, rspec, n, gen, dev):
@@ -829,7 +860,29 @@ def march_parity(spec, scene, dev) -> float:
                         worst = max(worst, float(d[both].max()) if bool(both.any()) else 0.0)
                 else:   # the limits must tell the precisions apart
                     check(not ok, f"march kernel {k_name} passes the {r_name} limits")
+        march_f64_readings(spec, params, ins, got["bfloat16"], f"seed {seed} ({RAY_BATCH} rays)")
     return worst
+
+
+def march_f64_readings(spec, params, ins, tc_out, what: str) -> None:
+    """Phase 14: the bf16 march on tensor cores (``tc_out``) and the SIMT
+    bf16 march against the float64 yardstick (fused_sampler.
+    march_float64_distance), side by side; the tensor-core march must be
+    within fused_sampler.MARCH_FLOAT64_TOL."""
+    from endosurf_tpu_torch.kernels import fused_render as fr
+    from endosurf_tpu_torch.kernels import fused_sampler as fs
+    simt = fs.fused_ray_march_cuda(spec, params, *ins, sampling_dtype=torch.bfloat16, simt=True)
+    dist = fs.march_float64_distance(spec, params, *ins, {"tensor cores": tc_out, "SIMT": simt})
+    near = fr.no_farther(dist["tensor cores"], dist["SIMT"])
+    print(f"march bf16 vs float64 {what}: " + "; ".join(
+        f"{nm} flipped {100 * v['flip'][0]:.3f} %, depth median {v['depth'][0]:.3e} p99 "
+        f"{v['depth'][1]:.3e}, residual median {v['residual'][0]:.3e} p99 "
+        f"{v['residual'][1]:.3e}, {100 * v['off'][0]:.2f} % off by more than 1e-6"
+        for nm, v in dist.items())
+          + f" (tol {fs.MARCH_FLOAT64_TOL})"
+          + ("" if all(near.values()) else f"  FARTHER {near}"), flush=True)
+    check(fs.march_float64_ok(dist["tensor cores"]),
+          f"bf16 march vs float64 ({what}): {dist['tensor cores']}")
 
 
 def march_train_phase(cfg, scene, dev, smi: str) -> int:
@@ -871,6 +924,7 @@ def march_train_phase(cfg, scene, dev, smi: str) -> int:
         check(sorted(losses) == [1, MARCH_STEPS]
               and all(len(m) == 7 and all(math.isfinite(v) for v in m.values())
                       for m in losses.values()), f"losses {losses}")
+        endosurf_step_split(trainer, step_ms, smi, march_reuse=False)
     return launches
 
 
@@ -914,7 +968,35 @@ def new_kernel_timing(spec, scene, dev, smi: str) -> dict:
         print(f"{k} timing (bf16, {smi}): kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms; "
               f"{work[k][0] / 1e12:.4f} TFLOP -> bound {b_ms:.4f} ms ({b_by}); "
               f"{work[k][0] / k_ms / 1e9:.2f} TFLOP/s{simt}", flush=True)
+    march_phases(spec, params, ins, chain, smi)
     return out
+
+
+def march_phases(spec, params, ins, chain: int, smi: str) -> None:
+    """Phase 16: the bf16 march (1024 train rays) on tensor cores and with
+    simt=True, whole and with no secant step (the scan: prep, the 131,072-point
+    sweep, the crossing, the finish), by CUDA events; the secant phase (8
+    sweeps of 1024 points and 8 updates) is the difference. Each with its
+    TFLOP/s; then the tensor-core march's device time by kernel
+    (torch.profiler: its 9 sweeps under one name)."""
+    from endosurf_tpu_torch.kernels import fused_sampler as fs
+    bf = torch.bfloat16
+    flops = {"scan": 2.0 * RAY_BATCH * 128 * chain, "secant": 2.0 * RAY_BATCH * 8 * chain}
+    for name, simt in (("tensor cores", False), ("SIMT", True)):
+        def march(n_secant, simt=simt):
+            return fs.fused_ray_march_cuda(spec, params, *ins, 0.0, 128, n_secant, bf, simt=simt)
+        whole, scan = cuda_ms(lambda: march(8), 10), cuda_ms(lambda: march(0), 10)
+        secant = whole - scan
+        print(f"fused_ray_march phases (bf16, {name}, {smi}): march {whole:.3f} ms = scan "
+              f"{scan:.3f} ms ({flops['scan'] / scan / 1e9:.2f} TFLOP/s) + secant phase "
+              f"{secant:.3f} ms ({100 * secant / whole:.1f} %, "
+              f"{flops['secant'] / max(secant, 1e-9) / 1e9:.2f} TFLOP/s, "
+              f"{secant / 8 * 1e3:.1f} us a step)", flush=True)
+    per_kernel = kernel_device_ms(lambda: fs.fused_ray_march_cuda(
+        spec, params, *ins, 0.0, 128, 8, bf), 5)
+    print("fused_ray_march device time by kernel (bf16, tensor cores, torch.profiler): " + ", ".join(
+        f"{k.replace('(anonymous namespace)::', '').split('(')[0]} {v:.3f} ms"
+        for k, v in sorted(per_kernel.items(), key=lambda kv: -kv[1])), flush=True)
 
 
 def segment_work(params, n: int) -> dict:
@@ -1161,7 +1243,7 @@ def dnerf_segment_parity(spec, rspec, renderer, dev):
                     else:   # each segment's limits must tell the precisions apart
                         check(not ok, f"dnerf segment {name} kernel {kp} passes the {prec} limits")
                 if sound and prec == "default":
-                    for name in ("dnerf_deform_fwd", "dnerf_density_fwd"):
+                    for name in ("dnerf_deform_fwd", "dnerf_density_fwd", "dnerf_color_fwd"):
                         packed, inputs = seg_cases[name]
                         tc_f64_readings(spec, params, name, (packed, None, inputs),
                                         f"seed {seed} ({x.shape[0]} points)")
@@ -1387,7 +1469,7 @@ def dnerf_timing(spec, rspec, renderer, seg_cases, n_seg, smi: str) -> dict:
                        lambda n=name, i=inputs: plain[n](*i), 5)
     calls["fused_density_raw (SIMT bf16)"] = (
         lambda: fsd.fused_density_raw_cuda(spec, params, x, t, bf, simt=True), None, 3)
-    for name in ("dnerf_deform_fwd", "dnerf_density_fwd"):
+    for name in ("dnerf_deform_fwd", "dnerf_density_fwd", "dnerf_color_fwd"):
         packed, inputs = seg_cases[name]
         calls[f"{name} (SIMT bf16)"] = (
             lambda f=ftd.FWD[name.split("_")[1]], p=packed, i=inputs: f(p, *i, simt=True), None, 5)
@@ -1402,8 +1484,9 @@ def dnerf_timing(spec, rspec, renderer, seg_cases, n_seg, smi: str) -> dict:
         b_ms, b_by = bound_ms(*work[name], bf)
         out[k] = (k_ms, p_ms, b_ms, b_by)
         print(f"{k} timing (bf16, {smi}): kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms; "
-              f"{work[name][0] / 1e12:.4f} TFLOP -> bound {b_ms:.4f} ms ({b_by}); "
-              f"{work[name][0] / k_ms / 1e9:.2f} TFLOP/s", flush=True)
+              f"{work[name][0] / 1e12:.4f} TFLOP, {work[name][1] / 1e6:.1f} MB -> bound "
+              f"{b_ms:.4f} ms ({b_by}); {work[name][0] / k_ms / 1e9:.2f} TFLOP/s, "
+              f"{work[name][1] / k_ms / 1e6:.1f} GB/s", flush=True)
     return out
 
 
@@ -1522,9 +1605,10 @@ def dnerf_bwd_parity_phase(spec, x, d, t, dev, coarse=None):
 
 def tc_f64_train_readings(spec, params, cases, what: str) -> None:
     """Phase 23: tc_f64_readings of the three backwards on their bf16 cases
-    (bwd_segment_parity's), of the deform forward on the deform backward's xt
-    and of the density forward on the density backward's x_c; the deform
-    and colour backwards' walks against float64 (walk_readings)."""
+    (bwd_segment_parity's), of the deform forward on the deform backward's xt,
+    of the density forward on the density backward's x_c and of the colour
+    forward on the colour backward's d and feat; the deform and colour
+    backwards' walks against float64 (walk_readings)."""
     from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
     packed, like, _, inputs, cots = cases["dnerf_deform_bwd"]
     tc_f64_readings(spec, params, "dnerf_deform_fwd", (packed, None, inputs), what)
@@ -1534,6 +1618,7 @@ def tc_f64_train_readings(spec, params, cases, what: str) -> None:
     tc_f64_readings(spec, params, "dnerf_density_fwd", (packed, None, inputs), what)
     tc_f64_readings(spec, params, "dnerf_density_bwd", (packed, like, inputs, cots), what)
     packed, like, _, inputs, cots = cases["dnerf_color_bwd"]
+    tc_f64_readings(spec, params, "dnerf_color_fwd", (packed, None, inputs), what)
     tc_f64_readings(spec, params, "dnerf_color_bwd", (packed, like, inputs, cots), what)
     walk_readings(spec, params, "color", cases, what)
 
@@ -1749,9 +1834,15 @@ def dnerf_train_phase(scene, dev, smi: str):
         loss_fn = make_loss_fn(trainer.spec, trainer.rspec, scene.h, scene.w, DN_RAY_BATCH,
                                trainer.loss_weights, precision=trainer.precision,
                                sampling_precision=trainer.sampling_precision)
-        train_step_split(trainer, lambda s: loss_fn(trainer.params, scene.device_arrays,
-                                                    trainer.generator)[0],
-                         DN_FAMILIES, step_ms, smi, label="dnerf train step", detail=DN_DETAIL)
+        names = train_step_split(trainer, lambda s: loss_fn(trainer.params, scene.device_arrays,
+                                                            trainer.generator)[0],
+                                 DN_FAMILIES, step_ms, smi, label="dnerf train step",
+                                 detail=DN_DETAIL)
+        # bf16: the colour forward on tensor cores (where this process's
+        # trace recorded device kernels; phase 29 traces it in a fresh one)
+        check(not names or (any("dnerf_color_fwd_tc_kernel" in k for k in names)
+                            and not any("dnerf_color_fwd_kernel" in k for k in names)),
+              f"EndoNeRF step kernels: {sorted(names)}")
 
         # eval: every test frame through the render kernel; the composites
         # are not written (the card machine has no imageio)
@@ -1789,7 +1880,10 @@ def simt_note(name: str, flops: float, k_ms: float, call) -> str:
 
 # Phase 29: one kernel of fused_train_dnerf.TC_KERNELS, in bf16 and with
 # simt=True, on 4096 points of the full seeded nets, each traced by
-# torch.profiler after a warm-up call; prints {mode: device kernel names}.
+# torch.profiler after a warm-up call; prints {mode: {device kernel name:
+# launches}}. Also the march ("fused_ray_march": 1024 rays, bf16 and
+# simt=True) and the D-NeRF field of a train step ("dnerf_field": forward
+# and backward, bf16 and, as its "SIMT" mode, float32).
 _NAMES_SCRIPT = r"""
 import json, sys
 sys.path.insert(0, sys.argv[1])
@@ -1804,7 +1898,31 @@ g = torch.Generator(device=dev).manual_seed(0)
 x = torch.rand(4096, 3, generator=g, device=dev) * 1.6 - 0.8
 d = torch.randn(4096, 3, generator=g, device=dev)
 t = torch.rand(4096, 1, generator=g, device=dev)
-if kernel == "fused_sdf_observed":
+run = ftd.TC_KERNELS[kernel][2] if kernel in ftd.TC_KERNELS else None
+if kernel == "fused_ray_march":
+    from endosurf_tpu_torch.kernels import fused_sampler as fs
+    from endosurf_tpu_torch.ops.geometry import ray_sphere_intersection
+    spec = EndoSurfSpec()
+    o = torch.cat([x[:1024, :2] * 0.4, torch.full((1024, 1), -1.5, device=dev)], -1)
+    v = x[1024:2048] * 0.25 - o
+    v = v / v.norm(dim=-1, keepdim=True)
+    near, far, _ = ray_sphere_intersection(o, v)
+    args = (spec, init_endosurf_params(spec, torch.Generator().manual_seed(0), dev), o, v,
+            t[:1024], near, far)
+    def run(spec, params, *ins, simt):
+        return fs.fused_ray_march_cuda(spec, params, *ins, sampling_dtype=torch.bfloat16,
+                                       simt=simt)
+elif kernel == "dnerf_field":
+    from endosurf_tpu_torch.bridge import flatten, unflatten
+    spec = DNeRFSpec()
+    leaves = {k: v.requires_grad_(True) for k, v in flatten(
+        init_dnerf_params(spec, torch.Generator().manual_seed(0), dev)).items()}
+    args = (spec, unflatten(leaves))
+    def run(spec, params, simt):
+        rgb, raw = ftd.megakernel_field_raw(spec, params, x, d / d.norm(dim=-1, keepdim=True),
+                                            t, "highest" if simt else "default")
+        (rgb.sum() + raw.sum()).backward()
+elif kernel == "fused_sdf_observed":
     spec = EndoSurfSpec()
     args = (spec, init_endosurf_params(spec, torch.Generator().manual_seed(0), dev), None, None,
             x, t)
@@ -1817,36 +1935,51 @@ else:
     args = (spec, params, *(
         (None, None, x, t) if kernel == "fused_density_raw" else
         (packed, None, *inputs) if kernel.endswith("_fwd") else (packed, like, *inputs, *cots)))
-run, names = ftd.TC_KERNELS[kernel][2], {}
+names = {}
 for mode, simt in (("tensor cores", False), ("SIMT", True)):
     run(*args, simt=simt)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run(*args, simt=simt)
         torch.cuda.synchronize()
-    names[mode] = sorted({e.key.replace("(anonymous namespace)::", "").replace("void ", "")
-                          .split("(")[0] for e in prof.key_averages()
-                          if e.device_type == DeviceType.CUDA})
+    names[mode] = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            k = e.key.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
+            names[mode][k] = names[mode].get(k, 0) + e.count
 print(json.dumps(names))
 """
 
 
 def tc_kernel_names() -> None:
-    """Phase 29: the device kernels each fused_train_dnerf.TC_KERNELS kernel
-    launches in bf16 and with simt=True (_NAMES_SCRIPT, a fresh process a
+    """Phase 29: the device kernels each fused_train_dnerf.TC_KERNELS kernel,
+    the march and the D-NeRF field of a train step launch in bf16 and with
+    simt=True (the field: in float32) (_NAMES_SCRIPT, a fresh process a
     kernel, as the card tests trace them): the bf16 call must launch a
-    tensor-core kernel, simt=True none."""
+    tensor-core kernel, the other none; the bf16 march the tensor-core sweep
+    for its scan and each of its 8 secant steps and no SIMT sweep; the bf16
+    field the tensor-core colour forward and no SIMT segment kernel."""
     from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
     root = os.path.dirname(os.path.abspath(__file__))
-    for kernel in ftd.TC_KERNELS:
+    for kernel in [*ftd.TC_KERNELS, "fused_ray_march", "dnerf_field"]:
         out = subprocess.run([sys.executable, "-c", _NAMES_SCRIPT, root, kernel],
                              capture_output=True, text=True, timeout=300)
         check(out.returncode == 0, f"tracing {kernel}: {out.stderr[-2000:]}")
         names = json.loads(out.stdout.strip().splitlines()[-1])
-        print(f"{kernel} kernels (torch.profiler, 4096 points): " + "; ".join(
-            f"{mode} {', '.join(ks)}" for mode, ks in names.items()), flush=True)
+        print(f"{kernel} kernels (torch.profiler, launches): " + "; ".join(
+            f"{mode} " + ", ".join(f"{k} x{n}" for k, n in sorted(ks.items()))
+            for mode, ks in names.items()), flush=True)
         check(any("_tc_" in k for k in names["tensor cores"])
               and not any("_tc_" in k for k in names["SIMT"]), f"{kernel} kernels: {names}")
+        tc = names["tensor cores"]
+        if kernel == "fused_ray_march":
+            check(sum(n for k, n in tc.items() if "sweep_tc_kernel" in k) == 9
+                  and not any("sweep_kernel<" in k for k in tc), f"bf16 march kernels: {tc}")
+        if kernel == "dnerf_field":
+            check(any("dnerf_color_fwd_tc_kernel" in k for k in tc)
+                  and not any(k.startswith(f"dnerf_{seg}_{d}_kernel")
+                              for k in tc for seg in ftd.SEGMENTS for d in ("fwd", "bwd")),
+                  f"bf16 D-NeRF field kernels: {tc}")
 
 
 def dnerf_fwd_timing(spec, params, bwd_cases, n, what: str) -> dict:
@@ -1871,7 +2004,8 @@ def dnerf_fwd_timing(spec, params, bwd_cases, n, what: str) -> dict:
                              functools.partial(ftd.FWD[seg], packed, *ins))
         out[f"{name} ({n} {what})"] = (*times, *bound_ms(*work[name], torch.bfloat16))
         print(f"{name}: {n} {what}, {work[name][0] / 1e12:.4f} TFLOP, "
-              f"{work[name][0] / times[0] / 1e9:.2f} TFLOP/s{simt}", flush=True)
+              f"{work[name][1] / 1e6:.1f} MB, {work[name][0] / times[0] / 1e9:.2f} TFLOP/s, "
+              f"{work[name][1] / times[0] / 1e6:.1f} GB/s{simt}", flush=True)
     return out
 
 
@@ -2104,6 +2238,35 @@ def dnerf_segments_only(smi: str) -> int:
     return 0
 
 
+def march_only(smi: str) -> int:
+    """``--march-only``: the build, phase 14's march parity and float64
+    readings and phase 16's timing (the grid query's and the march's, its
+    scan and secant phase apart)."""
+    from endosurf_tpu_torch.data.scene_data import make_synthetic_arrays
+    from endosurf_tpu_torch.kernels import build
+    from endosurf_tpu_torch.models.fields import EndoSurfSpec
+    build.load_library()
+    dev = torch.device("cuda")
+    spec = EndoSurfSpec.from_config(base_cfg()["net"])
+    scene = make_synthetic_arrays(n_frames=4, h=H, w=W, seed=0, device=dev)
+    march_parity(spec, scene, dev)
+    new_kernel_timing(spec, scene, dev, smi)
+    return 0
+
+
+def march_train_only(smi: str) -> int:
+    """``--march-train-only``: the build, then phase 15's timed run with the
+    sphere trace, its split and trace."""
+    from endosurf_tpu_torch.data.scene_data import make_synthetic_arrays
+    from endosurf_tpu_torch.kernels import build
+    build.load_library()
+    dev = torch.device("cuda")
+    scene = make_synthetic_arrays(n_frames=4, h=H, w=W, seed=0, device=dev)
+    print(f"march train ({os.path.dirname(os.path.abspath(__file__))})", flush=True)
+    march_train_phase(base_cfg(), scene, dev, smi)
+    return 0
+
+
 def segments_only(smi: str) -> int:
     """``--segments-only``: the build, phase 9's bf16 seed-0 sound parity on
     a train batch's midpoints, phase 11's timing, phase 6's float64 readings
@@ -2170,9 +2333,14 @@ def main() -> int:
         return dnerf_train_only(smi)
     if sys.argv[1:] == ["--dnerf-segments-only"]:
         return dnerf_segments_only(smi)
+    if sys.argv[1:] == ["--march-only"]:
+        return march_only(smi)
+    if sys.argv[1:] == ["--march-train-only"]:
+        return march_train_only(smi)
     if sys.argv[1:]:
         raise SystemExit(f"usage: {sys.argv[0]} [--train-only | --segments-only | "
-                         "--dnerf-train-only | --dnerf-segments-only]")
+                         "--dnerf-train-only | --dnerf-segments-only | --march-only | "
+                         "--march-train-only]")
 
     import numpy as np
 
@@ -2431,7 +2599,12 @@ def main() -> int:
     sdf_abs = sdf_query_parity(spec, renderer_scene, dev)
     sdf_launches = demo_3d_phase(cfg, renderer_scene, dev)
     march_abs = march_parity(spec, renderer_scene, dev)
+    packs = fs.PACKS["sampling"]
     march_launches = march_train_phase(cfg, renderer_scene, dev, smi)
+    packs = fs.PACKS["sampling"] - packs   # the upsampling and the march share one a step
+    print(f"march train: {packs} sampling packs for {fs.LAUNCHES['fused_ray_march']} march "
+          f"steps (the split and trace included)", flush=True)
+    check(packs == fs.LAUNCHES["fused_ray_march"], "one sampling pack a march train step")
     new_times = new_kernel_timing(spec, renderer_scene, dev, smi)
 
     # 17-22. the EndoNeRF vertical

@@ -113,7 +113,8 @@ def load_library() -> ctypes.CDLL:
                                               vp]
     lib.fused_sdf_observed_launch.restype = i32
     lib.fused_ray_march_launch.argtypes = [
-        vp, vp, vp, i32, i32, i32, ctypes.c_float, vp, ctypes.POINTER(i64), i32, vp, vp, vp, vp]
+        vp, vp, vp, i32, i32, i32, ctypes.c_float, vp, ctypes.POINTER(i64), i32, i32, vp, vp, vp,
+        vp]
     lib.fused_ray_march_launch.restype = i32
     lib.fused_march_scratch_floats.argtypes = [i32, i32]
     lib.fused_march_scratch_floats.restype = i64
@@ -138,16 +139,13 @@ def load_library() -> ctypes.CDLL:
     lib.fused_render_dnerf_launch.argtypes = [
         vp, vp, i32, i32, i32, vp, vp, ctypes.POINTER(i64), i32, i32, i32, vp, vp, vp]
     lib.fused_render_dnerf_launch.restype = i32
-    # the D-NeRF segments: w, meta, rb (all but the colour forward: rb, tc),
-    # n, then tensors (a backward's last three: scratch, partial sums, packed
-    # gradient), stream
+    # the D-NeRF segments: w, meta, rb, tc, n, then tensors (a backward's
+    # last three: scratch, partial sums, packed gradient), stream
     for name, n_ptrs in (("dnerf_deform_fwd", 2), ("dnerf_density_fwd", 3),
                          ("dnerf_color_fwd", 3), ("dnerf_deform_bwd", 5),
                          ("dnerf_density_bwd", 7), ("dnerf_color_bwd", 7)):
         fn = getattr(lib, name)
-        tc = name != "dnerf_color_fwd"
-        modes = [i32, i32] if tc else [i32]
-        fn.argtypes = [vp, ctypes.POINTER(i64), *modes, i64] + [vp] * (n_ptrs + 1)
+        fn.argtypes = [vp, ctypes.POINTER(i64), i32, i32, i64] + [vp] * (n_ptrs + 1)
         fn.restype = i32
     lib.dnerf_bwd_sizes.argtypes = [ctypes.POINTER(i64), i32, i32, i64, ctypes.POINTER(i64)]
     lib.dnerf_bwd_sizes.restype = None

@@ -5,15 +5,15 @@
 // sweep kernel (deform -> density -> the raw density column) over a point
 // source: the EndoNeRF render's rays (fused_render_dnerf.cu) and the raw
 // density query's point list (fused_sdf.cu). The render's field stage, the
-// deform and density forwards and the density, deform and colour backwards'
-// recompute (fused_train_dnerf.cu) run the same tile.
+// three forwards and the density, deform and colour backwards' recompute
+// (fused_train_dnerf.cu) run the same tile.
 //
 // Replaces, for the bf16 mode, the SIMT code of dnerf_chain.cuh and
 // sdf_chain.cuh's D-NeRF sweep inside the ports of the Pallas TPU kernels
 // endosurf_tpu/kernels/fused_render_dnerf.py (fused_render_rays_dnerf),
 // fused_sdf.py (fused_density_raw) and fused_train_dnerf.py
-// (_deform_fwd_pl, _density_fwd_pl, _deform_bwd_pl, _density_bwd_pl,
-// _color_bwd_pl):
+// (_deform_fwd_pl, _density_fwd_pl, _color_fwd_pl, _deform_bwd_pl,
+// _density_bwd_pl, _color_bwd_pl):
 // there the weights stay in VMEM and
 // the samples stream through the MXU. Here a block of NT threads owns DT_P
 // points: the layer's operand rows sit in shared memory as bf16, the weights
@@ -188,12 +188,17 @@ __device__ __forceinline__ void dt_encode(const T* src, int f3, bf16* E, int ew,
 // products on the fragments frag[l]. H holds layer 0's operand rows on entry;
 // a skip layer's operand is [h | E (ew)]. Leaves op(h_{L-2}) in H. With SAVE
 // each layer's operand rows go to xin[l] and the relu' of each hidden output
-// to gbit [NL-1][DT_P][HMAX / 32] (1: op(relu) > 0).
-template <bool SAVE>
+// to gbit [NL-1][DT_P][HMAX / 32] (1: op(relu) > 0). With HALVES (not with
+// SAVE) a layer at most half as wide as the warps' columns (the colour net's
+// 128) is split by rows as well: warp w owns the columns of warp w % 4 for
+// the tile's rows 32 (w / 4) .. + 31, so no warp idles; each output keeps
+// its products and k order, so its bits do not change.
+template <bool SAVE, bool HALVES = false>
 __device__ void dt_hidden(const Net& N, const float* __restrict__ wts, const long long* frag,
                           bf16* H, int ldh, const bf16* E, int ew, uint4* ring, long long base,
                           long long n, bf16* const* xin, uint32_t* gbit) {
-  constexpr int MT = DT_MT, WB = HMAX / 32;
+  constexpr int MT = DT_MT, WB = HMAX / 32, HW = TC_WARPS / 2;
+  static_assert(!(SAVE && HALVES), "the relu' bits follow the whole-tile column layout");
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const bf16* const A1[1] = {H};
@@ -207,6 +212,25 @@ __device__ void dt_hidden(const Net& N, const float* __restrict__ wts, const lon
     }
     if (SAVE) save_rows<1, DT_P>(xin[l], H, ldh, c16(in_l), base, n, tid);
     const int np_out = c16(out_l) / 16, npw = clampw(np_out - np_me);
+    if (HALVES && np_out <= HW * TC_NPW) {
+      const int np_h = (warp % HW) * TC_NPW, npw_h = clampw(np_out - np_h);
+      const int r0 = (warp / HW) * (DT_P / 2);
+      const bf16* const Ah[1] = {H + r0 * ldh};
+      float acc_h[MT / 2][2 * TC_NPW][4];
+      zero_acc(acc_h);
+      tile_mma<MT / 2, 1>(acc_h, Ah, ldh, (const uint4*)(wts + frag[l]), np_out, np_h, npw_h, 0,
+                          c16(in_l) / 16, ring, lane);
+      __syncthreads();
+      const float* b = wts + N.b_off[l];
+      for_pairs(acc_h, np_h, npw_h, lane, [&](int row, int c, float a0, float a1) {
+        const float a[2] = {a0, a1};
+        for (int e = 0; e < 2; ++e)              // the padding to c16(out_l) stays zero
+          H[(r0 + row) * ldh + c + e] =
+              c + e < out_l ? __float2bfloat16_rn(fmaxf(a[e] + b[c + e], 0.f)) : bzero();
+      });
+      __syncthreads();
+      continue;
+    }
     zero_acc(acc);
     tile_mma<MT, 1>(acc, A1, ldh, (const uint4*)(wts + frag[l]), np_out, np_me, npw, 0,
                     c16(in_l) / 16, ring, lane);

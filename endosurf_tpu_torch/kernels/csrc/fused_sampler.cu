@@ -20,7 +20,7 @@
 // float32 FMA: a block of 256 threads owns 32 points, thread j computes
 // neuron j for all of them from activations in shared memory, the weights
 // stream from L2. In the bf16 mode it runs on tensor cores (sweep_tc.cuh:
-// tile products on mma.sync, one tile of SW_P points a block). The per-ray
+// tile products on mma.sync, one tile of 32 points a block). The per-ray
 // draw / merge kernels are a few microseconds.
 //
 // Precision: with rb_samp every dot operand is rounded to bf16 and the
@@ -40,10 +40,16 @@
 // Invalid rays get the chord midpoint. Launches:
 //   prep (ray buffer, depths) -> sdf sweep (R x S) -> crossing ->
 //   [sdf sweep (R x 1) -> secant update] x n_secant -> finish
-// The sweeps are sdf_chain.cuh's; the per-ray kernels keep a small state
-// (MS_STRIDE floats a ray) in global memory between launches. What bounds
-// it: the R x (S + n_secant) chain evaluations (about 0.26 TFLOP for 1024
-// rays); the secant sweeps fill only R / 32 blocks.
+// In the bf16 mode (rb_samp and tc) every sweep is sweep_tc.cuh's
+// tensor-core sweep, the upsampling's (so the SDF at a point is the
+// upsampling's and the grid query's, bit for bit; the secant sweeps in
+// 16-point tiles), its fragments in the meta's extension
+// (fused_sampler.pack_sampling); in the float32 mode, and
+// with rb_samp but not tc (a comparison only), sdf_chain.cuh's SIMT sweep.
+// The per-ray kernels keep a small state (MS_STRIDE floats a ray) in global
+// memory between launches. What bounds it: the R x (S + n_secant) chain
+// evaluations (about 0.26 TFLOP for 1024 rays); the secant sweeps fill only
+// R / 32 blocks.
 
 #include "sdf_chain.cuh"
 #include "sweep_tc.cuh"
@@ -205,32 +211,40 @@ long long fused_march_scratch_floats(int R, int S) {
 
 // rays7 [R, 7] (o, d_z, t); nf [R, 2] (near, far); tv [S] the scan's
 // fractions (linspace 0..1); w / meta packed weights
-// (kernels/fused_render.pack_operands); out [R, 4] (depth, valid, d_low,
-// d_high after the secant steps); idx_out [R] the crossing's sample index.
-// Returns a cudaError_t (0 on success).
+// (kernels/fused_sampler.pack_sampling: with rb_samp the meta carries the
+// fragment offsets after its first META_LEN entries); tc: with rb_samp, the
+// tensor-core sweeps; out [R, 4] (depth, valid, d_low, d_high after the
+// secant steps); idx_out [R] the crossing's sample index. Returns a
+// cudaError_t (0 on success).
 int fused_ray_march_launch(const float* rays7, const float* nf, const float* tv, int R, int S,
                            int n_secant, float tau, const float* w, const long long* meta,
-                           int rb_samp, float* scratch, float* out, int* idx_out,
+                           int rb_samp, int tc, float* scratch, float* out, int* idx_out,
                            void* stream) {
   if (R <= 0) return 0;
   if (S < 2) return (int)cudaErrorInvalidValue;
   cudaError_t e;
   cudaStream_t st = (cudaStream_t)stream;
   const Model m = decode_model(meta);
-  const bool rbf = rb_samp != 0;
+  const bool rbf = rb_samp != 0, tcf = rbf && tc;
   float* rb = scratch;
   float* zl = rb + (size_t)R * RB_STRIDE;
   float* sl = zl + (size_t)R * S;
   float* ms = sl + (size_t)R * S;
   const int tpb = 128, blocks = (R + tpb - 1) / tpb;
+  const SweepFrags fr = tcf ? decode_sweep_frags(meta) : SweepFrags{};
   march_prep_kernel<<<blocks, tpb, 0, st>>>(rays7, nf, tv, R, S, rb, zl);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  if ((e = sweep_rays(w, m, rbf, R, S, rb, zl, S, sl, S, st)) != cudaSuccess) return (int)e;
+  e = tcf ? sweep_rays_tc(w, m, fr, R, S, rb, zl, S, sl, S, st)
+          : sweep_rays(w, m, rbf, R, S, rb, zl, S, sl, S, st);
+  if (e != cudaSuccess) return (int)e;
   march_crossing_kernel<<<blocks, tpb, 0, st>>>(R, S, tau, zl, sl, ms);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   for (int i = 0; i < n_secant; ++i) {
-    // the SDF at d_pred (state column 4) into state column 5
-    e = sweep_rays(w, m, rbf, R, 1, rb, ms + 4, MS_STRIDE, ms + 5, MS_STRIDE, st);
+    // the SDF at d_pred (state column 4) into state column 5; on tensor cores
+    // in 16-point tiles: 64 blocks for 1024 rays where 32-point tiles give 32
+    // (tools/probe_march_secant_tile.py)
+    e = tcf ? sweep_rays_tc<1>(w, m, fr, R, 1, rb, ms + 4, MS_STRIDE, ms + 5, MS_STRIDE, st)
+            : sweep_rays(w, m, rbf, R, 1, rb, ms + 4, MS_STRIDE, ms + 5, MS_STRIDE, st);
     if (e != cudaSuccess) return (int)e;
     march_secant_kernel<<<blocks, tpb, 0, st>>>(R, tau, ms);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;

@@ -48,10 +48,9 @@
 // net) is written once and read once by the product: 4.5-4.7 GB at the train
 // step's 262,144 points.
 //
-// In bf16 the deform and density forwards and all three backwards run on
-// tensor cores, each on dnerf_tc.cuh's tile of DT_P points
-// (the forward's hidden layers as tile products, the relu' as bits in shared
-// memory).
+// In bf16 all three forwards and all three backwards run on tensor cores,
+// each on dnerf_tc.cuh's tile of DT_P points (the forward's hidden layers as
+// tile products, the relu' as bits in shared memory).
 //
 // dnerf_deform_fwd_tc_kernel: dt_deform<true> (the code the deform backward
 // recomputes with), x_c = x + the 3-wide output layer in double, rounded
@@ -62,6 +61,12 @@
 // double, the feature columns W[:, 1:] a tile product from op(h_{L-2}) plus
 // the bias, written as float32 unrounded (the colour segments round it
 // themselves). 0.296 TFLOP at the train step's 262,144 points.
+//
+// dnerf_color_fwd_tc_kernel: the colour backward's recompute (below), the
+// render field stage's colour tail on the feature read from global memory,
+// rgb rounded once. What bounds it: reading feat, 1 KB a point at base.yml's
+// F = 256 (0.082 ms at 262,144 points); its 0.019 TFLOP take 0.02 ms on
+// tensor cores.
 //
 // dnerf_density_bwd_tc_kernel (field_tc.cuh's deform_bwd_tc_kernel design):
 // per tile the forward recomputed (each layer's bf16 operand rows to the
@@ -539,6 +544,80 @@ cudaError_t launch_deform_fwd_tc(const float* w, const long long* meta, const Mo
   return cudaGetLastError();
 }
 
+// (d [n][3], feat [n][F]) -> rgb [n][3] (dnerf_color_fwd_kernel<true>'s
+// maths on tensor cores): the colour backward's recompute, which is the
+// render field stage's colour tail -- the operand [enc(d) | op(feat) | 0 ..],
+// dt_hidden, the 3-wide output layer and the sigmoid in double -- rounded
+// once to float32, so the rgb the loss sees is the one the backward
+// differentiates. The feature rows arrive by 16-byte loads where the rows
+// allow them; the hidden layers split by rows too (HALVES: the 128-wide
+// colour layers leave no warp idle).
+__global__ void __launch_bounds__(NT, 2)
+dnerf_color_fwd_tc_kernel(const float* __restrict__ wts, const __grid_constant__ Model m,
+                          const __grid_constant__ DnFrags fr, long long n,
+                          const float* __restrict__ d, const float* __restrict__ feat,
+                          float* __restrict__ rgb) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int ldh = dt_ldh(m);
+  uint4* ring = (uint4*)tc_smem + warp * (TC_STAGES * TC_NPW * 32);
+  const DtTile s = dt_tile(tc_smem, m, DT_FWD);
+  const Net& C = m.color;
+  const int cr = m.cr, F = m.feat_dim;
+  const long long base = (long long)blockIdx.x * DT_P;
+  const int rows = n - base < DT_P ? (int)(n - base) : DT_P;
+  for (int idx = tid; idx < DT_P * ldh; idx += NT) s.H[idx] = bzero();
+  for (int idx = tid; idx < DT_P * 4; idx += NT) {
+    const int p = idx >> 2, c = idx & 3;
+    s.d[idx] = p < rows && c < 3 ? d[(size_t)(base + p) * 3 + c] : 0.f;
+  }
+  __syncthreads();
+  dt_encode<true>(s.d, m.f_cdir, s.E, cr, tid);
+  const float* src = feat + (size_t)base * F;
+  if ((F & 3) == 0 && ((size_t)feat & 15) == 0) {
+    const int q = F / 4;
+    for (int idx = tid; idx < rows * q; idx += NT) {
+      const int p = idx / q, c = (idx - p * q) * 4;
+      const float4 v = __ldg((const float4*)src + idx);
+      bf16* h = s.H + p * ldh + cr + c;
+      h[0] = __float2bfloat16_rn(v.x);
+      h[1] = __float2bfloat16_rn(v.y);
+      h[2] = __float2bfloat16_rn(v.z);
+      h[3] = __float2bfloat16_rn(v.w);
+    }
+  } else {
+    for (int idx = tid; idx < rows * F; idx += NT) {
+      const int p = idx / F, c = idx - p * F;
+      s.H[p * ldh + cr + c] = __float2bfloat16_rn(src[idx]);
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < DT_P * cr; idx += NT) {
+    const int p = idx / cr, c = idx - p * cr;
+    s.H[p * ldh + c] = s.E[idx];
+  }
+  __syncthreads();
+  dt_hidden<false, true>(C, wts, fr.color, s.H, ldh, s.E, cr, ring, 0, 0, nullptr, nullptr);
+  for (int idx = tid; idx < 3 * DT_P; idx += NT) {
+    const int p = idx / 3, col = idx - p * 3;
+    if (p < rows)
+      rgb[(size_t)(base + p) * 3 + col] =
+          (float)(1.0 / (1.0 + exp(-dt_out_col(C, wts, s.H, ldh, p, col))));
+  }
+}
+
+cudaError_t launch_color_fwd_tc(const float* w, const long long* meta, const Model& m,
+                                long long n, const float* d, const float* feat, float* rgb,
+                                cudaStream_t st) {
+  if (n <= 0) return cudaSuccess;
+  const size_t smem = dt_smem(m, DT_FWD);
+  cudaError_t e = set_smem(dnerf_color_fwd_tc_kernel, smem);
+  if (e != cudaSuccess) return e;
+  dnerf_color_fwd_tc_kernel<<<n_tiles(n, DT_P), NT, smem, st>>>(w, m, decode_dn_frags(meta), n, d,
+                                                                feat, rgb);
+  return cudaGetLastError();
+}
+
 // One hidden layer l (> 0, or 0 with den) of a backward's walk through
 // W_l^T (frag: its fragments; TERMS bf16 terms of the cotangent in H, Hm,
 // Hl): each input column's cotangent op(acc) goes to the h part (gated by
@@ -970,9 +1049,9 @@ extern "C" {
 // w / meta packed by kernels/fused_train_dnerf.pack_dnerf; every tensor float32
 // contiguous on the current device. Each returns a cudaError_t (0 on success).
 
-// The deform and density forwards: with rb and tc the tensor-core kernel
-// (meta then carries the bf16 pack's fragment extension); rb without tc runs
-// the SIMT one (a comparison only).
+// The forwards: with rb and tc the tensor-core kernel (meta then carries the
+// bf16 pack's fragment extension); rb without tc runs the SIMT one (a
+// comparison only).
 int dnerf_deform_fwd(const float* w, const long long* meta, int rb, int tc, long long n,
                      const float* xt, float* xc, void* stream) {
   const Model m = decode_model(meta);
@@ -990,9 +1069,11 @@ int dnerf_density_fwd(const float* w, const long long* meta, int rb, int tc, lon
                     m, n, (cudaStream_t)stream, w, m, n, xc, sigma, feat);
 }
 
-int dnerf_color_fwd(const float* w, const long long* meta, int rb, long long n,
+int dnerf_color_fwd(const float* w, const long long* meta, int rb, int tc, long long n,
                     const float* d, const float* feat, float* rgb, void* stream) {
   const Model m = decode_model(meta);
+  if (rb && tc)
+    return (int)launch_color_fwd_tc(w, meta, m, n, d, feat, rgb, (cudaStream_t)stream);
   return launch_seg(dnerf_color_fwd_kernel<true>, dnerf_color_fwd_kernel<false>, rb != 0, m,
                     n, (cudaStream_t)stream, w, m, n, d, feat, rgb);
 }

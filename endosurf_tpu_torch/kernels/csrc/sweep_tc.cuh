@@ -3,14 +3,15 @@
 // MLP (softplus100) -> head column -> sdf, the arithmetic of sdf_chain.cuh's
 // sweep_kernel and sweep_mlp for EndoSurfChain over a point source
 // (RaySamples, PointList), with each hidden layer's product on mma.sync
-// (mma_tile.cuh). fused_sampler.cu's upsampling, the render's sweeps
-// (fused_render.cu) and the observed-SDF grid query (fused_sdf.cu) run it in
-// bf16; the ray march and the float32 mode keep the SIMT sweep.
+// (mma_tile.cuh). fused_sampler.cu's upsampling and ray march, the render's
+// sweeps (fused_render.cu) and the observed-SDF grid query (fused_sdf.cu)
+// run it in bf16; the float32 mode keeps the SIMT sweep.
 //
-// Replaces, for the bf16 mode, the SIMT sweep inside the port of the Pallas
-// TPU kernel endosurf_tpu/kernels/fused_sampler.py (fused_upsample_z): there
+// Replaces, for the bf16 mode, the SIMT sweep inside the ports of the Pallas
+// TPU kernels endosurf_tpu/kernels/fused_sampler.py (fused_upsample_z,
+// fused_ray_march): there
 // the weights stay in VMEM and the sample groups stream through the MXU.
-// Here a block of NT threads owns a tile of SW_P points: the layer's operand
+// Here a block of NT threads owns a tile of 16 MT points: the layer's operand
 // rows sit in shared memory as bf16, the weights stream from L2 in fragment
 // order through each warp's cp.async ring, and each warp owns 32 output
 // columns of every row (hidden layers are at most 256 wide: one pass).
@@ -53,8 +54,9 @@
 #include "mma_tile.cuh"
 
 #define SW_MT 2                  // m-tiles (16 points each) of a sweep tile (hi + lo
-                                 // accumulators: 64 registers a thread)
-#define SW_P (16 * SW_MT)        // points per sweep tile
+                                 // accumulators: 64 registers a thread): the kernel's
+                                 // template argument MT, 1 for the march's secant
+                                 // sweeps (R x 1 points: twice the blocks)
 
 static_assert(TC_WARPS * 32 == NT, "a warp owns 32 of the tile's 256 output columns");
 
@@ -92,32 +94,32 @@ __host__ __device__ inline int sweep_ldh(const Model& m) {
   return k + 8;
 }
 
-// A tile's shared memory after the weight ring: x_c [SW_P][4] (double), x
-// and t [SW_P][4], each row's largest operand [SW_P] (float32), the operand
-// rows' large and small terms H and Hs [SW_P][ldh], the encoding E0 and its
-// skip-scaled copy Es [SW_P][emax] (bf16).
+// A tile's shared memory after the weight ring, for P points: x_c [P][4]
+// (double), x and t [P][4], each row's largest operand [P] (float32), the
+// operand rows' large and small terms H and Hs [P][ldh], the encoding E0 and
+// its skip-scaled copy Es [P][emax] (bf16).
 struct SweepTile {
   double* xc;
   float *xs, *rmax;
   bf16 *H, *Hs, *E0, *Es;
 };
 
-inline size_t sweep_tc_smem(const Model& m) {
+inline size_t sweep_tc_smem(const Model& m, int P) {
   const int emax = m.ed > m.es ? m.ed : m.es;
-  return TC_RING_BYTES + (size_t)SW_P * 4 * 8 + (size_t)SW_P * 5 * 4
-         + (size_t)2 * SW_P * sweep_ldh(m) * 2 + (size_t)2 * SW_P * emax * 2;
+  return TC_RING_BYTES + (size_t)P * 4 * 8 + (size_t)P * 5 * 4
+         + (size_t)2 * P * sweep_ldh(m) * 2 + (size_t)2 * P * emax * 2;
 }
 
-__device__ __forceinline__ SweepTile sweep_tile(unsigned char* smem, const Model& m) {
+__device__ __forceinline__ SweepTile sweep_tile(unsigned char* smem, const Model& m, int P) {
   const int emax = m.ed > m.es ? m.ed : m.es;
   SweepTile t;
   t.xc = (double*)(smem + TC_RING_BYTES);
-  t.xs = (float*)(t.xc + SW_P * 4);
-  t.rmax = t.xs + SW_P * 4;
-  t.H = (bf16*)(t.rmax + SW_P);                   // 16-byte aligned: the sizes above are
-  t.Hs = t.H + SW_P * sweep_ldh(m);
-  t.E0 = t.Hs + SW_P * sweep_ldh(m);
-  t.Es = t.E0 + SW_P * emax;
+  t.xs = (float*)(t.xc + P * 4);
+  t.rmax = t.xs + P * 4;
+  t.H = (bf16*)(t.rmax + P);                      // 16-byte aligned: the sizes above are
+  t.Hs = t.H + P * sweep_ldh(m);
+  t.E0 = t.Hs + P * sweep_ldh(m);
+  t.Es = t.E0 + P * emax;
   return t;
 }
 
@@ -127,12 +129,12 @@ constexpr double kSkipD = 0.70710678118654752440;   // EndoSurfChain::kSkip in d
 // (PyTorch's conversion): to float32, then to bf16, each to nearest even.
 __device__ __forceinline__ bf16 bf16_rn_d(double x) { return __float2bfloat16_rn((float)x); }
 
-// E0 / Es [SW_P][ew] of the encoding of s[p * 4 + 0 .. 2] (and, for the deform
+// E0 / Es [P][ew] of the encoding of s[p * 4 + 0 .. 2] (and, for the deform
 // net, the time s[p * 4 + 3]) at the coordinates as they are, in double.
 template <class T>
 __device__ __forceinline__ void sweep_encode(bf16* E0, bf16* Es, const T* s, int ew, int ex,
-                                             int tid) {
-  for (int idx = tid; idx < SW_P * ew; idx += NT) {
+                                             int P, int tid) {
+  for (int idx = tid; idx < P * ew; idx += NT) {
     const int p = idx / ew, c = idx - p * ew;
     int dim, kind; float sc;
     if (c < ex) enc_col(c, 3, dim, kind, sc);
@@ -176,35 +178,37 @@ __device__ __forceinline__ bf16 sweep_round(float hi, float lo, float b, bool re
   return bf16_rn_d(h * post_d);
 }
 
-// Hidden layers 0 .. NL-2 of net N on the tile (sweep_mlp's arithmetic, the
-// products as split tile products with hi + lo sums, the epilogue
-// sweep_round); leaves the output layer's operand rows in t.H.
+// Hidden layers 0 .. NL-2 of net N on a tile of MT m-tiles (sweep_mlp's
+// arithmetic, the products as split tile products with hi + lo sums, the
+// epilogue sweep_round); leaves the output layer's operand rows in t.H. A
+// row's arithmetic does not depend on MT.
+template <int MT>
 __device__ __forceinline__ void sweep_tc_mlp(const Net& N, const float* __restrict__ wts,
                                              const long long* frag, bool relu,
                                              const SweepTile& t, int ldh, const bf16* E0,
                                              const bf16* Es, int ew, uint4* ring) {
-  constexpr int MT = SW_MT;
+  constexpr int P = 16 * MT;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, tq = lane & 3;
   bf16* H = t.H;
   const bf16* const A2[2] = {H, t.Hs};
   const int np_me = warp * TC_NPW;               // the warp's columns: 32 warp ..
-  put_enc(H, ldh, 0, E0, ew, SW_P, tid);
+  put_enc(H, ldh, 0, E0, ew, P, tid);
   __syncthreads();
   float acc[MT][2 * TC_NPW][4], lo[MT][2 * TC_NPW][4];
   for (int l = 0; l < NL - 1; ++l) {
     const int in_l = N.in_dim[l], out_l = N.out_dim[l], kp = c16(in_l);
     if (l > 0 && ((N.skip_mask >> l) & 1)) {
-      put_enc(H, ldh, in_l - ew, Es, ew, SW_P, tid);
+      put_enc(H, ldh, in_l - ew, Es, ew, P, tid);
       __syncthreads();
     }
-    for (int r = warp; r < SW_P; r += TC_WARPS) {  // each row's largest operand
+    for (int r = warp; r < P; r += TC_WARPS) {     // each row's largest operand
       float mx = 0.f;
       for (int k = lane; k < in_l; k += 32) mx = fmaxf(mx, fabsf(__bfloat162float(H[r * ldh + k])));
       for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
       if (lane == 0) t.rmax[r] = mx;
     }
     __syncthreads();
-    for (int idx = tid; idx < SW_P * kp; idx += NT) {   // the small operands apart
+    for (int idx = tid; idx < P * kp; idx += NT) {      // the small operands apart
       const int r = idx / kp, k = idx - r * kp;
       const bf16 h = H[r * ldh + k];
       const bool small = fabsf(__bfloat162float(h)) < 0.0625f * t.rmax[r];
@@ -239,21 +243,22 @@ __device__ __forceinline__ void sweep_tc_mlp(const Net& N, const float* __restri
   }
 }
 
-// The sdf of SW_P points of src a block; points past src.n load zeros and
+// The sdf of 16 MT points of src a block; points past src.n load zeros and
 // store nothing.
-template <class Src>
+template <class Src, int MT>
 __global__ void __launch_bounds__(NT, 2)
 sweep_tc_kernel(const float* __restrict__ wts, const __grid_constant__ Model m,
                 const __grid_constant__ SweepFrags fr, const __grid_constant__ Src src) {
+  constexpr int P = 16 * MT;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   const int tid = threadIdx.x, warp = tid >> 5;
   const int ldh = sweep_ldh(m);
   uint4* ring = (uint4*)tc_smem + warp * (TC_STAGES * TC_NPW * 32);
-  const SweepTile t = sweep_tile(tc_smem, m);
-  const long long base = (long long)blockIdx.x * SW_P;
+  const SweepTile t = sweep_tile(tc_smem, m, P);
+  const long long base = (long long)blockIdx.x * P;
 
-  for (int idx = tid; idx < SW_P * ldh; idx += NT) t.H[idx] = bzero();
-  if (tid < SW_P) {
+  for (int idx = tid; idx < P * ldh; idx += NT) t.H[idx] = bzero();
+  if (tid < P) {
     float x0 = 0.f, x1 = 0.f, x2 = 0.f, tt = 0.f;
     if (base + tid < src.n) src.load(base + tid, x0, x1, x2, tt);
     t.xs[tid * 4 + 0] = x0; t.xs[tid * 4 + 1] = x1; t.xs[tid * 4 + 2] = x2; t.xs[tid * 4 + 3] = tt;
@@ -262,13 +267,13 @@ sweep_tc_kernel(const float* __restrict__ wts, const __grid_constant__ Model m,
 
   if (m.use_deform) {
     const Net& N = m.deform;
-    sweep_encode(t.E0, t.Es, t.xs, m.ed, enc_width(3, m.f_dpos), tid);
+    sweep_encode(t.E0, t.Es, t.xs, m.ed, enc_width(3, m.f_dpos), P, tid);
     __syncthreads();
-    sweep_tc_mlp(N, wts, fr.deform, true, t, ldh, t.E0, t.Es, m.ed, ring);
+    sweep_tc_mlp<MT>(N, wts, fr.deform, true, t, ldh, t.E0, t.Es, m.ed, ring);
     // output layer: dx (3 columns), x_c = x + dx
     const int l = NL - 1, n_out = N.out_dim[l];
     const float* W = wts + N.w_off[l];
-    for (int idx = tid; idx < 3 * SW_P; idx += NT) {
+    for (int idx = tid; idx < 3 * P; idx += NT) {
       const int p = idx / 3, col = idx - p * 3;
       double a = 0.0;
       for (int k = 0; k < N.in_dim[l]; ++k)
@@ -277,7 +282,7 @@ sweep_tc_kernel(const float* __restrict__ wts, const __grid_constant__ Model m,
       t.xc[p * 4 + col] = (double)t.xs[p * 4 + col] + (a + (double)wts[N.b_off[l] + col]);
     }
   } else {
-    for (int idx = tid; idx < 3 * SW_P; idx += NT) {
+    for (int idx = tid; idx < 3 * P; idx += NT) {
       const int p = idx / 3, col = idx - p * 3;
       t.xc[p * 4 + col] = (double)t.xs[p * 4 + col];
     }
@@ -285,11 +290,11 @@ sweep_tc_kernel(const float* __restrict__ wts, const __grid_constant__ Model m,
   __syncthreads();
 
   const Net& S = m.sdf;
-  sweep_encode(t.E0, t.Es, t.xc, m.es, m.es, tid);
+  sweep_encode(t.E0, t.Es, t.xc, m.es, m.es, P, tid);
   __syncthreads();
-  sweep_tc_mlp(S, wts, fr.sdf, false, t, ldh, t.E0, t.Es, m.es, ring);
+  sweep_tc_mlp<MT>(S, wts, fr.sdf, false, t, ldh, t.E0, t.Es, m.es, ring);
   // head: column 0 of the SDF output layer
-  if (tid < SW_P) {
+  if (tid < P) {
     const int l = NL - 1, n_out = S.out_dim[l];
     const float* W = wts + S.w_off[l];
     double a = 0.0;
@@ -300,26 +305,29 @@ sweep_tc_kernel(const float* __restrict__ wts, const __grid_constant__ Model m,
   }
 }
 
-template <class Src>
+template <class Src, int MT = SW_MT>
 cudaError_t launch_sweep_tc(const float* w, const Model& m, const SweepFrags& fr, const Src& src,
                             cudaStream_t st) {
   if (src.n <= 0) return cudaSuccess;
-  const size_t smem = sweep_tc_smem(m);
-  cudaError_t e = cudaFuncSetAttribute(sweep_tc_kernel<Src>,
+  constexpr int P = 16 * MT;
+  const size_t smem = sweep_tc_smem(m, P);
+  cudaError_t e = cudaFuncSetAttribute(sweep_tc_kernel<Src, MT>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const long long blocks = (src.n + SW_P - 1) / SW_P;
+  const long long blocks = (src.n + P - 1) / P;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  sweep_tc_kernel<Src><<<(unsigned)blocks, NT, smem, st>>>(w, m, fr, src);
+  sweep_tc_kernel<Src, MT><<<(unsigned)blocks, NT, smem, st>>>(w, m, fr, src);
   return cudaGetLastError();
 }
 
-// K samples per ray: z[r * ldz + j] -> dst[r * ldd + j], j < K.
+// K samples per ray: z[r * ldz + j] -> dst[r * ldd + j], j < K; tiles of
+// 16 MT points.
+template <int MT = SW_MT>
 cudaError_t sweep_rays_tc(const float* w, const Model& m, const SweepFrags& fr, int R, int K,
                           const float* b, const float* z, int ldz, float* dst, int ldd,
                           cudaStream_t st) {
   RaySamples src{b, z, ldz, K, dst, ldd, (long long)R * K};
-  return launch_sweep_tc(w, m, fr, src, st);
+  return launch_sweep_tc<RaySamples, MT>(w, m, fr, src, st);
 }
 
 }  // namespace

@@ -14,7 +14,9 @@ sample (float32). The train step runs it without gradient.
   float32 sweep, shared with the render kernel, and in bf16
   ``csrc/sweep_tc.cuh``'s sweep on tensor cores). The weights are packed
   from the parameters as given (the caller runs it under no_grad) by
-  ``pack_sampling``, bf16-rounded for ``sampling_dtype`` bf16.
+  ``pack_sampling``, bf16-rounded for ``sampling_dtype`` bf16, cached a
+  parameter set (``cached_sampling_pack``, shared with the march: a train
+  step with ``surf_march_reuse: false`` packs once for both).
 * ``fused_upsample_z_reference``: ``models.endosurf.upsample_z`` under
   no_grad. Tests and the CPU path use it; on a GPU it only serves as the
   comparison.
@@ -26,10 +28,13 @@ TPU kernel), the train step's surface search with ``surf_march_reuse:
 false``: per ray the SDF at 128 depths linspace(near, far), the first + -> -
 crossing of -(sdf - tau) and 8 secant steps; invalid rays get the chord
 midpoint. ``fused_ray_march_cuda`` launches ``csrc/fused_sampler.cu``'s
-march, ``fused_ray_march_reference`` is ``models.endosurf.march_math`` and
-``fused_ray_march`` dispatches as above. All three return depth, valid
-[R, 1] and the final bracket (d_low, d_high [R]) with the crossing's sample
-index idx [R], which the parity and consistency checks read.
+march (in bf16 every sweep on tensor cores, ``csrc/sweep_tc.cuh``'s, the
+upsampling's; ``simt=True`` the SIMT sweep, for the float64 comparison
+only), ``fused_ray_march_reference`` is ``models.endosurf.march_math``,
+``fused_ray_march_float64`` the bf16 march's float64 yardstick and
+``fused_ray_march`` dispatches as above. All return depth, valid [R, 1] and
+the final bracket (d_low, d_high [R]) with the crossing's sample index idx
+[R], which the parity and consistency checks read.
 
 The EndoNeRF importance resampling is the port of
 ``fused_sampler.py::fused_fine_resample`` (a Pallas TPU kernel): the coarse
@@ -52,7 +57,9 @@ import torch
 from endosurf_tpu_torch.kernels.fused_render import (
     META_NET,
     NL,
+    PackCache,
     _dtype_precision,
+    cached_pack,
     cuda_spec_supported,
     pack_operands,
 )
@@ -64,6 +71,10 @@ KNEW_MAX = 8    # new samples per round
 # Launches of the CUDA kernels made by fused_upsample_z_cuda,
 # fused_ray_march_cuda and fused_fine_resample_cuda (one per call).
 LAUNCHES = {"fused_upsample_z": 0, "fused_ray_march": 0, "fused_fine_resample": 0}
+# Packs built for the upsampling and the march (cached_sampling_pack: a
+# cached pack counts no new one).
+PACKS = {"sampling": 0}
+_SAMPLING_PACKS: PackCache = {}
 RESAMPLE_MAX = 64        # csrc/dnerf_chain.cuh's DN_N0: coarse depths, and draws, a ray
 
 # The limits below were set from H100 readings of the sound pairs (kernel
@@ -466,14 +477,26 @@ def pack_sampling(spec, params: Dict[str, Any], dtype: torch.dtype
     mma_frags``), each 16-byte aligned after the float32 layout, their float
     offsets appended to the meta: the deform net's NL, then the SDF's NL, -1
     for the output layers and an absent deform net (``csrc/sweep_tc.cuh``
-    reads them). The float32 layout is ``pack_operands``' byte for byte, and
-    the march and the query pack with that; the render's ``fused_render.
-    pack_render`` extends it."""
+    reads them). The float32 layout is ``pack_operands``' byte for byte. The
+    march and the grid query take this pack too; the render's
+    ``fused_render.pack_render`` extends it."""
     w, meta = pack_operands(spec, params, dtype)
     if dtype != torch.bfloat16:
         return w, meta
     w, offs = frag_extension(w, meta)
     return w, meta + offs
+
+
+def cached_sampling_pack(cache: PackCache, spec, params: Dict[str, Any], dtype: torch.dtype):
+    """(``pack_sampling``'s (buffer, ctypes meta), whether it was built now),
+    cached in ``cache`` on the deform and SDF parameter tensors
+    (``fused_render.cached_pack``: an in-place update, an optimizer step,
+    repacks)."""
+    @torch.no_grad()
+    def build():
+        w, meta = pack_sampling(spec, params, dtype)
+        return w, (ctypes.c_longlong * len(meta))(*meta)
+    return cached_pack(cache, spec, params, ("deform_network", "sdf_network"), dtype, build)
 
 
 def fused_upsample_z_cuda(spec, params: Dict[str, Any], rays_o: torch.Tensor,
@@ -500,8 +523,9 @@ def fused_upsample_z_cuda(spec, params: Dict[str, Any], rays_o: torch.Tensor,
         raise ValueError(f"unsupported dtype {sampling_dtype}")
     device = z_vals.device
     lib = load_library()
+    (w, meta_arr), built = cached_sampling_pack(_SAMPLING_PACKS, spec, params, sampling_dtype)
+    PACKS["sampling"] += built
     with torch.no_grad():
-        w, meta = pack_sampling(spec, params, sampling_dtype)
         rays7 = torch.cat([rays_o, rays_d_z, t], dim=-1).to(torch.float32).contiguous()
     if w.device != device or rays7.device != device:
         raise ValueError(f"params on {w.device}, rays on {rays7.device}, z on {device}")
@@ -510,8 +534,7 @@ def fused_upsample_z_cuda(spec, params: Dict[str, Any], rays_o: torch.Tensor,
                           dtype=torch.float32, device=device)
     z_out = torch.empty(n_rays, KMAX, dtype=torch.float32, device=device)
     sdf_out = torch.empty(n_rays, KMAX, dtype=torch.float32, device=device)
-    meta_arr = (ctypes.c_longlong * len(meta))(*meta)
-    assert len(meta) == lib.fused_render_meta_len() + (
+    assert len(meta_arr) == lib.fused_render_meta_len() + (
         2 * NL if sampling_dtype == torch.bfloat16 else 0)
     with torch.cuda.device(device):   # the launch runs on the current device
         err = lib.fused_upsample_launch(
@@ -582,6 +605,32 @@ MARCH_TOL = {
 }
 
 
+# The bf16 march against its float64 yardstick (fused_ray_march_float64,
+# march_float64_distance): the share of flipped crossings, the depth (median,
+# p99) and the residual against the yardstick's (median, p99) over rays with
+# the same crossing. The yardstick runs the kernel's float32 glue, so only
+# the SDF's arithmetic differs: the tensor-core sweep, near exact between its
+# bf16 roundings, equals it on the median ray and tips a rounding on 0-6 %
+# of them, where the SIMT sweep's float32 sums move 20-32 % (the share off
+# by more than 1e-6, printed, not limited). Set from H100 readings (PERF.md
+# §6; the card cells at tau 0, -0.3 and -0.4 and chip_smoke's train rays,
+# two seeds; NVIDIA H100 80GB HBM3): sound flips <= 1 ray (0.098 % of 1024),
+# depth median 0, p99 <= 2.16e-4, residual median 0, p99 <= 2.24e-3 (the
+# bf16 SDF jumps ~1e-3 across the root); the planted faults on 1 ray in 64:
+# the crossing a bin late 0.59 % flips, the secant steps skipped depth p99
+# 4.34e-4, the secant sweeps' SDF scaled by 0.1 % at tau -0.4 5.51e-4 (at
+# -0.3 3.40e-4; at tau 0 a scale moves no root: 8.6e-5, under the sound
+# tips).
+MARCH_FLOAT64_TOL = {"flip": 0.003, "depth": (1e-6, 3e-4), "residual": (1e-6, 5e-3)}
+
+
+def march_float64_ok(dist: Dict[str, Tuple[float, ...]]) -> bool:
+    """Whether a march's ``march_float64_distance`` reading is within
+    ``MARCH_FLOAT64_TOL``."""
+    return all(all(v <= t for v, t in zip(dist[k], (tol if isinstance(tol, tuple) else (tol,))))
+               for k, tol in MARCH_FLOAT64_TOL.items())
+
+
 def march_parity(got: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor],
                  dtype: torch.dtype) -> Dict[str, Tuple[Tuple[float, ...], bool]]:
     """Kernel vs twin: ``flip`` (share of rays) and ``depth`` (median, p99)
@@ -637,12 +686,92 @@ def fused_ray_march_reference(spec, params: Dict[str, Any], rays_o: torch.Tensor
                           n_secant, _dtype_precision(sampling_dtype))
 
 
+def fused_ray_march_float64(spec, params: Dict[str, Any], rays_o: torch.Tensor,
+                            rays_d_z: torch.Tensor, t: torch.Tensor, near: torch.Tensor,
+                            far: torch.Tensor, tau: float = 0.0, n_steps: int = 128,
+                            n_secant: int = 8, sampling_dtype: torch.dtype = torch.bfloat16
+                            ) -> Dict[str, torch.Tensor]:
+    """The bf16 march's float64 yardstick: ``march_math`` on the kernel's
+    float32 glue -- the depths, the crossing rule, the validity and the
+    secant steps in float32 as the kernel computes them, each sample point
+    o + z d_z rounded once to float32 (the kernel's FMA) -- with every SDF in
+    float64 on the kernel's weights (``sampling_params_float64``,
+    bf16-rounded for ``sampling_dtype`` bf16) and ``sampling_dtype``'s
+    operand roundings, rounded once to float32 as the kernel writes it. So
+    only the SDF's arithmetic differs from the kernel's: a bf16 rounding
+    that a float32 coordinate or a float32 secant step tips is the
+    kernel's and the yardstick's alike. Returns depth, valid [R, 1], d_low,
+    d_high and idx [R]."""
+    from endosurf_tpu_torch.models.endosurf import march_math
+    from endosurf_tpu_torch.models.fields import sdf_observed
+    prec = _dtype_precision(sampling_dtype)
+    p64 = sampling_params_float64(params, prec)
+    f32 = torch.float32
+    o, dz, tt, nr, fr_ = (a.to(f32) for a in (rays_o, rays_d_z, t, near, far))
+    n_rays = o.shape[0]
+
+    def sdf_at(z):
+        pts = (o.double()[:, None, :] + z.double()[..., None] * dz.double()[:, None, :]).to(f32)
+        tk = tt[:, None, :].expand(n_rays, z.shape[1], 1).reshape(-1, 1)
+        return sdf_observed(spec, p64, pts.reshape(-1, 3).double(), tk.double(),
+                            prec).reshape(n_rays, -1).to(f32)
+    with torch.no_grad():
+        return march_math(spec, params, o, dz, tt, nr, fr_, tau, n_steps, n_secant, prec,
+                          sdf_at)
+
+
+def march_float64_distance(spec, params: Dict[str, Any], rays_o: torch.Tensor,
+                           rays_d_z: torch.Tensor, t: torch.Tensor, near: torch.Tensor,
+                           far: torch.Tensor, outs: Dict[str, Dict[str, torch.Tensor]],
+                           tau: float = 0.0) -> Dict[str, Dict[str, Tuple[float, ...]]]:
+    """bf16 marches (``outs``: name -> a march result on these rays) against
+    the float64 yardstick (``fused_ray_march_float64``): {name: {"flip":
+    (share of rays whose valid flag or crossing index differs from the
+    yardstick's,), "depth": (median, p99) of |depth - yardstick| and
+    "residual": (median, p99) of |sdf64(depth) - sdf64(yardstick depth)|,
+    both over rays valid on both with the same index, the SDF in float64 on
+    the kernel's bf16 weights at the depth's point o + depth d_z in float64,
+    "off": (share of those rays whose depth is off by more than 1e-6,)}}. The residual is held against the
+    yardstick's own: along a ray the bf16-rounded SDF jumps by up to ~1e-3
+    across its root, so the secant ends 4.6-7.8e-4 (median) off tau for the
+    yardstick itself, and |sdf64(depth) - tau| cannot tell a nearer march
+    from a farther one."""
+    from endosurf_tpu_torch.models.fields import sdf_observed
+    ins = (rays_o, rays_d_z, t, near, far)
+    ref = fused_ray_march_float64(spec, params, *ins, tau)
+    p64 = sampling_params_float64(params)
+
+    def med_p99(v):
+        return ((float(v.median()), float(torch.quantile(v, 0.99))) if v.numel()
+                else (0.0, 0.0))
+
+    def sdf_at(depth, rows):
+        with torch.no_grad():
+            pts = rays_o.double()[rows] + depth.double()[rows] * rays_d_z.double()[rows]
+            return sdf_observed(spec, p64, pts, t.double()[rows], "default")[:, 0]
+    res = {}
+    for name, out in outs.items():
+        vg, vr = out["valid"][:, 0], ref["valid"][:, 0]
+        both = vg & vr
+        same = both & (out["idx"] == ref["idx"])
+        flip = float(((vg != vr) | (both & (out["idx"] != ref["idx"]))).double().mean())
+        depth = (out["depth"][:, 0].double() - ref["depth"][:, 0])[same].abs()
+        resid = (sdf_at(out["depth"], same) - sdf_at(ref["depth"], same)).abs()
+        res[name] = {"flip": (flip,), "depth": med_p99(depth), "residual": med_p99(resid),
+                     "off": (float((depth > 1e-6).double().mean()) if depth.numel() else 0.0,)}
+    return res
+
+
 def fused_ray_march_cuda(spec, params: Dict[str, Any], rays_o: torch.Tensor,
                          rays_d_z: torch.Tensor, t: torch.Tensor, near: torch.Tensor,
                          far: torch.Tensor, tau: float = 0.0, n_steps: int = 128,
-                         n_secant: int = 8, sampling_dtype: torch.dtype = torch.float32
-                         ) -> Dict[str, torch.Tensor]:
-    """Launch the CUDA march (``csrc/fused_sampler.cu``) on the current stream."""
+                         n_secant: int = 8, sampling_dtype: torch.dtype = torch.float32,
+                         simt: bool = False) -> Dict[str, torch.Tensor]:
+    """Launch the CUDA march (``csrc/fused_sampler.cu``) on the current
+    stream: in bf16 its sweeps on tensor cores (``simt`` runs the SIMT sweep
+    instead, the float64 comparison only), in float32 the SIMT sweep. The
+    pack (``pack_sampling``) is cached with the upsampling's
+    (``cached_sampling_pack``)."""
     from endosurf_tpu_torch.kernels.build import load_library
 
     if rays_o.device.type != "cuda":
@@ -660,8 +789,10 @@ def fused_ray_march_cuda(spec, params: Dict[str, Any], rays_o: torch.Tensor,
         raise ValueError(f"unsupported dtype {sampling_dtype}")
     device = rays_o.device
     lib = load_library()
+    (w, meta_arr), built = cached_sampling_pack(_SAMPLING_PACKS, spec, params, sampling_dtype)
+    PACKS["sampling"] += built
+    rb = sampling_dtype == torch.bfloat16
     with torch.no_grad():
-        w, meta = pack_operands(spec, params, sampling_dtype)
         f32 = torch.float32
         rays7 = torch.cat([rays_o, rays_d_z, t], dim=-1).to(f32).contiguous()
         nf = torch.cat([near, far], dim=-1).to(f32).contiguous()
@@ -673,12 +804,11 @@ def fused_ray_march_cuda(spec, params: Dict[str, Any], rays_o: torch.Tensor,
                           dtype=torch.float32, device=device)
     out = torch.empty(n_rays, 4, dtype=torch.float32, device=device)
     idx = torch.empty(n_rays, dtype=torch.int32, device=device)
-    meta_arr = (ctypes.c_longlong * len(meta))(*meta)
-    assert len(meta) == lib.fused_render_meta_len()
+    assert len(meta_arr) == lib.fused_render_meta_len() + (2 * NL if rb else 0)
     with torch.cuda.device(device):   # the launch runs on the current device
         err = lib.fused_ray_march_launch(
             rays7.data_ptr(), nf.data_ptr(), tv.data_ptr(), n_rays, n_steps, n_secant,
-            ctypes.c_float(tau), w.data_ptr(), meta_arr, int(sampling_dtype == torch.bfloat16),
+            ctypes.c_float(tau), w.data_ptr(), meta_arr, int(rb), int(rb and not simt),
             scratch.data_ptr(), out.data_ptr(), idx.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     if err != 0:

@@ -38,7 +38,6 @@ It serves the EndoNeRF train step's coarse pass and mesh grid
 
 from __future__ import annotations
 
-import ctypes
 from typing import Any, Dict, Tuple
 
 import torch
@@ -47,10 +46,9 @@ from endosurf_tpu_torch.kernels.fused_render import (
     NL,
     PackCache,
     _dtype_precision,
-    cached_pack,
     cuda_spec_supported,
 )
-from endosurf_tpu_torch.kernels.fused_sampler import pack_sampling, sampling_params_float64
+from endosurf_tpu_torch.kernels.fused_sampler import cached_sampling_pack, sampling_params_float64
 
 # Launches of the CUDA kernels made by fused_sdf_observed_cuda and
 # fused_density_raw_cuda (one per call).
@@ -172,8 +170,8 @@ def fused_sdf_observed_cuda(spec, params: Dict[str, Any], x: torch.Tensor, t: to
     """Launch the CUDA kernel (``csrc/fused_sdf.cu``) on the current stream:
     in bf16 the tensor-core sweep (``simt`` runs the SIMT sweep instead, the
     float64 comparison only), in float32 the SIMT sweep. The pack is cached
-    on the deform and SDF parameter tensors (``fused_render.cached_pack``):
-    a frame's grid slabs share one."""
+    on the deform and SDF parameter tensors
+    (``fused_sampler.cached_sampling_pack``): a frame's grid slabs share one."""
     from endosurf_tpu_torch.kernels.build import load_library
 
     if x.device.type != "cuda":
@@ -188,13 +186,7 @@ def fused_sdf_observed_cuda(spec, params: Dict[str, Any], x: torch.Tensor, t: to
     device = x.device
     lib = load_library()
     rb = compute_dtype == torch.bfloat16
-
-    @torch.no_grad()
-    def build():
-        w, meta = pack_sampling(spec, params, compute_dtype)
-        return w, (ctypes.c_longlong * len(meta))(*meta)
-    (w, meta_arr), built = cached_pack(_SDF_PACKS, spec, params,
-                                      ("deform_network", "sdf_network"), compute_dtype, build)
+    (w, meta_arr), built = cached_sampling_pack(_SDF_PACKS, spec, params, compute_dtype)
     PACKS["fused_sdf_observed"] += built
     if w.device != device or t.device != device:
         raise ValueError(f"params on {w.device}, t on {t.device}, x on {device}")

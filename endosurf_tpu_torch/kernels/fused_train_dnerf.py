@@ -27,12 +27,11 @@ CUDA tensors run the kernels of ``csrc/fused_train_dnerf.cu`` over
 ``csrc/dnerf_chain.cuh``: ``dnerf_*_fwd`` and ``dnerf_*_bwd``, each counted
 in ``LAUNCHES``, on weights packed by ``pack_dnerf`` (the one layout every
 D-NeRF kernel reads: ``fused_density_raw`` and the render kernel too;
-cached a parameter set). The bf16 deform and density forwards and the
-three backwards run on tensor cores (``csrc/dnerf_tc.cuh``'s tile);
-``simt=True`` (``dnerf_deform_fwd``, ``dnerf_density_fwd``,
-``dnerf_deform_bwd``, ``dnerf_density_bwd``, ``dnerf_color_bwd``) runs the
-SIMT kernel, which only the float64 comparisons ask for (the yardsticks
-``dnerf_deform_fwd_float64``, ``dnerf_density_fwd_float64``,
+cached a parameter set). In bf16 all six run on tensor cores
+(``csrc/dnerf_tc.cuh``'s tile); ``simt=True`` (every ``dnerf_*_fwd`` and
+``dnerf_*_bwd``) runs the SIMT kernel, which only the float64 comparisons ask
+for (the yardsticks ``dnerf_deform_fwd_float64``,
+``dnerf_density_fwd_float64``, ``dnerf_color_fwd_float64``,
 ``dnerf_deform_bwd_float64``, ``dnerf_density_bwd_float64``,
 ``dnerf_color_bwd_float64``).
 """
@@ -430,18 +429,15 @@ def _arg(t: torch.Tensor, shape, name: str) -> torch.Tensor:
     return t.detach().to(torch.float32).contiguous()
 
 
-def _run(name: str, packed: DnPacked, n: int, *tensors: torch.Tensor,
-         tc: Optional[bool] = None) -> None:
-    """Launch kernel entry ``name``; ``tc`` (every entry but the colour
-    forward's): the tensor-core kernel in bf16."""
+def _run(name: str, packed: DnPacked, n: int, *tensors: torch.Tensor, tc: bool) -> None:
+    """Launch kernel entry ``name``; ``tc``: the tensor-core kernel in bf16."""
     from endosurf_tpu_torch.kernels.build import load_library
     lib = load_library()
     device = tensors[0].device
     if packed.w.device != device:
         raise ValueError(f"weights on {packed.w.device}, points on {device}")
-    modes = [int(packed.rb)] + ([] if tc is None else [int(tc)])
     with torch.cuda.device(device):
-        err = getattr(lib, name)(packed.w.data_ptr(), packed.meta, *modes, n,
+        err = getattr(lib, name)(packed.w.data_ptr(), packed.meta, int(packed.rb), int(tc), n,
                                  *(t.data_ptr() for t in tensors),
                                  torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
@@ -486,13 +482,18 @@ def dnerf_density_fwd(packed: DnPacked, x_c: torch.Tensor, simt: bool = False
     return raw, feat
 
 
-def dnerf_color_fwd(packed: DnPacked, d: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
-    """(d [N, 3], feat [N, F]) -> rgb [N, 3]."""
+def dnerf_color_fwd(packed: DnPacked, d: torch.Tensor, feat: torch.Tensor,
+                    simt: bool = False) -> torch.Tensor:
+    """(d [N, 3], feat [N, F]) -> rgb [N, 3]. A bf16 pack runs the
+    tensor-core kernel (the colour backward's recompute, its nets checked
+    first, on any device); ``simt`` runs the SIMT one instead (the float64
+    comparison only)."""
+    tc = _tc(packed, simt, "fwd")
     n = d.shape[0]
     d = _arg(d, (n, 3), "d")
     feat = _arg(feat, (n, packed.meta[6]), "feat")
     rgb = torch.empty(n, 3, dtype=torch.float32, device=d.device)
-    _run("dnerf_color_fwd", packed, n, d, feat, rgb)
+    _run("dnerf_color_fwd", packed, n, d, feat, rgb, tc=tc)
     return rgb
 
 
@@ -849,6 +850,18 @@ def dnerf_density_fwd_float64(spec, params: Dict[str, Any], x_c: torch.Tensor,
         return seg_math(spec, "density", like, flat, (x_c.double(),), precision)
 
 
+def dnerf_color_fwd_float64(spec, params: Dict[str, Any], d: torch.Tensor, feat: torch.Tensor,
+                            precision: str = "default") -> torch.Tensor:
+    """The bf16 colour forward's float64 yardstick: ``seg_math`` on float64
+    copies of the kernels' own weights, of d and of the feature, with
+    ``precision``'s operand roundings (the directions rounded before they are
+    encoded, the feature as an operand) and float64 arithmetic between them.
+    Returns rgb [N, 3] in float64, as ``dnerf_color_fwd``."""
+    like, flat = _float64_segment(spec, params, "color")
+    with torch.no_grad():
+        return seg_math(spec, "color", like, flat, (d.double(), feat.double()), precision)[0]
+
+
 def dnerf_deform_bwd_float64(spec, params: Dict[str, Any], xt: torch.Tensor,
                              g_xc: torch.Tensor, precision: str = "default"
                              ) -> Tuple[List[torch.Tensor], Tuple[None]]:
@@ -989,6 +1002,9 @@ TC_KERNELS = {
     "dnerf_density_fwd": (("raw_sigma", "feat"), dnerf_density_fwd_float64,
                           lambda spec, params, packed, like, x_c, simt:
                           dnerf_density_fwd(packed, x_c, simt)),
+    "dnerf_color_fwd": (("rgb",), dnerf_color_fwd_float64,
+                        lambda spec, params, packed, like, d, feat, simt:
+                        dnerf_color_fwd(packed, d, feat, simt)),
     "dnerf_deform_bwd": (None, dnerf_deform_bwd_float64,
                          lambda spec, params, packed, like, *args, simt:
                          dnerf_deform_bwd(packed, like, *args, simt=simt)),

@@ -329,14 +329,19 @@ def error_on_depth(spec: EndoSurfSpec, params: Params, rays: torch.Tensor,
 def _locate_crossing(spec: EndoSurfSpec, params: Params, rays_o: torch.Tensor,
                      rays_d_z: torch.Tensor, t: torch.Tensor, d_prop: torch.Tensor,
                      val: torch.Tensor, near: torch.Tensor, far: torch.Tensor,
-                     tau: float, n_secant: int, precision: str = "highest"
+                     tau: float, n_secant: int, precision: str = "highest", sdf_at=None
                      ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """First + -> - crossing of ``val = -(sdf - tau)`` over the ascending
     depth proposals ``d_prop`` [R, S], refined by ``n_secant`` secant steps
     (0: the crossing pair's interpolation). Returns (depth [R, 1], valid
     [R, 1], bracket); invalid rays get the chord midpoint; the bracket holds
-    the final d_low, d_high [R] and the crossing's index idx [R]."""
+    the final d_low, d_high [R] and the crossing's index idx [R]. The secant
+    steps' SDF: ``sdf_at(z)`` (depths [R, 1] -> [R, 1]) when given, else
+    ``sdf_observed`` at o + z d_z at ``precision``."""
     n_rays, n_steps = d_prop.shape
+    if sdf_at is None:
+        def sdf_at(z):
+            return sdf_observed(spec, params, rays_o + z * rays_d_z, t, precision)
     first_free = val[:, 0] < 0
     sign = torch.sign(val[:, :-1] * val[:, 1:])
     sign = torch.cat([sign, torch.ones_like(sign[:, :1])], dim=-1)
@@ -354,8 +359,7 @@ def _locate_crossing(spec: EndoSurfSpec, params: Params, rays_o: torch.Tensor,
 
     d_pred = -f_low * (d_high - d_low) / (f_high - f_low + 1e-12) + d_low
     for _ in range(n_secant):
-        p_mid = rays_o + d_pred[:, None] * rays_d_z
-        f_mid = -(sdf_observed(spec, params, p_mid, t, precision)[:, 0] - tau)
+        f_mid = -(sdf_at(d_pred[:, None])[:, 0] - tau)
         low = f_mid < 0
         d_low = torch.where(low, d_pred, d_low)
         f_low = torch.where(low, f_mid, f_low)
@@ -371,21 +375,26 @@ def _locate_crossing(spec: EndoSurfSpec, params: Params, rays_o: torch.Tensor,
 def march_math(spec: EndoSurfSpec, params: Params, rays_o: torch.Tensor,
                rays_d_z: torch.Tensor, t: torch.Tensor, near: torch.Tensor,
                far: torch.Tensor, tau: float = 0.0, n_steps: int = 128, n_secant: int = 8,
-               precision: str = "highest") -> Dict[str, torch.Tensor]:
+               precision: str = "highest", sdf_at=None) -> Dict[str, torch.Tensor]:
     """The sphere trace in plain PyTorch (``fused_ray_march``'s plain
     version): the SDF at ``n_steps`` depths linspace(near, far), the first
     + -> - crossing and ``n_secant`` secant steps, every SDF at
-    ``precision``. Returns depth, valid [R, 1] and the final bracket
+    ``precision`` (or, given ``sdf_at``, ``sdf_at(z)``: depths [R, K] ->
+    the SDF there [R, K]). Returns depth, valid [R, 1] and the final bracket
     d_low, d_high [R] with the crossing's index idx [R]."""
     n_rays = rays_o.shape[0]
     t_vals = torch.linspace(0.0, 1.0, n_steps, dtype=rays_o.dtype, device=rays_o.device)
     d_prop = near * (1.0 - t_vals)[None, :] + far * t_vals[None, :]
-    pts = rays_o[:, None, :] + d_prop[..., None] * rays_d_z[:, None, :]
-    tt = t[:, None, :].expand(n_rays, n_steps, 1)
-    sdf = sdf_observed(spec, params, pts.reshape(-1, 3), tt.reshape(-1, 1),
-                       precision).reshape(n_rays, n_steps)
+    if sdf_at is None:
+        pts = rays_o[:, None, :] + d_prop[..., None] * rays_d_z[:, None, :]
+        tt = t[:, None, :].expand(n_rays, n_steps, 1)
+        sdf = sdf_observed(spec, params, pts.reshape(-1, 3), tt.reshape(-1, 1),
+                           precision).reshape(n_rays, n_steps)
+    else:
+        sdf = sdf_at(d_prop)
     depth, valid, br = _locate_crossing(spec, params, rays_o, rays_d_z, t, d_prop,
-                                        -(sdf - tau), near, far, tau, n_secant, precision)
+                                        -(sdf - tau), near, far, tau, n_secant, precision,
+                                        sdf_at)
     return {"depth": depth, "valid": valid, **br}
 
 

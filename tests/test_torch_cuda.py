@@ -209,6 +209,7 @@ def test_render_tensor_cores_no_farther_from_float64(dev):
 # the test skips under it (rerun the tool on both trees then).
 F32_RENDER_DIGEST = "41736c66a893780b441d4699464f7384c7fe981e96c2862ab4628365852e59d5"
 F32_SDF_QUERY_DIGEST = "ef0d45bb023dad05050a79f78a93ada5a694537f4543d838545c17473d0408ad"
+F32_MARCH_DIGEST = "41cc18e8a4ad6a2225a648591451b378b4e8e08f8e7bcfcbf467c459f8a951f5"
 F32_RENDER_NVCC = "release 12.9,"
 
 
@@ -225,8 +226,8 @@ def _tool(name: str):
 def test_render_f32_is_the_simt_render(dev):
     """The float32 render runs the SIMT code it ran before the bf16 passes
     moved to tensor cores: its maps equal that kernel's bit for bit, and the
-    same with simt=True; the float32 grid query likewise runs the SIMT sweep
-    it ran before the bf16 query moved to tensor cores."""
+    same with simt=True; the float32 grid query and ray march likewise run
+    the SIMT sweep they ran before their bf16 sweeps moved to tensor cores."""
     import hashlib
     import subprocess
     params = init_endosurf_params(EndoSurfSpec(), torch.Generator().manual_seed(0), dev)
@@ -240,12 +241,15 @@ def test_render_f32_is_the_simt_render(dev):
                           text=True, check=True).stdout
     release = next((ln for ln in nvcc.splitlines() if "release" in ln), nvcc.strip())
     query = _tool("render_f32_digest").sdf_query_digest(dev)
-    print(f"float32 render digest {digest}, sdf query digest {query} ({release})")
+    march = _tool("render_f32_digest").march_digest(dev)
+    print(f"float32 render digest {digest}, sdf query digest {query}, march digest {march} "
+          f"({release})")
     if F32_RENDER_NVCC not in release:
         pytest.skip(f"the digest was taken with nvcc {F32_RENDER_NVCC.rstrip(',')}, "
                     f"this one is {release}")
     assert digest == F32_RENDER_DIGEST
     assert query == F32_SDF_QUERY_DIGEST
+    assert march == F32_MARCH_DIGEST
 
 
 def test_render_reuses_the_pack(dev):
@@ -418,8 +422,8 @@ FAULTS = {
         ("sweep_tc.cuh", "    const float* b = wts + N.b_off[l];",
          "    const float* b = wts + N.b_off[l];\n"
          "    const float pre = ((N.skip_mask >> l) & 1) ? EndoSurfChain::kSkip : 1.f;"),
-        ("sweep_tc.cuh", "      put_enc(H, ldh, in_l - ew, Es, ew, SW_P, tid);",
-         "      put_enc(H, ldh, in_l - ew, E0, ew, SW_P, tid);")],
+        ("sweep_tc.cuh", "      put_enc(H, ldh, in_l - ew, Es, ew, P, tid);",
+         "      put_enc(H, ldh, in_l - ew, E0, ew, P, tid);")],
         (torch.bfloat16,)),
 }
 
@@ -1243,7 +1247,7 @@ SDF_FAULTS = {
         ("sweep_tc.cuh",
          "    if (base + tid < src.n) src.store(base + tid, (float)(a + (double)wts[S.b_off[l]]));",
          "    if (base + tid < src.n)\n"
-         "      src.store(base + tid, base + SW_P > src.n ? 0.f\n"
+         "      src.store(base + tid, base + P > src.n ? 0.f\n"
          "                            : (float)(a + (double)wts[S.b_off[l]]));")],
 }
 
@@ -1317,10 +1321,10 @@ def _march_inputs(n: int, dev, seed: int = 0):
     return tuple(v.contiguous().to(dev) for v in (o, d_z, t, near, far))
 
 
-def _march_check(spec, params, ins, got, ref, dtype):
+def _march_check(spec, params, ins, got, ref, dtype, tau=0.0):
     """(within every MARCH_TOL limit, readings)."""
     par = fs.march_parity(got, ref, dtype)
-    own = fs.march_consistency(spec, params, *ins[:3], got, dtype)
+    own = fs.march_consistency(spec, params, *ins[:3], got, dtype, tau)
     return all(v[1] for v in par.values()) and all(v[1] for v in own.values()), (par, own)
 
 
@@ -1355,33 +1359,130 @@ def test_march_limits_reject_the_other_precision(dev, spec):
 
 
 # Faults planted in csrc/fused_sampler.cu's march on the rays r % 64 == 0,
-# and the dot modes in which the limits must catch them (the secant steps
-# move a depth by ~1e-4 in SDF, under bf16's noise).
+# which the float32 march (SIMT sweeps) and the bf16 one (tensor-core
+# sweeps) share, each with the level tau it is judged at: the crossing a bin
+# late, the secant steps skipped, the SDF of the secant sweeps scaled by
+# 0.1 %. The march must fail the limits against its plain version (float32)
+# or those or the float64 ones (bf16, MARCH_FLOAT64_TOL: the secant steps
+# move a depth by ~1e-4 in SDF, under the float32 plain version's bf16
+# tips). A scale moves no root of sdf - tau at tau 0, only the secant's path
+# (by ~2e-6 in depth): the sparse scale is judged at tau -0.4, half the
+# seeded nets' radius, where it moves the level set by 0.4 permille of the
+# SDF, and must fail the float64 limits.
 MARCH_FAULTS = {
     "crossing_one_bin_late_r64": (
         "    if (vj * vn < 0.f) { idx = j; break; }",
-        "    if (vj * vn < 0.f) { idx = (r % 64 == 0 && j + 2 < S) ? j + 1 : j; break; }",
-        F32_BF16),
+        "    if (vj * vn < 0.f) { idx = (r % 64 == 0 && j + 2 < S) ? j + 1 : j; break; }", 0.0),
     "no_secant_r64": (
         "  const float f_mid = -(st[5] - tau);",
-        "  if (r % 64 == 0) return;\n  const float f_mid = -(st[5] - tau);",
-        (torch.float32,)),
+        "  if (r % 64 == 0) return;\n  const float f_mid = -(st[5] - tau);", 0.0),
+    "secant_sdf_scaled_r64": (
+        "  const float f_mid = -(st[5] - tau);",
+        "  const float f_mid = -(st[5] * (r % 64 == 0 ? 1.001f : 1.f) - tau);", -0.4),
 }
+
+
+def _march_f64(spec, params, ins, tau=0.0, **outs):
+    """(march_float64_distance of each march in outs, within MARCH_FLOAT64_TOL
+    each)."""
+    dist = fs.march_float64_distance(spec, params, *ins, outs, tau)
+    return dist, {k: fs.march_float64_ok(v) for k, v in dist.items()}
 
 
 @pytest.mark.parametrize("fault", sorted(MARCH_FAULTS))
 def test_march_limits_catch_planted_faults(dev, fault, tmp_path, monkeypatch):
-    old, new, dtypes = MARCH_FAULTS[fault]
+    old, new, tau = MARCH_FAULTS[fault]
     _rebuild_with(monkeypatch, tmp_path, "fused_sampler.cu", old, new)
     spec = EndoSurfSpec()
     params = init_endosurf_params(spec, torch.Generator().manual_seed(0), dev)
     ins = _march_inputs(1024, dev)
-    for dtype in dtypes:
-        got = fs.fused_ray_march_cuda(spec, params, *ins, sampling_dtype=dtype)
-        ref = fs.fused_ray_march_reference(spec, params, *ins, sampling_dtype=dtype)
-        ok, report = _march_check(spec, params, ins, got, ref, dtype)
-        print(f"{fault} {dtype}: {report}")
-        assert not ok, report
+    for dtype in F32_BF16:
+        got = fs.fused_ray_march_cuda(spec, params, *ins, tau, sampling_dtype=dtype)
+        ref = fs.fused_ray_march_reference(spec, params, *ins, tau, sampling_dtype=dtype)
+        ok, report = _march_check(spec, params, ins, got, ref, dtype, tau)
+        print(f"{fault} {dtype} tau {tau}: {report}")
+        if dtype == torch.float32:
+            assert not ok, report
+            continue
+        dist, f64_ok = _march_f64(spec, params, ins, tau, tensor_cores=got)
+        print(f"{fault} bf16 vs float64 tau {tau}: {dist} (tol {fs.MARCH_FLOAT64_TOL})")
+        assert not f64_ok["tensor_cores"] if fault == "secant_sdf_scaled_r64" else not (
+            ok and f64_ok["tensor_cores"]), (report, dist)
+
+
+# (spec id, rays, tau) of the float64 comparison: the three nets at tau 0,
+# and the full net at the sparse scale fault's level
+MARCH_F64_CELLS = [(sid, n, 0.0) for sid in SPEC_IDS for n in (1024, 4099)] + [
+    ("full", 1024, -0.4)]
+
+
+def test_march_tensor_cores_no_farther_from_float64(dev):
+    """On MARCH_F64_CELLS, two weight seeds, the bf16 march on tensor cores
+    is within MARCH_FLOAT64_TOL of its float64 yardstick
+    (fused_ray_march_float64) and no farther from it than the SIMT bf16
+    march (simt=True) on the same rays (fused_sampler.march_float64_distance):
+    on each cell the depth and the residual against the yardstick's (median
+    and p99) and the share off by more than 1e-6 on rays with the same
+    crossing; the flipped crossings over all the cells. A flip is one ray
+    whose crossing sample sits within a tipped bf16 rounding of tau, which
+    either kernel tips now and then: per cell the tensor cores read 0 or 1
+    ray where the SIMT march reads 0 to 6 (PERF.md §6)."""
+    failed, flips = [], {"tensor cores": 0.0, "SIMT": 0.0}
+    for sid, n, tau in MARCH_F64_CELLS:
+        spec = SPEC_BY_ID[sid]
+        for seed in (0, 1):
+            params = init_endosurf_params(spec, torch.Generator().manual_seed(seed), dev)
+            ins = _march_inputs(n, dev, seed)
+            dist, ok = _march_f64(spec, params, ins, tau, **{
+                nm: fs.fused_ray_march_cuda(spec, params, *ins, tau,
+                                            sampling_dtype=torch.bfloat16, simt=simt)
+                for nm, simt in (("tensor cores", False), ("SIMT", True))})
+            print(f"march bf16 vs float64 {sid} {n} tau {tau} seed {seed}: " + "; ".join(
+                f"{nm} flip {v['flip'][0]:.4e}, depth {v['depth'][0]:.4e} {v['depth'][1]:.4e}, "
+                f"residual {v['residual'][0]:.4e} {v['residual'][1]:.4e}, off {v['off'][0]:.4e}"
+                for nm, v in dist.items()))
+            for nm in flips:
+                flips[nm] += dist[nm]["flip"][0] * n
+            nearer = fr.no_farther(*({k: v for k, v in dist[nm].items() if k != "flip"}
+                                     for nm in ("tensor cores", "SIMT")))
+            if not (all(nearer.values()) and ok["tensor cores"]):
+                failed.append((sid, n, tau, seed, nearer, ok["tensor cores"]))
+    print(f"flipped rays over the cells: {flips}")
+    assert not failed, failed
+    assert flips["tensor cores"] <= flips["SIMT"], flips
+
+
+def test_march_runs_on_tensor_cores(dev):
+    """A bf16 march launches the tensor-core sweep (sweep_tc_kernel over ray
+    samples) for its scan and every secant step and no SIMT sweep; simt=True
+    and the float32 march launch the SIMT sweep and no tensor-core kernel."""
+    traced = _traced_kernels("march bf16", "march bf16 simt", "march f32")
+    tc = traced["march bf16"]
+    print(sorted(tc), sorted(traced["march bf16 simt"]), sorted(traced["march f32"]))
+    assert any("sweep_tc_kernel" in k and "RaySamples" in k for k in tc)
+    assert not any("sweep_kernel<" in k for k in tc)
+    for what in ("march bf16 simt", "march f32"):
+        assert any("sweep_kernel<" in k for k in traced[what]), what
+        assert not any("_tc_" in k for k in traced[what]), what
+
+
+def test_march_reuses_the_upsampling_pack(dev):
+    """The upsampling and the march on one parameter set build one sampling
+    pack between them (fused_sampler.cached_sampling_pack); an in-place
+    update of a weight (an optimizer step) repacks."""
+    spec = EndoSurfSpec()
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(0), dev)
+    before = fs.PACKS["sampling"]
+    _upsample(fs.fused_upsample_z_cuda, spec, params, _upsample_inputs(256, dev),
+              torch.bfloat16, True)
+    fs.fused_ray_march_cuda(spec, params, *_march_inputs(256, dev),
+                            sampling_dtype=torch.bfloat16)
+    assert fs.PACKS["sampling"] == before + 1
+    with torch.no_grad():
+        params["sdf_network"]["layers"][0]["b"].add_(1e-3)
+    fs.fused_ray_march_cuda(spec, params, *_march_inputs(256, dev),
+                            sampling_dtype=torch.bfloat16)
+    assert fs.PACKS["sampling"] == before + 2
 
 
 def test_sphere_trace_runs_the_march_kernel(dev):
@@ -1692,8 +1793,10 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, sys.argv[2])
-from test_torch_cuda import _dn_bwd_case, _dn_params, _dn_rays, _render_params, _sdf_points
+from test_torch_cuda import (_dn_bwd_case, _dn_field_step, _dn_params, _dn_rays, _march_inputs,
+                             _render_params, _sdf_points)
 from endosurf_tpu_torch.kernels import fused_render_dnerf as frd
+from endosurf_tpu_torch.kernels import fused_sampler as fs
 from endosurf_tpu_torch.kernels import fused_sdf as fsd
 from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
 from endosurf_tpu_torch.models import endonerf as en
@@ -1709,6 +1812,7 @@ _, c_packed, c_like, c_inputs, c_cots = _dn_bwd_case(en.DNeRFSpec(), 0, dev, 409
 es_params = init_endosurf_params(EndoSurfSpec(), torch.Generator().manual_seed(0), dev)
 dn_params = _dn_params(en.DNeRFSpec(), 0, dev)
 px, pt = _sdf_points(4096, dev)
+mins = _march_inputs(1024, dev)
 calls = {
     "render bf16": lambda: frd.fused_render_rays_dnerf_cuda(
         spec, en.DNeRFRenderSpec(), params, rays, None, bf, bf),
@@ -1735,6 +1839,14 @@ calls = {
     "sdf query bf16 simt": lambda: fsd.fused_sdf_observed_cuda(EndoSurfSpec(), es_params, px, pt,
                                                                bf, simt=True),
     "sdf query f32": lambda: fsd.fused_sdf_observed_cuda(EndoSurfSpec(), es_params, px, pt),
+    "march bf16": lambda: fs.fused_ray_march_cuda(EndoSurfSpec(), es_params, *mins,
+                                                  sampling_dtype=bf),
+    "march bf16 simt": lambda: fs.fused_ray_march_cuda(EndoSurfSpec(), es_params, *mins,
+                                                       sampling_dtype=bf, simt=True),
+    "march f32": lambda: fs.fused_ray_march_cuda(EndoSurfSpec(), es_params, *mins),
+    "color fwd bf16": lambda: ftd.dnerf_color_fwd(c_packed, *c_inputs),
+    "color fwd bf16 simt": lambda: ftd.dnerf_color_fwd(c_packed, *c_inputs, simt=True),
+    "dnerf field bf16": lambda: _dn_field_step(dn_params, px, pt),
 }
 names = {}
 for what in sys.argv[3:]:
@@ -1747,6 +1859,17 @@ for what in sys.argv[3:]:
                           if e.device_type == DeviceType.CUDA})
 print(json.dumps(names))
 """
+
+
+def _dn_field_step(params, x, t):
+    """The D-NeRF field of an EndoNeRF train step on these points (the
+    directions from x), bf16, forward and backward: the segment kernels the
+    step runs."""
+    from endosurf_tpu_torch.bridge import unflatten
+    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in flatten(params).items()}
+    rgb, raw = ftd.megakernel_field_raw(en.DNeRFSpec(), unflatten(leaves), x,
+                                        x / x.norm(dim=-1, keepdim=True), t, "default")
+    (rgb.sum() + raw.sum()).backward()
 
 
 def _traced_kernels(*calls):
@@ -1962,7 +2085,7 @@ def test_dnerf_segment_limits_reject_the_other_precision(dev, spec):
 DN_SEG_FAULTS = {   # each in the SIMT kernel (dnerf_chain.cuh, float32) and the tensor-core
     # one (bf16): the density forward's sigma head read from feature column 1 and
     # its feature's bias read one column early; the deform forward's x_c
-    # without x
+    # without x; the colour forward's feature columns 4k read from 4k + 1
     "head_from_column_1": ["dnerf_density_fwd",
         ("dnerf_chain.cuh",
          "    const float* Wh = W;                 // the sigma head: column 0 of the output layer",
@@ -1981,6 +2104,15 @@ DN_SEG_FAULTS = {   # each in the SIMT kernel (dnerf_chain.cuh, float32) and the
          "    s.xc[p * 4 + col] = dn_out_col(m.deform, wts, s.h + p * HMAX, col);"),
         ("dnerf_tc.cuh", "    const double xc = (double)s.x[p * 4 + col]",
          "    const double xc = 0.0")],
+    "feature_column_4k_from_4k1": ["dnerf_color_fwd",
+        ("fused_train_dnerf.cu",
+         "idx < P_DN * F; idx += NT) {\n    const int p = idx / F, c = idx - p * F;\n"
+         "    s.h[p * HMAX + c] = base + p < n ? opnd<RB>(feat[(size_t)(base + p) * F + c])",
+         "idx < P_DN * F; idx += NT) {\n    const int p = idx / F, c = idx - p * F;\n"
+         "    s.h[p * HMAX + c] = base + p < n ? opnd<RB>(feat[(size_t)(base + p) * F + c + "
+         "((c & 3) == 0)])"),
+        ("fused_train_dnerf.cu", "      h[0] = __float2bfloat16_rn(v.x);",
+         "      h[0] = __float2bfloat16_rn(v.y);")],
 }
 
 
@@ -2418,6 +2550,71 @@ def test_dnerf_density_fwd_runs_on_tensor_cores(dev):
     assert not any("_tc_" in k for k in simt)
 
 
+def test_dnerf_color_fwd_tensor_cores_no_farther_from_float64(dev):
+    """On the cells of test_dnerf_segments_match_plain (three nets, 65,531
+    points, two seeds) the tensor-core colour forward's median and p99
+    per-point rgb error against the float64 yardstick
+    (dnerf_color_fwd_float64) are no larger than the SIMT bf16 kernel's
+    (simt=True) on the same directions and feature (the plain density
+    segment's)."""
+    failed = []
+    for sid, spec in zip(SPEC_IDS, DN_SPECS):
+        for seed in (0, 1):
+            params = _dn_params(spec, seed, dev)
+            x, d, t = _seg_points(RAGGED_N, dev, seed)
+            _, _, cases = ftd.segment_parity(spec, params, x, d, t, "default")
+            packed, inputs = cases["dnerf_color_fwd"]
+            dist = ftd.tc_float64_distance(spec, params, "dnerf_color_fwd", packed, None, inputs)
+            ok = fr.no_farther(dist["tensor cores"], dist["SIMT"])
+            print(f"dnerf colour fwd bf16 vs float64 {sid} seed {seed} rgb (median, p99): "
+                  + "; ".join(f"{nm} {v['rgb'][0]:.4e}, {v['rgb'][1]:.4e}"
+                              for nm, v in dist.items()))
+            if not all(ok.values()):
+                failed.append((sid, seed, ok))
+    assert not failed, failed
+
+
+def test_dnerf_color_fwd_is_the_backward_recompute(dev, tmp_path, monkeypatch):
+    """In bf16 the colour forward kernel computes what the colour
+    backward's recompute computes (dnerf_tc.cuh's dt_hidden on [enc(d) |
+    op(feat)], the output layer and the sigmoid in double), so the rgb the
+    loss sees is the one the backward differentiates: at a ragged point
+    count, on the full nets and the narrow ones, the forward's rgb equals,
+    bit for bit, the rgb that a build whose backward writes its recompute's
+    rgb (rounded once to float32) in place of d feat and stops returns."""
+    rgb = "    const double rgb = 1.0 / (1.0 + exp(-dt_out_col(C, wts, s.H, ldh, p, col)));\n"
+    walk = "  // ---- the cotangent on h_{L-2}: d z W^T (rank 3) in double, rounded once,\n"
+    _rebuild_with_all(monkeypatch, tmp_path, [
+        ("fused_train_dnerf.cu", rgb,
+         rgb + "    if (base + p < n) dfeat[(size_t)(base + p) * F + col] = (float)rgb;\n"),
+        ("fused_train_dnerf.cu", walk, "  return;\n" + walk)])
+    for spec in (en.DNeRFSpec(), DN_NARROW):
+        params, packed, like, inputs, cots = _dn_bwd_case(spec, 0, dev, seg="color")
+        color = ftd.dnerf_color_fwd(packed, *inputs)
+        _, (_, probe) = ftd.dnerf_color_bwd(packed, like, *inputs, *cots)
+        torch.cuda.synchronize()
+        assert torch.equal(color, probe[:, :3])
+
+
+def test_dnerf_color_fwd_runs_on_tensor_cores(dev):
+    """A bf16 colour forward launches the tensor-core kernel
+    (dnerf_color_fwd_tc_kernel) and not the SIMT one; simt=True launches the
+    SIMT kernel; the bf16 D-NeRF field of a train step (forward and
+    backward) runs the tensor-core colour forward and no SIMT segment
+    kernel."""
+    traced = _traced_kernels("color fwd bf16", "color fwd bf16 simt", "dnerf field bf16")
+    tc, simt, step = (traced[k] for k in ("color fwd bf16", "color fwd bf16 simt",
+                                          "dnerf field bf16"))
+    print(sorted(tc), sorted(simt), sorted(step))
+    assert any("dnerf_color_fwd_tc_kernel" in k for k in tc)
+    assert not any("dnerf_color_fwd_kernel" in k for k in tc)
+    assert any("dnerf_color_fwd_kernel" in k for k in simt)
+    assert not any("_tc_" in k for k in simt)
+    assert any("dnerf_color_fwd_tc_kernel" in k for k in step)
+    assert not any(f"dnerf_{seg}_{d}_kernel" in k for k in step
+                   for seg in ("deform", "density", "color") for d in ("fwd", "bwd"))
+
+
 def test_dnerf_deform_fwd_tensor_cores_no_farther_from_float64(dev):
     """On the cells of test_dnerf_segments_match_plain with a deform net
     (narrow and full, 65,531 points, two seeds) the tensor-core deform
@@ -2519,26 +2716,28 @@ F32_DN_DENSITY_FWD_DIGEST = "2c3c9c5948a1620f725f4190e43481ec5ad45c9fe5331e177e0
 F32_DN_DEFORM_FWD_DIGEST = "f6c35c5c0443c3be02e0051438a8805ee08b2fe8e59ad838eaf94206705bd1a1"
 F32_DN_DENSITY_RAW_DIGEST = "ce7cb9fe9b6e1e424f8f9d058c64bb67cb893998beda92e15c4d2fa2b9169b4b"
 F32_DN_COLOR_BWD_DIGEST = "026e761fe54a5fb2d4d9d3623d53f0e5489351da8fcae25b0f6bc25f50301d69"
+F32_DN_COLOR_FWD_DIGEST = "da093a5cbcfa26e15679df28d0ff20d48479ed2e3164950b2869efc57912c1a3"
 
 
 def test_dnerf_f32_is_the_simt_path(dev):
     """The float32 D-NeRF render, density backward, deform backward,
-    density forward, deform forward, raw density query and colour backward
-    run the SIMT code, untouched by the tensor-core bf16 kernels: their
-    outputs equal that code's recorded digests bit for bit."""
+    density forward, deform forward, raw density query, colour backward and
+    colour forward run the SIMT code, untouched by the tensor-core bf16
+    kernels: their outputs equal that code's recorded digests bit for bit."""
     import subprocess
     got = _tool("dnerf_f32_digest").digests(dev)
     nvcc = subprocess.run([build.find_nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout
     release = next((ln for ln in nvcc.splitlines() if "release" in ln), nvcc.strip())
     print(f"float32 dnerf render, density backward, deform backward, density forward, "
-          f"deform forward, raw density, colour backward digests {got} ({release})")
+          f"deform forward, raw density, colour backward, colour forward digests {got} "
+          f"({release})")
     if F32_RENDER_NVCC not in release:
         pytest.skip(f"the digests were taken with nvcc {F32_RENDER_NVCC.rstrip(',')}, "
                     f"this one is {release}")
     assert got == (F32_DN_RENDER_DIGEST, F32_DN_BWD_DIGEST, F32_DN_DEFORM_BWD_DIGEST,
                    F32_DN_DENSITY_FWD_DIGEST, F32_DN_DEFORM_FWD_DIGEST,
-                   F32_DN_DENSITY_RAW_DIGEST, F32_DN_COLOR_BWD_DIGEST)
+                   F32_DN_DENSITY_RAW_DIGEST, F32_DN_COLOR_BWD_DIGEST, F32_DN_COLOR_FWD_DIGEST)
 
 
 def _resample_inputs(nets: str, n0: int, dev, seed: int = 0):

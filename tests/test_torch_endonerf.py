@@ -249,6 +249,58 @@ def test_fused_density_raw_float64_matches_jax_kernel(use_deform, dtype):
 
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_color_fwd_float64_matches_jax_kernel(dtype):
+    """The float64 yardstick of the bf16 colour forward
+    (dnerf_color_fwd_float64: the colour segment in float64 on the float32
+    weights) against JAX's colour segment forced onto its Pallas kernel
+    (_color_fwd_pl, interpreted) at the same dot precision, 300 points, the
+    feature a normal draw: float32 within F32_TOL (float64 against float32
+    sums), bf16 operand roundings on both sides within the bf16 limits
+    (_close_bf16). The control: the float32 yardstick fails the bf16 limits
+    against JAX's bf16 kernel, more than 10 BF16_FRAC of its points over
+    BF16_TOL, so the rounding is on."""
+    js, ts = _specs(**SMALL)
+    pj, pt = _params(js, 11)
+    _, d, _ = _points(300, seed=12)
+    feat = np.random.default_rng(13).normal(size=(300, js.geo_feat_dim)).astype(np.float32)
+    if dtype == "bfloat16":
+        j_ft.set_compute_mode(jnp.bfloat16, None)
+    seg_color = j_ftd._build_segments(js, True)[2]
+    eff = j_ftd.prepare_effective_dnerf(js, pj)
+    ref = np.asarray(seg_color(eff["color"], j_ft.pad_lanes(jnp.asarray(d)),
+                               jnp.asarray(feat)))[:, :3]
+    j_ft.set_compute_mode(jnp.float32, "highest")
+    dt, ft_ = torch.from_numpy(d), torch.from_numpy(feat)
+    got = t_ftd.dnerf_color_fwd_float64(ts, pt, dt, ft_,
+                                        "highest" if dtype == "float32" else "default")
+    assert got.shape == (300, 3) and got.dtype == torch.float64
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=F32_TOL)
+    else:
+        _close_bf16(got.numpy(), ref)
+        control = t_ftd.dnerf_color_fwd_float64(ts, pt, dt, ft_, "highest").numpy()
+        over = (np.abs(control - ref).max(-1) > BF16_TOL).mean()
+        print(f"control (float32 yardstick vs JAX bf16): {100 * over:.1f} % over {BF16_TOL}")
+        assert over > 10 * BF16_FRAC
+
+
+def test_color_fwd_refuses_cpu_tensors():
+    """dnerf_color_fwd launches a kernel or raises: on CPU tensors it raises
+    in both modes and with ``simt``, and nothing runs on the CPU."""
+    js, ts = _specs(**SMALL)
+    _, pt = _params(js, 11)
+    _, d, _ = _points(8, seed=12)
+    feat = torch.zeros(8, js.geo_feat_dim)
+    before = dict(t_ftd.LAUNCHES)
+    for dtype in (torch.float32, torch.bfloat16):
+        packed = t_ftd.pack_dnerf(ts, pt, dtype)
+        for simt in (False, True):
+            with pytest.raises(ValueError, match="must be a CUDA tensor"):
+                t_ftd.dnerf_color_fwd(packed, torch.from_numpy(d), feat, simt=simt)
+    assert t_ftd.LAUNCHES == before
+
+
 @pytest.mark.parametrize("scale", [0.06, 0.65], ids=["full", "narrow"])
 def test_density_parity_bf16_max_is_a_share_of_the_raw_scale(scale):
     """fused_sdf.DENSITY_PARITY_TOL's bf16 max is a share (0.1) of the

@@ -130,6 +130,73 @@ def test_plain_march_matches_interpreted_jax_kernel(params, dtype):
     assert bool(torch.isfinite(out["depth"]).all() & torch.isfinite(mid).all())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_march_float64_yardstick_matches_interpreted_jax_kernel(params, dtype):
+    """The bf16 march's float64 yardstick (fused_ray_march_float64:
+    march_math on the kernel's float32 glue, every SDF in float64 on the
+    kernel's weights, the bf16 ones for bf16) against JAX's Pallas
+    fused_ray_march(interpret=True) at the same dot precision, on the limits
+    of the plain march (valid flags on all but 1 ray in 32, DEPTH_TOL on all
+    but 1 in 32). The control: the float32 yardstick (no operand rounding)
+    fails the bf16 limits against JAX's bf16 kernel, so the rounding is
+    on."""
+    pj, pt = params
+    rays = _rays()
+    spec, ins = _narrow(t_fields), _port_inputs(rays)
+    out = t_fs.fused_ray_march_float64(spec, pt, *ins, sampling_dtype=dtype)
+    assert out["depth"].shape == (N_RAYS, 1)
+    assert out["valid"].dtype == torch.bool and out["idx"].shape == (N_RAYS,)
+    ref_d, ref_v = _jax_kernel(pj, rays, jnp.bfloat16 if dtype == torch.bfloat16
+                               else jnp.float32)
+    flips, worst, ok = _compare(out["depth"].numpy(), out["valid"].numpy(), ref_d, ref_v,
+                                DEPTH_TOL[dtype])
+    print(f"float64 yardstick {dtype}: flags differ on {100 * flips:.2f} %, depth {worst:.3e}")
+    assert ok, (flips, worst)
+    if dtype == torch.bfloat16:
+        f32 = t_fs.fused_ray_march_float64(spec, pt, *ins, sampling_dtype=torch.float32)
+        flips, worst, ok = _compare(f32["depth"].numpy(), f32["valid"].numpy(), ref_d, ref_v,
+                                    DEPTH_TOL[dtype])
+        print(f"control (float32 yardstick vs JAX bf16): flags {100 * flips:.2f} %, "
+              f"depth {worst:.3e}")
+        assert not ok, (flips, worst)
+
+
+def test_march_float64_distance_reads_the_yardstick(params):
+    """march_float64_distance: the yardstick against itself reads 0 flips,
+    depth and residual 0; the plain bf16 march (float32 sums) reads its
+    float32 noise; a fault planted on 1 ray in 64 (a crossing a bin late)
+    reads 1 in 64 of the valid rays as flips."""
+    _, pt = params
+    spec, ins = _narrow(t_fields), _port_inputs(_rays(256, seed=5))
+    ref = t_fs.fused_ray_march_float64(spec, pt, *ins)
+    plain = t_fs.fused_ray_march_reference(spec, pt, *ins, sampling_dtype=torch.bfloat16)
+    bad = {k: v.clone() for k, v in plain.items()}
+    rows = torch.nonzero(plain["valid"][:, 0])[:, 0][::64]
+    bad["idx"][rows] += 1
+    dist = t_fs.march_float64_distance(spec, pt, *ins, {"yardstick": ref, "plain": plain,
+                                                         "fault": bad})
+    print(dist)
+    assert dist["yardstick"] == {"flip": (0.0,), "depth": (0.0, 0.0), "residual": (0.0, 0.0),
+                                 "off": (0.0,)}
+    assert dist["plain"]["flip"][0] <= FRAC and dist["plain"]["depth"][1] <= 1e-3
+    assert dist["plain"]["residual"][1] <= t_fs.MARCH_TOL[torch.bfloat16]["residual"][1]
+    assert dist["fault"]["flip"][0] >= len(rows) / 256
+
+
+def test_march_cuda_refuses_cpu_tensors(params):
+    """fused_ray_march_cuda launches the kernel or raises: on CPU tensors it
+    raises in both modes and with ``simt``, and nothing runs on the CPU."""
+    _, pt = params
+    ins = _port_inputs(_rays(8))
+    before = dict(t_fs.LAUNCHES)
+    for dtype in (torch.float32, torch.bfloat16):
+        for simt in (False, True):
+            with pytest.raises(ValueError, match="needs CUDA tensors"):
+                t_fs.fused_ray_march_cuda(_narrow(t_fields), pt, *ins, sampling_dtype=dtype,
+                                          simt=simt)
+    assert t_fs.LAUNCHES == before
+
+
 def test_ray_march_matches_jax_ray_march(params):
     """``ray_march`` on CPU tensors (the plain march) against JAX's
     ``ray_march``, both float32: the same flags, depths within 1e-5."""

@@ -658,11 +658,11 @@ def test_tc_smem_gates_the_nets():
     forward's fits; the density backward's tile, with the same row pitch and
     three operand terms, is never the smaller), a 110-octave one of either by
     every tile; an unknown tile raises. The forward tile's gate runs before
-    the device checks in its two point callers, the deform forward
-    (dnerf_deform_fwd) and the raw density query (fused_density_raw_cuda),
-    and the colour backward's in dnerf_color_bwd: in bf16 they refuse the
-    nets their tile refuses, with simt=True they reach the device check
-    instead."""
+    the device checks in its point callers, the deform and colour forwards
+    (dnerf_deform_fwd, dnerf_color_fwd) and the raw density query
+    (fused_density_raw_cuda), and the colour backward's in dnerf_color_bwd:
+    in bf16 they refuse the nets their tile refuses, with simt=True they
+    reach the device check instead."""
     spec = en.DNeRFSpec()
     params = en.init_dnerf_params(spec, torch.Generator().manual_seed(0), "cpu")
     packed = ftd.pack_dnerf(spec, params, torch.bfloat16)
@@ -698,6 +698,8 @@ def test_tc_smem_gates_the_nets():
             gated = "fwd" in refused and not simt
             with pytest.raises(ValueError, match="shared memory" if gated else "CUDA tensor"):
                 ftd.dnerf_deform_fwd(packed, torch.cat([x, t], -1), simt=simt)
+            with pytest.raises(ValueError, match="shared memory" if gated else "CUDA tensor"):
+                ftd.dnerf_color_fwd(packed, x, torch.zeros(5, wide.geo_feat_dim), simt=simt)
             with pytest.raises(ValueError, match="shared memory" if gated else "CUDA tensors"):
                 fsd.fused_density_raw_cuda(wide, wide_params, x, t, torch.bfloat16, simt=simt)
             gated = "color_bwd" in refused and not simt

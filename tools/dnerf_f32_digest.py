@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """sha256 of the float32 EndoNeRF render's maps and of the float32 density
 backward's, deform backward's, density forward's, deform forward's, raw
-density query's and colour backward's outputs, to hold a checkout's float32 D-NeRF kernels
-against another's bit for bit on one card.
+density query's, colour backward's and colour forward's outputs, to hold a
+checkout's float32 D-NeRF kernels against another's bit for bit on one card.
 
 The render: 1024 depth-guided rays (tests/test_torch_cuda.py's
 ``_dn_rays(1024, dev, True)``) with the full seeded D-NeRF nets (seed 0),
@@ -20,8 +20,9 @@ the same xt: the digest of x_c. The raw density query
 density. The colour backward on the same points' directions (the normal
 draw after x) and the plain density segment's feature, with a cotangent on
 rgb drawn next from the card's generator: the digest of d feat and the
-packed gradient. Run on the checkout at ``--root`` (default: this one);
-prints the seven digests with the card and nvcc's version. The card test
+packed gradient. The colour forward on the same directions and feature: the
+digest of rgb. Run on the checkout at ``--root`` (default: this one); prints
+the eight digests with the card and nvcc's version. The card test
 ``test_dnerf_f32_is_the_simt_path`` holds the digests it prints. Needs a
 CUDA device:
 
@@ -39,8 +40,8 @@ import sys
 
 def digests(dev):
     """(render, density backward, deform backward, density forward, deform
-    forward, raw density, colour backward) digests of the checkout on
-    sys.path."""
+    forward, raw density, colour backward, colour forward) digests of the
+    checkout on sys.path."""
     import torch
     from endosurf_tpu_torch.kernels import fused_render_dnerf as frd
     from endosurf_tpu_torch.kernels import fused_sdf as fsd
@@ -92,9 +93,10 @@ def digests(dev):
     like, _ = ftd.segment_weights(eff, "color")
     leaves, (_, d_feat) = ftd.dnerf_color_bwd(packed, like, d, feat, g_rgb)
     color_bwd = torch.cat([d_feat.reshape(-1)] + [v.reshape(-1) for v in leaves])
+    color_fwd = ftd.dnerf_color_fwd(packed, d, feat)
     return tuple(hashlib.sha256(v.detach().cpu().numpy().tobytes()).hexdigest()
                  for v in (render, bwd, deform_bwd, density_fwd, deform_fwd, density_raw,
-                           color_bwd))
+                           color_bwd, color_fwd))
 
 
 def main():
@@ -108,8 +110,8 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    render, bwd, deform_bwd, density_fwd, deform_fwd, density_raw, color_bwd = digests(
-        torch.device("cuda"))
+    (render, bwd, deform_bwd, density_fwd, deform_fwd, density_raw, color_bwd,
+     color_fwd) = digests(torch.device("cuda"))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     nvcc = subprocess.run([build.find_nvcc(), "--version"], capture_output=True,
@@ -118,7 +120,7 @@ def main():
           f"backward digest {bwd}; float32 deform backward digest {deform_bwd}; float32 "
           f"density forward digest {density_fwd}; float32 deform forward digest "
           f"{deform_fwd}; float32 raw density digest {density_raw}; float32 colour backward "
-          f"digest {color_bwd} ({smi}; {nvcc})")
+          f"digest {color_bwd}; float32 colour forward digest {color_fwd} ({smi}; {nvcc})")
 
 
 if __name__ == "__main__":

@@ -46,15 +46,16 @@ VARIANTS = {
 }
 
 
-def build_variants(work: str) -> dict:
-    """Each variant's library path, built in parallel."""
+def build_variants(work: str, variants=None, cu: str = CU) -> dict:
+    """Each variant's library path (``variants``: name -> edits (old, new) of
+    csrc/``cu``; default VARIANTS), built in parallel."""
     sys.path.insert(0, str(ROOT))
     from endosurf_tpu_torch.kernels import build
     procs = {}
-    for name, edits in VARIANTS.items():
+    for name, edits in (VARIANTS if variants is None else variants).items():
         src = os.path.join(work, name, "csrc")
         shutil.copytree(build.CSRC, src)
-        path = os.path.join(src, CU)
+        path = os.path.join(src, cu)
         text = open(path).read()
         for old, new in edits:
             assert text.count(old) == 1, (name, old)

@@ -152,7 +152,8 @@ Phases (any failure raises and exits non-zero):
      the paths' shapes (2048 rays; 1,048,576 points; 65,536 points), bf16,
      beside their bounds with TFLOP/s and GB/s (the render, the raw density
      query and the three forwards also against their SIMT bf16 kernels),
-     and a render chunk's device time by kernel family.
+     and a render chunk's device time by kernel family (bf16 on tensor
+     cores, SIMT bf16 and float32; the resample stage among them).
  23-28. EndoNeRF training, on the same config with base.yml's train keys
      (2048 rays, depth-guided sampling with sigma 1.0, perturb, raw noise
      1.0, bf16 dots, Adam at the exponential rate):
@@ -198,7 +199,10 @@ Phases (any failure raises and exits non-zero):
      versions at the train shape (262,144 points; 131,072 coarse points;
      2048 rays), bf16, beside their bounds (the three backwards, the three
      forwards and the raw density query also against their SIMT bf16
-     kernels, with TFLOP/s; the forwards with GB/s);
+     kernels, with TFLOP/s; the forwards with GB/s); then, in a fresh
+     process (tools/probe_resample_kernel.py), the resample's device time by
+     torch.profiler beside its CUDA-event call time, and the render chunk's
+     resample stage in bf16 (double) and float32;
  28. bf16 render quality: the port trains its own checkpoint for 300 steps
      on a smooth 64x80 synthetic scene, then renders the test frame in bf16
      and in float32: PSNR and depth RMSE of each against the scene;
@@ -1362,7 +1366,7 @@ def render_split(fn, smi: str, what: str, reps: int = 3) -> None:
     if busy == 0:
         print("dnerf render split: the profiler recorded no device time", flush=True)
         return
-    print(f"dnerf render split ({CHUNK} rays, bf16, {what}, {smi}): {busy:.3f} ms of device "
+    print(f"dnerf render split ({CHUNK} rays, {what}, {smi}): {busy:.3f} ms of device "
           "time = " + ", ".join(f"{k} {v:.3f} ms ({100 * v / busy:.1f} %)"
                                 for k, v in parts.items() if v), flush=True)
 
@@ -1473,8 +1477,10 @@ def dnerf_timing(spec, rspec, renderer, seg_cases, n_seg, smi: str) -> dict:
         packed, inputs = seg_cases[name]
         calls[f"{name} (SIMT bf16)"] = (
             lambda f=ftd.FWD[name.split("_")[1]], p=packed, i=inputs: f(p, *i, simt=True), None, 5)
-    render_split(calls["fused_render_rays_dnerf"][0], smi, "tensor cores")
-    render_split(calls["fused_render_rays_dnerf (SIMT bf16)"][0], smi, "SIMT")
+    render_split(calls["fused_render_rays_dnerf"][0], smi, "bf16, tensor cores")
+    render_split(calls["fused_render_rays_dnerf (SIMT bf16)"][0], smi, "bf16, SIMT")
+    render_split(lambda: frd.fused_render_rays_dnerf_cuda(spec, rspec, params, chunk), smi,
+                 "float32")
     out = {}
     for k, (kern, pl, reps) in calls.items():
         with torch.no_grad():
@@ -1769,7 +1775,7 @@ DN_DETAIL = ("dnerf_deform_bwd", "dnerf_density_bwd", "dnerf_color_bwd", "wgrad_
              "dnerf_deform_fwd", "dnerf_density_fwd", "dnerf_color_fwd")
 DN_FAMILIES = (("D-NeRF segment kernels", ("dnerf_", "wgrad_")),
                ("coarse density sweep", ("sweep_kernel", "dn_sweep_tc_kernel")),
-               ("resample", ("dn_fine_resample_kernel",)))
+               ("resample", ("dn_fine_resample_kernel", "dn_resample_warp_kernel")))
 
 
 def dnerf_train_phase(scene, dev, smi: str):
@@ -2083,7 +2089,34 @@ def dnerf_train_timing(spec, rspec, bwd_cases, resample_in, smi: str, params=Non
     for name, (k_ms, p_ms, b_ms, b_by) in out.items():
         print(f"{name} timing (bf16, {smi}): kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms; bound "
               f"{b_ms:.4f} ms ({b_by})", flush=True)
+    resample_device_times()
     return out
+
+
+def resample_device_times() -> None:
+    """Phase 27: the resample's device time (torch.profiler) beside its call
+    time (CUDA events) at 2048 rays and 64 + 64, and a 2048-ray render
+    chunk's resample stage in bf16 (double) and float32, by
+    tools/probe_resample_kernel.py in a fresh process."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run([sys.executable, os.path.join(root, "tools", "probe_resample_kernel.py"),
+                          "--root", root], capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"probe_resample_kernel: {out.stderr[-2000:]}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    one = res["standalone"]
+    print(f"fused_fine_resample device time ({one['rays']} rays, {one['n0']} + {one['n_new']}, "
+          f"{res['card']}): {one['device_ms']:.4f} ms (torch.profiler), the call "
+          f"{one['event_ms']:.4f} ms (CUDA events)", flush=True)
+    check(one["device_ms"] == 0 or any("dn_resample_warp_kernel<float>" in k
+                                       for k in one["kernels"]), f"resample kernels {one}")
+    for mode, real in (("bf16", "double"), ("float32", "float")):
+        chunk = res[f"render chunk {mode}"]
+        print(f"dnerf render chunk resample stage ({chunk['rays']} rays, {mode}, {res['card']}): "
+              f"{chunk['resample']:.4f} ms of {chunk['total']:.3f} ms device time "
+              f"({', '.join(chunk['resample kernels'])})", flush=True)
+        check(chunk["total"] == 0 or any(f"dn_resample_warp_kernel<{real}>" in k
+                                         for k in chunk["resample kernels"]),
+              f"{mode} render resample kernels {chunk}")
 
 
 def smooth_scene(h: int, w: int, dev):

@@ -1,9 +1,7 @@
 // The per-point D-NeRF field evaluation (kernels/fused_train_dnerf.py's
 // forward_math), shared by the EndoNeRF render kernel's fine evaluation
 // (fused_render_dnerf.cu) and the six segment kernels (fused_train_dnerf.cu:
-// the forwards, and the backwards' recompute), and the per-ray importance
-// resampling (dn_resample_ray: the render kernel's and fused_sampler.cu's
-// standalone fused_fine_resample):
+// the forwards, and the backwards' recompute):
 //
 //   x_c         = x + deform(enc(x, t))                     dn_deform
 //   (sigma, f)  = density(enc(x_c)): column 0 of the output
@@ -236,65 +234,6 @@ __device__ void dn_color(const float* __restrict__ wts, const Model& m, const Dn
     s.out[p * 4 + 1 + col] = sigmoidf_(dn_out_col(m.color, wts, s.h + p * HMAX, col));
   }
   __syncthreads();
-}
-
-__device__ __forceinline__ float dn_exp(float x) { return expf(x); }
-__device__ __forceinline__ double dn_exp(double x) { return exp(x); }
-
-// Importance resampling of one ray (fused_sampler.fine_resample_math): the
-// coarse weights of raw2outputs on relu(sigma) at the n0 sorted depths z,
-// scaled by dn = |d|, the sample_pdf of weights 1 .. n0-2 (+ 1e-5) over the
-// n0 - 1 midpoint bins with n_new draws at u = (j + 0.5) / n_new, then the
-// sorted merge of the n0 depths and the draws into out [n0 + n_new]. Real:
-// the arithmetic, each draw rounded to float32 once. float: the standalone
-// resample's and the float32 and SIMT renders'. double: the bf16
-// tensor-core render's: in float32 the cdf's running sums and the draw's
-// interpolation put each draw a few ulps from the float64 yardstick's, and
-// an ulp of a depth tips the bf16 rounding of a sample coordinate now and
-// then, so on faint rays the float32 resample set the acc_map p99 of both
-// renders against float64 (PERF.md §6).
-template <class Real = float>
-__device__ __forceinline__ void dn_resample_ray(int n0, int n_new, float dn_f, const float* z,
-                                                const float* s, float* out) {
-  Real cdf[DN_N0];      // n0 - 1 entries: 0, then the running sum of the pdf
-  float znew[DN_N0];
-  const Real dn = dn_f, one = 1.f, zero = 0.f, half = 0.5f, tiny = 1e-10f, floor_w = 1e-5f;
-  Real T = one, wsum = zero;
-  for (int j = 0; j < n0 - 1; ++j) {
-    const Real dist = ((Real)z[j + 1] - (Real)z[j]) * dn;
-    const Real alpha = one - dn_exp(-fmax((Real)s[j], zero) * dist);
-    const Real w = alpha * T;
-    T *= one - alpha + tiny;
-    if (j >= 1) {
-      const Real wf = w + floor_w;       // the pdf's weight floor
-      cdf[j] = wf;
-      wsum += wf;
-    }
-  }
-  cdf[0] = zero;
-  Real run = zero;
-  for (int k = 1; k < n0 - 1; ++k) { run += cdf[k] / wsum; cdf[k] = run; }
-  const int nb = n0 - 1;               // bins
-  for (int jn = 0; jn < n_new; ++jn) {
-    const Real u = ((Real)jn + half) / (Real)n_new;
-    int inds = 0;
-    for (int k = 0; k < nb; ++k) inds += (cdf[k] <= u) ? 1 : 0;
-    const int below = max(inds - 1, 0);
-    const int above = min(inds, nb - 1);
-    const Real zb = half * ((Real)z[below] + (Real)z[below + 1]);
-    const Real za = half * ((Real)z[above] + (Real)z[above + 1]);
-    Real denom = cdf[above] - cdf[below];
-    if (denom < floor_w) denom = one;
-    const float v = (float)(zb + (u - cdf[below]) / denom * (za - zb));
-    int pos = jn;                       // insertion keeps the draws sorted
-    while (pos > 0 && znew[pos - 1] > v) { znew[pos] = znew[pos - 1]; --pos; }
-    znew[pos] = v;
-  }
-  int a = 0, b = 0;
-  for (int k = 0; k < n0 + n_new; ++k) {
-    if (b >= n_new || (a < n0 && z[a] <= znew[b])) out[k] = z[a++];
-    else out[k] = znew[b++];
-  }
 }
 
 template <class K>

@@ -14,15 +14,16 @@
 // The standalone resampling of the EndoNeRF train step
 // (fused_fine_resample_launch) replaces the Pallas TPU kernel
 // endosurf_tpu/kernels/fused_sampler.py (fused_fine_resample, body
-// _fine_resample_kernel): the same per-ray code (dnerf_chain.cuh's
-// dn_resample_ray), one thread a ray, on the caller's z, sigma (after the
-// train noise and the relu) and |d|. What bounds it: bytes, 129 floats in and
-// 128 out a ray at 64 + 64, and the n0 x n_new compare-count of the draws.
+// _fine_resample_kernel): the render's resample kernel
+// (dn_resample_warp_kernel, one warp a ray) on the caller's z, sigma (after
+// the train noise and the relu) and |d|. What bounds it: bytes, 129 floats
+// in and 128 out a ray at 64 + 64; its floor in practice is the three
+// dependent chains of 63 steps a ray.
 //
 // One host entry (fused_render_dnerf_launch) launches a fixed sequence on
 // the caller's stream:
 //   prep -> coarse sweep (R x n0 points over DnRaySamples) -> resample (one
-//   thread a ray) -> field (R x (n0 + n_new) points) -> composite (one
+//   warp a ray) -> field (R x (n0 + n_new) points) -> composite (one
 //   thread a ray).
 // A bf16 pass runs on tensor cores (dnerf_tc.cuh): the coarse sweep is
 // dn_sweep_tc_kernel, the field dn_field_tc_kernel (deform, density and
@@ -35,7 +36,7 @@
 // What bounds it: the MLPs, about 0.41 GFLOP a ray at 64 + 64 samples with
 // the 9x256 / 9x256 / 2x128 nets (2 MFLOP a coarse point, 2.2 a fine one);
 // a ray's inputs and outputs are 73 floats. The per-ray resample and
-// composite are loops of a few hundred operations a ray.
+// composite are a few hundred operations a ray.
 //
 // Precision: rb_samp / rb_main round every dot operand of the coarse sweep /
 // of the field evaluation to bf16 (the weights arrive rounded); products
@@ -90,26 +91,156 @@ __global__ void dn_prep_kernel(const float* __restrict__ rays, int R, float* __r
   for (int k = 11; k < RB_STRIDE; ++k) b[k] = 0.f;
 }
 
-// Importance resampling of each ray (dnerf_chain.cuh's dn_resample_ray, in
-// Real arithmetic) into zl [R][DN_K].
+__device__ __forceinline__ float exp_r(float x) { return expf(x); }
+__device__ __forceinline__ double exp_r(double x) { return exp(x); }
+
+#define RS_WARPS 8      // rays per block of the resampling, one warp each
+
+// One ray's resampling state, a warp's own slice of shared memory.
 template <class Real>
-__global__ void dn_resample_kernel(int R, int n0, int n_new, const float* __restrict__ rb,
-                                   const float* __restrict__ z0, const float* __restrict__ sig,
-                                   float* __restrict__ zl) {
-  int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
-  dn_resample_ray<Real>(n0, n_new, rb[(size_t)r * RB_STRIDE + 10], z0 + (size_t)r * n0,
-                  sig + (size_t)r * n0, zl + (size_t)r * DN_K);
+struct RsRay {
+  Real alpha[DN_N0];           // 1 - exp(-relu(sigma_j) dist_j), j < n0 - 1
+  Real keep[DN_N0];            // 1 - alpha_j + 1e-10, the transmittance's factor
+  Real cdf[DN_N0];             // n0 - 1 entries: 0, then the running sum of the pdf
+  float v[DN_K];               // the n0 depths, then the n_new draws
+  unsigned long long key[DN_K];  // (rs_key(v[i]), i): the sort's key
+  float sorted[DN_K];
+};
+
+// v's place in the order of floats as an unsigned integer: -0 as +0, a NaN
+// above +inf (or, with its sign bit, below -inf). With the index beside it
+// the sort's keys are distinct, so the ranks are a permutation on any data.
+__device__ __forceinline__ unsigned rs_key(float v) {
+  const unsigned b = __float_as_uint(v == 0.f ? 0.f : v);
+  return (b & 0x80000000u) ? ~b : b | 0x80000000u;
 }
 
-// The standalone resampling: z, sig [R][n0], dn [R] -> out [R][n0 + n_new].
-__global__ void dn_fine_resample_kernel(int R, int n0, int n_new, const float* __restrict__ z,
-                                        const float* __restrict__ sig,
-                                        const float* __restrict__ dn, float* __restrict__ out) {
-  int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
-  dn_resample_ray(n0, n_new, dn[r], z + (size_t)r * n0, sig + (size_t)r * n0,
-                  out + (size_t)r * (n0 + n_new));
+// Importance resampling (fused_sampler.fine_resample_math), one warp a ray:
+// the coarse weights of raw2outputs on relu(sigma) at the ray's n0 sorted
+// depths z, scaled by its |d| (dn[r * dn_stride]), the sample_pdf of weights
+// 1 .. n0-2 (+ 1e-5) over the n0 - 1 midpoint bins with n_new draws at
+// u = (j + 0.5) / n_new, then the n0 depths and the draws sorted into
+// out[r * out_stride ..][n0 + n_new]. The standalone fused_fine_resample
+// (dn = |d| [R], out [R][n0 + n_new]) and the render's resample stage (dn in
+// the ray buffer, out the chunk's zl [R][DN_K]) both launch it.
+//
+// There is no matrix product here, so tensor cores, wgmma and TMA do not
+// apply; what the card offers is occupancy, shared memory and warp
+// synchronisation. A block holds RS_WARPS rays (2048 rays: 256 blocks on the
+// 132 SMs) and a ray's arrays sit in shared memory: the lanes load z and
+// sigma coalesced and form every alpha and transmittance factor, lane 0 runs
+// the three dependent chains (the transmittance T, the weight sum, the cdf's
+// running sum) in order, the lanes divide the cdf by the sum, each lane
+// finds its draws' bins by binary search (the running sums never decrease,
+// so it gives the compare count's integer) and interpolates them, and each
+// value is placed by its rank in (key, index) order: the coarse depths
+// before equal draws, equal draws in draw order. The stores are coalesced.
+// Every sum and product runs in the order of a serial loop over the ray, as
+// the one-thread-a-ray kernel before this one did, so the bits are its bits
+// (tests/test_torch_cuda.py's F32_DN_RESAMPLE_DIGEST, BF16_DN_RENDER_DIGEST).
+//
+// Real: the arithmetic, each draw rounded to float32 once. float: the
+// standalone resample's and the float32 and SIMT renders'. double: the bf16
+// tensor-core render's: in float32 the cdf's running sums and the draw's
+// interpolation put each draw a few ulps from the float64 yardstick's, and
+// an ulp of a depth tips the bf16 rounding of a sample coordinate now and
+// then, so on faint rays the float32 resample set the acc_map p99 of both
+// renders against float64 (PERF.md §6).
+template <class Real>
+__global__ void __launch_bounds__(32 * RS_WARPS)
+dn_resample_warp_kernel(int R, int n0, int n_new, const float* __restrict__ z,
+                        const float* __restrict__ sig, const float* __restrict__ dn,
+                        int dn_stride, float* __restrict__ out, int out_stride) {
+  __shared__ RsRay<Real> rays[RS_WARPS];
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * RS_WARPS + (threadIdx.x >> 5);
+  if (r >= R) return;                  // the whole warp: below, only warp syncs
+  RsRay<Real>& s = rays[threadIdx.x >> 5];
+  const float* zr = z + (size_t)r * n0;
+  const float* sr = sig + (size_t)r * n0;
+  const Real dnv = dn[(size_t)r * dn_stride], one = 1.f, zero = 0.f, half = 0.5f,
+             tiny = 1e-10f, floor_w = 1e-5f;
+  const int nb = n0 - 1, K = n0 + n_new;   // bins, outputs
+  for (int k = lane; k < n0; k += 32) s.v[k] = zr[k];
+  __syncwarp();
+  for (int j = lane; j < nb; j += 32) {
+    const Real dist = ((Real)s.v[j + 1] - (Real)s.v[j]) * dnv;
+    const Real alpha = one - exp_r(-fmax((Real)sr[j], zero) * dist);
+    s.alpha[j] = alpha;
+    s.keep[j] = one - alpha + tiny;
+  }
+  __syncwarp();
+  Real wsum = zero;
+  if (lane == 0) {
+    Real T = one;
+    for (int j = 0; j < nb; ++j) {
+      const Real w = s.alpha[j] * T;
+      T *= s.keep[j];
+      if (j >= 1) {
+        const Real wf = w + floor_w;       // the pdf's weight floor
+        s.cdf[j] = wf;
+        wsum += wf;
+      }
+    }
+    s.cdf[0] = zero;
+  }
+  __syncwarp();
+  wsum = __shfl_sync(0xffffffffu, wsum, 0);
+  for (int k = 1 + lane; k < nb; k += 32) s.cdf[k] = s.cdf[k] / wsum;
+  __syncwarp();
+  if (lane == 0) {
+    Real run = zero;
+    for (int k = 1; k < nb; ++k) { run += s.cdf[k]; s.cdf[k] = run; }
+  }
+  __syncwarp();
+  for (int jn = lane; jn < n_new; jn += 32) {
+    const Real u = ((Real)jn + half) / (Real)n_new;
+    int lo = 0, hi = nb;                 // inds: the entries of cdf <= u
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (s.cdf[mid] <= u) lo = mid + 1;
+      else hi = mid;
+    }
+    const int below = max(lo - 1, 0);
+    const int above = min(lo, nb - 1);
+    const Real zb = half * ((Real)s.v[below] + (Real)s.v[below + 1]);
+    const Real za = half * ((Real)s.v[above] + (Real)s.v[above + 1]);
+    Real denom = s.cdf[above] - s.cdf[below];
+    if (denom < floor_w) denom = one;
+    s.v[n0 + jn] = (float)(zb + (u - s.cdf[below]) / denom * (za - zb));
+  }
+  __syncwarp();
+  for (int k = lane; k < K; k += 32)
+    s.key[k] = (unsigned long long)rs_key(s.v[k]) << 32 | (unsigned)k;
+  __syncwarp();
+  constexpr int E = DN_K / 32;           // values a lane places
+  unsigned long long mine[E];
+  int rank[E];
+#pragma unroll
+  for (int t = 0; t < E; ++t) {
+    mine[t] = lane + 32 * t < K ? s.key[lane + 32 * t] : ~0ull;
+    rank[t] = 0;
+  }
+  for (int i = 0; i < K; ++i) {
+    const unsigned long long ki = s.key[i];
+#pragma unroll
+    for (int t = 0; t < E; ++t) rank[t] += ki < mine[t] ? 1 : 0;
+  }
+#pragma unroll
+  for (int t = 0; t < E; ++t)
+    if (lane + 32 * t < K) s.sorted[rank[t]] = s.v[lane + 32 * t];
+  __syncwarp();
+  float* o = out + (size_t)r * out_stride;
+  for (int k = lane; k < K; k += 32) o[k] = s.sorted[k];
+}
+
+template <class Real>
+cudaError_t launch_dn_resample(int R, int n0, int n_new, const float* z, const float* sig,
+                               const float* dn, int dn_stride, float* out, int out_stride,
+                               cudaStream_t st) {
+  dn_resample_warp_kernel<Real><<<(R + RS_WARPS - 1) / RS_WARPS, 32 * RS_WARPS, 0, st>>>(
+      R, n0, n_new, z, sig, dn, dn_stride, out, out_stride);
+  return cudaGetLastError();
 }
 
 // The full field at the K sorted depths of each ray -> pt [R * K][4]: raw
@@ -162,9 +293,6 @@ template <> struct DnConst<float> {
 template <> struct DnConst<double> {
   static constexpr double tiny = 1e-10, eps = 1e-6, far = 1e10;
 };
-
-__device__ __forceinline__ float exp_r(float x) { return expf(x); }
-__device__ __forceinline__ double exp_r(double x) { return exp(x); }
 
 // raw2outputs of one ray over its K depths -> out [R][DN_OUT], in Real
 // arithmetic on the float32 depths and field values. float: the SIMT
@@ -338,11 +466,10 @@ int fused_render_dnerf_launch(const float* rays, const float* z0, int R, int n0,
   e = tc && rb_samp ? launch_dn_sweep_tc(w_samp, m, fr, coarse, st)
                     : launch_sweep<DNeRFChain>(w_samp, m, rb_samp != 0, coarse, st);
   if (e != cudaSuccess) return (int)e;
-  if (tc && rb_main)
-    dn_resample_kernel<double><<<rblocks, tpb, 0, st>>>(R, n0, n_new, rb, z0, sig, zl);
-  else
-    dn_resample_kernel<float><<<rblocks, tpb, 0, st>>>(R, n0, n_new, rb, z0, sig, zl);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  e = tc && rb_main
+          ? launch_dn_resample<double>(R, n0, n_new, z0, sig, rb + 10, RB_STRIDE, zl, DN_K, st)
+          : launch_dn_resample<float>(R, n0, n_new, z0, sig, rb + 10, RB_STRIDE, zl, DN_K, st);
+  if (e != cudaSuccess) return (int)e;
   if (tc && rb_main) e = launch_dn_field_tc(w_main, m, fr, R, K, rb, zl, pt, st);
   else if (rb_main) e = launch_dn_field<true>(w_main, m, R, K, rb, zl, pt, st);
   else e = launch_dn_field<false>(w_main, m, R, K, rb, zl, pt, st);
@@ -359,10 +486,8 @@ int fused_fine_resample_launch(const float* z, const float* sigma, const float* 
                                int n_new, float* out, void* stream) {
   if (R <= 0) return 0;
   if (n0 < 3 || n0 > DN_N0 || n_new < 1 || n_new > DN_N0) return (int)cudaErrorInvalidValue;
-  const int tpb = 128;
-  dn_fine_resample_kernel<<<(R + tpb - 1) / tpb, tpb, 0, (cudaStream_t)stream>>>(
-      R, n0, n_new, z, sigma, dn, out);
-  return (int)cudaGetLastError();
+  return (int)launch_dn_resample<float>(R, n0, n_new, z, sigma, dn, 1, out, n0 + n_new,
+                                        (cudaStream_t)stream);
 }
 
 }  // extern "C"

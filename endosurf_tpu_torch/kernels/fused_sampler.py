@@ -40,11 +40,14 @@ The EndoNeRF importance resampling is the port of
 ``fused_sampler.py::fused_fine_resample`` (a Pallas TPU kernel): the coarse
 weights of raw2outputs, the deterministic inverse-CDF draws over the
 midpoint bins and the sorted merge. ``fused_fine_resample_cuda`` launches
-``csrc/fused_render_dnerf.cu``'s standalone resample (the per-ray code of
-``csrc/dnerf_chain.cuh``, which the EndoNeRF render kernel runs too),
+``csrc/fused_render_dnerf.cu``'s resample kernel (one warp a ray, the
+kernel the EndoNeRF render's resample stage launches too),
 ``fine_resample_math`` is its plain version (``fused_fine_resample_reference``)
 and ``fused_fine_resample`` dispatches as above: the train step's
 deterministic draws on the card always run the kernel.
+``resample_edge_inputs`` makes the inputs on which a parallel resample goes
+wrong (a pdf of the weight floor alone, one opaque sample, alpha exactly 1,
+duplicated depths and draws on a coarse depth).
 """
 
 from __future__ import annotations
@@ -76,6 +79,10 @@ LAUNCHES = {"fused_upsample_z": 0, "fused_ray_march": 0, "fused_fine_resample": 
 PACKS = {"sampling": 0}
 _SAMPLING_PACKS: PackCache = {}
 RESAMPLE_MAX = 64        # csrc/dnerf_chain.cuh's DN_N0: coarse depths, and draws, a ray
+# the resample gate's corners (n0, n_new): its fewest and most of each
+RESAMPLE_CORNERS = ((3, 1), (3, 64), (64, 1), (64, 64))
+# the rows of resample_edge_inputs, in blocks of equal size, in this order
+RESAMPLE_EDGE_KINDS = ("zero", "one_opaque", "huge", "duplicates", "on_depth", "random")
 
 # The limits below were set from H100 readings of the sound pairs (kernel
 # and twin at one dot precision), the wrong-precision controls and kernels
@@ -297,6 +304,45 @@ def fine_resample_shape_supported(n0: int, n_new: int) -> bool:
     """The kernel's limits: 3 to 64 coarse depths and 1 to 64 draws (JAX's
     kernel takes only 64 + 64)."""
     return 3 <= n0 <= RESAMPLE_MAX and 1 <= n_new <= RESAMPLE_MAX
+
+
+def resample_edge_inputs(n0: int, seed: int = 0, rays_per_kind: int = 8
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Seeded (z_vals [R, n0] sorted, sigma [R, n0], d_norm [R, 1]) float32 CPU
+    tensors, ``rays_per_kind`` rays of each ``RESAMPLE_EDGE_KINDS`` kind in
+    that order: "zero" all-zero sigma (a pdf of the 1e-5 weight floor
+    alone); "one_opaque" sigma 0 but at one sample (the other bins' cdf steps
+    fall under 1e-5, the ``denom < 1e-5 -> 1`` rule); "huge" sigma 1e30 at a
+    few samples (alpha exactly 1, the transmittance down to 0); "duplicates"
+    random sigma on depths rounded to multiples of 1/8, so repeated in runs,
+    the middle two equal (zero distances, zero-width bins); "on_depth"
+    all-zero sigma on such depths with the middle six equal, so that draws
+    in zero-width bins (the middle one at any n_new) equal a coarse depth
+    and each other (ties in the merge); "random" random sigma."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    kinds = len(RESAMPLE_EDGE_KINDS)
+    n = kinds * rays_per_kind
+    z = np.sort(rng.uniform(0.5, 3.0, (n, n0)), axis=-1).astype(np.float32)
+    sigma = np.maximum(rng.normal(0.0, 3.0, (n, n0)), 0).astype(np.float32)
+    rows = {k: slice(i * rays_per_kind, (i + 1) * rays_per_kind)
+            for i, k in enumerate(RESAMPLE_EDGE_KINDS)}
+    sigma[rows["zero"]] = 0.0
+    sigma[rows["on_depth"]] = 0.0
+    opaque = sigma[rows["one_opaque"]]
+    opaque[:] = 0.0
+    opaque[np.arange(rays_per_kind), rng.integers(0, n0, rays_per_kind)] = 50.0
+    huge = sigma[rows["huge"]]
+    huge[rng.uniform(size=huge.shape) < 0.1] = 1e30
+    huge[:, n0 // 2] = 1e30
+    for kind in ("duplicates", "on_depth"):
+        z[rows[kind]] = np.round(z[rows[kind]] * 8.0) / 8.0
+    z[rows["duplicates"], n0 // 2 - 1] = z[rows["duplicates"], n0 // 2]
+    mid = slice(max(n0 // 2 - 3, 0), n0 // 2 + 3)
+    z[rows["on_depth"], mid] = z[rows["on_depth"], n0 // 2, None]
+    z = np.sort(z, axis=-1)
+    dn = rng.uniform(0.9, 1.3, (n, 1)).astype(np.float32)
+    return torch.from_numpy(z), torch.from_numpy(sigma), torch.from_numpy(dn)
 
 
 def fused_fine_resample_reference(z_vals: torch.Tensor, sigma: torch.Tensor,

@@ -1713,20 +1713,21 @@ def test_dnerf_render_limits_reject_the_other_precision(dev, nets, depth_guided)
 # resample with its draws half a step early (u = j / n_new) or with its
 # coarse weights on distances without |d|, and the composite's depth sum
 # without |d|, move every opaque ray a little.
-# The resample is dnerf_chain.cuh's dn_resample_ray (the render kernel's, in
-# float32 or, for the bf16 tensor-core render, in double, and the standalone
-# fused_fine_resample's), the composite fused_render_dnerf.cu's.
+# The resample and the composite are fused_render_dnerf.cu's: the resample
+# its warp-a-ray dn_resample_warp_kernel (the render's, in float32 or, for
+# the bf16 tensor-core render, in double, and the standalone
+# fused_fine_resample's).
 RESAMPLE_FAULTS = {
-    "no_weight_floor": ("      const Real wf = w + floor_w;       // the pdf's weight floor",
-                        "      const Real wf = w;", ("full",)),
+    "no_weight_floor": ("        const Real wf = w + floor_w;       // the pdf's weight floor",
+                        "        const Real wf = w;", ("full",)),
     "draws_half_step": ("    const Real u = ((Real)jn + half) / (Real)n_new;",
                         "    const Real u = (Real)jn / (Real)n_new;", ("full-dense",)),
-    "resample_dist_without_dn": ("    const Real dist = ((Real)z[j + 1] - (Real)z[j]) * dn;",
-                                 "    const Real dist = (Real)z[j + 1] - (Real)z[j];",
-                                 ("full-dense",)),
+    "resample_dist_without_dn": (
+        "    const Real dist = ((Real)s.v[j + 1] - (Real)s.v[j]) * dnv;",
+        "    const Real dist = (Real)s.v[j + 1] - (Real)s.v[j];", ("full-dense",)),
 }
 RENDER_FAULTS = {
-    **{k: ("dnerf_chain.cuh", *v) for k, v in RESAMPLE_FAULTS.items()},
+    **{k: ("fused_render_dnerf.cu", *v) for k, v in RESAMPLE_FAULTS.items()},
     "depth_without_dn": ("fused_render_dnerf.cu", "    dsum += w * z[j] * dn;",
                          "    dsum += w * z[j];", ("full-dense",)),
 }
@@ -2708,7 +2709,10 @@ def test_density_raw_runs_on_tensor_cores(dev):
 # forward's before theirs, the deform forward and raw density's before
 # theirs, the colour backward's before its own), and the nvcc release
 # that compiled them: another toolchain may compile other bits, so the test
-# skips under it (rerun the tool on both trees then).
+# skips under it (rerun the tool on both trees then). The float32 resample's
+# depths and the bf16 tensor-core render's maps (its resample in double) as
+# the one-thread-a-ray resample computed them, taken on the tree before the
+# resample took one warp a ray.
 F32_DN_RENDER_DIGEST = "b3e4a35b127df95a3c9a71e6b7db75576f0b578f2399281952151dd9710939b3"
 F32_DN_BWD_DIGEST = "4c4f5d2f96ca75accf71af777e9b3717a249a97ffcfbdcede9e41cedd4c04897"
 F32_DN_DEFORM_BWD_DIGEST = "22f84ebab5f4a77018efaf36bbebc7b6b7b1f1737d8fc2f51361efdf84e5ef31"
@@ -2717,27 +2721,32 @@ F32_DN_DEFORM_FWD_DIGEST = "f6c35c5c0443c3be02e0051438a8805ee08b2fe8e59ad838eaf9
 F32_DN_DENSITY_RAW_DIGEST = "ce7cb9fe9b6e1e424f8f9d058c64bb67cb893998beda92e15c4d2fa2b9169b4b"
 F32_DN_COLOR_BWD_DIGEST = "026e761fe54a5fb2d4d9d3623d53f0e5489351da8fcae25b0f6bc25f50301d69"
 F32_DN_COLOR_FWD_DIGEST = "da093a5cbcfa26e15679df28d0ff20d48479ed2e3164950b2869efc57912c1a3"
+F32_DN_RESAMPLE_DIGEST = "6838646691cd712c204a5c253c618c90c2585dffbb1b0fd4e46df6da621405e9"
+BF16_DN_RENDER_DIGEST = "375e6cad16f602e4fd62a27b9f247777a9f17b320c8ebe1fd8bcec0994d8aae8"
 
 
 def test_dnerf_f32_is_the_simt_path(dev):
     """The float32 D-NeRF render, density backward, deform backward,
     density forward, deform forward, raw density query, colour backward and
     colour forward run the SIMT code, untouched by the tensor-core bf16
-    kernels: their outputs equal that code's recorded digests bit for bit."""
+    kernels: their outputs equal that code's recorded digests bit for bit.
+    The warp-a-ray resample keeps the one-thread resample's bits: in float32
+    (the standalone resample) and in double (the bf16 render's maps)."""
     import subprocess
     got = _tool("dnerf_f32_digest").digests(dev)
     nvcc = subprocess.run([build.find_nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout
     release = next((ln for ln in nvcc.splitlines() if "release" in ln), nvcc.strip())
     print(f"float32 dnerf render, density backward, deform backward, density forward, "
-          f"deform forward, raw density, colour backward, colour forward digests {got} "
-          f"({release})")
+          f"deform forward, raw density, colour backward, colour forward, resample and bf16 "
+          f"dnerf render digests {got} ({release})")
     if F32_RENDER_NVCC not in release:
         pytest.skip(f"the digests were taken with nvcc {F32_RENDER_NVCC.rstrip(',')}, "
                     f"this one is {release}")
     assert got == (F32_DN_RENDER_DIGEST, F32_DN_BWD_DIGEST, F32_DN_DEFORM_BWD_DIGEST,
                    F32_DN_DENSITY_FWD_DIGEST, F32_DN_DEFORM_FWD_DIGEST,
-                   F32_DN_DENSITY_RAW_DIGEST, F32_DN_COLOR_BWD_DIGEST, F32_DN_COLOR_FWD_DIGEST)
+                   F32_DN_DENSITY_RAW_DIGEST, F32_DN_COLOR_BWD_DIGEST, F32_DN_COLOR_FWD_DIGEST,
+                   F32_DN_RESAMPLE_DIGEST, BF16_DN_RENDER_DIGEST)
 
 
 def _resample_inputs(nets: str, n0: int, dev, seed: int = 0):
@@ -2779,13 +2788,34 @@ def test_fine_resample_matches_plain(dev, cell, nets, seed):
     assert bool(torch.isin(z0[:8], got[:8]).all())
 
 
+@pytest.mark.parametrize("corner", fs.RESAMPLE_CORNERS,
+                         ids=[f"{a}+{b}" for a, b in fs.RESAMPLE_CORNERS])
+def test_fine_resample_edges_match_plain(dev, corner):
+    """fused_fine_resample on fused_sampler.resample_edge_inputs (a pdf of
+    the weight floor alone, one opaque sample, alpha exactly 1, duplicated
+    depths, draws on a coarse depth; 64 rays of each) at the gate's corners
+    against fine_resample_math at RESAMPLE_PARITY_TOL; one launch, sorted
+    output, every ray's coarse depths kept."""
+    n0, n_new = corner
+    z0, sigma, dn = (a.to(dev) for a in fs.resample_edge_inputs(n0, 0, 64))
+    before = fs.LAUNCHES["fused_fine_resample"]
+    got = fs.fused_fine_resample(z0, sigma, dn, n_new)
+    assert fs.LAUNCHES["fused_fine_resample"] == before + 1
+    ref = fs.fused_fine_resample_reference(z0, sigma, dn, n_new)
+    res = fs.resample_parity(got, ref)
+    print(f"resample edges {corner}: {res}")
+    assert res[-1], res
+    assert got.shape == (z0.shape[0], n0 + n_new) and bool((got[:, 1:] >= got[:, :-1]).all())
+    assert bool((got[:, None, :] == z0[:, :, None]).any(-1).all())
+
+
 @pytest.mark.parametrize("fault", ["draws_half_step", "resample_dist_without_dn"])
 def test_fine_resample_limits_catch_planted_faults(dev, fault, tmp_path, monkeypatch):
     """The resample built with its draws half a step early, or its coarse
     weights on distances without |d|, fails the limits on the opaque nets
     (the seeded nets' readings are printed)."""
     old, new, _ = RESAMPLE_FAULTS[fault]
-    _rebuild_with(monkeypatch, tmp_path, "dnerf_chain.cuh", old, new)
+    _rebuild_with(monkeypatch, tmp_path, "fused_render_dnerf.cu", old, new)
     for nets in ("full", "full-dense"):
         z0, sigma, dn = _resample_inputs(nets, 64, dev)
         res = fs.resample_parity(fs.fused_fine_resample_cuda(z0, sigma, dn),

@@ -11,6 +11,7 @@
                                                   # and 27's segment and coarse timing
     python3 chip_smoke.py --march-only   # phases 1, 2, 14 and 16
     python3 chip_smoke.py --march-train-only   # phases 1, 2 and 15 (run, split, trace)
+    python3 chip_smoke.py --modules-only   # phases 1, 2, a served frame and 30-33
 
 Phases (any failure raises and exits non-zero):
   1. a CUDA card must be present; prints its name and power limit;
@@ -215,6 +216,34 @@ Phases (any failure raises and exits non-zero):
      sweep_tc_kernel<RaySamples> 9 times, no SIMT sweep), the simt=True
      calls none; the D-NeRF field of a train step (forward and backward) in
      bf16 launches dnerf_color_fwd_tc_kernel and no SIMT segment kernel.
+ 30. preprocessing: a synthetic ENDONERF raw capture (8 frames at 512x640,
+     LLFF poses_bounds, a tool strip in the masks) through
+     preprocess_endonerf.endonerf_info_from_arrays and a SCARED one (4 frames
+     at 1024x1280: closing kernel 10, even) through
+     preprocess_scared.scared_info_from_arrays, no imageio and no OpenCV:
+     the host seconds of the point clouds, the denoising and the
+     normalisation; then SceneData.from_info on the card from the ENDONERF
+     info and arrays, and 2 EndoSurf base.yml train steps on it (finite
+     losses, one upsample launch a step);
+ 31. the surface queries at base.yml widths on N_QUERY rays of a frame: EndoSurf
+     render_on_depth at the bf16 sphere trace's depths (the segment forward
+     kernels), EndoNeRF render_on_depth at the ground-truth depths and
+     render_rays(want_normals=True) at 64 + 64 samples (the raw density,
+     resample and D-NeRF forward kernels; the normals by autograd of the
+     plain chain): each bf16 call's launches, device ms (CUDA events) and
+     peak memory; each in float32 against the same call on CPU copies
+     (render_rays on the first N_QUERY_CPU rays) at QUERY_TOL; the EndoNeRF
+     gradient against a float64 central difference of the raw density on
+     N_FD points at FD_TOL, where the planted fault -- the gradient with
+     respect to x_c through the segment kernels, without the deform
+     Jacobian -- must fail;
+ 32. LPIPS: cal_lpips of phase 4's served frame against its ground truth,
+     masked, with random VGG16 weights written in the lpips_vgg16.npz schema
+     to a temporary directory, on the card and on the CPU (equal to 1e-4
+     relative); the card's ms a call;
+ 33. train.profile: 4 EndoSurf base.yml train steps with the window on steps
+     2-3; the Chrome trace exists and names the port's kernels.
+Phases 30-33 each print one JSON line ({"phase": ...}).
 Phase 7 also checks one launch of each segment kernel per step, and its
 trace counts the segment kernels (the weight-gradient product included) as
 their own family. The third-to-last line is the card, the second-to-last
@@ -2177,6 +2206,491 @@ def dnerf_render_quality(dev, smi: str) -> None:
                           for kk in res["default"]), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phases 30-33: raw-capture preprocessing, the surface queries, LPIPS and the
+# train.profile window
+# ---------------------------------------------------------------------------
+
+PRE_ENDONERF = (8, 512, 640)                   # frames, height, width of phase 30's captures
+PRE_SCARED = (4, 1024, 1280)                   # SCARED's width: closing kernel 1280 // 128 = 10
+N_QUERY = 2048                                 # rays of each query in phase 31
+N_QUERY_CPU = 256                              # rays of render_rays' CPU comparison
+N_FD = 64                                      # points of the float64 central difference
+# Phase 31's card (float32 kernels, "highest") against the same call on CPU
+# copies: per ray, (median, p99, max) of the largest absolute error over the
+# channels. Set from H100 readings (PERF.md §6), about 10x: EndoSurf
+# colour 0 / 6.0e-8 / 6.0e-8 and grad_o 0 / 4.2e-7 / 6.6e-7, EndoNeRF colour
+# 0 / 6.0e-8 / 1.2e-7 (the float32 segment kernels against their plain
+# versions: within the CPU tests' limits against JAX, tests/
+# test_torch_queries.py); the EndoNeRF normals 4.2e-7 / 2.8e-5 / 3.5e-4 (the
+# plain autograd chain on both devices: cuBLAS and the CPU sum in other
+# orders, and a normal divides by |grad|); render_rays' normal map 9.1e-5 /
+# 1.1e-3 / 2.7e-3 and colour map 2.4e-6 / 2.2e-4 / 3.3e-4, which also run the
+# raw density and resample kernels against their plain versions (a fine
+# sample moves within fused_sampler.RESAMPLE_PARITY_TOL).
+QUERY_TOL = {"es_color": (1e-6, 1e-6, 1e-5), "es_grad": (1e-6, 5e-6, 1e-5),
+             "dn_color": (1e-6, 1e-6, 1e-5), "dn_normal": (5e-6, 5e-4, 5e-3),
+             "dn_normal_map": (1e-3, 1e-2, 3e-2), "dn_color_map": (3e-5, 2e-3, 5e-3)}
+# The EndoNeRF gradient (float32, on the card) against a float64 central
+# difference of the raw density at FD_EPS: (median, p90) over the points of
+# |grad - fd| over the points' median |fd| (a point's own |fd| can be near
+# 0). Not the max: a relu kink within FD_EPS of a point breaks its
+# difference. A CPU probe of base.yml's nets on 64 points read, over the
+# median |grad|: float32 against float64 autograd median 3.4e-6, p90 8.6e-6;
+# the difference against float64 autograd at eps 1e-5 / 1e-6 / 1e-7 p90 0.10
+# / 1.5e-2 / 6.9e-9 (ten octaves: truncation and kinks), max 2.3e-2 at 1e-7
+# (one kink). The planted fault (the gradient with respect to x_c through
+# the segment kernels) must exceed both limits.
+FD_EPS = 1e-7
+FD_TOL = (1e-4, 1e-3)
+
+
+def launch_counters():
+    from endosurf_tpu_torch.kernels import fused_render as fr
+    from endosurf_tpu_torch.kernels import fused_render_dnerf as frd
+    from endosurf_tpu_torch.kernels import fused_sampler as fs
+    from endosurf_tpu_torch.kernels import fused_sdf as fsd
+    from endosurf_tpu_torch.kernels import fused_train_cuda as ftc
+    from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
+    return (fr.LAUNCHES, frd.LAUNCHES, fs.LAUNCHES, fsd.LAUNCHES, ftc.LAUNCHES, ftd.LAUNCHES)
+
+
+def reset_launches() -> None:
+    for counts in launch_counters():
+        for k in counts:
+            counts[k] = 0
+
+
+def launches_now() -> dict:
+    """Every kernel wrapper's count that is not 0."""
+    return {k: v for counts in launch_counters() for k, v in counts.items() if v}
+
+
+def endonerf_capture(n: int, h: int, w: int, seed: int = 0):
+    """A synthetic ENDONERF raw capture as the reader would decode it: LLFF
+    poses_bounds [n, 17] (a camera 120 mm from a tissue dome, drifting),
+    colours in [0, 1], uint16-valued depths in mm with a background of 0,
+    masks_inverted (0 under a tool strip at the left)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    f = 0.9 * w
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    r2 = ((xs - w / 2) / (w / 3)) ** 2 + ((ys - h / 2) / (h / 3)) ** 2
+    poses, colors, depths = [], [], []
+    for i in range(n):
+        c2w = np.eye(4)
+        c2w[:3, 3] = [0.5 * i, 0.0, -120.0]
+        poses.append(np.concatenate([np.hstack([c2w[:3, :4], [[h], [w], [f]]]).ravel(),
+                                     [60.0, 110.0]]))
+        dome = 80.0 + 20.0 * r2 + 2.0 * np.sin(0.05 * xs + 0.3 * i)
+        depths.append(np.where(r2 < 1, np.round(dome), 0.0).astype(np.float32))
+        colors.append(rng.uniform(0, 1, (h, w, 3)).astype(np.float32))
+    masks = np.ones((n, h, w), np.float32)
+    masks[:, :, : w // 8] = 0.0
+    return np.stack(poses), np.stack(colors), np.stack(depths), masks
+
+
+def scared_capture(n: int, h: int, w: int, seed: int = 1):
+    """A synthetic SCARED keyframe capture as the reader would decode it: KL,
+    camera poses (a drift), reprojection matrices (fl 1000, baseline 4 mm),
+    uint8 colour images and float32 disparities of a 60-150 mm surface."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    fl, bl = 1000.0, 4.0
+    kl = [[fl, 0, w / 2], [0, fl, h / 2], [0, 0, 1]]
+    q = np.zeros((4, 4))
+    q[2, 3], q[3, 2] = fl, 1.0 / bl
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    poses, rgbs, disps = [], [], []
+    for i in range(n):
+        pose = np.eye(4)
+        pose[0, 3] = 0.5 * i
+        poses.append(pose)
+        depth = 105.0 + 40.0 * np.sin(xs / w * 3.0 + 0.2 * i) * np.cos(ys / h * 2.0)
+        disp = (fl * bl / depth).astype(np.float32)
+        disp[rng.uniform(size=(h, w)) < 0.02] = 0.0      # holes in the disparity
+        disps.append(disp)
+        rgbs.append(rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+    return [kl] * n, poses, [q] * n, rgbs, disps
+
+
+def preprocess_phase(dev, smi: str) -> dict:
+    """Phase 30: ENDONERF (8 x 512x640) and SCARED (4 x 1024x1280, closing
+    kernel 10) captures through the arrays cores, the host seconds of each
+    stage; then a SceneData on the card from the ENDONERF info and its
+    arrays and 2 EndoSurf base.yml train steps on it."""
+    t_phase = time.perf_counter()
+    import numpy as np
+
+    from endosurf_tpu_torch.data.preprocess_endonerf import endonerf_info_from_arrays
+    from endosurf_tpu_torch.data.preprocess_scared import scared_info_from_arrays
+    from endosurf_tpu_torch.data.scene_data import SceneData
+    from endosurf_tpu_torch.train.trainer_endosurf import EndoSurfTrainer
+    out = {}
+    poses_bounds, colors, depths, masks = endonerf_capture(*PRE_ENDONERF)
+    times = {}
+    t0 = time.perf_counter()
+    info = endonerf_info_from_arrays(poses_bounds, colors, depths, masks, "synthetic_endonerf",
+                                     times=times)
+    total = time.perf_counter() - t0
+    check(info["n_frames"] == PRE_ENDONERF[0] and info["wh"] == list(PRE_ENDONERF[:0:-1]),
+          f"endonerf info size {info['n_frames']} {info['wh']}")
+    check(bool(np.isfinite(info["bbox_minmax"]).all())
+          and float(np.abs(info["bbox_minmax"]).max()) <= 1.1, "endonerf bboxes in the sphere")
+    out["endonerf"] = {**{k: round(v, 4) for k, v in times.items()}, "total": round(total, 4)}
+    print(f"preprocess endonerf ({PRE_ENDONERF[0]} x {PRE_ENDONERF[1]}x{PRE_ENDONERF[2]}, host): "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in times.items()) + f"; total {total:.3f} s; "
+          f"radius {info['depth_norm_scale']:.2f} mm, train {info['list_train']}", flush=True)
+
+    s_times = {}
+    t0 = time.perf_counter()
+    s_info, processed = scared_info_from_arrays(*scared_capture(*PRE_SCARED), "synthetic_scared",
+                                                times=s_times)
+    s_total = time.perf_counter() - t0
+    n_s, h_s, w_s = PRE_SCARED
+    check(s_info["wh"] == [w_s, h_s] and len(processed["mask"]) == n_s,
+          f"scared info size {s_info['wh']}")
+    mask_on = float(np.mean([m.mean() / 255 for m in processed["mask"]]))
+    check(0.9 < mask_on <= 1.0, f"scared colour masks close the disparity holes ({mask_on:.4f})")
+    check(bool(np.isfinite(s_info["bbox_minmax"]).all()), "scared bboxes finite")
+    out["scared"] = {**{k: round(v, 4) for k, v in s_times.items()}, "total": round(s_total, 4)}
+    print(f"preprocess scared ({n_s} x {h_s}x{w_s}, closing kernel {max(1, w_s // 128)}, host): "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in s_times.items()) + f"; total {s_total:.3f} s "
+          f"(the closing and depth conversion the rest); mask share {mask_on:.4f}", flush=True)
+
+    scene = SceneData.from_info(info, colors, depths[..., None], masks[..., None], device=dev)
+    with tempfile.TemporaryDirectory() as exp_root:
+        tcfg = base_cfg()
+        tcfg["exp"]["exp_dir"] = exp_root
+        tcfg["train"]["n_iter"] = 2
+        tcfg["log"] = {"i_eval": 0, "i_save": 0}
+        trainer = EndoSurfTrainer(tcfg, mode="train", scene=scene, device=dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        trainer.start(log_every=1)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = launches_now()
+        losses = {}
+        with open(os.path.join(trainer.exp_dir, "logs", "metrics.jsonl")) as f:
+            for line in f:
+                rec = json.loads(line)
+                if rec["tag"] == "train/loss_total":
+                    losses[rec["step"]] = rec["value"]
+    check(sorted(losses) == [1, 2] and all(math.isfinite(v) for v in losses.values()),
+          f"finite losses of the preprocessed scene's 2 steps: {losses}")
+    check(launches.get("fused_upsample_z") == 2, f"launches of the 2 steps {launches}")
+    out.update({"train_s": round(train_s, 4), "losses": losses, "launches": launches})
+    out["phase_s"] = round(time.perf_counter() - t_phase, 2)
+    print(json.dumps({"phase": "preprocess", "card": smi, **out}), flush=True)
+    return out
+
+
+def _segment_route_grad(spec, params, x, t, precision):
+    """The planted fault of phase 31: d raw / d x_c through the D-NeRF segment
+    Functions (the kernels on the card), taken as d raw / d x. The deform
+    segment gives x no cotangent, so the deform Jacobian is dropped."""
+    from endosurf_tpu_torch.kernels import fused_train_dnerf as ftd
+    from endosurf_tpu_torch.kernels.fused_render import precision_dtype
+    eff = ftd.prepare_effective_dnerf(spec, params)
+    packed = (ftd.pack_dnerf(spec, params, precision_dtype(precision))
+              if x.device.type == "cuda" else None)
+    with torch.no_grad():
+        like, flat = ftd.segment_weights(eff, "deform")
+        x_c = ftd.SegDeform.apply(spec, like, precision, packed, torch.cat([x, t], -1), *flat)
+    with torch.enable_grad():
+        x_c = x_c.detach().requires_grad_(True)
+        like, flat = ftd.segment_weights(eff, "density")
+        raw, _ = ftd.SegDensity.apply(spec, like, precision, packed, x_c,
+                                      *[w.detach() for w in flat])
+        (grad,) = torch.autograd.grad(raw.sum(), x_c)
+    return grad
+
+
+def _per_ray(got, ref):
+    """(median, p99, max) over rays of the largest |got - ref| of a ray."""
+    err = (got.detach().double().cpu() - ref.detach().double().cpu()).abs()
+    err = err.reshape(err.shape[0], -1).amax(-1)
+    q = torch.quantile(err, torch.tensor([0.5, 0.99], dtype=err.dtype))
+    return float(q[0]), float(q[1]), float(err.max())
+
+
+
+
+def _to_cpu(tree):
+    if torch.is_tensor(tree):
+        return tree.detach().cpu()
+    return {k: _to_cpu(v) for k, v in tree.items()} if isinstance(tree, dict) else (
+        [_to_cpu(v) for v in tree] if isinstance(tree, list) else tree)
+
+
+def query_phase(scene, smi: str) -> dict:
+    """Phase 31: EndoSurf render_on_depth at the sphere trace's depths,
+    EndoNeRF render_on_depth at the ground-truth depths and EndoNeRF
+    render_rays(want_normals=True) (64 + 64 samples), N_QUERY rays each, base.yml
+    widths: bf16 as served (launches, device ms, peak memory), float32 on the
+    card against the same call on CPU copies (QUERY_TOL); the EndoNeRF
+    gradient against a float64 central difference, the planted fault failing."""
+    t_phase = time.perf_counter()
+    import numpy as np
+
+    from endosurf_tpu_torch.data.scene_data import frame_rays
+    from endosurf_tpu_torch.kernels.fused_render_dnerf import draw_eps
+    from endosurf_tpu_torch.kernels.fused_sdf import fused_density_raw_float64
+    from endosurf_tpu_torch.models import endonerf as en
+    from endosurf_tpu_torch.models import endosurf as es
+    from endosurf_tpu_torch.models.fields import EndoSurfSpec, init_endosurf_params
+    dev = scene.device_arrays["colors"].device
+    fid = int(scene.list_test[0])
+    all_rays = frame_rays(scene.device_arrays, H, W, fid).reshape(-1, 9)
+    idx = torch.arange(0, all_rays.shape[0], all_rays.shape[0] // N_QUERY, device=dev)[:N_QUERY]
+    rays = all_rays[idx].contiguous()
+    depth_gt = scene.device_arrays["depths"][fid].reshape(-1, 1)[idx].contiguous()
+    mask_gt = scene.device_arrays["masks"][fid].reshape(-1, 1)[idx] > 0.5
+    cfg, ncfg = base_cfg(), endonerf_cfg()
+    spec = EndoSurfSpec.from_config(cfg["net"])
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(0), dev)
+    dn_spec = en.DNeRFSpec.from_config(ncfg["net"])
+    dn_rspec = en.DNeRFRenderSpec.from_config(ncfg["render"])
+    dn_params = en.init_dnerf_params(dn_spec, torch.Generator().manual_seed(0), dev)
+    dn_rays = rays.clone()    # slots 6/7: (gt depth, sigma), as the renderer's eval
+    dn_rays[:, 6:7] = depth_gt
+    dn_rays[:, 7] = dn_rspec.depth_sampling_sigma
+    eps = draw_eps(N_QUERY, dn_rspec.n_samples, dev)
+    reset_launches()
+    depth_m, valid_m = es.ray_march(spec, params, rays, precision="default")
+    torch.cuda.synchronize()
+    march_launches = launches_now()
+    check(int(valid_m.sum()) > N_QUERY // 4, f"{int(valid_m.sum())} march hits")
+    check(march_launches == {"fused_ray_march": 1}, f"the depths' march: {march_launches}")
+
+    calls = {
+        "endosurf render_on_depth": (
+            lambda p, r, dm, vm, prec: es.render_on_depth(spec, p, r, dm, vm, prec),
+            params, (rays, depth_m, valid_m)),
+        "endonerf render_on_depth": (
+            lambda p, r, dg, mg, prec: en.render_on_depth(dn_spec, p, r, dg, mg, prec),
+            dn_params, (rays, depth_gt, mask_gt)),
+        "endonerf render_rays(want_normals)": (
+            lambda p, r, e, prec: en.render_rays(dn_spec, dn_rspec, p, r, prec, eps=e,
+                                                 want_normals=True),
+            dn_params, (dn_rays, eps)),
+    }
+    out, readings = {}, {}
+    for name, (fn, p, args) in calls.items():
+        reset_launches()
+        with torch.no_grad():
+            res = fn(p, *args, "default")
+        torch.cuda.synchronize()
+        launches = launches_now()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+
+        def call(fn=fn, p=p, args=args):
+            with torch.no_grad():
+                return fn(p, *args, "default")
+        ms = cuda_ms(call, 3)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        busy = kernel_device_ms(call, 3)
+        vals = res if isinstance(res, tuple) else tuple(res[k] for k in ("color_map",
+                                                                          "normal_map"))
+        check(all(bool(torch.isfinite(v).all()) for v in vals), f"{name} finite")
+        top = sorted(busy.items(), key=lambda kv: -kv[1])[:4]
+        out[name] = {"launches": launches, "ms": round(ms, 4), "device_ms": round(
+            sum(busy.values()), 4), "peak_gib": round(peak, 4)}
+        print(f"query {name} ({N_QUERY} rays, bf16, {smi}): {ms:.3f} ms by CUDA events, its "
+              f"kernels {sum(busy.values()):.3f} device ms (torch.profiler; most: "
+              + ", ".join(f"{k[:48]} {v:.3f}" for k, v in top) + f"), peak {peak:.3f} GiB above "
+              f"its inputs; launches {launches}", flush=True)
+    out["endosurf render_on_depth"]["march_launches"] = march_launches
+    check(out["endosurf render_on_depth"]["launches"].keys()
+          >= {"deform_fwd", "sdf_fwd", "color_fwd"}, "EndoSurf query on the segment kernels")
+    for name in ("endonerf render_on_depth", "endonerf render_rays(want_normals)"):
+        check(out[name]["launches"].keys()
+              >= {"dnerf_deform_fwd", "dnerf_density_fwd", "dnerf_color_fwd"},
+              f"{name} on the D-NeRF forward kernels")
+    check(out["endonerf render_rays(want_normals)"]["launches"].keys()
+          >= {"fused_density_raw", "fused_fine_resample"}, "render_rays' coarse pass and resample")
+
+    # float32 on the card against the same call on CPU copies
+    with torch.no_grad():
+        c, g = es.render_on_depth(spec, params, rays, depth_m, valid_m, "highest")
+        c_cpu, g_cpu = es.render_on_depth(spec, _to_cpu(params), *map(_to_cpu, (
+            rays, depth_m, valid_m)), "highest")
+        readings["es_color"] = _per_ray(c, c_cpu)
+        readings["es_grad"] = _per_ray(g, g_cpu)
+        c, nrm = en.render_on_depth(dn_spec, dn_params, rays, depth_gt, mask_gt, "highest")
+        c_cpu, n_cpu = en.render_on_depth(dn_spec, _to_cpu(dn_params), *map(_to_cpu, (
+            rays, depth_gt, mask_gt)), "highest")
+        readings["dn_color"] = _per_ray(c, c_cpu)
+        readings["dn_normal"] = _per_ray(nrm, n_cpu)
+        k = N_QUERY_CPU
+        rr = en.render_rays(dn_spec, dn_rspec, dn_params, dn_rays[:k], "highest", eps=eps[:k],
+                            want_normals=True)
+        rr_cpu = en.render_rays(dn_spec, dn_rspec, _to_cpu(dn_params), _to_cpu(dn_rays[:k]),
+                                "highest", eps=_to_cpu(eps[:k]), want_normals=True)
+        readings["dn_normal_map"] = _per_ray(rr["normal_map"], rr_cpu["normal_map"])
+        readings["dn_color_map"] = _per_ray(rr["color_map"], rr_cpu["color_map"])
+    for name, (med, p99, mx) in readings.items():
+        print(f"query parity {name} (card float32 vs CPU): median {med:.3e}, p99 {p99:.3e}, "
+              f"max {mx:.3e} (tol {QUERY_TOL[name]})", flush=True)
+    bad = {k: v for k, v in readings.items()
+           if not all(x <= t for x, t in zip(v, QUERY_TOL[k]))}
+    check(not bad, f"queries card vs CPU (median, p99, max) over QUERY_TOL: {bad}")
+
+    # the gradient against a float64 central difference, and the planted fault
+    on = torch.nonzero(mask_gt[:, 0])[:N_FD, 0]
+    o, _, d_z, _, _, t = en.split_rays(rays[on])
+    x, t = (o + d_z * depth_gt[on]).contiguous(), t.contiguous()
+    with torch.no_grad():
+        g = en.density_grad_observed(dn_spec, dn_params, x, t, "highest").double()
+        fd = torch.zeros_like(g)
+        for i in range(3):
+            dx = torch.zeros_like(x, dtype=torch.float64)
+            dx[:, i] = FD_EPS
+            hi = fused_density_raw_float64(dn_spec, dn_params, x.double() + dx, t, torch.float32)
+            lo = fused_density_raw_float64(dn_spec, dn_params, x.double() - dx, t, torch.float32)
+            fd[:, i] = (hi - lo)[:, 0] / (2 * FD_EPS)
+
+    scale = fd.norm(dim=-1).median()
+
+    def rel(a):   # per point |a - fd| over the points' median |fd|: median, p90, max
+        e = (a.double() - fd).norm(dim=-1) / scale
+        q = torch.quantile(e, torch.tensor([0.5, 0.9], dtype=e.dtype, device=e.device))
+        return float(q[0]), float(q[1]), float(e.max())
+    sound, fault = rel(g), rel(_segment_route_grad(dn_spec, dn_params, x, t, "highest"))
+    print(f"query normal vs float64 central difference ({len(on)} points, eps {FD_EPS:g}, "
+          f"median |grad| {float(scale):.4g}): error over it median {sound[0]:.3e}, p90 "
+          f"{sound[1]:.3e}, max {sound[2]:.3e} (tol median, p90 {FD_TOL}); the planted fault "
+          f"(through the segment kernels, no deform Jacobian): median {fault[0]:.3e}, p90 "
+          f"{fault[1]:.3e}, max {fault[2]:.3e}", flush=True)
+    check(sound[0] <= FD_TOL[0] and sound[1] <= FD_TOL[1], f"normal vs float64 FD {sound}")
+    check(fault[0] > FD_TOL[0] and fault[1] > FD_TOL[1],
+          f"the dropped-Jacobian fault passes ({fault})")
+    print(json.dumps({"phase": "queries", "card": smi, "calls": out,
+                      "card_vs_cpu": readings, "fd": {"sound": sound, "fault": fault},
+                      "phase_s": round(time.perf_counter() - t_phase, 2)}), flush=True)
+    return out
+
+
+def random_lpips_npz(path: str, seed: int = 0) -> None:
+    """VGG16 widths in the lpips_vgg16.npz schema, random He-scaled weights
+    (no download)."""
+    import numpy as np
+
+    from endosurf_tpu_torch.evaluation.lpips_torch import _VGG_BLOCKS
+    rng = np.random.default_rng(seed)
+    out, c_in, idx = {}, 3, 0
+    for c_out, n_convs in _VGG_BLOCKS:
+        for _ in range(n_convs):
+            out[f"conv{idx}_w"] = (rng.standard_normal((3, 3, c_in, c_out), np.float32)
+                                   * np.float32(np.sqrt(2.0 / (9 * c_in))))
+            out[f"conv{idx}_b"] = (0.01 * rng.standard_normal(c_out, np.float32))
+            c_in, idx = c_out, idx + 1
+    for li, (c_out, _) in enumerate(_VGG_BLOCKS):
+        out[f"lin{li}_w"] = rng.uniform(0, 1, c_out).astype(np.float32)
+    np.savez(path, **out)
+
+
+def lpips_phase(scene, pred_rgb, fids, smi: str) -> dict:
+    """Phase 32: cal_lpips of a served 512x640 frame against its ground truth
+    (masked), on the card and on the CPU, with random VGG16 weights in the
+    schema; the card's ms a call of the metric."""
+    t_phase = time.perf_counter()
+    from endosurf_tpu_torch.evaluation import lpips_torch
+    from endosurf_tpu_torch.evaluation.metrics import cal_lpips
+    dev = scene.device_arrays["colors"].device
+    gt = scene.device_arrays["colors"][fids].cpu().numpy()
+    mask = scene.device_arrays["color_masks"][fids].cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "lpips_vgg16.npz")
+        random_lpips_npz(path)
+        old = os.environ.get("ESN_LPIPS_WEIGHTS")
+        os.environ["ESN_LPIPS_WEIGHTS"] = path
+        try:
+            lpips_torch.lpips_fn.cache_clear()
+            card = cal_lpips(gt, pred_rgb, mask, device=dev)
+            cpu = cal_lpips(gt, pred_rgb, mask, device=torch.device("cpu"))
+            fn = lpips_torch.lpips_fn()
+            a = torch.as_tensor(gt * mask, device=dev)
+            b = torch.as_tensor(pred_rgb * mask, device=dev)
+            ms = cuda_ms(lambda: fn(a, b), 3)
+        finally:
+            lpips_torch.lpips_fn.cache_clear()
+            if old is None:
+                del os.environ["ESN_LPIPS_WEIGHTS"]
+            else:
+                os.environ["ESN_LPIPS_WEIGHTS"] = old
+    check(card is not None and cpu is not None and math.isfinite(card), f"lpips {card} {cpu}")
+    diff = abs(card - cpu)
+    check(diff <= 1e-4 * max(abs(cpu), 1e-3), f"lpips card {card} vs CPU {cpu}")
+    out = {"lpips_card": card, "lpips_cpu": cpu, "abs_diff": diff, "ms": round(ms, 4)}
+    print(f"lpips ({gt.shape[1]}x{gt.shape[2]} served frame, random VGG16 weights, {smi}): card "
+          f"{card:.7f}, CPU {cpu:.7f}, difference {diff:.3e}; the metric {ms:.3f} ms on the card",
+          flush=True)
+    out["phase_s"] = round(time.perf_counter() - t_phase, 2)
+    print(json.dumps({"phase": "lpips", "card": smi, **out}), flush=True)
+    return out
+
+
+def profile_phase(scene, smi: str) -> dict:
+    """Phase 33: 4 EndoSurf base.yml train steps with train.profile {start: 2,
+    stop: 3}: the Chrome trace exists and names the port's kernels."""
+    t_phase = time.perf_counter()
+    from endosurf_tpu_torch.train.trainer_endosurf import EndoSurfTrainer
+    dev = scene.device_arrays["colors"].device
+    with tempfile.TemporaryDirectory() as exp_root:
+        tcfg = base_cfg()
+        tcfg["exp"]["exp_dir"] = exp_root
+        tcfg["train"]["n_iter"] = 4
+        tcfg["train"]["profile"] = {"start": 2, "stop": 3}
+        tcfg["log"] = {"i_eval": 0, "i_save": 0}
+        trainer = EndoSurfTrainer(tcfg, mode="train", scene=scene, device=dev)
+        trainer.start(log_every=4)
+        path = trainer.profile_trace
+        check(path is not None and os.path.exists(path), "train.profile wrote no trace")
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            name = e["name"].replace("(anonymous namespace)::", "").replace("void ", "")
+            name = name.split("(")[0]
+            kernels[name] = kernels.get(name, 0) + 1
+    ours = {k: n for k, n in kernels.items()
+            if any(s in k for s in SEGMENT_KERNELS + UPSAMPLE_KERNELS)}
+    check(bool(ours), f"no port kernel in the trace ({sorted(kernels)[:10]})")
+    out = {"trace_bytes": size, "kernel_events": sum(kernels.values()),
+           "port_kernels": dict(sorted(ours.items()))}
+    print(f"profile (train.profile 2-3 of 4 steps, {smi}): {os.path.basename(path)} "
+          f"{size / 2 ** 20:.1f} MiB, {out['kernel_events']} kernel events, port kernels "
+          f"{out['port_kernels']}", flush=True)
+    out["phase_s"] = round(time.perf_counter() - t_phase, 2)
+    print(json.dumps({"phase": "profile", "card": smi, **out}), flush=True)
+    return out
+
+
+def modules_only(smi: str) -> int:
+    """``--modules-only``: the build, a served 512x640 frame, then phases
+    30-33."""
+    from endosurf_tpu_torch.data.scene_data import make_synthetic_arrays
+    from endosurf_tpu_torch.evaluation.render_eval import eval_frames
+    from endosurf_tpu_torch.kernels import build
+    from endosurf_tpu_torch.serve import EndoSurfRenderer
+    build.load_library()
+    dev = torch.device("cuda")
+    scene = make_synthetic_arrays(n_frames=4, h=H, w=W, seed=0, device=dev)
+    preprocess_phase(dev, smi)
+    query_phase(scene, smi)
+    renderer = EndoSurfRenderer(base_cfg(), scene=scene, step=30000, device=dev)
+    _, pred = eval_frames(renderer, scene.list_test[:1], 30000, ray_chunk=CHUNK,
+                          save_images=False, return_pred=True)
+    lpips_phase(scene, pred["rgb"], scene.list_test[:1], smi)
+    profile_phase(scene, smi)
+    return 0
+
+
 def train_only(smi: str) -> int:
     """``--train-only``: the build, then phase 7's timed run, split and
     trace."""
@@ -2370,10 +2884,12 @@ def main() -> int:
         return march_only(smi)
     if sys.argv[1:] == ["--march-train-only"]:
         return march_train_only(smi)
+    if sys.argv[1:] == ["--modules-only"]:
+        return modules_only(smi)
     if sys.argv[1:]:
         raise SystemExit(f"usage: {sys.argv[0]} [--train-only | --segments-only | "
                          "--dnerf-train-only | --dnerf-segments-only | --march-only | "
-                         "--march-train-only]")
+                         "--march-train-only | --modules-only]")
 
     import numpy as np
 
@@ -2674,6 +3190,12 @@ def main() -> int:
 
     # 29. the kernels the tensor-core calls launch, by name
     tc_kernel_names()
+
+    # 30-33. preprocessing, the surface queries, LPIPS and the profile window
+    preprocess_phase(dev, smi)
+    query_phase(renderer_scene, smi)
+    lpips_phase(renderer_scene, pred["rgb"], renderer_scene.list_test[:1], smi)
+    profile_phase(renderer_scene, smi)
 
     # the kernel record: work, bounds and times at the main paths' shapes (bf16)
     upsample_flops = 2 * RAY_BATCH * n_field * chain        # return_sdf: every sample

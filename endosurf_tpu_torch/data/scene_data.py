@@ -10,6 +10,7 @@ tables of the ``alias`` sampler are not built: that sampler is not ported.
 from __future__ import annotations
 
 import dataclasses
+import os
 import os.path as osp
 import pickle
 from typing import Any, Dict, Optional, Sequence, Tuple
@@ -99,6 +100,27 @@ class SceneData:
         with open(info_path, "rb") as f:
             info = pickle.load(f)
 
+        colors = _load_images(info["color"], "color")
+        depth_type = info["depth_type"]
+        if depth_type == "depth":
+            depths = _load_images(info["depth"], "depth")
+        elif depth_type == "disp":
+            depths = _load_images(info["depth"], "disp", disp_const=info["disp_const"])
+        else:
+            raise ValueError(f"unknown depth type {depth_type!r}")
+        mask_type = info.get("mask_type")
+        color_masks = (_load_images(info["mask"], mask_type) if mask_type is not None
+                       else None)
+        return SceneData.from_info(info, colors, depths, color_masks, normalize_time, device)
+
+    @staticmethod
+    def from_info(info: Dict[str, Any], colors: np.ndarray, depths: np.ndarray,
+                  color_masks: Optional[np.ndarray] = None, normalize_time: bool = True,
+                  device: Any = "cpu") -> "SceneData":
+        """A scene from an info dict and its images as arrays: colors [n, H, W,
+        3] in [0, 1], depths [n, H, W, 1] in the capture's units (divided by
+        ``depth_norm_scale`` here), color_masks [n, H, W, 1] (ones when
+        None), as ``load`` reads them from the info's paths."""
         n_frames = info["n_frames"]
         scale_mat = np.asarray(info["scale_mat"], np.float64)
         world_mat = np.asarray(info["world_mat"], np.float64)
@@ -108,22 +130,9 @@ class SceneData:
             intrinsics.append(K)
             poses.append(pose)
 
-        colors = _load_images(info["color"], "color")
-        depth_type = info["depth_type"]
-        if depth_type == "depth":
-            depths = _load_images(info["depth"], "depth")
-        elif depth_type == "disp":
-            depths = _load_images(info["depth"], "disp",
-                                  disp_const=info["disp_const"])
-        else:
-            raise ValueError(f"unknown depth type {depth_type!r}")
         depth_scale = float(info["depth_norm_scale"])
         depths = depths / depth_scale
-
-        mask_type = info.get("mask_type")
-        if mask_type is not None:
-            color_masks = _load_images(info["mask"], mask_type)
-        else:
+        if color_masks is None:
             color_masks = np.ones_like(depths)
 
         return SceneData.from_arrays(
@@ -276,3 +285,131 @@ def make_synthetic_arrays(n_frames: int = 4, h: int = 16, w: int = 16,
         bbox_minmax=np.tile(np.array([[-1, 1], [-1, 1], [-1, 1]], np.float32),
                             (n_frames, 1, 1)),
         list_train=ids[:-1], list_test=ids[-1:], depth_scale=100.0, device=device)
+
+
+def _orbit_pose(t_norm: float, orbit_deg: float, dist: float = 2.0) -> np.ndarray:
+    """Camera-to-world pose [4, 4] on a look-at orbit around the origin.
+
+    The azimuth sweeps +-orbit_deg (the elevation +-orbit_deg / 2) over the
+    sequence; orbit_deg = 0 is the fixed camera at (0, 0, -dist) with the
+    identity rotation. R's columns are the camera axes (x right, y down, z
+    forward: the image convention of ``rays_from_pixels``)."""
+    az = np.radians(orbit_deg) * np.sin(2 * np.pi * t_norm)
+    el = np.radians(0.5 * orbit_deg) * np.cos(2 * np.pi * t_norm)
+    C = dist * np.array([np.sin(az) * np.cos(el), np.sin(el), -np.cos(az) * np.cos(el)])
+    z_cam = -C / np.linalg.norm(C)
+    x_cam = np.cross([0.0, 1.0, 0.0], z_cam)
+    x_cam = x_cam / np.linalg.norm(x_cam)
+    y_cam = np.cross(z_cam, x_cam)
+    pose = np.eye(4)
+    pose[:3, :3] = np.stack([x_cam, y_cam, z_cam], axis=1)
+    pose[:3, 3] = C
+    return pose
+
+
+def make_synthetic_scene(out_dir: str, n_frames: int = 8, h: int = 48, w: int = 64,
+                         deform_amp: float = 0.1, seed: int = 0,
+                         orbit_deg: float = 0.0) -> str:
+    """Write a synthetic pulsating-sphere scene in the info-pkl schema and
+    return the pkl's path: colour PNGs, float32 TIFF depths, mask PNGs
+    (imageio, imported here) and ``info.pkl``, as the JAX package's
+    ``make_synthetic_scene`` writes them.
+
+    A Lambertian sphere of radius 0.5 (1 + deform_amp sin(2 pi t)) at the
+    origin, seen from distance 2: a fixed camera at z = -2 looking down +z
+    for orbit_deg = 0, else a +-orbit_deg look-at arc. Depths are world-z
+    depths times ``depth_norm_scale`` = 100; a drifting rectangular tool
+    occludes each frame's mask."""
+    import imageio.v2 as iio
+
+    os.makedirs(out_dir, exist_ok=True)
+    fx = fy = 0.8 * w
+    cx, cy = w / 2.0, h / 2.0
+    K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
+    depth_norm_scale = 100.0
+
+    world_mats, colors, depths, masks, bboxes, bounds = [], [], [], [], [], []
+    # rays go through integer pixel coordinates (rays_from_pixels)
+    ys, xs = np.meshgrid(np.arange(h, dtype=np.float64), np.arange(w, dtype=np.float64),
+                         indexing="ij")
+    dirs_cam = np.stack([(xs - cx) / fx, (ys - cy) / fy, np.ones_like(xs)], -1)
+
+    for i in range(n_frames):
+        t_norm = i / max(n_frames - 1, 1)
+        radius = 0.5 * (1.0 + deform_amp * np.sin(2 * np.pi * t_norm))
+        pose = _orbit_pose(t_norm, orbit_deg)
+        R, o = pose[:3, :3], pose[:3, 3]
+        w2c = np.linalg.inv(pose)
+        # analytic ray-sphere hit in world space from the camera centre o
+        d = dirs_cam @ R.T
+        d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+        b = np.sum(d * o, -1)
+        c = np.sum(o * o) - radius ** 2
+        disc = b ** 2 - c
+        hit = disc > 0
+        t_hit = -b - np.sqrt(np.maximum(disc, 0.0))
+        pts = o + t_hit[..., None] * d
+        # World-z depth (the 9-float ray contract divides directions by their
+        # world z): valid while every ray keeps a positive world z.
+        z_depth = np.where(hit, pts[..., 2] - o[2], 3.0)  # background at z = 3
+        if not (d[..., 2] > 0.05).all():
+            raise ValueError("orbit too wide for the world-z depth convention")
+
+        normal = pts / np.maximum(np.linalg.norm(pts, axis=-1, keepdims=True), 1e-6)
+        lam = np.clip(-np.sum(normal * d, -1), 0, 1)
+        base = 0.5 + 0.5 * np.sin(6 * pts[..., 0]) * np.cos(6 * pts[..., 1])
+        col = np.stack([lam * base, lam * (1 - base), 0.3 + 0.7 * lam], -1)
+        col = np.where(hit[..., None], col, 0.05)
+
+        mask = np.ones((h, w), np.float32)
+        x0 = int((0.2 + 0.5 * t_norm) * w)
+        mask[h // 3: h // 2, x0: x0 + w // 6] = 0.0
+
+        world_mats.append(K @ w2c[:3, :4])
+        colors.append((np.clip(col, 0, 1) * 255).astype(np.uint8))
+        depths.append((z_depth * depth_norm_scale).astype(np.float32))
+        masks.append((mask * 255).astype(np.uint8))
+        pad = 0.05
+        pts_box = pts[hit] if hit.any() else pts.reshape(-1, 3)
+        bboxes.append(np.stack([pts_box.min(0) - pad, pts_box.max(0) + pad], -1))
+        z_near = z_depth[hit].min() if hit.any() else z_depth.min()
+        bounds.append(np.array([z_near, z_depth.max()]) * depth_norm_scale)
+
+    color_paths, depth_paths, mask_paths = [], [], []
+    for i in range(n_frames):
+        cp = osp.join(out_dir, f"color_{i:03d}.png")
+        dp = osp.join(out_dir, f"depth_{i:03d}.tiff")
+        mp = osp.join(out_dir, f"mask_{i:03d}.png")
+        iio.imwrite(cp, colors[i])
+        iio.imwrite(dp, depths[i])
+        iio.imwrite(mp, masks[i])
+        color_paths.append(cp)
+        depth_paths.append(dp)
+        mask_paths.append(mp)
+
+    world_mat4 = np.zeros((n_frames, 4, 4))
+    world_mat4[:, :3, :4] = np.stack(world_mats)
+    world_mat4[:, 3, 3] = 1.0
+    ids = np.arange(n_frames)
+    info = {
+        "dset_name": "synthetic",
+        "scene_name": "pulsating_sphere",
+        "n_frames": n_frames,
+        "wh": [w, h],
+        "world_mat": world_mat4,
+        "scale_mat": np.eye(4),
+        "color": color_paths,
+        "depth": depth_paths,
+        "depth_type": "depth",
+        "mask": mask_paths,
+        "mask_type": "mask",
+        "depth_norm_scale": depth_norm_scale,
+        "bounds": np.stack(bounds),
+        "bbox_minmax": np.stack(bboxes),
+        "list_train": ids[ids % 4 != 3],
+        "list_test": ids[ids % 4 == 3],
+    }
+    pkl_path = osp.join(out_dir, "info.pkl")
+    with open(pkl_path, "wb") as f:
+        pickle.dump(info, f)
+    return pkl_path

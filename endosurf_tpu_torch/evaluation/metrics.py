@@ -1,10 +1,10 @@
-"""Masked image metrics: PSNR / RMSE / SSIM (port of
+"""Masked image metrics: PSNR / RMSE / SSIM / LPIPS (port of
 ``endosurf_tpu/evaluation/metrics.py``).
 
 PSNR and RMSE normalise by the mask sum; SSIM is the 11x11, sigma 1.5
-Gaussian-window variant on mask-multiplied images with valid convolution.
-LPIPS needs converted VGG weights and is not ported yet: ``cal_lpips``
-returns None, as the JAX package does when the weights are absent.
+Gaussian-window variant on mask-multiplied images with valid convolution;
+LPIPS (``lpips_torch``) runs on mask-multiplied images when the converted
+VGG weights are present, and ``cal_lpips`` returns None without them.
 """
 
 from __future__ import annotations
@@ -71,6 +71,22 @@ def cal_ssim(a, b, mask) -> float:
     return float(ssim_map.mean())
 
 
-def cal_lpips(a, b, mask) -> Optional[float]:
-    """LPIPS is not ported yet (needs VGG weights): always None."""
-    return None
+def cal_lpips(a, b, mask, batch: int = 2, device=None) -> Optional[float]:
+    """Masked LPIPS (VGG16, ``lpips_torch``) of [B, H, W, 3] images: both
+    images times the mask, ``batch`` images a call, the mean of the calls'
+    means. Runs on ``device`` (default: ``a``'s device for a tensor, else
+    the CPU). None when the weights file is absent."""
+    from endosurf_tpu_torch.evaluation.lpips_torch import lpips_fn
+    fn = lpips_fn()
+    if fn is None:
+        return None
+    if device is None:
+        device = a.device if torch.is_tensor(a) else torch.device("cpu")
+    a, b, mask = _np(a), _np(b), _np(mask)
+    if mask.ndim == a.ndim - 1:
+        mask = mask[..., None]
+    a = torch.as_tensor(a * mask, dtype=torch.float32, device=device)
+    b = torch.as_tensor(b * mask, dtype=torch.float32, device=device)
+    vals = [float(fn(a[i:i + batch], b[i:i + batch]).mean())
+            for i in range(0, a.shape[0], batch)]
+    return float(np.mean(vals))

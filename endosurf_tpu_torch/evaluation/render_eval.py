@@ -3,7 +3,8 @@
 
 Frames are flattened to rays, rendered in fixed-size chunks on the scene's
 device, and reassembled into RGB / depth / weighted-normal maps, then scored
-with the masked metrics and optionally saved as side-by-side composites.
+with the masked metrics and optionally saved as side-by-side composites
+(the first also to the renderer's ``writer``, where it has one).
 """
 
 from __future__ import annotations
@@ -84,7 +85,7 @@ def frame_stats(scene, fids: Sequence[int], pred: Dict[str, np.ndarray]) -> Dict
         "ssim_rgb_vr": cal_ssim(rgb_gt, pred["rgb"], color_mask_gt),
         "rmse_d_vr": cal_rmse(depth_gt * ds, pred["depth"] * ds, mask_gt),
     }
-    lp = cal_lpips(rgb_gt, pred["rgb"], color_mask_gt)
+    lp = cal_lpips(rgb_gt, pred["rgb"], color_mask_gt, device=arrays["colors"].device)
     if lp is not None:
         stats["lpips_rgb_vr"] = lp
     return stats
@@ -116,8 +117,11 @@ def eval_frames(renderer, fids: Sequence[int], step: int, ray_chunk: int = 2048,
 
     if save_images:
         import imageio.v2 as iio
+        writer = getattr(renderer, "writer", None)
         for i, row in enumerate(composite_rows(scene, fids, pred)):
             iio.imwrite(osp.join(save_dir, f"eval_{i:03d}.png"), row)
+            if writer is not None and i == 0:
+                writer.add_image(f"{save_dir_name}/results", row, step)
 
     print(f"EVAL|iter:{step}|" + "|".join(
         f"{k}:{v:.4f}" for k, v in stats.items()), flush=True)

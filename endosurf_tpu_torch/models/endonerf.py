@@ -21,8 +21,11 @@ render (the JAX path with a key): every random draw comes from one
 (``field_eval``) runs the three D-NeRF segments, forward and backward, as
 kernels on the card and as their plain versions on the CPU
 (``fused_train_dnerf.megakernel_field_raw``); the sampling-only density
-(``density_observed``) runs ``fused_density_raw`` and the train render's
-deterministic importance draws ``fused_sampler.fused_fine_resample``.
+(``density_observed``) runs ``fused_density_raw`` and the deterministic
+importance draws of both renders ``fused_sampler.fused_fine_resample``. The
+surface queries -- ``density_grad_observed``, ``render_on_depth`` and
+``render_rays(..., want_normals=True)`` -- take their normals from
+``torch.autograd.grad`` of the plain chain (see ``density_grad_observed``).
 Matmul precision is an explicit argument (``ops.mlp``).
 """
 
@@ -162,6 +165,47 @@ def density_observed(spec: DNeRFSpec, params: Params, x, t, precision: str = "hi
     return fused_density_raw(spec, params, x, t, precision_dtype(precision))
 
 
+def density_grad_observed(spec: DNeRFSpec, params: Params, x: torch.Tensor, t: torch.Tensor,
+                          precision: str = "highest") -> torch.Tensor:
+    """d raw sigma / d x [N, 3] at observed points, through the warp: (I + d
+    deform / d x)^T d sigma / d x_c. Callers negate it for normals. Under
+    grad mode the result is differentiable with respect to the parameters.
+
+    It is ``torch.autograd.grad`` of the plain chain ``_warp`` +
+    ``_density_feat``, on any device, as JAX takes ``jax.grad`` of its plain
+    chain at one point. Not the segment Functions: ``fused_density_raw`` has
+    no gradient, and the deform segment gives its input no cotangent
+    (``fused_train_dnerf.SegDeform``), so autograd through
+    ``megakernel_field_raw`` would drop the deform Jacobian without an
+    error."""
+    create_graph = torch.is_grad_enabled()
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        raw = _density_feat(spec, params, _warp(spec, params, xg, t, precision), precision)
+        (grad,) = torch.autograd.grad(raw[:, 0].sum(), xg, create_graph=create_graph)
+    return grad
+
+
+def _normals(spec: DNeRFSpec, params: Params, x: torch.Tensor, t: torch.Tensor,
+             precision: str) -> torch.Tensor:
+    """-grad / (|grad| + 1e-10) of ``density_grad_observed``."""
+    grad = -density_grad_observed(spec, params, x, t, precision)
+    return grad / (torch.linalg.norm(grad, dim=-1, keepdim=True) + 1e-10)
+
+
+def render_on_depth(spec: DNeRFSpec, params: Params, rays: torch.Tensor, depth: torch.Tensor,
+                    valid: torch.Tensor, precision: str = "highest"
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Surface rendering at given depths [R, 1]: (rgb [R, 3] from
+    ``field_eval``, normal [R, 3] from -``density_grad_observed``), both zero
+    where ``valid`` [R, 1] is false."""
+    rays_o, rays_d, rays_d_z, _, _, t = split_rays(rays)
+    pts = rays_o + rays_d_z * depth
+    rgb, _ = field_eval(spec, params, pts, rays_d, t, precision=precision)
+    valid_f = valid.to(pts.dtype)
+    return rgb * valid_f, _normals(spec, params, pts, t, precision) * valid_f
+
+
 def raw2outputs(rgb, sigma, z_vals, rays_d):
     """Density compositing with disparity-normalised depth: (rgb_map [R, 3],
     depth_map [R, 1], weights [R, K])."""
@@ -185,13 +229,17 @@ def split_rays(rays: torch.Tensor):
 
 
 def render_pipeline(rspec: DNeRFRenderSpec, rays: torch.Tensor, z_vals: torch.Tensor,
-                    coarse_raw, field_raw, n_importance: int) -> Dict[str, torch.Tensor]:
+                    coarse_raw, field_raw, n_importance: int, resample=None
+                    ) -> Dict[str, torch.Tensor]:
     """The eval render on given initial depths ``z_vals`` [R, n0]:
     ``coarse_raw(x, t) -> raw sigma [N, 1]`` at the initial depths, the
-    importance resampling (``fused_sampler.fine_resample_math``) when
-    ``n_importance``, ``field_raw(x, d, t) -> (rgb, raw sigma [N])`` at all
-    depths, raw2outputs. Returns color_map, depth_map, weights."""
+    importance resampling ``resample(z, sigma, |d|, n_importance)`` (default
+    the plain ``fused_sampler.fine_resample_math``) when ``n_importance``,
+    ``field_raw(x, d, t) -> (rgb, raw sigma [N])`` at all depths,
+    raw2outputs. Returns color_map, depth_map, weights and the final depths
+    z_vals [R, K]."""
     from endosurf_tpu_torch.kernels.fused_sampler import fine_resample_math
+    resample = resample or fine_resample_math
     rays_o, rays_d, rays_d_z, _, _, t = split_rays(rays)
     n_rays = rays.shape[0]
 
@@ -202,35 +250,55 @@ def render_pipeline(rspec: DNeRFRenderSpec, rays: torch.Tensor, z_vals: torch.Te
 
     if n_importance > 0:
         raw_c = coarse_raw(*points(z_vals))[:, 0].reshape(n_rays, -1)
-        z_vals = fine_resample_math(z_vals, torch.relu(raw_c),
-                                    torch.linalg.norm(rays_d, dim=-1, keepdim=True), n_importance)
+        z_vals = resample(z_vals, torch.relu(raw_c),
+                          torch.linalg.norm(rays_d, dim=-1, keepdim=True), n_importance)
     pts, tt = points(z_vals)
     dirs = rays_d[:, None, :].expand(n_rays, z_vals.shape[1], 3).reshape(-1, 3)
     rgb, raw = field_raw(pts, dirs, tt)
     rgb_map, depth_map, weights = raw2outputs(
         rgb.reshape(n_rays, -1, 3), torch.relu(raw).reshape(n_rays, -1), z_vals, rays_d)
-    return {"color_map": rgb_map, "depth_map": depth_map, "weights": weights}
+    return {"color_map": rgb_map, "depth_map": depth_map, "weights": weights, "z_vals": z_vals}
 
 
 def render_rays(spec: DNeRFSpec, rspec: DNeRFRenderSpec, params: Params, rays: torch.Tensor,
                 precision: str = "highest", sampling_precision: Optional[str] = None,
-                use_importance: bool = True, eps: Optional[torch.Tensor] = None
-                ) -> Dict[str, torch.Tensor]:
+                use_importance: bool = True, eps: Optional[torch.Tensor] = None,
+                want_normals: bool = False) -> Dict[str, torch.Tensor]:
     """The eval render of a ray batch [R, 9] (JAX ``render_rays`` with
     key=None: initial depths from ``init_z``, the coarse density at the
     sampling precision through ``density_observed``, the deterministic
-    importance draws, the fields through ``megakernel_field_raw``, no
-    noise)."""
+    importance draws -- ``fused_sampler.fused_fine_resample`` where its
+    kernel takes the shape, else ``fine_resample_math`` --, the fields
+    through ``megakernel_field_raw``, no noise): color_map, depth_map,
+    weights, z_vals. ``want_normals`` adds normal_map [R, 3], the weighted
+    sum of -``density_grad_observed`` (normalised) at the fine points."""
     from endosurf_tpu_torch.kernels.fused_render_dnerf import init_z
+    from endosurf_tpu_torch.kernels.fused_sampler import (
+        fine_resample_math,
+        fine_resample_shape_supported,
+        fused_fine_resample,
+    )
     from endosurf_tpu_torch.kernels.fused_train_dnerf import megakernel_field_raw
     sp = sampling_precision or precision
+    n_importance = rspec.n_importance if use_importance else 0
     with torch.no_grad():
         z_vals = init_z(rspec, rays, eps)
-    return render_pipeline(
+    resample = (fused_fine_resample
+                if fine_resample_shape_supported(z_vals.shape[1], n_importance)
+                else fine_resample_math)
+    out = render_pipeline(
         rspec, rays, z_vals,
         lambda x, t: density_observed(spec, params, x, t, sp),
         lambda x, d, t: megakernel_field_raw(spec, params, x, d, t, precision),
-        rspec.n_importance if use_importance else 0)
+        n_importance, resample)
+    if want_normals:
+        rays_o, _, rays_d_z, _, _, t = split_rays(rays)
+        z = out["z_vals"]
+        pts = rays_o[:, None, :] + rays_d_z[:, None, :] * z[..., None]
+        tt = t[:, None, :].expand(*z.shape, 1)
+        normal = _normals(spec, params, pts.reshape(-1, 3), tt.reshape(-1, 1), precision)
+        out["normal_map"] = (out["weights"][..., None] * normal.reshape(*z.shape, 3)).sum(1)
+    return out
 
 
 def _train_draw(name: str, shape, normal: bool, generator: Optional[torch.Generator],

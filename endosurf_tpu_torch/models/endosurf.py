@@ -5,7 +5,8 @@ sharpness 64 * 2^i, one fused field evaluation at the section midpoints, and
 NeuS compositing with the Eikonal term; then the auxiliary queries of the
 train step: SDF and angle error at the ground-truth depth points, and the
 normal-consistency error around the surface found on the render's own
-upsample samples (march reuse).
+upsample samples (march reuse); ``render_on_depth`` renders colour and the
+SDF gradient at given depths (say, the sphere trace's).
 
 ``render_rays`` is the differentiable training render. Its upsampling runs
 without gradient through ``kernels.fused_sampler.fused_upsample_z`` (the
@@ -490,3 +491,17 @@ def surface_neighbour_error(spec: EndoSurfSpec, params: Params, rays: torch.Tens
         offset_uniform, sampling_precision or precision)
     g = sdf_grad_observed(spec, params, pts2, torch.cat([t, t], dim=0), precision)
     return surface_neighbour_error_from(g, valid)
+
+
+def render_on_depth(spec: EndoSurfSpec, params: Params, rays: torch.Tensor,
+                    depth: torch.Tensor, valid: torch.Tensor,
+                    precision: str = "highest") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Surface rendering at given depths [R, 1]: (colour [R, 3], observed SDF
+    gradient grad_o [R, 3]), both zero where ``valid`` [R, 1] is false. The
+    points o + d_z * depth go through ``fields.fused_point_eval`` (on CUDA
+    tensors the segment forward kernels)."""
+    rays_o, rays_d, rays_d_z, t = _split_rays(rays)
+    pts = rays_o + rays_d_z * depth
+    out = fused_point_eval(spec, params, pts, rays_d, t, precision)
+    valid_f = valid.to(pts.dtype)
+    return out["color"] * valid_f, out["grad_o"] * valid_f

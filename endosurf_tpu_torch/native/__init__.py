@@ -1,6 +1,7 @@
 """ctypes bindings for the first-party C++ geometry code: marching
 tetrahedra, mesh cleaning, smoothing, vertex normals, KD-tree distances and a
-z-buffer rasterizer for the 3D demo (host code, as in the JAX package, which
+z-buffer rasterizer for the 3D demo, and the nearest-neighbour distance and
+radius-outlier mask of the preprocessing (host code, as in the JAX package, which
 keeps its own copy of ``geometry.cpp``).
 
 The shared library builds on first use (``build.py``: g++ -O3 into the
@@ -12,7 +13,9 @@ from endosurf_tpu_torch.native.meshops import (  # noqa: F401
     clean_mesh,
     laplacian_smooth,
     marching_tetrahedra,
+    nn_distance_excl_self,
     point_cloud_distance,
+    radius_outlier_mask,
     rasterize_mesh,
     vertex_normals,
 )

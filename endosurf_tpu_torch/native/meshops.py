@@ -121,3 +121,26 @@ def rasterize_mesh(verts_screen: np.ndarray, colors: np.ndarray,
                            _f32p(colors), _i32p(tris), len(tris),
                            int(width), int(height), _f32p(rgb), _f32p(zbuf))
     return rgb
+
+
+def nn_distance_excl_self(pts: np.ndarray) -> np.ndarray:
+    """Distance from each point to its nearest other point (Open3D
+    compute_nearest_neighbor_distance equivalent)."""
+    lib = load_library()
+    pts = np.ascontiguousarray(pts, np.float32)
+    out = np.empty(len(pts), np.float32)
+    lib.esn_nn_distance_excl_self(_f32p(pts), len(pts), _f32p(out))
+    return out
+
+
+def radius_outlier_mask(pts: np.ndarray, min_neighbors: int,
+                        radius: float) -> np.ndarray:
+    """Keep-mask [N] bool of radius outlier removal: a point stays when at
+    least ``min_neighbors`` other points lie within ``radius`` (Open3D
+    remove_radius_outlier equivalent; used by the preprocessing)."""
+    lib = load_library()
+    pts = np.ascontiguousarray(pts, np.float32)
+    out = np.empty(len(pts), np.uint8)
+    lib.esn_radius_outlier_mask(_f32p(pts), len(pts), int(min_neighbors), float(radius),
+                                out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    return out.astype(bool)

@@ -4,7 +4,8 @@ save and log cadence (port of ``endosurf_tpu/train/trainer.py``).
 Subclasses provide ``setup``, ``train_step``, ``eval`` and the checkpoint
 state. The loop runs one optimizer step per ``train_step`` call;
 ``train.steps_per_call`` > 1 loops over steps inside a window, as the JAX
-base class does (eval steps start their own window).
+base class does (eval steps start their own window). ``train.profile``
+opens a ``torch.profiler`` window over given steps.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ class Trainer:
         self.i_save = log_cfg.get("i_save", 2500)
         self.step_start = 1
         self.writer: Optional[MetricsWriter] = None
+        self.profile_trace: Optional[str] = None
 
         self.setup()
 
@@ -98,15 +100,44 @@ class Trainer:
     def eval(self, step: int) -> Dict[str, float]:
         raise NotImplementedError
 
+    # -- profile window -----------------------------------------------------
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof, first: int, last: int) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        out_dir = osp.join(self.exp_dir, "profile")
+        os.makedirs(out_dir, exist_ok=True)
+        self.profile_trace = osp.join(out_dir, f"trace_steps_{first}_{last}.json")
+        prof.export_chrome_trace(self.profile_trace)
+        print(f"PROFILE|steps:{first}-{last}|trace:{self.profile_trace}", flush=True)
+
     # -- main loop ----------------------------------------------------------
     def start(self, log_every: int = 100, stop_after: Optional[int] = None) -> None:
         """Train from ``step_start`` to ``n_iter`` (or pause after
         ``stop_after``, saving a checkpoint there; resume with
         ``train.resume``). Evals run before the step they are due at: step
-        1, every ``log.i_eval``, and ``n_iter``."""
+        1, every ``log.i_eval``, and ``n_iter``.
+
+        ``train.profile: {start: N, stop: M}`` records a ``torch.profiler``
+        trace from before the window that holds step N (its eval included)
+        to after the one that holds step M, the device synchronised first,
+        and exports it as a Chrome trace under ``<exp_dir>/profile/``
+        (``self.profile_trace``)."""
         t0 = time.time()
         rays_done = 0
         ray_batch = self.train_cfg.get("ray_batch", 1024)
+        prof_cfg = self.train_cfg.get("profile") or {}
+        prof_start, prof_stop = prof_cfg.get("start", 0), prof_cfg.get("stop", 0)
+        prof = None
         end = self.n_iter if stop_after is None else min(stop_after, self.n_iter)
         K = max(1, int(self.train_cfg.get("steps_per_call", 1)))
 
@@ -127,12 +158,17 @@ class Trainer:
                     kk = bnd - step
             s_last = step + kk - 1
 
+            if prof_start and step <= prof_start <= s_last:
+                prof = self._start_profile()
             if self.i_eval > 0 and (step == 1 or step % self.i_eval == 0
                                     or step == self.n_iter):
                 self.eval(step)
 
             metrics = self.train_step_window(step, kk)
             rays_done += ray_batch * kk
+            if prof is not None and prof_stop and step <= prof_stop <= s_last:
+                self._stop_profile(prof, prof_start, prof_stop)
+                prof = None
 
             if self.writer is not None and (step == 1 or in_window(log_every, step, s_last)):
                 # metrics stay on the device until a log point
@@ -153,6 +189,8 @@ class Trainer:
                 path = save_checkpoint(self.exp_dir, s_last, params, opt_state)
                 print(f"SAVE|iter:{s_last}/{self.n_iter}|path:{path}", flush=True)
             step = s_last + 1
+        if prof is not None:   # the window outlasted the run
+            self._stop_profile(prof, prof_start, end)
         self.step_start = end + 1
         if self.writer is not None:
             self.writer.flush()

@@ -41,9 +41,31 @@ def test_import_loads_no_jax():
         "        'endosurf_tpu_torch.models.endonerf',\n"
         "        'endosurf_tpu_torch.kernels.fused_render_dnerf',\n"
         "        'endosurf_tpu_torch.kernels.fused_train_dnerf',\n"
-        "        'endosurf_tpu_torch.train.trainer_endonerf'} <= set(names), names\n"
+        "        'endosurf_tpu_torch.train.trainer_endonerf',\n"
+        "        'endosurf_tpu_torch.data.preprocess_common',\n"
+        "        'endosurf_tpu_torch.data.preprocess_endonerf',\n"
+        "        'endosurf_tpu_torch.data.preprocess_scared',\n"
+        "        'endosurf_tpu_torch.evaluation.lpips_torch'} <= set(names), names\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("ok")
+
+
+def test_preprocessing_and_lpips_import_no_image_library():
+    """The preprocessing, LPIPS and the native wrappers import neither JAX nor
+    imageio nor OpenCV: the card machine has none of them."""
+    code = (
+        "import sys\n"
+        "import endosurf_tpu_torch.data.preprocess_endonerf\n"
+        "import endosurf_tpu_torch.data.preprocess_scared\n"
+        "import endosurf_tpu_torch.evaluation.lpips_torch\n"
+        "from endosurf_tpu_torch.native import nn_distance_excl_self, radius_outlier_mask\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'endosurf_tpu', 'imageio', 'cv2')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("ok")

@@ -12,6 +12,7 @@
     python3 chip_smoke.py --march-only   # phases 1, 2, 14 and 16
     python3 chip_smoke.py --march-train-only   # phases 1, 2 and 15 (run, split, trace)
     python3 chip_smoke.py --modules-only   # phases 1, 2, a served frame and 30-33
+    python3 chip_smoke.py --parallel-only   # phases 1, 2 and 34-36
 
 Phases (any failure raises and exits non-zero):
   1. a CUDA card must be present; prints its name and power limit;
@@ -243,7 +244,29 @@ Phases (any failure raises and exits non-zero):
      relative); the card's ms a call;
  33. train.profile: 4 EndoSurf base.yml train steps with the window on steps
      2-3; the Chrome trace exists and names the port's kernels.
-Phases 30-33 each print one JSON line ({"phase": ...}).
+ 34. data parallelism: 2 ranks on the one card over Gloo (this script
+     started twice with --dp-rank and torchrun's variables), each running
+     DP_STEPS base.yml train steps of each family on the data mesh (EndoSurf
+     1024 global rays, EndoNeRF 2048, bf16; one step in float32 too), a
+     served 512x640 frame of each family with its 2048-ray chunks split over
+     the ranks, and a grid slab and 65,536 vertex colours of each family
+     split by rows, against the same in one process: step 1's metrics and
+     per-leaf gradients at DP_TOL (beside the order floor: one process's
+     rays reversed), the ranks' parameters bitwise equal after the steps,
+     the same kernel launches, frames, grids and colours bit for bit; each
+     rank's step ms and the gradient all-reduce's ms; then (--nccl-rank)
+     one EndoSurf step in a one-rank NCCL group on the data mesh, bit for bit
+     the step without a group;
+ 35. fold_aux_queries: a base.yml EndoSurf step with the auxiliary queries
+     folded into the render's field evaluation against the unfolded one (the
+     sphere trace both ways) on the same draws, float32 and bf16, at
+     FOLD_TOL, the planted fault (the folded rows one ray off) failing; the
+     launches, each bf16 step's ms and device-busy ms;
+ 36. the alias pixel sampler: the tables' host build for the 512x640 frames,
+     a train batch's draw in device ms beside the cdf sampler's, and the
+     total variation of ALIAS_DRAWS draws against the cdf sampler's weights
+     beside the cdf sampler's own draws.
+Phases 30-36 each print one JSON line ({"phase": ...}).
 Phase 7 also checks one launch of each segment kernel per step, and its
 trace counts the segment kernels (the weight-gradient product included) as
 their own family. The third-to-last line is the card, the second-to-last
@@ -2671,6 +2694,678 @@ def profile_phase(scene, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 34-36: data parallelism, fold_aux_queries and the alias sampler
+# ---------------------------------------------------------------------------
+
+DP_WORLD, DP_STEPS = 2, 3
+# Two ranks against one process: (step 1's metric relative difference, step
+# 1's per-leaf gradient relative L2, steps 2-3's metric relative difference)
+# per dot mode. Each point's kernels compute
+# alike on both sides and the loss sums add in another order; in bf16 each
+# rank also rounds its own weight-gradient sums to bf16 (the bf16 backward
+# semantics, fused_train_cuda.py's docstring) before the all-reduce adds
+# them, where one process rounds the whole sum once, and the EndoSurf aux
+# queries' plain chain (cuBLAS on bf16-rounded operands) gives another row
+# count other last bits (tools/probe_dp_rows.py). bf16 set from H100
+# readings (PERF.md §6, data parallelism), about 3x: metrics 2.4e-5 (EndoSurf) / 1.8e-7
+# (EndoNeRF), gradients 3.5e-3 (EndoSurf deform_network/layers/8/g) / 2.4e-3
+# (EndoNeRF deform/layers/4/w), far over the order floor on those leaves (0
+# and 7.6e-7). float32: the CPU tests' limits (tests/test_torch_parallel.py,
+# read 1.1e-7 / 1.4e-6 there; 9.0e-8 / 1.9e-6 here). Steps 2-3 run on
+# parameters Adam moved: its first update is about +-lr an element whatever
+# the gradient's size, so a near-zero gradient whose sign the rank count
+# flips moves a weight by 2 lr, and the chaotic D-NeRF field carries that
+# into the metrics; about 3x the H100 readings: bf16 1.2e-3 (EndoSurf
+# loss_surf_neig; EndoNeRF 8.3e-4), float32 1.15e-4 (EndoNeRF loss_depth at
+# step 3; EndoSurf 4.1e-6). The draw generator's stream is held bit for bit.
+DP_TOL = {"highest": (2e-5, 1e-4, 4e-4), "default": (1e-4, 1e-2, 4e-3)}
+# fold_aux_queries against the unfolded sphere-trace step on the same draws:
+# (metric relative difference, per-network gradient relative L2) per dot
+# mode. Set from H100 readings (PERF.md §6), about 4-6x: float32
+# 1.6e-7 / 4.1e-7, bf16 2.6e-3 / 1.0e-2 (the folded queries ride the segment
+# kernels' bf16 path, the unfolded ones the plain chain's); the planted
+# fault reads 0.60 / 0.33 in both modes. The CPU tests read 1.3e-7 / 1.2e-6
+# in float32.
+FOLD_TOL = {"highest": (1e-6, 2e-6), "default": (1e-2, 4e-2)}
+ALIAS_DRAWS = 2 ** 22
+
+
+def _rel(got, ref) -> float:
+    return float((got.double() - ref.double()).norm() / ref.double().norm().clamp_min(1e-30))
+
+
+def _metric_errs(got: dict, ref: dict) -> dict:
+    return {k: abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-7) for k in ref}
+
+
+def train_family(kind: str, dev, precision: str = "default") -> dict:
+    """base.yml's train step pieces of ``kind`` ("endosurf": 1024 rays a
+    step; "endonerf": 2048): the trainer module ``tr``, ``args`` for its
+    make_loss_fn / make_train_step after (spec, rspec, h, w, rays),
+    ``kwargs`` (the dot precision), ``schedule``, ``init()`` (seed-0
+    parameters that take gradients), ``step_args`` (what the loss and step
+    functions take before the generator: EndoSurf's step number) and ``n``,
+    the rays a step."""
+    from endosurf_tpu_torch.bridge import flatten
+    from endosurf_tpu_torch.train import schedules
+    if kind == "endosurf":
+        from endosurf_tpu_torch.models.endosurf import RenderSpec
+        from endosurf_tpu_torch.models.fields import EndoSurfSpec, init_endosurf_params
+        from endosurf_tpu_torch.train import trainer_endosurf as tr
+        cfg = base_cfg()
+        tc = cfg["train"]
+        spec, rspec = EndoSurfSpec.from_config(cfg["net"]), RenderSpec.from_config(cfg["render"])
+        out = {"tr": tr, "n": RAY_BATCH, "step_args": (1,),
+               "args": ({k: float(tc[k]) for k in tr.LOSS_WEIGHT_KEYS}, tc["surf_neig_rad"]),
+               "schedule": schedules.warmup_cosine(5e-4, 5000, N_STEPS, 0.05),
+               "init": lambda: init_endosurf_params(spec, torch.Generator().manual_seed(0), dev)}
+    else:
+        from endosurf_tpu_torch.models.endonerf import (
+            DNeRFRenderSpec,
+            DNeRFSpec,
+            init_dnerf_params,
+        )
+        from endosurf_tpu_torch.train import trainer_endonerf as tr
+        ncfg = endonerf_cfg()
+        spec, rspec = DNeRFSpec.from_config(ncfg["net"]), DNeRFRenderSpec.from_config(
+            ncfg["render"])
+        out = {"tr": tr, "n": DN_RAY_BATCH, "step_args": (),
+               "args": ({"color_loss_weight": 1.0, "depth_loss_weight": 1.0},),
+               "schedule": schedules.exponential(5e-4, 250),
+               "init": lambda: init_dnerf_params(spec, torch.Generator().manual_seed(0), dev)}
+    init = out["init"]
+
+    def init_grad():
+        params = init()
+        for v in flatten(params).values():
+            v.requires_grad_(True)
+        return params
+    out.update(spec=spec, rspec=rspec, init=init_grad,
+               kwargs={"precision": precision, "sampling_precision": precision})
+    return out
+
+
+def dp_train(kind: str, scene, dev, mesh, n_steps: int = DP_STEPS,
+             precision: str = "default") -> dict:
+    """``n_steps`` base.yml train steps of ``kind`` (``train_family``; bf16
+    dots, or ``precision``) from seed-0 parameters and a draw generator
+    seeded 1, data-parallel on ``mesh`` (None: one process). Returns the
+    metrics of each step, step 1's gradients and the last parameters (CPU
+    copies), the draw generator's state after the run (where its stream
+    stands), each step's host ms (synchronised) and the kernel launches of
+    the run."""
+    from endosurf_tpu_torch.bridge import flatten
+    f = train_family(kind, dev, precision)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = f["init"]()
+    step = f["tr"].make_train_step(f["spec"], f["rspec"], H, W, f["n"], *f["args"],
+                                   schedule=f["schedule"], mesh=mesh, **f["kwargs"])
+    opt = f["tr"].make_optimizer(params, f["schedule"](0))
+    flat = flatten(params)
+    reset_launches()
+    out = {"metrics": [], "step_ms": []}
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(params, opt, scene.device_arrays, gen,
+                       *([i + 1] if f["step_args"] else []))
+        torch.cuda.synchronize()
+        out["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        out["metrics"].append({k: float(v) for k, v in metrics.items()})
+        if i == 0:
+            out["grads"] = {k: v.grad.detach().cpu() for k, v in flat.items()}
+    out["launches"] = launches_now()
+    out["params"] = {k: v.detach().cpu() for k, v in flat.items()}
+    out["gen_state"] = gen.get_state()
+    return out
+
+
+def settle_autograd_order(scene, dev) -> None:
+    """One EndoSurf step, thrown away. A process's first EndoSurf step sums
+    the deform and SDF nets' gradient contributions in another order than
+    its later steps (the last bits, 7.7e-8 at most): autograd's ready queue
+    runs nodes by sequence number, counted per thread, and the aux queries'
+    double-backward nodes are made on the engine's device thread, whose
+    count starts fresh in a new process, above the main thread's numbers in
+    the first step and below them from the second on
+    (tools/probe_first_step.py). Comparisons across processes start after
+    it."""
+    dp_train("endosurf", scene, dev, None, n_steps=1)
+
+
+def dp_control(kind: str, scene, dev, mesh, precision: str = "default") -> dict:
+    """Phase 34's planted control on ``mesh``: step 1 of ``dp_train`` with
+    each rank's loss a mean over its own rows (``losses.global_means``
+    without the mesh) and the gradients averaged over the ranks, DDP's
+    default; the metrics averaged likewise. {metrics, grads (CPU), counts:
+    each mask's count on each rank's rows}."""
+    from endosurf_tpu_torch.bridge import flatten
+    from endosurf_tpu_torch.data.scene_data import sample_train_batch
+    from endosurf_tpu_torch.parallel.mesh import all_reduce_grads
+    from endosurf_tpu_torch.train import losses
+    f = train_family(kind, dev, precision)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = f["init"]()
+    loss_fn = f["tr"].make_loss_fn(f["spec"], f["rspec"], H, W, f["n"], *f["args"], mesh=mesh,
+                                   **f["kwargs"])
+    global_means = losses.global_means
+    losses.global_means = lambda terms, m: global_means(terms, None)
+    try:
+        total, metrics = loss_fn(params, scene.device_arrays, *f["step_args"], gen)
+    finally:
+        losses.global_means = global_means
+    total.backward()
+    flat = flatten(params)
+    all_reduce_grads(flat.values())
+    vec = mesh.sum_(torch.stack([v.detach().float() for v in metrics.values()]))
+    batch = sample_train_batch(scene.device_arrays, H, W, f["n"],
+                               generator=torch.Generator(device=dev).manual_seed(1))
+    counts = {k: [float(batch[k].tensor_split(mesh.world)[r].sum()) for r in range(mesh.world)]
+              for k in ("mask", "color_mask")}
+    return {"metrics": {k: float(v) / mesh.world for k, v in zip(metrics, vec)},
+            "grads": {k: (v.grad / mesh.world).cpu() for k, v in flat.items()}, "counts": counts}
+
+
+def dp_frames(scene, dev, mesh) -> dict:
+    """A served 512x640 test frame of each family (seed-0 parameters, bf16,
+    2048-ray chunks), its chunks split over ``mesh``'s ranks, then the 3D
+    demo's queries through the renderer's hooks (its rows split over the
+    renderer's own mesh): one 64-plane slab of the frame's 128^3 grid and
+    the colours of 65,536 points. {family: maps, family_grid, family_colours},
+    with each frame's host ms and the launches of each family."""
+    import numpy as np
+
+    from endosurf_tpu_torch.evaluation.geometry3d import grid_axes, grid_slab
+    from endosurf_tpu_torch.evaluation.render_eval import render_full_frames
+    from endosurf_tpu_torch.serve import EndoNeRFRenderer, EndoSurfRenderer
+    fid = int(scene.list_test[0])
+    lin = grid_axes(scene.bbox_minmax[fid, :, 0] * 1.2, scene.bbox_minmax[fid, :, 1] * 1.2,
+                    GRID_RES)
+    pts = grid_slab(lin, 0, GRID_SLAB, dev)
+    t = torch.full((pts.shape[0], 1), float(scene.device_arrays["ts"][fid]), device=dev)
+    rng = np.random.default_rng(4)
+    cpts = rng.uniform(-0.6, 0.6, (65536, 3)).astype(np.float32)
+    cdirs = rng.normal(size=(65536, 3)).astype(np.float32)
+    cdirs /= np.linalg.norm(cdirs, axis=-1, keepdims=True)
+    out = {"ms": {}, "launches": {}}
+    with tempfile.TemporaryDirectory() as exp_root:
+        for kind, cls, cfg in (("endosurf", EndoSurfRenderer, base_cfg()),
+                               ("endonerf", EndoNeRFRenderer, endonerf_cfg())):
+            cfg["exp"]["exp_dir"] = exp_root
+            r = cls(cfg, scene=scene, step=30000, device=dev)
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[kind] = render_full_frames(r.render_fn(), r.params, scene.device_arrays, H, W,
+                                           [fid], 30000, CHUNK,
+                                           getattr(r, "eval_ray_transform", None), mesh)
+            torch.cuda.synchronize()
+            out["ms"][kind] = 1e3 * (time.perf_counter() - t0)
+            with torch.no_grad():
+                out[f"{kind}_grid"] = r.demo_field_fn()(pts, t).cpu()
+            out[f"{kind}_colours"] = r.render_points_fn()(cpts, cdirs,
+                                                          np.full((65536, 1), 0.5, np.float32))
+            out["launches"][kind] = launches_now()
+    return out
+
+
+def order_floor(kind: str, scene, dev) -> dict:
+    """Step 1's gradients in one process on its batch and on the same batch
+    with its rays in reverse order (the draws reversed with them): each
+    leaf's relative L2 between the two, what summing the same points' terms
+    in another order does (the kernels compute each point alike)."""
+    from endosurf_tpu_torch.bridge import flatten
+    f = train_family(kind, dev)
+    n = f["n"]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    draws = {"frame": torch.randint(0, len(scene.list_train), (), generator=gen, device=dev),
+             "u_pix": torch.rand(n, generator=gen, device=dev)}
+    if kind == "endosurf":
+        draws.update(z=torch.rand(n, 1, generator=gen, device=dev),
+                     neig=torch.rand(n, 3, generator=gen, device=dev))
+    else:
+        from endosurf_tpu_torch.models.endonerf import train_draws
+        draws = train_draws(f["spec"], f["rspec"], n, gen, draws, dev)
+    loss_fn = f["tr"].make_loss_fn(f["spec"], f["rspec"], H, W, n, *f["args"], **f["kwargs"])
+
+    def grads(d):
+        params = f["init"]()
+        loss_fn(params, scene.device_arrays, *f["step_args"], None, d)[0].backward()
+        return {k: v.grad.detach().cpu() for k, v in flatten(params).items()}
+    reverse = {k: v.reshape(n, -1).flip(0).reshape(v.shape) if v.ndim else v
+               for k, v in draws.items()}
+    grads(draws)                      # settles autograd's order (settle_autograd_order)
+    a, b = grads(draws), grads(reverse)
+    return {k: _rel(b[k], a[k]) for k in a}
+
+
+def allreduce_ms(n: int, dev, reps: int = 5) -> float:
+    """Host ms of one summed all-reduce of n float32 values (synchronised;
+    after a barrier and one warm-up)."""
+    import torch.distributed as dist
+    buf = torch.ones(n, device=dev)
+    dist.barrier()
+    dist.all_reduce(buf)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dist.all_reduce(buf)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def dp_rank(out_path: str) -> int:
+    """``--dp-rank PATH``: one rank of phase 34 (the group from torchrun's
+    variables, Gloo, every rank on cuda:0): the train steps and frames of
+    both families on the data mesh and the all-reduce's time, saved to
+    PATH."""
+    from endosurf_tpu_torch.data.scene_data import make_synthetic_arrays
+    from endosurf_tpu_torch.kernels import build
+    from endosurf_tpu_torch.parallel import distributed
+    from endosurf_tpu_torch.parallel.mesh import make_mesh
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    build.load_library()
+    check(distributed.initialize(backend="gloo", device=dev), "no process group")
+    try:
+        mesh = make_mesh(True, dev)
+        check(mesh is not None and mesh.world == DP_WORLD, f"mesh {mesh}")
+        scene = make_synthetic_arrays(n_frames=4, h=H, w=W, seed=0, device=dev)
+        settle_autograd_order(scene, dev)
+        out = {k: dp_train(k, scene, dev, mesh) for k in ("endosurf", "endonerf")}
+        out["f32"] = {k: dp_train(k, scene, dev, mesh, precision="highest")
+                      for k in ("endosurf", "endonerf")}
+        out["control"] = {(k, p): dp_control(k, scene, dev, mesh, p)
+                          for k in ("endosurf", "endonerf") for p in ("default", "highest")}
+        out["frames"] = dp_frames(scene, dev, mesh)
+        out["allreduce_ms"] = {k: allreduce_ms(sum(g.numel() for g in out[k]["grads"].values()),
+                                               dev) for k in ("endosurf", "endonerf")}
+        torch.save(out, out_path)
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def nccl_rank(out_path: str) -> int:
+    """``--nccl-rank PATH``: phase 34's one-rank NCCL check: an EndoSurf
+    step without a group (after ``settle_autograd_order``), then the same step in a
+    one-rank NCCL group on the data mesh (its all-reduces run); whether they
+    are equal bit for bit, saved to PATH."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from endosurf_tpu_torch.data.scene_data import make_synthetic_arrays
+    from endosurf_tpu_torch.kernels import build
+    from endosurf_tpu_torch.parallel.mesh import make_mesh
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    build.load_library()
+    scene = make_synthetic_arrays(n_frames=4, h=H, w=W, seed=0, device=dev)
+    settle_autograd_order(scene, dev)
+    alone = dp_train("endosurf", scene, dev, None, n_steps=1)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{os.environ['MASTER_PORT']}",
+                            world_size=1, rank=0, timeout=timedelta(seconds=120))
+    try:
+        mesh = make_mesh(True, dev)
+        check(mesh is not None and mesh.world == 1, f"mesh {mesh}")
+        grouped = dp_train("endosurf", scene, dev, mesh, n_steps=1)
+    finally:
+        dist.destroy_process_group()
+    torch.save({
+        "backend": "nccl", "metrics": alone["metrics"][0] == grouped["metrics"][0],
+        "grads": all(torch.equal(alone["grads"][k], grouped["grads"][k]) for k in alone["grads"]),
+        "params": all(torch.equal(alone["params"][k], grouped["params"][k])
+                      for k in alone["params"]),
+        "step_ms": (alone["step_ms"][0], grouped["step_ms"][0])}, out_path)
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(mode: str, n: int, tmp: str, timeout: int = 600) -> list:
+    """Run ``chip_smoke.py <mode> <file>`` as ranks 0..n-1 of one group (the
+    variables torchrun sets; every rank on cuda:0) and return each rank's
+    saved result. A rank that fails or outlasts ``timeout`` fails the phase;
+    every process is stopped either way."""
+    port = _free_port()
+    procs, paths = [], []
+    try:
+        for r in range(n):
+            paths.append(os.path.join(tmp, f"rank{r}.pt"))
+            env = {**os.environ, "MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
+                   "WORLD_SIZE": str(n), "RANK": str(r), "LOCAL_RANK": "0",
+                   "LOCAL_WORLD_SIZE": str(n)}
+            procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), mode,
+                                           paths[-1]], env=env, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"{mode} rank {r} exited {p.returncode}:\n{o[-4000:]}")
+    return [torch.load(path, weights_only=False) for path in paths]
+
+
+def data_parallel_phase(scene, smi: str) -> dict:
+    """Phase 34: two ranks on the one card over Gloo against one process,
+    then a one-rank NCCL step against the step without a group."""
+    import numpy as np
+    t_phase = time.perf_counter()
+    dev = scene.device_arrays["colors"].device
+    families = ("endosurf", "endonerf")
+    ref = {k: dp_train(k, scene, dev, None) for k in families}
+    ref["f32"] = {k: dp_train(k, scene, dev, None, precision="highest") for k in families}
+    ref["frames"] = dp_frames(scene, dev, None)
+    floor = {k: order_floor(k, scene, dev) for k in families}
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_ranks("--dp-rank", DP_WORLD, tmp)
+    out, bad = {}, []
+    for kind in families:
+        rows = [r[kind] for r in ranks]
+        m_errs = [[max(_metric_errs(got, want).values()) for got, want in
+                   zip(r["metrics"], ref[kind]["metrics"])] for r in rows]
+        g_errs = [{k: _rel(r["grads"][k], ref[kind]["grads"][k]) for k in ref[kind]["grads"]}
+                  for r in rows]
+        worst = [max(g.items(), key=lambda kv: kv[1]) for g in g_errs]
+        same = all(torch.equal(rows[0]["params"][k], r["params"][k])
+                   for r in rows[1:] for k in rows[0]["params"])
+        stream = all(torch.equal(r["gen_state"], ref[kind]["gen_state"]) for r in rows)
+        rank_ms = [sum(r["step_ms"][1:]) / (DP_STEPS - 1) for r in rows]
+        one_ms = sum(ref[kind]["step_ms"][1:]) / (DP_STEPS - 1)
+        ar_ms = [r["allreduce_ms"][kind] for r in ranks]
+        m_tol, g_tol, later_tol = DP_TOL["default"]
+        print(f"data parallel {kind} ({DP_WORLD} Gloo ranks on one card, {smi}): "
+              f"{DP_STEPS} steps; metrics' largest relative difference from one process a "
+              f"step " + " | ".join(f"rank {i}: " + ", ".join(f"{e:.2e}" for e in m)
+                                   for i, m in enumerate(m_errs))
+              + f" (tol {m_tol:g} step 1, {later_tol:g} later); step 1 gradient relative L2, "
+              f"worst leaf " + ", ".join(f"rank {i} {k} {e:.2e}" for i, (k, e) in enumerate(worst))
+              + f" (tol {g_tol:g}); ranks' parameters after {DP_STEPS} steps "
+              f"{'bitwise equal' if same else 'DIFFER'}; draw generator after {DP_STEPS} steps "
+              f"{'where' if stream else 'NOT where'} one process's is; step ms (steps "
+              f"2-{DP_STEPS}) " + ", ".join(f"rank {i} {ms:.1f}" for i, ms in enumerate(rank_ms))
+              + f", one process {one_ms:.1f}; gradient all-reduce (one flat bucket, "
+              f"{sum(g.numel() for g in ref[kind]['grads'].values())} floats) "
+              + ", ".join(f"{ms:.2f}" for ms in ar_ms) + " ms", flush=True)
+        fl = max(floor[kind].items(), key=lambda kv: kv[1])
+        print(f"data parallel {kind} order floor: one process, the batch's rays reversed, "
+              f"step 1 gradient relative L2, worst leaf {fl[0]} {fl[1]:.2e}; on the leaves "
+              f"above: " + ", ".join(f"{k} {floor[kind][k]:.2e}" for k, _ in worst), flush=True)
+        print(f"data parallel {kind} launches: one process {ref[kind]['launches']}; "
+              + "; ".join(f"rank {i} {r['launches']}" for i, r in enumerate(rows)), flush=True)
+        for i, step_m in enumerate(ref[kind]["metrics"]):
+            print(f"data parallel {kind} step {i + 1} metrics (one process): "
+                  + ", ".join(f"{k} {v:.6g}" for k, v in step_m.items()) + "; worst on rank 0: "
+                  + max(_metric_errs(rows[0]["metrics"][i], step_m).items(),
+                        key=lambda kv: kv[1])[0], flush=True)
+        if not all(m[0] <= m_tol and max(m[1:]) <= later_tol for m in m_errs):
+            bad.append(f"{kind} metrics")
+        if not all(e <= g_tol for g in g_errs for e in g.values()):
+            bad.append(f"{kind} step 1 gradients")
+        f32_tol = DP_TOL["highest"]
+        f32_m = [[max(_metric_errs(got, want).values()) for got, want in
+                  zip(r["f32"][kind]["metrics"], ref["f32"][kind]["metrics"])] for r in ranks]
+        f32_g = [max(((k, _rel(r["f32"][kind]["grads"][k], ref["f32"][kind]["grads"][k]))
+                      for k in ref["f32"][kind]["grads"]), key=lambda kv: kv[1]) for r in ranks]
+        print(f"data parallel {kind} float32 ({DP_STEPS} steps, {smi}): metrics' largest "
+              f"relative difference from one process a step " + " | ".join(
+                  f"rank {i}: " + ", ".join(f"{e:.2e}" for e in m) for i, m in enumerate(f32_m))
+              + f" (tol {f32_tol[0]:g} step 1, {f32_tol[2]:g} later); step 1 gradient relative "
+              f"L2, worst leaf " + ", ".join(f"rank {i} {k} {e:.2e}"
+                                             for i, (k, e) in enumerate(f32_g))
+              + f" (tol {f32_tol[1]:g})", flush=True)
+        if (not all(m[0] <= f32_tol[0] and max(m[1:]) <= f32_tol[2] for m in f32_m)
+                or max(e for _, e in f32_g) > f32_tol[1]):
+            bad.append(f"{kind} float32 steps")
+        controls = []
+        for prec, want in (("default", ref[kind]), ("highest", ref["f32"][kind])):
+            ctrl = ranks[0]["control"][(kind, prec)]
+            c_m = max(_metric_errs(ctrl["metrics"], want["metrics"][0]).items(),
+                      key=lambda kv: kv[1])
+            c_g = max(((k, _rel(ctrl["grads"][k], want["grads"][k])) for k in want["grads"]),
+                      key=lambda kv: kv[1])
+            tol = DP_TOL[prec]
+            caught = c_m[1] > tol[0] or c_g[1] > tol[1]
+            # Required where per-rank means are another function of the
+            # batch: EndoSurf's (its Eikonal, in-sphere and surface-hit
+            # counts differ across the shards), and EndoNeRF's in float32
+            # where its mask counts differ across the ranks (in bf16 its one
+            # uneven mask, the depth term's, sits under the per-rank rounding)
+            uneven = any(len(set(c)) > 1 for c in ctrl["counts"].values())
+            required = kind == "endosurf" or (prec == "highest" and uneven)
+            print(f"data parallel {kind} planted control ({prec}: per-rank means, gradients "
+                  f"averaged over the ranks; the batch's mask counts a rank {ctrl['counts']}), "
+                  f"step 1 against one process: metrics "
+                  f"{c_m[1]:.2e} ({c_m[0]}; tol {tol[0]:g}), gradient relative L2 "
+                  f"{c_g[1]:.2e} ({c_g[0]}; tol {tol[1]:g}): "
+                  f"{'fails the limits' if caught else 'passes the limits'}"
+                  f"{'' if required else ' (reported only)'}", flush=True)
+            if required and not caught:
+                bad.append(f"{kind} {prec} planted control passed")
+            controls.append([c_m[1], c_g[1]])
+        if not stream:
+            bad.append(f"{kind} draw stream")
+        if not same:
+            bad.append(f"{kind} ranks' parameters")
+        if not all(math.isfinite(v) for r in rows for m in r["metrics"] for v in m.values()):
+            bad.append(f"{kind} finite metrics")
+        if any(r["launches"] != {k: v for k, v in ref[kind]["launches"].items()} for r in rows):
+            bad.append(f"{kind} launches")
+        out[kind] = {"metric_err": m_errs, "grad_err": [w[1] for w in worst],
+                     "order_floor": fl[1], "f32_metric_err": f32_m,
+                     "f32_grad_err": max(e for _, e in f32_g),
+                     "control": controls, "stream_equal": stream,
+                     "params_equal": same, "rank_step_ms": rank_ms, "one_step_ms": one_ms,
+                     "allreduce_ms": ar_ms}
+    frames = {}
+    for kind in families:
+        diffs = {k: max(float(abs(r["frames"][kind][k] - ref["frames"][kind][k]).max())
+                        for r in ranks) for k in ref["frames"][kind]}
+        for part in ("grid", "colours"):
+            key = f"{kind}_{part}"
+            diffs[part] = max(float(abs(np.asarray(r["frames"][key])
+                                        - np.asarray(ref["frames"][key])).max()) for r in ranks)
+        frames[kind] = diffs
+        print(f"data parallel {kind} frame ({H}x{W}, {CHUNK}-ray chunks split over "
+              f"{DP_WORLD} ranks), a {GRID_SLAB}-plane slab of the {GRID_RES}^3 grid and 65,536 "
+              f"points' colours split by rows: largest difference from one process "
+              + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items())
+              + f"; ms " + ", ".join(f"rank {i} {r['frames']['ms'][kind]:.0f}"
+                                      for i, r in enumerate(ranks))
+              + f", one process {ref['frames']['ms'][kind]:.0f}; launches "
+              + "; ".join(f"rank {i} {r['frames']['launches'][kind]}"
+                          for i, r in enumerate(ranks))
+              + f"; one process {ref['frames']['launches'][kind]}", flush=True)
+        if any(v != 0 for v in diffs.values()):
+            bad.append(f"{kind} frame")
+    with tempfile.TemporaryDirectory() as tmp:
+        (nccl,) = spawn_ranks("--nccl-rank", 1, tmp, timeout=300)
+    print(f"data parallel nccl (one rank, {smi}): one EndoSurf step in the group against the "
+          f"step without one: metrics {'equal' if nccl['metrics'] else 'DIFFER'}, gradients "
+          f"{'equal' if nccl['grads'] else 'DIFFER'}, parameters "
+          f"{'equal' if nccl['params'] else 'DIFFER'} bit for bit; step ms "
+          f"{nccl['step_ms'][0]:.1f} alone, {nccl['step_ms'][1]:.1f} in the group", flush=True)
+    if not (nccl["metrics"] and nccl["grads"] and nccl["params"]):
+        bad.append("one-rank NCCL step")
+    check(not bad, f"data parallel: {bad}")
+    out.update({"frames": frames, "nccl": {k: nccl[k] for k in ("metrics", "grads", "params")},
+                "phase_s": round(time.perf_counter() - t_phase, 2)})
+    print(json.dumps({"phase": "data_parallel", "card": smi, **out}), flush=True)
+    return out
+
+
+def _net_errs(got: dict, ref: dict) -> dict:
+    """Per-network gradient relative L2 (the leaves of a net concatenated)."""
+    nets = sorted({k.split("/")[0] for k in ref})
+    return {n: _rel(torch.cat([got[k].reshape(-1) for k in ref if k.startswith(n + "/")]),
+                    torch.cat([ref[k].reshape(-1) for k in ref if k.startswith(n + "/")]))
+            for n in nets}
+
+
+def fold_aux_phase(scene, smi: str) -> dict:
+    """Phase 35: base.yml EndoSurf with fold_aux_queries on and off (the
+    sphere trace either way) on the same draws, both dot modes: metrics and
+    gradients at FOLD_TOL, launches, the planted fault (the folded rows one
+    ray off) failing; then each bf16 step's ms and device-busy ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from endosurf_tpu_torch.bridge import flatten
+    from endosurf_tpu_torch.train import trainer_endosurf as tr
+    t_phase = time.perf_counter()
+    dev = scene.device_arrays["colors"].device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    draws = {"frame": torch.randint(0, len(scene.list_train), (), generator=gen, device=dev),
+             "u_pix": torch.rand(RAY_BATCH, generator=gen, device=dev),
+             "z": torch.rand(RAY_BATCH, 1, generator=gen, device=dev),
+             "neig": torch.rand(RAY_BATCH, 3, generator=gen, device=dev)}
+
+    def loss_step(fold: bool, precision: str):
+        f = train_family("endosurf", dev, precision)
+        params = f["init"]()
+        loss_fn = tr.make_loss_fn(f["spec"], f["rspec"], H, W, RAY_BATCH, *f["args"],
+                                  fold_aux=fold, march_reuse=False, **f["kwargs"])
+        reset_launches()
+        total, metrics = loss_fn(params, scene.device_arrays, N_STEPS, None, draws)
+        total.backward()
+        torch.cuda.synchronize()
+        return ({k: float(v.detach()) for k, v in metrics.items()},
+                {k: v.grad.detach().cpu() for k, v in flatten(params).items()},
+                launches_now())
+
+    out, bad = {}, []
+    split = tr.fold_split
+    for precision in ("highest", "default"):
+        folded, unfolded = loss_step(True, precision), loss_step(False, precision)
+        m_err = _metric_errs(folded[0], unfolded[0])
+        g_err = _net_errs(folded[1], unfolded[1])
+        tr.fold_split = lambda sdf, grad, n, need: split(sdf.roll(1, 0), grad.roll(1, 0), n, need)
+        try:
+            planted = loss_step(True, precision)
+        finally:
+            tr.fold_split = split
+        pm_err, pg_err = _metric_errs(planted[0], unfolded[0]), _net_errs(planted[1], unfolded[1])
+        m_tol, g_tol = FOLD_TOL[precision]
+        sound = max(m_err.values()) <= m_tol and max(g_err.values()) <= g_tol
+        caught = max(pm_err.values()) > m_tol or max(pg_err.values()) > g_tol
+        print(f"fold_aux {precision} ({RAY_BATCH} rays, {smi}): folded against unfolded on the "
+              f"same draws: metrics' largest relative difference {max(m_err.values()):.2e} "
+              f"({max(m_err, key=m_err.get)}; tol {m_tol:g}), gradient relative L2 "
+              + ", ".join(f"{n} {e:.2e}" for n, e in g_err.items()) + f" (tol {g_tol:g}); "
+              f"planted fault (rows one ray off) metrics {max(pm_err.values()):.2e}, gradients "
+              f"{max(pg_err.values()):.2e} ({'fails' if caught else 'PASSES'}); launches "
+              f"folded {folded[2]}, unfolded {unfolded[2]}", flush=True)
+        if not sound:
+            bad.append(f"{precision} folded vs unfolded")
+        if not caught:
+            bad.append(f"{precision} planted fault passes")
+        out[precision] = {"metric_err": max(m_err.values()), "grad_err": g_err,
+                          "planted": [max(pm_err.values()), max(pg_err.values())]}
+
+    from endosurf_tpu_torch.train.trainer_endosurf import EndoSurfTrainer
+    timing = {}
+    with tempfile.TemporaryDirectory() as exp_root:
+        for name, key in (("folded", "fold_aux_queries"), ("unfolded", "surf_march_reuse")):
+            tcfg = base_cfg()
+            tcfg["exp"]["exp_dir"] = exp_root
+            tcfg["train"][key] = name == "folded"
+            trainer = EndoSurfTrainer(tcfg, mode="train", scene=scene, device=dev)
+            trainer.train_step(1)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            for s in range(N_SPLIT):
+                trainer.train_step(2 + s)
+            torch.cuda.synchronize()
+            step_ms = 1e3 * (time.perf_counter() - t0) / N_SPLIT
+            launches = {k: v // N_SPLIT for k, v in launches_now().items()}
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for s in range(N_SPLIT):
+                    trainer.train_step(2 + N_SPLIT + s)
+                torch.cuda.synchronize()
+            events = list(device_events(prof, N_SPLIT))
+            busy = sum(ms for _, _, ms in events)
+            timing[name] = {"step_ms": step_ms, "busy_ms": busy,
+                            "device_launches": sum(c for _, c, _ in events) // N_SPLIT,
+                            "launches": launches}
+            print(f"fold_aux timing {name} (bf16, {RAY_BATCH} rays, {smi}): {step_ms:.1f} ms a "
+                  f"step, device busy {busy:.2f} ms, {timing[name]['device_launches']} device "
+                  f"launches a step; port kernel launches a step {launches}", flush=True)
+    check(not bad, f"fold_aux: {bad}")
+    out.update({"timing": timing, "phase_s": round(time.perf_counter() - t_phase, 2)})
+    print(json.dumps({"phase": "fold_aux", "card": smi, **out}), flush=True)
+    return out
+
+
+def alias_phase(scene, smi: str) -> dict:
+    """Phase 36: the alias pixel sampler on the card: the tables' host build
+    for the scene's 512x640 frames, the draw's device ms beside the cdf
+    sampler's at a train batch, and the total variation of ALIAS_DRAWS
+    draws against the cdf sampler's weights beside the cdf sampler's own
+    draws (the sampling noise)."""
+    from endosurf_tpu_torch.data.scene_data import alias_tables
+    from endosurf_tpu_torch.ops.pdf import sample_from_alias, sample_from_cdf
+    t_phase = time.perf_counter()
+    dev = scene.device_arrays["colors"].device
+    arrays = dict(scene.device_arrays)
+    arrays.pop("sample_alias_prob", None)
+    arrays.pop("sample_alias_idx", None)
+    n_frames, n_pix = arrays["sample_w"].shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prob, alias = alias_tables(arrays, True)
+    torch.cuda.synchronize()
+    build_ms = 1e3 * (time.perf_counter() - t0)
+    cdf = arrays["sample_cdf"][0]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    j = torch.randint(0, n_pix, (RAY_BATCH,), generator=gen, device=dev)
+    u = torch.rand(RAY_BATCH, generator=gen, device=dev)
+    alias_ms = cuda_ms(lambda: sample_from_alias(prob[0], alias[0], j, u), 20)
+    cdf_ms = cuda_ms(lambda: sample_from_cdf(cdf, RAY_BATCH, u=u), 20)
+    p = torch.diff(cdf.double(), prepend=torch.zeros(1, dtype=torch.float64, device=dev))
+    j = torch.randint(0, n_pix, (ALIAS_DRAWS,), generator=gen, device=dev)
+    u = torch.rand(ALIAS_DRAWS, generator=gen, device=dev)
+
+    def tv(idx):
+        freq = torch.bincount(idx, minlength=n_pix).double() / ALIAS_DRAWS
+        return float(0.5 * (freq - p).abs().sum())
+    tv_alias = tv(sample_from_alias(prob[0], alias[0], j, u))
+    tv_cdf = tv(sample_from_cdf(cdf, ALIAS_DRAWS, generator=gen))
+    print(f"alias ({n_frames} x {H}x{W}, {smi}): tables built in {build_ms:.1f} ms on the host "
+          f"({build_ms / n_frames:.1f} a frame, uploaded); a {RAY_BATCH}-ray draw {alias_ms:.4f} "
+          f"device ms (cdf {cdf_ms:.4f}); total variation of {ALIAS_DRAWS} draws against the "
+          f"cdf weights: alias {tv_alias:.5f}, the cdf sampler's own {tv_cdf:.5f} (noise)",
+          flush=True)
+    check(abs(tv_alias - tv_cdf) <= 0.1 * tv_cdf, f"alias draws off the weights: {tv_alias} "
+                                                     f"against the cdf sampler's {tv_cdf}")
+    out = {"build_ms": build_ms, "draw_ms": alias_ms, "cdf_draw_ms": cdf_ms,
+           "tv_alias": tv_alias, "tv_cdf": tv_cdf,
+           "phase_s": round(time.perf_counter() - t_phase, 2)}
+    print(json.dumps({"phase": "alias", "card": smi, **out}), flush=True)
+    return out
+
+
+def parallel_only(smi: str) -> int:
+    """``--parallel-only``: the build, then phases 34-36."""
+    from endosurf_tpu_torch.data.scene_data import make_synthetic_arrays
+    from endosurf_tpu_torch.kernels import build
+    build.load_library()
+    scene = make_synthetic_arrays(n_frames=4, h=H, w=W, seed=0, device=torch.device("cuda"))
+    data_parallel_phase(scene, smi)
+    fold_aux_phase(scene, smi)
+    alias_phase(scene, smi)
+    return 0
+
+
 def modules_only(smi: str) -> int:
     """``--modules-only``: the build, a served 512x640 frame, then phases
     30-33."""
@@ -2860,6 +3555,10 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:2] == ["--dp-rank"]:      # a rank of phase 34, started by it
+        return dp_rank(sys.argv[2])
+    if sys.argv[1:2] == ["--nccl-rank"]:
+        return nccl_rank(sys.argv[2])
     from endosurf_tpu_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2886,10 +3585,12 @@ def main() -> int:
         return march_train_only(smi)
     if sys.argv[1:] == ["--modules-only"]:
         return modules_only(smi)
+    if sys.argv[1:] == ["--parallel-only"]:
+        return parallel_only(smi)
     if sys.argv[1:]:
         raise SystemExit(f"usage: {sys.argv[0]} [--train-only | --segments-only | "
                          "--dnerf-train-only | --dnerf-segments-only | --march-only | "
-                         "--march-train-only | --modules-only]")
+                         "--march-train-only | --modules-only | --parallel-only]")
 
     import numpy as np
 
@@ -3196,6 +3897,11 @@ def main() -> int:
     query_phase(renderer_scene, smi)
     lpips_phase(renderer_scene, pred["rgb"], renderer_scene.list_test[:1], smi)
     profile_phase(renderer_scene, smi)
+
+    # 34-36. data parallelism, fold_aux_queries and the alias sampler
+    data_parallel_phase(renderer_scene, smi)
+    fold_aux_phase(renderer_scene, smi)
+    alias_phase(renderer_scene, smi)
 
     # the kernel record: work, bounds and times at the main paths' shapes (bf16)
     upsample_flops = 2 * RAY_BATCH * n_field * chain        # return_sdf: every sample

@@ -15,6 +15,11 @@ experiment directory; ``--params`` (an npz written by
 ``endosurf_tpu_torch.bridge``, see ``tools/export_params_npz.py`` for JAX
 checkpoints) overrides it, and with neither the seeded init is rendered.
 ``--device`` defaults to cuda and never falls back.
+
+Under ``torchrun`` (``python -m torch.distributed.run --nproc_per_node N -m
+endosurf_tpu_torch ...``) each process joins the group first (NCCL for cuda,
+Gloo for cpu), takes the card ``cuda:LOCAL_RANK``, and trains or serves
+data-parallel; the main rank writes the files.
 """
 
 from __future__ import annotations
@@ -33,9 +38,25 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda", help="torch device, e.g. cuda or cpu")
     args = parser.parse_args(argv)
 
-    from endosurf_tpu_torch.serve import resolve_device
-    device = resolve_device(args.device)
+    import torch
 
+    from endosurf_tpu_torch.parallel import distributed
+    from endosurf_tpu_torch.serve import resolve_device
+    device = torch.device(args.device)
+    if distributed.initialize(device=device):
+        if device.type == "cuda":
+            device = torch.device("cuda", distributed.local_rank())
+            torch.cuda.set_device(device)
+        print(f"DIST|rank {distributed.rank()}/{distributed.process_count()}|device {device}",
+              flush=True)
+    try:
+        return run(args, resolve_device(device))
+    finally:
+        distributed.shutdown()
+
+
+def run(args, device):
+    """The mode ``args.mode`` on ``device``."""
     if args.mode == "train":
         from endosurf_tpu_torch.config import load_config
         cfg = load_config(args.cfg)

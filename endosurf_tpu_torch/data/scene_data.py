@@ -3,8 +3,12 @@
 Loads the preprocessed info-pkl schema (per-frame world matrices, scale
 matrix, colour/depth/mask image paths, depth normalisation, splits) into
 tensors on one device, builds full-frame rays, and draws training batches
-with the mask-guided pixel CDFs (the ``cdf`` pixel sampler). The alias
-tables of the ``alias`` sampler are not built: that sampler is not ported.
+with the mask-guided pixel CDFs (the ``cdf`` pixel sampler) or Walker/Vose
+alias tables over the same weights (``alias``). The alias tables are built
+on the host the first time the ``alias`` sampler asks for them and cached in
+the scene's arrays; a ``cdf`` run never builds them (the JAX package builds
+and uploads both kinds for every scene). ``SceneData.export_debug_geometry``
+writes the scene's point cloud, cameras and unit sphere as PLYs.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import numpy as np
 import torch
 
 from endosurf_tpu_torch.ops.geometry import rays_from_pixels
-from endosurf_tpu_torch.ops.pdf import sample_from_cdf
+from endosurf_tpu_torch.ops.pdf import sample_from_alias, sample_from_cdf
 
 
 def decompose_projection(P: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -204,6 +208,54 @@ class SceneData:
             bbox_minmax=np.asarray(bbox_minmax), intrinsics=intrinsics,
             poses=poses, device_arrays=device_arrays)
 
+    def export_debug_geometry(self, out_dir: str, downsample: float = 0.1) -> None:
+        """Write the scene's geometry as PLYs for inspection in a viewer: every
+        frame's RGBD point cloud in world space, kept at random (numpy seed 0)
+        with probability ``downsample`` (``pointcloud.ply``), the camera
+        centres in red (``cameras.ply``) and a unit-sphere shell
+        (``unit_sphere.ply``), as the JAX package writes them."""
+        from endosurf_tpu_torch.evaluation.geometry3d import rgbd_to_pointcloud
+        from endosurf_tpu_torch.utils.ply import write_ply
+
+        os.makedirs(out_dir, exist_ok=True)
+        rng = np.random.default_rng(0)
+        pts_all, col_all = [], []
+        colors = self.device_arrays["colors"].cpu().numpy()
+        depths = self.device_arrays["depths"].cpu().numpy()
+        for i in range(self.n_frames):
+            pts, col = rgbd_to_pointcloud(colors[i], depths[i], self.intrinsics[i][:3, :3],
+                                          self.poses[i], self.far)
+            keep = rng.uniform(size=len(pts)) < downsample
+            pts_all.append(pts[keep])
+            col_all.append(col[keep])
+        write_ply(osp.join(out_dir, "pointcloud.ply"), np.concatenate(pts_all),
+                  colors=np.concatenate(col_all))
+        cams = self.poses[:, :3, 3]
+        cam_col = np.zeros((len(cams), 3), np.float32)
+        cam_col[:, 0] = 1.0
+        write_ply(osp.join(out_dir, "cameras.ply"), cams, colors=cam_col)
+        uu, vv = np.meshgrid(np.linspace(0, np.pi, 32), np.linspace(0, 2 * np.pi, 64))
+        sphere = np.stack([np.sin(uu) * np.cos(vv), np.sin(uu) * np.sin(vv), np.cos(uu)],
+                          -1).reshape(-1, 3)
+        write_ply(osp.join(out_dir, "unit_sphere.ply"), sphere.astype(np.float32))
+
+
+def alias_tables(arrays: Dict[str, torch.Tensor], mask_guided: bool = True
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-frame alias tables (prob [n, H*W] float32, alias [n, H*W]
+    int64) of the mask-guided (``sample_w``) or uniform (``uniform_w``) pixel
+    weights: built on the host (``native.alias_table``) at the first call,
+    uploaded to the arrays' device and cached in ``arrays``."""
+    kind = "sample" if mask_guided else "uniform"
+    if f"{kind}_alias_prob" not in arrays:
+        from endosurf_tpu_torch.native import alias_table
+        weights = arrays[f"{kind}_w"]
+        prob, alias = alias_table(weights.cpu().numpy())
+        arrays[f"{kind}_alias_prob"] = torch.as_tensor(prob, device=weights.device)
+        arrays[f"{kind}_alias_idx"] = torch.as_tensor(alias.astype(np.int64),
+                                                      device=weights.device)
+    return arrays[f"{kind}_alias_prob"], arrays[f"{kind}_alias_idx"]
+
 
 def frame_rays(arrays: Dict[str, torch.Tensor], h: int, w: int, fid: int) -> torch.Tensor:
     """Full-frame [H, W, 9] ray tensor on the arrays' device."""
@@ -222,15 +274,19 @@ def sample_train_batch(arrays: Dict[str, torch.Tensor], h: int, w: int, ray_batc
                        mask_guided: bool = True, pixel_sampler: str = "cdf",
                        generator: Optional[torch.Generator] = None,
                        frame_draw: Optional[torch.Tensor] = None,
-                       u_pix: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                       u_pix: Optional[torch.Tensor] = None,
+                       j_pix: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """One training batch: a random train frame and importance-drawn pixels.
 
-    ``frame_draw`` (an index into ``list_train``) and ``u_pix`` [ray_batch]
-    (the pixel uniforms) are drawn from ``generator`` unless given. Returns
-    rays [B, 9] and the per-ray supervision, all on the arrays' device."""
-    if pixel_sampler == "alias":
-        raise NotImplementedError("not yet ported: pixel_sampler 'alias'")
-    if pixel_sampler != "cdf":
+    ``frame_draw`` (an index into ``list_train``) and the pixel draws are
+    taken from ``generator`` unless given, in this order: the frame, then for
+    the ``cdf`` sampler the uniforms ``u_pix`` [ray_batch] (inverse CDF), for
+    ``alias`` the bins ``j_pix`` [ray_batch] (integers in [0, H*W)) and the
+    uniforms ``u_pix`` (``ops.pdf.sample_from_alias``). The two samplers draw
+    from the same weights (the ``cdf`` path floors each at 1e-12) with other
+    draws, so their batches differ. Returns rays [B, 9] and the per-ray
+    supervision, all on the arrays' device."""
+    if pixel_sampler not in ("cdf", "alias"):
         raise ValueError(f"unknown pixel_sampler: {pixel_sampler!r}")
     list_train = arrays["list_train"]
     device = list_train.device
@@ -238,8 +294,16 @@ def sample_train_batch(arrays: Dict[str, torch.Tensor], h: int, w: int, ray_batc
         frame_draw = torch.randint(0, list_train.shape[0], (), generator=generator,
                                    device=device)
     fid = list_train[torch.as_tensor(frame_draw, device=device)]
-    cdf = arrays["sample_cdf" if mask_guided else "uniform_cdf"][fid]
-    pix = sample_from_cdf(cdf, ray_batch, generator, u_pix)
+    if pixel_sampler == "alias":
+        prob, alias = alias_tables(arrays, mask_guided)
+        if j_pix is None:
+            j_pix = torch.randint(0, h * w, (ray_batch,), generator=generator, device=device)
+        if u_pix is None:
+            u_pix = torch.rand(ray_batch, generator=generator, device=device)
+        pix = sample_from_alias(prob[fid], alias[fid], j_pix, u_pix)
+    else:
+        cdf = arrays["sample_cdf" if mask_guided else "uniform_cdf"][fid]
+        pix = sample_from_cdf(cdf, ray_batch, generator, u_pix)
 
     py = torch.div(pix, w, rounding_mode="floor").to(torch.float32)
     px = (pix % w).to(torch.float32)

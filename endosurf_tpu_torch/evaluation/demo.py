@@ -9,7 +9,9 @@ the card),
 colours it from the radiance field, writes PLYs and reports the geometric
 error in mm (ground-truth point cloud -> mesh vertices). With ``visualize``
 it also writes composites, mesh screenshots, an mp4 and a gif; imageio and
-OpenCV are imported only there.
+OpenCV are imported only there. Under a data mesh every rank renders its rows
+of the frames and grids (``render_eval.render_full_frames``, the renderer's
+closures) and computes the stats; the main rank writes the files.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from endosurf_tpu_torch.evaluation.render_eval import (
     render_full_frames,
 )
 from endosurf_tpu_torch.native import rasterize_mesh
+from endosurf_tpu_torch.parallel.distributed import is_main_process
 from endosurf_tpu_torch.utils.ply import write_ply
 
 
@@ -113,6 +116,8 @@ def run_demo(renderer, step: int, test_mode: bool = False, visualize: bool = Tru
     depth_max = scene.far
     ds = scene.depth_scale
     stats: Dict = {}
+    write = is_main_process()
+    visualize = visualize and write
     shows_2d: Optional[List[np.ndarray]] = None
     mesh_shots: Dict[str, List[np.ndarray]] = {}
 
@@ -121,16 +126,18 @@ def run_demo(renderer, step: int, test_mode: bool = False, visualize: bool = Tru
         os.makedirs(d2, exist_ok=True)
         pred = render_full_frames(renderer.render_fn(), renderer.params, arrays,
                                   scene.h, scene.w, fids, step, ray_chunk,
-                                  getattr(renderer, "eval_ray_transform", None))
+                                  getattr(renderer, "eval_ray_transform", None),
+                                  getattr(renderer, "mesh", None))
         depth_filter = cfg.get("depth_filter")
         if depth_filter not in ("None", None):
             from endosurf_tpu_torch.evaluation.vis import filter_depth
             pred["depth"] = filter_depth(pred["depth"], depth_filter)
         add_depth_normals(renderer, scene, fids, pred)
         stats.update(frame_stats(scene, fids, pred))
-        with open(osp.join(d2, "stats_out.txt"), "w") as f:
-            for k, v in stats.items():
-                f.write(f"{k}: {v:f}\n")
+        if write:
+            with open(osp.join(d2, "stats_out.txt"), "w") as f:
+                for k, v in stats.items():
+                    f.write(f"{k}: {v:f}\n")
         if visualize:
             shows_2d = _write_visuals_2d(scene, fids, pred, d2, fps)
 
@@ -163,10 +170,12 @@ def run_demo(renderer, step: int, test_mode: bool = False, visualize: bool = Tru
             t1 = time.perf_counter()
             cm = colored_meshes(render_pts, verts, tris, view_point, float(ts[i]))
             t2 = time.perf_counter()
-            write_ply(osp.join(d3, f"{i:03d}_geometry.ply"), verts, tris)
-            write_ply(osp.join(d3, f"{i:03d}_color.ply"), verts, tris, cm["color"])
-            write_ply(osp.join(d3, f"{i:03d}_normal.ply"), verts, tris, cm["normal_color"])
-            write_ply(osp.join(d3, f"{i:03d}_gt.ply"), pcd_pts, colors=pcd_col)
+            if write:
+                write_ply(osp.join(d3, f"{i:03d}_geometry.ply"), verts, tris)
+                write_ply(osp.join(d3, f"{i:03d}_color.ply"), verts, tris, cm["color"])
+                write_ply(osp.join(d3, f"{i:03d}_normal.ply"), verts, tris,
+                          cm["normal_color"])
+                write_ply(osp.join(d3, f"{i:03d}_gt.ply"), pcd_pts, colors=pcd_col)
             geo_errs.append(geometric_error(pcd_pts, verts, ds))
             t3 = time.perf_counter()
             grid_s = mesh_t.get("s", 0.0)
@@ -181,10 +190,11 @@ def run_demo(renderer, step: int, test_mode: bool = False, visualize: bool = Tru
         stats["geo_err_mean"] = float(np.mean(geo_errs))
         stats["geo_err_per_frame"] = [float(e) for e in geo_errs]
         stats["timing_3d"] = timing
-        with open(osp.join(d3, "stats_out.txt"), "w") as f:
-            f.write(f"mean: {stats['geo_err_mean']:f}\n")
-            for k, v in enumerate(geo_errs):
-                f.write(f"{k}: {v:f}\n")
+        if write:
+            with open(osp.join(d3, "stats_out.txt"), "w") as f:
+                f.write(f"mean: {stats['geo_err_mean']:f}\n")
+                for k, v in enumerate(geo_errs):
+                    f.write(f"{k}: {v:f}\n")
         if visualize and mesh_shots:
             from endosurf_tpu_torch.evaluation.vis import hstack_labeled, write_gif, write_video
             frames = [hstack_labeled([mesh_shots[k][i] for k in mesh_shots], list(mesh_shots))
@@ -195,8 +205,9 @@ def run_demo(renderer, step: int, test_mode: bool = False, visualize: bool = Tru
     if demo_2d and demo_3d and visualize and shows_2d:
         _write_final(base_dir, tag, fids, shows_2d, mesh_shots, fps)
 
-    print("DEMO|" + "|".join(f"{k}:{v:.4f}" for k, v in stats.items() if np.isscalar(v)),
-          flush=True)
+    if write:
+        print("DEMO|" + "|".join(f"{k}:{v:.4f}" for k, v in stats.items() if np.isscalar(v)),
+              flush=True)
     return stats
 
 

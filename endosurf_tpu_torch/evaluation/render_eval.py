@@ -5,6 +5,10 @@ Frames are flattened to rays, rendered in fixed-size chunks on the scene's
 device, and reassembled into RGB / depth / weighted-normal maps, then scored
 with the masked metrics and optionally saved as side-by-side composites
 (the first also to the renderer's ``writer``, where it has one).
+
+Under a data mesh (the renderer's ``mesh``) each rank renders its share of a
+frame's chunks and every rank gets the whole frame
+(``parallel.mesh.gather_rows``); only the main rank writes files.
 """
 
 from __future__ import annotations
@@ -19,18 +23,34 @@ import torch
 from endosurf_tpu_torch.data.scene_data import frame_rays
 from endosurf_tpu_torch.evaluation.metrics import cal_lpips, cal_psnr, cal_rmse, cal_ssim
 from endosurf_tpu_torch.evaluation.vis import composite_rows
+from endosurf_tpu_torch.parallel.distributed import is_main_process
+
+
+def _chunk_maps(out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A chunk's rgb / depth (/ normal) maps from the renderer's output."""
+    maps = {"rgb": out["color_map"], "depth": out["depth_map"]}
+    if "normal_map" in out:
+        maps["normal"] = out["normal_map"]
+    elif "gradients_o" in out:
+        maps["normal"] = (out["gradients_o"] * out["weights"][..., None]).sum(1)
+    return maps
 
 
 def render_full_frames(render_fn, params, arrays, h: int, w: int,
                        fids: Sequence[int], step: int, ray_chunk: int = 2048,
-                       ray_transform=None) -> Dict[str, np.ndarray]:
+                       ray_transform=None, mesh=None) -> Dict[str, np.ndarray]:
     """Render frames chunk by chunk; returns numpy rgb/depth(/normal) stacks.
 
     ``render_fn(params, rays[chunk, 9], step) -> dict`` returns color_map /
     depth_map and either normal_map or weights + gradients_o. The last chunk
     is padded by repeating the last ray, so every call has ``ray_chunk`` rays.
+    With a ``mesh`` (``parallel.mesh.DataMesh``) the frame's chunks are split
+    over the ranks by rows, each rank renders its own, and every rank gets
+    the whole maps: the chunks are the single process's, so the maps are
+    too, even where a chunk's draws depend on a ray's place in it (the
+    EndoNeRF depth-guided samples).
     """
-    rgbs, depths, normals = [], [], []
+    out: Dict[str, list] = {}
     for fid in fids:
         rays = frame_rays(arrays, h, w, int(fid)).reshape(-1, 9)
         if ray_transform is not None:
@@ -39,25 +59,21 @@ def render_full_frames(render_fn, params, arrays, h: int, w: int,
         n_pad = (-n_rays) % ray_chunk
         if n_pad:
             rays = torch.cat([rays, rays[-1:].expand(n_pad, 9)], dim=0)
-        rgb_parts, depth_parts, normal_parts = [], [], []
+        chunks = rays.reshape(-1, ray_chunk, 9)
+        n_chunks = chunks.shape[0]
+        mine = chunks if mesh is None else mesh.rows(chunks)
         with torch.no_grad():
-            for i in range(0, rays.shape[0], ray_chunk):
-                out = render_fn(params, rays[i:i + ray_chunk].contiguous(), step)
-                rgb_parts.append(out["color_map"])
-                depth_parts.append(out["depth_map"])
-                if "normal_map" in out:
-                    normal_parts.append(out["normal_map"])
-                elif "gradients_o" in out:
-                    normal_parts.append(
-                        (out["gradients_o"] * out["weights"][..., None]).sum(1))
-        rgbs.append(torch.cat(rgb_parts)[:n_rays].reshape(h, w, 3).cpu().numpy())
-        depths.append(torch.cat(depth_parts)[:n_rays].reshape(h, w, 1).cpu().numpy())
-        if normal_parts:
-            normals.append(torch.cat(normal_parts)[:n_rays].reshape(h, w, 3).cpu().numpy())
-    out = {"rgb": np.stack(rgbs), "depth": np.stack(depths)}
-    if normals:
-        out["normal"] = np.stack(normals)
-    return out
+            # a rank without a chunk renders the first one for the maps' shapes
+            maps = [_chunk_maps(render_fn(params, c.contiguous(), step))
+                    for c in (mine if mine.shape[0] else chunks[:1])]
+        for k in maps[0]:
+            part = torch.stack([m[k] for m in maps])[:mine.shape[0]]
+            if mesh is not None:
+                part = mesh.gather(part.contiguous(), n_chunks)
+            ch = part.shape[-1]
+            out.setdefault(k, []).append(part.reshape(-1, ch)[:n_rays].reshape(h, w, ch)
+                                         .cpu().numpy())
+    return {k: np.stack(v) for k, v in out.items()}
 
 
 def add_depth_normals(renderer, scene, fids: Sequence[int], pred: Dict[str, np.ndarray]) -> None:
@@ -98,16 +114,21 @@ def eval_frames(renderer, fids: Sequence[int], step: int, ray_chunk: int = 2048,
 
     The renderer's optional hooks: ``eval_ray_transform(rays, fid)`` rewrites
     a frame's rays before rendering, ``normals_from_depth`` derives the
-    normal map from the depth map. Returns the stats dict, or (stats,
-    predicted maps) with ``return_pred``.
+    normal map from the depth map, ``mesh`` splits the frames' rays over the
+    ranks. Every rank gets the stats; the main rank writes them and the
+    images. Returns the stats dict, or (stats, predicted maps) with
+    ``return_pred``.
     """
     scene = renderer.scene
     fids = [int(f) for f in fids]
     pred = render_full_frames(renderer.render_fn(), renderer.params,
                               scene.device_arrays, scene.h, scene.w, fids, step,
-                              ray_chunk, getattr(renderer, "eval_ray_transform", None))
+                              ray_chunk, getattr(renderer, "eval_ray_transform", None),
+                              getattr(renderer, "mesh", None))
     add_depth_normals(renderer, scene, fids, pred)
     stats = frame_stats(scene, fids, pred)
+    if not is_main_process():
+        return (stats, pred) if return_pred else stats
 
     save_dir = osp.join(renderer.exp_dir, save_dir_name, f"iter_{step:08d}")
     os.makedirs(save_dir, exist_ok=True)

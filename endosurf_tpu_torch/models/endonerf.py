@@ -317,6 +317,30 @@ def _train_draw(name: str, shape, normal: bool, generator: Optional[torch.Genera
     return fn(shape, generator=generator, device=device)
 
 
+def train_draws(spec: DNeRFSpec, rspec: DNeRFRenderSpec, n_rays: int,
+                generator: Optional[torch.Generator], draws: Dict[str, torch.Tensor],
+                device) -> Dict[str, torch.Tensor]:
+    """``draws`` with every draw of the train render of ``n_rays`` rays added
+    (:func:`render_rays_train` names them), each from ``generator`` unless
+    given, in the order the render takes them: "z", "noise_c", "u_pdf",
+    "noise_f"."""
+    out = dict(draws)
+    n0, n_imp = rspec.n_samples, rspec.n_importance
+
+    def take(name, shape, normal):
+        out[name] = _train_draw(name, shape, normal, generator, draws, device)
+
+    if rspec.use_depth_sampling or rspec.perturb:
+        take("z", (n_rays, n0), rspec.use_depth_sampling)
+    if n_imp > 0 and spec.raw_noise_std > 0:
+        take("noise_c", (n_rays * n0,), True)
+    if n_imp > 0 and not rspec.perturb:
+        take("u_pdf", (n_rays, n_imp), False)
+    if spec.raw_noise_std > 0:
+        take("noise_f", (n_rays * (n0 + n_imp),), True)
+    return out
+
+
 def render_rays_train(spec: DNeRFSpec, rspec: DNeRFRenderSpec, params: Params,
                       rays: torch.Tensor, precision: str = "highest",
                       sampling_precision: Optional[str] = None,
@@ -342,9 +366,9 @@ def render_rays_train(spec: DNeRFSpec, rspec: DNeRFRenderSpec, params: Params,
     from endosurf_tpu_torch.kernels.fused_render_dnerf import init_z
     from endosurf_tpu_torch.kernels.fused_sampler import fused_fine_resample
     from endosurf_tpu_torch.ops.pdf import sample_pdf
-    draws = draws or {}
     sp = sampling_precision or precision
     n_rays, n0, dev = rays.shape[0], rspec.n_samples, rays.device
+    draws = train_draws(spec, rspec, n_rays, generator, draws or {}, dev)
     rays_o, rays_d, rays_d_z, _, _, t = split_rays(rays)
 
     def take(name, shape, normal):

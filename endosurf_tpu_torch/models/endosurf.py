@@ -5,8 +5,14 @@ sharpness 64 * 2^i, one fused field evaluation at the section midpoints, and
 NeuS compositing with the Eikonal term; then the auxiliary queries of the
 train step: SDF and angle error at the ground-truth depth points, and the
 normal-consistency error around the surface found on the render's own
-upsample samples (march reuse); ``render_on_depth`` renders colour and the
-SDF gradient at given depths (say, the sphere trace's).
+upsample samples (march reuse) or by the sphere trace. The queries' points
+can ride the render's own field evaluation (``render_core``'s ``extra``:
+``train.fold_aux_queries``). Their masked means come as
+``ops.ratio.Ratio`` parts too (``error_on_depth_ratios``,
+``surface_neighbour_ratio``, the render's ``eikonal_num`` / ``eikonal_den``)
+so that a data-parallel step can take global means. ``render_on_depth``
+renders colour and the SDF gradient at given depths (say, the sphere
+trace's).
 
 ``render_rays`` is the differentiable training render. Its upsampling runs
 without gradient through ``kernels.fused_sampler.fused_upsample_z`` (the
@@ -49,6 +55,7 @@ from endosurf_tpu_torch.ops.neus import (
     upsample_weights_from_sdf,
 )
 from endosurf_tpu_torch.ops.pdf import sample_pdf
+from endosurf_tpu_torch.ops.ratio import Ratio, plus
 
 Params = Dict[str, Any]
 
@@ -154,15 +161,31 @@ def upsample_z(spec: EndoSurfSpec, rspec: RenderSpec, params: Params,
 
 def render_core(spec: EndoSurfSpec, params: Params, rays: torch.Tensor,
                 z_vals: torch.Tensor, sample_dist: float, anneal: torch.Tensor,
-                precision: str = "highest", megakernel: str = "auto"
+                precision: str = "highest", megakernel: str = "auto",
+                extra: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
                 ) -> Dict[str, torch.Tensor]:
     """Evaluate the fields at section midpoints (``fused_point_eval`` with
     ``megakernel``), composite, and take the Eikonal error inside the relaxed
-    sphere |x| < 1.2."""
+    sphere |x| < 1.2.
+
+    ``extra`` (points, dirs [E, 3], t [E, 1]) is appended to the sample
+    points for the same field evaluation and comes back as ``extra_sdf``
+    [E, 1] and ``extra_grad`` [E, 3], differentiable (second order through
+    the gradient): the train step's folded auxiliary queries
+    (``train.fold_aux_queries``)."""
     pts, dirs, tt, mid_z, dists = section_midpoints(rays, z_vals, sample_dist)
-    out = fused_point_eval(spec, params, pts.reshape(-1, 3), dirs.reshape(-1, 3),
-                           tt.reshape(-1, 1), precision, megakernel)
-    return composite(params, out, pts, dirs, mid_z, dists, anneal)
+    x, d, t = pts.reshape(-1, 3), dirs.reshape(-1, 3), tt.reshape(-1, 1)
+    n_core = x.shape[0]
+    if extra is not None:
+        x, d, t = (torch.cat([a, b], dim=0) for a, b in zip((x, d, t), extra))
+    out = fused_point_eval(spec, params, x, d, t, precision, megakernel)
+    if extra is None:
+        return composite(params, out, pts, dirs, mid_z, dists, anneal)
+    res = composite(params, {k: v[:n_core] for k, v in out.items()}, pts, dirs, mid_z, dists,
+                    anneal)
+    res["extra_sdf"] = out["sdf"][n_core:, None]
+    res["extra_grad"] = out["grad_o"][n_core:]
+    return res
 
 
 def section_midpoints(rays: torch.Tensor, z_vals: torch.Tensor, sample_dist: float):
@@ -197,12 +220,14 @@ def composite(params: Params, out: Dict[str, torch.Tensor], pts: torch.Tensor,
 
     relax_inside = (torch.linalg.norm(pts, dim=-1) < 1.2).to(sdf.dtype).detach()
     grad_err = (torch.linalg.norm(grad_o, dim=-1) - 1.0) ** 2
-    eikonal = (relax_inside * grad_err).sum() / (relax_inside.sum() + 1e-6)
+    eikonal_num, eikonal_den = (relax_inside * grad_err).sum(), relax_inside.sum()
     return {
         "color_map": (weights[..., None] * color).sum(1),
         "depth_map": (weights * mid_z).sum(-1, keepdim=True),
         "gradients_o": grad_o,
-        "gradient_o_error": eikonal,
+        "gradient_o_error": eikonal_num / (eikonal_den + 1e-6),
+        "eikonal_num": eikonal_num,        # the Eikonal mean's parts (data parallel)
+        "eikonal_den": eikonal_den,
         "weights": weights,
         "weight_max": weights.max(-1, keepdim=True).values,
         "cdf": prev_cdf,
@@ -216,7 +241,8 @@ def render_rays(spec: EndoSurfSpec, rspec: RenderSpec, params: Params,
                 z_uniform: Optional[torch.Tensor] = None,
                 use_importance: bool = True, precision: str = "highest",
                 sampling_precision: Optional[str] = None,
-                return_upsample: bool = False, megakernel: str = "auto"
+                return_upsample: bool = False, megakernel: str = "auto",
+                extra: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
                 ) -> Dict[str, torch.Tensor]:
     """Render rays [R, 9].
 
@@ -226,7 +252,8 @@ def render_rays(spec: EndoSurfSpec, rspec: RenderSpec, params: Params,
     ``up_z`` / ``up_sdf`` [R, S]. The upsampling is ``fused_upsample_z``:
     on GPU tensors the CUDA kernel, which raises for sample counts it cannot
     take. ``megakernel`` picks the field evaluation's path
-    (``fields.fused_point_eval``).
+    (``fields.fused_point_eval``); ``extra`` points ride its evaluation
+    (:func:`render_core`).
     """
     rays_o, rays_d, rays_d_z, t = _split_rays(rays)
     near, far, _ = ray_sphere_intersection(rays_o, rays_d)
@@ -251,7 +278,8 @@ def render_rays(spec: EndoSurfSpec, rspec: RenderSpec, params: Params,
                                return_upsample)
         z_vals, up_sdf = res if return_upsample else (res, None)
 
-    out = render_core(spec, params, rays, z_vals, sample_dist, anneal, precision, megakernel)
+    out = render_core(spec, params, rays, z_vals, sample_dist, anneal, precision, megakernel,
+                      extra)
     if return_upsample:
         out["up_z"] = z_vals
         out["up_sdf"] = up_sdf
@@ -298,10 +326,12 @@ def depth_points(rays: torch.Tensor, depth_gt: torch.Tensor) -> torch.Tensor:
     return rays_o + rays_d_z * depth_gt
 
 
-def error_on_depth_from(sdf: torch.Tensor, grad: torch.Tensor, pts: torch.Tensor,
-                        rays: torch.Tensor, mask: torch.Tensor
-                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """SDF and angle error given the field at the depth points.
+def error_on_depth_ratios(sdf: torch.Tensor, grad: torch.Tensor, pts: torch.Tensor,
+                          rays: torch.Tensor, mask: torch.Tensor
+                          ) -> Tuple[Ratio, Ratio, torch.Tensor]:
+    """The SDF and angle error at the depth points as Ratios of these rays'
+    sums (``parallel.mesh.global_means`` resolves them), and the valid
+    region [R, 1].
 
     The angle error divides the UNMASKED relu-cos sum by the masked count,
     as the JAX package (and the reference it follows) does."""
@@ -309,10 +339,9 @@ def error_on_depth_from(sdf: torch.Tensor, grad: torch.Tensor, pts: torch.Tensor
     relu_cos = torch.relu((rays_d * grad).sum(-1, keepdim=True))
     pts_norm = torch.linalg.norm(pts.detach(), dim=-1, keepdim=True)
     inside_masksphere = (pts_norm < 1.0).to(sdf.dtype) * mask
-    denom = inside_masksphere.sum() + 1e-6
-    sdf_error = (inside_masksphere * sdf).abs().sum() / denom
-    angle_error = relu_cos.abs().sum() / denom
-    return sdf_error, angle_error, inside_masksphere
+    count = inside_masksphere.sum()
+    return (Ratio((inside_masksphere * sdf).abs().sum(), count, plus(1e-6)),
+            Ratio(relu_cos.abs().sum(), count, plus(1e-6)), inside_masksphere)
 
 
 def error_on_depth(spec: EndoSurfSpec, params: Params, rays: torch.Tensor,
@@ -324,7 +353,8 @@ def error_on_depth(spec: EndoSurfSpec, params: Params, rays: torch.Tensor,
     pts = depth_points(rays, depth_gt)
     sdf = sdf_observed(spec, params, pts, t, precision)
     grad = sdf_grad_observed(spec, params, pts, t, precision)
-    return error_on_depth_from(sdf, grad, pts, rays, mask)
+    sdf_error, angle_error, inside = error_on_depth_ratios(sdf, grad, pts, rays, mask)
+    return sdf_error.value(), angle_error.value(), inside
 
 
 def _locate_crossing(spec: EndoSurfSpec, params: Params, rays_o: torch.Tensor,
@@ -464,14 +494,16 @@ def surface_neighbour_points(spec: EndoSurfSpec, params: Params, rays: torch.Ten
     return torch.cat([p_surf, p_neig], dim=0), valid
 
 
-def surface_neighbour_error_from(g2: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Mean |n(surface) - n(neighbour)| over valid rays and the 3 axes."""
+def surface_neighbour_ratio(g2: torch.Tensor, valid: torch.Tensor) -> Ratio:
+    """Mean |n(surface) - n(neighbour)| over valid rays and the 3 axes, as a
+    Ratio of these rays' sums; the count's floor of 1 applies to the global
+    count."""
     n_rays = g2.shape[0] // 2
     normal = g2 / (torch.linalg.norm(g2, dim=-1, keepdim=True) + 1e-10)
     diff = (normal[:n_rays] - normal[n_rays:]).abs()
     valid_f = valid.to(diff.dtype)
-    denom = valid_f.sum() * 3.0
-    return (diff * valid_f).sum() / torch.clamp(denom, min=1.0)
+    return Ratio((diff * valid_f).sum(), valid_f.sum(),
+                 lambda den: torch.clamp(den * 3.0, min=1.0))
 
 
 def surface_neighbour_error(spec: EndoSurfSpec, params: Params, rays: torch.Tensor,
@@ -490,7 +522,7 @@ def surface_neighbour_error(spec: EndoSurfSpec, params: Params, rays: torch.Tens
         spec, params, rays, mask, neighbour_rad, samples, n_secant_reuse, generator,
         offset_uniform, sampling_precision or precision)
     g = sdf_grad_observed(spec, params, pts2, torch.cat([t, t], dim=0), precision)
-    return surface_neighbour_error_from(g, valid)
+    return surface_neighbour_ratio(g, valid).value()
 
 
 def render_on_depth(spec: EndoSurfSpec, params: Params, rays: torch.Tensor,

@@ -70,5 +70,7 @@ def load_library() -> ctypes.CDLL:
     lib.esn_rasterize_mesh.argtypes = [f32p, i32, f32p, i32p, i32, i32, i32, f32p, f32p]
     lib.esn_nn_distance_excl_self.argtypes = [f32p, i32, f32p]
     lib.esn_radius_outlier_mask.argtypes = [f32p, i32, i32, f32, ctypes.POINTER(ctypes.c_uint8)]
+    lib.esn_alias_table.argtypes = [f32p, i32, f32p, i32p]
+    lib.esn_alias_table.restype = None
     _lib = lib
     return lib

@@ -144,3 +144,18 @@ def radius_outlier_mask(pts: np.ndarray, min_neighbors: int,
     lib.esn_radius_outlier_mask(_f32p(pts), len(pts), int(min_neighbors), float(radius),
                                 out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
     return out.astype(bool)
+
+
+def alias_table(weights: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Walker/Vose alias table(s) of non-negative ``weights`` [n] or [..., n]
+    (accumulated in double): (prob float32, alias int32) of the same shape,
+    for ``ops.pdf.sample_from_alias``. All-zero weights give the uniform
+    table."""
+    lib = load_library()
+    w = np.ascontiguousarray(weights, np.float32)
+    flat = w.reshape(-1, w.shape[-1])
+    prob = np.empty_like(flat)
+    alias = np.empty(flat.shape, np.int32)
+    for i in range(flat.shape[0]):
+        lib.esn_alias_table(_f32p(flat[i]), flat.shape[-1], _f32p(prob[i]), _i32p(alias[i]))
+    return prob.reshape(w.shape), alias.reshape(w.shape)

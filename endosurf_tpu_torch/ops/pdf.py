@@ -1,8 +1,8 @@
 """Inverse-CDF sampling (port of ``endosurf_tpu/ops/pdf.py``).
 
 Random draws come from an explicit ``torch.Generator`` or are passed in as a
-tensor of uniforms (``u``), so a test can feed both packages the same
-numbers. ``sample_from_alias`` (the ``alias`` pixel sampler) is not ported.
+tensor of uniforms (``u``, and for ``sample_from_alias`` the integer draws
+``j``), so a test can feed both packages the same numbers.
 """
 
 from __future__ import annotations
@@ -68,3 +68,14 @@ def inverse_cdf_sample(weights: torch.Tensor, n_samples: int,
     [N] (a 1e-12 floor on every weight)."""
     cdf = torch.cumsum(weights + 1e-12, dim=0)
     return sample_from_cdf(cdf / cdf[-1], n_samples, generator, u)
+
+
+def sample_from_alias(prob: torch.Tensor, alias: torch.Tensor, j: torch.Tensor,
+                      u: torch.Tensor) -> torch.Tensor:
+    """Indices [n] (int64) drawn from a Walker/Vose alias table
+    (``native.alias_table``): bin ``j`` [n] (integers uniform in [0, N)) kept
+    where ``u`` [n] (uniforms in [0, 1)) < prob[j], else its alias. Two
+    gathers a draw; the categorical distribution is the table's weights
+    exactly (the ``cdf`` sampler's carries a 1e-12 floor on every weight)."""
+    j = j.to(device=prob.device, dtype=torch.int64)
+    return torch.where(u.to(prob.device) < prob[j], j, alias[j].to(torch.int64))

@@ -12,6 +12,10 @@ the D-NeRF forward segment kernels); ``make_renderer`` picks one by the
 config's ``render.type``. Parameters come from an npz written by
 ``bridge.save_params_npz`` (for example by ``tools/export_params_npz.py``
 from a JAX checkpoint) or, without one, from the seeded init.
+
+Under a process group (``parallel``) a renderer has a data mesh: eval and
+demo frames, grid slabs and vertex colours are split by rows over the ranks
+and gathered on every rank (``parallel.mesh.row_parallel``).
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from endosurf_tpu_torch.models.fields import (
     init_endosurf_params,
 )
 from endosurf_tpu_torch.ops.mlp import PRECISIONS
+from endosurf_tpu_torch.parallel.mesh import make_mesh, row_parallel
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -60,15 +65,19 @@ def make_render_fn(spec: EndoSurfSpec, rspec: RenderSpec, precision: str,
 
 class _Renderer:
     """What both renderers share: config, device, matmul precisions, scene,
-    parameters (the seeded init without given ones), step and exp dir."""
+    parameters (the seeded init without given ones), step, exp dir and data
+    mesh."""
 
     render_type = ""
+    mesh = None     # the data mesh (parallel.mesh.DataMesh) under a process group
 
     def __init__(self, cfg: Union[str, Dict[str, Any]], scene: Optional[SceneData] = None,
                  params: Optional[Dict[str, Any]] = None, step: int = 0,
                  device: Union[str, torch.device] = "cuda"):
         self.cfg = load_config(cfg)
         self.device = resolve_device(device)
+        self.mesh = make_mesh(self.cfg.get("parallel", {}).get("data_parallel", False),
+                              self.device)
         render_type = self.cfg["render"].get("type", "endosurf")
         if render_type != self.render_type:
             raise ValueError(f"{type(self).__name__} serves render type "
@@ -137,7 +146,7 @@ class EndoSurfRenderer(_Renderer):
 
         def fn(pts, t):
             return _sdf_sampling(spec, params, pts, t, precision)
-        return fn
+        return row_parallel(fn, self.mesh)
 
     def demo_field_threshold(self, thresh: float) -> float:
         return float(thresh)    # SDF: inside where sdf < thresh
@@ -146,13 +155,15 @@ class EndoSurfRenderer(_Renderer):
         """Vertex colours: ``fn(pts, dirs [N, 3], t [N, 1]) -> colours
         [N, 3]``, numpy in and out, the fields at the main precision."""
         spec, params, precision, device = self.spec, self.params, self.precision, self.device
+        colour = row_parallel(
+            lambda x, d, tt: fused_point_eval(spec, params, x, d, tt, precision)["color"],
+            self.mesh)
 
         def fn(pts, dirs, t):
             x, d, tt = (torch.as_tensor(a, dtype=torch.float32, device=device)
                         for a in (pts, dirs, t))
             with torch.no_grad():
-                color = fused_point_eval(spec, params, x, d, tt, precision)["color"]
-            return color.cpu().numpy()
+                return colour(x, d, tt).cpu().numpy()
         return fn
 
 
@@ -210,7 +221,7 @@ class EndoNeRFRenderer(_Renderer):
 
         def fn(pts, t):
             return -endonerf.density_observed(spec, params, pts, t, precision)
-        return fn
+        return row_parallel(fn, self.mesh)
 
     def demo_field_threshold(self, thresh: float) -> float:
         return -float(thresh)
@@ -219,13 +230,15 @@ class EndoNeRFRenderer(_Renderer):
         """Vertex colours: ``fn(pts, dirs [N, 3], t [N, 1]) -> colours
         [N, 3]``, numpy in and out, the radiance field at the main precision."""
         spec, params, precision, device = self.spec, self.params, self.precision, self.device
+        colour = row_parallel(
+            lambda x, d, tt: endonerf.field_eval(spec, params, x, d, tt, precision=precision)[0],
+            self.mesh)
 
         def fn(pts, dirs, t):
             x, d, tt = (torch.as_tensor(a, dtype=torch.float32, device=device)
                         for a in (pts, dirs, t))
             with torch.no_grad():
-                rgb, _ = endonerf.field_eval(spec, params, x, d, tt, precision=precision)
-            return rgb.cpu().numpy()
+                return colour(x, d, tt).cpu().numpy()
         return fn
 
 

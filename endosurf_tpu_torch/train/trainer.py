@@ -6,6 +6,11 @@ state. The loop runs one optimizer step per ``train_step`` call;
 ``train.steps_per_call`` > 1 loops over steps inside a window, as the JAX
 base class does (eval steps start their own window). ``train.profile``
 opens a ``torch.profiler`` window over given steps.
+
+Under a process group (``parallel``) every rank runs the steps, the evals and
+the resume load; only the main rank writes (``cfg.yml``, checkpoints, the
+metrics log and tensorboard, images, meshes, the profile trace), and every
+rank waits at a barrier after each checkpoint write.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ import torch
 
 from endosurf_tpu_torch.config import load_config, save_config
 from endosurf_tpu_torch.data.scene_data import SceneData
+from endosurf_tpu_torch.parallel import distributed
+from endosurf_tpu_torch.parallel.mesh import make_mesh
 from endosurf_tpu_torch.serve import resolve_device
 from endosurf_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from endosurf_tpu_torch.train.logging import MetricsWriter
@@ -54,6 +61,8 @@ class Trainer:
         self.step_start = 1
         self.writer: Optional[MetricsWriter] = None
         self.profile_trace: Optional[str] = None
+        self.is_main = distributed.is_main_process()
+        self.mesh = make_mesh(cfg.get("parallel", {}).get("data_parallel", False), self.device)
 
         self.setup()
 
@@ -63,14 +72,16 @@ class Trainer:
                 raise FileNotFoundError(f"no checkpoint found in {self.exp_dir}")
             self.restore(restored)
         else:
-            save_config(cfg, osp.join(self.exp_dir, "cfg.yml"))
+            if self.is_main:
+                save_config(cfg, osp.join(self.exp_dir, "cfg.yml"))
             if self.resume:
                 restored = load_checkpoint(self.exp_dir, self.device)
                 if restored is not None:
                     self.restore(restored)
-            self.writer = MetricsWriter(self.exp_dir, cfg,
-                                        backend=log_cfg.get("summary_writer", {})
-                                        .get("type", "tensorboard"))
+            if self.is_main:
+                self.writer = MetricsWriter(self.exp_dir, cfg,
+                                            backend=log_cfg.get("summary_writer", {})
+                                            .get("type", "tensorboard"))
 
     # -- subclass interface -------------------------------------------------
     def setup(self) -> None:
@@ -158,7 +169,7 @@ class Trainer:
                     kk = bnd - step
             s_last = step + kk - 1
 
-            if prof_start and step <= prof_start <= s_last:
+            if prof_start and step <= prof_start <= s_last and self.is_main:
                 prof = self._start_profile()
             if self.i_eval > 0 and (step == 1 or step % self.i_eval == 0
                                     or step == self.n_iter):
@@ -185,14 +196,17 @@ class Trainer:
 
             if self.i_save > 0 and (in_window(self.i_save, step, s_last)
                                     or s_last in (self.n_iter, end)):
-                params, opt_state = self.checkpoint_state()
-                path = save_checkpoint(self.exp_dir, s_last, params, opt_state)
-                print(f"SAVE|iter:{s_last}/{self.n_iter}|path:{path}", flush=True)
+                if self.is_main:
+                    params, opt_state = self.checkpoint_state()
+                    path = save_checkpoint(self.exp_dir, s_last, params, opt_state)
+                    print(f"SAVE|iter:{s_last}/{self.n_iter}|path:{path}", flush=True)
+                distributed.barrier()
             step = s_last + 1
         if prof is not None:   # the window outlasted the run
             self._stop_profile(prof, prof_start, end)
         self.step_start = end + 1
         if self.writer is not None:
             self.writer.flush()
-        print("Training complete!" if end == self.n_iter
-              else f"Paused at {end}/{self.n_iter}.", flush=True)
+        if self.is_main:
+            print("Training complete!" if end == self.n_iter
+                  else f"Paused at {end}/{self.n_iter}.", flush=True)

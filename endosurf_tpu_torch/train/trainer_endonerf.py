@@ -14,13 +14,19 @@ Port notes:
   and stores in float32 (the JAX megakernel's semantics); JAX's
   ``activation_dtype`` is not read.
 - ``train.megakernel: off`` and ``train.sampler_kernel: off`` on a CUDA
-  device, ``pixel_sampler: alias`` and ``parallel.data_parallel`` are not
-  ported and raise; ``steps_per_call`` and ``presample_batches`` only change
-  JAX's dispatch and are ignored, as for EndoSurf.
+  device are not ported and raise (the card always runs the kernels).
+  ``steps_per_call`` and ``presample_batches`` only change JAX's dispatch
+  (the same draws by construction) and have nothing to port, as for
+  EndoSurf. ``pixel_sampler: alias`` draws pixels from Walker/Vose tables.
+- ``parallel.data_parallel`` (and any process group of more than one rank)
+  runs the step data-parallel (``parallel.mesh``), as EndoSurf's: the global
+  batch and draws on every rank, this rank's rows rendered, the global
+  masked means, the gradients summed over the ranks before Adam.
 - Every random draw comes from one ``torch.Generator`` on the device
-  (seeded from ``exp.seed``) or is passed in (``draws``): ``frame`` and
-  ``u_pix`` (the batch) and the render's ``z``, ``noise_c``, ``noise_f``
-  and ``u_pdf`` (``render_rays_train``).
+  (seeded from ``exp.seed``) or is passed in (``draws``), in this order:
+  ``frame`` and the pixel draws (the batch), then the render's ``z``,
+  ``noise_c``, ``u_pdf`` and ``noise_f`` (``models.endonerf.train_draws``),
+  all drawn for the global batch.
 - Eval, test and demo rendering, and the 3D hooks, are
   ``serve.EndoNeRFRenderer``'s: the trainer is one.
 """
@@ -33,8 +39,9 @@ import torch
 
 from endosurf_tpu_torch.bridge import flatten
 from endosurf_tpu_torch.data.scene_data import sample_train_batch
-from endosurf_tpu_torch.models.endonerf import render_rays_train
+from endosurf_tpu_torch.models.endonerf import render_rays_train, train_draws
 from endosurf_tpu_torch.ops.mlp import PRECISIONS
+from endosurf_tpu_torch.parallel.mesh import DataMesh, all_reduce_grads
 from endosurf_tpu_torch.serve import EndoNeRFRenderer
 from endosurf_tpu_torch.train.losses import endonerf_loss_terms
 from endosurf_tpu_torch.train.schedules import exponential
@@ -46,16 +53,33 @@ LOSS_WEIGHT_KEYS = ("color_loss_weight", "depth_loss_weight")
 Draws = Optional[Dict[str, torch.Tensor]]
 
 
+def shard_draws(draws: Dict[str, torch.Tensor], mesh: DataMesh,
+                n_rays: int) -> Dict[str, torch.Tensor]:
+    """This rank's rows of the global batch's draws: a draw of n_rays * m
+    values (ray-major, as the render's flat noise) keeps the m of each of its
+    rays; 0-d draws stay whole."""
+    return {k: mesh.rows(v.reshape(n_rays, -1)).reshape((-1,) + tuple(v.shape[1:]))
+            if v.ndim else v for k, v in draws.items()}
+
+
 def make_loss_fn(spec, rspec, h: int, w: int, ray_batch: int, loss_weights: Dict[str, float],
                  mask_guided: bool = True, pixel_sampler: str = "cdf",
-                 precision: str = "highest", sampling_precision: Optional[str] = None):
+                 precision: str = "highest", sampling_precision: Optional[str] = None,
+                 mesh: Optional[DataMesh] = None):
     """``loss_fn(params, arrays, generator=None, draws=None) -> (total,
-    metrics)``: batch, ray slots 6/7, the train render and the two losses."""
+    metrics)``: batch, ray slots 6/7, the train render and the two losses.
+    With ``mesh`` the batch and draws are global, the render runs on this
+    rank's rows, ``total`` is this rank's share of the global loss and the
+    metrics are global."""
     def loss_fn(params, arrays, generator: Optional[torch.Generator] = None,
                 draws: Draws = None):
         draws = draws or {}
         batch = sample_train_batch(arrays, h, w, ray_batch, mask_guided, pixel_sampler,
-                                   generator, draws.get("frame"), draws.get("u_pix"))
+                                   generator, draws.get("frame"), draws.get("u_pix"),
+                                   draws.get("j_pix"))
+        draws = train_draws(spec, rspec, ray_batch, generator, draws, batch["rays"].device)
+        if mesh is not None:
+            batch, draws = mesh.shard(batch), shard_draws(draws, mesh, ray_batch)
         rays = batch["rays"]
         if rspec.use_depth_sampling:
             rays = torch.cat([rays[:, :6], batch["depth"],
@@ -63,7 +87,7 @@ def make_loss_fn(spec, rspec, h: int, w: int, ray_batch: int, loss_weights: Dict
                               rays[:, 8:9]], dim=-1)
         out = render_rays_train(spec, rspec, params, rays, precision, sampling_precision,
                                 generator, draws)
-        return endonerf_loss_terms(out, batch, loss_weights)
+        return endonerf_loss_terms(out, batch, loss_weights, mesh)
     return loss_fn
 
 
@@ -71,13 +95,17 @@ def make_train_step(spec, rspec, h: int, w: int, ray_batch: int, loss_weights: D
                     schedule: Optional[Callable[[int], float]] = None, **kwargs):
     """``step_fn(params, optimizer, arrays, generator, draws=None) ->
     metrics``: one optimizer step, the lr set from ``schedule(count)`` before
-    the update; ``kwargs`` go to :func:`make_loss_fn`."""
+    the update; ``kwargs`` go to :func:`make_loss_fn`. With ``mesh`` the
+    gradients are summed over the ranks before the update."""
     loss_fn = make_loss_fn(spec, rspec, h, w, ray_batch, loss_weights, **kwargs)
+    mesh = kwargs.get("mesh")
 
     def step_fn(params, optimizer, arrays, generator, draws: Draws = None):
         optimizer.zero_grad(set_to_none=True)
         total, metrics = loss_fn(params, arrays, generator, draws)
         total.backward()
+        if mesh is not None:
+            all_reduce_grads(p for g in optimizer.param_groups for p in g["params"])
         apply_update(optimizer, schedule)
         return {k: v.detach() for k, v in metrics.items()}
     return step_fn
@@ -114,10 +142,6 @@ class EndoNeRFTrainer(Trainer, EndoNeRFRenderer):
         if tc.get("sampler_kernel", "auto") == "off" and self.device.type == "cuda":
             raise NotImplementedError("not yet ported: train.sampler_kernel: off on a CUDA "
                                       "device (the resample always runs fused_fine_resample)")
-        if tc.get("pixel_sampler", "cdf") == "alias":
-            raise NotImplementedError("not yet ported: train.pixel_sampler: alias")
-        if cfg.get("parallel", {}).get("data_parallel", False):
-            raise NotImplementedError("not yet ported: parallel.data_parallel")
 
         seed = cfg.get("exp", {}).get("seed", 0)
         self.params = self.init_params(torch.Generator().manual_seed(seed))
@@ -133,7 +157,7 @@ class EndoNeRFTrainer(Trainer, EndoNeRFRenderer):
             self.loss_weights, schedule=self.lr_schedule,
             mask_guided=tc.get("mask_guided_ray_sampling", True),
             pixel_sampler=tc.get("pixel_sampler", "cdf"), precision=self.precision,
-            sampling_precision=self.sampling_precision)
+            sampling_precision=self.sampling_precision, mesh=self.mesh)
 
     def restore(self, restored: Dict[str, Any]) -> None:
         self.step_start = int(restored["n_iter"]) + 1

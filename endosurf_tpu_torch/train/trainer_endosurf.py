@@ -22,12 +22,27 @@ Port notes:
   path at ``"default"`` also stores MLP activations in bf16 and uses its
   ``linearize`` Jacobian; ``activation_dtype``, ``jac_mode`` and ``remat``
   are JAX-only knobs and are not read here.
-- ``fold_aux_queries: true``, ``pixel_sampler: alias``, ``sampler_kernel:
-  off`` and ``parallel.data_parallel`` are not ported and raise.
+- ``fold_aux_queries: true`` appends the ground-truth depth points and the
+  sphere-traced surface and neighbour points (``fused_ray_march`` on the
+  card) to the render's sample points, so one field evaluation (the segment
+  kernels on the card) serves the render and both auxiliary losses; it turns
+  march reuse off, as in JAX. ``pixel_sampler: alias`` draws pixels from
+  Walker/Vose tables (built when first asked for).
+- ``parallel.data_parallel`` (and any process group of more than one rank)
+  runs the step data-parallel (``parallel.mesh``): every rank draws the same
+  global batch and draws, keeps its rows, takes its share of each global
+  masked mean, and the gradients are summed over the ranks before the same
+  Adam step on every rank. Launch one rank a card with ``torchrun``.
+- ``sampler_kernel: off`` is not ported and raises. ``steps_per_call`` and
+  ``presample_batches`` only change JAX's dispatch (a window of steps in one
+  program; its batches drawn before the window's scan, the same draws by
+  construction), so the port has nothing to port for them.
 - Every random draw comes from one ``torch.Generator`` on the device
-  (seeded from ``exp.seed``) or is passed in (``draws``): ``frame`` (index
-  into list_train), ``u_pix`` [B], ``z`` [B, 1] (z jitter), ``neig`` [B, 3]
-  (neighbour offsets), all uniforms in [0, 1).
+  (seeded from ``exp.seed``) or is passed in (``draws``), in this order:
+  ``frame`` (index into list_train), the pixel draws (``u_pix`` [B]; for
+  ``alias`` ``j_pix`` [B] then ``u_pix``), ``z`` [B, 1] (z jitter), ``neig``
+  [B, 3] (neighbour offsets), the uniforms in [0, 1). Under data
+  parallelism they are the global batch's draws on every rank.
 """
 
 from __future__ import annotations
@@ -40,16 +55,21 @@ from endosurf_tpu_torch.bridge import flatten
 from endosurf_tpu_torch.data.scene_data import sample_train_batch
 from endosurf_tpu_torch.models.endosurf import (
     RenderSpec,
-    error_on_depth,
+    depth_points,
+    error_on_depth_ratios,
     render_rays,
-    surface_neighbour_error,
+    surface_neighbour_points,
+    surface_neighbour_ratio,
 )
 from endosurf_tpu_torch.models.fields import (
     MEGAKERNEL_MODES,
     EndoSurfSpec,
     init_endosurf_params,
+    sdf_grad_observed,
+    sdf_observed,
 )
 from endosurf_tpu_torch.ops.mlp import PRECISIONS
+from endosurf_tpu_torch.parallel.mesh import DataMesh, all_reduce_grads
 from endosurf_tpu_torch.serve import make_render_fn
 from endosurf_tpu_torch.train.losses import endosurf_loss_terms
 from endosurf_tpu_torch.train.schedules import warmup_cosine
@@ -63,52 +83,96 @@ LOSS_WEIGHT_KEYS = (
 Draws = Optional[Dict[str, torch.Tensor]]
 
 
+def fold_split(extra_sdf: torch.Tensor, extra_grad: torch.Tensor, n_rays: int,
+               need_depth_terms: bool):
+    """The folded queries' rows of the render's ``extra_sdf`` / ``extra_grad``:
+    (SDF and gradient at the depth points [R, ...], or None; the gradients at
+    the surface then the neighbour points [2R, 3], or an empty slice)."""
+    off = n_rays if need_depth_terms else 0
+    depth = (extra_sdf[:n_rays], extra_grad[:n_rays]) if need_depth_terms else None
+    return depth, extra_grad[off:off + 2 * n_rays]
+
+
 def make_loss_fn(spec: EndoSurfSpec, rspec: RenderSpec, h: int, w: int, ray_batch: int,
                  loss_weights: Dict[str, float], surf_neig_rad: float,
                  mask_guided: bool = True, use_importance: bool = True,
                  fold_aux: bool = False, march_reuse: bool = True,
                  march_reuse_secant: int = 0, pixel_sampler: str = "cdf",
                  precision: str = "highest", sampling_precision: Optional[str] = None,
-                 megakernel: str = "auto"):
+                 megakernel: str = "auto", mesh: Optional[DataMesh] = None):
     """``loss_fn(params, arrays, step, generator=None, draws=None) ->
     (total, metrics)``: batch, render, auxiliary queries and the six losses.
     Terms with zero weight are not computed. ``megakernel`` picks the render's
-    field evaluation (``fields.fused_point_eval``)."""
-    if fold_aux:
-        raise NotImplementedError("not yet ported: train.fold_aux_queries")
+    field evaluation (``fields.fused_point_eval``). ``fold_aux`` batches the
+    auxiliary queries into the render's field evaluation. With ``mesh`` the
+    batch and draws are global, the render runs on this rank's rows, ``total``
+    is this rank's share of the global loss and the metrics are global."""
     need_depth_terms = (loss_weights["sdf_loss_weight"] != 0.0
                         or loss_weights["angle_loss_weight"] != 0.0
                         or loss_weights["depth_loss_weight"] != 0.0)
     need_surf = loss_weights["surf_neig_loss_weight"] != 0.0
-    march_reuse = march_reuse and need_surf and use_importance and rspec.n_importance > 0
+    march_reuse = (march_reuse and need_surf and use_importance and rspec.n_importance > 0
+                   and not fold_aux)
+    sp = sampling_precision or precision
 
     def loss_fn(params, arrays, step, generator: Optional[torch.Generator] = None,
                 draws: Draws = None):
         draws = draws or {}
         batch = sample_train_batch(arrays, h, w, ray_batch, mask_guided, pixel_sampler,
-                                   generator, draws.get("frame"), draws.get("u_pix"))
+                                   generator, draws.get("frame"), draws.get("u_pix"),
+                                   draws.get("j_pix"))
+        dev = batch["rays"].device
+        ray_draws = {"z": draws.get("z"), "neig": draws.get("neig")}
+        if ray_draws["z"] is None and rspec.perturb and generator is not None:
+            ray_draws["z"] = torch.rand(ray_batch, 1, generator=generator, device=dev)
+        if ray_draws["neig"] is None and need_surf and generator is not None:
+            ray_draws["neig"] = torch.rand(ray_batch, 3, generator=generator, device=dev)
+        if mesh is not None:
+            batch, ray_draws = mesh.shard(batch), mesh.shard(ray_draws)
         rays, mask = batch["rays"], batch["mask"]
+        n_rays, t = rays.shape[0], rays[:, 8:9]
+        pts_d = depth_points(rays, batch["depth"]) if need_depth_terms else None
+
+        extra, valid_surf = None, None
+        if fold_aux and (need_depth_terms or need_surf):
+            rays_d = rays[:, 3:6]
+            groups = []
+            if need_depth_terms:
+                groups.append((pts_d, rays_d, t))
+            if need_surf:
+                pts2, valid_surf = surface_neighbour_points(
+                    spec, params, rays, mask, surf_neig_rad, generator=generator,
+                    offset_uniform=ray_draws["neig"], precision=sp)
+                groups.append((pts2, torch.cat([rays_d, rays_d]), torch.cat([t, t])))
+            extra = tuple(torch.cat(parts) for parts in zip(*groups))
         out = render_rays(spec, rspec, params, rays, step, generator=generator,
-                          z_uniform=draws.get("z"), use_importance=use_importance,
+                          z_uniform=ray_draws["z"], use_importance=use_importance,
                           precision=precision, sampling_precision=sampling_precision,
-                          return_upsample=march_reuse, megakernel=megakernel)
-        zero = torch.zeros((), device=rays.device)
+                          return_upsample=march_reuse, megakernel=megakernel, extra=extra)
+        if extra is not None:
+            depth_q, surf_grad = fold_split(out["extra_sdf"], out["extra_grad"], n_rays,
+                                            need_depth_terms)
+        zero = torch.zeros((), device=dev)
         if need_depth_terms:
-            sdf_err, angle_err, valid_region = error_on_depth(
-                spec, params, rays, batch["depth"], mask, precision)
+            if extra is None:
+                depth_q = (sdf_observed(spec, params, pts_d, t, precision),
+                           sdf_grad_observed(spec, params, pts_d, t, precision))
+            sdf_err, angle_err, valid_region = error_on_depth_ratios(*depth_q, pts_d, rays, mask)
         else:
             sdf_err, angle_err, valid_region = zero, zero, torch.ones_like(mask)
         if need_surf:
-            surf_err = surface_neighbour_error(
-                spec, params, rays, mask, surf_neig_rad,
-                samples=(out["up_z"], out["up_sdf"]) if march_reuse else None,
-                n_secant_reuse=march_reuse_secant, generator=generator,
-                offset_uniform=draws.get("neig"), precision=precision,
-                sampling_precision=sampling_precision)
+            if extra is None:
+                pts2, valid_surf = surface_neighbour_points(
+                    spec, params, rays, mask, surf_neig_rad,
+                    samples=(out["up_z"], out["up_sdf"]) if march_reuse else None,
+                    n_secant_reuse=march_reuse_secant, generator=generator,
+                    offset_uniform=ray_draws["neig"], precision=sp)
+                surf_grad = sdf_grad_observed(spec, params, pts2, torch.cat([t, t]), precision)
+            surf_err = surface_neighbour_ratio(surf_grad, valid_surf)
         else:
             surf_err = zero
         return endosurf_loss_terms(out, sdf_err, angle_err, valid_region, surf_err,
-                                   batch, loss_weights)
+                                   batch, loss_weights, mesh)
     return loss_fn
 
 
@@ -128,14 +192,19 @@ def make_train_step(spec: EndoSurfSpec, rspec: RenderSpec, h: int, w: int, ray_b
     """``step_fn(params, optimizer, arrays, generator, step, draws=None) ->
     metrics``: one optimizer step. ``schedule(count)`` sets each group's lr
     (times its ``lr_mult``) before the update; ``kwargs`` go to
-    :func:`make_loss_fn`."""
+    :func:`make_loss_fn`. With ``mesh`` the gradients are summed over the
+    ranks (one flat all-reduce) before the update, so every rank takes the
+    same step."""
     loss_fn = make_loss_fn(spec, rspec, h, w, ray_batch, loss_weights, surf_neig_rad,
                            **kwargs)
+    mesh = kwargs.get("mesh")
 
     def step_fn(params, optimizer, arrays, generator, step, draws: Draws = None):
         optimizer.zero_grad(set_to_none=True)
         total, metrics = loss_fn(params, arrays, step, generator, draws)
         total.backward()
+        if mesh is not None:
+            all_reduce_grads(p for g in optimizer.param_groups for p in g["params"])
         if schedule is not None:
             lr = schedule(adam_count(optimizer))
             for group in optimizer.param_groups:
@@ -175,12 +244,6 @@ class EndoSurfTrainer(Trainer):
         if self.megakernel == "off" and torch.device(self.device).type == "cuda":
             raise NotImplementedError("not yet ported: train.megakernel: off on a CUDA device "
                                       "(the card always runs the field segment kernels)")
-        if tc.get("fold_aux_queries", False):
-            raise NotImplementedError("not yet ported: train.fold_aux_queries")
-        if tc.get("pixel_sampler", "cdf") == "alias":
-            raise NotImplementedError("not yet ported: train.pixel_sampler: alias")
-        if cfg.get("parallel", {}).get("data_parallel", False):
-            raise NotImplementedError("not yet ported: parallel.data_parallel")
         if tc.get("sampler_kernel", "auto") == "off":
             raise NotImplementedError("not yet ported: train.sampler_kernel: off "
                                       "(the upsampling always runs fused_upsample_z)")
@@ -208,11 +271,12 @@ class EndoSurfTrainer(Trainer):
                 schedule=self.lr_schedule,
                 mask_guided=tc.get("mask_guided_ray_sampling", True),
                 use_importance=use_importance,
+                fold_aux=tc.get("fold_aux_queries", False),
                 march_reuse=tc.get("surf_march_reuse", True),
                 march_reuse_secant=tc.get("surf_march_reuse_secant", 0),
                 pixel_sampler=tc.get("pixel_sampler", "cdf"),
                 precision=self.precision, sampling_precision=self.sampling_precision,
-                megakernel=self.megakernel)
+                megakernel=self.megakernel, mesh=self.mesh)
         return self._step_fns[use_importance]
 
     def restore(self, restored: Dict[str, Any]) -> None:

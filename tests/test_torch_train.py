@@ -107,27 +107,55 @@ def _grad_rel_l2(got, ref):
 # pixel and z sampling
 # ---------------------------------------------------------------------------
 
+def alias_draws(key, n_train: int, ray_batch: int):
+    """The alias sampler's batch draws from JAX's key chain (frame, then the
+    bins j and uniforms u of ``split(k_pix)``), as torch tensors."""
+    k_frame, k_pix = jax.random.split(jax.random.split(key)[0])
+    k_j, k_u = jax.random.split(k_pix)
+
+    def t(x):
+        return torch.from_numpy(np.array(x))
+    return {"frame": t(jax.random.randint(k_frame, (), 0, n_train)),
+            "j_pix": t(jax.random.randint(k_j, (ray_batch,), 0, H * W)),
+            "u_pix": t(jax.random.uniform(k_u, (ray_batch,)))}
+
+
+def _assert_batch_equal(got, ref):
+    assert int(got["frame_id"]) == int(ref["frame_id"])
+    np.testing.assert_allclose(got["rays"].numpy(), np.asarray(ref["rays"]), atol=1e-6)
+    for k in ("color", "depth", "mask", "color_mask", "depth_mask"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref[k]), err_msg=k)
+
+
 def test_training_arrays_and_batch_match_jax(scenes):
     """The pixel weights and CDFs are JAX's; a batch from given draws is the
-    batch JAX draws from the key (exact gathers, rays to 1e-6)."""
-    sj, st = scenes
+    batch JAX draws from the key (exact gathers, rays to 1e-6), for the cdf
+    and the alias sampler. The alias tables are built only when the alias
+    sampler asks, and then equal JAX's bit for bit."""
+    sj, _ = scenes
+    st = t_scene.make_synthetic_arrays(4, H, W, seed=0)
     for k in ("sample_w", "uniform_w", "sample_cdf", "uniform_cdf", "list_train"):
         np.testing.assert_array_equal(st.device_arrays[k].numpy(),
                                       np.asarray(sj.device_arrays[k]), err_msg=k)
-    assert "sample_alias_prob" not in st.device_arrays
     key = jax.random.PRNGKey(3)
     for mask_guided in (True, False):
         ref = j_scene.sample_train_batch(sj.device_arrays, H, W, jax.random.split(key)[0], B,
                                          mask_guided=mask_guided)
         d = jax_draws(key, len(st.list_train), B)
-        got = t_scene.sample_train_batch(st.device_arrays, H, W, B, mask_guided,
-                                         frame_draw=d["frame"], u_pix=d["u_pix"])
-        assert int(got["frame_id"]) == int(ref["frame_id"])
-        np.testing.assert_allclose(got["rays"].numpy(), np.asarray(ref["rays"]), atol=1e-6)
-        for k in ("color", "depth", "mask", "color_mask", "depth_mask"):
-            np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref[k]), err_msg=k)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        t_scene.sample_train_batch(st.device_arrays, H, W, B, pixel_sampler="alias")
+        _assert_batch_equal(t_scene.sample_train_batch(st.device_arrays, H, W, B, mask_guided,
+                                                       frame_draw=d["frame"], u_pix=d["u_pix"]),
+                            ref)
+    assert "sample_alias_prob" not in st.device_arrays
+    for mask_guided, kind in ((True, "sample"), (False, "uniform")):
+        ref = j_scene.sample_train_batch(sj.device_arrays, H, W, jax.random.split(key)[0], B,
+                                         mask_guided=mask_guided, pixel_sampler="alias")
+        d = alias_draws(key, len(st.list_train), B)
+        _assert_batch_equal(t_scene.sample_train_batch(
+            st.device_arrays, H, W, B, mask_guided, "alias", frame_draw=d["frame"],
+            u_pix=d["u_pix"], j_pix=d["j_pix"]), ref)
+        for part in ("prob", "idx"):
+            np.testing.assert_array_equal(st.device_arrays[f"{kind}_alias_{part}"].numpy(),
+                                          np.asarray(sj.device_arrays[f"{kind}_alias_{part}"]))
 
 
 def test_pdf_samplers_match_jax(rng):
@@ -511,12 +539,21 @@ def test_trainer_loop_cadence_and_resume(tmp_path, scenes):
 @pytest.mark.parametrize("key, value", [("fold_aux_queries", True),
                                         ("pixel_sampler", "alias"),
                                         ("sampler_kernel", "off")])
-def test_unported_train_options_raise(tmp_path, scenes, key, value):
-    _, st = scenes
+def test_unported_train_options_raise(tmp_path, key, value):
+    """``sampler_kernel: off`` is not ported and raises; the options ported
+    since (``fold_aux_queries``, the alias pixel sampler) build a trainer
+    that takes a CPU step with finite metrics."""
+    st = t_scene.make_synthetic_arrays(4, H, W, seed=0)
     cfg = _tiny_cfg(tmp_path)
     cfg["train"][key] = value
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        t_tr.EndoSurfTrainer(cfg, scene=st, device="cpu")
+    if (key, value) == ("sampler_kernel", "off"):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            t_tr.EndoSurfTrainer(cfg, scene=st, device="cpu")
+        return
+    tr = t_tr.EndoSurfTrainer(cfg, scene=st, device="cpu")
+    metrics = tr.train_step(1)
+    assert t_tr.adam_count(tr.optimizer) == 1
+    assert all(np.isfinite(float(v)) for v in metrics.values()), metrics
 
 
 def _run_cli(args):

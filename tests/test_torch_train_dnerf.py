@@ -355,16 +355,28 @@ def test_trainer_loop_cadence_and_resume(tmp_path, scenes, params_j):
 
 
 @pytest.mark.parametrize("key, value, err", [
-    (("train", "pixel_sampler"), "alias", NotImplementedError),
-    (("parallel", "data_parallel"), True, NotImplementedError),
+    # ported since: the ids they had while they raised
+    pytest.param(("train", "pixel_sampler"), "alias", None,
+                 id="key0-alias-NotImplementedError"),
+    pytest.param(("parallel", "data_parallel"), True, None,
+                 id="key1-True-NotImplementedError"),
     (("train", "matmul_precision"), "fast", ValueError),
     (("train", "megakernel"), "sometimes", ValueError)])
 def test_refused_train_options_raise(tmp_path, scenes, key, value, err):
     """The options the port does not take raise (megakernel: off and
-    sampler_kernel: off on a CUDA device are the card tests')."""
-    _, st = scenes
+    sampler_kernel: off on a CUDA device are the card tests'); the options
+    ported since (the alias pixel sampler, data_parallel, which on one CPU
+    process runs the single-process step) build a trainer that takes a CPU
+    step with finite metrics."""
+    st = t_scene.make_synthetic_arrays(4, H, W, seed=0)
     cfg = _tiny_cfg(tmp_path)
     cfg.setdefault(key[0], {})[key[1]] = value
+    if err is None:
+        tr = t_tr.EndoNeRFTrainer(cfg, scene=st, device="cpu")
+        metrics = tr.train_step(1)
+        assert adam_count(tr.optimizer) == 1
+        assert all(np.isfinite(float(v)) for v in metrics.values()), metrics
+        return
     with pytest.raises(err):
         t_tr.EndoNeRFTrainer(cfg, scene=st, device="cpu")
     cfg = _tiny_cfg(tmp_path)

@@ -13,6 +13,7 @@
     python3 chip_smoke.py --march-train-only   # phases 1, 2 and 15 (run, split, trace)
     python3 chip_smoke.py --modules-only   # phases 1, 2, a served frame and 30-33
     python3 chip_smoke.py --parallel-only   # phases 1, 2 and 34-36
+    python3 chip_smoke.py --nets-only   # phases 1, 2 and 37
 
 Phases (any failure raises and exits non-zero):
   1. a CUDA card must be present; prints its name and power limit;
@@ -266,7 +267,20 @@ Phases (any failure raises and exits non-zero):
      a train batch's draw in device ms beside the cdf sampler's, and the
      total variation of ALIAS_DRAWS draws against the cdf sampler's weights
      beside the cdf sampler's own draws.
-Phases 30-36 each print one JSON line ({"phase": ...}).
+ 37. EndoSurf nets of other depths, widths and skips (NET_SHAPES at
+     base.yml's widths: neus_color, NeuS's 5-layer colour net; short, nets
+     of 4, 5 and 3 layers; odd, a 199-wide SDF and two colour skip layers):
+     every EndoSurf kernel at the main path's point counts in float32 and
+     bf16 against its plain version at the base.yml phases' limits and, in
+     bf16, against its float64 yardstick as the card tests judge it (a
+     render or upsample reading outside its limit on a net whose plain
+     version itself moves that far is judged against float64:
+     float64_fallback); neus_color's main path with every launch count reset
+     just before and read just after (2 + 2 train steps, a served frame, a
+     128^3 mesh frame, then a float32 step): every EndoSurf kernel must run;
+     then neus_color's and base.yml's step, sphere-trace step, served frame,
+     chunk split, grid slab, colour segments' ms and bounds and peak memory.
+Phases 30-37 each print one JSON line ({"phase": ...}).
 Phase 7 also checks one launch of each segment kernel per step, and its
 trace counts the segment kernels (the weight-gradient product included) as
 their own family. The third-to-last line is the card, the second-to-last
@@ -3354,6 +3368,426 @@ def alias_phase(scene, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 37. EndoSurf nets of other depths, widths and skips
+# ---------------------------------------------------------------------------
+
+# (deform, SDF, colour) as (n_layers, hidden_dim, skips), base.yml's otherwise:
+# neus_color is base.yml with NeuS's colour net (Totoro97/NeuS,
+# confs/womask.conf, rendering_network: d_hidden 256, n_layers 4, i.e. five
+# linear layers, no skip); short gives each net its own depth; odd has an SDF
+# 199 wide (not a multiple of 16) and a colour net with two skip layers.
+NET_SHAPES = {
+    "neus_color": ((9, 256, [4]), (9, 256, [4]), (5, 256, [])),
+    "short": ((4, 256, [2]), (5, 256, [2]), (3, 256, [1])),
+    "odd": ((9, 256, [4]), (9, 199, [4]), (9, 256, [2, 5])),
+}
+NETS_STEPS = 3                                 # phase 37's timed train steps a config
+ENDOSURF_LAUNCHES = ("fused_render_rays", "fused_upsample_z", "fused_ray_march",
+                     "fused_sdf_observed", "deform_fwd", "sdf_fwd", "color_fwd", "deform_bwd",
+                     "sdf_bwd", "color_bwd")
+
+
+def nets_cfg(shape: str) -> dict:
+    """base_cfg() with the nets of NET_SHAPES[shape]."""
+    cfg = base_cfg()
+    for key, (n, h, skips) in zip(("deform_network", "sdf_network", "color_network"),
+                                  NET_SHAPES[shape]):
+        cfg["net"][key].update(n_layers=n, hidden_dim=h, skips=list(skips))
+    return cfg
+
+
+def endosurf_launches() -> dict:
+    """The EndoSurf kernels' launch counts (ENDOSURF_LAUNCHES)."""
+    now = launches_now()
+    return {k: now.get(k, 0) for k in ENDOSURF_LAUNCHES}
+
+
+def segment_f64_check(spec, cases, what: str) -> None:
+    """Phase 37: the bf16 segment kernels against the float64 plain version
+    (every dot operand, input cotangent and weight gradient rounded as in
+    bf16; float64 sums) beside the float32 plain version, as
+    test_segment_bf16_tails_are_float32_noise judges them: a backward's
+    worst leaf relative L2 and input-cotangent p99, and the deform and SDF
+    forwards' outputs' median and p99, each within 2x the float32 plain
+    version's."""
+    from endosurf_tpu_torch.kernels import fused_train as ft
+    from endosurf_tpu_torch.kernels import fused_train_cuda as ftc
+    for seg, (like, flat, packed, inputs, cots) in cases.items():
+        f64 = ([v.double() for v in flat], [v.double() for v in inputs])
+        if seg != "color":
+            with torch.no_grad():
+                ref = ft.seg_math(spec, seg, like, *f64, "default")
+                k_st, p_st = ([ftc._quantiles(ftc._point_err(g.double(), r))[:2]
+                               for g, r in zip(got, ref)]
+                              for got in (ftc.FWD[seg](packed, *inputs),
+                                          ft.seg_math(spec, seg, like, flat, inputs, "default")))
+            ok = all(k <= 2 * p for ks, ps in zip(k_st, p_st) for k, p in zip(ks, ps))
+            print(f"nets {what} {seg}_fwd bf16 vs float64 (outputs' median, p99): kernel "
+                  f"{k_st}; float32 plain {p_st}", flush=True)
+            check(ok, f"{what} {seg}_fwd farther than 2x the float32 plain version from float64")
+        ref = ft.plain_bwd(spec, seg, like, *f64, [c.double() for c in cots], "default")
+
+        def worst(got):
+            leaf = max(float((g.double() - r).norm() / max(float(r.norm()), 1e-300))
+                       for g, r in zip(got[0], ref[0]))
+            cot = [ftc._quantiles(ftc._point_err(g.double(), r))[1] for g, r in zip(got[1], ref[1])]
+            return leaf, max(cot, default=0.0)
+        (k_leaf, k_cot), (p_leaf, p_cot) = (
+            worst(ftc.BWD[seg](packed, *inputs, *cots)),
+            worst(ft.plain_bwd(spec, seg, like, flat, inputs, cots, "default")))
+        del ref
+        print(f"nets {what} {seg}_bwd bf16 vs float64: kernel leaf {k_leaf:.3e} cot p99 "
+              f"{k_cot:.3e}; float32 plain leaf {p_leaf:.3e} cot p99 {p_cot:.3e}", flush=True)
+        check(k_leaf <= 2 * p_leaf and k_cot <= 2 * p_cot,
+              f"{what} {seg}_bwd farther than 2x the float32 plain version from float64")
+
+
+def float64_fallback(what: str, kernel: dict, plain: dict, reach: dict) -> None:
+    """Phase 37: a reading outside its limit against the plain version, on a
+    net whose plain version itself moves that far, is judged against a
+    float64 version. ``reach`` holds, per entry, each missed statistic as
+    (name, the plain version's reading of it against float64, the limit the
+    kernel missed): every such reading must be at least its limit (the plain
+    version is as far from float64 as the kernel is from it). Then the
+    kernel's (median, p99) distance from float64 must be within 2x the plain
+    version's, per entry, as the card tests judge float32 noise
+    (test_segment_bf16_tails_are_float32_noise). Raises otherwise."""
+    print(f"nets {what}: outside the plain version's limits on {sorted(kernel)}; the plain "
+          "version against float64 on the missed statistics: " + "; ".join(
+              f"{k} {n} {v:.3e} (limit {lim:.3e})" for k in reach for n, v, lim in reach[k])
+          + "; against float64 (median, p99): " + "; ".join(
+              f"{k} kernel {kernel[k][0]:.3e}, {kernel[k][1]:.3e} plain {plain[k][0]:.3e}, "
+              f"{plain[k][1]:.3e}" for k in kernel), flush=True)
+    check(all(v >= lim for k in reach for _, v, lim in reach[k]),
+          f"{what}: the plain version stays within the missed limit of float64")
+    check(all(kernel[k][0] <= 2 * plain[k][0] and kernel[k][1] <= 2 * plain[k][1]
+              for k in kernel), f"{what}: farther from float64 than 2x the plain version")
+
+
+def missed_stats(reading, limits, names) -> list:
+    """(name, index) of each statistic of ``reading`` over its limit."""
+    return [(n, i) for i, (n, v, lim) in enumerate(zip(names, reading, limits)) if v > lim]
+
+
+def nets_parity(shape: str, scene, dev) -> dict:
+    """Phase 37's parity on one shape of NET_SHAPES (weights from seed 0):
+    every EndoSurf kernel at the main path's point counts, float32 and bf16,
+    against its plain version at the limits the base.yml phases use, and in
+    bf16 against its float64 yardstick as the card tests judge it: the six
+    segment kernels on a train batch's 65,536 midpoints (segment_parity;
+    segment_f64_check), the render on a 2048-ray chunk of the frame
+    (PARITY_TOL; tensor cores no farther from float64 than the SIMT render),
+    the upsampling on 1024 train rays (PARITY_TOL and CONSISTENCY_TOL; within
+    2x the float32 plain twin's distance from float64; a render or upsample
+    reading outside PARITY_TOL is judged by float64_fallback), the march on 1024
+    train rays (MARCH_TOL; MARCH_FLOAT64_TOL) and the grid query on a grid
+    slab (PARITY_TOL; FLOAT64_TOL). Returns {kernel: bf16 max abs error}."""
+    from endosurf_tpu_torch.data.scene_data import frame_rays
+    from endosurf_tpu_torch.kernels import fused_render as fr
+    from endosurf_tpu_torch.kernels import fused_sampler as fs
+    from endosurf_tpu_torch.kernels import fused_sdf as fsd
+    from endosurf_tpu_torch.kernels import fused_train_cuda as ftc
+    from endosurf_tpu_torch.models.endosurf import RenderSpec
+    from endosurf_tpu_torch.models.fields import EndoSurfSpec, init_endosurf_params
+    cfg = nets_cfg(shape)
+    spec, rspec = EndoSurfSpec.from_config(cfg["net"]), RenderSpec.from_config(cfg["render"])
+    check(fr.cuda_spec_supported(spec), f"the CUDA gate refuses {shape}: {fr.spec_refusal(spec)}")
+    params = init_endosurf_params(spec, torch.Generator().manual_seed(0), dev)
+    bf, dtypes = torch.bfloat16, {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    errs = {}
+
+    x, d, t = train_midpoints(spec, rspec, params, scene.device_arrays,
+                              torch.Generator(device=dev).manual_seed(0), dev)
+    for prec, dtype in (("highest", torch.float32), ("default", bf)):
+        res, ae, cases = ftc.segment_parity(spec, params, x, d, t, prec, 0)
+        torch.cuda.synchronize()
+        print_segment_readings(res, f"nets {shape} {prec} ({x.shape[0]} points)", dtype)
+        check(ftc.parity_ok(res), f"{shape} segment kernels vs plain ({prec})")
+    errs.update({k: v for k, v in ae.items()})
+    segment_f64_check(spec, cases, f"{shape} ({x.shape[0]} points)")
+    del cases, x, d, t
+
+    rays = frame_rays(scene.device_arrays, H, W, 3).reshape(-1, 9)
+    rays = rays[:: rays.shape[0] // CHUNK][:CHUNK].contiguous()
+    args = (30000.0, rspec.n_samples, rspec.n_importance, rspec.up_sample_steps,
+            rspec.anneal_end)
+    for name, dt in dtypes.items():
+        got = fr.fused_render_rays_cuda(spec, params, rays, *args, dt, dt)
+        twin = fr.fused_render_rays_reference(spec, params, rays, *args, dt, dt)
+        e = fr.parity_errors(got, twin, dt)
+        print(f"nets {shape} render {name} ({CHUNK} rays): " + "; ".join(
+            f"{k} p99 {v[0]:.3e} max {v[1]:.3e}" for k, v in e.items()), flush=True)
+        missed = [k for k, v in e.items() if not v[2]]
+        if missed:
+            ref = (fr.fused_render_rays_reference(spec, fs.to_float64(params), rays.double(),
+                                                  *args) if dt == torch.float32
+                   else fr.fused_render_rays_float64(spec, params, rays, *args))
+            k_d, p_d = fr.float64_distance(got, ref), fr.float64_distance(twin, ref)
+            tw = fr.parity_errors(twin, ref, dt)
+            reach = {k: [(n, tw[k][i], fr.PARITY_TOL[dt][k][i]) for n, i in
+                         missed_stats(e[k], fr.PARITY_TOL[dt][k], ("p99", "max"))]
+                     for k in missed}
+            float64_fallback(f"{shape} render {name}", {k: k_d[k] for k in missed},
+                             {k: p_d[k] for k in missed}, reach)
+    errs["fused_render_rays"] = max(v[1] for v in e.values())
+    ref = fr.fused_render_rays_float64(spec, params, rays, *args)
+    tc, simt = (fr.float64_distance(fr.fused_render_rays_cuda(spec, params, rays, *args, bf, bf,
+                                                               simt=flag), ref)
+                for flag in (False, True))
+    print(f"nets {shape} render bf16 vs float64 (median, p99): " + "; ".join(
+        f"{k} tensor cores {tc[k][0]:.3e}, {tc[k][1]:.3e} SIMT {simt[k][0]:.3e}, {simt[k][1]:.3e}"
+        for k in tc), flush=True)
+    check(all(fr.no_farther(tc, simt).values()),
+          f"{shape} tensor-core render farther from float64 than the SIMT render")
+    del ref
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    up_in = upsample_inputs(scene.device_arrays, rspec, RAY_BATCH, gen, dev)
+    up_args = (rspec.n_importance, rspec.up_sample_steps)
+    for name, dt in dtypes.items():
+        z, sdf = fs.fused_upsample_z_cuda(spec, params, *up_in, *up_args, dt, True)
+        rz, rsdf = fs.fused_upsample_z_reference(spec, params, *up_in, *up_args, dt, True)
+        e = fs.parity_errors({"z": z, "sdf": sdf}, {"z": rz, "sdf": rsdf}, dt)
+        cons = fs.consistency_report(fs.consistency_errors(spec, params, *up_in, z, sdf,
+                                                           *up_args, dt), dt)
+        print(f"nets {shape} upsample {name} ({RAY_BATCH} rays): " + "; ".join(
+            f"{k} median {v[0]:.3e} p99 {v[1]:.3e} max {v[2]:.3e} share {v[3]:.4f}"
+            for k, v in e.items()) + f"; consistency {cons}", flush=True)
+        check(all(v[1] for v in cons.values()), f"{shape} upsample consistency ({name}): {cons}")
+        missed = [k for k, v in e.items() if not v[-1]]
+        if missed:
+            r64 = (fs.fused_upsample_z_reference(spec, fs.to_float64(params),
+                                                 *(a.double() for a in up_in), *up_args,
+                                                 torch.float32, True)
+                   if dt == torch.float32
+                   else fs.fused_upsample_z_float64(spec, params, *up_in, *up_args))
+            r64 = dict(zip(("z", "sdf"), r64))
+            k_d, p_d = (fs.parity_errors({"z": a.double(), "sdf": b.double()}, r64, dt)
+                        for a, b in ((z, sdf), (rz, rsdf)))
+            tol = fs.PARITY_TOL[dt]
+            reach = {}
+            for k in missed:
+                lims = (tol["median"], tol["p99"], tol["max"][k], tol["share"][1])
+                reach[k] = [(n, p_d[k][i], lims[i]) for n, i in
+                            missed_stats(e[k], lims, ("median", "p99", "max", "share"))]
+            float64_fallback(f"{shape} upsample {name}", {k: k_d[k][:2] for k in missed},
+                             {k: p_d[k][:2] for k in missed}, reach)
+    errs["fused_upsample_z"] = max(v[2] for v in e.values())
+    rz, rsdf = fs.fused_upsample_z_float64(spec, params, *up_in, *up_args)
+    k_st, p_st = (fs.parity_errors({"z": a.double(), "sdf": b.double()}, {"z": rz, "sdf": rsdf},
+                                   bf)
+                  for a, b in (fs.fused_upsample_z_cuda(spec, params, *up_in, *up_args, bf, True),
+                               fs.fused_upsample_z_reference(spec, params, *up_in, *up_args, bf,
+                                                             True)))
+    print(f"nets {shape} upsample bf16 vs float64 (median, p99): kernel "
+          + ", ".join(f"{k} {v[0]:.3e} {v[1]:.3e}" for k, v in k_st.items()) + "; float32 plain "
+          + ", ".join(f"{k} {v[0]:.3e} {v[1]:.3e}" for k, v in p_st.items()), flush=True)
+    check(all(k_st[k][0] <= 2 * p_st[k][0] and k_st[k][1] <= 2 * p_st[k][1] for k in k_st),
+          f"{shape} upsample farther than 2x the float32 plain twin from float64")
+
+    ins = march_inputs(scene, RAY_BATCH, torch.Generator(device=dev).manual_seed(10), dev)
+    for name, dt in dtypes.items():
+        got = fs.fused_ray_march_cuda(spec, params, *ins, sampling_dtype=dt)
+        ref = fs.fused_ray_march_reference(spec, params, *ins, sampling_dtype=dt)
+        par = fs.march_parity(got, ref, dt)
+        own = fs.march_consistency(spec, params, *ins[:3], got, dt)
+        print(f"nets {shape} march {name} ({RAY_BATCH} rays, "
+              f"{100 * float(got['valid'].float().mean()):.1f} % valid): {par} {own}", flush=True)
+        check(all(v[1] for v in par.values()) and all(v[1] for v in own.values()),
+              f"{shape} march kernel vs plain ({name}): {par} {own}")
+    both = got["valid"] & ref["valid"]
+    errs["fused_ray_march"] = (float((got["depth"] - ref["depth"]).abs()[both].max())
+                               if bool(both.any()) else 0.0)
+    dist = fs.march_float64_distance(spec, params, *ins, {"tensor cores": got})["tensor cores"]
+    print(f"nets {shape} march bf16 vs float64: {dist} (tol {fs.MARCH_FLOAT64_TOL})", flush=True)
+    check(fs.march_float64_ok(dist), f"{shape} bf16 march vs float64: {dist}")
+
+    xg, tg = grid_slab_inputs(scene, dev)
+    for name, dt in dtypes.items():
+        got = fsd.fused_sdf_observed_cuda(spec, params, xg, tg, dt)
+        med, p99, mx, ok = fsd.parity_errors(got, fsd.fused_sdf_observed_reference(
+            spec, params, xg, tg, dt), dt)
+        print(f"nets {shape} sdf query {name} ({xg.shape[0]} points): median {med:.3e}, p99 "
+              f"{p99:.3e}, max {mx:.3e} (tol {fsd.PARITY_TOL[dt]})", flush=True)
+        check(ok, f"{shape} sdf query kernel vs plain ({name})")
+    errs["fused_sdf_observed"] = mx
+    med, p99, mx, ok = fsd.float64_errors(got, fsd.fused_sdf_observed_float64(spec, params, xg,
+                                                                               tg))
+    print(f"nets {shape} sdf query bf16 vs float64: median {med:.3e}, p99 {p99:.3e}, max "
+          f"{mx:.3e} (tol {fsd.FLOAT64_TOL[bf]})", flush=True)
+    check(ok, f"{shape} sdf query kernel vs float64")
+    return errs
+
+
+def nets_config_timing(name: str, cfg: dict, scene, dev, smi: str) -> dict:
+    """Phase 37's readings of one config on its main path, bf16 (base.yml's
+    settings): NETS_STEPS train steps with march reuse after one warm-up
+    (step ms; then phase 7's split and trace: busy ms, launches), one
+    sphere-trace step after one warm-up, a served 512x640 frame through
+    eval_frames (its time; a chunk's split by family), a grid slab, the
+    colour segments' kernel and plain ms at a train batch's 65,536 points
+    with their bounds from the nets' own layers (segment_work), and the peak
+    memory of the train steps and of the frame."""
+    from endosurf_tpu_torch.evaluation.render_eval import eval_frames
+    from endosurf_tpu_torch.kernels import fused_render as fr
+    from endosurf_tpu_torch.kernels import fused_sdf as fsd
+    from endosurf_tpu_torch.kernels import fused_train as ft
+    from endosurf_tpu_torch.kernels import fused_train_cuda as ftc
+    from endosurf_tpu_torch.serve import EndoSurfRenderer
+    from endosurf_tpu_torch.train.trainer_endosurf import EndoSurfTrainer
+    bf, out = torch.bfloat16, {}
+    with tempfile.TemporaryDirectory() as exp_root:
+        for reuse in (True, False):
+            tcfg = json.loads(json.dumps(cfg))
+            tcfg["exp"]["exp_dir"] = exp_root
+            tcfg["exp"]["exp_name"] = f"nets_{name}_{reuse}"
+            tcfg["train"]["surf_march_reuse"] = reuse
+            steps = NETS_STEPS if reuse else 1
+            tcfg["train"]["n_iter"] = 1 + steps
+            tcfg["log"] = {"i_eval": 0, "i_save": 0}
+            trainer = EndoSurfTrainer(tcfg, mode="train", scene=scene, device=dev)
+            trainer.start(log_every=100, stop_after=1)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            trainer.start(log_every=100)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) / steps * 1e3
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            key = "step" if reuse else "march step"
+            out[key] = step_ms
+            print(f"nets {name} {key}: {step_ms:.1f} ms ({RAY_BATCH} rays, {steps} steps after a "
+                  f"warm-up, {smi}), peak memory {peak:.2f} GiB", flush=True)
+            if reuse:
+                out["train peak GiB"] = peak
+                endosurf_step_split(trainer, step_ms, smi)
+                params = trainer.params
+            del trainer
+        renderer = EndoSurfRenderer(cfg, scene=scene, step=30000, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eval_frames(renderer, scene.list_test[:1], 30000, ray_chunk=CHUNK, save_images=False)
+        torch.cuda.synchronize()
+        out["frame s"] = time.perf_counter() - t0
+        out["frame peak GiB"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"nets {name} served frame: {H}x{W} in {out['frame s']:.3f} s, peak memory "
+              f"{out['frame peak GiB']:.2f} GiB ({smi})", flush=True)
+        from endosurf_tpu_torch.data.scene_data import frame_rays
+        chunk = frame_rays(scene.device_arrays, H, W, 3).reshape(-1, 9)[:CHUNK].contiguous()
+        spec, rspec = renderer.spec, renderer.rspec
+        r_args = (30000.0, rspec.n_samples, rspec.n_importance, rspec.up_sample_steps,
+                  rspec.anneal_end, bf, bf)
+        out["chunk ms"] = cuda_ms(lambda: fr.fused_render_rays_cuda(spec, params, chunk, *r_args),
+                                  5)
+        out["chunk split"] = render_chunk_split(
+            lambda: fr.fused_render_rays_cuda(spec, params, chunk, *r_args), smi)
+        xg, tg = grid_slab_inputs(scene, dev)
+        out["slab ms"] = cuda_ms(lambda: fsd.fused_sdf_observed_cuda(spec, params, xg, tg, bf), 3)
+        x, d, t = train_midpoints(spec, rspec, params, scene.device_arrays,
+                                  torch.Generator(device=dev).manual_seed(0), dev)
+        with torch.no_grad():
+            eff = ft.prepare_effective(spec, params)
+            x_c, jrows = ft.seg_deform_math(spec, eff["deform"], torch.cat([x, t], -1), "default")
+            _, feat, grad_c = ft.seg_sdf_math(spec, eff["sdf"], eff["sdf_head"], eff["sdf_feat"],
+                                              x_c, "default")
+            _, d_c = ft.coupling_math(jrows, grad_c, d)
+        like, flat = ft.segment_weights(eff, "color")
+        packed = ftc.pack_segment(spec, "color", flat, like, "default")
+        inputs = (x_c, grad_c, d_c, feat)
+        cots = (torch.randn(x.shape[0], 3, generator=torch.Generator(device=dev).manual_seed(1),
+                            device=dev),)
+        times = segment_timing(spec, {"color": (like, flat, packed, inputs, cots)}, 3)
+        work = segment_work(params, x.shape[0])
+        for k, (k_ms, p_ms) in times.items():
+            b_ms, b_by = bound_ms(*work[k], bf)
+            out[k] = (k_ms, p_ms, b_ms, b_by)
+            print(f"nets {name} {k} ({x.shape[0]} points, bf16, {smi}): kernel {k_ms:.3f} ms, "
+                  f"plain {p_ms:.3f} ms; {work[k][0] / 1e12:.4f} TFLOP -> bound {b_ms:.4f} ms "
+                  f"({b_by})", flush=True)
+        print(f"nets {name} grid slab ({xg.shape[0]} points, bf16, {smi}): {out['slab ms']:.3f} "
+              f"ms; render chunk ({CHUNK} rays) {out['chunk ms']:.3f} ms", flush=True)
+    return out
+
+
+def nets_main_path(scene, dev, smi: str) -> dict:
+    """Phase 37's main path: neus_color through the user's entry points with
+    every launch count reset just before and read just after: train steps
+    with march reuse and a sphere-trace step (EndoSurfTrainer), a served
+    frame (eval_frames) and a 128^3 mesh frame (EndoSurfRenderer.demo), bf16;
+    then one float32 train step. Every EndoSurf kernel must have run."""
+    from endosurf_tpu_torch.evaluation.render_eval import eval_frames
+    from endosurf_tpu_torch.serve import EndoSurfRenderer
+    from endosurf_tpu_torch.train.trainer_endosurf import EndoSurfTrainer
+    cfg = nets_cfg("neus_color")
+    with tempfile.TemporaryDirectory() as exp_root:
+        reset_launches()
+        for reuse in (True, False):
+            tcfg = json.loads(json.dumps(cfg))
+            tcfg["exp"]["exp_dir"] = exp_root
+            tcfg["exp"]["exp_name"] = f"nets_path_{reuse}"
+            tcfg["train"].update(surf_march_reuse=reuse, n_iter=2)
+            tcfg["log"] = {"i_eval": 0, "i_save": 2}
+            EndoSurfTrainer(tcfg, mode="train", scene=scene, device=dev).start(log_every=2)
+        dcfg = json.loads(json.dumps(cfg))
+        dcfg["exp"]["exp_dir"] = exp_root
+        renderer = EndoSurfRenderer(dcfg, scene=scene, step=0, device=dev)
+        _, pred = eval_frames(renderer, scene.list_test[:1], 0, ray_chunk=CHUNK,
+                              save_images=False, return_pred=True)
+        stats = renderer.demo(0, test_mode=True, visualize=False, demo_2d=False, demo_3d=True)
+        torch.cuda.synchronize()
+        launches = endosurf_launches()
+        print(f"nets neus_color main path (bf16: 2 + 2 train steps, a served frame, a "
+              f"{GRID_RES}^3 mesh frame, {smi}): launches {launches}; geo_err_mean "
+              f"{stats['geo_err_mean']:.4f}", flush=True)
+        check(all(launches.values()), f"neus_color main path missed a kernel: {launches}")
+        check(all(bool(torch.isfinite(torch.as_tensor(pred[k])).all())
+                  for k in ("rgb", "depth", "normal")), "neus_color frame not finite")
+        tcfg = json.loads(json.dumps(cfg))
+        tcfg["exp"]["exp_dir"] = exp_root
+        tcfg["exp"]["exp_name"] = "nets_path_f32"
+        tcfg["train"].update(matmul_precision="highest", sampling_precision="highest", n_iter=1)
+        tcfg["log"] = {"i_eval": 0, "i_save": 1}
+        reset_launches()
+        EndoSurfTrainer(tcfg, mode="train", scene=scene, device=dev).start(log_every=1)
+        torch.cuda.synchronize()
+        f32 = endosurf_launches()
+        print(f"nets neus_color float32 train step: launches {f32}", flush=True)
+        check(all(f32[k] for k in ("fused_upsample_z", "deform_fwd", "sdf_bwd", "color_bwd")),
+              f"the float32 step missed a kernel: {f32}")
+    return launches
+
+
+def nets_phase(scene, smi: str) -> dict:
+    """Phase 37: the parity of every EndoSurf kernel on each of NET_SHAPES,
+    the neus_color main path with its launch counts, and neus_color's
+    readings beside base.yml's in this call. Prints one JSON line."""
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    errs = {shape: nets_parity(shape, scene, dev) for shape in NET_SHAPES}
+    t1 = time.perf_counter()
+    launches = nets_main_path(scene, dev, smi)
+    t2 = time.perf_counter()
+    readings = {name: nets_config_timing(name, cfg, scene, dev, smi)
+                for name, cfg in (("base", base_cfg()), ("neus_color", nets_cfg("neus_color")))}
+    rec = {"phase": 37, "card": smi, "max_abs_err": errs, "neus_color_launches": launches,
+           "readings": readings, "seconds": {"parity": t1 - t0, "main path": t2 - t1,
+                                             "readings": time.perf_counter() - t2}}
+    print(json.dumps(rec, default=str), flush=True)
+    return rec
+
+
+def nets_only(smi: str) -> int:
+    """``--nets-only``: the build, then phase 37."""
+    from endosurf_tpu_torch.data.scene_data import make_synthetic_arrays
+    from endosurf_tpu_torch.kernels import build
+    build.load_library()
+    scene = make_synthetic_arrays(n_frames=4, h=H, w=W, seed=0, device=torch.device("cuda"))
+    nets_phase(scene, smi)
+    return 0
+
+
 def parallel_only(smi: str) -> int:
     """``--parallel-only``: the build, then phases 34-36."""
     from endosurf_tpu_torch.data.scene_data import make_synthetic_arrays
@@ -3587,10 +4021,12 @@ def main() -> int:
         return modules_only(smi)
     if sys.argv[1:] == ["--parallel-only"]:
         return parallel_only(smi)
+    if sys.argv[1:] == ["--nets-only"]:
+        return nets_only(smi)
     if sys.argv[1:]:
         raise SystemExit(f"usage: {sys.argv[0]} [--train-only | --segments-only | "
                          "--dnerf-train-only | --dnerf-segments-only | --march-only | "
-                         "--march-train-only | --modules-only | --parallel-only]")
+                         "--march-train-only | --modules-only | --parallel-only | --nets-only]")
 
     import numpy as np
 
@@ -3902,6 +4338,9 @@ def main() -> int:
     data_parallel_phase(renderer_scene, smi)
     fold_aux_phase(renderer_scene, smi)
     alias_phase(renderer_scene, smi)
+
+    # 37. EndoSurf nets of other depths, widths and skips
+    nets_phase(renderer_scene, smi)
 
     # the kernel record: work, bounds and times at the main paths' shapes (bf16)
     upsample_flops = 2 * RAY_BATCH * n_field * chain        # return_sdf: every sample

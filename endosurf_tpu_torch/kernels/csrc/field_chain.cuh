@@ -119,10 +119,12 @@ __device__ __forceinline__ void field_deform(const float* __restrict__ wts, cons
     }
     __syncthreads();
     const Net& N = m.deform;
+    const int L = N.n_layers;
     for (int l = 0; l < NL; ++l) {
+      if (l >= L) break;
       const int n_out = N.out_dim[l];
       const bool skip = (N.skip_mask >> l) & 1;
-      const bool last = (l == NL - 1);
+      const bool last = (l == L - 1);
       const float* W = wts + N.w_off[l];
       if (SAVE) {
         const int n_h = l == 0 ? 0 : (skip ? N.in_dim[l] - ed : N.in_dim[l]);
@@ -200,9 +202,11 @@ __device__ __forceinline__ void field_sdf(const float* __restrict__ wts, const M
   __syncthreads();
 
   const Net& S = m.sdf;
+  const int L = S.n_layers;      // hidden layers 0 .. L-2, the output layer L-1
   float gate[NL - 1][P];
 #pragma unroll
   for (int l = 0; l < NL - 1; ++l) {
+    if (l >= L - 1) break;
     const int n_out = S.out_dim[l];
     const bool skip = (S.skip_mask >> l) & 1;
     const float* W = wts + S.w_off[l];
@@ -237,7 +241,7 @@ __device__ __forceinline__ void field_sdf(const float* __restrict__ wts, const M
 
   // output layer: head (column 0) and feature (columns 1..F)
   {
-    const int l = NL - 1;
+    const int l = L - 1;
     const int n_out = S.out_dim[l];
     const int n_in = S.in_dim[l];
     const float* W = wts + S.w_off[l];
@@ -265,24 +269,29 @@ __device__ __forceinline__ void field_sdf(const float* __restrict__ wts, const M
       s.sdf[tid] = a + wts[S.b_off[l]];
     }
     __syncthreads();
-    // adjoint seed: head column gated by the last hidden layer
+    // adjoint seed: head column gated by the last hidden layer, L-2 (picked
+    // from the unrolled gates by constant indices: nothing spills)
     if (tid < n_in) {
       const float hw = wts[m.head_off + tid];
 #pragma unroll
       for (int p = 0; p < P; ++p) {
-        s.hu[p * HMAX + tid] = opnd<RB>(hw * gate[NL - 2][p]);
+        float gl = gate[0][p];
+#pragma unroll
+        for (int k = 1; k < NL - 1; ++k) gl = k == L - 2 ? gate[k][p] : gl;
+        s.hu[p * HMAX + tid] = opnd<RB>(hw * gl);
         if (SAVE && base + p < n) {
-          sv.a[NL - 2][(size_t)(base + p) * n_in + tid] = hw;
-          sv.ag[NL - 2][(size_t)(base + p) * n_in + tid] = opnd<RB>(hw * gate[NL - 2][p]);
+          sv.a[L - 2][(size_t)(base + p) * n_in + tid] = hw;
+          sv.ag[L - 2][(size_t)(base + p) * n_in + tid] = opnd<RB>(hw * gl);
         }
       }
     }
     __syncthreads();
   }
 
-  // ---- SDF adjoint: walk layers NL-2 .. 0 ----------------------------------
+  // ---- SDF adjoint: walk layers L-2 .. 0 -----------------------------------
 #pragma unroll
   for (int l = NL - 2; l >= 0; --l) {
+    if (l > L - 2) continue;
     const int in_l = S.in_dim[l];
     const int out_l = S.out_dim[l];
     const bool skip = (S.skip_mask >> l) & 1;
@@ -364,11 +373,13 @@ __device__ __forceinline__ void field_color(const float* __restrict__ wts, const
   __syncthreads();
 
   const Net& C = m.color;
+  const int L = C.n_layers;
   float rgb_acc[P];
   for (int l = 0; l < NL; ++l) {
+    if (l >= L) break;
     const int n_out = C.out_dim[l];
     const bool skip = (C.skip_mask >> l) & 1;
-    const bool last = (l == NL - 1);
+    const bool last = (l == L - 1);
     const float* W = wts + C.w_off[l];
     if (SAVE) {
       const int n_h = l == 0 ? 0 : (skip ? C.in_dim[l] - m.ci : C.in_dim[l]);

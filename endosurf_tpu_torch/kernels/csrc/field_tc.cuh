@@ -76,20 +76,23 @@ static_assert(TC_WARPS * 32 == NT, "a warp owns 32 of the tile's 256 output colu
 
 namespace {
 
+constexpr int kColorUnroll = NL - 1;   // the colour forward's hidden layers, unrolled
+
 // Global scratch of a tensor-core backward (rows indexed by point; the deform
 // net's arrays hold S = 4 streams, stream-major: [S][n][width], the others
-// S = 1); widths padded to c16 where the row is a product operand.
+// S = 1); rows padded to c16 of their width. A net has L = n_layers <= NL
+// layers: hidden layers 0 .. L-2, the output layer L-1.
 struct TcScratch {
   bf16* xin[NL];    // layer l's dot operands [h_{l-1} | encoding] [S][n][c16(in_l)]
   bf16* dzb[NL];    // deform, colour: cotangent on layer l's pre-activation
-                    //   [S][n][c16(out_l)], l < NL-1
-  bf16* ag[NL];     // sdf: adjoint dot operand op(a_l sigma_l) [n][c16(out_l)], l < NL-1
-  float* dz[NL];    // deform, colour: layer NL-1's [S][n][4]; sdf: every layer's [n][c16(out_l)]
-  float* z[NL];     // sdf: pre-activations [n][out_l], l < NL-1
-  float* a[NL];     // sdf: ungated adjoint reaching layer l's output [n][out_l], l < NL-2
-                    //   (layer NL-2's is the head column)
-  float* da[NL];    // sdf: cotangent on the adjoint dot's output [n][c16(in_l)], l < NL-1
-  float* dhead;     // sdf: cotangent on the adjoint seed [n][in_{NL-1}]
+                    //   [S][n][c16(out_l)], l < L-1
+  bf16* ag[NL];     // sdf: adjoint dot operand op(a_l sigma_l) [n][c16(out_l)], l < L-1
+  float* dz[NL];    // deform, colour: layer L-1's [S][n][4]; sdf: every layer's [n][c16(out_l)]
+  float* z[NL];     // sdf: pre-activations [n][c16(out_l)], l < L-1
+  float* a[NL];     // sdf: ungated adjoint reaching layer l's output [n][c16(out_l)], l < L-2
+                    //   (layer L-2's is the head column)
+  float* da[NL];    // sdf: cotangent on the adjoint dot's output [n][c16(in_l)], l < L-1
+  float* dhead;     // sdf: cotangent on the adjoint seed [n][c16(in_{L-1})]
 };
 
 // Float offsets (in the packed weights) of each layer's W [in][out] and W^T
@@ -165,9 +168,9 @@ __device__ __forceinline__ DeformTile deform_tile(unsigned char* smem, const Mod
 
 // The deform net's forward on the tile of P points at base, primal and three
 // tangent streams (field_deform's arithmetic, the products on tensor cores):
-// the encoding and tangent seeds, layers 0 .. NL-2 as tile products, the bf16
+// the encoding and tangent seeds, layers 0 .. L-2 as tile products, the bf16
 // primal and the tangents gated by its relu'. Leaves in s.H the output
-// layer's operand rows (h_{NL-2} of each stream). With SAVE each layer's
+// layer's operand rows (h_{L-2} of each stream). With SAVE each layer's
 // operand rows go to sv.xin and the relu' of each hidden output to s.gbit.
 // The forward kernel and the backward's recompute both run it, so the forward
 // the loss sees is the one the backward differentiates, bit for bit.
@@ -210,7 +213,8 @@ __device__ __forceinline__ void deform_tc_forward(const float* __restrict__ wts,
   __syncthreads();
 
   float acc[MT][2 * TC_NPW][4];
-  for (int l = 0; l < NL - 1; ++l) {
+  const int L = N.n_layers;
+  for (int l = 0; l < L - 1; ++l) {
     const int in_l = N.in_dim[l], out_l = N.out_dim[l];
     const bool skip = (N.skip_mask >> l) & 1;
     if (l > 0 && skip) {
@@ -261,7 +265,7 @@ __device__ __forceinline__ void deform_tc_forward(const float* __restrict__ wts,
     }
     __syncthreads();
   }
-  if (SAVE) save_rows<4, P>(sv.xin[NL - 1], H, ldh, c16(N.in_dim[NL - 1]), base, n, tid);
+  if (SAVE) save_rows<4, P>(sv.xin[L - 1], H, ldh, c16(N.in_dim[L - 1]), base, n, tid);
 }
 
 // xt [n][4] -> x_c [n][3], jrows [n][3][3]: the tile's forward, then the
@@ -282,7 +286,7 @@ deform_fwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long lo
   const long long base = (long long)blockIdx.x * P;
   deform_tc_forward<false>(wts, m, fr, n, base, xt, s, ring, TcScratch{});
 
-  const int l = NL - 1, in_l = N.in_dim[l], out_l = N.out_dim[l];   // out_l == 3
+  const int l = N.n_layers - 1, in_l = N.in_dim[l], out_l = N.out_dim[l];   // out_l == 3
   const float sc = ((N.skip_mask >> l) & 1) ? kInvSqrt2 : 1.f;
   const float* W = wts + N.w_off[l];             // [in][out]
   for (int idx = tid; idx < 4 * P * 3; idx += NT) {
@@ -317,8 +321,9 @@ deform_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long lo
   float* dz8 = tile.dz8;                         // [R][3] the output layer's cotangent
   const long long base = (long long)blockIdx.x * P;
   const int np_me = warp * TC_NPW;
+  const int L = N.n_layers;
 
-  // ---- forward recompute, layers 0 .. NL-2 (the output layer needs only its input)
+  // ---- forward recompute, layers 0 .. L-2 (the output layer needs only its input)
   deform_tc_forward<true>(wts, m, fr, n, base, xt, tile, ring, sv);
   float acc[MT][2 * TC_NPW][4];
 
@@ -330,11 +335,11 @@ deform_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long lo
       v = s == 0 ? g_xc[(size_t)(base + p) * 3 + c]
                  : g_j[(size_t)(base + p) * 9 + (s - 1) * 3 + c];
     if (c < 3) dz8[r * 3 + c] = v;
-    if (base + p < n) sv.dz[NL - 1][((size_t)s * n + base + p) * 4 + c] = v;
+    if (base + p < n) sv.dz[L - 1][((size_t)s * n + base + p) * 4 + c] = v;
   }
   __syncthreads();
   {
-    const int l = NL - 1, in_l = N.in_dim[l], out_l = N.out_dim[l];
+    const int l = L - 1, in_l = N.in_dim[l], out_l = N.out_dim[l];
     const bool skip = (N.skip_mask >> l) & 1;
     const int n_h = skip ? in_l - ed : in_l, w = c16(n_h);
     const float sc = skip ? kInvSqrt2 : 1.f;
@@ -352,8 +357,8 @@ deform_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long lo
   }
   __syncthreads();
 
-  // ---- hidden layers NL-2 .. 1 through W^T, gated by the primal's relu'
-  for (int l = NL - 2; l >= 1; --l) {
+  // ---- hidden layers L-2 .. 1 through W^T, gated by the primal's relu'
+  for (int l = L - 2; l >= 1; --l) {
     const int in_l = N.in_dim[l], out_l = N.out_dim[l];
     const bool skip = (N.skip_mask >> l) & 1;
     const int n_h = skip ? in_l - ed : in_l;
@@ -418,12 +423,15 @@ inline size_t sdf_tc_smem(const Model& m) {
 
 // The SDF net's forward on the tile of P points at base (field_sdf's
 // arithmetic, the products on tensor cores): the encoding and its derivative;
-// hidden layers 0 .. NL-2 as tile products (softplus100), each
+// hidden layers 0 .. L-2 as tile products (softplus100), each
 // pre-activation to sv.z, where the adjoint's gates read it back; then the
 // adjoint: the head column gated by the last hidden layer, walked back
 // through W^T (one pass per 256 input columns) to the encoding, whose part
-// accumulates unrounded in t.aE. Without SAVE the output layer runs between
-// the two, from the bf16 rows h_{NL-2}, as a tile product: sdf_out [n]
+// accumulates unrounded in t.aE. A hidden width that is not a multiple of 16
+// runs padded to c16 (zero weight columns): its padding's values are set to
+// zero, in the operand rows and the saved pre-activations, so that no product
+// reads them. Without SAVE the output layer runs between
+// the two, from the bf16 rows h_{L-2}, as a tile product: sdf_out [n]
 // (column 0, the head) and feat_out [n][F] (unrounded), each plus the bias,
 // as field_sdf's. With SAVE each layer's operand rows go to
 // sv.xin, the adjoint's operand rows to sv.ag and its ungated values to sv.a.
@@ -467,31 +475,33 @@ __device__ __forceinline__ void sdf_tc_forward(const float* __restrict__ wts, co
 
   // ---- hidden layers
   float acc[MT][2 * TC_NPW][4];
-  for (int l = 0; l < NL - 1; ++l) {
-    const int in_l = S.in_dim[l], out_l = S.out_dim[l];
+  const int L = S.n_layers;
+  for (int l = 0; l < L - 1; ++l) {
+    const int in_l = S.in_dim[l], out_l = S.out_dim[l], kz = c16(out_l);
     const bool skip = (S.skip_mask >> l) & 1;
     if (l > 0 && skip) {
       put_enc(Hh, ldh, in_l - es, t.E, es, P, tid);
       __syncthreads();
     }
     if (SAVE) save_rows<1, P>(sv.xin[l], Hh, ldh, c16(in_l), base, n, tid);
-    const int npw = clampw(c16(out_l) / 16 - np_me);
+    const int npw = clampw(kz / 16 - np_me);
     zero_acc(acc);
-    tile_mma<MT, 1>(acc, A1, ldh, (const uint4*)(wts + fr.w[l]), c16(out_l) / 16, np_me, npw, 0,
+    tile_mma<MT, 1>(acc, A1, ldh, (const uint4*)(wts + fr.w[l]), kz / 16, np_me, npw, 0,
                     c16(in_l) / 16, ring, lane);
     __syncthreads();
     const float sc = skip ? kInvSqrt2 : 1.f;
     const float* b = wts + S.b_off[l];
     for_pairs(acc, np_me, npw, lane, [&](int row, int c, float a0, float a1) {
-      const float z0 = a0 * sc + b[c], z1 = a1 * sc + b[c + 1];   // out_l: a multiple of 16
-      Hh[row * ldh + c] = __float2bfloat16_rn(softplus100(z0));
-      Hh[row * ldh + c + 1] = __float2bfloat16_rn(softplus100(z1));
-      if (base + row < n) *(float2*)(sv.z[l] + (size_t)(base + row) * out_l + c) = make_float2(z0, z1);
+      const bool in0 = c < out_l, in1 = c + 1 < out_l;   // else the padding: zero
+      const float z0 = in0 ? a0 * sc + b[c] : 0.f, z1 = in1 ? a1 * sc + b[c + 1] : 0.f;
+      Hh[row * ldh + c] = in0 ? __float2bfloat16_rn(softplus100(z0)) : bzero();
+      Hh[row * ldh + c + 1] = in1 ? __float2bfloat16_rn(softplus100(z1)) : bzero();
+      if (base + row < n) *(float2*)(sv.z[l] + (size_t)(base + row) * kz + c) = make_float2(z0, z1);
     });
     __syncthreads();
   }
   {
-    const int l = NL - 1, n_in = S.in_dim[l];
+    const int l = L - 1, n_in = S.in_dim[l];
     if (SAVE) save_rows<1, P>(sv.xin[l], Hh, ldh, c16(n_in), base, n, tid);
     if (!SAVE) {
       // the output layer (column 0 the head, 1 .. F the feature) as tile
@@ -522,19 +532,19 @@ __device__ __forceinline__ void sdf_tc_forward(const float* __restrict__ wts, co
       const int p = idx / n_in, i = idx - p * n_in;
       float v = 0.f;
       if (base + p < n)
-        v = wts[m.head_off + i] * sigmoidf_(100.f * sv.z[l - 1][(size_t)(base + p) * n_in + i]);
+        v = wts[m.head_off + i] * sigmoidf_(100.f * sv.z[l - 1][(size_t)(base + p) * c16(n_in) + i]);
       Hh[p * ldh + i] = __float2bfloat16_rn(v);
     }
     __syncthreads();
     if (SAVE) save_rows<1, P>(sv.ag[l - 1], Hh, ldh, c16(n_in), base, n, tid);
   }
 
-  // ---- the SDF adjoint: layers NL-2 .. 0 through W^T; the encoding part of
+  // ---- the SDF adjoint: layers L-2 .. 0 through W^T; the encoding part of
   // a layer's input goes to aE, unrounded
-  for (int l = NL - 2; l >= 0; --l) {
+  for (int l = L - 2; l >= 0; --l) {
     const int in_l = S.in_dim[l], out_l = S.out_dim[l];
     const bool skip = (S.skip_mask >> l) & 1;
-    const int n_h = l == 0 ? 0 : (skip ? in_l - es : in_l);
+    const int n_h = l == 0 ? 0 : (skip ? in_l - es : in_l), kh = c16(n_h);
     const float sc = skip ? kInvSqrt2 : 1.f;
     const int np_in = c16(in_l) / 16;
     const uint4* B = (const uint4*)(wts + fr.wt[l]);
@@ -542,17 +552,17 @@ __device__ __forceinline__ void sdf_tc_forward(const float* __restrict__ wts, co
       const float v[2] = {a0 * sc, a1 * sc};
       for (int e = 0; e < 2; ++e) {
         const int i = c + e;
-        if (i >= in_l) continue;
         if (i < n_h) {
           float o = 0.f;
           if (base + row < n) {
-            const size_t q = (size_t)(base + row) * n_h + i;
+            const size_t q = (size_t)(base + row) * kh + i;
             if (SAVE) sv.a[l - 1][q] = v[e];
             o = v[e] * sigmoidf_(100.f * sv.z[l - 1][q]);
           }
           Hh[row * ldh + i] = __float2bfloat16_rn(o);
         } else {
-          t.aE[row * es + (i - n_h)] += v[e];
+          if (i < in_l) t.aE[row * es + (i - n_h)] += v[e];
+          if (i < kh) Hh[row * ldh + i] = bzero();   // the next product's padding
         }
       }
     };
@@ -642,6 +652,7 @@ sdf_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long long 
   const long long base = (long long)blockIdx.x * P;
   const int np_me = warp * TC_NPW;
   const int np_hmax = HMAX / 16;                 // pairs in place: the h columns
+  const int L = S.n_layers;
 
   // ---- forward recompute: hidden layers and the adjoint, with the saves
   for (int idx = tid; idx < 2 * P * ldh; idx += NT) Hm[idx] = bzero();
@@ -675,52 +686,57 @@ sdf_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long long 
       float v = 0.f;
       if (in_tile(base, p, n) && f < G)
         v = f == 0 ? g_sdf[base + p] : g_feat[(size_t)(base + p) * F + f - 1];
-      sv.dz[NL - 1][(size_t)(base + p) * w + f] = v;
+      sv.dz[L - 1][(size_t)(base + p) * w + f] = v;
     }
   }
   __syncthreads();
 
-  // ---- the adjoint walk reversed: layers 0 .. NL-2. Layer l's adjoint dot
+  // ---- the adjoint walk reversed: layers 0 .. L-2. Layer l's adjoint dot
   // a_l <- [da (n_h) | daE (es, at l = 0 and the skips)] W_l: two separately
   // rounded dots; its output's cotangent dag gives the softplus' second-order
-  // term of dz_l and, gated, the operand of layer l + 1's dot
-  for (int l = 0; l < NL - 1; ++l) {
+  // term of dz_l and, gated, the operand of layer l + 1's dot. The h dot
+  // runs first, on [da | the padding's zeros]; the encoding dot after the
+  // h columns of a k-tile both parts share (n_h not a multiple of 16) are
+  // zeroed.
+  for (int l = 0; l < L - 1; ++l) {
     const int in_l = S.in_dim[l], out_l = S.out_dim[l];
     const bool skip = (S.skip_mask >> l) & 1;
     const bool sec = l == 0 || skip;
-    const int n_h = l == 0 ? 0 : (skip ? in_l - es : in_l);   // a multiple of 16
-    const int kin = c16(in_l);
+    const int n_h = l == 0 ? 0 : (skip ? in_l - es : in_l);
+    const bool two = sec && n_h;                  // two rounded dots
+    const int kin = c16(in_l), k0 = n_h & ~15;     // k0: the encoding's first k-tile
     const float sc = skip ? kInvSqrt2 : 1.f;
-    if (sec) {
-      for (int idx = tid; idx < P * (kin - n_h); idx += NT) {
-        const int p = idx / (kin - n_h), c = idx - p * (kin - n_h);
-        const float v = c < es ? daE[p * es + c] : 0.f;
-        put_split(p, n_h + c, v);
-        if (c < es && base + p < n) sv.da[l][(size_t)(base + p) * kin + n_h + c] = v;
-      }
-      __syncthreads();
-    }
     const uint4* B = (const uint4*)(wts + fr.w[l]);
     const int np_out = c16(out_l) / 16, npw = clampw(np_out - np_me);
-    uint32_t r2[MT][2 * TC_NPW][2] = {};       // the encoding dot, rounded (bf16 pairs)
-    if (sec) {
-      zero_acc(acc);
-      tile_mma<MT, 3>(acc, A3, ldh, B, np_out, np_me, npw, n_h / 16, kin / 16, ring, lane);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 2 * TC_NPW; ++nt)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const __nv_bfloat162 v = __floats2bfloat162_rn(acc[mt][nt][2 * h] * sc,
-                                                           acc[mt][nt][2 * h + 1] * sc);
-            r2[mt][nt][h] = *(const uint32_t*)&v;
-          }
-    }
+    uint32_t r2[MT][2 * TC_NPW][2] = {};       // the h dot, rounded (bf16 pairs)
     zero_acc(acc);
-    if (n_h) tile_mma<MT, 3>(acc, A3, ldh, B, np_out, np_me, npw, 0, n_h / 16, ring, lane);
+    if (n_h) tile_mma<MT, 3>(acc, A3, ldh, B, np_out, np_me, npw, 0, c16(n_h) / 16, ring, lane);
+    if (sec) {
+      if (two) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 2 * TC_NPW; ++nt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const __nv_bfloat162 v = __floats2bfloat162_rn(acc[mt][nt][2 * h] * sc,
+                                                             acc[mt][nt][2 * h + 1] * sc);
+              r2[mt][nt][h] = *(const uint32_t*)&v;
+            }
+        __syncthreads();
+      }
+      for (int idx = tid; idx < P * (kin - k0); idx += NT) {
+        const int p = idx / (kin - k0), c = k0 + idx - p * (kin - k0) - n_h;
+        const float v = c >= 0 && c < es ? daE[p * es + c] : 0.f;
+        put_split(p, n_h + c, v);
+        if (c >= 0 && c < es && base + p < n) sv.da[l][(size_t)(base + p) * kin + n_h + c] = v;
+      }
+      __syncthreads();
+      zero_acc(acc);
+      tile_mma<MT, 3>(acc, A3, ldh, B, np_out, np_me, npw, k0 / 16, kin / 16, ring, lane);
+    }
     __syncthreads();
-    const bool top = l == NL - 2;
+    const bool top = l == L - 2;
     const int kn = c16(S.in_dim[l + 1]), kz = c16(out_l);
     const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -731,32 +747,31 @@ sdf_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long long 
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int row = mt * 16 + g + h * 8, c = np_me * 16 + nt * 8 + 2 * t;
-          const __nv_bfloat162 sec2 = *(const __nv_bfloat162*)&r2[mt][nt][h];
+          const __nv_bfloat162 h2 = *(const __nv_bfloat162*)&r2[mt][nt][h];
           float dag[2], val[2] = {0.f, 0.f};
-          dag[0] = (n_h ? bf16r(acc[mt][nt][2 * h] * sc) : 0.f)
-                   + (sec ? __low2float(sec2) : 0.f);
-          dag[1] = (n_h ? bf16r(acc[mt][nt][2 * h + 1] * sc) : 0.f)
-                   + (sec ? __high2float(sec2) : 0.f);
+          dag[0] = (two ? __low2float(h2) : 0.f) + bf16r(acc[mt][nt][2 * h] * sc);
+          dag[1] = (two ? __high2float(h2) : 0.f) + bf16r(acc[mt][nt][2 * h + 1] * sc);
           if (base + row < n) {
-            const size_t rz = (size_t)(base + row) * out_l + c;
+            const size_t rz = (size_t)(base + row) * kz + c;
             const float2 z = *(const float2*)(sv.z[l] + rz);
             const float sig[2] = {sigmoidf_(100.f * z.x), sigmoidf_(100.f * z.y)};
-            float a[2];
+            float a[2] = {0.f, 0.f};
             if (top) {
-              a[0] = wts[m.head_off + c];
-              a[1] = wts[m.head_off + c + 1];
+              for (int e = 0; e < 2; ++e) a[e] = c + e < out_l ? wts[m.head_off + c + e] : 0.f;
             } else {
               const float2 av = *(const float2*)(sv.a[l] + rz);
               a[0] = av.x; a[1] = av.y;
             }
             for (int e = 0; e < 2; ++e) {
+              if (c + e >= out_l) continue;           // the padding: zero
               sv.dz[l][(size_t)(base + row) * kz + c + e] =
                   dag[e] * a[e] * 100.f * sig[e] * (1.f - sig[e]);
               val[e] = dag[e] * sig[e];
             }
-            float* dst = top ? sv.dhead + (size_t)(base + row) * out_l + c
+            float* dst = top ? sv.dhead + (size_t)(base + row) * kz + c
                              : sv.da[l + 1] + (size_t)(base + row) * kn + c;
-            *(float2*)dst = make_float2(val[0], val[1]);
+            if (c + 1 < out_l) *(float2*)dst = make_float2(val[0], val[1]);
+            else if (c < out_l) *dst = val[0];
           }
           put_split(row, c, val[0]);
           put_split(row, c + 1, val[1]);
@@ -766,9 +781,9 @@ sdf_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long long 
   }
 
   // ---- the primal walk: the output layer (head + feature), then layers
-  // NL-2 .. 0 through W^T
+  // L-2 .. 0 through W^T
   {
-    const int l = NL - 1, n_in = S.in_dim[l], kh = c16(G);
+    const int l = L - 1, n_in = S.in_dim[l], kh = c16(G);
     for (int idx = tid; idx < P * kh; idx += NT) {   // [0 | g_feat]: the feature block's operand
       const int p = idx / kh, f = idx - p * kh;
       put_split(p, f, f >= 1 && f < G && in_tile(base, p, n)
@@ -781,13 +796,14 @@ sdf_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long long 
                     kh / 16, ring, lane);
     __syncthreads();
     const float* head = wts + S.wt_off[l];       // W^T row 0: the head column
-    const int kz = c16(S.out_dim[l - 1]);
+    const int kz = c16(S.out_dim[l - 1]);        // == c16(n_in)
     for_pairs(acc, np_me, npw, lane, [&](int row, int c, float a0, float a1) {
       float o[2] = {0.f, 0.f};
       if (base + row < n) {
-        const float2 z = *(const float2*)(sv.z[l - 1] + (size_t)(base + row) * n_in + c);
+        const float2 z = *(const float2*)(sv.z[l - 1] + (size_t)(base + row) * kz + c);
         const float zz[2] = {z.x, z.y}, af[2] = {a0, a1};
         for (int e = 0; e < 2; ++e) {
+          if (c + e >= n_in) continue;              // the padding: zero
           const float acc_h = fmaf(gs[row], head[c + e], 0.f);
           float* q = sv.dz[l - 1] + (size_t)(base + row) * kz + c + e;
           o[e] = (bf16r(acc_h) + bf16r(af[e])) * sigmoidf_(100.f * zz[e]) + *q;
@@ -799,23 +815,23 @@ sdf_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long long 
     });
     __syncthreads();
   }
-  for (int l = NL - 2; l >= 0; --l) {
+  for (int l = L - 2; l >= 0; --l) {
     const int in_l = S.in_dim[l], out_l = S.out_dim[l];
     const bool skip = (S.skip_mask >> l) & 1;
     const int n_h = l == 0 ? 0 : (skip ? in_l - es : in_l);
     const float sc = skip ? kInvSqrt2 : 1.f;
-    const int np_in = c16(in_l) / 16, kz = l > 0 ? c16(S.out_dim[l - 1]) : 0;
+    const int np_in = c16(in_l) / 16, kz = c16(n_h);   // n_h == out_{l-1}
     const uint4* B = (const uint4*)(wts + fr.wt[l]);
     auto epi = [&](int row, int c, float a0, float a1) {
       const float v[2] = {bf16r(a0 * sc), bf16r(a1 * sc)};
-      if (c < n_h) {                              // n_h is a multiple of 16: both columns
+      if (c + 1 < n_h) {                          // both columns in the h part
         float o[2] = {0.f, 0.f};
         if (base + row < n) {
-          const size_t q = (size_t)(base + row) * n_h + c;
+          const size_t q = (size_t)(base + row) * kz + c;
           const float2 z = *(const float2*)(sv.z[l - 1] + q);
           const float zz[2] = {z.x, z.y};
           for (int e = 0; e < 2; ++e) {
-            float* d = sv.dz[l - 1] + (size_t)(base + row) * kz + c + e;
+            float* d = sv.dz[l - 1] + q + e;
             o[e] = v[e] * sigmoidf_(100.f * zz[e]) + *d;
             *d = o[e];
           }
@@ -823,8 +839,21 @@ sdf_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long long 
         put_split(row, c, o[0]);
         put_split(row, c + 1, o[1]);
       } else {
-        for (int e = 0; e < 2; ++e)
-          if (c + e < in_l) de[row * es + (c + e - n_h)] += v[e];
+        for (int e = 0; e < 2; ++e) {
+          const int i = c + e;
+          if (i < n_h) {                          // the last h column of an odd n_h
+            float o = 0.f;
+            if (base + row < n) {
+              const size_t q = (size_t)(base + row) * kz + i;
+              o = v[e] * sigmoidf_(100.f * sv.z[l - 1][q]) + sv.dz[l - 1][q];
+              sv.dz[l - 1][q] = o;
+            }
+            put_split(row, i, o);
+            continue;
+          }
+          if (i < in_l) de[row * es + (i - n_h)] += v[e];
+          if (i < kz) put_split(row, i, 0.f);     // the next product's padding
+        }
       }
     };
     const int npx = clampw(np_in - np_hmax - np_me);
@@ -900,8 +929,8 @@ __device__ __forceinline__ ColorTile color_tile(unsigned char* smem, const Model
 // The colour net's forward on the tile of P points at base (field_color's
 // arithmetic, the products on tensor cores): the colour input [enc(x_c),
 // grad_c, enc(d_c), feat] (feat as loaded), each value rounded to bf16, then
-// hidden layers 0 .. NL-2 as tile products (relu). Leaves in s.H the output
-// layer's operand rows h_{NL-2}. With SAVE each layer's operand rows go to
+// hidden layers 0 .. L-2 as tile products (relu). Leaves in s.H the output
+// layer's operand rows h_{L-2}. With SAVE each layer's operand rows go to
 // sv.xin and the relu' of each hidden output to s.gbit. The forward kernel
 // and the backward's recompute both run it, so the forward the loss sees is
 // the one the backward differentiates, bit for bit.
@@ -954,7 +983,12 @@ __device__ __forceinline__ void color_tc_forward(const float* __restrict__ wts, 
   __syncthreads();
 
   float acc[MT][2 * TC_NPW][4];
+  const int L = C.n_layers;
+  // unrolled to the ceiling in the forward kernel, rolled in the backward's
+  // recompute: the register counts of the 9-layer code (ptxas)
+#pragma unroll (SAVE ? 1 : kColorUnroll)
   for (int l = 0; l < NL - 1; ++l) {
+    if (l >= L - 1) continue;
     const int in_l = C.in_dim[l], out_l = C.out_dim[l];
     const bool skip = (C.skip_mask >> l) & 1;
     if (l > 0 && skip) {
@@ -1003,14 +1037,14 @@ __device__ __forceinline__ void color_tc_forward(const float* __restrict__ wts, 
     }
     __syncthreads();
   }
-  if (SAVE) save_rows<1, P>(sv.xin[NL - 1], H, ldh, c16(C.in_dim[NL - 1]), base, n, tid);
+  if (SAVE) save_rows<1, P>(sv.xin[L - 1], H, ldh, c16(C.in_dim[L - 1]), base, n, tid);
 }
 
 // rgb channel c of tile row p from the output layer's bf16 operand rows (3
 // wide, SIMT): an FMA chain in k order, as field_color's, then the sigmoid.
 __device__ __forceinline__ float color_tc_rgb(const float* __restrict__ wts, const Net& C,
                                               const bf16* H, int ldh, int p, int c) {
-  const int l = NL - 1, in_l = C.in_dim[l], out_l = C.out_dim[l];   // out_l == 3
+  const int l = C.n_layers - 1, in_l = C.in_dim[l], out_l = C.out_dim[l];   // out_l == 3
   const float sc = ((C.skip_mask >> l) & 1) ? kInvSqrt2 : 1.f;
   const float* W = wts + C.w_off[l];             // [in][out]
   float a = 0.f;
@@ -1059,7 +1093,7 @@ color_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long lon
   bf16* H = tile.H;                              // [P][ldh] the layer's operand / cotangent
   const bf16* const A1[1] = {H};
   bf16* E = tile.E;                              // [P][ci] the colour input; in the walk the
-                                                 //   cotangent the skip layer sends it
+                                                 //   cotangent the top skip layer sends it
   float* xs = tile.xs;                           // [P][4] x_c
   float* ds = tile.ds;                           // [P][4] d_c
   uint32_t* gbit = tile.gbit;                    // [NL-1][P][WB] relu' of each hidden output
@@ -1067,6 +1101,7 @@ color_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long lon
   float* Dc = dz8 + P * 4;                       // [P][nd] cotangent on enc(x_c), grad_c, enc(d_c)
   const long long base = (long long)blockIdx.x * P;
   const int np_me = warp * TC_NPW;
+  const int L = C.n_layers;
   auto gate = [&](int l, int p, int i) {        // relu' of layer l's output i at point p
     return (gbit[(l * P + p) * WB + (i >> 5)] >> (i & 31)) & 1u;
   };
@@ -1081,12 +1116,12 @@ color_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long lon
     for (int idx = tid; idx < P * 4; idx += NT) {
       const int p = idx >> 2, c = idx & 3;
       float v = 0.f;
-      if (c < C.out_dim[NL - 1] && in_tile(base, p, n)) {
+      if (c < C.out_dim[L - 1] && in_tile(base, p, n)) {
         const float rgb = color_tc_rgb(wts, C, H, ldh, p, c);
         v = g_color[(size_t)(base + p) * 3 + c] * rgb * (1.f - rgb);
       }
       dz8[idx] = v;
-      if (base + p < n) sv.dz[NL - 1][(size_t)(base + p) * 4 + c] = v;
+      if (base + p < n) sv.dz[L - 1][(size_t)(base + p) * 4 + c] = v;
     }
     // E now carries the skip layer's cotangent on the colour input (zero
     // where the net has no skip layer)
@@ -1095,7 +1130,7 @@ color_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long lon
   __syncthreads();
   // its product through W^T (3 -> in), gated by the last hidden layer's relu'
   {
-    const int l = NL - 1, in_l = C.in_dim[l], out_l = C.out_dim[l], w = c16(in_l);
+    const int l = L - 1, in_l = C.in_dim[l], out_l = C.out_dim[l], w = c16(in_l);
     const float sc = ((C.skip_mask >> l) & 1) ? kInvSqrt2 : 1.f;
     const float* W = wts + C.w_off[l];
     for (int idx = tid; idx < P * w; idx += NT) {
@@ -1111,17 +1146,21 @@ color_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long lon
   }
   __syncthreads();
 
-  // ---- hidden layers NL-2 .. 0 through W^T. Each input column's cotangent
-  // op(acc sc) goes to the h part (gated, in place) or to the colour input:
-  // the skip layer's into E, then layer 0's added to it in float32, as the
-  // SIMT kernel's s_dcin. Columns past in_l are the padding to c16(in_l). The inputs wider than the 256 columns the warps own
+  // ---- hidden layers L-2 .. 0 through W^T. Each input column's cotangent
+  // op(acc sc) goes to the h part (gated, in place) or to the colour input,
+  // summed from the top in float32 as the SIMT kernel's s_dcin: the top skip
+  // layer's into E (a bf16 value), each lower skip layer's and then layer 0's
+  // added to it in float32, in Dc (the first three sections) and in the
+  // tile's rows of dfeat (the feature). Columns past in_l are the padding to
+  // c16(in_l). The inputs wider than the 256 columns the warps own
   // in one pass take more passes, one per group of 16 column pairs: those
   // past the h part first (they never touch H, so they need no barrier), the
   // group with the h part last, written in place after a barrier.
-  for (int l = NL - 2; l >= 0; --l) {
+  for (int l = L - 2; l >= 0; --l) {
     const int in_l = C.in_dim[l], out_l = C.out_dim[l];
     const bool skip = (C.skip_mask >> l) & 1;
     const int n_h = l == 0 ? 0 : (skip ? in_l - ci : in_l);
+    const int above = __popc((unsigned)C.skip_mask >> (l + 1));   // skip layers above l
     const float sc = skip ? kInvSqrt2 : 1.f;
     const int np_in = c16(in_l) / 16, kt1 = c16(out_l) / 16;
     const uint4* B = (const uint4*)(wts + fr.wt[l]);
@@ -1136,10 +1175,15 @@ color_bwd_tc_kernel(const float* __restrict__ wts, Model m, TcFrags fr, long lon
           H[row * ldh + i] = i < n_h && gate(l - 1, row, i) ? __float2bfloat16_rn(v) : bzero();
         if (i < n_h || i >= in_l) continue;
         const int j = i - n_h;                   // the colour input's column
-        if (l > 0) E[row * ci + j] = __float2bfloat16_rn(v);
-        else if (j < nd) Dc[row * nd + j] = __bfloat162float(E[row * ci + j]) + v;
-        else if (base + row < n)
-          dfeat[(size_t)(base + row) * F + j - nd] = __bfloat162float(E[row * ci + j]) + v;
+        if (l > 0 && above == 0) {
+          E[row * ci + j] = __float2bfloat16_rn(v);
+        } else if (j < nd) {
+          const float prev = above <= 1 ? __bfloat162float(E[row * ci + j]) : Dc[row * nd + j];
+          Dc[row * nd + j] = prev + v;
+        } else if (base + row < n) {
+          float* q = dfeat + (size_t)(base + row) * F + j - nd;
+          *q = (above <= 1 ? __bfloat162float(E[row * ci + j]) : *q) + v;
+        }
       }
     };
     for (int gr = (np_in - 1) / NPG; gr >= 1; --gr) {
@@ -1203,25 +1247,26 @@ void plan_bwd_tc(const Model& m, int seg, long long n, void* scratch, float* gra
   long long part = 0;
   const Net& N = seg == SEG_DEFORM ? m.deform : (seg == SEG_SDF ? m.sdf : m.color);
   const long long S = seg == SEG_DEFORM ? 4 : 1;     // streams, stacked on the point axis
-  for (int l = 0; l < NL; ++l) {
+  const int L = N.n_layers;
+  for (int l = 0; l < L; ++l) {
     const int in_l = N.in_dim[l], out_l = N.out_dim[l];
     if (seg != SEG_SDF) {
       sv.xin[l] = pl.take<bf16>(S * n * c16(in_l));
-      if (l < NL - 1) sv.dzb[l] = pl.take<bf16>(S * n * c16(out_l));
+      if (l < L - 1) sv.dzb[l] = pl.take<bf16>(S * n * c16(out_l));
       else sv.dz[l] = pl.take<float>(S * n * 4);
     } else {
       sv.xin[l] = pl.take<bf16>(n * c16(in_l));
       sv.dz[l] = pl.take<float>(n * c16(out_l));
-      if (l < NL - 1) {
-        sv.z[l] = pl.take<float>(n * out_l);
+      if (l < L - 1) {
+        sv.z[l] = pl.take<float>(n * c16(out_l));
         sv.ag[l] = pl.take<bf16>(n * c16(out_l));
         sv.da[l] = pl.take<float>(n * c16(in_l));
-        if (l < NL - 2) sv.a[l] = pl.take<float>(n * out_l);
+        if (l < L - 2) sv.a[l] = pl.take<float>(n * c16(out_l));
       }
     }
   }
-  if (seg == SEG_SDF) sv.dhead = pl.take<float>(n * N.in_dim[NL - 1]);
-  for (int l = 0; l < NL; ++l) {
+  if (seg == SEG_SDF) sv.dhead = pl.take<float>(n * c16(N.in_dim[L - 1]));
+  for (int l = 0; l < L; ++l) {
     const int in_l = N.in_dim[l], out_l = N.out_dim[l];
     const int lda = c16(in_l);
     const float sc = ((N.skip_mask >> l) & 1) ? kInvSqrt2 : 1.f;
@@ -1229,7 +1274,7 @@ void plan_bwd_tc(const Model& m, int seg, long long n, void* scratch, float* gra
     float* db = grad ? grad + N.b_off[l] : nullptr;
     if (seg != SEG_SDF) {
       // the output layer's cotangent is float32 (split in the product), the others bf16
-      const bool top = l == NL - 1;
+      const bool top = l == L - 1;
       const void* B = top ? (const void*)sv.dz[l] : (const void*)sv.dzb[l];
       const int kb = top ? OP_F32 : OP_BF16, ldb = top ? 4 : c16(out_l);
       const long long sb = n * ldb;
@@ -1246,11 +1291,11 @@ void plan_bwd_tc(const Model& m, int seg, long long n, void* scratch, float* gra
                  1, dw, out_l, 0);
       add_tc_job(jobs, part, nullptr, OP_ONES, 1, sv.dz[l], OP_F32, ldz, n, 1, out_l, 1.f, 0, db,
                  out_l, 0);
-      if (l < NL - 1)      // the adjoint's product W^T
+      if (l < L - 1)       // the adjoint's product W^T
         add_tc_job(jobs, part, sv.da[l], OP_F32, lda, sv.ag[l], OP_BF16, ldz, n, in_l, out_l, sc,
                    1, dw, out_l, 1);
       else                 // the adjoint seed: head column
-        add_tc_job(jobs, part, sv.dhead, OP_F32, in_l, nullptr, OP_ONES, 1, n, in_l, 1, 1.f, 0,
+        add_tc_job(jobs, part, sv.dhead, OP_F32, lda, nullptr, OP_ONES, 1, n, in_l, 1, 1.f, 0,
                    dw, out_l, 1);
     }
   }
@@ -1259,13 +1304,13 @@ void plan_bwd_tc(const Model& m, int seg, long long n, void* scratch, float* gra
 }
 
 // The SDF forward's workspace: each hidden layer's pre-activations
-// [n][out_l], which the adjoint's gates read back (a 64-point tile's are 512
-// KB at base.yml's widths, past shared memory); with a null base it only
+// [n][c16(out_l)], which the adjoint's gates read back (a 64-point tile's are
+// 512 KB at base.yml's widths, past shared memory); with a null base it only
 // counts. Returns its floats.
 long long plan_sdf_fwd_tc(const Model& m, long long n, void* work, TcScratch& sv) {
   BytePlanner pl{(char*)work};
   sv = TcScratch{};
-  for (int l = 0; l < NL - 1; ++l) sv.z[l] = pl.take<float>(n * m.sdf.out_dim[l]);
+  for (int l = 0; l < m.sdf.n_layers - 1; ++l) sv.z[l] = pl.take<float>(n * c16(m.sdf.out_dim[l]));
   return (pl.used + 3) / 4;
 }
 

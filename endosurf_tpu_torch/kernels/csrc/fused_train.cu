@@ -180,7 +180,7 @@ deform_bwd_kernel(const float* __restrict__ wts, Model m, long long n,
   }
   __syncthreads();
   const Net& N = m.deform;
-  for (int l = NL - 1; l >= 0; --l) {
+  for (int l = N.n_layers - 1; l >= 0; --l) {
     const int out_l = N.out_dim[l], in_l = N.in_dim[l];
     const bool skip = (N.skip_mask >> l) & 1;
     save_operands<4>(sv.dz[l], base, n, dz, out_l, dz, HMAX, 0, tid);
@@ -259,10 +259,11 @@ sdf_bwd_kernel(const float* __restrict__ wts, Model m, long long n,
   }
   __syncthreads();
   const Net& S = m.sdf;
-  save_operands<1>(sv.dz[NL - 1], base, n, s_gout, 0, s_gout, G, G, tid);
+  const int L = S.n_layers;
+  save_operands<1>(sv.dz[L - 1], base, n, s_gout, 0, s_gout, G, G, tid);
 
-  // ---- adjoint walk reversed: layers 0 .. NL-2 -----------------------------
-  for (int l = 0; l < NL - 1; ++l) {
+  // ---- adjoint walk reversed: layers 0 .. L-2 ------------------------------
+  for (int l = 0; l < L - 1; ++l) {
     const int in_l = S.in_dim[l], out_l = S.out_dim[l];
     const bool skip = (S.skip_mask >> l) & 1;
     const bool sec = l == 0 || skip;
@@ -288,15 +289,15 @@ sdf_bwd_kernel(const float* __restrict__ wts, Model m, long long n,
         const float sig = sigmoidf_(100.f * sv.z[l][row]);
         s_da[p * HMAX + tid] = dag * sig;
         sv.dz[l][row] = dag * sv.a[l][row] * 100.f * sig * (1.f - sig);
-        if (l == NL - 2) sv.dhead[row] = dag * sig;
+        if (l == L - 2) sv.dhead[row] = dag * sig;
       }
     }
     __syncthreads();
   }
 
-  // ---- primal walk: head + feature, then layers NL-2 .. 0 ------------------
+  // ---- primal walk: head + feature, then layers L-2 .. 0 -------------------
   {
-    const int l = NL - 1;
+    const int l = L - 1;
     const int n_in = S.in_dim[l];
     const float* WT = wts + S.wt_off[l];     // [1 + F][n_in]
     if (tid < n_in) {
@@ -319,7 +320,7 @@ sdf_bwd_kernel(const float* __restrict__ wts, Model m, long long n,
     }
     __syncthreads();
   }
-  for (int l = NL - 2; l >= 0; --l) {
+  for (int l = L - 2; l >= 0; --l) {
     const int in_l = S.in_dim[l], out_l = S.out_dim[l];
     const bool skip = (S.skip_mask >> l) & 1;
     const int n_h = l == 0 ? 0 : (skip ? in_l - es : in_l);
@@ -396,7 +397,9 @@ color_bwd_kernel(const float* __restrict__ wts, Model m, long long n,
   for (int idx = tid; idx < P * ci; idx += NT) s_dcin[idx] = 0.f;
   __syncthreads();
   const Net& C = m.color;
-  for (int l = NL - 1; l >= 0; --l) {
+#pragma unroll
+  for (int l = NL - 1; l >= 0; --l) {   // unrolled to the ceiling, guarded by the depth
+    if (l >= C.n_layers) continue;
     const int in_l = C.in_dim[l], out_l = C.out_dim[l];
     const bool skip = (C.skip_mask >> l) & 1;
     const int n_h = l == 0 ? 0 : (skip ? in_l - ci : in_l);
@@ -467,9 +470,10 @@ void plan_bwd(const Model& m, int seg, long long n, int rb, float* scratch, floa
   long long part = 0;
   const Net& N = seg == SEG_DEFORM ? m.deform : (seg == SEG_SDF ? m.sdf : m.color);
   const int streams = seg == SEG_DEFORM ? 4 : 1;
-  const int n_hidden = seg == SEG_SDF ? NL - 1 : NL;
+  const int L = N.n_layers;
+  const int n_hidden = seg == SEG_SDF ? L - 1 : L;
   float* g = grad;
-  for (int l = 0; l < NL; ++l) {
+  for (int l = 0; l < L; ++l) {
     const int in_l = N.in_dim[l], out_l = N.out_dim[l];
     sv.xin[l] = pl.take(streams * n * in_l);
     sv.dz[l] = pl.take(streams * n * out_l);
@@ -480,8 +484,8 @@ void plan_bwd(const Model& m, int seg, long long n, int rb, float* scratch, floa
       sv.da[l] = pl.take(n * in_l);
     }
   }
-  if (seg == SEG_SDF) sv.dhead = pl.take(n * N.in_dim[NL - 1]);
-  for (int l = 0; l < NL; ++l) {
+  if (seg == SEG_SDF) sv.dhead = pl.take(n * N.in_dim[L - 1]);
+  for (int l = 0; l < L; ++l) {
     const int in_l = N.in_dim[l], out_l = N.out_dim[l];
     const float sc = ((N.skip_mask >> l) & 1) ? kInvSqrt2 : 1.f;
     float* dw = g ? g + N.w_off[l] : nullptr;

@@ -21,7 +21,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#define NL 9            // layers per MLP
+#define NL 9            // the most layers per MLP (a net has 2 .. NL: Net::n_layers)
 #define HMAX 256        // widest hidden layer
 #define NT 256          // threads per block of the MLP kernels
 #define P_SWEEP 32      // points per block, sdf sweep

@@ -86,6 +86,7 @@ __host__ __device__ inline int sweep_ldh(const Model& m) {
   for (int l = 0; l < NL - 1; ++l) {
     const Net* nets[2] = {&m.deform, &m.sdf};
     for (int q = m.use_deform ? 0 : 1; q < 2; ++q) {
+      if (l >= nets[q]->n_layers - 1) continue;
       const int w = c16(nets[q]->in_dim[l]) > c16(nets[q]->out_dim[l]) ? c16(nets[q]->in_dim[l])
                                                                        : c16(nets[q]->out_dim[l]);
       k = w > k ? w : k;
@@ -178,7 +179,7 @@ __device__ __forceinline__ bf16 sweep_round(float hi, float lo, float b, bool re
   return bf16_rn_d(h * post_d);
 }
 
-// Hidden layers 0 .. NL-2 of net N on a tile of MT m-tiles (sweep_mlp's
+// Hidden layers 0 .. L-2 of net N (L = N.n_layers) on a tile of MT m-tiles (sweep_mlp's
 // arithmetic, the products as split tile products with hi + lo sums, the
 // epilogue sweep_round); leaves the output layer's operand rows in t.H. A
 // row's arithmetic does not depend on MT.
@@ -195,7 +196,7 @@ __device__ __forceinline__ void sweep_tc_mlp(const Net& N, const float* __restri
   put_enc(H, ldh, 0, E0, ew, P, tid);
   __syncthreads();
   float acc[MT][2 * TC_NPW][4], lo[MT][2 * TC_NPW][4];
-  for (int l = 0; l < NL - 1; ++l) {
+  for (int l = 0; l < N.n_layers - 1; ++l) {
     const int in_l = N.in_dim[l], out_l = N.out_dim[l], kp = c16(in_l);
     if (l > 0 && ((N.skip_mask >> l) & 1)) {
       put_enc(H, ldh, in_l - ew, Es, ew, P, tid);
@@ -271,7 +272,7 @@ sweep_tc_kernel(const float* __restrict__ wts, const __grid_constant__ Model m,
     __syncthreads();
     sweep_tc_mlp<MT>(N, wts, fr.deform, true, t, ldh, t.E0, t.Es, m.ed, ring);
     // output layer: dx (3 columns), x_c = x + dx
-    const int l = NL - 1, n_out = N.out_dim[l];
+    const int l = N.n_layers - 1, n_out = N.out_dim[l];
     const float* W = wts + N.w_off[l];
     for (int idx = tid; idx < 3 * P; idx += NT) {
       const int p = idx / 3, col = idx - p * 3;
@@ -295,7 +296,7 @@ sweep_tc_kernel(const float* __restrict__ wts, const __grid_constant__ Model m,
   sweep_tc_mlp<MT>(S, wts, fr.sdf, false, t, ldh, t.E0, t.Es, m.es, ring);
   // head: column 0 of the SDF output layer
   if (tid < P) {
-    const int l = NL - 1, n_out = S.out_dim[l];
+    const int l = S.n_layers - 1, n_out = S.out_dim[l];
     const float* W = wts + S.w_off[l];
     double a = 0.0;
     for (int k = 0; k < S.in_dim[l]; ++k)

@@ -38,7 +38,7 @@ import torch
 from endosurf_tpu_torch.ops.encoding import freq_encode_dim
 from endosurf_tpu_torch.ops.mlp import effective_weight
 
-NL = 9            # layers per MLP the kernel is built for
+NL = 9            # the most layers per MLP the kernels take (2 .. NL a net)
 HMAX = 256        # widest hidden layer / threads per block
 META_NET = 47
 EVAL_GROUP = 8    # the JAX kernel's sample group; kept in the shape gate
@@ -126,21 +126,33 @@ def render_shape_supported(n_samples: int, n_importance: int, n_rounds: int) -> 
     return (n_samples + n_importance) % EVAL_GROUP == 0
 
 
-def cuda_spec_supported(spec) -> bool:
-    """Architectures the CUDA kernel is built for: 9-layer MLPs no wider than
-    256, 3-d deform/colour outputs, an SDF output of 1 + feat_dim, and SDF
-    skip layers no wider than 512 inputs (the adjoint gives each thread two
-    input columns)."""
+def spec_refusal(spec) -> str:
+    """Why the CUDA kernels do not take an architecture, or "" if they do.
+    They take MLPs of 2 to NL layers each, no wider than 256 (any width up to
+    it), 3-d deform/colour outputs, an SDF output of 1 + feat_dim, SDF skip
+    layers no wider than 512 inputs (the adjoint gives each thread two input
+    columns), and no skip at a net's output layer (``net_skip_error``: JAX's
+    Pallas kernels fail on it too)."""
     nets = [spec.sdf, spec.color] + ([spec.deform] if spec.use_deform else [])
-    if any(n.n_layers != NL or n.hidden_dim > HMAX for n in nets):
-        return False
+    for n in nets:
+        if not 2 <= n.n_layers <= NL or n.hidden_dim > HMAX:
+            return (f"nets of 2 to {NL} layers no wider than {HMAX}, got {n.n_layers} "
+                    f"layers of {n.hidden_dim}")
+        err = net_skip_error(n.n_layers, sum(1 << s for s in n.skips))
+        if err:
+            return err
     if spec.sdf.hidden_dim + freq_encode_dim(3, spec.sdf_pos_freqs) > 2 * HMAX:
-        return False
+        return f"SDF skip layers of at most {2 * HMAX} inputs"
     if spec.sdf.out_dim != 1 + spec.color_feat_dim or spec.color_feat_dim > HMAX:
-        return False
+        return f"an SDF output of 1 + feat_dim, feat_dim <= {HMAX}"
     if spec.color.out_dim != 3 or (spec.use_deform and spec.deform.out_dim != 3):
-        return False
-    return True
+        return "3-wide deform and colour outputs"
+    return ""
+
+
+def cuda_spec_supported(spec) -> bool:
+    """Whether the CUDA kernels take the architecture (``spec_refusal``)."""
+    return not spec_refusal(spec)
 
 
 def pack_nets(nets, dtype: torch.dtype) -> Tuple[List[torch.Tensor], List[int], Any]:
@@ -273,25 +285,29 @@ def pack_render(spec, params: Dict[str, Any], dtype: torch.dtype
     return pack
 
 
-def _net_meta(meta: List[int], q: int) -> Tuple[int, List[int]]:
-    """(skip mask, out dims) of net q (0 deform, 1 SDF, 2 colour) of a render meta."""
+def _net_meta(meta: List[int], q: int) -> Tuple[int, int, List[int]]:
+    """(layers, skip mask, out dims of its layers) of net q (0 deform, 1 SDF,
+    2 colour) of a render meta."""
     net = meta[8 + q * META_NET:8 + (q + 1) * META_NET]
-    return net[1], net[2 + NL:2 + 2 * NL]
+    return net[0], net[1], net[2 + NL:2 + NL + net[0]]
+
+
+def net_skip_error(n_layers: int, skip_mask: int) -> str:
+    """Why the kernels refuse a net's skips, or "" if they take them: a skip
+    at the output layer (JAX's Pallas kernels fail on it too)."""
+    if n_layers and skip_mask >> (n_layers - 1):
+        return (f"the CUDA kernels take no skip at a net's output layer (layer "
+                f"{n_layers - 1}), got skip mask {skip_mask:#x}")
+    return ""
 
 
 def _check_tc_nets(meta: List[int]) -> None:
-    """The nets the tensor-core field stage takes (the train segments'
-    bf16 gates, ``fused_train_cuda.pack_segment``): SDF hidden widths that
-    are multiples of 16, no skip at an output layer, one colour skip layer
-    at most."""
-    outs = _net_meta(meta, 1)[1][:NL - 1]
-    if any(o % 16 for o in outs):
-        raise ValueError("the tensor-core render takes SDF hidden widths that are "
-                         f"multiples of 16, got {outs}")
-    masks = [_net_meta(meta, q)[0] for q in range(3)]
-    if any(m >> (NL - 1) & 1 for m in masks) or bin(masks[2]).count("1") > 1:
-        raise ValueError("the tensor-core render takes no skip at an output layer and one "
-                         f"colour skip layer at most, got skip masks {masks}")
+    """The nets the tensor-core field stage takes: no skip at an output
+    layer (``spec_refusal``'s rule, for a pack made without that gate)."""
+    for q in range(3):
+        err = net_skip_error(*_net_meta(meta, q)[:2])
+        if err:
+            raise ValueError(err)
 
 
 def render_work_floats(meta: List[int], n: int) -> int:
@@ -299,9 +315,10 @@ def render_work_floats(meta: List[int], n: int) -> int:
     as ``csrc/fused_render.cu``'s plan_render_work lays it out
     (``fused_render_work_floats``): float32 xt [n, 4], x_c [n, 3], the rows
     [n, 9], sdf [n], feat [n, F], grad_c and d_c [n, 3], then the SDF
-    forward's pre-activations [n, out] of each hidden layer, each array
-    256-byte aligned."""
-    widths = [4, 3, 9, 1, meta[6], 3, 3] + _net_meta(meta, 1)[1][:NL - 1]
+    forward's pre-activations [n, c16(out)] of each of its hidden layers,
+    each array 256-byte aligned."""
+    sdf_hidden = _net_meta(meta, 1)[2][:-1]
+    widths = [4, 3, 9, 1, meta[6], 3, 3] + [-(-o // 16) * 16 for o in sdf_hidden]
     used = 0
     for wd in widths:
         used = -(-used // 256) * 256 + 4 * n * wd
@@ -470,7 +487,7 @@ def fused_render_rays_cuda(spec, params: Dict[str, Any], rays: torch.Tensor,
     if n_samples < 2 or not render_shape_supported(n_samples, n_importance, n_rounds):
         raise ValueError(f"unsupported sample counts {n_samples}+{n_importance}/{n_rounds}")
     if not cuda_spec_supported(spec):
-        raise ValueError(f"the CUDA render kernel does not take {spec}")
+        raise ValueError(f"the CUDA render kernel does not take {spec}: {spec_refusal(spec)}")
     for dt in (sampling_dtype, main_dtype):
         if dt not in (torch.float32, torch.bfloat16):
             raise ValueError(f"unsupported dtype {dt}")

@@ -65,6 +65,7 @@ from endosurf_tpu_torch.kernels.fused_render import (
     cached_pack,
     cuda_spec_supported,
     pack_operands,
+    spec_refusal,
 )
 from endosurf_tpu_torch.kernels.fused_train_cuda import mma_frags
 
@@ -564,7 +565,7 @@ def fused_upsample_z_cuda(spec, params: Dict[str, Any], rays_o: torch.Tensor,
     if n0 < 2 or not upsample_shape_supported(n0, n_importance, n_rounds):
         raise ValueError(f"unsupported sample counts {n0}+{n_importance}/{n_rounds}")
     if not cuda_spec_supported(spec):
-        raise ValueError(f"the CUDA upsample kernel does not take {spec}")
+        raise ValueError(f"the CUDA upsample kernel does not take {spec}: {spec_refusal(spec)}")
     if sampling_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"unsupported dtype {sampling_dtype}")
     device = z_vals.device
@@ -830,7 +831,7 @@ def fused_ray_march_cuda(spec, params: Dict[str, Any], rays_o: torch.Tensor,
     if n_steps < 2 or n_secant < 0:
         raise ValueError(f"unsupported march: {n_steps} steps, {n_secant} secant steps")
     if not cuda_spec_supported(spec):
-        raise ValueError(f"the CUDA march kernel does not take {spec}")
+        raise ValueError(f"the CUDA march kernel does not take {spec}: {spec_refusal(spec)}")
     if sampling_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"unsupported dtype {sampling_dtype}")
     device = rays_o.device

@@ -47,6 +47,7 @@ from endosurf_tpu_torch.kernels.fused_render import (
     PackCache,
     _dtype_precision,
     cuda_spec_supported,
+    spec_refusal,
 )
 from endosurf_tpu_torch.kernels.fused_sampler import cached_sampling_pack, sampling_params_float64
 
@@ -180,7 +181,7 @@ def fused_sdf_observed_cuda(spec, params: Dict[str, Any], x: torch.Tensor, t: to
     if n is None or x.shape != (n, 3) or t.shape != (n, 1):
         raise ValueError(f"expected x [N, 3], t [N, 1]; got {tuple(x.shape)}, {tuple(t.shape)}")
     if not cuda_spec_supported(spec):
-        raise ValueError(f"the CUDA sdf kernel does not take {spec}")
+        raise ValueError(f"the CUDA sdf kernel does not take {spec}: {spec_refusal(spec)}")
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"unsupported dtype {compute_dtype}")
     device = x.device

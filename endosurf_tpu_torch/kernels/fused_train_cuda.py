@@ -49,7 +49,12 @@ from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 
-from endosurf_tpu_torch.kernels.fused_render import META_NET, NL, cuda_spec_supported
+from endosurf_tpu_torch.kernels.fused_render import (
+    META_NET,
+    NL,
+    cuda_spec_supported,
+    spec_refusal,
+)
 
 SEGMENTS = ("deform", "sdf", "color")
 _SEG_ID = {name: i for i, name in enumerate(SEGMENTS)}
@@ -122,7 +127,10 @@ PARITY_TOL = {
 # 1.34e-3 (the colour's output cotangent without its lo term 1.37e-3). The
 # other-precision controls read <= 3.5e-5 here (no rounding on this path in
 # either mode) and fail the other kinds.
-OUT_BIASES = {"deform": (f"{NL - 1}.b",), "sdf": ("head.b", "feat.b"), "color": (f"{NL - 1}.b",)}
+def out_biases(seg: str, n_layers: int) -> Tuple[str, ...]:
+    """The leaves "bias" judges: the output-layer biases of a segment whose
+    net has ``n_layers`` layers (the SDF's head and feature columns)."""
+    return ("head.b", "feat.b") if seg == "sdf" else (f"{n_layers - 1}.b",)
 
 
 def _point_err(got: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
@@ -220,7 +228,7 @@ class Packed:
 
 def _check_spec(spec, seg: str) -> None:
     if not cuda_spec_supported(spec):
-        raise ValueError(f"the CUDA segment kernels do not take {spec}")
+        raise ValueError(f"the CUDA segment kernels do not take {spec}: {spec_refusal(spec)}")
     if seg == "deform" and not spec.use_deform:
         raise ValueError("the deform segment needs use_deform")
 
@@ -257,8 +265,11 @@ def pack_segment(spec, seg: str, flat: Sequence[torch.Tensor],
         head_w, head_b, feat_w, feat_b = flat[i:i + 4]
         blocks.append(([torch.cat([head_w, feat_w], dim=1)], torch.cat([head_b, feat_b])))
         i += 4
-    if i != len(flat) or len(blocks) != NL:
-        raise ValueError(f"the CUDA segment kernels take {NL}-layer nets, got {len(blocks)}")
+    n_layers = len(blocks)
+    if i != len(flat) or not 2 <= n_layers <= NL:
+        raise ValueError(f"the CUDA segment kernels take nets of 2 to {NL} layers, "
+                         f"got {n_layers}")
+    mask = sum(1 << s for s in getattr(spec, seg).skips)
 
     layers, ins, outs, w_off, b_off, wt_off, mats = [], [], [], [], [], [], []
     for rows, b in blocks:
@@ -270,8 +281,9 @@ def pack_segment(spec, seg: str, flat: Sequence[torch.Tensor],
         b_off.append(put(b))
         wt_off.append(put(w.T.contiguous()))
         layers.append((w_off[-1], b_off[-1], w.shape[0], w.shape[1], [r.shape[0] for r in rows]))
-    net = getattr(spec, seg)
-    net_meta = [NL, sum(1 << s for s in net.skips)] + ins + outs + w_off + b_off + wt_off
+    pad = [0] * (NL - n_layers)            # the meta's layout: NL entries a field
+    net_meta = ([n_layers, mask] + ins + pad + outs + pad + w_off + pad + b_off + pad
+                + wt_off + [-1] * (NL - n_layers))
     metas = [net_meta if name == seg else [0] * META_NET for name in SEGMENTS]
     head_off = put(head_w[:, 0]) if head_w is not None else 0
     header = [int(spec.use_deform), spec.deform_pos_freqs, spec.deform_time_freqs,
@@ -279,13 +291,6 @@ def pack_segment(spec, seg: str, flat: Sequence[torch.Tensor],
               spec.color_feat_dim, head_off]
     meta = header + metas[0] + metas[1] + metas[2]
     if rb and seg in TC_SEGMENTS:
-        if seg == "sdf" and any(o % 16 for o in outs[:-1]):
-            raise ValueError("the tensor-core SDF backward takes hidden widths that are "
-                             f"multiples of 16, got {outs[:-1]}")
-        skips = [l for l in range(1, NL) if l in net.skips]
-        if NL - 1 in skips or (seg == "color" and len(skips) > 1):
-            raise ValueError(f"the tensor-core {seg} kernels take no skip at the output layer "
-                             f"and, for the colour, one skip layer at most; got {net.skips}")
         offs = {"w": [], "wt": []}
         for kind in offs:
             for w in mats:
@@ -293,6 +298,7 @@ def pack_segment(spec, seg: str, flat: Sequence[torch.Tensor],
                     put(torch.zeros(4 - size[0] % 4, device=w.device))
                 f = mma_frags((w if kind == "w" else w.T).to(torch.bfloat16))
                 offs[kind].append(put(f.view(torch.float32)))
+            offs[kind] += [-1] * (NL - n_layers)
         meta += offs["w"] + offs["wt"]
     buf = torch.cat(chunks).contiguous()
     return Packed(seg, buf, (ctypes.c_longlong * len(meta))(*meta), rb, layers, len(flat))
@@ -304,7 +310,7 @@ def unpack_grads(packed: Packed, grad: torch.Tensor) -> List[torch.Tensor]:
     for l, (wo, bo, n_in, n_out, rows) in enumerate(packed.layers):
         dw = grad[wo:wo + n_in * n_out].view(n_in, n_out)
         db = grad[bo:bo + n_out]
-        if packed.seg == "sdf" and l == NL - 1:
+        if packed.seg == "sdf" and l == len(packed.layers) - 1:
             out += [dw[:, :1], db[:1], dw[:, 1:], db[1:]]
             continue
         out += list(torch.split(dw, rows, dim=0)) + [db]
@@ -343,27 +349,29 @@ def tc_scratch_layout(packed: Packed, n: int) -> Tuple[List[Tuple], int]:
     bytes used). bf16 where the values are bf16 (operands, the deform and
     colour hidden layers' cotangents, the SDF's adjoint operands), rows
     padded to multiples of 16, each array 256-byte aligned; the deform net's
-    arrays hold its 4 streams stacked on the point axis."""
+    arrays hold its 4 streams stacked on the point axis. A net of L layers
+    has these for its layers 0 .. L-1."""
     seg = packed.seg
     ins = [lay[2] for lay in packed.layers]
     outs = [lay[3] for lay in packed.layers]
+    n_layers = len(packed.layers)
     c16, bf, f32 = _c16, torch.bfloat16, torch.float32
     arrays = []
-    for l in range(NL):
+    for l in range(n_layers):
         if seg != "sdf":
             s = 4 if seg == "deform" else 1
             arrays.append(("xin", l, (s * n, c16(ins[l])), bf))
-            arrays.append(("dzb", l, (s * n, c16(outs[l])), bf) if l < NL - 1
+            arrays.append(("dzb", l, (s * n, c16(outs[l])), bf) if l < n_layers - 1
                           else ("dz", l, (s * n, 4), f32))
         else:
             arrays += [("xin", l, (n, c16(ins[l])), bf), ("dz", l, (n, c16(outs[l])), f32)]
-            if l < NL - 1:
-                arrays += [("z", l, (n, outs[l]), f32), ("ag", l, (n, c16(outs[l])), bf),
+            if l < n_layers - 1:
+                arrays += [("z", l, (n, c16(outs[l])), f32), ("ag", l, (n, c16(outs[l])), bf),
                            ("da", l, (n, c16(ins[l])), f32)]
-                if l < NL - 2:
-                    arrays.append(("a", l, (n, outs[l]), f32))
+                if l < n_layers - 2:
+                    arrays.append(("a", l, (n, c16(outs[l])), f32))
     if seg == "sdf":
-        arrays.append(("dhead", NL - 1, (n, ins[-1]), f32))
+        arrays.append(("dhead", n_layers - 1, (n, c16(ins[-1])), f32))
     layout, used = [], 0
     for name, l, shape, dt in arrays:
         used = -(-used // 256) * 256
@@ -381,19 +389,21 @@ def bwd_sizes(packed: Packed, n: int) -> Tuple[int, int]:
     seg = packed.seg
     ins = [lay[2] for lay in packed.layers]
     outs = [lay[3] for lay in packed.layers]
+    n_layers = len(packed.layers)
     chunks = lambda k: -(-k // WG_KC)           # noqa: E731
     part = 0
-    for l in range(NL):
+    for l in range(n_layers):
         part += chunks(n) * (ins[l] * outs[l] + outs[l])
         if seg == "deform":
             part += chunks(3 * n) * ins[l] * outs[l]
         elif seg == "sdf":
-            part += chunks(n) * ins[l] * (outs[l] if l < NL - 1 else 1)
+            part += chunks(n) * ins[l] * (outs[l] if l < n_layers - 1 else 1)
     if not (packed.rb and seg in TC_SEGMENTS):
         streams = 4 if seg == "deform" else 1
-        floats = sum(streams * n * (ins[l] + outs[l]) for l in range(NL))
+        floats = sum(streams * n * (ins[l] + outs[l]) for l in range(n_layers))
         if seg == "sdf":
-            floats += sum(n * (3 * outs[l] + ins[l]) for l in range(NL - 1)) + n * ins[-1]
+            floats += (sum(n * (3 * outs[l] + ins[l]) for l in range(n_layers - 1))
+                       + n * ins[-1])
         return floats, part
     return -(-tc_scratch_layout(packed, n)[1] // 4), part
 
@@ -422,13 +432,14 @@ def fwd_work_floats(packed: Packed, n: int) -> int:
     """Floats of workspace the SDF forward needs at n points, as csrc's
     planner lays it out (``train_sdf_fwd_work_floats``): in the bf16 mode
     (field_tc.cuh's plan_sdf_fwd_tc) each hidden layer's pre-activations
-    [n, out] in float32, each array 256-byte aligned, which the tensor-core
-    forward's adjoint reads back for its gates; none in the float32 mode."""
+    [n, c16(out)] in float32, each array 256-byte aligned, which the
+    tensor-core forward's adjoint reads back for its gates; none in the
+    float32 mode."""
     if not (packed.rb and packed.seg == "sdf"):
         return 0
     used = 0
     for lay in packed.layers[:-1]:
-        used = -(-used // 256) * 256 + n * lay[3] * 4
+        used = -(-used // 256) * 256 + n * _c16(lay[3]) * 4
     return -(-used // 4)
 
 
@@ -562,7 +573,7 @@ def segment_parity(spec, params: Dict[str, Any], x: torch.Tensor, d: torch.Tenso
         names = leaf_names(like, seg)
         abs_err[f"{seg}_fwd"] = max_abs(got, ref)
         abs_err[f"{seg}_bwd"] = max_abs([*leaves, *d_in], [*ref_leaves, *ref_in])
-        bias = [names.index(k) for k in OUT_BIASES[seg]]
+        bias = [names.index(k) for k in out_biases(seg, len(packed.layers))]
         out = "sdf_out" if seg == "sdf" else "out"
         res[seg] = {out: parity_errors(dict(zip(out_names, got)), dict(zip(out_names, ref)),
                                        dtype, out),

@@ -166,7 +166,7 @@ def test_cuda_entry_refuses_cpu_tensors():
         fr.fused_render_rays(spec, params, rays.to("meta"), 0.0, 32, 32, 4, 50000.0)
     assert fr.cuda_spec_supported(spec)
     assert not fr.cuda_spec_supported(
-        EndoSurfSpec(sdf=spec.sdf.__class__(8, 256, (4,), 257)))
+        EndoSurfSpec(sdf=spec.sdf.__class__(10, 256, (4,), 257)))
 
 
 def test_cuda_device_without_gpu_raises():

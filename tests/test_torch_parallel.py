@@ -8,7 +8,8 @@ the draws of JAX's key chain) and each rank writes what it computed. The
 cases: an EndoSurf and an EndoNeRF step on JAX's draws (held against JAX's
 ``make_train_step(..., mesh=make_mesh(8))`` on the conftest's 8 virtual CPU
 devices, at ``test_torch_train.py``'s and ``test_torch_train_dnerf.py``'s
-limits); two EndoSurf and two EndoNeRF steps from the seeded generator
+limits; at matmul_precision "default" beside one process, ROADMAP C1); two
+EndoSurf and two EndoNeRF steps from the seeded generator
 (against the one-process port: metrics 2e-5 relative, per-leaf gradient
 relative L2 1e-4, the ranks' parameters bitwise equal); the planted control,
 per-rank means with averaged gradients (DDP's default), which must miss those
@@ -94,15 +95,16 @@ def params_of(flat):
     return p
 
 
-def run_steps(kind, flat, n_steps, draws=None, step_mesh=mesh):
+def run_steps(kind, flat, n_steps, draws=None, step_mesh=mesh, precision="highest"):
     # n_steps steps of the port's step; (metrics, step-1 grads, params)
     params = params_of(flat)
+    prec = dict(precision=precision, sampling_precision=precision)
     if kind == "endosurf":
         opt = tr.make_optimizer(params, 1.0)
         step = tr.make_train_step(job["es_spec"], job["es_rspec"], job["H"], job["W"],
                                   job["B_ES"], job["WEIGHTS"], 0.1,
                                   schedule=schedules.warmup_cosine(*job["ES_SCHED"]),
-                                  mesh=step_mesh)
+                                  mesh=step_mesh, **prec)
         gen = torch.Generator().manual_seed(1)
         call = lambda i, d: step(params, opt, scene.device_arrays, gen, float(i + 1), d)
     else:
@@ -110,7 +112,7 @@ def run_steps(kind, flat, n_steps, draws=None, step_mesh=mesh):
         step = trn.make_train_step(job["en_spec"], job["en_rspec"], job["H"], job["W"],
                                    job["B_EN"], job["DN_WEIGHTS"],
                                    schedule=schedules.exponential(*job["EN_SCHED"]),
-                                   mesh=step_mesh)
+                                   mesh=step_mesh, **prec)
         gen = torch.Generator().manual_seed(1)
         call = lambda i, d: step(params, opt, scene.device_arrays, gen, d)
     metrics, grads = [], None
@@ -123,6 +125,10 @@ def run_steps(kind, flat, n_steps, draws=None, step_mesh=mesh):
 
 out["es_jax"] = run_steps("endosurf", job["es_params"], 1, job["es_draws"])
 out["en_jax"] = run_steps("endonerf", job["en_params"], 1, job["en_draws"])
+out["es_jax_bf16"] = run_steps("endosurf", job["es_params"], 1, job["es_draws"],
+                               precision="default")
+out["en_jax_bf16"] = run_steps("endonerf", job["en_params"], 1, job["en_draws"],
+                               precision="default")
 out["es_two"] = run_steps("endosurf", job["es_params"], 2)
 out["en_two"] = run_steps("endonerf", job["en_params"], 2)
 
@@ -296,19 +302,21 @@ def one_rank(job):
     """The port's one-process results on the same inputs."""
     scene = t_scene.make_synthetic_arrays(4, H, W, seed=0)
 
-    def steps(kind, n, draws=None):
+    def steps(kind, n, draws=None, precision="highest"):
         params = unflatten({k: v.clone().requires_grad_(True)
                             for k, v in job[f"{kind}_params"].items()})
         gen = torch.Generator().manual_seed(1)
+        prec = dict(precision=precision, sampling_precision=precision)
         if kind == "es":
             opt = t_tr.make_optimizer(params, 1.0)
             step = t_tr.make_train_step(job["es_spec"], job["es_rspec"], H, W, B_ES, WEIGHTS,
-                                        0.1, schedule=t_sched.warmup_cosine(*ES_SCHED))
+                                        0.1, schedule=t_sched.warmup_cosine(*ES_SCHED), **prec)
             call = lambda i: step(params, opt, scene.device_arrays, gen, float(i + 1), draws)
         else:
             opt = t_trn.make_optimizer(params, 1.0)
             step = t_trn.make_train_step(job["en_spec"], job["en_rspec"], H, W, B_EN,
-                                         DN_WEIGHTS, schedule=t_sched.exponential(*EN_SCHED))
+                                         DN_WEIGHTS, schedule=t_sched.exponential(*EN_SCHED),
+                                         **prec)
             call = lambda i: step(params, opt, scene.device_arrays, gen, draws)
         metrics, grads = [], None
         for i in range(n):
@@ -323,6 +331,8 @@ def one_rank(job):
     rn = EndoNeRFRenderer(job["en_cfg"], scene=scene, params=unflatten(job["en_params"]),
                           device="cpu")
     return {"es_two": steps("es", 2), "en_two": steps("en", 2),
+            "es_jax_bf16": steps("es", 1, job["es_draws"], "default"),
+            "en_jax_bf16": steps("en", 1, job["en_draws"], "default"),
             "frame": render_full_frames(r.render_fn(), r.params, scene.device_arrays, H, W,
                                         [FRAME], 20, CHUNK),
             "grid": eval_field_grid(r.demo_field_fn(), 0.5, -np.ones(3, np.float32),
@@ -404,6 +414,52 @@ def test_endonerf_two_ranks_match_jax_sharded_step(job, ranks):
         assert max(errs.values()) <= STEP_TOL["metric"], (rank, errs)
         for k, e in g_errs.items():
             assert e <= STEP_TOL["grad"][k.split("/")[0]], (rank, k, e)
+
+
+@pytest.mark.parametrize("kind", ["es", "en"], ids=["endosurf", "endonerf"])
+def test_bf16_two_ranks_round_as_jax_sharded_step(job, ranks, one_rank, kind):
+    """ROADMAP C1 at matmul_precision "default": each rank's bf16 backward
+    rounds its own weight-gradient sums before the all-reduce adds them,
+    where one process rounds the whole batch's sum once. Both, fed JAX's
+    draws, against JAX's make_train_step at "default" with the batch sharded
+    over 8 virtual devices (on the CPU JAX's DEFAULT dots are float32, so the
+    reference rounds no sum): per leaf, the relative L2 of the 2 ranks'
+    gradients from JAX's is at most 2x the one process's plus the float32
+    floor 1e-6 (read: at most 1.05x on EndoSurf's sdf_network/layers/2/g,
+    1.001x on EndoNeRF's), and each rank's metrics are the one process's
+    within 2e-5 relative (METRIC_TOL): rounding per rank moves no leaf
+    measurably farther from the reference than the port's own bf16 rounding
+    does."""
+    from endosurf_tpu.ops import mlp as j_mlp
+    key = jax.random.PRNGKey(7)
+    tx = _grab_grads_tx()
+    sj = j_scene.make_synthetic_arrays(4, H, W, seed=0)
+    j_mlp.set_matmul_precision("default")
+    try:
+        if kind == "es":
+            step = j_tr.make_train_step(_small(j_fields), j_es.RenderSpec(**ES_RENDER), tx, H, W,
+                                        B_ES, WEIGHTS, 0.1, mesh=j_mesh.make_mesh(8))
+        else:
+            step = j_trn.make_train_step(j_en.DNeRFSpec(**SMALL), j_en.DNeRFRenderSpec(), tx, H,
+                                         W, B_EN, DN_WEIGHTS, mesh=j_mesh.make_mesh(8))
+        pj = job[f"{kind}_pj"]
+        _, grads_j, _ = step(jax.tree_util.tree_map(jnp.array, pj), tx.init(pj),
+                             sj.device_arrays, key, jnp.asarray(1.0))
+    finally:
+        j_mesh.set_mesh_active(False)
+        j_mlp.set_matmul_precision("highest")
+    gj = {k: np.asarray(v) for k, v in flatten(grads_j).items()}
+    (m_one,), g_one = one_rank[f"{kind}_jax_bf16"]
+    one = _grad_errs({k: v.numpy() for k, v in g_one.items()}, gj)
+    for rank in range(2):
+        (metrics,), grads, _ = ranks.results()[rank][f"{kind}_jax_bf16"]
+        two = _grad_errs({k: v.numpy() for k, v in grads.items()}, gj)
+        worst = max(two, key=lambda k: two[k] / max(one[k], 1e-30))
+        print(f"{kind} bf16 rank {rank}: gradients from JAX's sharded step, worst leaf ratio "
+              f"{worst}: 2 ranks {two[worst]:.3e}, one process {one[worst]:.3e}")
+        assert max(_metric_errs(metrics, m_one).values()) <= METRIC_TOL, rank
+        for k in two:
+            assert two[k] <= 2 * one[k] + 1e-6, (rank, k, two[k], one[k])
 
 
 # ---------------------------------------------------------------------------

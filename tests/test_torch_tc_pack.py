@@ -89,13 +89,21 @@ def test_pack_segment_takes_other_colour_nets(net_id):
 
 
 def test_pack_segment_refuses_two_colour_skip_layers():
-    """The tensor-core colour backward keeps one skip layer's cotangent on
-    the colour input: its pack refuses two; the float32 pack takes them."""
+    """A colour net with two skip layers (2, 5) packs in both precisions, its
+    bf16 fragments as base.yml's (the tensor-core colour backward sums the
+    colour input's cotangents of both skips and layer 0 in float32); what
+    the packs refuse is a skip at the output layer, in either precision."""
     spec = dataclasses.replace(EndoSurfSpec(), color=MLPSpec(9, 256, (2, 5), 3))
+    _check_fragments(spec, "color")
     like, flat = _segment(spec, "color")
-    ftc.pack_segment(spec, "color", flat, like, "highest")
-    with pytest.raises(ValueError, match="one skip layer at most"):
-        ftc.pack_segment(spec, "color", flat, like, "default")
+    packed = ftc.pack_segment(spec, "color", flat, like, "highest")
+    assert list(packed.meta)[8 + 2 * META_NET:8 + 2 * META_NET + 2] == [9, (1 << 2) | (1 << 5)]
+    out_skip = dataclasses.replace(EndoSurfSpec(), color=MLPSpec(5, 256, (2,), 3))
+    like, flat = _segment(out_skip, "color")
+    bad = dataclasses.replace(out_skip, color=MLPSpec(5, 256, (2, 4), 3))
+    for precision in ("highest", "default"):
+        with pytest.raises(ValueError, match="output layer"):
+            ftc.pack_segment(bad, "color", flat, like, precision)
 
 
 def _check_fragments(spec, seg):
@@ -236,8 +244,8 @@ def test_out_biases_are_the_output_layer_biases(seg):
     names = ftc.leaf_names(like, seg)
     widths = {"deform": {"8.b": 3}, "sdf": {"head.b": 1, "feat.b": 256},
               "color": {"8.b": 3}}[seg]
-    assert set(ftc.OUT_BIASES[seg]) == set(widths)
-    for name in ftc.OUT_BIASES[seg]:
+    assert set(ftc.out_biases(seg, NL)) == set(widths)
+    for name in ftc.out_biases(seg, NL):
         assert tuple(flat[names.index(name)].shape) == (widths[name],)
 
 
@@ -310,15 +318,26 @@ def test_pack_sampling_keeps_the_float32_layout(spec_id):
             assert len(meta) == len(meta0) and w.numel() == w0.numel()
 
 
-@pytest.mark.parametrize("spec_id", sorted(SPECS))
+# The workspace mirrors' cases add nets of other depths and an SDF net off a
+# multiple of 16 (chip_smoke.py's phase 37 shapes).
+WORK_SPECS = {**SPECS,
+              "short": dataclasses.replace(EndoSurfSpec(), deform=MLPSpec(4, 256, (2,), 3),
+                                           sdf=MLPSpec(5, 256, (2,), 257),
+                                           color=MLPSpec(3, 256, (1,), 3)),
+              "odd": dataclasses.replace(EndoSurfSpec(), sdf=MLPSpec(9, 199, (4,), 257),
+                                         color=MLPSpec(9, 256, (2, 5), 3))}
+
+
+@pytest.mark.parametrize("spec_id", sorted(WORK_SPECS))
 def test_fwd_work_floats_holds_the_sdf_pre_activations(spec_id):
     """``fwd_work_floats`` (the CPU mirror of field_tc.cuh's
     plan_sdf_fwd_tc, which the card test test_segment_scratch_sizes_match_the_planner
     holds against csrc): in bf16 the SDF forward's workspace holds each hidden
-    layer's pre-activations [n, out] in float32, 256-byte aligned, the same
-    widths as the backward's saved pre-activations (``tc_scratch_layout``'s
-    "z"); no workspace in float32 or for the other segments."""
-    spec = SPECS[spec_id]
+    layer's pre-activations [n, c16(out)] in float32, 256-byte aligned, the
+    same widths as the backward's saved pre-activations (``tc_scratch_layout``'s
+    "z"), for each net's own hidden layers; no workspace in float32 or for the
+    other segments."""
+    spec = WORK_SPECS[spec_id]
     for seg in ftc.SEGMENTS:
         like, flat = _segment(spec, seg)
         for precision in ("highest", "default"):
@@ -328,7 +347,8 @@ def test_fwd_work_floats_holds_the_sdf_pre_activations(spec_id):
                 if seg != "sdf" or precision == "highest":
                     assert got == 0
                     continue
-                outs = [lay[3] for lay in packed.layers[:-1]]
+                outs = [-(-lay[3] // 16) * 16 for lay in packed.layers[:-1]]
+                assert len(outs) == spec.sdf.n_layers - 1
                 z = [a for a in ftc.tc_scratch_layout(packed, n)[0] if a[0] == "z"]
                 assert [a[3] for a in z] == [(n, o) for o in outs]
                 used = 0
@@ -355,13 +375,10 @@ def test_pack_render_bf16_fragments(spec_id):
     ``fused_train_cuda.mma_frags`` of the packed bf16 weights, bit for bit,
     and the first two are ``pack_sampling``'s (but for the SDF output
     layer's, which the sweeps do not read), so the sweeps read the same
-    offsets. Nets the tensor-core field stage does not take are refused."""
+    offsets. SDF hidden widths that are not multiples of 16 (w200) pack as
+    the others do."""
     spec = SWEEP_SPECS[spec_id]
     params = init_endosurf_params(spec, torch.Generator().manual_seed(0), "cpu")
-    if spec_id == "w200":          # SDF hidden widths not multiples of 16
-        with pytest.raises(ValueError, match="multiples of 16"):
-            fr.pack_render(spec, params, torch.bfloat16)
-        return
     w, meta = fr.pack_render(spec, params, torch.bfloat16)
     base_len = len(fr.pack_operands(spec, params, torch.bfloat16)[1])
     assert len(meta) == base_len + 4 * NL
@@ -400,8 +417,6 @@ def test_pack_render_keeps_the_float32_layout(spec_id):
     spec = SWEEP_SPECS[spec_id]
     params = init_endosurf_params(spec, torch.Generator().manual_seed(1), "cpu")
     for dtype in (torch.float32, torch.bfloat16):
-        if dtype == torch.bfloat16 and spec_id == "w200":
-            continue
         w, meta = fr.pack_render(spec, params, dtype)
         w0, meta0 = fr.pack_operands(spec, params, dtype)
         assert meta[:len(meta0)] == meta0
